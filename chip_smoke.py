@@ -11,10 +11,12 @@ Phases, in order; any failure exits non-zero (nothing is caught):
   2. kernels  — hold every kernel (K-sweep decode / split decode / verify
                 with candidates, K-merge) against its plain PyTorch version
                 on the same inputs at the serving path's shapes (Hq 9,
-                Hkv 3, head_dim 64, page 16, 4 slots, bf16 pools), plus a
-                deep 4k-position case, a window / logit-cap case, and fp32
-                and head_dim-128 cases; tolerance atol = rtol = 2e-2 for
-                bf16 (1e-4 for fp32);
+                Hkv 3, head_dim 64, page 16, 4 slots, bf16 pools), plus
+                deep 4k-position cases (bf16 and fp32), a window /
+                logit-cap case, and fp32 and head_dim-128 cases; tolerance
+                atol = rtol = 2e-2 for bf16 (1e-4 for fp32).  Table ids past
+                a request's length must never be read, and a bad id inside
+                it must stop the kernel;
   3. reference — full-width smollm-135m at fp32 through the engine twice,
                 once on the kernels and once on the plain torch path: the
                 greedy streams must be equal and every logits call within
@@ -127,6 +129,12 @@ def check_kernels(torch, np, dev, da, ops):
          {"window": 24, "logit_cap": 30.0}),
         ("fp32 decode", main, [17, 40, 63, 79], 1, "float32", {}),
         ("fp32 verify", main, [32, 48, 0, 20], 16, "float32", {}),
+        # deep in fp32, where the tolerance is far below a typical output
+        # value over ~4k keys: a dropped or misplaced page shows
+        ("deep fp32 decode", deep, [4095, 3001, 2048, 777], 1, "float32",
+         {}),
+        ("deep fp32 verify Q=16", deep, [4000, 2900, 16, 1031], 16,
+         "float32", {}),
         ("head_dim 128 decode", dict(main, D=128, Hq=8, Hkv=2),
          [17, 40, 63, 79], 1, "bfloat16", {}),
     ]
@@ -139,6 +147,7 @@ def check_kernels(torch, np, dev, da, ops):
         auto = ops.choose_kv_splits(shp["B"], shp["nb"] * shp["ps"],
                                     shp["Hq"], block=shp["ps"], device=dev)
         tol = TOL[dtype]
+        case_err = 0.0
         for n_splits in sorted({1, auto, 5}):
             args, vkw = sweep_args(c, verify)
             got = da.paged_attention_sweep(*args, **vkw, n_splits=n_splits,
@@ -147,20 +156,23 @@ def check_kernels(torch, np, dev, da, ops):
                                                   n_splits=n_splits, **kw)
             what = f"{label} n_splits={n_splits}"
             if n_splits == 1:
-                errs[entry] = max(errs[entry],
-                                  max_err(torch, got, want, tol, what))
+                e = max_err(torch, got, want, tol, what)
+                errs[entry] = max(errs[entry], e)
+                case_err = max(case_err, e)
                 continue
-            errs[entry] = max(errs[entry], max_err(
-                torch, got[0], want[0], tol, what + " partial"))
-            errs[entry] = max(errs[entry], max_err(
-                torch, got[1], want[1], tol, what + " lse"))
+            e = max(max_err(torch, got[0], want[0], tol, what + " partial"),
+                    max_err(torch, got[1], want[1], tol, what + " lse"))
+            errs[entry] = max(errs[entry], e)
             merged = da.lse_merge(*got, c["q"].dtype)
             plain = da.lse_merge_torch(*got, c["q"].dtype)
-            errs["lse_merge"] = max(errs["lse_merge"], max_err(
-                torch, merged, plain, tol, what + " merge"))
+            em = max_err(torch, merged, plain, tol, what + " merge")
+            errs["lse_merge"] = max(errs["lse_merge"], em)
+            case_err = max(case_err, e, em)
         torch.cuda.synchronize()
-        say(f"kernels ok: {label} (n_splits 1, {auto}, 5)")
+        say(f"kernels ok: {label} (n_splits 1, {auto}, 5), max |kernel - "
+            f"plain| {case_err:.3e} (tol {tol})")
     check_table_tail(torch, np, dev, da, main)
+    check_bad_page_id()
     return errs
 
 
@@ -190,6 +202,48 @@ def check_table_tail(torch, np, dev, da, shp):
                      f"{n_splits}: output depends on table ids past pos")
     torch.cuda.synchronize()
     say("kernels ok: table ids past each request's length are never read")
+
+
+BAD_ID_PROBE = """
+import sys
+import torch
+sys.path.insert(0, sys.argv[1])
+from repro_torch.kernels import decode_attention as da
+dev = torch.device("cuda", 0)
+q = torch.ones(1, 1, 3, 64, dtype=torch.bfloat16, device=dev)
+pages = torch.ones(2, 16, 1, 64, dtype=torch.bfloat16, device=dev)
+bt = torch.tensor([[1, 2]], dtype=torch.int32, device=dev)  # 2: past the pool
+# pos 15: column 1 lies past the request, so its id is never read
+da.paged_attention_sweep(q, pages, pages, bt, torch.tensor(
+    [15], dtype=torch.int32, device=dev))
+torch.cuda.synchronize()
+print("past-length id skipped", flush=True)
+# pos 20: key 20 lies in column 1, whose id names no page of the pool
+da.paged_attention_sweep(q, pages, pages, bt, torch.tensor(
+    [20], dtype=torch.int32, device=dev))
+torch.cuda.synchronize()
+print("bad id accepted", flush=True)
+"""
+
+
+def check_bad_page_id():
+    """A table id outside the pool inside a request's length must stop the
+    kernel, not drop the page's keys.  The probe runs in a process of its
+    own, since the failed launch leaves that process's CUDA context
+    unusable."""
+    proc = subprocess.run([sys.executable, "-c", BAD_ID_PROBE,
+                           str(ROOT / "src")], capture_output=True,
+                          text=True, timeout=120)
+    if "past-length id skipped" not in proc.stdout:
+        fail(f"bad-id probe did not run its control call:\n{proc.stderr}")
+    if proc.returncode == 0 or "bad id accepted" in proc.stdout:
+        fail("a page id outside the pool inside a request's length was "
+             "accepted")
+    if "CUDA error" not in proc.stderr:
+        fail(f"bad-id probe failed for another reason:\n{proc.stderr}")
+    why = next(x for x in proc.stderr.splitlines() if "CUDA error" in x)
+    say("kernels ok: a page id outside the pool inside a request's length "
+        f"stops the kernel ({why.strip()})")
 
 
 # --------------------------------------------------------------------------

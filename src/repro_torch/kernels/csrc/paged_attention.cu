@@ -146,12 +146,13 @@ __device__ void tile_update(const float* qs, const float* ks, const float* vs,
 // (batch * q head, split) walks its split's contiguous page slice in a loop
 // inside the block (the TPU's sequential grid axis becomes that loop),
 // reading each page with 16-byte loads into shared memory and keeping the
-// (m, l, acc) state of all Q rows in shared memory in fp32; pages wholly
-// outside the request's valid range are never read, so the bytes moved
-// follow the requests' lengths, not the table width.  Still simple: no
-// wgmma, no TMA, no overlap of the next page's load with this page's math,
-// and the G q heads of one kv head read the same page separately (L2 keeps
-// the repeats off HBM).
+// (m, l, acc) state of all Q rows in shared memory in fp32.  A page wholly
+// outside the request's valid range is skipped by position before its
+// table entry is read (columns past a request's length hold arbitrary
+// ids), so the bytes moved follow the requests' lengths, not the table
+// width.  Still simple: no wgmma, no TMA, no overlap of the next page's
+// load with this page's math, and the G q heads of one kv head read the
+// same page separately (L2 keeps the repeats off HBM).
 template <typename T, int HD>
 __global__ void __launch_bounds__(NT) paged_attention_sweep_kernel(
     const T* __restrict__ q, const T* __restrict__ k_pages,
@@ -195,8 +196,11 @@ __global__ void __launch_bounds__(NT) paged_attention_sweep_kernel(
   for (int j = j0; j < j1; ++j) {
     const int k0 = j * ps;
     if (k0 > hi_valid || k0 + ps - 1 < lo_valid) continue;   // block-uniform
+    // a column inside the request's length must name a page of the pool:
+    // skipping a bad id would drop its keys without a word, so the kernel
+    // stops instead, and the launch fails at the next synchronisation
     const int page = block_tables[(long)b * nb + j];
-    if (page < 0 || page >= P) continue;                       // never read
+    if (page < 0 || page >= P) __trap();
     const long base = ((long)page * ps * Hkv + hk) * HD;
     load_rows<T, HD>(k_pages + base, kv_row, ps, ks);
     load_rows<T, HD>(v_pages + base, kv_row, ps, vs);

@@ -12,6 +12,19 @@ Counterpart of ``repro.kernels.ops`` for the ops this slice runs:
     (``kernels/decode_attention.py``).  ``auto`` is ``cuda`` for CUDA
     tensors and ``torch`` for CPU tensors.
 
+Each plain version of the paged sweep has one role:
+
+  * ``ref`` (``kernels/ref.py``): the fp32 oracle, whole-matrix softmax.
+  * ``torch`` (``paged_*_attention_torch`` here): the JAX ``jnp`` backend's
+    mirror, gather then attend.  It is what ``auto`` runs on the CPU, and
+    on the card it is the independent reference that ``chip_smoke.py``
+    holds the kernel-backed engine against.
+  * ``decode_attention.paged_attention_sweep_torch`` / ``lse_merge_torch``:
+    the kernels' twins, page by page as the kernel walks.  The wrappers
+    take them for CPU tensors (so ``cuda`` on CPU tensors runs them), and
+    ``chip_smoke.py`` holds each kernel against its twin.  The split
+    merge here reuses ``lse_merge_torch``.
+
 The split count of the two-stage sweep comes from the same occupancy
 heuristic as the JAX package; the executors are the card's SMs on CUDA and
 the host's threads on the CPU, so a CPU run picks the same split count as
@@ -24,7 +37,9 @@ import os
 
 import torch
 
+from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.decode_attention import lse_merge_torch
 from repro_torch.kernels.ref import NEG_INF
 
 
@@ -47,7 +62,7 @@ DEFAULT_POLICY = KernelPolicy()
 
 
 # ==========================================================================
-# Two-stage split-KV: occupancy heuristic + plain partial/merge helpers
+# Two-stage split-KV: occupancy heuristic + plain split helper
 # ==========================================================================
 def _sweep_executors(device: torch.device | None = None) -> int:
     """Independent executors for the decode-sweep grid: the SMs of the
@@ -90,16 +105,6 @@ def _resolve_kv_splits(policy: KernelPolicy, batch: int, kv_len: int,
     return max(1, int(policy.kv_splits))
 
 
-def _lse_merge_torch(partial, lse):
-    """Online-softmax merge over the split axis: ``partial (..., S, Dv)``
-    + ``lse (..., S)`` -> ``(..., Dv)``."""
-    m = torch.amax(lse, dim=-1, keepdim=True)
-    w = torch.exp(lse - m)
-    den = torch.clamp(w.sum(dim=-1), min=1e-30)
-    acc = (partial * w[..., None]).sum(dim=-2)
-    return acc / den[..., None]
-
-
 def _split_attend_torch(s, vf, n_splits: int):
     """Two-stage softmax-weighted sum, mirror of the JAX ``_split_attend_jnp``:
     partition the masked score axis into ``n_splits`` slices, per-split
@@ -127,7 +132,9 @@ def _split_attend_torch(s, vf, n_splits: int):
     lse = torch.where(m > 0.5 * NEG_INF,
                       m + torch.log(torch.clamp(l, min=1e-30)),
                       torch.full_like(m, NEG_INF))
-    return _lse_merge_torch(partial, lse)
+    # the merge takes the split axis ahead of the row axis
+    return lse_merge_torch(partial.transpose(-3, -2), lse.transpose(-2, -1),
+                           torch.float32)
 
 
 def _no_int8(k_scale, v_scale) -> None:
@@ -333,7 +340,6 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, pos, *,
                                   effective_kv_len(nb * ps, window),
                                   q.shape[2], block=ps, device=q.device)
     if backend == "cuda":
-        from repro_torch.kernels import decode_attention as da
         return da.paged_attention(q, k_pages, v_pages, block_tables, pos,
                                   window=window, logit_cap=logit_cap,
                                   scale=scale, n_splits=n_splits)
@@ -362,7 +368,6 @@ def paged_verify_attention(q, k_pages, v_pages, k_new, v_new, block_tables,
                                   effective_kv_len(nb * ps, window),
                                   q.shape[2], block=ps, device=q.device)
     if backend == "cuda":
-        from repro_torch.kernels import decode_attention as da
         return da.paged_attention(q, k_pages, v_pages, block_tables, pos,
                                   k_new=k_new, v_new=v_new, window=window,
                                   logit_cap=logit_cap, scale=scale,
