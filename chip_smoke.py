@@ -6,29 +6,46 @@
 Phases, in order; any failure exits non-zero (nothing is caught):
 
   1. build    — compile the port's CUDA kernels from the sources in this
-                checkout (nvcc, sm_90a) and print the card's name and
-                power limit;
-  2. kernels  — hold every kernel (K-sweep decode / split decode / verify
-                with candidates, K-merge) against its plain PyTorch version
-                on the same inputs at the serving path's shapes (Hq 9,
-                Hkv 3, head_dim 64, page 16, 4 slots, bf16 pools), plus
+                checkout (one nvcc per source, all started together,
+                sm_90a) and print the card's name and power limit;
+  2. kernels  — hold every kernel against its plain PyTorch version on the
+                same inputs, tolerance atol = rtol = 2e-2 for bf16 (1e-4
+                for fp32).  The paged K-sweep (decode / split decode /
+                verify with candidates) and the K-merge at the engine's
+                shapes (Hq 9, Hkv 3, head_dim 64, page 16, 4 slots), plus
                 deep 4k-position cases (bf16 and fp32), a window /
-                logit-cap case, and fp32 and head_dim-128 cases; tolerance
-                atol = rtol = 2e-2 for bf16 (1e-4 for fp32).  Table ids past
-                a request's length must never be read, and a bad id inside
-                it must stop the kernel;
-  3. reference — full-width smollm-135m at fp32 through the engine twice,
-                once on the kernels and once on the plain torch path: the
-                greedy streams must be equal and every logits call within
-                1e-3;
-  4. main path — ``repro_torch.launch.serve`` on smollm-135m at full width
-                (bf16, random weights from a seed, FROST plane on): a
-                Poisson trace of 8 requests over 4 slots with 2 shared
-                32-token prompt heads; every request must finish its token
-                budget with finite logits, and every kernel's launch count
-                must have grown during this run;
+                logit-cap case, and fp32 and head_dim-128 cases; table ids
+                past a request's length must never be read, and a bad id
+                inside it must stop the kernel.  The ring sweep (decode,
+                and verify with Q = 4) at the batch path's shapes (8
+                requests, ring of 545 slots in 5 blocks of 109, n_splits 1,
+                3 and 5), bf16 and fp32, a ring wrapped three times, verify
+                at pos 0, a window / logit-cap case, ragged per-row
+                positions (each of these four in fp32 too), head_dim 128,
+                and a deep fp32 case (4 requests, 4096 slots, n_splits
+                auto); a custom ring ``k_pos`` on the card must raise;
+  3. reference — full-width smollm-135m at fp32, twice on the kernels and
+                twice on the plain torch path with the same split counts:
+                the engine (Poisson trace with prefix hits) and the static
+                batch (8 requests x 512 prompt tokens + 32 decode steps)
+                must give equal greedy streams and every logits call within
+                1e-3; on the kernels, the batch's n-gram speculative loop
+                (K 3) must emit the plain kernel loop's stream over all of
+                its tokens, both run past the ring's 545 slots so that the
+                comparison covers the wrap, and a replay drafter of that
+                stream must be accepted in full;
+  4. main paths — ``repro_torch.launch.serve`` on smollm-135m at full
+                width (bf16, random weights from a seed, FROST plane on):
+                the engine on a Poisson trace of 8 requests over 4 slots
+                with 2 shared 32-token prompt heads, then the static batch
+                of 8 requests (512 prompt tokens, 33 new), the same with
+                ``--spec-k 3``, and the Poisson run with ``--spec-k 3``.
+                The launch counts are zeroed just before each run and read
+                just after it.  Every request must finish its token budget
+                with finite logits, and every kernel of a path must have
+                been launched on it;
   5. timing   — CUDA-event times of each kernel, its plain version and a
-                library yardstick at the main path's shapes, beside the
+                library yardstick at the main paths' shapes, beside the
                 least time the card could take.
 
 The last two lines are a JSON object of per-kernel numbers and
@@ -49,17 +66,26 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BPS = 3.35e12          # H100 SXM HBM3, bytes/s (data sheet)
 BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor peak, FLOP/s
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
-SRC = "src/repro_torch/kernels/csrc/paged_attention.cu"
-REPLACES = {
-    "paged_attention_sweep (decode)":
-        "src/repro/kernels/decode_attention.py:1232",
-    "paged_attention_sweep (verify)":
-        "src/repro/kernels/decode_attention.py:970",
-    "lse_merge": "src/repro/kernels/decode_attention.py:172",
+PAGED_SRC = "src/repro_torch/kernels/csrc/paged_attention.cu"
+RING_SRC = "src/repro_torch/kernels/csrc/ring_attention.cu"
+# kernel entry -> (source, the Pallas function it replaces, launch key)
+KERNELS = {
+    "paged_attention_sweep (decode)": (
+        PAGED_SRC, "src/repro/kernels/decode_attention.py:1232",
+        "sweep_decode"),
+    "paged_attention_sweep (verify)": (
+        PAGED_SRC, "src/repro/kernels/decode_attention.py:970",
+        "sweep_verify"),
+    "lse_merge": (
+        PAGED_SRC, "src/repro/kernels/decode_attention.py:172", "merge"),
+    "ring_attention_sweep (decode)": (
+        RING_SRC, "src/repro/kernels/decode_attention.py:384", "ring_decode"),
+    "ring_attention_sweep (verify)": (
+        RING_SRC, "src/repro/kernels/decode_attention.py:682", "ring_verify"),
 }
-LAUNCH_KEY = {"paged_attention_sweep (decode)": "sweep_decode",
-              "paged_attention_sweep (verify)": "sweep_verify",
-              "lse_merge": "merge"}
+# the static batch path of phases 3 to 5: 8 requests, 512 prompt tokens,
+# 33 new, so a ring of 545 slots (5 blocks of 109)
+BATCH, PLEN, GEN = 8, 512, 33
 
 
 def fail(msg: str) -> None:
@@ -114,7 +140,7 @@ def max_err(torch, a, b, tol, what):
 
 def check_kernels(torch, np, dev, da, ops):
     """Phase 2.  Returns max abs error per kernel entry."""
-    errs = {k: 0.0 for k in REPLACES}
+    errs = {k: 0.0 for k in KERNELS}
     main = dict(B=4, Hq=9, Hkv=3, D=64, ps=16, nb=5)
     deep = dict(B=4, Hq=9, Hkv=3, D=64, ps=16, nb=256)
     cases = [
@@ -246,16 +272,130 @@ def check_bad_page_id():
         f"stops the kernel ({why.strip()})")
 
 
+def make_ring_case(torch, np, dev, *, B, Hq, Hkv, D, C, pos, Q, dtype,
+                   seed):
+    """Seeded ring-cache inputs on the card; ``pos`` holds one position or
+    one per request."""
+    rng = np.random.default_rng(seed)
+    dt = getattr(torch, dtype)
+
+    def r(*shape):
+        return torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
+                            device=dev).to(dt)
+
+    return {"q": r(B, Q, Hq, D), "k": r(B, C, Hkv, D), "v": r(B, C, Hkv, D),
+            "k_new": r(B, Q, Hkv, D), "v_new": r(B, Q, Hkv, D),
+            "pos": torch.tensor(np.asarray(pos, np.int32).reshape(-1),
+                                device=dev)}
+
+
+def ring_args(c, verify):
+    args = (c["q"], c["k"], c["v"], c["pos"])
+    kw = {"k_new": c["k_new"], "v_new": c["v_new"]} if verify else {}
+    return args, kw
+
+
+def check_ring_kernels(torch, np, dev, da, ops, errs):
+    """Phase 2, ring sweep: at the batch path's shapes (8 requests, a ring
+    of 545 slots = 5 blocks of 109 under the requested 256, n_splits 1, 3
+    and 5) and around them."""
+    main = dict(B=BATCH, Hq=9, Hkv=3, D=64, C=PLEN + GEN)
+    deep = dict(B=4, Hq=9, Hkv=3, D=64, C=4096)
+    wrap = 3 * main["C"] + 17
+    cases = [
+        ("main decode", main, 530, 1, "bfloat16", {}),
+        ("main verify Q=4", main, 520, 4, "bfloat16", {}),
+        ("wrapped decode", main, wrap, 1, "bfloat16", {}),
+        ("wrapped verify Q=4", main, wrap, 4, "bfloat16", {}),
+        ("verify Q=4 at pos 0", main, 0, 4, "bfloat16", {}),
+        ("window/cap decode", main, wrap, 1, "bfloat16",
+         {"window": 100, "logit_cap": 30.0}),
+        ("window/cap verify Q=4", main, wrap, 4, "bfloat16",
+         {"window": 100, "logit_cap": 30.0}),
+        ("ragged decode", main, [3, 109, 218, 530, 544, 545, wrap, 77], 1,
+         "bfloat16", {}),
+        ("fp32 decode", main, 530, 1, "float32", {}),
+        ("fp32 verify Q=4", main, 520, 4, "float32", {}),
+        ("fp32 wrapped verify Q=4", main, wrap, 4, "float32", {}),
+        ("fp32 verify Q=4 at pos 0", main, 0, 4, "float32", {}),
+        ("fp32 window/cap decode", main, wrap, 1, "float32",
+         {"window": 100, "logit_cap": 30.0}),
+        ("fp32 window/cap verify Q=4", main, wrap, 4, "float32",
+         {"window": 100, "logit_cap": 30.0}),
+        ("fp32 ragged decode", main, [3, 109, 218, 530, 544, 545, wrap, 77],
+         1, "float32", {}),
+        ("deep fp32 decode", deep, 4000, 1, "float32", {}),
+        ("deep fp32 wrapped verify Q=4", deep, 3 * 4096 + 5, 4, "float32",
+         {}),
+        ("head_dim 128 verify Q=4", dict(main, D=128, Hq=8, Hkv=2), wrap, 4,
+         "bfloat16", {}),
+    ]
+    for i, (label, shp, pos, Q, dtype, kw) in enumerate(cases):
+        c = make_ring_case(torch, np, dev, pos=pos, Q=Q, dtype=dtype,
+                           seed=200 + i, **shp)
+        verify = "verify" in label
+        entry = ("ring_attention_sweep (verify)" if verify
+                 else "ring_attention_sweep (decode)")
+        auto = ops.choose_kv_splits(shp["B"], shp["C"], shp["Hq"],
+                                    block=256, device=dev)
+        splits = sorted({auto} if "deep" in label else {1, 3, 5})
+        tol = TOL[dtype]
+        case_err = 0.0
+        for n_splits in splits:
+            args, vkw = ring_args(c, verify)
+            got = da.ring_attention_sweep(*args, **vkw, n_splits=n_splits,
+                                          block_k=256, **kw)
+            want = da.ring_attention_sweep_torch(*args, **vkw,
+                                                 n_splits=n_splits,
+                                                 block_k=256, **kw)
+            what = f"ring {label} n_splits={n_splits}"
+            if isinstance(want, torch.Tensor):
+                e = max_err(torch, got, want, tol, what)
+                errs[entry] = max(errs[entry], e)
+                case_err = max(case_err, e)
+                continue
+            e = max(max_err(torch, got[0], want[0], tol, what + " partial"),
+                    max_err(torch, got[1], want[1], tol, what + " lse"))
+            errs[entry] = max(errs[entry], e)
+            merged = da.lse_merge(*got, c["q"].dtype)
+            plain = da.lse_merge_torch(*got, c["q"].dtype)
+            em = max_err(torch, merged, plain, tol, what + " merge")
+            errs["lse_merge"] = max(errs["lse_merge"], em)
+            case_err = max(case_err, e, em)
+        torch.cuda.synchronize()
+        say(f"kernels ok: ring {label} (n_splits {splits}), max |kernel - "
+            f"plain| {case_err:.3e} (tol {tol})")
+    # the kernel derives slot positions from pos: a custom slot layout on
+    # the card raises instead of taking a plain version
+    c = make_ring_case(torch, np, dev, pos=20, Q=1, dtype="float32",
+                       seed=299, **main)
+    k_pos = torch.arange(main["C"], device=dev, dtype=torch.int32).flip(0)
+    before = dict(da.LAUNCHES)
+    for fn, args in ((ops.decode_attention, (c["q"], c["k"], c["v"])),
+                     (ops.verify_attention, (c["q"], c["k"], c["v"],
+                                             c["k_new"], c["v_new"]))):
+        try:
+            fn(*args, c["pos"][0], k_pos=k_pos)
+        except NotImplementedError:
+            continue
+        fail(f"ring {fn.__name__}: a custom k_pos on the card did not raise")
+    if da.LAUNCHES != before:
+        fail("ring: a refused custom k_pos launched a kernel")
+    say("kernels ok: a custom ring k_pos on the card raises "
+        "NotImplementedError, no plain fallback")
+
+
 # --------------------------------------------------------------------------
 # phase 3 / 4 helpers
 # --------------------------------------------------------------------------
 class LogitsTap:
     """Wraps ``transformer.lm_logits``: keeps an on-device all-finite flag
     (no sync per call) and, when ``record`` is set, a host copy of every
-    logits tensor."""
+    logits tensor (of its last position only, with ``last_only``)."""
 
-    def __init__(self, torch, tfm, record=False):
+    def __init__(self, torch, tfm, record=False, last_only=False):
         self.torch, self.tfm, self.record = torch, tfm, record
+        self.last_only = last_only
         self.inner = tfm.lm_logits
         self.finite = None
         self.calls = []
@@ -265,7 +405,8 @@ class LogitsTap:
         ok = self.torch.isfinite(out).all()
         self.finite = ok if self.finite is None else self.finite & ok
         if self.record:
-            self.calls.append(out.float().cpu())
+            kept = out[:, -1] if self.last_only else out
+            self.calls.append(kept.float().cpu())
         return out
 
     def __enter__(self):
@@ -310,6 +451,104 @@ def reference_check(torch, dev, cfg, tfm, serving, steps, bridge):
     say(f"reference ok: fp32 full-width streams equal on kernels and plain "
         f"path ({sum(len(r.tokens) for r in rep_k.results)} tokens, "
         f"{len(calls_k)} logits calls, max |dlogits| {err:.3e})")
+
+
+def batch_prompts(torch, np, dev, vocab):
+    """The static batch's prompts: a 64-token pattern per request, repeated
+    to PLEN tokens, so that the n-gram drafter finds its matches."""
+    pat = np.random.default_rng(4).integers(0, vocab, (BATCH, 64))
+    return torch.tensor(np.tile(pat, (1, PLEN // 64)), dtype=torch.int32,
+                        device=dev)
+
+
+def reference_batch_check(torch, np, dev, cfg, tfm, steps, speculate,
+                          bridge):
+    """Phase 3, static batch: ring decode on the kernels vs the plain torch
+    backends (same split counts), full width, fp32; then the speculative
+    loop on the kernels against the plain kernel loop's stream, both run
+    past the ring's end so that the comparison covers the wrap."""
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = tfm.prepare_params(
+        bridge.init_lm(cfg32, torch.Generator().manual_seed(2), dev), cfg32)
+    prompts = batch_prompts(torch, np, dev, cfg.vocab_size)
+
+    def step_cfg(backend):
+        policy = dataclasses.replace(steps.StepConfig().kernel_policy,
+                                     decode=backend)
+        return steps.StepConfig(kernel_policy=policy)
+
+    def prefill(scfg):
+        pre = steps.make_prefill_step(cfg32, scfg, max_len=PLEN + GEN)
+        last, cache = pre(params, {"inputs": prompts})
+        return torch.argmax(last, dim=-1).to(torch.int32)[:, None], cache
+
+    streams, calls = {}, {}
+    with torch.no_grad():
+        for backend in ("cuda", "torch"):
+            scfg = step_cfg(backend)
+            with LogitsTap(torch, tfm, record=True, last_only=True) as tap:
+                tok0, cache = prefill(scfg)
+                toks, _ = steps.make_decode_loop(cfg32, scfg, GEN - 1)(
+                    params, cache, tok0)
+            streams[backend] = toks.cpu().numpy()
+            calls[backend] = tap.calls
+        if not np.array_equal(streams["cuda"], streams["torch"]):
+            fail("batch reference: kernel stream differs from the plain "
+                 "torch backends'")
+        err = max(float((a - b).abs().max())
+                  for a, b in zip(calls["cuda"], calls["torch"]))
+        if err > 1e-3:
+            fail(f"batch reference: logits differ by {err:.3e} > 1e-3")
+        scfg = step_cfg("cuda")
+        spec_steps, spec_k = GEN - 1, 3
+        # the plain kernel loop, as far as the spec loop can reach: past
+        # the ring's PLEN + GEN slots, so both wrap it
+        tok0, cache = prefill(scfg)
+        plain, _ = steps.make_decode_loop(
+            cfg32, scfg, spec_steps * (spec_k + 1))(params, cache, tok0)
+        plain = plain.cpu().numpy()
+        if not np.array_equal(plain[:, :GEN - 1], streams["cuda"]):
+            fail("batch reference: the long plain loop's stream differs "
+                 "from the short one's")
+        results = {}
+        for name, k, n_steps in (("ngram", spec_k, spec_steps),
+                                 ("replay", spec_k, 8)):
+            drafter = (speculate.ReplayDrafter(k, plain) if name == "replay"
+                       else speculate.get_drafter(name, k))
+            tok0, cache = prefill(scfg)
+            ds = drafter.init_state(BATCH)
+            drafter.seed_batch(ds, prompts.cpu().numpy(),
+                               tok0.cpu().numpy())
+            loop = steps.make_speculative_decode_loop(cfg32, scfg, n_steps,
+                                                      drafter=drafter)
+            toks, counts, cache, _ = loop(params, cache, tok0,
+                                          speculate.state_to(ds, dev))
+            toks, counts = toks.cpu().numpy(), counts.cpu().numpy()
+            flat = np.concatenate([toks[:, s, :counts[0, s]]
+                                   for s in range(n_steps)], axis=1)
+            if not np.array_equal(flat, plain[:, :flat.shape[1]]):
+                fail(f"batch reference: {name} speculative stream differs "
+                     "from the plain loop's")
+            if int(cache["pos"]) != PLEN + flat.shape[1]:
+                fail(f"batch reference: {name} ring at {int(cache['pos'])}"
+                     f" after {flat.shape[1]} tokens from {PLEN}")
+            acc = (counts.sum() / counts.size - 1) / k
+            results[name] = (acc, int(cache["pos"]), flat.shape[1])
+    if results["ngram"][1] <= PLEN + GEN:
+        fail(f"batch reference: the n-gram spec loop reached position "
+             f"{results['ngram'][1]}, so it never wrapped the ring of "
+             f"{PLEN + GEN} slots")
+    if results["replay"][0] != 1.0:
+        fail(f"batch reference: replay acceptance {results['replay'][0]} "
+             "!= 1.0")
+    say(f"reference ok: fp32 full-width batch of {BATCH} x {PLEN} tokens, "
+        f"{GEN - 1} ring decode steps: streams equal on kernels and plain "
+        f"path, max |dlogits| {err:.3e}; n-gram K 3 speculative stream "
+        f"equals the plain kernel loop's over all its "
+        f"{results['ngram'][2]} tokens (acceptance "
+        f"{results['ngram'][0]:.0%}, ring of {PLEN + GEN} slots wrapped to "
+        f"position {results['ngram'][1]}), replay acceptance "
+        f"{results['replay'][0]:.0%}")
 
 
 # --------------------------------------------------------------------------
@@ -468,6 +707,127 @@ def timings(torch, np, dev, da, ops):
     return out
 
 
+def ring_valid(torch, c, verify):
+    """(B, Q, C) validity of every ring slot for every query row, as the
+    sweep masks it (no window)."""
+    q = c["q"]
+    B, Q = q.shape[:2]
+    C = c["k"].shape[1]
+    pos = c["pos"].long().reshape(-1, 1, 1)
+    ref = pos - 1 if verify else pos
+    kp = ref - torch.remainder(ref - torch.arange(C, device=q.device), C)
+    valid = kp >= 0
+    if verify:
+        qi = torch.arange(Q, device=q.device)[None, :, None]
+        valid = valid & (kp > pos + qi - C)
+    return valid.expand(B, Q, C)
+
+
+def ring_work(torch, c, n_splits, verify):
+    """(bytes, flops) the ring sweep needs on these inputs: q, the k/v rows
+    of every slot some row may see, pos, candidates (verify) read once,
+    outputs written once; 4 flops per (row, key, dim, head) kept."""
+    q = c["q"]
+    B, Q, Hq, D = q.shape
+    Hkv = c["k"].shape[2]
+    es = q.element_size()
+    valid = ring_valid(torch, c, verify)                   # (B, Q, C)
+    slots = int(valid.any(dim=1).sum())
+    nbytes = (q.numel() * es + 2 * slots * Hkv * D * es
+              + c["pos"].numel() * 4)
+    k_tot = int(valid.sum())
+    if verify:
+        nbytes += 2 * B * Q * Hkv * D * es
+        k_tot += B * Q * (Q + 1) // 2
+    S = max(1, n_splits)
+    nbytes += (B * Q * Hq * D * es if S == 1
+               else B * Hq * S * Q * (D + 1) * 4)
+    return nbytes, 4.0 * Hq * D * k_tot
+
+
+def ring_sdpa_yardstick(torch, c, verify):
+    """One F.scaled_dot_product_attention call over the ring (and the
+    candidates, for verify), expanded to all q heads beforehand, with the
+    sweep's validity as its mask."""
+    F = torch.nn.functional
+    q = c["q"]
+    B, Q, Hq, D = q.shape
+    G = Hq // c["k"].shape[2]
+    mask = ring_valid(torch, c, verify)
+    k, v = c["k"], c["v"]
+    if verify:
+        k = torch.cat([k, c["k_new"]], dim=1)
+        v = torch.cat([v, c["v_new"]], dim=1)
+        qi = torch.arange(Q, device=q.device)
+        mask = torch.cat([mask, (qi[None, :] <= qi[:, None]).expand(
+            B, Q, Q)], dim=-1)
+
+    def expand(t):
+        return t.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+
+    ke, ve = expand(k), expand(v)
+    qt = q.transpose(1, 2).contiguous()
+    m = mask[:, None].contiguous()
+    return lambda: F.scaled_dot_product_attention(qt, ke, ve, attn_mask=m)
+
+
+def ring_timings(torch, np, dev, da, ops):
+    """Phase 5, ring sweep, at the batch path's shapes (8 requests, ring
+    of 545 slots, bf16), mid-run (pos 528)."""
+    out = {}
+    shp = dict(B=BATCH, Hq=9, Hkv=3, D=64, C=PLEN + GEN)
+    S = ops.choose_kv_splits(BATCH, PLEN + GEN, 9, block=256, device=dev)
+    for verify, Q in ((False, 1), (True, 4)):
+        name = ("ring_attention_sweep (verify)" if verify
+                else "ring_attention_sweep (decode)")
+        c = make_ring_case(torch, np, dev, pos=528, Q=Q, dtype="bfloat16",
+                           seed=300 + Q, **shp)
+        args, kw = ring_args(c, verify)
+        ms = time_ms(torch, lambda: da.ring_attention_sweep(
+            *args, **kw, n_splits=S, block_k=256))
+        plain = time_ms(torch, lambda: da.ring_attention_sweep_torch(
+            *args, **kw, n_splits=S, block_k=256), iters=5, reps=10)
+        lib = time_ms(torch, ring_sdpa_yardstick(torch, c, verify))
+        nbytes, flops = ring_work(torch, c, S, verify)
+        b_ms, b_by = bound(nbytes, flops)
+        out[name] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                         bound_by=b_by, n_splits=S)
+        one = time_ms(torch, lambda: da.ring_attention_sweep(
+            *args, **kw, n_splits=1, block_k=256))
+        one_plain = time_ms(torch, lambda: da.ring_attention_sweep_torch(
+            *args, **kw, n_splits=1, block_k=256), iters=5, reps=10)
+        say(f"{name} (n_splits 1): kernel {one * 1e3:.1f} us, plain "
+            f"{one_plain * 1e3:.1f} us, bound "
+            f"{bound(*ring_work(torch, c, 1, verify))[0] * 1e3:.3f} us")
+    # the deep case, for the record (not the main path's shape)
+    deep = dict(B=4, Hq=9, Hkv=3, D=64, C=4096)
+    c = make_ring_case(torch, np, dev, pos=4000, Q=1, dtype="bfloat16",
+                       seed=307, **deep)
+    S = ops.choose_kv_splits(4, 4096, 9, block=256, device=dev)
+    args, _ = ring_args(c, False)
+    d_ms = time_ms(torch, lambda: da.ring_attention(*args, n_splits=S,
+                                                    block_k=256))
+    d_lib = time_ms(torch, ring_sdpa_yardstick(torch, c, False))
+    nbytes, flops = ring_work(torch, c, S, False)
+    say(f"deep ring decode (4 requests, 4096 slots, n_splits {S}): "
+        f"sweep+merge {d_ms * 1e3:.1f} us, sdpa {d_lib * 1e3:.1f} us, bound "
+        f"{bound(nbytes, flops)[0] * 1e3:.2f} us ({nbytes / 1e6:.2f} MB)")
+    return out
+
+
+def serve_run(torch, da, tfm, serve, label, argv):
+    """One main-path run through the launcher: launch counts zeroed just
+    before, read just after; finite logits required."""
+    da.reset_launches()
+    with LogitsTap(torch, tfm) as tap:
+        out = serve.run(argv)
+    torch.cuda.synchronize()
+    launches = dict(da.LAUNCHES)
+    if tap.finite is None or not bool(tap.finite):
+        fail(f"{label}: non-finite logits")
+    return out, launches
+
+
 # --------------------------------------------------------------------------
 def main() -> int:
     import numpy as np
@@ -488,7 +848,7 @@ def main() -> int:
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.models import transformer as tfm
-    from repro_torch.runtime import steps
+    from repro_torch.runtime import speculate, steps
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -503,52 +863,81 @@ def main() -> int:
     # 1. build -------------------------------------------------------------
     build.build(force=True)
     build.library()
-    say(f"built {SRC} in {build.build_seconds:.1f} s")
+    say(f"built {', '.join(p.name for p in build.sources())} in "
+        f"{build.build_seconds:.1f} s")
     for line in build.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             say(f"  ptxas: {line.strip()}")
 
     # 2. kernels against their plain versions ---------------------------------
     errs = check_kernels(torch, np, dev, da, ops)
+    check_ring_kernels(torch, np, dev, da, ops, errs)
 
     # 3. reference: kernels vs plain torch, full width, fp32 ------------------
     cfg = get_arch("smollm-135m").config
     reference_check(torch, dev, cfg, tfm, serving, steps, bridge)
+    reference_batch_check(torch, np, dev, cfg, tfm, steps, speculate,
+                          bridge)
 
-    # 4. the main path --------------------------------------------------------
-    da.reset_launches()
-    with LogitsTap(torch, tfm) as tap:
-        rep = serve.run(["--arch", "smollm-135m", "--traffic", "poisson",
-                         "--requests", "8", "--shared-prefix-len", "32",
-                         "--prompt-pools", "2", "--n-slots", "4",
-                         "--page-size", "16"])
-    torch.cuda.synchronize()
-    launches = dict(da.LAUNCHES)
-    if tap.finite is None or not bool(tap.finite):
-        fail("main path: non-finite logits")
-    for r in rep.results:
-        if r.n_tokens != r.max_new_tokens:
-            fail(f"main path: rid {r.rid} finished {r.n_tokens}/"
-                 f"{r.max_new_tokens} tokens ({r.finish_reason})")
-    if len(rep.results) != 8:
-        fail(f"main path: {len(rep.results)} results, expected 8")
-    if rep.prefill_tokens_saved <= 0:
-        fail("main path: no prefix-cache hit, the verify sweep never ran")
-    for key, n in launches.items():
-        if n <= 0:
-            fail(f"main path: kernel {key} was never launched")
-    say(f"main path on {card}: {rep.tok_per_s:.1f} tok/s measured, "
-        f"{rep.j_per_token:.4g} J/token (analytic H100 SXM model), "
-        f"launches {launches}")
+    # 4. the main paths -------------------------------------------------------
+    poisson = ["--arch", "smollm-135m", "--traffic", "poisson",
+               "--requests", "8", "--shared-prefix-len", "32",
+               "--prompt-pools", "2", "--n-slots", "4", "--page-size", "16"]
+    batch = ["--arch", "smollm-135m", "--traffic", "batch", "--requests",
+             str(BATCH), "--prompt-len", str(PLEN), "--gen", str(GEN)]
+    paths = [("poisson", poisson, ("sweep_decode", "sweep_verify", "merge")),
+             ("batch", batch, ("ring_decode", "merge")),
+             ("batch --spec-k 3", batch + ["--spec-k", "3"],
+              ("ring_verify", "merge")),
+             ("poisson --spec-k 3", poisson + ["--spec-k", "3"],
+              ("sweep_verify", "merge"))]
+    launches = {key: 0 for key in da.LAUNCHES}
+    for label, argv, keys in paths:
+        out, counts = serve_run(torch, da, tfm, serve, label, argv)
+        for key in keys:
+            if counts[key] <= 0:
+                fail(f"{label}: kernel {key} was never launched")
+        for key, n in counts.items():
+            launches[key] += n
+        if label.startswith("poisson"):
+            rep = out
+            if len(rep.results) != 8:
+                fail(f"{label}: {len(rep.results)} results, expected 8")
+            for r in rep.results:
+                if r.n_tokens != r.max_new_tokens:
+                    fail(f"{label}: rid {r.rid} finished {r.n_tokens}/"
+                         f"{r.max_new_tokens} tokens ({r.finish_reason})")
+            if rep.prefill_tokens_saved <= 0:
+                fail(f"{label}: no prefix-cache hit, the suffix prefill "
+                     "never ran")
+            if "spec" in label and rep.drafts_proposed <= 0:
+                fail(f"{label}: no draft was proposed")
+            extra = (f", acceptance {rep.acceptance_rate:.0%}"
+                     if "spec" in label else "")
+            say(f"main path {label} on {card}: {rep.tok_per_s:.1f} tok/s "
+                f"measured, {rep.j_per_token:.4g} J/token (analytic H100 "
+                f"SXM model){extra}, launches {counts}")
+        else:
+            if out["tokens"].shape != (BATCH, GEN):
+                fail(f"{label}: generated {out['tokens'].shape}, expected "
+                     f"{(BATCH, GEN)}")
+            if "spec" in label and out["spec_steps"] <= 0:
+                fail(f"{label}: no speculative step ran")
+            extra = (f", acceptance {out['acceptance']:.0%}"
+                     if "spec" in label else "")
+            say(f"main path {label} on {card}: {out['tok_per_s']:.1f} tok/s "
+                f"measured, {out['j_per_token']:.4g} J/token (analytic H100 "
+                f"SXM model){extra}, launches {counts}")
 
     # 5. timing ---------------------------------------------------------------
     times = timings(torch, np, dev, da, ops)
+    times.update(ring_timings(torch, np, dev, da, ops))
     kernels = []
     for name, t in times.items():
+        source, replaces, key = KERNELS[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": SRC,
-            "replaces": REPLACES[name],
-            "launches": launches[LAUNCH_KEY[name]],
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[key],
             "max_abs_err": errs[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

@@ -63,7 +63,7 @@ def params_from_numpy(tree, cfg: ModelConfig, device=None) -> dict:
     """JAX-package params (numpy leaves, or tensors from
     :func:`load_step_dir`) -> the port's parameter dict on ``device``.
     Raises on a missing, extra or misshapen leaf."""
-    tfm._require_paged(cfg)
+    tfm._require_ported(cfg)
     dev = _device.resolve(device)
 
     def walk(t, shapes, path):

@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``
-compiles ``csrc/paged_attention.cu`` (a plain C interface, no PyTorch
-headers, so the build takes seconds) into ``build/torch_kernels/`` at the
-root of the checkout, at first use, and ``ctypes`` loads it.  The library
-is rebuilt whenever the source is newer than it.  Nothing here runs at
-import time: the CPU tests import this module on machines without nvcc.
+Every ``csrc/*.cu`` file (a plain C interface, no PyTorch headers, so each
+compiles in seconds) goes through its own ``nvcc -gencode
+arch=compute_90a,code=sm_90a -O3 -c`` process, all started together, and
+one more ``nvcc -shared`` links the objects into
+``build/torch_kernels/libtorch_kernels.so`` at the root of the checkout, at
+first use; ``ctypes`` loads it.  The library is rebuilt whenever any source
+or header under ``csrc/`` is newer than it.  Nothing here runs at import
+time: the CPU tests import this module on machines without nvcc.
 """
 from __future__ import annotations
 
@@ -16,14 +18,20 @@ import shutil
 import subprocess
 import time
 
-_SRC = pathlib.Path(__file__).resolve().parent / "csrc" / "paged_attention.cu"
+_CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 _REPO = pathlib.Path(__file__).resolve().parents[3]
 BUILD_DIR = _REPO / "build" / "torch_kernels"
-_LIB_PATH = BUILD_DIR / "libpaged_attention.so"
+_LIB_PATH = BUILD_DIR / "libtorch_kernels.so"
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"]
 
 _lib: ctypes.CDLL | None = None
 build_log = ""           # nvcc's -Xptxas -v report of the last build
 build_seconds = 0.0
+
+
+def sources() -> list[pathlib.Path]:
+    """The kernel sources compiled into the library."""
+    return sorted(_CSRC.glob("*.cu"))
 
 
 def _nvcc() -> str:
@@ -38,25 +46,54 @@ def _nvcc() -> str:
     return found
 
 
+def _stale() -> bool:
+    if not _LIB_PATH.exists():
+        return True
+    built = _LIB_PATH.stat().st_mtime
+    return any(p.stat().st_mtime > built for p in _CSRC.iterdir()
+               if p.suffix in (".cu", ".cuh"))
+
+
 def build(force: bool = False) -> pathlib.Path:
     """Compile the kernel library if it is missing or stale; returns its
-    path.  Raises with nvcc's output if the compile fails."""
+    path.  Raises with nvcc's output if a compile or the link fails."""
     global build_log, build_seconds
-    if (not force and _LIB_PATH.exists()
-            and _LIB_PATH.stat().st_mtime >= _SRC.stat().st_mtime):
+    if not force and not _stale():
         return _LIB_PATH
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = _LIB_PATH.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", str(tmp), str(_SRC)]
+    nvcc = _nvcc()
+    tag = os.getpid()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in sources():
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *_ARCH, "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-c",
+               "-o", str(obj), str(src)]
+        jobs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs, failed = [], []
+    for src, _, proc in jobs:
+        out = proc.communicate()[0]
+        logs.append(f"== {src.name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode})")
+    objs = [obj for _, obj, _ in jobs]
+    tmp = _LIB_PATH.with_suffix(f".{tag}.tmp")
+    if not failed:
+        link = subprocess.run([nvcc, *_ARCH, "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        logs.append(link.stdout + link.stderr)
+        if link.returncode != 0:
+            failed.append(f"link ({link.returncode})")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    build_log = "\n".join(logs)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+        raise RuntimeError(f"nvcc failed: {', '.join(failed)}:\n{build_log}")
     tmp.replace(_LIB_PATH)
     return _LIB_PATH
 
@@ -70,6 +107,9 @@ def library() -> ctypes.CDLL:
         lib.paged_attention_sweep.argtypes = (
             [p] * 10 + [i] * 12 + [f, f, i, p])
         lib.paged_attention_sweep.restype = i
+        lib.ring_attention_sweep.argtypes = (
+            [p] * 9 + [i] * 13 + [f, f, i, p])
+        lib.ring_attention_sweep.restype = i
         lib.lse_merge.argtypes = [p, p, p, i, i, i, i, i, p]
         lib.lse_merge.restype = i
         _lib = lib

@@ -1,0 +1,102 @@
+// Device code shared by the port's attention sweeps (paged_attention.cu,
+// ring_attention.cu): the masked-score constant, 16-byte row loads into
+// shared memory, warp reductions and the epilogue that writes a sweep's
+// result (normalised output for one split, partial + log-sum-exp for
+// several).  Everything is internal to the translation unit that includes
+// it.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+// the JAX reference's masked-score constant, -0.7 * finfo(float32).max
+constexpr float NEG_INF = -0.7f * 3.4028234663852886e38f;
+constexpr int NT = 128;              // threads per sweep block
+constexpr int NWARP = NT / 32;
+
+__device__ __forceinline__ void load16(const float* src, float* dst) {
+  const float4 v = *reinterpret_cast<const float4*>(src);
+  dst[0] = v.x; dst[1] = v.y; dst[2] = v.z; dst[3] = v.w;
+}
+
+__device__ __forceinline__ void load16(const __nv_bfloat16* src, float* dst) {
+  const uint4 v = *reinterpret_cast<const uint4*>(src);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    dst[2 * i] = f.x;
+    dst[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void store(float* dst, float x) { *dst = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* dst, float x) {
+  *dst = __float2bfloat16(x);
+}
+
+// n_rows rows of HD elements, row r at base + r * row_stride, into a
+// shared-memory fp32 tile whose rows are LD floats apart; 16-byte loads,
+// neighbouring threads on neighbouring addresses.
+template <typename T, int HD, int LD = HD>
+__device__ __forceinline__ void load_rows(const T* base, long row_stride,
+                                          int n_rows, float* dst) {
+  constexpr int VN = 16 / sizeof(T);
+  constexpr int PER_ROW = HD / VN;
+  float v[VN];
+  for (int c = threadIdx.x; c < n_rows * PER_ROW; c += NT) {
+    const int r = c / PER_ROW;
+    const int col = (c - r * PER_ROW) * VN;
+    load16(base + r * row_stride + col, v);
+#pragma unroll
+    for (int j = 0; j < VN; ++j) dst[r * LD + col + j] = v[j];
+  }
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+// The sweep's epilogue for query rows 0..Q-1 of (batch b, q head h, split
+// s): one split writes the normalised output straight into out
+// (B, Q, Hq, HD) in the query dtype; several write the fp32 partial
+// (B, Hq, S, Q, HD) and lse (B, Hq, S, Q), lse = NEG_INF for a split that
+// saw no valid key (l == 0).
+template <typename T, int HD>
+__device__ void write_result(const float* accs, const float* ms,
+                             const float* ls, int Q, int b, int h, int s,
+                             int Hq, int n_splits, T* __restrict__ out,
+                             float* __restrict__ partial,
+                             float* __restrict__ lse) {
+  if (n_splits == 1) {
+    for (int idx = threadIdx.x; idx < Q * HD; idx += NT) {
+      const int i = idx / HD, c = idx - i * HD;
+      store(out + (((long)b * Q + i) * Hq + h) * HD + c,
+            accs[idx] / fmaxf(ls[i], 1e-30f));
+    }
+  } else {
+    const long cell = ((long)b * Hq + h) * n_splits + s;
+    for (int idx = threadIdx.x; idx < Q * HD; idx += NT) {
+      const int i = idx / HD;
+      partial[cell * Q * HD + idx] = accs[idx] / fmaxf(ls[i], 1e-30f);
+    }
+    if (threadIdx.x < Q) {
+      const float l = ls[threadIdx.x];
+      lse[cell * Q + threadIdx.x] =
+          l > 0.f ? ms[threadIdx.x] + logf(fmaxf(l, 1e-30f)) : NEG_INF;
+    }
+  }
+}
+
+}  // namespace

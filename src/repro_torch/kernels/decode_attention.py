@@ -1,25 +1,34 @@
-"""Paged GQA attention sweep + LSE merge: the hand-written Hopper kernels
-of the serving hot path, their wrappers, and their plain PyTorch versions.
+"""GQA attention sweeps + LSE merge: the hand-written Hopper kernels of
+the serving hot paths, their wrappers, and their plain PyTorch versions.
 
-Two kernels (``csrc/paged_attention.cu``) replace the five Pallas
-functions of the JAX package's paged family:
+Three kernels replace the nine Pallas functions of the JAX package's
+paged and ring families:
 
-  * **K-sweep** ``paged_attention_sweep`` — stage 1 of paged GQA attention:
-    ``Q`` query rows per ``(b, h)`` (1 for decode, the chunk length for the
-    prefix-hit suffix prefill) over the pages in ``block_tables[b]`` for kv
-    head ``h // G``, online softmax in fp32, one block per
-    ``(b * Hq + h, split)`` looping over its split's contiguous page slice.
-    Verify folds the in-flight candidate rows, causally, into the last
-    split only.  One split writes the normalised output in the query dtype;
-    several write fp32 ``partial (B, Hq, S, Q, Dv)`` + ``lse (B, Hq, S, Q)``.
-  * **K-merge** ``lse_merge`` — stage 2: ``out = sum_s partial_s
+  * **K-sweep** ``paged_attention_sweep`` (``csrc/paged_attention.cu``) —
+    stage 1 of paged GQA attention: ``Q`` query rows per ``(b, h)`` (1 for
+    decode, the chunk length for the prefix-hit suffix prefill, K+1 for
+    speculative verify) over the pages in ``block_tables[b]`` for kv head
+    ``h // G``, online softmax in fp32, one block per ``(b * Hq + h,
+    split)`` looping over its split's contiguous page slice.
+  * **Ring sweep** ``ring_attention_sweep`` (``csrc/ring_attention.cu``) —
+    the same stage 1 over the static batch's ring-buffer cache
+    ``(B, C, Hkv, D)``: slot s holds position ``ref - ((ref - s) mod C)``
+    (``ref = pos`` for decode, ``pos - 1`` for verify, which also masks the
+    slots the sequential loop would have overwritten), walked in
+    ``ring_block_k`` blocks.
+  * **K-merge** ``lse_merge`` — stage 2 of both: ``out = sum_s partial_s
     exp(lse_s - m) / sum_s exp(lse_s - m)``, denominator clamped at 1e-30.
 
-Each wrapper takes its plain version (``*_torch``, same arithmetic page by
-page, vectorised over batch, heads and splits) for a tensor that lies on
-the CPU, and for a CUDA tensor launches the kernel or raises — there is no
-fallback.  ``LAUNCHES`` counts kernel launches; the plain versions never
-touch it.
+Both sweeps fold verify's in-flight candidate rows, causally, into the
+last split only.  One split writes the normalised output in the query
+dtype; several write fp32 ``partial (B, Hq, S, Q, Dv)`` + ``lse (B, Hq,
+S, Q)``.
+
+Each wrapper takes its plain version (``*_torch``, same arithmetic block
+by block, vectorised over batch, heads and splits) for a tensor that lies
+on the CPU, and for a CUDA tensor launches the kernel or raises — there is
+no fallback.  ``LAUNCHES`` counts kernel launches; the plain versions
+never touch it.
 """
 from __future__ import annotations
 
@@ -28,7 +37,8 @@ import torch
 from repro_torch.kernels.ref import NEG_INF
 
 # kernel launches, by kernel and mode (plain integers, reset by callers)
-LAUNCHES = {"sweep_decode": 0, "sweep_verify": 0, "merge": 0}
+LAUNCHES = {"sweep_decode": 0, "sweep_verify": 0, "merge": 0,
+            "ring_decode": 0, "ring_verify": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -44,6 +54,17 @@ def split_blocks(n_blocks: int, n_splits: int) -> tuple[int, int]:
     or none)."""
     s = max(1, min(int(n_splits), n_blocks))
     return s, -(-n_blocks // s)
+
+
+def ring_block_k(cache_len: int, block_k: int) -> int:
+    """The ring sweep's block: ``min(block_k, C)``, then the largest divisor
+    of ``C`` not above it (the JAX kernels' rule, which the split
+    boundaries follow)."""
+    C = int(cache_len)
+    bk = max(1, min(int(block_k), C))
+    while C % bk:
+        bk -= 1
+    return bk
 
 
 # ==========================================================================
@@ -80,23 +101,6 @@ def paged_attention_sweep_torch(q, k_pages, v_pages, block_tables, pos, *,
     kk = torch.arange(ps, device=dev).reshape(1, 1, 1, ps)
     sidx = torch.arange(S, device=dev)
 
-    def update(state, s, vt, valid, skip_empty):
-        m, l, acc = state
-        if logit_cap > 0.0:
-            s = logit_cap * torch.tanh(s / logit_cap)
-        s = torch.where(valid, s, NEG_INF)
-        m_new = torch.maximum(m, torch.amax(s, dim=-1))
-        p = torch.exp(s - m_new[..., None])
-        corr = torch.exp(m - m_new)
-        l_new = l * corr + p.sum(dim=-1)
-        acc_new = acc * corr[..., None] + torch.einsum(
-            "bhsqk,bhskd->bhsqd", p, vt)
-        if skip_empty is None:
-            return m_new, l_new, acc_new
-        run = skip_empty                                        # (B, 1, S, 1)
-        return (torch.where(run, m_new, m), torch.where(run, l_new, l),
-                torch.where(run[..., None], acc_new, acc))
-
     for j in range(ppb):
         gj = sidx * ppb + j
         in_range = (gj < nb).reshape(1, S, 1, 1)
@@ -116,32 +120,134 @@ def paged_attention_sweep_torch(q, k_pages, v_pages, block_tables, pos, *,
         vt = v_pages[pages][:, :, :, kv_head].float()
         s = torch.einsum("bhqd,bskhd->bhsqk", qf, kt) * scale
         run = valid.reshape(B, S, -1).any(dim=-1).reshape(B, 1, S, 1)
-        m, l, acc = update((m, l, acc), s, vt.permute(0, 3, 1, 2, 4),
-                           valid[:, None], run)
+        m, l, acc = _online_update((m, l, acc), s,
+                                   vt.permute(0, 3, 1, 2, 4), valid[:, None],
+                                   run, logit_cap)
 
     if verify:
-        # candidates fold into the LAST split only (no skip: row i always
-        # sees candidate i)
-        kn = k_new.float()[:, :, kv_head].permute(0, 2, 1, 3)   # (B,Hq,Q,D)
-        vn = v_new.float()[:, :, kv_head].permute(0, 2, 1, 3)
-        s = torch.einsum("bhqd,bhkd->bhqk", qf, kn)[:, :, None] * scale
-        ri = torch.arange(Q, device=dev)[:, None]
-        cj = torch.arange(Q, device=dev)[None, :]
-        cvalid = cj <= ri
-        if window > 0:
-            cvalid = cvalid & (cj > ri - window)
-        last = (m[:, :, -1:], l[:, :, -1:], acc[:, :, -1:])
-        ml, ll, al = update(last, s, vn[:, :, None], cvalid, None)
-        m = torch.cat([m[:, :, :-1], ml], dim=2)
-        l = torch.cat([l[:, :, :-1], ll], dim=2)
-        acc = torch.cat([acc[:, :, :-1], al], dim=2)
+        m, l, acc = _fold_candidates((m, l, acc), qf, k_new, v_new, kv_head,
+                                     window=window, logit_cap=logit_cap,
+                                     scale=scale)
+    return _sweep_result(m, l, acc, q.dtype)
 
+
+def _online_update(state, s, vt, valid, run, logit_cap: float):
+    """One key block's online-softmax update, the reference's
+    ``_online_softmax_update``: scores ``s (B, Hq, S, Q, k)`` (capped, then
+    masked to NEG_INF by ``valid``), values ``vt (B, Hq, S, k, Dv)``.  Where
+    ``run`` (broadcast over the state) is False the block is skipped, as
+    the kernels skip a block with no valid key; ``None`` always runs."""
+    m, l, acc = state
+    if logit_cap > 0.0:
+        s = logit_cap * torch.tanh(s / logit_cap)
+    s = torch.where(valid, s, NEG_INF)
+    m_new = torch.maximum(m, torch.amax(s, dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l_new = l * corr + p.sum(dim=-1)
+    acc_new = acc * corr[..., None] + torch.einsum(
+        "bhsqk,bhskd->bhsqd", p, vt)
+    if run is None:
+        return m_new, l_new, acc_new
+    return (torch.where(run, m_new, m), torch.where(run, l_new, l),
+            torch.where(run[..., None], acc_new, acc))
+
+
+def _fold_candidates(state, qf, k_new, v_new, kv_head, *, window: int,
+                     logit_cap: float, scale: float):
+    """Fold the in-flight candidates (B, Q, Hkv, D) causally (``j <= i``,
+    and ``j > i - window``) into the LAST split of the state only; no skip,
+    since row i always sees candidate i.  ``qf`` is (B, Hq, Q, D) fp32."""
+    m, l, acc = state
+    Q = qf.shape[2]
+    dev = qf.device
+    kn = k_new.float()[:, :, kv_head].permute(0, 2, 1, 3)       # (B,Hq,Q,D)
+    vn = v_new.float()[:, :, kv_head].permute(0, 2, 1, 3)
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kn)[:, :, None] * scale
+    ri = torch.arange(Q, device=dev)[:, None]
+    cj = torch.arange(Q, device=dev)[None, :]
+    cvalid = cj <= ri
+    if window > 0:
+        cvalid = cvalid & (cj > ri - window)
+    last = (m[:, :, -1:], l[:, :, -1:], acc[:, :, -1:])
+    ml, ll, al = _online_update(last, s, vn[:, :, None], cvalid, None,
+                                logit_cap)
+    return (torch.cat([m[:, :, :-1], ml], dim=2),
+            torch.cat([l[:, :, :-1], ll], dim=2),
+            torch.cat([acc[:, :, :-1], al], dim=2))
+
+
+def _sweep_result(m, l, acc, dtype):
+    """A sweep's epilogue from its state (B, Hq, S, Q[, Dv]): one split ->
+    the normalised output (B, Q, Hq, Dv) in ``dtype``; several ->
+    ``(partial, lse)`` in fp32, ``lse = NEG_INF`` where ``l == 0``."""
     partial = acc / torch.clamp(l, min=1e-30)[..., None]
-    if S == 1:
-        return partial[:, :, 0].permute(0, 2, 1, 3).to(q.dtype)
+    if partial.shape[2] == 1:
+        return partial[:, :, 0].permute(0, 2, 1, 3).to(dtype)
     lse = torch.where(l > 0.0, m + torch.log(torch.clamp(l, min=1e-30)),
                       torch.full_like(m, NEG_INF))
     return partial, lse
+
+
+def ring_attention_sweep_torch(q, k_cache, v_cache, pos, *, k_new=None,
+                               v_new=None, n_splits: int = 1,
+                               block_k: int = 256, window: int = 0,
+                               logit_cap: float = 0.0,
+                               scale: float | None = None):
+    """The ring sweep's function in plain torch, block by block as the
+    kernel (and the Pallas grid) walks the cache (B, C, Hkv, D).  Slot s
+    holds ``ref - ((ref - s) mod C)``, with ``ref = pos`` for decode and
+    ``pos - 1`` for verify; a slot is valid when that position is >= 0,
+    and verify row i (at ``pos + i``) also drops positions ``<= pos + i -
+    C``, which the sequential loop would have overwritten.  A block whose
+    every slot is masked for every row is skipped; masked scores are
+    NEG_INF.  ``pos`` is (1,) or (B,).  Returns as
+    :func:`paged_attention_sweep_torch`."""
+    B, Q, Hq, D = q.shape
+    C, Hkv = k_cache.shape[1], k_cache.shape[2]
+    Dv = v_cache.shape[-1]
+    G = Hq // Hkv
+    if scale is None:
+        scale = D ** -0.5
+    verify = k_new is not None
+    bk = ring_block_k(C, block_k)
+    n_k = C // bk
+    S, kpb = split_blocks(n_k, n_splits)
+    dev = q.device
+    qf = q.float().permute(0, 2, 1, 3)                          # (B, Hq, Q, D)
+    kv_head = torch.arange(Hq, device=dev) // G
+    m = torch.full((B, Hq, S, Q), NEG_INF, device=dev)
+    l = torch.zeros((B, Hq, S, Q), device=dev)
+    acc = torch.zeros((B, Hq, S, Q, Dv), device=dev)
+    posb = pos.to(dev).long().reshape(-1, 1, 1, 1)              # (B, S, Q, bk)
+    ref = posb - 1 if verify else posb
+    q_pos = posb + torch.arange(Q, device=dev).reshape(1, 1, Q, 1) \
+        if verify else posb
+    kk = torch.arange(bk, device=dev)
+    sidx = torch.arange(S, device=dev)
+    for j in range(kpb):
+        g = sidx * kpb + j
+        in_range = (g < n_k).reshape(1, S, 1, 1)
+        slots = g.clamp(max=n_k - 1)[:, None] * bk + kk         # (S, bk)
+        k_pos = ref - torch.remainder(ref - slots[None, :, None], C)
+        valid = (k_pos >= 0) & in_range
+        if verify:
+            valid = valid & (k_pos > q_pos - C)
+        if window > 0:
+            valid = valid & (k_pos > q_pos - window)
+        valid = valid.expand(B, S, Q, bk)
+        kt = k_cache[:, slots][:, :, :, kv_head].float()        # (B,S,bk,Hq,D)
+        vt = v_cache[:, slots][:, :, :, kv_head].float()
+        s = torch.einsum("bhqd,bskhd->bhsqk", qf, kt) * scale
+        run = valid.reshape(B, S, -1).any(dim=-1).reshape(B, 1, S, 1)
+        m, l, acc = _online_update((m, l, acc), s,
+                                   vt.permute(0, 3, 1, 2, 4), valid[:, None],
+                                   run, logit_cap)
+    if verify:
+        m, l, acc = _fold_candidates((m, l, acc), qf, k_new, v_new, kv_head,
+                                     window=window, logit_cap=logit_cap,
+                                     scale=scale)
+    return _sweep_result(m, l, acc, q.dtype)
 
 
 def lse_merge_torch(partial, lse, out_dtype):
@@ -246,6 +352,87 @@ def paged_attention_sweep(q, k_pages, v_pages, block_tables, pos, *,
     return out if S == 1 else (partial, lse)
 
 
+_SMEM_MAX = 227 * 1024       # shared memory a block may use on Hopper
+
+
+def ring_attention_sweep(q, k_cache, v_cache, pos, *, k_new=None, v_new=None,
+                         n_splits: int = 1, block_k: int = 256,
+                         window: int = 0, logit_cap: float = 0.0,
+                         scale: float | None = None):
+    """The ring sweep.  q (B, Q, Hq, D); ring caches (B, C, Hkv, D); pos
+    (1,) or (B,) int32 on the card (the position of q's first row);
+    optional in-flight candidates k_new / v_new (B, Q, Hkv, D) select the
+    verify mask.  ``block_k`` is the requested block (``ring_block_k``
+    adjusts it).  Output as :func:`ring_attention_sweep_torch`."""
+    if q.device.type == "cpu":
+        return ring_attention_sweep_torch(
+            q, k_cache, v_cache, pos, k_new=k_new, v_new=v_new,
+            n_splits=n_splits, block_k=block_k, window=window,
+            logit_cap=logit_cap, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"ring_attention_sweep: unsupported device "
+                         f"{q.device}")
+    from repro_torch.kernels import build
+    B, Q, Hq, D = q.shape
+    C, Hkv = k_cache.shape[1], k_cache.shape[2]
+    verify = k_new is not None
+    if q.dtype not in _DTYPE_CODE:
+        raise ValueError(f"ring_attention_sweep: dtype {q.dtype} not "
+                         "supported (float32 | bfloat16)")
+    if D not in (64, 128):
+        raise ValueError(f"ring_attention_sweep: head_dim {D} not "
+                         "supported (64 | 128)")
+    if Hq % Hkv:
+        raise ValueError(f"ring_attention_sweep: Hq {Hq} not a multiple of "
+                         f"Hkv {Hkv}")
+    if verify and Q > C:
+        raise ValueError(f"ring_attention_sweep: verify block {Q} exceeds "
+                         f"cache capacity {C}")
+    bk = ring_block_k(C, block_k)
+    n_k = C // bk
+    sw = max(bk, Q) if verify else bk
+    smem = 4 * (2 * Q * D + 64 * (D + 1) + Q * sw + 3 * Q)
+    if smem > _SMEM_MAX:
+        raise ValueError(f"ring_attention_sweep: {Q} rows x block {bk} need "
+                         f"{smem} bytes of shared memory (max {_SMEM_MAX})")
+    dev = q.device
+    _check("q", q, dtype=q.dtype, shape=(B, Q, Hq, D), device=dev,
+           vector=True)
+    _check("k_cache", k_cache, dtype=q.dtype, shape=(B, C, Hkv, D),
+           device=dev, vector=True)
+    _check("v_cache", v_cache, dtype=q.dtype, shape=(B, C, Hkv, D),
+           device=dev, vector=True)
+    if pos.numel() not in (1, B):
+        raise ValueError(f"ring_attention_sweep: pos must hold 1 or {B} "
+                         f"positions, got {tuple(pos.shape)}")
+    _check("pos", pos, dtype=torch.int32, shape=(pos.numel(),), device=dev)
+    if verify:
+        _check("k_new", k_new, dtype=q.dtype, shape=(B, Q, Hkv, D),
+               device=dev, vector=True)
+        _check("v_new", v_new, dtype=q.dtype, shape=(B, Q, Hkv, D),
+               device=dev, vector=True)
+    if scale is None:
+        scale = D ** -0.5
+    S, kpb = split_blocks(n_k, n_splits)
+    out = partial = lse = None
+    if S == 1:
+        out = torch.empty((B, Q, Hq, D), dtype=q.dtype, device=dev)
+    else:
+        partial = torch.empty((B, Hq, S, Q, D), dtype=torch.float32,
+                              device=dev)
+        lse = torch.empty((B, Hq, S, Q), dtype=torch.float32, device=dev)
+    err = build.library().ring_attention_sweep(
+        _ptr(q), _ptr(k_cache), _ptr(v_cache), _ptr(k_new), _ptr(v_new),
+        _ptr(pos), _ptr(out), _ptr(partial), _ptr(lse), B, Q, Hq, Hkv, C, D,
+        bk, n_k, S, kpb, int(pos.numel() > 1), int(verify), int(window),
+        float(logit_cap), float(scale), _DTYPE_CODE[q.dtype],
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ring_attention_sweep: CUDA error {err}")
+    LAUNCHES["ring_verify" if verify else "ring_decode"] += 1
+    return out if S == 1 else (partial, lse)
+
+
 def lse_merge(partial, lse, out_dtype):
     """K-merge: ``partial (..., S, R, Dv)`` fp32 + ``lse (..., S, R)`` fp32
     -> ``(..., R, Dv)`` in ``out_dtype``."""
@@ -288,6 +475,23 @@ def paged_attention(q, k_pages, v_pages, block_tables, pos, *, k_new=None,
                                 k_new=k_new, v_new=v_new, n_splits=n_splits,
                                 window=window, logit_cap=logit_cap,
                                 scale=scale)
+    if isinstance(res, torch.Tensor):
+        return res
+    return lse_merge(*res, q.dtype).transpose(1, 2)
+
+
+def ring_attention(q, k_cache, v_cache, pos, *, k_new=None, v_new=None,
+                   window: int = 0, logit_cap: float = 0.0,
+                   scale: float | None = None, n_splits: int = 1,
+                   block_k: int = 256):
+    """GQA attention over the ring cache on the kernels: the ring sweep,
+    then K-merge when it split.  Without candidates it is the single-token
+    decode; with the in-flight ``k_new`` / ``v_new`` the multi-query verify
+    sweep.  -> (B, Q, Hq, Dv) in ``q.dtype``."""
+    res = ring_attention_sweep(q, k_cache, v_cache, pos, k_new=k_new,
+                               v_new=v_new, n_splits=n_splits,
+                               block_k=block_k, window=window,
+                               logit_cap=logit_cap, scale=scale)
     if isinstance(res, torch.Tensor):
         return res
     return lse_merge(*res, q.dtype).transpose(1, 2)

@@ -5,22 +5,26 @@ Counterpart of ``repro.kernels.ops`` for the ops this slice runs:
   * ``attention`` (prefill): ``ref`` (whole-matrix oracle) or ``chunked``
     (flash-style online softmax in plain torch), chosen exactly as the JAX
     package chooses under ``auto``.
-  * ``paged_decode_attention`` / ``paged_verify_attention`` (the serving
-    hot path) on ``KernelPolicy.decode``: ``ref`` the fp32 oracle,
-    ``torch`` the gather-then-attend path that mirrors the JAX ``jnp``
-    backend, ``cuda`` the hand-written Hopper kernels
+  * ``paged_decode_attention`` / ``paged_verify_attention`` (the engine's
+    hot path) and ``decode_attention`` / ``verify_attention`` (the static
+    batch's ring cache) on ``KernelPolicy.decode``: ``ref`` the fp32
+    oracle, ``torch`` the path that mirrors the JAX ``jnp`` backend,
+    ``cuda`` the hand-written Hopper kernels
     (``kernels/decode_attention.py``).  ``auto`` is ``cuda`` for CUDA
-    tensors and ``torch`` for CPU tensors.
+    tensors and ``torch`` for CPU tensors.  The ring kernel derives slot
+    positions from ``pos``, so a custom ring ``k_pos`` slot layout raises
+    on CUDA tensors under ``cuda``; on CPU tensors it takes ``torch``, with
+    a warning given once per entry point.
 
-Each plain version of the paged sweep has one role:
+Each plain version of a sweep has one role:
 
   * ``ref`` (``kernels/ref.py``): the fp32 oracle, whole-matrix softmax.
-  * ``torch`` (``paged_*_attention_torch`` here): the JAX ``jnp`` backend's
-    mirror, gather then attend.  It is what ``auto`` runs on the CPU, and
-    on the card it is the independent reference that ``chip_smoke.py``
-    holds the kernel-backed engine against.
-  * ``decode_attention.paged_attention_sweep_torch`` / ``lse_merge_torch``:
-    the kernels' twins, page by page as the kernel walks.  The wrappers
+  * ``torch`` (``*_attention_torch`` here): the JAX ``jnp`` backend's
+    mirror, gather (paged) then attend.  It is what ``auto`` runs on the
+    CPU, and on the card it is the independent reference that
+    ``chip_smoke.py`` holds the kernel-backed paths against.
+  * ``decode_attention.*_attention_sweep_torch`` / ``lse_merge_torch``:
+    the kernels' twins, block by block as the kernel walks.  The wrappers
     take them for CPU tensors (so ``cuda`` on CPU tensors runs them), and
     ``chip_smoke.py`` holds each kernel against its twin.  The split
     merge here reuses ``lse_merge_torch``.
@@ -34,6 +38,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import warnings
 
 import torch
 
@@ -53,7 +58,7 @@ class KernelPolicy:
     q_chunk: int = 1024
     k_chunk: int = 1024
     ssd_chunk: int = 128
-    decode_k_chunk: int = 256    # split-K block of the ring kernels (not ported)
+    decode_k_chunk: int = 256    # ring sweep block (divisor-of-C rule)
     kv_splits: str | int = "auto"  # two-stage split count: "auto" | int (1 = single-stage)
     kv_dtype: str = "bfloat16"   # KV-pool storage; "int8" is the KV-tier slice
 
@@ -135,11 +140,6 @@ def _split_attend_torch(s, vf, n_splits: int):
     # the merge takes the split axis ahead of the row axis
     return lse_merge_torch(partial.transpose(-3, -2), lse.transpose(-2, -1),
                            torch.float32)
-
-
-def _no_int8(k_scale, v_scale) -> None:
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError("int8 KV pages: KV-tier slice")
 
 
 # ==========================================================================
@@ -333,7 +333,7 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, pos, *,
                            policy: KernelPolicy = DEFAULT_POLICY):
     """Backend-dispatching paged decode attention (the continuous-batching
     hot path).  The split-K block is the page size."""
-    _no_int8(k_scale, v_scale)
+    _ref.no_int8(k_scale, v_scale, "pages")
     backend = _decode_backend(policy, q)
     ps, nb = k_pages.shape[1], block_tables.shape[1]
     n_splits = _resolve_kv_splits(policy, q.shape[0],
@@ -361,7 +361,7 @@ def paged_verify_attention(q, k_pages, v_pages, k_new, v_new, block_tables,
                            policy: KernelPolicy = DEFAULT_POLICY):
     """Backend-dispatching multi-query attention over the paged KV cache:
     speculative verify and the prefix-hit suffix prefill share it."""
-    _no_int8(k_scale, v_scale)
+    _ref.no_int8(k_scale, v_scale, "pages")
     backend = _decode_backend(policy, q)
     ps, nb = k_pages.shape[1], block_tables.shape[1]
     n_splits = _resolve_kv_splits(policy, q.shape[0],
@@ -381,4 +381,190 @@ def paged_verify_attention(q, k_pages, v_pages, k_new, v_new, block_tables,
             q, k_pages, v_pages, k_new, v_new, block_tables, pos,
             window=window, logit_cap=logit_cap, scale=scale,
             n_splits=n_splits)
+    raise ValueError(f"unknown decode backend {backend!r}")
+
+
+# ==========================================================================
+# Ring decode / verify (the static batch path)
+# ==========================================================================
+_KPOS_FALLBACK_WARNED: set[str] = set()
+
+
+def _warn_k_pos_fallback(entry: str) -> None:
+    """One warning per entry point when a custom ``k_pos`` on CPU tensors
+    takes the torch backend instead of the ring kernel's twin."""
+    if entry in _KPOS_FALLBACK_WARNED:
+        return
+    _KPOS_FALLBACK_WARNED.add(entry)
+    warnings.warn(
+        f"{entry}: custom k_pos slot layout disables the ring kernel (it "
+        "derives ring positions from pos, assuming the canonical slot = "
+        "p % C layout); falling back to the torch backend for this call",
+        RuntimeWarning, stacklevel=4)
+
+
+def ring_positions(pos, cache_len: int):
+    """Absolute position held by each ring slot under the canonical layout
+    (slot = p % C): ``pos - ((pos - s) mod C)``, negative for slots not yet
+    written.  ``pos`` () -> (C,); (B,) -> (B, C)."""
+    p = torch.as_tensor(pos)
+    s = torch.arange(cache_len, device=p.device)
+    if p.ndim == 0:
+        return p - torch.remainder(p - s, cache_len)
+    return p[:, None] - torch.remainder(p[:, None] - s, cache_len)
+
+
+def decode_attention_torch(q, k_cache, v_cache, k_pos, pos, *,
+                           window: int = 0, logit_cap: float = 0.0,
+                           scale: float | None = None, n_splits: int = 1):
+    """Single-token decode against a ring cache, mirror of the JAX
+    ``decode_attention_jnp``: ``k_pos`` (C,) or (B, C), ``pos`` () or
+    (B,); ``n_splits > 1`` runs the two-stage split-and-merge."""
+    B, _, Hq, D = q.shape
+    C, Hkv = k_cache.shape[1], k_cache.shape[2]
+    G = Hq // Hkv
+    if scale is None:
+        scale = D ** -0.5
+    qf = q.float().reshape(B, Hkv, G, D)
+    s = torch.einsum("bhgd,bkhd->bhgk", qf, k_cache.float()) * scale
+    if logit_cap > 0.0:
+        s = logit_cap * torch.tanh(s / logit_cap)
+    k_posb = torch.as_tensor(k_pos, device=q.device).reshape(-1, C)
+    posb = torch.as_tensor(pos, device=q.device).reshape(-1, 1)
+    valid = (k_posb >= 0) & (k_posb <= posb)
+    if window > 0:
+        valid &= k_posb > posb - window
+    s = torch.where(valid[:, None, None], s, NEG_INF)
+    if n_splits > 1:
+        o = _split_attend_torch(s[:, :, :, None, :], v_cache,
+                                n_splits)[..., 0, :]
+    else:
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
+    return o.reshape(B, 1, Hq, v_cache.shape[-1]).to(q.dtype)
+
+
+def verify_attention_torch(q, k_cache, v_cache, k_new, v_new, k_pos, pos, *,
+                           window: int = 0, logit_cap: float = 0.0,
+                           scale: float | None = None, n_splits: int = 1):
+    """Speculative multi-query decode against a ring cache, mirror of the
+    JAX ``verify_attention_jnp``: query i at ``pos + i`` sees the committed
+    cache (newer than ``pos + i - C``, the ring's eviction) and candidates
+    ``j <= i``."""
+    B, Q, Hq, D = q.shape
+    C, Hkv = k_cache.shape[1], k_cache.shape[2]
+    Dv = v_cache.shape[-1]
+    G = Hq // Hkv
+    if scale is None:
+        scale = D ** -0.5
+    dev = q.device
+    qf = q.float().reshape(B, Q, Hkv, G, D)
+    q_pos = torch.as_tensor(pos, device=dev).reshape(()) \
+        + torch.arange(Q, device=dev)[:, None]                    # (Q, 1)
+    kp = torch.as_tensor(k_pos, device=dev).reshape(1, C)
+    s_c = torch.einsum("bqhgd,bkhd->bhgqk", qf, k_cache.float())
+    s_n = torch.einsum("bqhgd,bkhd->bhgqk", qf, k_new.float())
+    s = torch.cat([s_c, s_n], dim=-1) * scale
+    if logit_cap > 0.0:
+        s = logit_cap * torch.tanh(s / logit_cap)
+    valid_c = (kp >= 0) & (kp <= q_pos) & (kp > q_pos - C)
+    n_pos = q_pos.reshape(1, Q)
+    valid_n = n_pos <= q_pos
+    if window > 0:
+        valid_c &= kp > q_pos - window
+        valid_n &= n_pos > q_pos - window
+    valid = torch.cat([valid_c, valid_n], dim=-1)                 # (Q, C+Q)
+    s = torch.where(valid, s, NEG_INF)
+    vf = torch.cat([v_cache.float(), v_new.float()], dim=1)
+    if n_splits > 1:
+        o = _split_attend_torch(s, vf, n_splits).permute(0, 3, 1, 2, 4)
+    else:
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bhgqk,bkhd->bqhgd", p, vf)
+    return o.reshape(B, Q, Hq, Dv).to(q.dtype)
+
+
+def _ring_backend(policy: KernelPolicy, q, k_pos, entry: str) -> str:
+    backend = _decode_backend(policy, q)
+    if backend == "cuda" and k_pos is not None:
+        if q.is_cuda:
+            raise NotImplementedError(
+                f"{entry}: the ring kernel has no custom k_pos slot layout "
+                "(it derives positions from pos, slot = p % C); ask for the "
+                "'torch' or 'ref' decode backend to use one")
+        _warn_k_pos_fallback(entry)
+        backend = "torch"      # custom slot layout: ring derivation invalid
+    return backend
+
+
+def _ring_splits(policy: KernelPolicy, q, k_cache, window: int) -> int:
+    """The JAX package's split count: from the requested block (not the
+    divisor-adjusted one); the sweep then clamps it to its block count."""
+    return _resolve_kv_splits(policy, q.shape[0],
+                              effective_kv_len(k_cache.shape[1], window),
+                              q.shape[2], block=policy.decode_k_chunk,
+                              device=q.device)
+
+
+def _pos_arg(pos, device) -> torch.Tensor:
+    """``pos`` as the kernel reads it: (1,) or (B,) int32 on ``device``."""
+    return torch.as_tensor(pos, device=device).reshape(-1).to(torch.int32)
+
+
+def decode_attention(q, k_cache, v_cache, pos, *, k_pos=None, window: int = 0,
+                     logit_cap: float = 0.0, scale: float | None = None,
+                     k_scale=None, v_scale=None,
+                     policy: KernelPolicy = DEFAULT_POLICY):
+    """Backend-dispatching single-token decode against the ring cache
+    (B, C, Hkv, D); ``pos`` () or (B,) is the position of q, already
+    written at slot ``pos % C``."""
+    _ref.no_int8(k_scale, v_scale)
+    backend = _ring_backend(policy, q, k_pos, "decode_attention")
+    n_splits = _ring_splits(policy, q, k_cache, window)
+    if backend == "cuda":
+        return da.ring_attention(q, k_cache, v_cache, _pos_arg(pos, q.device),
+                                 window=window, logit_cap=logit_cap,
+                                 scale=scale, n_splits=n_splits,
+                                 block_k=policy.decode_k_chunk)
+    if k_pos is None:
+        k_pos = ring_positions(pos, k_cache.shape[1])
+    if backend == "ref":
+        return _ref.decode_attention_ref(q, k_cache, v_cache, k_pos, pos,
+                                         window=window, logit_cap=logit_cap,
+                                         scale=scale)
+    if backend == "torch":
+        return decode_attention_torch(q, k_cache, v_cache, k_pos, pos,
+                                      window=window, logit_cap=logit_cap,
+                                      scale=scale, n_splits=n_splits)
+    raise ValueError(f"unknown decode backend {backend!r}")
+
+
+def verify_attention(q, k_cache, v_cache, k_new, v_new, pos, *, k_pos=None,
+                     window: int = 0, logit_cap: float = 0.0,
+                     scale: float | None = None, k_scale=None, v_scale=None,
+                     policy: KernelPolicy = DEFAULT_POLICY):
+    """Backend-dispatching speculative verify against the ring cache,
+    committed through ``pos - 1``: ``Q = K+1`` queries at ``pos ..
+    pos+K`` in one sweep, the in-flight candidates ``k_new`` / ``v_new``
+    (B, Q, Hkv, D) folded causally, nothing written."""
+    _ref.no_int8(k_scale, v_scale)
+    backend = _ring_backend(policy, q, k_pos, "verify_attention")
+    n_splits = _ring_splits(policy, q, k_cache, window)
+    if backend == "cuda":
+        return da.ring_attention(q, k_cache, v_cache, _pos_arg(pos, q.device),
+                                 k_new=k_new, v_new=v_new, window=window,
+                                 logit_cap=logit_cap, scale=scale,
+                                 n_splits=n_splits,
+                                 block_k=policy.decode_k_chunk)
+    if k_pos is None:
+        # the committed prefix ends at pos - 1: that is the ring reference
+        k_pos = ring_positions(torch.as_tensor(pos) - 1, k_cache.shape[1])
+    if backend == "ref":
+        return _ref.verify_attention_ref(
+            q, k_cache, v_cache, k_new, v_new, k_pos, pos, window=window,
+            logit_cap=logit_cap, scale=scale)
+    if backend == "torch":
+        return verify_attention_torch(
+            q, k_cache, v_cache, k_new, v_new, k_pos, pos, window=window,
+            logit_cap=logit_cap, scale=scale, n_splits=n_splits)
     raise ValueError(f"unknown decode backend {backend!r}")

@@ -2,16 +2,25 @@
 truth: small, obviously-correct, O(S^2)-memory implementations in fp32.
 
 Counterparts of ``repro.kernels.ref``'s ``attention_ref``,
-``merge_kv_splits_ref``, ``paged_decode_attention_split_ref``,
-``paged_verify_attention_ref`` and ``paged_decode_attention_ref`` (same
-shapes, layouts and masks).  The int8 (scaled) forms belong to the KV-tier
-slice and are not here yet.
+``decode_attention_ref``, ``decode_attention_split_ref``,
+``verify_attention_ref``, ``merge_kv_splits_ref``,
+``paged_decode_attention_split_ref``, ``paged_verify_attention_ref`` and
+``paged_decode_attention_ref`` (same shapes, layouts and masks), for bf16
+and fp32 caches.  The int8 (scaled) forms belong to the KV-tier slice: a
+scale raises by name (:func:`no_int8`).
 """
 from __future__ import annotations
 
 import torch
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+
+
+def no_int8(k_scale, v_scale, what: str = "caches") -> None:
+    """int8 KV storage (per-row fp32 scales) is the KV-tier slice."""
+    if k_scale is not None or v_scale is not None:
+        raise NotImplementedError(f"int8 KV {what}: KV-tier slice, not "
+                                  "ported")
 
 
 def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
@@ -43,6 +52,102 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
     return o.reshape(B, Sq, Hq, Dv).to(q.dtype)
+
+
+def _ring_scores(q, k_cache, k_pos, pos, *, window, logit_cap, scale):
+    """Masked single-token scores (B, Hkv, G, C) against a ring cache with
+    explicit slot positions ``k_pos`` (C,) or (B, C); ``pos`` () or (B,)."""
+    B, _, Hq, D = q.shape
+    C, Hkv = k_cache.shape[1], k_cache.shape[2]
+    qf = q.float().reshape(B, Hkv, Hq // Hkv, D)
+    s = torch.einsum("bhgd,bkhd->bhgk", qf, k_cache.float()) * scale
+    if logit_cap > 0.0:
+        s = logit_cap * torch.tanh(s / logit_cap)
+    k_posb = torch.as_tensor(k_pos, device=q.device).reshape(-1, C)
+    posb = torch.as_tensor(pos, device=q.device).reshape(-1, 1)
+    valid = (k_posb >= 0) & (k_posb <= posb)
+    if window > 0:
+        valid &= k_posb > posb - window
+    return torch.where(valid[:, None, None], s, NEG_INF)
+
+
+def decode_attention_ref(q, k_cache, v_cache, k_pos, pos, *, window: int = 0,
+                         logit_cap: float = 0.0, scale: float | None = None,
+                         k_scale=None, v_scale=None) -> torch.Tensor:
+    """Naive ring decode oracle: whole-cache fp32 math, explicit slot
+    positions.  q (B, 1, Hq, D), caches (B, C, Hkv, D) -> (B, 1, Hq, Dv)."""
+    no_int8(k_scale, v_scale)
+    B, _, Hq, D = q.shape
+    if scale is None:
+        scale = D ** -0.5
+    s = _ring_scores(q, k_cache, k_pos, pos, window=window,
+                     logit_cap=logit_cap, scale=scale)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
+    return o.reshape(B, 1, Hq, v_cache.shape[-1]).to(q.dtype)
+
+
+def decode_attention_split_ref(q, k_cache, v_cache, k_pos, pos, *,
+                               n_splits: int, block_k: int = 256,
+                               window: int = 0, logit_cap: float = 0.0,
+                               scale: float | None = None, k_scale=None,
+                               v_scale=None):
+    """Stage-1 oracle for the split ring decode sweep: the kernel's
+    k-block partitioning (the divisor-of-C ``block_k`` rule), whole-cache
+    fp32 math per split.  -> ``(partial (B, Hq, S, 1, Dv), lse (B, Hq, S,
+    1))``."""
+    no_int8(k_scale, v_scale)
+    C = k_cache.shape[1]
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    block_k = min(block_k, C)
+    if C % block_k:
+        block_k = next(b for b in range(block_k, 0, -1) if C % b == 0)
+    s = _ring_scores(q, k_cache, k_pos, pos, window=window,
+                     logit_cap=logit_cap, scale=scale)
+    return _split_partials(s, v_cache, n_units=C // block_k, unit=block_k,
+                           n_splits=n_splits)
+
+
+def verify_attention_ref(q, k_cache, v_cache, k_new, v_new, k_pos, pos, *,
+                         window: int = 0, logit_cap: float = 0.0,
+                         scale: float | None = None, k_scale=None,
+                         v_scale=None) -> torch.Tensor:
+    """Speculative verify oracle over a ring cache: query i sits at
+    ``pos + i`` and sees the committed cache (``k_pos`` valid, at most
+    ``pos + i``, and newer than ``pos + i - C``: the sequential loop would
+    have overwritten older slots) plus candidates ``j <= i``.
+    -> (B, Q, Hq, Dv)."""
+    no_int8(k_scale, v_scale)
+    B, Q, Hq, D = q.shape
+    C, Hkv = k_cache.shape[1], k_cache.shape[2]
+    Dv = v_cache.shape[-1]
+    G = Hq // Hkv
+    if scale is None:
+        scale = D ** -0.5
+    dev = q.device
+    qf = q.float().reshape(B, Q, Hkv, G, D)
+    q_pos = torch.as_tensor(pos, device=dev).reshape(()) \
+        + torch.arange(Q, device=dev)[:, None]                    # (Q, 1)
+    kp = torch.as_tensor(k_pos, device=dev).reshape(1, C)
+    s_c = torch.einsum("bqhgd,bkhd->bhgqk", qf, k_cache.float()) * scale
+    valid_c = (kp >= 0) & (kp <= q_pos) & (kp > q_pos - C)
+    if window > 0:
+        valid_c &= kp > q_pos - window
+    s_n = torch.einsum("bqhgd,bkhd->bhgqk", qf, k_new.float()) * scale
+    n_pos = q_pos.reshape(1, Q)
+    valid_n = n_pos <= q_pos
+    if window > 0:
+        valid_n &= n_pos > q_pos - window
+    s = torch.cat([s_c, s_n], dim=-1)
+    if logit_cap > 0.0:
+        s = logit_cap * torch.tanh(s / logit_cap)
+    valid = torch.cat([valid_c, valid_n], dim=-1)                 # (Q, C+Q)
+    s = torch.where(valid, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    vf = torch.cat([v_cache.float(), v_new.float()], dim=1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, vf)
+    return o.reshape(B, Q, Hq, Dv).to(q.dtype)
 
 
 def merge_kv_splits_ref(partial, lse) -> torch.Tensor:

@@ -1,30 +1,45 @@
 """Serving launcher of the PyTorch port — the CLI of ``repro.launch.serve``
-plus ``--device``, over the port's continuous-batching engine.
+plus ``--device``.
 
-    # continuous batching under a Poisson arrival trace, on the card
+    # static batch (the default traffic), on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
-        --traffic poisson --shared-prefix-len 32 --prompt-pools 2
+        --requests 8 --prompt-len 512 --gen 33
 
-    # the same at smoke size on the CPU (plain torch paths, no kernels)
+    # continuous batching under a Poisson arrival trace, speculative
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
-        --smoke --traffic poisson --device cpu
+        --traffic poisson --shared-prefix-len 32 --prompt-pools 2 --spec-k 3
 
-``--traffic poisson`` runs ``repro_torch.serving.ServeEngine``: requests
-join fixed decode slots mid-stream (prefill-on-join into the paged KV
-cache, suffix-only prefill on prefix-cache hits) and free on EOS / token
-budget.  FROST (unless ``--no-frost``): every chunk emits one ``StepDone``
-+ ``PowerSampled`` with the measured wall time and useful tokens; the
+    # at smoke size on the CPU (plain torch paths, no kernels)
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
+        --smoke --device cpu
+
+Two traffic modes:
+
+  * ``batch`` — the fixed-batch run-to-completion baseline: one prefill,
+    then decode chunks over the ring-buffer cache.  The last chunk runs
+    whole and its overrun is discarded.
+  * ``poisson`` — ``repro_torch.serving.ServeEngine``: requests join fixed
+    decode slots mid-stream (prefill-on-join into the paged KV cache,
+    suffix-only prefill on prefix-cache hits) and free on EOS / token
+    budget.
+
+``--spec-k K`` makes either mode speculative: each cache sweep verifies K
+self-drafted tokens plus one bonus (``--drafter ngram`` or ``repeat``);
+greedy output is identical to the plain loop's.
+
+FROST (unless ``--no-frost``): every chunk emits one ``StepDone`` +
+``PowerSampled`` with the measured wall time and useful tokens; the
 ``OnlineCapProfiler`` amortises probes over the live stream against the
-analytic H100 SXM device model, and J/token charges occupied slots only.
+analytic H100 SXM device model, and J/token charges useful tokens only.
 
 Not ported yet, each exits non-zero naming its ROADMAP.md item:
-``--traffic batch`` (ring decode, kernel K5), ``--spec-k`` (speculative
-decoding), ``--kv-dtype int8`` and ``--host-tier`` (KV tiers), ``--chaos``
-and ``--snapshot-dir`` (chaos and snapshots).
+``--kv-dtype int8`` and ``--host-tier`` (KV tiers), ``--chaos`` and
+``--snapshot-dir`` (chaos and snapshots).
 """
 from __future__ import annotations
 
 import argparse
+import time
 
 import numpy as np
 import torch
@@ -36,11 +51,17 @@ from repro_torch.control.online import OnlineCapProfiler
 from repro_torch.core import (BALANCED, H100_SXM, PowerCappedDevice,
                               QoSPolicy, WorkloadProfile)
 from repro_torch.core.profiler import RecordingBackend
+from repro_torch.data import DataConfig, TokenBatches
 from repro_torch.device import resolve
+from repro_torch.models import transformer as tfm
+from repro_torch.runtime import speculate
 from repro_torch.runtime.fault import ServingSupervisor
-from repro_torch.runtime.steps import StepConfig, with_decode_policy
+from repro_torch.runtime.steps import (StepConfig, make_decode_loop,
+                                       make_prefill_step,
+                                       make_speculative_decode_loop, sample,
+                                       with_decode_policy)
 from repro_torch.serving import (EnergyAwareAdmission, EngineConfig,
-                                 ServeEngine, poisson_trace)
+                                 ServeEngine, batch_trace, poisson_trace)
 from repro_torch.telemetry.meters import (AnalyticDeviceMeter,
                                           CpuProcessMeter, DramMeter)
 from repro_torch.telemetry.sampler import PowerSampler
@@ -68,7 +89,9 @@ def decode_workload(cfg, requests: int,
                     tokens_per_step: float = 1.0) -> WorkloadProfile:
     """Decode-step roofline from first principles: every step streams the
     parameters from HBM once, with 2 FLOPs per parameter per live sequence
-    on top (the JAX launcher's model)."""
+    on top (the JAX launcher's model).  ``tokens_per_step`` is the
+    speculative multiplier: compute and samples scale with it, the HBM
+    term does not."""
     p = float(cfg.param_count())
     tps = max(tokens_per_step, 1.0)
     return WorkloadProfile(
@@ -140,6 +163,130 @@ class FrostPlane:
         self.profiler.close()
 
 
+def run_batch(args, cfg, step_cfg, params, frost: FrostPlane | None,
+              device) -> dict:
+    """Static batch: one prefill, then decode chunks over the ring cache
+    (speculative with ``--spec-k``).  Prints the JAX launcher's
+    ``[serve]`` lines; returns the generated tokens, the timings and the
+    speculation counts."""
+    greedy = args.temperature <= 0.0
+    temperature = max(args.temperature, 1e-6)
+    plen = args.shared_prefix_len + args.prompt_len
+    max_len = plen + args.gen
+    chunk = max(1, args.decode_chunk)
+    spec = args.spec_k > 0
+    if args.shared_prefix_len > 0:
+        # pooled shared heads + unique suffixes, uniform length
+        trace = batch_trace(args.requests, seed=args.seed,
+                            vocab_size=cfg.vocab_size,
+                            prompt_len=args.prompt_len,
+                            max_new_tokens=args.gen,
+                            n_codebooks=cfg.n_codebooks,
+                            shared_prefix_len=args.shared_prefix_len,
+                            prompt_pools=args.prompt_pools)
+        prompts = np.stack([r.prompt for r in trace])
+    else:
+        data = TokenBatches(DataConfig(seed=args.seed,
+                                       vocab_size=cfg.vocab_size,
+                                       seq_len=args.prompt_len,
+                                       global_batch=args.requests,
+                                       n_codebooks=cfg.n_codebooks))
+        prompts = data.batch(0)["inputs"]
+    params = tfm.prepare_params(params, cfg)
+    prefill = make_prefill_step(cfg, step_cfg, max_len=max_len)
+    gen = None
+    if not greedy:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(args.sample_seed)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    sync()
+    t0 = time.perf_counter()
+    last_logits, cache = prefill(
+        params, {"inputs": torch.as_tensor(prompts, device=device)})
+    nxt = sample(last_logits, greedy=greedy, temperature=temperature,
+                 generator=gen)
+    sync()
+    t_prefill = time.perf_counter() - t0
+
+    if spec:
+        drafter = speculate.get_drafter(args.drafter, args.spec_k)
+        loop = make_speculative_decode_loop(cfg, step_cfg, chunk,
+                                            drafter=drafter, greedy=greedy,
+                                            temperature=temperature)
+        ds = drafter.init_state(args.requests)
+        drafter.seed_batch(ds, prompts, nxt.cpu().numpy())
+        dstate = speculate.state_to(ds, device)
+    else:
+        loop = make_decode_loop(cfg, step_cfg, chunk, greedy=greedy,
+                                temperature=temperature)
+
+    generated = [nxt.cpu().numpy()[:, None]]   # token sampled from prefill
+    tok = nxt[:, None]                         # (B, 1), on the device
+    remaining = args.gen - 1
+    decode_energy_j = 0.0
+    n_spec_steps = n_spec_accepted = 0
+    t_decode = 0.0
+    while remaining > 0:
+        t_c = time.perf_counter()
+        if spec:
+            toks, counts, cache, dstate = loop(params, cache, tok, dstate,
+                                               gen)
+            sync()
+            wall = time.perf_counter() - t_c
+            toks, counts = toks.cpu().numpy(), counts.cpu().numpy()
+            # counts are uniform across the batch (ring lockstep)
+            flat = np.concatenate([toks[:, s, :counts[0, s]]
+                                   for s in range(counts.shape[1])], axis=1)
+            n_spec_steps += counts.shape[1]
+            n_spec_accepted += int(counts[0].sum()) - counts.shape[1]
+            tok = torch.as_tensor(flat[:, -1:], device=device)
+        else:
+            toks, cache = loop(params, cache, tok, gen)
+            sync()
+            wall = time.perf_counter() - t_c
+            flat = toks.cpu().numpy()
+            tok = toks[:, -1:]
+        t_decode += wall
+        keep = min(flat.shape[1], remaining)
+        if frost is not None:
+            # a chunk is `chunk` cache sweeps; speculation scores K+1
+            # tokens per sweep (charged) and harvests 1..K+1
+            decode_energy_j += frost.emit_chunk(
+                keep * args.requests, args.requests, chunk, wall,
+                tokens_scored=args.spec_k + 1 if spec else 1.0)
+        generated.append(flat[:, :keep])
+        remaining -= keep
+    toks_out = np.concatenate(generated, axis=1)
+
+    # the first token came from prefill: tok/s and J/token charge only the
+    # (gen - 1) * requests tokens the decode loop produced
+    n_decoded = (args.gen - 1) * args.requests
+    tok_per_s = n_decoded / max(t_decode, 1e-9)
+    j_per_token = decode_energy_j / max(n_decoded, 1)
+    j_line = f"; {j_per_token:.3g} J/token analytic" \
+        if frost is not None else ""
+    spec_line = ""
+    acceptance = 0.0
+    if spec and n_spec_steps:
+        acceptance = n_spec_accepted / (n_spec_steps * args.spec_k)
+        spec_line = (f", spec K={args.spec_k} acceptance {acceptance:.0%} "
+                     f"({1 + n_spec_accepted / n_spec_steps:.2f} tok/sweep)")
+    pol = step_cfg.kernel_policy
+    print(f"[serve] prefill {args.requests}x{plen} in "
+          f"{t_prefill*1e3:.0f} ms; decode {n_decoded} tokens in "
+          f"{t_decode*1e3:.0f} ms ({tok_per_s:.0f} tok/s measured, "
+          f"chunks of {chunk}, kv_splits {pol.kv_splits}, "
+          f"decode_k_chunk {pol.decode_k_chunk}{spec_line}{j_line})")
+    print(f"[serve] sample continuation: {toks_out[0].ravel()[:16].tolist()}")
+    return {"tokens": toks_out, "prefill_s": t_prefill, "decode_s": t_decode,
+            "tok_per_s": tok_per_s, "j_per_token": j_per_token,
+            "spec_steps": n_spec_steps, "acceptance": acceptance}
+
+
 def run_engine(args, cfg, step_cfg, params, frost: FrostPlane | None,
                device):
     """Continuous batching: Poisson arrivals into the paged-KV engine.
@@ -156,9 +303,17 @@ def run_engine(args, cfg, step_cfg, params, frost: FrostPlane | None,
                         preempt=not args.no_preempt,
                         max_skip=max(0, args.max_skip),
                         kv_splits=_parse_kv_splits(args.kv_splits),
-                        decode_k_chunk=max(1, args.decode_k_chunk))
+                        decode_k_chunk=max(1, args.decode_k_chunk),
+                        spec_k=max(0, args.spec_k), drafter=args.drafter)
+    # effective tokens per slot-step: 1.0 plain; under speculation a
+    # running estimate (accepted + bonus per sweep), so that admission
+    # prices occupancy at the throughput actually delivered
+    eff = {"tps": 1.0}
 
     def on_chunk(s):
+        if s.n_active and ecfg.spec_k:
+            tps = s.tokens_kept / max(s.n_active * ecfg.decode_chunk, 1)
+            eff["tps"] = 0.5 * eff["tps"] + 0.5 * max(tps, 1.0)
         if frost is None:
             return None
         return frost.emit_chunk(s.tokens_kept, s.n_active,
@@ -180,7 +335,9 @@ def run_engine(args, cfg, step_cfg, params, frost: FrostPlane | None,
         dev_model = frost.device if frost is not None \
             else PowerCappedDevice(H100_SXM)
         admission = EnergyAwareAdmission(
-            dev_model, lambda n: decode_workload(cfg, n), args.power_budget,
+            dev_model,
+            lambda n: decode_workload(cfg, n, tokens_per_step=eff["tps"]),
+            args.power_budget,
             backend=frost.backend if frost is not None else None)
 
     p_lo = min(max(4, args.prompt_len // 2), args.prompt_len)
@@ -208,11 +365,17 @@ def run_engine(args, cfg, step_cfg, params, frost: FrostPlane | None,
           f"page_size {args.page_size}, kv_splits {ecfg.kv_splits}, "
           f"decode_k_chunk {ecfg.decode_k_chunk}, "
           f"occupancy {rep.occupancy:.0%})")
-    j_line = (f", {rep.j_per_token:.3g} J/token (occupied slots only)"
-              if frost is not None else "")
+    j_name = "J/accepted-token" if ecfg.spec_k else \
+        "J/token (occupied slots only)"
+    j_line = f", {rep.j_per_token:.3g} {j_name}" if frost is not None else ""
     print(f"[serve] decode {rep.tokens_kept} useful / {rep.tokens_computed} "
           f"computed tokens in {rep.decode_wall_s*1e3:.0f} ms "
           f"({rep.tok_per_s:.0f} tok/s measured{j_line})")
+    if ecfg.spec_k:
+        print(f"[serve] speculative K={ecfg.spec_k} ({ecfg.drafter}): "
+              f"acceptance {rep.acceptance_rate:.0%}, "
+              f"{rep.tokens_per_step:.2f} tokens/slot-sweep "
+              f"(admission sees {eff['tps']:.2f}x effective tok/s)")
     if ecfg.prefix_cache:
         j_avoid = ""
         if frost is not None and pref["avoided_j"] > 0:
@@ -258,9 +421,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="split-K block (keys per grid step) for the ring "
                          "decode/verify kernels")
     ap.add_argument("--traffic", choices=("batch", "poisson"), default="batch",
-                    help="batch: static fixed-batch baseline (not ported "
-                         "yet); poisson: continuous-batching engine under "
-                         "Poisson arrivals")
+                    help="batch: static fixed-batch baseline; poisson: "
+                         "continuous-batching engine under Poisson arrivals")
     ap.add_argument("--arrival-rate", type=float, default=0.25,
                     help="poisson arrivals per decode step")
     ap.add_argument("--n-slots", type=int, default=4,
@@ -293,8 +455,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="head-of-line skip-ahead window when the queue "
                          "head cannot get pages (0 = strict FIFO)")
     ap.add_argument("--spec-k", type=int, default=0,
-                    help="speculative decoding (not ported yet)")
-    ap.add_argument("--drafter", choices=("ngram", "repeat"), default="ngram")
+                    help=">0: speculative decoding — verify K drafts + 1 "
+                         "bonus token per cache sweep (both traffic modes)")
+    ap.add_argument("--drafter", choices=("ngram", "repeat"), default="ngram",
+                    help="self-drafter for --spec-k (ngram = prompt-lookup)")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="0 = greedy; >0 samples with this temperature")
     ap.add_argument("--sample-seed", type=int, default=0)
@@ -317,23 +481,18 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args) -> None:
-    if args.traffic == "batch":
-        raise NotPorted("--traffic batch (ring decode, kernel K5)",
-                        "queue 2, item 1; pass --traffic poisson")
-    if args.spec_k > 0:
-        raise NotPorted("--spec-k (speculative decoding, kernel K6)",
-                        "queue 2, item 3")
     if args.kv_dtype == "int8" or args.host_tier:
         raise NotPorted("--kv-dtype int8 / --host-tier (KV tiers)",
-                        "queue 2, item 4")
+                        "queue 2, item 2")
     if args.chaos or args.snapshot_dir:
         raise NotPorted("--chaos / --snapshot-dir (chaos and snapshots)",
-                        "queue 2, item 5")
+                        "queue 2, item 3")
 
 
 def run(argv=None):
     """Parse ``argv``, serve, print the ``[serve]`` / ``[frost-ctrl]``
-    lines; returns the engine's report."""
+    lines; returns the engine's report (poisson) or ``run_batch``'s
+    result (batch)."""
     args = build_parser().parse_args(argv)
     _refuse_unported(args)
     device = resolve(args.device)
@@ -344,12 +503,17 @@ def run(argv=None):
                                   decode_k_chunk=max(1, args.decode_k_chunk))
     params = bridge.init_lm(cfg, torch.Generator().manual_seed(args.seed),
                             device)
-    frost = None if args.no_frost else FrostPlane(cfg, args.n_slots,
+    n_par = args.n_slots if args.traffic == "poisson" else args.requests
+    frost = None if args.no_frost else FrostPlane(cfg, n_par,
                                                   args.edp_exponent)
-    rep = run_engine(args, cfg, step_cfg, params, frost, device)
+    if args.traffic == "poisson":
+        out = run_engine(args, cfg, step_cfg, params, frost, device)
+    else:
+        with torch.no_grad():
+            out = run_batch(args, cfg, step_cfg, params, frost, device)
     if frost is not None:
         frost.summary()
-    return rep
+    return out
 
 
 def main(argv=None) -> int:

@@ -1,14 +1,16 @@
 """GQA attention blocks of the port (RoPE / sliding window / logit
-soft-cap): prefill, paged decode and paged verify, counterparts of
-``repro.models.attention``'s ``gqa_prefill``, ``gqa_decode_paged`` and
+soft-cap): prefill, ring decode and verify, paged decode and verify,
+counterparts of ``repro.models.attention``'s ``gqa_prefill``,
+``gqa_decode``, ``gqa_verify``, ``gqa_decode_paged`` and
 ``gqa_verify_paged`` with the same shapes.
 
 Parameters are a dict ``{"wq": (d, Hq, hd), "wk": (d, Hkv, hd),
 "wv": (d, Hkv, hd), "wo": (Hq, hd, d)}``; weights are cast to the
 activation dtype at use (a no-op once ``transformer.prepare_params`` has
-cast them at load).  The paged decode writes its new k/v row into the
-shared page pools IN PLACE (``index_copy_``), where the JAX package
-returned updated (donated) buffers.
+cast them at load).  The decodes write their new k/v row into the ring
+buffers or the shared page pools IN PLACE (``index_copy_`` at an index
+computed on the device), where the JAX package returned updated (donated)
+buffers.
 """
 from __future__ import annotations
 
@@ -79,6 +81,44 @@ def gqa_prefill(params, x, positions, cfg: ModelConfig, *, window: int = 0,
         k_c = torch.roll(k[:, -cache_len:], shift, dims=1)
         v_c = torch.roll(v[:, -cache_len:], shift, dims=1)
     return out, (k_c, v_c)
+
+
+def gqa_decode(params, x, pos, cache_kv, cfg: ModelConfig, *,
+               window: int = 0,
+               policy: ops.KernelPolicy = ops.DEFAULT_POLICY):
+    """One-token decode against ring buffers.  x (B, 1, d); cache_kv =
+    (k, v) of shape (B, C, Hkv, hd); pos a 0-d int32 tensor, the position
+    of the new token.  Its k/v row goes to slot ``pos % C`` in place,
+    before the sweep."""
+    k_cache, v_cache = cache_kv
+    C = k_cache.shape[1]
+    q, k, v = _qkv(params, x, pos.reshape(1, 1), cfg)
+    slot = torch.remainder(pos, C).long().reshape(1)
+    k_cache.index_copy_(1, slot, k.to(k_cache.dtype))
+    v_cache.index_copy_(1, slot, v.to(v_cache.dtype))
+    o = ops.decode_attention(q, k_cache, v_cache, pos, window=window,
+                             logit_cap=cfg.attn_logit_softcap,
+                             scale=_scale(cfg), policy=policy)
+    o = _mask_padded_heads(o, cfg)
+    return _out_proj(o, params["wo"]), (k_cache, v_cache)
+
+
+def gqa_verify(params, x, pos, cache_kv, cfg: ModelConfig, *,
+               window: int = 0,
+               policy: ops.KernelPolicy = ops.DEFAULT_POLICY):
+    """Speculative verify: score ``Q = K+1`` fed tokens at positions ``pos
+    .. pos+Q-1`` in one sweep of the ring buffers (committed through
+    ``pos - 1``).  Nothing is written: the block's own (k, v) (B, Q, Hkv,
+    hd) come back as pending rows for ``transformer.commit_spec``."""
+    k_cache, v_cache = cache_kv
+    Q = x.shape[1]
+    posq = pos.reshape(1, 1) + torch.arange(Q, device=pos.device)[None, :]
+    q, k, v = _qkv(params, x, posq, cfg)
+    o = ops.verify_attention(q, k_cache, v_cache, k, v, pos, window=window,
+                             logit_cap=cfg.attn_logit_softcap,
+                             scale=_scale(cfg), policy=policy)
+    o = _mask_padded_heads(o, cfg)
+    return _out_proj(o, params["wo"]), (k, v)
 
 
 def gqa_decode_paged(params, x, pos, cache_kv, block_tables,

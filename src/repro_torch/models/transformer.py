@@ -1,7 +1,8 @@
-"""The LM trunk of the port, dense GQA family: prefill, the paged decode
-step, the paged verify sweep, suffix prefill and the paged commit —
-counterparts of ``repro.models.transformer``'s functions of the same
-names, with the same shapes and parameter layout.
+"""The LM trunk of the port, dense GQA family: prefill, the decode step
+and the verify sweep over both cache layouts (ring and paged), suffix
+prefill and the speculative commits — counterparts of
+``repro.models.transformer``'s functions of the same names, with the same
+shapes and parameter layout.
 
 Parameters are the nested dict of the JAX package (``embed``,
 ``layers/sub0/{norm1, attn/{wq,wk,wv,wo}, norm2, ffn/{wi_gate,wi_up,wo}}``
@@ -9,13 +10,16 @@ stacked on a leading ``n_units`` axis, ``final_norm``), so a JAX
 checkpoint loads without reshaping (``repro_torch.bridge``).  Where JAX
 scanned over the stacked layers, the port loops in Python.
 
-The paged cache is a dict ``{"pos": (n_slots,) int32, "block_tables":
-(n_slots, max_blocks) int32, "units": {"sub0": {"k", "v": (n_units,
-n_pages, page_size, Hkv, hd)}}}``.  Its pools are updated IN PLACE (the
-decode scatter and ``commit_spec_paged`` write through ``index_copy_`` on
-the flattened ``(P * ps, Hkv, hd)`` view), where JAX donated the buffers
-and returned new ones; the functions still return the cache dict, with a
-new ``pos``.
+The ring cache (``prefill``, ``init_cache``) is a dict ``{"pos": 0-d
+int32 tensor, "units": {"sub0": {"k", "v": (n_units, B, C, Hkv, hd)}}}``
+with position p at slot ``p % C``.  The paged cache is ``{"pos": (n_slots,)
+int32, "block_tables": (n_slots, max_blocks) int32, "units": {"sub0":
+{"k", "v": (n_units, n_pages, page_size, Hkv, hd)}}}``.  Both are updated
+IN PLACE (the decode writes and the commits go through ``index_copy_``),
+where JAX donated the buffers and returned new ones; the functions still
+return the cache dict, with a new ``pos``.  The decode steps and the ring
+commit compute their indices on the device and read nothing back to the
+host; the paged commit reads its accepted-row count once per sweep.
 """
 from __future__ import annotations
 
@@ -99,7 +103,23 @@ def int8_paged_blockers(cfg: ModelConfig) -> tuple[str, ...]:
     return ("kv_dtype=int8 (KV-tier slice, not ported)",)
 
 
-def _require_paged(cfg: ModelConfig) -> None:
+def speculative_blockers(cfg: ModelConfig) -> tuple[str, ...]:
+    """Named features blocking speculative verify/commit (the JAX
+    package's list)."""
+    checks = (("uses_ssm", cfg.uses_ssm), ("use_mla", cfg.use_mla),
+              ("n_codebooks", bool(cfg.n_codebooks)),
+              ("first_dense_layers", bool(cfg.first_dense_layers)),
+              ("hybrid_attn_every",
+               cfg.family == "hybrid" and bool(cfg.hybrid_attn_every)))
+    return tuple(name for name, on in checks if on)
+
+
+def supports_speculative(cfg: ModelConfig) -> bool:
+    return not speculative_blockers(cfg)
+
+
+def _require_ported(cfg: ModelConfig) -> None:
+    """Both cache layouts serve the dense GQA family only so far."""
     blockers = paged_cache_blockers(cfg)
     if blockers:
         raise NotImplementedError(f"{cfg.name}: {blockers[0]} is not ported "
@@ -190,12 +210,11 @@ def prefill(params, tokens, cfg: ModelConfig, ctx: RunCtx = RunCtx(), *,
             max_len: int = 0):
     """Process the whole prompt and build its decode cache.
 
-    tokens (B, S) -> (logits (B, S, Vp), cache) with cache =
-    ``{"pos": S, "units": {"sub0": {"k", "v": (n_units, B, max_len, Hkv,
-    hd)}}}``.  The dense family has no windowed layers, so the cache is
-    linear at capacity ``max_len`` (the JAX package's ``full_cache``
-    layout)."""
-    _require_paged(cfg)
+    tokens (B, S) -> (logits (B, S, Vp), cache) with the ring cache
+    ``{"pos": S (0-d int32 on the tokens' device), "units": {"sub0": {"k",
+    "v": (n_units, B, max_len, Hkv, hd)}}}``: position p at slot
+    ``p % max_len`` (linear while ``S <= max_len``)."""
+    _require_ported(cfg)
     x = embed_tokens(params, tokens, cfg, ctx)
     B, S = x.shape[:2]
     max_len = max_len or max(cfg.max_seq_len, S)
@@ -217,7 +236,86 @@ def prefill(params, tokens, cfg: ModelConfig, ctx: RunCtx = RunCtx(), *,
     logits = lm_logits(params, x, cfg, ctx)
     units = {name: {key: torch.stack(vals) for key, vals in c.items()}
              for name, c in caches.items()}
-    return logits, {"pos": S, "units": units}
+    pos = torch.tensor(S, dtype=torch.int32, device=x.device)
+    return logits, {"pos": pos, "units": units}
+
+
+# ==========================================================================
+# ring cache, decode, verify, commit (the static batch path)
+# ==========================================================================
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype: str = "bfloat16", device=None):
+    """Zero-filled ring decode cache, dense GQA branch: per-unit k/v ring
+    buffers of capacity ``max_len``, ``pos`` 0.  The MLA, SSM, hybrid,
+    first-dense and windowed branches raise by name."""
+    _require_ported(cfg)
+    if dtype == "int8":
+        raise NotImplementedError("int8 KV caches: KV-tier slice")
+    adt = common.dt(dtype)
+    shape = (n_units(cfg), batch, max_len, cfg.padded_kv_heads,
+             cfg.resolved_head_dim)
+    units = {f"sub{i}": {"k": torch.zeros(shape, dtype=adt, device=device),
+                         "v": torch.zeros(shape, dtype=adt, device=device)}
+             for i in range(unit_size(cfg))}
+    return {"pos": torch.zeros((), dtype=torch.int32, device=device),
+            "units": units}
+
+
+def _pos_tensor(pos, device) -> torch.Tensor:
+    return torch.as_tensor(pos, dtype=torch.int32, device=device)
+
+
+def decode_step(params, cache, tokens, cfg: ModelConfig,
+                ctx: RunCtx = RunCtx(), *, active=None):
+    """One decode step: tokens (B, 1) + cache -> (logits (B, 1, Vp), cache
+    with ``pos`` advanced).  The two layouts share this seam, told apart
+    by the cache's keys as in the JAX package: the ring (scalar ``pos``)
+    and the paged layout (``block_tables``; ``active`` gates which slots
+    advance there)."""
+    if "block_tables" in cache:
+        return _paged_decode_step(params, cache, tokens, cfg, ctx, active)
+    _require_ported(cfg)
+    x = embed_tokens(params, tokens, cfg, ctx)
+    pos = _pos_tensor(cache["pos"], x.device)
+    for l in range(n_units(cfg)):
+        unit = _layer(params["layers"], l)
+        for i in range(unit_size(cfg)):
+            blk, c = unit[f"sub{i}"], cache["units"][f"sub{i}"]
+            h = _norm(x, blk["norm1"], cfg)
+            a, _ = attn.gqa_decode(blk["attn"], h, pos,
+                                   (c["k"][l], c["v"][l]), cfg,
+                                   window=cfg.window_for_layer(i),
+                                   policy=ctx.kernel_policy)
+            x = _ffn(blk, x, a, cfg)
+    x = _norm(x, params["final_norm"], cfg)
+    logits = lm_logits(params, x, cfg, ctx)
+    return logits, {**cache, "pos": pos + 1}
+
+
+def commit_spec(cache, pending, n_accept, cfg: ModelConfig):
+    """Ring commit: rows ``0..n_accept`` of the pending k/v (t_last plus
+    the accepted drafts) go to slots ``(pos + i) % C`` and ``pos`` advances
+    by ``n_accept + 1``.  All Q target slots are computed on the device;
+    rejected rows write back what the slot already holds (the JAX package
+    drops them out of bounds), so the commit reads nothing back to the
+    host.  Needs Q <= C, so that the slots are distinct."""
+    del cfg
+    units = cache["units"]
+    pos = _pos_tensor(cache["pos"], units["sub0"]["k"].device)
+    for name, c in units.items():
+        pend = pending[name]
+        Q, C = pend["k"].shape[2], c["k"].shape[2]
+        if Q > C:
+            raise ValueError(f"verify block {Q} exceeds cache capacity {C}")
+        i = torch.arange(Q, device=pos.device)
+        slots = torch.remainder(pos + i, C).long()
+        keep = (i <= n_accept).reshape(1, 1, Q, 1, 1)
+        for key in ("k", "v"):
+            buf = c[key]
+            rows = torch.where(keep, pend[key].to(buf.dtype),
+                               buf.index_select(2, slots))
+            buf.index_copy_(2, slots, rows)
+    return {**cache, "pos": (pos + n_accept + 1).to(pos.dtype)}
 
 
 # ==========================================================================
@@ -229,7 +327,7 @@ def init_paged_cache(cfg: ModelConfig, n_slots: int, n_pages: int,
     """Zero-filled paged decode cache: per-unit k/v page pools shared by
     every slot (full-attention GQA group), one block table and one
     position counter per slot."""
-    _require_paged(cfg)
+    _require_ported(cfg)
     if dtype == "int8":
         raise NotImplementedError("int8 KV pages: KV-tier slice")
     adt = common.dt(dtype)
@@ -252,7 +350,7 @@ def _paged_decode_step(params, cache, tokens, cfg: ModelConfig, ctx: RunCtx,
     (B, 1, Vp), cache with pos advanced where ``active``).  Parked slots
     keep rewriting row ``pos[b]`` of their scratch page; the engine drops
     their tokens."""
-    _require_paged(cfg)
+    _require_ported(cfg)
     pos = cache["pos"]
     bt = cache["block_tables"]
     x = embed_tokens(params, tokens, cfg, ctx)
@@ -275,30 +373,37 @@ def _paged_decode_step(params, cache, tokens, cfg: ModelConfig, ctx: RunCtx,
 def verify_step(params, cache, tokens, cfg: ModelConfig,
                 ctx: RunCtx = RunCtx()):
     """Score ``Q`` fed tokens (B, Q) at positions ``pos .. pos+Q-1`` in ONE
-    sweep of the paged pools.  Returns (logits (B, Q, Vp), pending) with
-    pending ``{"sub0": {"k", "v": (n_units, B, Q, Hkv, hd)}}`` — nothing is
-    committed until :func:`commit_spec_paged`."""
-    if "block_tables" not in cache:
-        raise NotImplementedError("ring-buffer verify (speculative batch "
-                                  "mode, kernel K6) is not ported yet")
-    blockers = chunked_prefill_blockers(cfg)
+    sweep of the cache, ring or paged (told apart as in ``decode_step``).
+    Returns (logits (B, Q, Vp), pending) with pending ``{"sub0": {"k", "v":
+    (n_units, B, Q, Hkv, hd)}}`` — nothing is committed until
+    :func:`commit_spec` / :func:`commit_spec_paged`.  The ring sweep needs
+    ``speculative_blockers`` empty, the paged one
+    ``chunked_prefill_blockers``."""
+    paged = "block_tables" in cache
+    blockers = chunked_prefill_blockers(cfg) if paged \
+        else speculative_blockers(cfg)
     if blockers:
-        raise ValueError(f"{cfg.name}: paged verify sweep blocked by "
-                         f"{blockers[0]}")
-    pos = cache["pos"]
-    bt = cache["block_tables"]
+        kind = "paged verify sweep" if paged else "speculative decode"
+        raise ValueError(f"{cfg.name}: {kind} blocked by {blockers[0]}")
+    _require_ported(cfg)
+    bt = cache.get("block_tables")
     x = embed_tokens(params, tokens, cfg, ctx)
+    pos = cache["pos"] if paged else _pos_tensor(cache["pos"], x.device)
     pend = {f"sub{i}": {"k": [], "v": []} for i in range(unit_size(cfg))}
     for l in range(n_units(cfg)):
         unit = _layer(params["layers"], l)
         for i in range(unit_size(cfg)):
             blk, c = unit[f"sub{i}"], cache["units"][f"sub{i}"]
             h = _norm(x, blk["norm1"], cfg)
-            # paged sweeps run window-free, as in the JAX package
-            a, (k, v) = attn.gqa_verify_paged(blk["attn"], h, pos,
-                                              (c["k"][l], c["v"][l]), bt,
-                                              cfg, window=0,
-                                              policy=ctx.kernel_policy)
+            kv = (c["k"][l], c["v"][l])
+            if paged:       # paged sweeps run window-free, as in JAX
+                a, (k, v) = attn.gqa_verify_paged(blk["attn"], h, pos, kv,
+                                                  bt, cfg, window=0,
+                                                  policy=ctx.kernel_policy)
+            else:
+                a, (k, v) = attn.gqa_verify(blk["attn"], h, pos, kv, cfg,
+                                            window=cfg.window_for_layer(i),
+                                            policy=ctx.kernel_policy)
             pend[f"sub{i}"]["k"].append(k)
             pend[f"sub{i}"]["v"].append(v)
             x = _ffn(blk, x, a, cfg)

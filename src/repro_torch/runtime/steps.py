@@ -1,13 +1,16 @@
-"""Step builders of the port's serving path: the paged decode chunk and the
-chunked suffix-prefill step, counterparts of ``repro.runtime.steps``'s
-``make_paged_decode_loop`` and ``make_prefill_suffix_step``.
+"""Step builders of the port's serving paths, counterparts of
+``repro.runtime.steps``'s functions of the same names: the prefill step,
+the decode chunks over the ring (``make_decode_loop``) and the paged
+cache (``make_paged_decode_loop``), the speculative chunks over both
+(``make_speculative_decode_loop``, ``make_paged_speculative_decode_loop``)
+and the chunked suffix-prefill step.
 
 Where the JAX package fused a chunk into one ``lax.scan`` compiled ahead
-of time, the port runs a plain Python loop over the decode step (CUDA
-graphs are later work).  Greedy decoding is an argmax; temperature
-sampling draws from an explicit ``torch.Generator`` (seeded by the engine
-from ``sample_seed``), so it is deterministic but cannot reproduce
-``jax.random``'s numbers.
+of time, the port runs a plain Python loop over the step (CUDA graphs are
+later work); only the paged commit reads back to the host inside a chunk.
+Greedy decoding is an argmax; temperature sampling draws from an explicit
+``torch.Generator`` (seeded by the caller), so it is deterministic but
+cannot reproduce ``jax.random``'s numbers.
 """
 from __future__ import annotations
 
@@ -64,6 +67,53 @@ def sample(last, *, greedy: bool, temperature: float,
         torch.int32)
 
 
+def make_prefill_step(cfg: ModelConfig, step_cfg: StepConfig,
+                      max_len: int = 0) -> Callable:
+    """prefill(params, batch) -> (last_logits (B, Vp), ring cache)."""
+    ctx = make_run_ctx(cfg, step_cfg)
+
+    def prefill_step(params, batch):
+        logits, cache = tfm.prefill(params, batch["inputs"], cfg, ctx,
+                                    max_len=max_len)
+        return logits[:, -1], cache
+
+    return prefill_step
+
+
+def _decode_chunk(params, cache, tokens, active, generator, *, cfg, ctx,
+                  n_tokens, greedy, temperature):
+    """``n_tokens`` decode steps (model, sampling, cache update) over
+    either layout; ``active`` is None for the ring."""
+    tok, out = tokens, []
+    for _ in range(n_tokens):
+        logits, cache = tfm.decode_step(params, cache, tok, cfg, ctx,
+                                        active=active)
+        nxt = sample(logits[:, -1], greedy=greedy, temperature=temperature,
+                     generator=generator)
+        out.append(nxt)
+        tok = nxt[:, None]
+    return torch.stack(out, dim=1), cache
+
+
+def make_decode_loop(cfg: ModelConfig, step_cfg: StepConfig,
+                     n_tokens: int = 16, *, greedy: bool = True,
+                     temperature: float = 1.0) -> Callable:
+    """decode_loop(params, cache, tokens, generator=None)
+    -> (token_block (B, n_tokens) int32, cache) over the ring cache.
+
+    ``tokens`` (B, 1) is the token that enters the model first; the block
+    holds the tokens sampled after it.  The ring buffers update in
+    place."""
+    ctx = make_run_ctx(cfg, step_cfg)
+
+    def decode_loop(params, cache, tokens, generator=None):
+        return _decode_chunk(params, cache, tokens, None, generator, cfg=cfg,
+                             ctx=ctx, n_tokens=n_tokens, greedy=greedy,
+                             temperature=temperature)
+
+    return decode_loop
+
+
 def make_paged_decode_loop(cfg: ModelConfig, step_cfg: StepConfig,
                            n_tokens: int = 16, *, greedy: bool = True,
                            temperature: float = 1.0) -> Callable:
@@ -76,16 +126,9 @@ def make_paged_decode_loop(cfg: ModelConfig, step_cfg: StepConfig,
     ctx = make_run_ctx(cfg, step_cfg)
 
     def decode_loop(params, cache, tokens, active, generator=None):
-        active = active.to(torch.int32)
-        tok, out = tokens, []
-        for _ in range(n_tokens):
-            logits, cache = tfm._paged_decode_step(params, cache, tok, cfg,
-                                                   ctx, active)
-            nxt = sample(logits[:, -1], greedy=greedy,
-                         temperature=temperature, generator=generator)
-            out.append(nxt)
-            tok = nxt[:, None]
-        return torch.stack(out, dim=1), cache
+        return _decode_chunk(params, cache, tokens, active.to(torch.int32),
+                             generator, cfg=cfg, ctx=ctx, n_tokens=n_tokens,
+                             greedy=greedy, temperature=temperature)
 
     return decode_loop
 
@@ -108,3 +151,133 @@ def make_prefill_suffix_step(cfg: ModelConfig,
                                   n_commit.to(torch.int32), cfg, ctx)
 
     return suffix_step
+
+
+# ==========================================================================
+# speculative decoding
+# ==========================================================================
+def _spec_accept_greedy(logits, drafts):
+    """Greedy exact-match acceptance.  logits (B, Q, V) for the fed block
+    [t_last, d_1..d_K]; draft d_{i+1} is accepted iff it equals argmax(row
+    i) and every earlier draft was accepted.  Returns the argmax rows (the
+    emitted block: accepted drafts + the bonus token, exactly the plain
+    greedy stream) and the per-row accepted counts (B,)."""
+    g = torch.argmax(logits, dim=-1).to(torch.int32)           # (B, Q)
+    match = (drafts == g[:, :-1]).to(torch.int32)              # (B, K)
+    return g, torch.cumprod(match, dim=1).sum(dim=1, dtype=torch.int32)
+
+
+def _spec_accept_sample(logits, drafts, acc_flags, a_vec, generator,
+                        temperature):
+    """Temperature rejection-sampling acceptance for point-mass drafters
+    (Leviathan et al.): the emitted block is the drafts with row ``a_vec``
+    replaced by the correction (resampled from p without the rejected
+    draft) or the bonus token (all K accepted).  Where lockstep cut a row
+    short of its own acceptance, its accepted draft at ``a_vec`` is a
+    valid sample from p and is kept."""
+    B, Q, V = logits.shape
+    probs = torch.softmax(logits.float() / temperature, dim=-1)
+    a = a_vec.long()
+    p_base = torch.gather(probs, 1, a[:, None, None].expand(B, 1, V))[:, 0]
+    d_pad = torch.cat([drafts, drafts[:, -1:]], dim=1)         # (B, Q)
+    d_at = torch.gather(d_pad, 1, a[:, None])[:, 0]
+    is_bonus = a == Q - 1
+    f_pad = torch.cat([acc_flags, torch.zeros_like(acc_flags[:, :1])], dim=1)
+    accepted_here = torch.gather(f_pad, 1, a[:, None])[:, 0] > 0
+    onehot = torch.nn.functional.one_hot(d_at.long(), V).to(probs.dtype)
+    dist = torch.where(is_bonus[:, None], p_base, p_base * (1.0 - onehot))
+    samp = torch.multinomial(dist + 1e-30, 1, generator=generator)[:, 0]
+    last_tok = torch.where(is_bonus | ~accepted_here, samp.to(torch.int32),
+                           d_at)
+    pick = torch.arange(Q, device=logits.device)[None, :] == a[:, None]
+    return torch.where(pick, last_tok[:, None], d_pad).to(torch.int32)
+
+
+def _spec_chunk(params, cache, tokens, active, dstate, generator, *, cfg,
+                ctx, drafter, n_steps, greedy, temperature):
+    """``n_steps`` x (draft -> verify -> accept -> commit).  ``active`` None
+    is the ring: its scalar ``pos`` advances the batch in lockstep, so
+    acceptance truncates to the batch minimum (still exact).  Otherwise
+    the paged layout keeps per-slot counts; parked slots neither commit
+    nor advance, and their counts are 0."""
+    toks, counts_out = [], []
+    tok = tokens
+    for _ in range(n_steps):
+        drafts = drafter.propose(dstate, tok[:, 0])             # (B, K)
+        block = torch.cat([tok, drafts], dim=1)                 # (B, Q)
+        logits, pending = tfm.verify_step(params, cache, block, cfg, ctx)
+        if greedy:
+            emit, acc = _spec_accept_greedy(logits, drafts)
+        else:
+            probs = torch.softmax(logits.float() / temperature, dim=-1)
+            p_draft = torch.gather(probs[:, :-1], 2,
+                                   drafts.long()[..., None])[..., 0]
+            u = torch.rand(p_draft.shape, generator=generator,
+                           device=p_draft.device)
+            ok = (u < p_draft).to(torch.int32)
+            acc = torch.cumprod(ok, dim=1).sum(dim=1, dtype=torch.int32)
+        a_vec = acc if active is not None else acc.min().expand(acc.shape)
+        if not greedy:
+            emit = _spec_accept_sample(logits, drafts, ok, a_vec, generator,
+                                       temperature)
+        counts = a_vec + 1
+        if active is not None:
+            counts = torch.where(active > 0, counts, 0)
+            cache = tfm.commit_spec_paged(cache, pending, a_vec, active, cfg)
+        else:
+            cache = tfm.commit_spec(cache, pending, a_vec[0], cfg)
+        dstate = drafter.observe(dstate, emit, counts)
+        tok = torch.gather(emit, 1, a_vec.long()[:, None])
+        toks.append(emit)
+        counts_out.append(counts)
+    return (torch.stack(toks, dim=1), torch.stack(counts_out, dim=1), cache,
+            dstate)
+
+
+def make_speculative_decode_loop(cfg: ModelConfig, step_cfg: StepConfig,
+                                 n_steps: int = 8, *, drafter,
+                                 greedy: bool = True,
+                                 temperature: float = 1.0) -> Callable:
+    """spec_loop(params, cache, tokens, drafter_state, generator=None)
+    -> (token_blocks (B, n_steps, K+1), counts (B, n_steps), cache, state)
+    over the ring cache.  ``counts[:, s]`` is step s's emitted-token count
+    (accepted drafts + 1), equal across the batch; greedy emission is
+    token for token ``make_decode_loop``'s stream."""
+    ctx = make_run_ctx(cfg, step_cfg)
+    blockers = tfm.speculative_blockers(cfg)
+    if blockers:
+        raise ValueError(f"{cfg.name}: speculative decode blocked by "
+                         f"{blockers[0]}")
+
+    def spec_loop(params, cache, tokens, drafter_state, generator=None):
+        return _spec_chunk(params, cache, tokens, None, drafter_state,
+                           generator, cfg=cfg, ctx=ctx, drafter=drafter,
+                           n_steps=n_steps, greedy=greedy,
+                           temperature=temperature)
+
+    return spec_loop
+
+
+def make_paged_speculative_decode_loop(cfg: ModelConfig, step_cfg: StepConfig,
+                                       n_steps: int = 8, *, drafter,
+                                       greedy: bool = True,
+                                       temperature: float = 1.0) -> Callable:
+    """spec_loop(params, cache, tokens, active, drafter_state,
+    generator=None) -> (token_blocks (B, n_steps, K+1), counts (B,
+    n_steps), cache, state) over the paged cache: every slot keeps its own
+    accepted prefix."""
+    ctx = make_run_ctx(cfg, step_cfg)
+    blockers = (tfm.speculative_blockers(cfg)
+                or tfm.chunked_prefill_blockers(cfg))
+    if blockers:
+        raise ValueError(f"{cfg.name}: paged speculative decode blocked by "
+                         f"{blockers[0]}")
+
+    def spec_loop(params, cache, tokens, active, drafter_state,
+                  generator=None):
+        return _spec_chunk(params, cache, tokens, active.to(torch.int32),
+                           drafter_state, generator, cfg=cfg, ctx=ctx,
+                           drafter=drafter, n_steps=n_steps, greedy=greedy,
+                           temperature=temperature)
+
+    return spec_loop

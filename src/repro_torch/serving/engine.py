@@ -13,11 +13,17 @@ prompts run the bucketed prefill + page inject.  The host bookkeeping
 (``PagedKVCache``, ``Scheduler``) is the JAX package's, copied; the device
 steps are the port's torch functions on the engine's device.
 
+Speculative mode (``EngineConfig.spec_k > 0``): each chunk iteration
+becomes a K+1-token verify step (draft -> verify -> accept -> commit, per
+slot, through the paged verify sweep), the harvest consumes a variable
+number of tokens per slot per step, and the report adds the drafts
+proposed and accepted.  The per-slot drafter state is one more host
+mirror, seeded at prefill-on-join.
+
 ``EngineConfig``, ``ChunkStats``, ``EngineReport`` and
 ``EnergyAwareAdmission`` are unchanged.  Configurations this slice does
-not serve raise ``NotImplementedError`` naming the feature: speculative
-decoding (``spec_k > 0``), int8 KV pages, the host tier, fault injection
-and snapshots.
+not serve raise ``NotImplementedError`` naming the feature: int8 KV pages,
+the host tier, fault injection and snapshots.
 
 ``ChunkStats.wall_s`` is taken after ``torch.cuda.synchronize()``: it
 measures the chunk's execution on the card, not its enqueue.
@@ -33,7 +39,9 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch.models import transformer as tfm
+from repro_torch.runtime import speculate
 from repro_torch.runtime.steps import (StepConfig, make_paged_decode_loop,
+                                       make_paged_speculative_decode_loop,
                                        make_prefill_suffix_step,
                                        make_run_ctx, sample,
                                        with_decode_policy)
@@ -173,8 +181,6 @@ class EnergyAwareAdmission:
 
 
 def _unported(ecfg: EngineConfig, injector, snapshot_dir) -> str | None:
-    if ecfg.spec_k > 0:
-        return "speculative decoding (spec_k > 0)"
     if ecfg.kv_dtype == "int8":
         return "int8 KV pages (kv_dtype='int8')"
     if ecfg.host_tier:
@@ -228,7 +234,7 @@ class ServeEngine:
                                    prefix=self._use_prefix)
         self.cache = self.kv.make_cache(self.device)
         self._ctx = make_run_ctx(cfg, self.step_cfg)
-        self._loops: dict[int, Callable] = {}
+        self._loops: dict[tuple[int, bool], Callable] = {}
         self._suffix = make_prefill_suffix_step(cfg, self.step_cfg) \
             if self._use_prefix else None
         self._pos = np.zeros((engine_cfg.n_slots,), np.int32)
@@ -237,6 +243,21 @@ class ServeEngine:
             self._gen = torch.Generator(device=self.device)
             self._gen.manual_seed(engine_cfg.sample_seed)
         self._eff_chunk = engine_cfg.decode_chunk
+        self._drafter = None
+        self._dstate = None
+        if engine_cfg.spec_k > 0:
+            spec_block = (tfm.speculative_blockers(cfg)
+                          or tfm.chunked_prefill_blockers(cfg))
+            if spec_block:
+                raise ValueError(f"{cfg.name}: speculative serving blocked "
+                                 f"by {spec_block[0]}")
+            self._drafter = speculate.get_drafter(
+                engine_cfg.drafter, engine_cfg.spec_k,
+                hist_len=engine_cfg.drafter_hist)
+            # host mirror of the per-slot drafter state, like pos and the
+            # block tables: seeded at join, carried through the chunk loop,
+            # read back at harvest
+            self._dstate = self._drafter.init_state(engine_cfg.n_slots)
 
     # -- device steps ----------------------------------------------------------
     def _tensor(self, a, dtype=torch.int32):
@@ -246,12 +267,19 @@ class ServeEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _chunk_loop(self, chunk: int):
-        if chunk not in self._loops:
-            self._loops[chunk] = make_paged_decode_loop(
-                self.cfg, self.step_cfg, chunk, greedy=self.ecfg.greedy,
-                temperature=self.ecfg.temperature)
-        return self._loops[chunk]
+    def _chunk_loop(self, chunk: int, spec: bool):
+        key = (chunk, spec)
+        if key not in self._loops:
+            if spec:
+                self._loops[key] = make_paged_speculative_decode_loop(
+                    self.cfg, self.step_cfg, chunk, drafter=self._drafter,
+                    greedy=self.ecfg.greedy,
+                    temperature=self.ecfg.temperature)
+            else:
+                self._loops[key] = make_paged_decode_loop(
+                    self.cfg, self.step_cfg, chunk, greedy=self.ecfg.greedy,
+                    temperature=self.ecfg.temperature)
+        return self._loops[key]
 
     def _inject(self, pcache, rows: np.ndarray) -> None:
         """Scatter a (padded) prefill cache into the slot's pages, in
@@ -334,6 +362,8 @@ class ServeEngine:
         self._pos[slot] = L
         if self._use_prefix:
             self.kv.register_prefix(slot, np.asarray(req.prompt))
+        if self._drafter is not None:
+            self._drafter.seed_request(self._dstate, slot, req.prompt, first)
         state = self.scheduler.slots[slot]
         state.next_token = first
         state.tok_start = len(self._results[req.rid].tokens)
@@ -392,7 +422,7 @@ class ServeEngine:
         runs dry."""
         ecfg = self.ecfg
         if need is None:
-            need = ecfg.decode_chunk
+            need = ecfg.decode_chunk * (ecfg.spec_k + 1)
         slots = self.scheduler.slots
         order = sorted(self.scheduler.active_slots(),
                        key=lambda s: (-slots[s].request.priority,
@@ -416,9 +446,14 @@ class ServeEngine:
                 self._preempt(victim, t0)
 
     # -- harvest -------------------------------------------------------------
-    def _harvest(self, toks: np.ndarray, t0: float) -> dict[int, int]:
+    def _harvest(self, toks: np.ndarray, counts: np.ndarray,
+                 t0: float) -> dict[int, int]:
         """Append each active slot's kept tokens, finish on EOS / budget.
-        toks (n_slots, chunk).  Returns kept tokens per request id."""
+
+        toks (n_slots, steps, K+1): step s of slot b yields
+        ``counts[b, s]`` tokens (1 on the plain path; accepted drafts + the
+        bonus token, 1..K+1, when speculating), consumed in order.  Returns
+        kept tokens per request id."""
         kept_by_rid: dict[int, int] = {}
         for slot in self.scheduler.active_slots():
             state = self.scheduler.slots[slot]
@@ -429,15 +464,21 @@ class ServeEngine:
             for s in range(toks.shape[1]):
                 if res.finish_reason == "eos" or kept >= budget:
                     break
-                t = int(toks[slot, s])
-                res.tokens.append(t)
-                kept += 1
-                if req.eos_id is not None and t == req.eos_id:
-                    res.finish_reason = "eos"
+                for i in range(int(counts[slot, s])):
+                    t = int(toks[slot, s, i])
+                    res.tokens.append(t)
+                    kept += 1
+                    if req.eos_id is not None and t == req.eos_id:
+                        res.finish_reason = "eos"
+                        break
+                    if kept >= budget:
+                        break
             kept_by_rid[req.rid] = kept
             state.remaining = 0 if res.finish_reason == "eos" \
                 else state.remaining - kept
-            state.next_token = toks[slot, -1]
+            # the loop's carried token: last emitted token of the last step
+            state.next_token = toks[slot, -1,
+                                    max(int(counts[slot, -1]) - 1, 0)]
             if state.remaining == 0:
                 res.finish_reason = res.finish_reason or "max_new_tokens"
                 res.finish_step = self._now + self._eff_chunk
@@ -472,12 +513,15 @@ class ServeEngine:
         tok_in = np.zeros((ecfg.n_slots, 1), np.int32)
         eff_chunk = ecfg.decode_chunk
 
+        spec = self._drafter is not None
+        eff_k = ecfg.spec_k if spec else 0
+
         while len(queue) or self.scheduler.n_active:
             t_p = time.perf_counter()
             for slot, req, m, copy in self.scheduler.poll(queue, self._now):
                 self._join(slot, req, m, copy, t0)
             if ecfg.preempt:
-                self._grow_pages(t0, eff_chunk)
+                self._grow_pages(t0, eff_chunk * (eff_k + 1))
             self._sync()
             report.prefill_wall_s += time.perf_counter() - t_p
 
@@ -500,32 +544,52 @@ class ServeEngine:
                 tok_in[slot, 0] = self.scheduler.slots[slot].next_token
             self.cache = {**self.cache, "pos": self._tensor(self._pos),
                           "block_tables": self._tensor(self.kv.tables)}
-            loop = self._chunk_loop(eff_chunk)
+            loop = self._chunk_loop(eff_chunk, spec)
+            args = [self.params, self.cache, self._tensor(tok_in),
+                    self._tensor(active)]
+            if spec:
+                args.append(speculate.state_to(self._dstate, self.device))
             t_c = time.perf_counter()
-            toks, self.cache = loop(self.params, self.cache,
-                                    self._tensor(tok_in),
-                                    self._tensor(active), self._gen)
-            self._sync()
-            wall = time.perf_counter() - t_c
-            toks = toks.cpu().numpy()
+            if spec:
+                toks, counts, self.cache, dstate = loop(*args, self._gen)
+                self._sync()
+                wall = time.perf_counter() - t_c
+                toks = toks.cpu().numpy()
+                counts = counts.cpu().numpy()
+                self._dstate = speculate.state_to_host(dstate)
+            else:
+                toks, self.cache = loop(*args, self._gen)
+                self._sync()
+                wall = time.perf_counter() - t_c
+                toks = toks.cpu().numpy()[:, :, None]
+                counts = np.ones(toks.shape[:2], np.int32)
 
             n_active = int(active.sum())
-            self._pos[active.astype(bool)] += eff_chunk
-            kept_by_rid = self._harvest(toks, t0)
+            # the device pos advanced by each slot's emitted counts
+            self._pos += counts.sum(axis=1).astype(np.int32) * active
+            kept_by_rid = self._harvest(toks, counts, t0)
             kept = sum(kept_by_rid.values())
+            proposed = n_active * eff_chunk * eff_k
+            accepted = int(counts.sum()) - n_active * eff_chunk \
+                if spec else 0
             self._now += eff_chunk
             self._chunk_idx += 1
 
             stats = ChunkStats(step=self._chunk_idx, wall_s=wall,
                                n_slots=ecfg.n_slots, n_active=n_active,
                                tokens_kept=kept,
-                               tokens_computed=n_active * eff_chunk,
+                               tokens_computed=n_active * eff_chunk
+                               * (eff_k + 1),
+                               drafts_proposed=proposed,
+                               drafts_accepted=accepted,
                                clock_step=self._now)
             energy = self.on_chunk(stats) if self.on_chunk is not None else None
             report.n_chunks += 1
             report.decode_wall_s += wall
             report.tokens_kept += kept
             report.tokens_computed += stats.tokens_computed
+            report.drafts_proposed += proposed
+            report.drafts_accepted += accepted
             self._occ_sum += n_active / ecfg.n_slots
             if energy:
                 report.energy_j += energy

@@ -4,7 +4,10 @@ against the JAX package on the CPU.
 With the same smoke ``smollm-135m`` weights at float32 (model and KV
 pages), the port's greedy streams must equal the JAX ``ServeEngine``'s
 token for token on the traces of ``tests/test_serving.py``: mid-stream
-join/finish, prefix sharing with copy-on-write, and forced preemption."""
+join/finish, prefix sharing with copy-on-write, forced preemption, and
+speculative decoding.  The launcher's static batch path is held against
+the JAX launcher's ``run_batch`` on the same weights."""
+import argparse
 import dataclasses
 
 import jax
@@ -13,7 +16,9 @@ import pytest
 import torch
 
 from repro.configs import get_arch as jax_arch
+from repro.launch import serve as jserve
 from repro.models import transformer as jtfm
+from repro.runtime.steps import StepConfig as JaxStepConfig
 from repro.serving import EngineConfig as JaxEngineConfig
 from repro.serving import ServeEngine as JaxServeEngine
 from repro_torch import bridge
@@ -38,7 +43,7 @@ def smollm():
     return jcfg, params, tcfg, tparams
 
 
-def _both(smollm, reqs, **over):
+def _both(smollm, reqs, fields=(), **over):
     jcfg, params, tcfg, tparams = smollm
     kw = dict(BASE, **over)
     jrep = JaxServeEngine(jcfg, JaxEngineConfig(**kw), params).run(reqs)
@@ -50,7 +55,8 @@ def _both(smollm, reqs, **over):
         assert (a.finish_reason, a.n_preemptions, a.prefill_tokens_saved) \
             == (b.finish_reason, b.n_preemptions, b.prefill_tokens_saved)
     for field in ("n_chunks", "tokens_kept", "tokens_computed",
-                  "prompt_tokens", "prefill_tokens_saved", "n_preemptions"):
+                  "prompt_tokens", "prefill_tokens_saved", "n_preemptions",
+                  *fields):
         assert getattr(trep, field) == getattr(jrep, field), field
     return trep
 
@@ -89,13 +95,47 @@ def test_preemption_streams_match_jax(smollm, prefix):
     assert rep.n_preemptions > 0
 
 
+@pytest.mark.parametrize("drafter", ["ngram", "repeat"])
+def test_speculative_streams_match_jax_and_plain(smollm, drafter):
+    """spec_k = 2 on the prefix-sharing trace: the port's greedy streams,
+    token counts and draft counts equal the JAX engine's with spec_k = 2,
+    and its streams equal its own without speculation."""
+    _, _, tcfg, tparams = smollm
+    reqs = poisson_trace(5, rate_per_step=0.3, seed=7,
+                         vocab_size=tcfg.vocab_size, prompt_len=(3, 13),
+                         max_new_tokens=(4, 10), shared_prefix_len=11,
+                         prompt_pools=2)
+    rep = _both(smollm, reqs, fields=("drafts_proposed", "drafts_accepted"),
+                max_len=64, spec_k=2, drafter=drafter)
+    assert rep.drafts_proposed > 0 and rep.spec_k == 2
+    assert rep.prefill_tokens_saved > 0
+    plain = ServeEngine(tcfg, EngineConfig(**dict(BASE, max_len=64)),
+                        tparams, device="cpu").run(reqs)
+    assert [r.tokens for r in rep.results] \
+        == [r.tokens for r in plain.results]
+
+
+def test_speculative_preemption_streams_match_jax(smollm):
+    """Speculation under page pressure: the chunk asks for K+1 rows per
+    step, so slots are preempted and re-queued as in the JAX engine."""
+    reqs = batch_trace(3, seed=5, vocab_size=smollm[2].vocab_size,
+                       prompt_len=6, max_new_tokens=14)
+    rep = _both(smollm, reqs, fields=("drafts_proposed", "drafts_accepted"),
+                n_pages=2 + 8, preempt=True, spec_k=2)
+    assert rep.n_preemptions > 0
+
+
 def test_cpu_engine_launches_no_kernel(smollm):
     _, _, tcfg, tparams = smollm
     da.reset_launches()
     reqs = batch_trace(2, seed=1, vocab_size=tcfg.vocab_size, prompt_len=5,
                        max_new_tokens=3)
-    ServeEngine(tcfg, EngineConfig(**BASE), tparams, device="cpu").run(reqs)
-    assert da.LAUNCHES == {"sweep_decode": 0, "sweep_verify": 0, "merge": 0}
+    for spec_k in (0, 2):
+        ServeEngine(tcfg, EngineConfig(**BASE, spec_k=spec_k), tparams,
+                    device="cpu").run(reqs)
+    assert set(da.LAUNCHES) == {"sweep_decode", "sweep_verify", "merge",
+                                "ring_decode", "ring_verify"}
+    assert all(n == 0 for n in da.LAUNCHES.values())
 
 
 def test_sampled_streams_are_deterministic(smollm):
@@ -115,8 +155,24 @@ def test_sampled_streams_are_deterministic(smollm):
     assert run(3) != run(4)
 
 
+def test_sampled_speculative_streams_are_deterministic(smollm):
+    _, _, tcfg, tparams = smollm
+    reqs = batch_trace(2, seed=3, vocab_size=tcfg.vocab_size, prompt_len=6,
+                       max_new_tokens=8)
+
+    def run(seed):
+        ecfg = EngineConfig(**BASE, greedy=False, temperature=0.9,
+                            sample_seed=seed, spec_k=2)
+        rep = ServeEngine(tcfg, ecfg, tparams, device="cpu").run(reqs)
+        assert all(r.n_tokens == r.max_new_tokens for r in rep.results)
+        return [r.tokens for r in rep.results]
+
+    assert run(3) == run(3)
+    assert run(3) != run(4)
+
+
 @pytest.mark.parametrize("over,kw,feature", [
-    ({"spec_k": 2}, {}, "speculative"), ({"kv_dtype": "int8"}, {}, "int8"),
+    ({"kv_dtype": "int8"}, {}, "int8"),
     ({"host_tier": True}, {}, "host-memory"),
     ({}, {"injector": object()}, "fault injection"),
     ({}, {"snapshot_dir": "snapshots"}, "snapshots")])
@@ -151,8 +207,6 @@ def test_serve_poisson_prints_the_jax_lines(capsys):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--traffic", "batch"], "ring decode"),
-    (["--traffic", "poisson", "--spec-k", "2"], "speculative"),
     (["--traffic", "poisson", "--kv-dtype", "int8"], "KV tiers"),
     (["--traffic", "poisson", "--host-tier"], "KV tiers"),
     (["--traffic", "poisson", "--chaos", "crash@4"], "chaos")])
@@ -169,3 +223,65 @@ def test_serve_unknown_arch_names_the_ported_ones():
     with pytest.raises(KeyError, match="smollm-135m"):
         serve.run(["--arch", "gemma2-27b", "--device", "cpu",
                    "--traffic", "poisson"])
+
+
+SERVE = ["--arch", "smollm-135m", "--smoke", "--device", "cpu",
+         "--requests", "3", "--prompt-len", "8", "--gen", "6"]
+
+
+def test_serve_default_traffic_is_the_batch_path(capsys):
+    out = serve.run(SERVE)
+    text = capsys.readouterr().out
+    assert out["tokens"].shape == (3, 6)
+    assert "[serve] prefill 3x8 in" in text
+    assert "tok/s measured, chunks of 8" in text
+    assert "J/token analytic" in text and "spec K=" not in text
+    assert "[serve] sample continuation:" in text
+    assert "[frost-ctrl]" in text and "cap commands mid-run" in text
+
+
+def test_serve_batch_spec_prints_the_jax_lines(capsys):
+    """Greedy output is the same with and without --spec-k."""
+    plain = serve.run(SERVE)["tokens"]
+    out = serve.run(SERVE + ["--traffic", "batch", "--spec-k", "2"])
+    text = capsys.readouterr().out
+    np.testing.assert_array_equal(out["tokens"], plain)
+    assert out["spec_steps"] > 0
+    assert "spec K=2 acceptance" in text and "tok/sweep)" in text
+
+
+def test_serve_poisson_spec_prints_the_jax_lines(capsys):
+    rep = serve.run(SERVE + ["--traffic", "poisson", "--spec-k", "2",
+                             "--drafter", "repeat"])
+    text = capsys.readouterr().out
+    assert all(r.n_tokens == r.max_new_tokens for r in rep.results)
+    assert rep.drafts_proposed > 0
+    assert "[serve] speculative K=2 (repeat): acceptance" in text
+    assert "tokens/slot-sweep (admission sees" in text
+    assert "J/accepted-token" in text
+
+
+def _batch_args(**over):
+    """The JAX launcher's ``run_batch`` arguments (its parser is local to
+    its ``main``), at the port's defaults."""
+    port = vars(serve.build_parser().parse_args(SERVE))
+    port.update(over)
+    return argparse.Namespace(**port)
+
+
+@pytest.mark.parametrize("spec_k", [0, 2])
+def test_run_batch_matches_the_jax_launcher(smollm, capsys, spec_k):
+    """The same fp32 smoke weights through both launchers' static batch
+    paths (prompts from the same synthetic corpus, prefill, ring decode
+    chunks, speculation): the same sample continuation."""
+    jcfg, params, tcfg, tparams = smollm
+    args = _batch_args(spec_k=spec_k, gen=12)
+    jserve.run_batch(args, jcfg, JaxStepConfig(remat="none"), None, params,
+                     None)
+    jline = capsys.readouterr().out.splitlines()[-1]
+    out = serve.run_batch(args, tcfg, serve.StepConfig(), tparams, None,
+                          torch.device("cpu"))
+    tline = capsys.readouterr().out.splitlines()[-1]
+    assert jline.startswith("[serve] sample continuation:")
+    assert tline == jline
+    assert out["tokens"].shape == (3, 12)

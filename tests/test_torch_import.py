@@ -76,7 +76,19 @@ def test_cpu_calls_launch_no_kernel():
             decode=backend, kv_splits=2))
     partial, lse = da.paged_attention_sweep(q, kp, vp, bt, pos, n_splits=3)
     da.lse_merge(partial, lse, torch.float32)
-    assert da.LAUNCHES == {"sweep_decode": 0, "sweep_verify": 0, "merge": 0}
+    kc, vc = r(2, 12, 2, 16), r(2, 12, 2, 16)
+    qv, kn, vn = r(2, 3, 6, 16), r(2, 3, 2, 16), r(2, 3, 2, 16)
+    rpos = torch.tensor(17, dtype=torch.int32)
+    for backend in ("auto", "cuda", "torch", "ref"):
+        policy = ops.KernelPolicy(decode=backend, kv_splits=2,
+                                  decode_k_chunk=4)
+        ops.decode_attention(q, kc, vc, rpos, policy=policy)
+        ops.verify_attention(qv, kc, vc, kn, vn, rpos, policy=policy)
+    da.ring_attention(qv, kc, vc, rpos.reshape(1), k_new=kn, v_new=vn,
+                      n_splits=3, block_k=4)
+    assert set(da.LAUNCHES) == {"sweep_decode", "sweep_verify", "merge",
+                                "ring_decode", "ring_verify"}
+    assert all(n == 0 for n in da.LAUNCHES.values())
 
 
 def test_only_ported_archs_are_listed():

@@ -1,0 +1,381 @@
+"""The PyTorch port's ring-cache attention sweep, held against the JAX
+package on the CPU.
+
+On the CPU the ring sweep's wrapper (``ring_attention_sweep``, stage 1 of
+GQA decode and speculative verify over a ring-buffer cache, with the
+in-flight candidate fold) runs its plain PyTorch twin, and ``lse_merge``
+its plain version.  The same numpy inputs go through the JAX oracles
+(``repro.kernels.ref``), the JAX ``jnp`` backends and the Pallas ring
+kernels in interpret mode, as ``tests/test_split_kv.py`` runs them, and
+all must agree at the fp32 tolerance that file uses.  The port's own
+oracles, ``ops`` dispatch and ``ring_positions`` are checked the same way.
+"""
+import functools
+import warnings
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import decode_attention as jda
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import ops, ref
+
+C, BK = 40, 8          # ring of 40 slots in 5 blocks of 8
+D = 16
+Q = 4                  # verify rows (K = 3)
+B = 3
+SPLITS = [1, 2, 5]     # 2 does not divide 5 blocks; 5 = one block per split
+TOL = 5e-6             # fp32, as tests/test_split_kv.py
+HEADS = [(4, 2), (4, 1), (9, 3)]   # GQA, MQA, smollm's G = 3
+DECODE_POS = [13, 131]             # ring not yet full; wrapped 3 times
+VERIFY_POS = [0, 13, 131]          # pos 0: only the candidates are visible
+
+
+def _inputs(Hq, Hkv, *, seed, cache_len=C):
+    rng = np.random.default_rng(seed)
+    r = lambda *s: rng.standard_normal(s).astype(np.float32)
+    return {"q1": r(B, 1, Hq, D), "qv": r(B, Q, Hq, D),
+            "k": r(B, cache_len, Hkv, D), "v": r(B, cache_len, Hkv, D),
+            "kn": r(B, Q, Hkv, D), "vn": r(B, Q, Hkv, D)}
+
+
+_JITTED = {}
+
+
+def _jx(fn, *args, **kw):
+    """Call a JAX function jitted (one compile per signature) with ``kw``
+    static."""
+    key = (fn, tuple(sorted(kw.items())))
+    if key not in _JITTED:
+        _JITTED[key] = jax.jit(functools.partial(fn, **kw))
+    return _JITTED[key](*args)
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+def _j(a):
+    return jnp.asarray(a)
+
+
+def _np(x):
+    return x.detach().numpy() if isinstance(x, torch.Tensor) \
+        else np.asarray(x)
+
+
+def _close(a, b, tol=TOL):
+    a, b = _np(a), _np(b)
+    assert a.shape == b.shape, (a.shape, b.shape)
+    err = float(np.max(np.abs(a - b)))
+    assert err < tol, err
+
+
+def _policy(n_splits, **kw):
+    return ops.KernelPolicy(decode="cuda", kv_splits=n_splits,
+                            decode_k_chunk=BK, **kw)
+
+
+def _pos(p):
+    return np.asarray(p, np.int32)
+
+
+# --------------------------------------------------------------------------
+# ring sweep + K-merge, end to end
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("pos", DECODE_POS)
+@pytest.mark.parametrize("Hq,Hkv", HEADS)
+@pytest.mark.parametrize("n_splits", SPLITS)
+def test_ring_decode_matches_jax(Hq, Hkv, n_splits, pos):
+    a = _inputs(Hq, Hkv, seed=Hq * 30 + Hkv + n_splits + pos)
+    p = _pos(pos)
+    got = ops.decode_attention(_t(a["q1"]), _t(a["k"]), _t(a["v"]), _t(p),
+                               policy=_policy(n_splits))
+    assert got.shape == (B, 1, Hq, D) and got.dtype == torch.float32
+    kp = jops.ring_positions(_j(p), C)
+    args = (_j(a["q1"]), _j(a["k"]), _j(a["v"]), kp, _j(p))
+    _close(got, _jx(jref.decode_attention_ref, *args))
+    _close(got, _jx(jops.decode_attention_jnp, *args, n_splits=n_splits))
+    if Hq == 9:                          # interpret mode is slow: one G
+        _close(got, _jx(jda.decode_attention_pallas, _j(a["q1"]), _j(a["k"]),
+                        _j(a["v"]), _j(p), block_k=BK, n_splits=n_splits,
+                        interpret=True))
+    targs = (_t(a["q1"]), _t(a["k"]), _t(a["v"]), ops.ring_positions(
+        _t(p), C), _t(p))
+    _close(got, ref.decode_attention_ref(*targs))
+    _close(got, ops.decode_attention_torch(*targs, n_splits=n_splits))
+
+
+@pytest.mark.parametrize("pos", VERIFY_POS)
+@pytest.mark.parametrize("Hq,Hkv", HEADS)
+@pytest.mark.parametrize("n_splits", SPLITS)
+def test_ring_verify_matches_jax(Hq, Hkv, n_splits, pos):
+    a = _inputs(Hq, Hkv, seed=Hq * 40 + Hkv + n_splits + pos)
+    p = _pos(pos)
+    got = ops.verify_attention(_t(a["qv"]), _t(a["k"]), _t(a["v"]),
+                               _t(a["kn"]), _t(a["vn"]), _t(p),
+                               policy=_policy(n_splits))
+    assert got.shape == (B, Q, Hq, D) and got.dtype == torch.float32
+    kp = jops.ring_positions(_j(p) - 1, C)
+    args = (_j(a["qv"]), _j(a["k"]), _j(a["v"]), _j(a["kn"]), _j(a["vn"]),
+            kp, _j(p))
+    _close(got, _jx(jref.verify_attention_ref, *args))
+    _close(got, _jx(jops.verify_attention_jnp, *args, n_splits=n_splits))
+    if Hq == 9:
+        _close(got, _jx(jda.verify_attention_pallas, *args[:5], _j(p),
+                        block_k=BK, n_splits=n_splits, interpret=True))
+    targs = (_t(a["qv"]), _t(a["k"]), _t(a["v"]), _t(a["kn"]), _t(a["vn"]),
+             ops.ring_positions(_t(p) - 1, C), _t(p))
+    _close(got, ref.verify_attention_ref(*targs))
+    _close(got, ops.verify_attention_torch(*targs, n_splits=n_splits))
+
+
+# --------------------------------------------------------------------------
+# stage 1: partials and log-sum-exps
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("n_splits", [2, 5])
+def test_ring_decode_partials_match_pallas(n_splits):
+    """Stage-1 contract, empty splits included (pos 13 fills two of the
+    five blocks: the later splits see no valid slot -> zero partial,
+    NEG_INF lse), and the merge after it."""
+    a = _inputs(9, 3, seed=7)
+    p = _pos(13)
+    pp, lp = da.ring_attention_sweep(_t(a["q1"]), _t(a["k"]), _t(a["v"]),
+                                     _t(p).reshape(1), n_splits=n_splits,
+                                     block_k=BK)
+    jp, jl = _jx(jda.decode_attention_pallas_partials, _j(a["q1"]),
+                 _j(a["k"]), _j(a["v"]), _j(p), n_splits=n_splits,
+                 block_k=BK, interpret=True)
+    _close(pp, jp)
+    _close(lp, jl, 1e-5)
+    kp = jops.ring_positions(_j(p), C)
+    rp, rl = _jx(jref.decode_attention_split_ref, _j(a["q1"]), _j(a["k"]),
+                 _j(a["v"]), kp, _j(p), n_splits=n_splits, block_k=BK)
+    _close(pp, rp)
+    _close(lp, rl, 1e-5)
+    tp, tl = ref.decode_attention_split_ref(
+        _t(a["q1"]), _t(a["k"]), _t(a["v"]), ops.ring_positions(_t(p), C),
+        _t(p), n_splits=n_splits, block_k=BK)
+    _close(tp, rp)
+    _close(tl, rl, 1e-5)
+    assert float(lp[:, :, -1].max()) == np.float32(ref.NEG_INF)
+    merged = da.lse_merge(pp, lp, torch.float32)
+    _close(merged, _jx(jda.merge_kv_splits_pallas, jp, jl,
+                       out_dtype=jnp.float32, interpret=True))
+
+
+@pytest.mark.parametrize("n_splits", [2, 5])
+def test_ring_verify_partials_match_pallas(n_splits):
+    """Verify at pos 0: every split but the last (the candidates' one) is
+    empty; at pos 131 the wrapped ring is live in every split."""
+    a = _inputs(9, 3, seed=8)
+    for pos in (0, 131):
+        p = _pos(pos)
+        pp, lp = da.ring_attention_sweep(
+            _t(a["qv"]), _t(a["k"]), _t(a["v"]), _t(p).reshape(1),
+            k_new=_t(a["kn"]), v_new=_t(a["vn"]), n_splits=n_splits,
+            block_k=BK)
+        jp, jl = _jx(jda.verify_attention_pallas_partials, _j(a["qv"]),
+                     _j(a["k"]), _j(a["v"]), _j(a["kn"]), _j(a["vn"]),
+                     _j(p), n_splits=n_splits, block_k=BK, interpret=True)
+        _close(pp, jp)
+        _close(lp, jl, 1e-5)
+        if pos == 0:
+            assert float(lp[:, :, :-1].max()) == np.float32(ref.NEG_INF)
+            assert float(lp[:, :, -1].min()) > ref.NEG_INF
+        else:
+            assert float(lp.min()) > ref.NEG_INF
+
+
+@pytest.mark.parametrize("verify", [False, True])
+@pytest.mark.parametrize("pos", [13, 131])
+def test_window_and_softcap_match_jax(verify, pos):
+    a = _inputs(9, 3, seed=11 + verify + pos)
+    p = _pos(pos)
+    kw = {"window": 12, "logit_cap": 2.0}
+    if verify:
+        got = ops.verify_attention(_t(a["qv"]), _t(a["k"]), _t(a["v"]),
+                                   _t(a["kn"]), _t(a["vn"]), _t(p),
+                                   policy=_policy(2), **kw)
+        want = _jx(jref.verify_attention_ref, _j(a["qv"]), _j(a["k"]),
+                   _j(a["v"]), _j(a["kn"]), _j(a["vn"]),
+                   jops.ring_positions(_j(p) - 1, C), _j(p), **kw)
+        pallas = _jx(jda.verify_attention_pallas, _j(a["qv"]), _j(a["k"]),
+                     _j(a["v"]), _j(a["kn"]), _j(a["vn"]), _j(p),
+                     block_k=BK, n_splits=2, interpret=True, **kw)
+    else:
+        got = ops.decode_attention(_t(a["q1"]), _t(a["k"]), _t(a["v"]),
+                                   _t(p), policy=_policy(2), **kw)
+        want = _jx(jref.decode_attention_ref, _j(a["q1"]), _j(a["k"]),
+                   _j(a["v"]), jops.ring_positions(_j(p), C), _j(p), **kw)
+        pallas = _jx(jda.decode_attention_pallas, _j(a["q1"]), _j(a["k"]),
+                     _j(a["v"]), _j(p), block_k=BK, n_splits=2,
+                     interpret=True, **kw)
+    _close(got, want)
+    _close(got, pallas)
+
+
+@pytest.mark.parametrize("verify", [False, True])
+def test_block_divisor_rule_matches_jax(verify):
+    """C = 45 with a requested block of 16: the block is 15 (the largest
+    divisor of 45 not above 16), so 3 blocks split 2 ways as the Pallas
+    kernel splits them."""
+    a = _inputs(9, 3, seed=21, cache_len=45)
+    p = _pos(100)
+    assert da.ring_block_k(45, 16) == 15 and da.ring_block_k(40, 256) == 40
+    if verify:
+        got = da.ring_attention_sweep(
+            _t(a["qv"]), _t(a["k"]), _t(a["v"]), _t(p).reshape(1),
+            k_new=_t(a["kn"]), v_new=_t(a["vn"]), n_splits=2, block_k=16)
+        want = _jx(jda.verify_attention_pallas_partials, _j(a["qv"]),
+                   _j(a["k"]), _j(a["v"]), _j(a["kn"]), _j(a["vn"]), _j(p),
+                   n_splits=2, block_k=16, interpret=True)
+    else:
+        got = da.ring_attention_sweep(_t(a["q1"]), _t(a["k"]), _t(a["v"]),
+                                      _t(p).reshape(1), n_splits=2,
+                                      block_k=16)
+        want = _jx(jda.decode_attention_pallas_partials, _j(a["q1"]),
+                   _j(a["k"]), _j(a["v"]), _j(p), n_splits=2, block_k=16,
+                   interpret=True)
+    _close(got[0], want[0])
+    _close(got[1], want[1], 1e-5)
+
+
+def test_ragged_decode_pos_matches_jax():
+    """A (B,) pos: every batch row decodes against its own ring depth."""
+    a = _inputs(9, 3, seed=31)
+    p = np.asarray([5, 40, 131], np.int32)
+    got = ops.decode_attention(_t(a["q1"]), _t(a["k"]), _t(a["v"]), _t(p),
+                               policy=_policy(2))
+    want = _jx(jda.decode_attention_pallas, _j(a["q1"]), _j(a["k"]),
+               _j(a["v"]), _j(p), block_k=BK, n_splits=2, interpret=True)
+    _close(got, want)
+    _close(got, _jx(jops.decode_attention_jnp, _j(a["q1"]), _j(a["k"]),
+                    _j(a["v"]), jops.ring_positions(_j(p), C), _j(p)))
+
+
+def test_sweep_single_split_keeps_query_dtype():
+    a = _inputs(9, 3, seed=12)
+    p = _pos(131)
+    bf = lambda x: _t(x).to(torch.bfloat16)
+    out = da.ring_attention_sweep(bf(a["q1"]), bf(a["k"]), bf(a["v"]),
+                                  _t(p).reshape(1), n_splits=1, block_k=BK)
+    assert isinstance(out, torch.Tensor) and out.dtype == torch.bfloat16
+    jbf = lambda x: _j(x).astype(jnp.bfloat16)
+    want = _jx(jref.decode_attention_ref, jbf(a["q1"]), jbf(a["k"]),
+               jbf(a["v"]), jops.ring_positions(_j(p), C), _j(p))
+    _close(out.float(), np.asarray(want, np.float32), 2e-2)
+
+
+# --------------------------------------------------------------------------
+# dispatch, positions, split heuristic
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("kv_splits", ["auto", 1, 3])
+def test_ops_dispatch_backends_agree(kv_splits):
+    """Every CPU backend of both ring entry points gives the JAX ``auto``
+    answer for the same ``kv_splits`` and ``decode_k_chunk``."""
+    a = _inputs(9, 3, seed=13)
+    p = _pos(131)
+    jpol = jops.KernelPolicy(kv_splits=kv_splits, decode_k_chunk=BK)
+    jd = _jx(jops.decode_attention, _j(a["q1"]), _j(a["k"]), _j(a["v"]),
+             _j(p), policy=jpol)
+    jv = _jx(jops.verify_attention, _j(a["qv"]), _j(a["k"]), _j(a["v"]),
+             _j(a["kn"]), _j(a["vn"]), _j(p), policy=jpol)
+    for backend in ("auto", "ref", "torch", "cuda"):
+        pol = ops.KernelPolicy(decode=backend, kv_splits=kv_splits,
+                               decode_k_chunk=BK)
+        _close(ops.decode_attention(_t(a["q1"]), _t(a["k"]), _t(a["v"]),
+                                    _t(p), policy=pol), jd)
+        _close(ops.verify_attention(_t(a["qv"]), _t(a["k"]), _t(a["v"]),
+                                    _t(a["kn"]), _t(a["vn"]), _t(p),
+                                    policy=pol), jv)
+
+
+def test_ring_positions_match_jax():
+    for pos in (0, 7, 39, 40, 131):
+        _close(ops.ring_positions(torch.tensor(pos), C),
+               jops.ring_positions(jnp.asarray(pos), C), 0.5)
+    batch = np.asarray([0, 13, 131], np.int32)
+    got = ops.ring_positions(_t(batch), C)
+    assert got.shape == (3, C)
+    _close(got, jops.ring_positions(_j(batch), C), 0.5)
+    assert int(got[1].max()) == 13 and int(got[1].min()) < 0
+
+
+def test_custom_k_pos_routes_to_torch_with_one_warning(monkeypatch):
+    """A custom slot layout cannot use the ring kernel: on CPU tensors
+    ``cuda`` runs the torch backend for it, warns once per entry point, and
+    launches nothing (on CUDA tensors it raises; ``chip_smoke.py`` checks
+    that)."""
+    monkeypatch.setattr(ops, "_KPOS_FALLBACK_WARNED", set())
+    a = _inputs(9, 3, seed=14)
+    p = _pos(20)
+    k_pos = np.arange(C, dtype=np.int32)[::-1].copy()     # reversed layout
+    k_pos[30:] = -1
+    da.reset_launches()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for _ in range(2):
+            got = ops.decode_attention(_t(a["q1"]), _t(a["k"]), _t(a["v"]),
+                                       _t(p), k_pos=_t(k_pos),
+                                       policy=_policy(2))
+            gv = ops.verify_attention(_t(a["qv"]), _t(a["k"]), _t(a["v"]),
+                                      _t(a["kn"]), _t(a["vn"]), _t(p),
+                                      k_pos=_t(k_pos), policy=_policy(2))
+    msgs = [str(w.message) for w in caught
+            if issubclass(w.category, RuntimeWarning)]
+    assert len(msgs) == 2 and "decode_attention" in msgs[0] \
+        and "verify_attention" in msgs[1]
+    _close(got, _jx(jops.decode_attention_jnp, _j(a["q1"]), _j(a["k"]),
+                    _j(a["v"]), _j(k_pos), _j(p), n_splits=2))
+    _close(gv, _jx(jops.verify_attention_jnp, _j(a["qv"]), _j(a["k"]),
+                   _j(a["v"]), _j(a["kn"]), _j(a["vn"]), _j(k_pos), _j(p),
+                   n_splits=2))
+    assert da.LAUNCHES["ring_decode"] == da.LAUNCHES["ring_verify"] == 0
+
+
+@pytest.mark.parametrize("batch,kv_len,heads,cores,block", [
+    (8, 545, 9, 132, 256), (4, 4096, 9, 132, 256), (1, 545, 9, 132, 256),
+    (32, 545, 9, 132, 256), (3, 40, 9, 8, 8), (2, 64, 4, 8, 256)])
+def test_choose_kv_splits_on_ring_shapes_matches_jax(batch, kv_len, heads,
+                                                     cores, block):
+    assert ops.choose_kv_splits(batch, kv_len, heads, cores, block=block) \
+        == jops.choose_kv_splits(batch, kv_len, heads, cores, block=block)
+
+
+def test_smoke_batch_shape_splits_three_ways():
+    """chip_smoke's batch path: 8 requests x 9 heads = 72 cells under 2 x
+    132 SMs, C = 545 in 5 blocks of 109; the requested 256-key chunk gives
+    3 blocks, so S = 3, and 3 splits of 2, 2 and 1 blocks."""
+    assert ops.choose_kv_splits(8, 545, 9, 132, block=256) == 3
+    assert da.ring_block_k(545, 256) == 109
+    assert da.split_blocks(545 // 109, 3) == (3, 2)
+
+
+def test_int8_ring_caches_raise_by_name():
+    a = _inputs(4, 2, seed=1)
+    p = _t(_pos(13))
+    scale = torch.ones((B, C, 2, 1))
+    with pytest.raises(NotImplementedError, match="int8 KV caches"):
+        ops.decode_attention(_t(a["q1"]), _t(a["k"]), _t(a["v"]), p,
+                             k_scale=scale, v_scale=scale)
+    with pytest.raises(NotImplementedError, match="int8 KV caches"):
+        ops.verify_attention(_t(a["qv"]), _t(a["k"]), _t(a["v"]),
+                             _t(a["kn"]), _t(a["vn"]), p, k_scale=scale,
+                             v_scale=scale)
+    kp = ops.ring_positions(p, C)
+    for oracle in (ref.decode_attention_ref, ref.decode_attention_split_ref):
+        kw = {"n_splits": 2} if oracle is ref.decode_attention_split_ref \
+            else {}
+        with pytest.raises(NotImplementedError, match="int8 KV caches"):
+            oracle(_t(a["q1"]), _t(a["k"]), _t(a["v"]), kp, p,
+                   k_scale=scale, v_scale=scale, **kw)
+    with pytest.raises(NotImplementedError, match="int8 KV caches"):
+        ref.verify_attention_ref(_t(a["qv"]), _t(a["k"]), _t(a["v"]),
+                                 _t(a["kn"]), _t(a["vn"]), kp, p,
+                                 k_scale=scale, v_scale=scale)
