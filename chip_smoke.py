@@ -13,37 +13,50 @@ Phases, in order; any failure exits non-zero (nothing is caught):
                 for fp32).  The paged K-sweep (decode / split decode /
                 verify with candidates) and the K-merge at the engine's
                 shapes (Hq 9, Hkv 3, head_dim 64, page 16, 4 slots), plus
-                deep 4k-position cases (bf16 and fp32), a window /
-                logit-cap case, and fp32 and head_dim-128 cases; table ids
-                past a request's length must never be read, and a bad id
-                inside it must stop the kernel.  The ring sweep (decode,
-                and verify with Q = 4) at the batch path's shapes (8
-                requests, ring of 545 slots in 5 blocks of 109, n_splits 1,
-                3 and 5), bf16 and fp32, a ring wrapped three times, verify
-                at pos 0, a window / logit-cap case, ragged per-row
-                positions (each of these four in fp32 too), head_dim 128,
-                and a deep fp32 case (4 requests, 4096 slots, n_splits
-                auto); a custom ring ``k_pos`` on the card must raise;
+                deep 4k-position cases, a window / logit-cap case, fp32
+                and head_dim-128 cases; table ids past a request's length
+                must never be read, and a bad id inside it must stop the
+                kernel.  The ring sweep (decode, and verify with Q = 4) at
+                the batch path's shapes (ring of 545 slots, n_splits 1, 3
+                and 5), wrapped, at pos 0, window / logit-cap, ragged
+                per-row positions, head_dim 128 and deep 4096-slot cases;
+                a custom ring ``k_pos`` on the card must raise.  The
+                prefill flash attention (K4) at smollm's 8 x 512, gemma2's
+                shape over 8192 keys with and without its 4096 window (cap
+                50, scale 144^-0.5), a q_offset case and ragged Sq 37 and
+                1000, in bf16 and fp32 (rows that see no key: finite); the
+                fused RMSNorm (K9) at d 576 and 4608, both forms, 1 to
+                8192 rows;
   3. reference — full-width smollm-135m at fp32, twice on the kernels and
-                twice on the plain torch path with the same split counts:
-                the engine (Poisson trace with prefix hits) and the static
-                batch (8 requests x 512 prompt tokens + 32 decode steps)
-                must give equal greedy streams and every logits call within
-                1e-3; on the kernels, the batch's n-gram speculative loop
-                (K 3) must emit the plain kernel loop's stream over all of
-                its tokens, both run past the ring's 545 slots so that the
-                comparison covers the wrap, and a replay drafter of that
-                stream must be accepted in full;
-  4. main paths — ``repro_torch.launch.serve`` on smollm-135m at full
-                width (bf16, random weights from a seed, FROST plane on):
-                the engine on a Poisson trace of 8 requests over 4 slots
-                with 2 shared 32-token prompt heads, then the static batch
-                of 8 requests (512 prompt tokens, 33 new), the same with
-                ``--spec-k 3``, and the Poisson run with ``--spec-k 3``.
-                The launch counts are zeroed just before each run and read
-                just after it.  Every request must finish its token budget
-                with finite logits, and every kernel of a path must have
-                been launched on it;
+                twice on the plain torch path (chunked prefill twin,
+                RMSNorm oracle, torch decode backends, the same split
+                counts): the engine (Poisson trace with prefix hits) and
+                the static batch (8 requests x 512 prompt tokens + 32
+                decode steps) must give equal greedy streams and every
+                logits call within 1e-3; on the kernels, the batch's
+                n-gram speculative loop (K 3) must emit the plain kernel
+                loop's stream past the ring's end, and a replay drafter of
+                that stream must be accepted in full.  Then gemma2-27b at
+                full width and fp32, cut to 2 local/global units (4
+                layers), the same way: the batch of 2 x 4352 prompt tokens
+                + 16 new (the window masks prefill, the local rings wrap)
+                and the engine on a trace whose requests pass 4096
+                positions (the private rings wrap at inject and in
+                decode);
+  4. main paths — ``repro_torch.launch.serve`` at full width (bf16,
+                random weights from a seed drawn on the card, FROST plane
+                on): smollm-135m's engine on a Poisson trace of 8 requests
+                over 4 slots with 2 shared 32-token prompt heads, its
+                static batch of 8 requests (512 prompt tokens, 33 new),
+                the same with ``--spec-k 3``, and the Poisson run with
+                ``--spec-k 3``; then gemma2-27b (46 layers, 54.5 GB of
+                weights): the batch of 4 x 512 prompt tokens + 33 new, the
+                engine on 8 Poisson requests over 4 slots, and the long
+                batch of 2 x 4352 + 17 new.  The launch counts are zeroed
+                just before each run and read just after it.  Every
+                request must finish its token budget with finite logits,
+                and every kernel of a path, K4 and K9 on all seven, must
+                have been launched on it;
   5. timing   — CUDA-event times of each kernel, its plain version and a
                 library yardstick at the main paths' shapes, beside the
                 least time the card could take.
@@ -68,6 +81,8 @@ BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor peak, FLOP/s
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 PAGED_SRC = "src/repro_torch/kernels/csrc/paged_attention.cu"
 RING_SRC = "src/repro_torch/kernels/csrc/ring_attention.cu"
+FA_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
+RMS_SRC = "src/repro_torch/kernels/csrc/rmsnorm.cu"
 # kernel entry -> (source, the Pallas function it replaces, launch key)
 KERNELS = {
     "paged_attention_sweep (decode)": (
@@ -82,10 +97,16 @@ KERNELS = {
         RING_SRC, "src/repro/kernels/decode_attention.py:384", "ring_decode"),
     "ring_attention_sweep (verify)": (
         RING_SRC, "src/repro/kernels/decode_attention.py:682", "ring_verify"),
+    "flash_attention": (
+        FA_SRC, "src/repro/kernels/flash_attention.py:94", "flash_attention"),
+    "rmsnorm": (RMS_SRC, "src/repro/kernels/rmsnorm.py:27", "rmsnorm"),
 }
 # the static batch path of phases 3 to 5: 8 requests, 512 prompt tokens,
 # 33 new, so a ring of 545 slots (5 blocks of 109)
 BATCH, PLEN, GEN = 8, 512, 33
+# gemma2's long prompt: past the local layers' window of 4096, so that the
+# window masks prefill and the local rings wrap
+G_LONG = 4352
 
 
 def fail(msg: str) -> None:
@@ -385,6 +406,116 @@ def check_ring_kernels(torch, np, dev, da, ops, errs):
         "NotImplementedError, no plain fallback")
 
 
+GEMMA_ATTN = {"logit_cap": 50.0, "scale": 144.0 ** -0.5}
+
+
+def fa_case(torch, np, dev, *, B, Sq, Sk, Hq, Hkv, D, dtype, seed):
+    """Seeded q (B, Sq, Hq, D), k and v (B, Sk, Hkv, D) on the card."""
+    rng = np.random.default_rng(seed)
+    dt = getattr(torch, dtype)
+
+    def r(*shape):
+        return torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
+                            device=dev).to(dt)
+
+    return r(B, Sq, Hq, D), r(B, Sk, Hkv, D), r(B, Sk, Hkv, D)
+
+
+def check_prefill_kernels(torch, np, dev, fa, rms, ops, common, errs):
+    """Phase 2, K4 and K9.  K4 against ``flash_attention_torch`` at
+    smollm's prefill shape, at gemma2's over 8192 keys with and without
+    its 4096 window, with a q_offset, ragged (Sq 37 and 1000); rows that
+    see no key only finite.  K9 against ``common.rmsnorm`` at d 576 and
+    4608, plain and gemma forms, 1 to 8192 rows, fp32 and bf16 scales."""
+    smol = dict(B=8, Sq=512, Sk=512, Hq=9, Hkv=3, D=64)
+    gem = dict(Hq=32, Hkv=16, D=128)
+    cases = [
+        ("smollm 8 x 512 causal", smol, {}),
+        ("gemma2 8192 keys, window 4096, cap 50",
+         dict(gem, B=1, Sq=8192, Sk=8192), dict(GEMMA_ATTN, window=4096)),
+        ("gemma2 8192 keys, no window, cap 50",
+         dict(gem, B=1, Sq=8192, Sk=8192), GEMMA_ATTN),
+        ("gemma2 q_offset 1536 over 2048 keys, window 1000",
+         dict(gem, B=2, Sq=512, Sk=2048),
+         dict(GEMMA_ATTN, q_offset=1536, window=1000)),
+        ("ragged Sq 37", dict(smol, B=3, Sq=37, Sk=37), {"window": 16}),
+        ("ragged Sq 1000", dict(gem, B=1, Sq=1000, Sk=1000),
+         dict(GEMMA_ATTN, window=300)),
+    ]
+    for dtype in ("bfloat16", "float32"):
+        tol = TOL[dtype]
+        for i, (label, shp, kw) in enumerate(cases):
+            q, k, v = fa_case(torch, np, dev, dtype=dtype, seed=400 + i,
+                              **shp)
+            got = fa.flash_attention(q, k, v, **kw)
+            want = ops.flash_attention_torch(q, k, v, **kw)
+            e = max_err(torch, got, want, tol, f"K4 {label} {dtype}")
+            errs["flash_attention"] = max(errs["flash_attention"], e)
+            torch.cuda.synchronize()
+            say(f"kernels ok: K4 {label} ({dtype}), max |kernel - plain| "
+                f"{e:.3e} (tol {tol})")
+        # rows 40.. with a window of 8 over 32 keys see none: finite only
+        q, k, v = fa_case(torch, np, dev, B=1, Sq=16, Sk=32, Hq=4, Hkv=2,
+                          D=64, dtype=dtype, seed=499)
+        if not bool(torch.isfinite(fa.flash_attention(
+                q, k, v, q_offset=40, window=8)).all()):
+            fail(f"K4 rows without keys ({dtype}): non-finite output")
+    say("kernels ok: K4 rows that see no key are finite")
+    rng = np.random.default_rng(500)
+    for dtype in ("bfloat16", "float32"):
+        tol = TOL[dtype]
+        worst = 0.0
+        for d in (8, 576, 4608, 8192):
+            for rows in (1, 7, 1000, 8192):
+                x = torch.tensor(3.0 * rng.standard_normal((rows, d)),
+                                 dtype=torch.float32, device=dev).to(
+                                     getattr(torch, dtype))
+                for w_dtype in (torch.float32, torch.bfloat16):
+                    w = torch.tensor(0.5 * rng.standard_normal(d),
+                                     dtype=torch.float32,
+                                     device=dev).to(w_dtype)
+                    for gemma in (False, True):
+                        got = rms.rmsnorm(x, w, eps=1e-6, gemma_style=gemma)
+                        want = common.rmsnorm(x, w, 1e-6, gemma_style=gemma)
+                        worst = max(worst, max_err(
+                            torch, got, want, tol,
+                            f"K9 d {d} rows {rows} {dtype} w {w_dtype} "
+                            f"gemma {gemma}"))
+        errs["rmsnorm"] = max(errs["rmsnorm"], worst)
+        torch.cuda.synchronize()
+        say(f"kernels ok: K9 d 8 / 576 / 4608 / 8192, 1 to 8192 rows, both "
+            f"forms ({dtype}), max |kernel - plain| {worst:.3e} (tol {tol})")
+    # the dispatch: auto launches the kernels on CUDA tensors, and shapes
+    # the kernels do not take raise instead of taking a plain version
+    q, k, v = fa_case(torch, np, dev, B=1, Sq=64, Sk=64, Hq=4, Hkv=2, D=64,
+                      dtype="bfloat16", seed=501)
+    x = q.reshape(-1, 64)
+    before = dict(fa.LAUNCHES)
+    ops.attention(q, k, v)
+    ops.rmsnorm(x, torch.zeros(64, device=dev), gemma_style=True)
+    if (fa.LAUNCHES["flash_attention"] - before["flash_attention"],
+            fa.LAUNCHES["rmsnorm"] - before["rmsnorm"]) != (1, 1):
+        fail("ops.attention / ops.rmsnorm under auto did not launch the "
+             "kernels on CUDA tensors")
+    q96 = torch.zeros((1, 8, 4, 96), dtype=torch.bfloat16, device=dev)
+    k96 = torch.zeros((1, 8, 2, 96), dtype=torch.bfloat16, device=dev)
+    for what, call in (
+            ("K4 head_dim 96", lambda: fa.flash_attention(q96, k96, k96)),
+            ("K4 Dv != D", lambda: fa.flash_attention(q, k, v[..., :32])),
+            ("K9 width 12", lambda: rms.rmsnorm(
+                x[:, :12].contiguous(), torch.zeros(12, device=dev)))):
+        try:
+            call()
+        except ValueError:
+            continue
+        fail(f"{what} on the card did not raise ValueError")
+    if fa.LAUNCHES["flash_attention"] - before["flash_attention"] != 1 \
+            or fa.LAUNCHES["rmsnorm"] - before["rmsnorm"] != 1:
+        fail("a refused K4 / K9 call launched a kernel")
+    say("kernels ok: auto launches K4 and K9 on CUDA tensors; head_dim 96, "
+        "Dv != D and width 12 raise ValueError, no plain fallback")
+
+
 # --------------------------------------------------------------------------
 # phase 3 / 4 helpers
 # --------------------------------------------------------------------------
@@ -417,6 +548,18 @@ class LogitsTap:
         self.tfm.lm_logits = self.inner
 
 
+def step_configs(steps):
+    """Phase 3's two paths: every op on the kernels, and every op on its
+    plain torch version (the chunked prefill twin, the RMSNorm oracle, the
+    torch decode backends) with the same split counts."""
+    base = steps.StepConfig().kernel_policy
+    return {"cuda": steps.StepConfig(kernel_policy=dataclasses.replace(
+                base, attention="cuda", rmsnorm="cuda", decode="cuda")),
+            "torch": steps.StepConfig(kernel_policy=dataclasses.replace(
+                base, attention="chunked", rmsnorm="ref", decode="torch",
+                q_chunk=256, k_chunk=256))}
+
+
 def reference_check(torch, dev, cfg, tfm, serving, steps, bridge):
     """Phase 3: kernels vs plain torch path, full width, fp32."""
     cfg32 = dataclasses.replace(cfg, dtype="float32")
@@ -428,10 +571,7 @@ def reference_check(torch, dev, cfg, tfm, serving, steps, bridge):
     ecfg = serving.EngineConfig(n_slots=4, page_size=16, max_len=64,
                                 decode_chunk=4, cache_dtype="float32")
     runs = {}
-    for backend in ("cuda", "torch"):
-        policy = dataclasses.replace(steps.StepConfig().kernel_policy,
-                                     decode=backend)
-        scfg = steps.StepConfig(kernel_policy=policy)
+    for backend, scfg in step_configs(steps).items():
         with LogitsTap(torch, tfm, record=True) as tap:
             rep = serving.ServeEngine(cfg32, ecfg, params, step_cfg=scfg,
                                       device=dev).run(reqs)
@@ -473,9 +613,7 @@ def reference_batch_check(torch, np, dev, cfg, tfm, steps, speculate,
     prompts = batch_prompts(torch, np, dev, cfg.vocab_size)
 
     def step_cfg(backend):
-        policy = dataclasses.replace(steps.StepConfig().kernel_policy,
-                                     decode=backend)
-        return steps.StepConfig(kernel_policy=policy)
+        return step_configs(steps)[backend]
 
     def prefill(scfg):
         pre = steps.make_prefill_step(cfg32, scfg, max_len=PLEN + GEN)
@@ -549,6 +687,86 @@ def reference_batch_check(torch, np, dev, cfg, tfm, steps, speculate,
         f"{results['ngram'][0]:.0%}, ring of {PLEN + GEN} slots wrapped to "
         f"position {results['ngram'][1]}), replay acceptance "
         f"{results['replay'][0]:.0%}")
+
+
+def gemma_reference(torch, np, dev, gcfg, tfm, serving, steps, bridge):
+    """Phase 3, gemma2 at full width in fp32, cut to 2 local/global units
+    (4 layers): the static batch (2 x 4352 prompt tokens, 16 new) and the
+    engine on a trace that runs one request past 4096 positions, each on
+    the kernels and on the plain path.  Greedy streams equal, every
+    logits call (its last position) within 1e-3."""
+    cfg = dataclasses.replace(gcfg, n_layers=4, dtype="float32")
+    params = bridge.init_lm(cfg, torch.Generator(device=dev).manual_seed(3),
+                            dev)
+    g = torch.Generator(device=dev).manual_seed(4)
+    for blk in params["layers"].values():       # read the (1 + w) form
+        for key, t in blk.items():
+            if "norm" in key:
+                t.add_(0.1 * torch.randn(t.shape, generator=g, device=dev))
+    params = tfm.prepare_params(params, cfg)
+    cfgs = step_configs(steps)
+    rng = np.random.default_rng(6)
+    prompts = torch.tensor(rng.integers(0, cfg.vocab_size, (2, G_LONG)),
+                           dtype=torch.int32, device=dev)
+
+    def compare(label, streams, calls):
+        if not all(np.array_equal(a, b)
+                   for a, b in zip(streams["cuda"], streams["torch"])):
+            fail(f"gemma2 reference {label}: kernel stream differs from the "
+                 "plain path's")
+        if len(calls["cuda"]) != len(calls["torch"]):
+            fail(f"gemma2 reference {label}: different logits calls")
+        return max(float((a - b).abs().max())
+                   for a, b in zip(calls["cuda"], calls["torch"]))
+
+    streams, calls = {}, {}
+    with torch.no_grad():
+        for backend, scfg in cfgs.items():
+            with LogitsTap(torch, tfm, record=True, last_only=True) as tap:
+                pre = steps.make_prefill_step(cfg, scfg, max_len=G_LONG + 16)
+                last, cache = pre(params, {"inputs": prompts})
+                tok0 = torch.argmax(last, dim=-1).to(torch.int32)[:, None]
+                toks, cache = steps.make_decode_loop(cfg, scfg, 15)(
+                    params, cache, tok0)
+            if cache["units"]["sub0"]["k"].shape[2] != 4096 \
+                    or int(cache["pos"]) != G_LONG + 15:
+                fail("gemma2 reference batch: the local ring is not 4096 "
+                     "slots past its wrap")
+            streams[backend] = torch.cat([tok0, toks], 1).cpu().numpy()
+            calls[backend] = tap.calls
+            del cache
+    err = compare("batch", streams, calls)
+    if err > 1e-3:
+        fail(f"gemma2 reference batch: logits differ by {err:.3e} > 1e-3")
+    say(f"reference ok: gemma2 fp32 full width, 4 layers, batch of 2 x "
+        f"{G_LONG} tokens + 16 new (window 4096 masks prefill, local rings "
+        f"wrapped): streams equal on kernels and plain path, "
+        f"{len(calls['cuda'])} logits calls within {err:.3e}")
+
+    prompt = lambda n: rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+    reqs = [serving.Request(0, prompt(4200), 8),
+            serving.Request(1, prompt(4080), 40),
+            serving.Request(2, prompt(64), 16, arrival_step=2)]
+    ecfg = serving.EngineConfig(n_slots=2, page_size=16, max_len=4352,
+                                decode_chunk=8, cache_dtype="float32")
+    streams, calls = {}, {}
+    for backend, scfg in cfgs.items():
+        with LogitsTap(torch, tfm, record=True, last_only=True) as tap:
+            rep = serving.ServeEngine(cfg, ecfg, params, step_cfg=scfg,
+                                      device=dev).run(reqs)
+        for r in rep.results:
+            if r.n_tokens != r.max_new_tokens:
+                fail(f"gemma2 reference engine: rid {r.rid} finished "
+                     f"{r.n_tokens}/{r.max_new_tokens}")
+        streams[backend] = [r.tokens for r in rep.results]
+        calls[backend] = tap.calls
+    err = compare("engine", streams, calls)
+    if err > 1e-3:
+        fail(f"gemma2 reference engine: logits differ by {err:.3e} > 1e-3")
+    say(f"reference ok: gemma2 fp32 full width, 4 layers, engine: prompts "
+        f"of 4200 (inject wraps the 4096-row private ring), 4080 + 40 new "
+        f"(decode wraps it) and 64: streams equal on kernels and plain path,"
+        f" {len(calls['cuda'])} logits calls within {err:.3e}")
 
 
 # --------------------------------------------------------------------------
@@ -815,6 +1033,98 @@ def ring_timings(torch, np, dev, da, ops):
     return out
 
 
+def fa_work(np, B, Sq, Sk, Hq, Hkv, D, es, *, window=0, q_offset=0, **_):
+    """(bytes, flops) of K4: q, k, v read once, out written once; 4 flops
+    per (q row, visible key, dim, q head) for q.k and p.v, over the
+    causal / window band these shapes need."""
+    qp = q_offset + np.arange(Sq)
+    hi = np.minimum(qp + 1, Sk)
+    lo = np.maximum(qp - window + 1, 0) if window > 0 else 0
+    pairs = int(np.maximum(hi - lo, 0).sum())
+    nbytes = es * (2 * B * Sq * Hq * D + 2 * B * Sk * Hkv * D)
+    return nbytes, 4.0 * B * Hq * D * pairs
+
+
+def sdpa_prefill_yardstick(torch, q, k, v, *, window=0, scale=None, **_):
+    """One F.scaled_dot_product_attention call with the same scale and the
+    causal / window mask, kv heads expanded beforehand; no soft-cap, since
+    no single call has one."""
+    F = torch.nn.functional
+    G = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2).contiguous()
+    kt = k.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+    vt = v.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+    if window <= 0:
+        return lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, scale=scale)
+    i = torch.arange(q.shape[1], device=q.device)
+    mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                  attn_mask=mask, scale=scale)
+
+
+def prefill_timings(torch, np, dev, fa, rms, ops, common):
+    """Phase 5, K4 and K9 at the main paths' shapes (bf16): K4 at gemma2's
+    batch prefill (4 x 512, Hq 32, Hkv 16, D 128, cap 50, the JSON row),
+    smollm's (8 x 512, Hq 9, Hkv 3, D 64) and gemma2's long local layer
+    (2 x 4352, window 4096); K9 at gemma2's 2048 prefill rows of 4608
+    (gemma form, the JSON row), smollm's 4096 rows of 576 and a 4-row
+    decode step of gemma2."""
+    out = {}
+    cases = [("gemma2 4 x 512", dict(B=4, Sq=512, Sk=512, Hq=32, Hkv=16,
+                                     D=128), GEMMA_ATTN),
+             ("smollm 8 x 512", dict(B=8, Sq=512, Sk=512, Hq=9, Hkv=3,
+                                     D=64), {}),
+             ("gemma2 2 x 4352 local", dict(B=2, Sq=G_LONG, Sk=G_LONG, Hq=32,
+                                            Hkv=16, D=128),
+              dict(GEMMA_ATTN, window=4096))]
+    for i, (label, shp, kw) in enumerate(cases):
+        q, k, v = fa_case(torch, np, dev, dtype="bfloat16", seed=600 + i,
+                          **shp)
+        reps = 5 if shp["Sq"] > 1024 else 20
+        ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, **kw),
+                     iters=5, reps=reps)
+        plain = time_ms(torch, lambda: ops.flash_attention_torch(
+            q, k, v, **kw), iters=3, reps=3)
+        lib = time_ms(torch, sdpa_prefill_yardstick(torch, q, k, v, **kw),
+                      iters=5, reps=reps)
+        b_ms, b_by = bound(*fa_work(np, **shp, es=2, **kw))
+        say(f"K4 {label}: kernel {ms * 1e3:.1f} us, plain "
+            f"{plain * 1e3:.1f} us, sdpa (no cap) {lib * 1e3:.1f} us, "
+            f"bound {b_ms * 1e3:.2f} us ({b_by})")
+        if i == 0:
+            out["flash_attention"] = dict(ms=ms, plain_ms=plain,
+                                          library_ms=lib, bound_ms=b_ms,
+                                          bound_by=b_by, shape=label)
+        del q, k, v
+    F = torch.nn.functional
+    rng = np.random.default_rng(700)
+    for i, (label, rows, d, gemma) in enumerate((
+            ("gemma2 2048 x 4608", 2048, 4608, True),
+            ("smollm 4096 x 576", 4096, 576, False),
+            ("gemma2 decode 4 x 4608", 4, 4608, True))):
+        x = torch.tensor(rng.standard_normal((rows, d)), dtype=torch.float32,
+                         device=dev).to(torch.bfloat16)
+        w = torch.tensor(0.1 * rng.standard_normal(d), dtype=torch.float32,
+                         device=dev)
+        ms = time_ms(torch, lambda: rms.rmsnorm(x, w, gemma_style=gemma))
+        plain = time_ms(torch, lambda: common.rmsnorm(x, w, 1e-6,
+                                                      gemma_style=gemma))
+        w_lib = ((1.0 + w) if gemma else w).to(x.dtype)
+        lib = (time_ms(torch, lambda: F.rms_norm(x, (d,), weight=w_lib,
+                                                 eps=1e-6))
+               if hasattr(F, "rms_norm") else None)
+        b_ms, b_by = bound(2 * x.numel() * 2 + 4 * d, 4.0 * x.numel())
+        lib_s = "n/a" if lib is None else f"{lib * 1e3:.1f} us"
+        say(f"K9 {label}: kernel {ms * 1e3:.1f} us, plain "
+            f"{plain * 1e3:.1f} us, F.rms_norm {lib_s}, bound "
+            f"{b_ms * 1e3:.3f} us ({b_by})")
+        if i == 0:
+            out["rmsnorm"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                                  bound_ms=b_ms, bound_by=b_by, shape=label)
+    return out
+
+
 def serve_run(torch, da, tfm, serve, label, argv):
     """One main-path run through the launcher: launch counts zeroed just
     before, read just after; finite logits required."""
@@ -845,8 +1155,11 @@ def main() -> int:
     from repro_torch.configs import get_arch
     from repro_torch.kernels import build
     from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
+    from repro_torch.kernels import rmsnorm as rms
     from repro_torch.launch import serve
+    from repro_torch.models import common
     from repro_torch.models import transformer as tfm
     from repro_torch.runtime import speculate, steps
 
@@ -872,12 +1185,17 @@ def main() -> int:
     # 2. kernels against their plain versions ---------------------------------
     errs = check_kernels(torch, np, dev, da, ops)
     check_ring_kernels(torch, np, dev, da, ops, errs)
+    errs.update(flash_attention=0.0, rmsnorm=0.0)
+    check_prefill_kernels(torch, np, dev, fa, rms, ops, common, errs)
 
     # 3. reference: kernels vs plain torch, full width, fp32 ------------------
     cfg = get_arch("smollm-135m").config
     reference_check(torch, dev, cfg, tfm, serving, steps, bridge)
     reference_batch_check(torch, np, dev, cfg, tfm, steps, speculate,
                           bridge)
+    gcfg = get_arch("gemma2-27b").config
+    gemma_reference(torch, np, dev, gcfg, tfm, serving, steps, bridge)
+    torch.cuda.empty_cache()
 
     # 4. the main paths -------------------------------------------------------
     poisson = ["--arch", "smollm-135m", "--traffic", "poisson",
@@ -885,21 +1203,37 @@ def main() -> int:
                "--prompt-pools", "2", "--n-slots", "4", "--page-size", "16"]
     batch = ["--arch", "smollm-135m", "--traffic", "batch", "--requests",
              str(BATCH), "--prompt-len", str(PLEN), "--gen", str(GEN)]
+    gemma = ["--arch", "gemma2-27b"]
+    g_poisson = gemma + ["--traffic", "poisson", "--requests", "8",
+                         "--n-slots", "4", "--page-size", "16"]
+    g_batch = gemma + ["--traffic", "batch", "--requests", "4",
+                       "--prompt-len", str(PLEN), "--gen", str(GEN)]
+    g_long = gemma + ["--traffic", "batch", "--requests", "2",
+                      "--prompt-len", str(G_LONG), "--gen", "17"]
+    prefill = ("flash_attention", "rmsnorm")
     paths = [("poisson", poisson, ("sweep_decode", "sweep_verify", "merge")),
              ("batch", batch, ("ring_decode", "merge")),
              ("batch --spec-k 3", batch + ["--spec-k", "3"],
               ("ring_verify", "merge")),
              ("poisson --spec-k 3", poisson + ["--spec-k", "3"],
-              ("sweep_verify", "merge"))]
+              ("sweep_verify", "merge")),
+             ("gemma2 batch", g_batch, ("ring_decode", "merge")),
+             ("gemma2 poisson", g_poisson, ("sweep_decode", "ring_decode")),
+             ("gemma2 long batch", g_long, ("ring_decode", "merge"))]
     launches = {key: 0 for key in da.LAUNCHES}
     for label, argv, keys in paths:
+        torch.cuda.reset_peak_memory_stats()
         out, counts = serve_run(torch, da, tfm, serve, label, argv)
-        for key in keys:
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        torch.cuda.empty_cache()
+        for key in keys + prefill:
             if counts[key] <= 0:
                 fail(f"{label}: kernel {key} was never launched")
         for key, n in counts.items():
             launches[key] += n
-        if label.startswith("poisson"):
+        n_req = 4 if label == "gemma2 batch" else \
+            2 if label == "gemma2 long batch" else BATCH
+        if "poisson" in label:
             rep = out
             if len(rep.results) != 8:
                 fail(f"{label}: {len(rep.results)} results, expected 8")
@@ -907,7 +1241,8 @@ def main() -> int:
                 if r.n_tokens != r.max_new_tokens:
                     fail(f"{label}: rid {r.rid} finished {r.n_tokens}/"
                          f"{r.max_new_tokens} tokens ({r.finish_reason})")
-            if rep.prefill_tokens_saved <= 0:
+            if not label.startswith("gemma2") \
+                    and rep.prefill_tokens_saved <= 0:
                 fail(f"{label}: no prefix-cache hit, the suffix prefill "
                      "never ran")
             if "spec" in label and rep.drafts_proposed <= 0:
@@ -916,22 +1251,25 @@ def main() -> int:
                      if "spec" in label else "")
             say(f"main path {label} on {card}: {rep.tok_per_s:.1f} tok/s "
                 f"measured, {rep.j_per_token:.4g} J/token (analytic H100 "
-                f"SXM model){extra}, launches {counts}")
+                f"SXM model){extra}, peak {peak:.1f} GiB, launches {counts}")
         else:
-            if out["tokens"].shape != (BATCH, GEN):
+            gen = 17 if label == "gemma2 long batch" else GEN
+            if out["tokens"].shape != (n_req, gen):
                 fail(f"{label}: generated {out['tokens'].shape}, expected "
-                     f"{(BATCH, GEN)}")
+                     f"{(n_req, gen)}")
             if "spec" in label and out["spec_steps"] <= 0:
                 fail(f"{label}: no speculative step ran")
             extra = (f", acceptance {out['acceptance']:.0%}"
                      if "spec" in label else "")
             say(f"main path {label} on {card}: {out['tok_per_s']:.1f} tok/s "
                 f"measured, {out['j_per_token']:.4g} J/token (analytic H100 "
-                f"SXM model){extra}, launches {counts}")
+                f"SXM model){extra}, prefill {out['prefill_s'] * 1e3:.0f} "
+                f"ms, peak {peak:.1f} GiB, launches {counts}")
 
     # 5. timing ---------------------------------------------------------------
     times = timings(torch, np, dev, da, ops)
     times.update(ring_timings(torch, np, dev, da, ops))
+    times.update(prefill_timings(torch, np, dev, fa, rms, ops, common))
     kernels = []
     for name, t in times.items():
         source, replaces, key = KERNELS[name]
@@ -944,7 +1282,8 @@ def main() -> int:
             "library_ms": t["library_ms"]})
         lib = "n/a" if t["library_ms"] is None else \
             f"{t['library_ms'] * 1e3:.1f} us"
-        say(f"{name} (n_splits {t['n_splits']}): kernel "
+        say(f"{name} ({t.get('shape') or 'n_splits %d' % t['n_splits']}): "
+            f"kernel "
             f"{t['ms'] * 1e3:.1f} us, plain {t['plain_ms'] * 1e3:.1f} us, "
             f"library {lib}, bound {t['bound_ms'] * 1e3:.3f} us "
             f"({t['bound_by']}) on {card}")

@@ -8,8 +8,8 @@
     read with numpy alone.  bfloat16 leaves were saved as raw 2-byte void
     records: their bits are reinterpreted, never their values cast.
   * ``init_lm(cfg, generator, device)`` — random weights at full width from
-    an explicit ``torch.Generator``, with the JAX package's initialiser
-    shapes and scales (not its numbers).
+    an explicit ``torch.Generator``, on the generator's device, with the
+    JAX package's initialiser shapes and scales (not its numbers).
 """
 from __future__ import annotations
 
@@ -111,15 +111,27 @@ def load_step_dir(path) -> dict:
 
 
 def init_lm(cfg: ModelConfig, generator: torch.Generator, device=None) -> dict:
-    """Random weights for ``cfg`` from ``generator`` (a CPU generator, so
-    the numbers do not depend on the card): embeddings N(0, 0.02), matmul
-    weights N(0, 1/fan_in) with fan_in the leading (per-layer) axis, norm
-    scales at 1 (0 for the gemma (1 + w) form)."""
-    dt = common.dt(cfg.param_dtype)
+    """Random weights for ``cfg`` from ``generator``, drawn on the
+    generator's device (a CUDA generator draws a full-width model on the
+    card, with no host copy; the numbers then differ from a CPU
+    generator's): embeddings N(0, 0.02), matmul weights N(0, 1/fan_in)
+    with fan_in the leading (per-layer) axis, norm scales at 1 (0 for the
+    gemma (1 + w) form).  The matmul weights are made in the compute dtype
+    ``cfg.dtype``, to which ``transformer.prepare_params`` would cast them
+    anyway, from fp32 draws of at most 2**27 values at a time; the norm
+    scales keep ``param_dtype``."""
     dev = _device.resolve(device)
+    gdev = generator.device
 
     def normal(shape, std):
-        return (torch.randn(shape, generator=generator) * std).to(dt).to(dev)
+        out = torch.empty(shape, dtype=common.dt(cfg.dtype), device=dev)
+        flat = out.view(shape[0], -1)
+        step = max(1, 2 ** 27 // max(flat.shape[1], 1))
+        for i in range(0, shape[0], step):
+            rows = flat[i:i + step]
+            draw = torch.randn(rows.shape, generator=generator, device=gdev)
+            rows.copy_(draw.mul_(std))
+        return out
 
     def build(shapes):
         out = {}
@@ -128,7 +140,9 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator, device=None) -> dict:
                 out[key] = build(shape)
             elif "norm" in key:
                 fill = 0.0 if cfg.post_norms else 1.0
-                out[key] = torch.full(shape, fill, dtype=dt, device=dev)
+                out[key] = torch.full(shape, fill,
+                                      dtype=common.dt(cfg.param_dtype),
+                                      device=dev)
             elif key in ("embed", "lm_head"):
                 out[key] = normal(shape, 0.02)
             else:                                  # stacked: fan_in = axis 1

@@ -27,25 +27,16 @@ S, Q)``.
 Each wrapper takes its plain version (``*_torch``, same arithmetic block
 by block, vectorised over batch, heads and splits) for a tensor that lies
 on the CPU, and for a CUDA tensor launches the kernel or raises — there is
-no fallback.  ``LAUNCHES`` counts kernel launches; the plain versions
-never touch it.
+no fallback.  ``LAUNCHES`` (``kernels/binding.py``) counts kernel
+launches; the plain versions never touch it.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.binding import (DTYPE_CODE, LAUNCHES, check, ptr,
+                                         reset_launches)  # noqa: F401
 from repro_torch.kernels.ref import NEG_INF
-
-# kernel launches, by kernel and mode (plain integers, reset by callers)
-LAUNCHES = {"sweep_decode": 0, "sweep_verify": 0, "merge": 0,
-            "ring_decode": 0, "ring_verify": 0}
-
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
-
-def reset_launches() -> None:
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
 
 
 def split_blocks(n_blocks: int, n_splits: int) -> tuple[int, int]:
@@ -263,26 +254,6 @@ def lse_merge_torch(partial, lse, out_dtype):
 # ==========================================================================
 # kernel wrappers
 # ==========================================================================
-def _check(name, t, *, dtype, shape, device, vector=False):
-    """Raise unless ``t`` is what the kernel takes; ``vector`` tensors are
-    read with 16-byte loads, so their base must be 16-byte aligned."""
-    if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: not contiguous")
-    if vector and t.data_ptr() % 16:
-        raise ValueError(f"{name}: base address not 16-byte aligned")
-
-
-def _ptr(t) -> int | None:
-    return None if t is None else t.data_ptr()
-
-
 def paged_attention_sweep(q, k_pages, v_pages, block_tables, pos, *,
                           k_new=None, v_new=None, n_splits: int = 1,
                           window: int = 0, logit_cap: float = 0.0,
@@ -304,7 +275,7 @@ def paged_attention_sweep(q, k_pages, v_pages, block_tables, pos, *,
     P, ps, Hkv = k_pages.shape[0], k_pages.shape[1], k_pages.shape[2]
     nb = block_tables.shape[1]
     verify = k_new is not None
-    if q.dtype not in _DTYPE_CODE:
+    if q.dtype not in DTYPE_CODE:
         raise ValueError(f"paged_attention_sweep: dtype {q.dtype} not "
                          "supported (float32 | bfloat16)")
     if D not in (64, 128):
@@ -316,20 +287,20 @@ def paged_attention_sweep(q, k_pages, v_pages, block_tables, pos, *,
     if not 1 <= Q <= 128:
         raise ValueError(f"paged_attention_sweep: {Q} query rows (1..128)")
     dev = q.device
-    _check("q", q, dtype=q.dtype, shape=(B, Q, Hq, D), device=dev,
-           vector=True)
-    _check("k_pages", k_pages, dtype=q.dtype, shape=(P, ps, Hkv, D),
-           device=dev, vector=True)
-    _check("v_pages", v_pages, dtype=q.dtype, shape=(P, ps, Hkv, D),
-           device=dev, vector=True)
-    _check("block_tables", block_tables, dtype=torch.int32, shape=(B, nb),
-           device=dev)
-    _check("pos", pos, dtype=torch.int32, shape=(B,), device=dev)
+    check("q", q, dtype=q.dtype, shape=(B, Q, Hq, D), device=dev,
+          vector=True)
+    check("k_pages", k_pages, dtype=q.dtype, shape=(P, ps, Hkv, D),
+          device=dev, vector=True)
+    check("v_pages", v_pages, dtype=q.dtype, shape=(P, ps, Hkv, D),
+          device=dev, vector=True)
+    check("block_tables", block_tables, dtype=torch.int32, shape=(B, nb),
+          device=dev)
+    check("pos", pos, dtype=torch.int32, shape=(B,), device=dev)
     if verify:
-        _check("k_new", k_new, dtype=q.dtype, shape=(B, Q, Hkv, D),
-               device=dev, vector=True)
-        _check("v_new", v_new, dtype=q.dtype, shape=(B, Q, Hkv, D),
-               device=dev, vector=True)
+        check("k_new", k_new, dtype=q.dtype, shape=(B, Q, Hkv, D),
+              device=dev, vector=True)
+        check("v_new", v_new, dtype=q.dtype, shape=(B, Q, Hkv, D),
+              device=dev, vector=True)
     if scale is None:
         scale = D ** -0.5
     S, ppb = split_blocks(nb, n_splits)
@@ -341,10 +312,10 @@ def paged_attention_sweep(q, k_pages, v_pages, block_tables, pos, *,
                               device=dev)
         lse = torch.empty((B, Hq, S, Q), dtype=torch.float32, device=dev)
     err = build.library().paged_attention_sweep(
-        _ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(k_new), _ptr(v_new),
-        _ptr(block_tables), _ptr(pos), _ptr(out), _ptr(partial), _ptr(lse),
+        ptr(q), ptr(k_pages), ptr(v_pages), ptr(k_new), ptr(v_new),
+        ptr(block_tables), ptr(pos), ptr(out), ptr(partial), ptr(lse),
         B, Q, Hq, Hkv, P, ps, nb, D, S, ppb, int(verify), int(window),
-        float(logit_cap), float(scale), _DTYPE_CODE[q.dtype],
+        float(logit_cap), float(scale), DTYPE_CODE[q.dtype],
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_attention_sweep: CUDA error {err}")
@@ -376,7 +347,7 @@ def ring_attention_sweep(q, k_cache, v_cache, pos, *, k_new=None, v_new=None,
     B, Q, Hq, D = q.shape
     C, Hkv = k_cache.shape[1], k_cache.shape[2]
     verify = k_new is not None
-    if q.dtype not in _DTYPE_CODE:
+    if q.dtype not in DTYPE_CODE:
         raise ValueError(f"ring_attention_sweep: dtype {q.dtype} not "
                          "supported (float32 | bfloat16)")
     if D not in (64, 128):
@@ -396,21 +367,21 @@ def ring_attention_sweep(q, k_cache, v_cache, pos, *, k_new=None, v_new=None,
         raise ValueError(f"ring_attention_sweep: {Q} rows x block {bk} need "
                          f"{smem} bytes of shared memory (max {_SMEM_MAX})")
     dev = q.device
-    _check("q", q, dtype=q.dtype, shape=(B, Q, Hq, D), device=dev,
-           vector=True)
-    _check("k_cache", k_cache, dtype=q.dtype, shape=(B, C, Hkv, D),
-           device=dev, vector=True)
-    _check("v_cache", v_cache, dtype=q.dtype, shape=(B, C, Hkv, D),
-           device=dev, vector=True)
+    check("q", q, dtype=q.dtype, shape=(B, Q, Hq, D), device=dev,
+          vector=True)
+    check("k_cache", k_cache, dtype=q.dtype, shape=(B, C, Hkv, D),
+          device=dev, vector=True)
+    check("v_cache", v_cache, dtype=q.dtype, shape=(B, C, Hkv, D),
+          device=dev, vector=True)
     if pos.numel() not in (1, B):
         raise ValueError(f"ring_attention_sweep: pos must hold 1 or {B} "
                          f"positions, got {tuple(pos.shape)}")
-    _check("pos", pos, dtype=torch.int32, shape=(pos.numel(),), device=dev)
+    check("pos", pos, dtype=torch.int32, shape=(pos.numel(),), device=dev)
     if verify:
-        _check("k_new", k_new, dtype=q.dtype, shape=(B, Q, Hkv, D),
-               device=dev, vector=True)
-        _check("v_new", v_new, dtype=q.dtype, shape=(B, Q, Hkv, D),
-               device=dev, vector=True)
+        check("k_new", k_new, dtype=q.dtype, shape=(B, Q, Hkv, D),
+              device=dev, vector=True)
+        check("v_new", v_new, dtype=q.dtype, shape=(B, Q, Hkv, D),
+              device=dev, vector=True)
     if scale is None:
         scale = D ** -0.5
     S, kpb = split_blocks(n_k, n_splits)
@@ -422,10 +393,10 @@ def ring_attention_sweep(q, k_cache, v_cache, pos, *, k_new=None, v_new=None,
                               device=dev)
         lse = torch.empty((B, Hq, S, Q), dtype=torch.float32, device=dev)
     err = build.library().ring_attention_sweep(
-        _ptr(q), _ptr(k_cache), _ptr(v_cache), _ptr(k_new), _ptr(v_new),
-        _ptr(pos), _ptr(out), _ptr(partial), _ptr(lse), B, Q, Hq, Hkv, C, D,
+        ptr(q), ptr(k_cache), ptr(v_cache), ptr(k_new), ptr(v_new),
+        ptr(pos), ptr(out), ptr(partial), ptr(lse), B, Q, Hq, Hkv, C, D,
         bk, n_k, S, kpb, int(pos.numel() > 1), int(verify), int(window),
-        float(logit_cap), float(scale), _DTYPE_CODE[q.dtype],
+        float(logit_cap), float(scale), DTYPE_CODE[q.dtype],
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ring_attention_sweep: CUDA error {err}")
@@ -443,17 +414,17 @@ def lse_merge(partial, lse, out_dtype):
     from repro_torch.kernels import build
     lead = partial.shape[:-3]
     S, R, Dv = partial.shape[-3:]
-    if out_dtype not in _DTYPE_CODE:
+    if out_dtype not in DTYPE_CODE:
         raise ValueError(f"lse_merge: out dtype {out_dtype} not supported")
-    _check("partial", partial, dtype=torch.float32, shape=partial.shape,
-           device=partial.device)
-    _check("lse", lse, dtype=torch.float32, shape=lead + (S, R),
-           device=partial.device)
+    check("partial", partial, dtype=torch.float32, shape=partial.shape,
+          device=partial.device)
+    check("lse", lse, dtype=torch.float32, shape=lead + (S, R),
+          device=partial.device)
     N = partial.numel() // (S * R * Dv)
     out = torch.empty(lead + (R, Dv), dtype=out_dtype, device=partial.device)
     err = build.library().lse_merge(
-        _ptr(partial), _ptr(lse), _ptr(out), N, S, R, Dv,
-        _DTYPE_CODE[out_dtype],
+        ptr(partial), ptr(lse), ptr(out), N, S, R, Dv,
+        DTYPE_CODE[out_dtype],
         torch.cuda.current_stream(partial.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"lse_merge: CUDA error {err}")

@@ -1,10 +1,17 @@
 """Kernel entry points of the port, with backend dispatch.
 
-Counterpart of ``repro.kernels.ops`` for the ops this slice runs:
+Counterpart of ``repro.kernels.ops`` for the ops the port runs:
 
-  * ``attention`` (prefill): ``ref`` (whole-matrix oracle) or ``chunked``
-    (flash-style online softmax in plain torch), chosen exactly as the JAX
-    package chooses under ``auto``.
+  * ``attention`` (prefill) on ``KernelPolicy.attention``: ``ref``
+    (whole-matrix oracle), ``chunked`` (flash-style online softmax in
+    plain torch, ``flash_attention_torch``) or ``cuda`` (the hand-written
+    Hopper kernel K4, ``kernels/flash_attention.py``).  ``auto`` is
+    ``cuda`` for CUDA tensors; for CPU tensors it chooses between ``ref``
+    and ``chunked`` exactly as the JAX package does under ``auto``.
+  * ``rmsnorm`` on ``KernelPolicy.rmsnorm``: ``ref`` (the oracle,
+    ``ref.rmsnorm_ref``) or ``cuda`` (the fused kernel K9,
+    ``kernels/rmsnorm.py``).  ``auto`` is ``cuda`` for CUDA tensors and
+    ``ref`` for CPU tensors, as in the JAX package.
   * ``paged_decode_attention`` / ``paged_verify_attention`` (the engine's
     hot path) and ``decode_attention`` / ``verify_attention`` (the static
     batch's ring cache) on ``KernelPolicy.decode``: ``ref`` the fp32
@@ -43,7 +50,9 @@ import warnings
 import torch
 
 from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import rmsnorm as rms
 from repro_torch.kernels.decode_attention import lse_merge_torch
 from repro_torch.kernels.ref import NEG_INF
 
@@ -51,9 +60,9 @@ from repro_torch.kernels.ref import NEG_INF
 @dataclasses.dataclass(frozen=True)
 class KernelPolicy:
     """Which implementation backs each op."""
-    attention: str = "auto"      # auto | ref | chunked
+    attention: str = "auto"      # auto | ref | chunked | cuda
     ssd: str = "auto"
-    rmsnorm: str = "auto"
+    rmsnorm: str = "auto"        # auto | ref | cuda
     decode: str = "auto"         # auto | ref | torch | cuda
     q_chunk: int = 1024
     k_chunk: int = 1024
@@ -217,8 +226,14 @@ def attention(q, k, v, *, causal=True, window=0, logit_cap=0.0, scale=None,
               q_offset=0, policy: KernelPolicy = DEFAULT_POLICY):
     """Backend-dispatching attention entry point (prefill)."""
     backend = policy.attention
-    if backend == "auto":
+    if backend == "auto" and q.device.type == "cuda":
+        backend = "cuda"
+    elif backend == "auto":
         backend = "ref" if q.shape[1] * k.shape[1] <= 512 * 512 else "chunked"
+    if backend == "cuda":
+        return fa.flash_attention(q, k, v, causal=causal, window=window,
+                                  logit_cap=logit_cap, scale=scale,
+                                  q_offset=q_offset)
     if backend == "ref":
         return _ref.attention_ref(q, k, v, causal=causal, window=window,
                                   logit_cap=logit_cap, scale=scale,
@@ -229,7 +244,24 @@ def attention(q, k, v, *, causal=True, window=0, logit_cap=0.0, scale=None,
                                      q_offset=q_offset, q_chunk=policy.q_chunk,
                                      k_chunk=policy.k_chunk)
     raise ValueError(f"unknown attention backend {backend!r} "
-                     "(ported: auto | ref | chunked)")
+                     "(ported: auto | ref | chunked | cuda)")
+
+
+# ==========================================================================
+# RMSNorm
+# ==========================================================================
+def rmsnorm(x, scale, *, eps=1e-6, gemma_style=False,
+            policy: KernelPolicy = DEFAULT_POLICY):
+    """Backend-dispatching RMSNorm over the last axis."""
+    backend = policy.rmsnorm
+    if backend == "auto":
+        backend = "cuda" if x.device.type == "cuda" else "ref"
+    if backend == "cuda":
+        return rms.rmsnorm(x, scale, eps=eps, gemma_style=gemma_style)
+    if backend == "ref":
+        return _ref.rmsnorm_ref(x, scale, eps=eps, gemma_style=gemma_style)
+    raise ValueError(f"unknown rmsnorm backend {backend!r} "
+                     "(ported: auto | ref | cuda)")
 
 
 # ==========================================================================

@@ -4,10 +4,10 @@ truth: small, obviously-correct, O(S^2)-memory implementations in fp32.
 Counterparts of ``repro.kernels.ref``'s ``attention_ref``,
 ``decode_attention_ref``, ``decode_attention_split_ref``,
 ``verify_attention_ref``, ``merge_kv_splits_ref``,
-``paged_decode_attention_split_ref``, ``paged_verify_attention_ref`` and
-``paged_decode_attention_ref`` (same shapes, layouts and masks), for bf16
-and fp32 caches.  The int8 (scaled) forms belong to the KV-tier slice: a
-scale raises by name (:func:`no_int8`).
+``paged_decode_attention_split_ref``, ``paged_verify_attention_ref``,
+``paged_decode_attention_ref`` and ``rmsnorm_ref`` (same shapes, layouts
+and masks), for bf16 and fp32 caches.  The int8 (scaled) forms belong to
+the KV-tier slice: a scale raises by name (:func:`no_int8`).
 """
 from __future__ import annotations
 
@@ -291,3 +291,19 @@ def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, pos, *,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgk,bkhd->bhgd", p, vg)
     return o.reshape(B, 1, Hq, v_pages.shape[-1]).to(q.dtype)
+
+
+# --------------------------------------------------------------------------
+# RMSNorm oracle
+# --------------------------------------------------------------------------
+def rmsnorm_ref(x, scale, *, eps: float = 1e-6,
+                gemma_style: bool = False) -> torch.Tensor:
+    """RMSNorm over the last axis in fp32, cast back to x's dtype;
+    ``gemma_style`` uses the (1 + scale) parameterisation."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    w = scale.float()
+    if gemma_style:
+        w = 1.0 + w
+    return (y * w).to(x.dtype)

@@ -9,6 +9,10 @@ plus ``--device``.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
         --traffic poisson --shared-prefix-len 32 --prompt-pools 2 --spec-k 3
 
+    # gemma2-27b at full width (54.5 GB of bf16 weights) on one H100
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-27b \
+        --requests 4 --prompt-len 512 --gen 33
+
     # at smoke size on the CPU (plain torch paths, no kernels)
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
         --smoke --device cpu
@@ -25,7 +29,9 @@ Two traffic modes:
 
 ``--spec-k K`` makes either mode speculative: each cache sweep verifies K
 self-drafted tokens plus one bonus (``--drafter ngram`` or ``repeat``);
-greedy output is identical to the plain loop's.
+greedy output is identical to the plain loop's.  As in the JAX launcher,
+the model's blockers decide: gemma2's windowed layers allow it on the
+batch path and refuse it in the engine (``local_global``).
 
 FROST (unless ``--no-frost``): every chunk emits one ``StepDone`` +
 ``PowerSampled`` with the measured wall time and useful tokens; the
@@ -483,10 +489,10 @@ def build_parser() -> argparse.ArgumentParser:
 def _refuse_unported(args) -> None:
     if args.kv_dtype == "int8" or args.host_tier:
         raise NotPorted("--kv-dtype int8 / --host-tier (KV tiers)",
-                        "queue 2, item 2")
+                        "queue 2, item 1")
     if args.chaos or args.snapshot_dir:
         raise NotPorted("--chaos / --snapshot-dir (chaos and snapshots)",
-                        "queue 2, item 3")
+                        "queue 2, item 2")
 
 
 def run(argv=None):
@@ -501,8 +507,10 @@ def run(argv=None):
     step_cfg = with_decode_policy(StepConfig(),
                                   kv_splits=_parse_kv_splits(args.kv_splits),
                                   decode_k_chunk=max(1, args.decode_k_chunk))
-    params = bridge.init_lm(cfg, torch.Generator().manual_seed(args.seed),
-                            device)
+    # drawn on the serving device: a full-width model never passes
+    # through the host
+    params = bridge.init_lm(
+        cfg, torch.Generator(device=device).manual_seed(args.seed), device)
     n_par = args.n_slots if args.traffic == "poisson" else args.requests
     frost = None if args.no_frost else FrostPlane(cfg, n_par,
                                                   args.edp_exponent)

@@ -1,8 +1,9 @@
 """GQA attention blocks of the port (RoPE / sliding window / logit
-soft-cap): prefill, ring decode and verify, paged decode and verify,
-counterparts of ``repro.models.attention``'s ``gqa_prefill``,
-``gqa_decode``, ``gqa_verify``, ``gqa_decode_paged`` and
-``gqa_verify_paged`` with the same shapes.
+soft-cap): prefill, ring decode and verify, paged decode and verify, and
+the decode over per-slot private rings at ragged positions, counterparts
+of ``repro.models.attention``'s ``gqa_prefill``, ``gqa_decode``,
+``gqa_verify``, ``gqa_decode_paged``, ``gqa_verify_paged`` and
+``gqa_decode_ragged`` with the same shapes.
 
 Parameters are a dict ``{"wq": (d, Hq, hd), "wk": (d, Hkv, hd),
 "wv": (d, Hkv, hd), "wo": (Hq, hd, d)}``; weights are cast to the
@@ -96,6 +97,31 @@ def gqa_decode(params, x, pos, cache_kv, cfg: ModelConfig, *,
     slot = torch.remainder(pos, C).long().reshape(1)
     k_cache.index_copy_(1, slot, k.to(k_cache.dtype))
     v_cache.index_copy_(1, slot, v.to(v_cache.dtype))
+    o = ops.decode_attention(q, k_cache, v_cache, pos, window=window,
+                             logit_cap=cfg.attn_logit_softcap,
+                             scale=_scale(cfg), policy=policy)
+    o = _mask_padded_heads(o, cfg)
+    return _out_proj(o, params["wo"]), (k_cache, v_cache)
+
+
+def gqa_decode_ragged(params, x, pos, cache_kv, cfg: ModelConfig, *,
+                      window: int = 0,
+                      policy: ops.KernelPolicy = ops.DEFAULT_POLICY):
+    """One-token decode against per-slot PRIVATE ring buffers at ragged
+    positions: the paged engine's windowed-layer decode.  x (B, 1, d);
+    cache_kv = (k, v) of shape (B, C, Hkv, hd), views of the slots' ring
+    pages; pos (B,) int32, each row's position.  Row b writes its k/v to
+    ring slot ``pos[b] % C`` in place, then the ring sweep masks each row
+    by its own ``pos`` (the kernel's per-row position)."""
+    k_cache, v_cache = cache_kv
+    B, C = k_cache.shape[0], k_cache.shape[1]
+    q, k, v = _qkv(params, x, pos[:, None], cfg)
+    row = torch.arange(B, device=pos.device) * C \
+        + torch.remainder(pos, C).long()                   # (B,)
+    k_cache.view(B * C, *k_cache.shape[2:]).index_copy_(
+        0, row, k[:, 0].to(k_cache.dtype))
+    v_cache.view(B * C, *v_cache.shape[2:]).index_copy_(
+        0, row, v[:, 0].to(v_cache.dtype))
     o = ops.decode_attention(q, k_cache, v_cache, pos, window=window,
                              logit_cap=cfg.attn_logit_softcap,
                              scale=_scale(cfg), policy=policy)

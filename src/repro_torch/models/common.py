@@ -40,8 +40,13 @@ def activation(name: str):
 
 
 def softcap(x, cap: float):
-    """cap * tanh(x / cap), computed in fp32."""
-    return (cap * torch.tanh(x.float() / cap)).to(x.dtype)
+    """cap * tanh(x / cap), computed in fp32.  The fp32 temporary is
+    updated in place, so a call holds one fp32 copy of ``x`` at a time (the
+    full-sequence logits of a long prefill are GBs)."""
+    y = x.float()
+    if y is x:
+        y = y.clone()
+    return y.div_(cap).tanh_().mul_(cap).to(x.dtype)
 
 
 def rope_frequencies(head_dim: int, theta: float) -> np.ndarray:

@@ -1,6 +1,7 @@
-"""The LM trunk of the port, dense GQA family: prefill, the decode step
-and the verify sweep over both cache layouts (ring and paged), suffix
-prefill and the speculative commits — counterparts of
+"""The LM trunk of the port, dense GQA family with its windowed members
+(gemma2's local/global layer pairs, sliding-window layers): prefill, the
+decode step and the verify sweep over both cache layouts (ring and
+paged), suffix prefill and the speculative commits — counterparts of
 ``repro.models.transformer``'s functions of the same names, with the same
 shapes and parameter layout.
 
@@ -11,15 +12,18 @@ checkpoint loads without reshaping (``repro_torch.bridge``).  Where JAX
 scanned over the stacked layers, the port loops in Python.
 
 The ring cache (``prefill``, ``init_cache``) is a dict ``{"pos": 0-d
-int32 tensor, "units": {"sub0": {"k", "v": (n_units, B, C, Hkv, hd)}}}``
-with position p at slot ``p % C``.  The paged cache is ``{"pos": (n_slots,)
-int32, "block_tables": (n_slots, max_blocks) int32, "units": {"sub0":
-{"k", "v": (n_units, n_pages, page_size, Hkv, hd)}}}``.  Both are updated
-IN PLACE (the decode writes and the commits go through ``index_copy_``),
-where JAX donated the buffers and returned new ones; the functions still
-return the cache dict, with a new ``pos``.  The decode steps and the ring
-commit compute their indices on the device and read nothing back to the
-host; the paged commit reads its accepted-row count once per sweep.
+int32 tensor, "units": {"sub<i>": {"k", "v": (n_units, B, C, Hkv, hd)}}}``
+with position p at slot ``p % C``; a windowed sub's C is ``min(max_len,
+window)``.  The paged cache is ``{"pos": (n_slots,) int32,
+"block_tables": (n_slots, max_blocks) int32, "units": {"sub<i>": {"k",
+"v": (n_units, n_pages, page_size, Hkv, hd)}}}``; a windowed sub holds a
+private ring of ``nbw`` pages per slot instead, (n_units, n_slots * nbw,
+page_size, Hkv, hd).  Both are updated IN PLACE (the decode writes and
+the commits go through ``index_copy_``), where JAX donated the buffers
+and returned new ones; the functions still return the cache dict, with a
+new ``pos``.  The decode steps and the ring commit compute their indices
+on the device and read nothing back to the host; the paged commit reads
+its accepted-row count once per sweep.
 """
 from __future__ import annotations
 
@@ -67,14 +71,13 @@ def n_units(cfg: ModelConfig) -> int:
 # capability gates: what this port does not serve yet, by name
 # ==========================================================================
 def paged_cache_blockers(cfg: ModelConfig) -> tuple[str, ...]:
-    """Named config features the port's paged engine does not serve yet
-    (each family comes with its own slice; see ROADMAP.md).  Empty for the
-    dense GQA family."""
+    """Named config features the port does not serve yet, on either cache
+    layout (each family comes with its own slice; see ROADMAP.md).  Empty,
+    as in the JAX package, for the dense GQA family and its windowed
+    members."""
     checks = (("uses_ssm", cfg.uses_ssm), ("use_mla", cfg.use_mla),
               ("n_experts", cfg.uses_moe),
               ("n_codebooks", bool(cfg.n_codebooks)),
-              ("sliding_window", bool(cfg.sliding_window)),
-              ("local_global", cfg.local_global),
               ("first_dense_layers", bool(cfg.first_dense_layers)),
               ("hybrid_attn_every",
                cfg.family == "hybrid" and bool(cfg.hybrid_attn_every)),
@@ -97,10 +100,17 @@ def chunked_prefill_blockers(cfg: ModelConfig) -> tuple[str, ...]:
 
 
 def int8_paged_blockers(cfg: ModelConfig) -> tuple[str, ...]:
-    """int8 KV pages (per-row fp32 scales) are the KV-tier slice: blocked
-    for every config in this port so far."""
-    del cfg
-    return ("kv_dtype=int8 (KV-tier slice, not ported)",)
+    """The JAX package's features blocking int8 KV pages (the per-row
+    scales pair with full-length page pools), then the KV-tier slice
+    itself, which blocks every config of this port so far."""
+    checks = (("uses_ssm", cfg.uses_ssm), ("use_mla", cfg.use_mla),
+              ("sliding_window", bool(cfg.sliding_window)),
+              ("local_global", cfg.local_global),
+              ("first_dense_layers", bool(cfg.first_dense_layers)),
+              ("hybrid_attn_every",
+               cfg.family == "hybrid" and bool(cfg.hybrid_attn_every)))
+    return tuple(name for name, on in checks if on) + (
+        "kv_dtype=int8 (KV-tier slice, not ported)",)
 
 
 def speculative_blockers(cfg: ModelConfig) -> tuple[str, ...]:
@@ -119,7 +129,8 @@ def supports_speculative(cfg: ModelConfig) -> bool:
 
 
 def _require_ported(cfg: ModelConfig) -> None:
-    """Both cache layouts serve the dense GQA family only so far."""
+    """Both cache layouts serve the dense GQA family (windowed layers
+    included) only so far."""
     blockers = paged_cache_blockers(cfg)
     if blockers:
         raise NotImplementedError(f"{cfg.name}: {blockers[0]} is not ported "
@@ -170,7 +181,14 @@ def embed_tokens(params, tokens, cfg: ModelConfig, ctx: RunCtx | None = None):
     return x
 
 
+SOFTCAP_BLOCK = 2 ** 26     # logits per soft-cap block
+
+
 def lm_logits(params, x, cfg: ModelConfig, ctx: RunCtx | None = None):
+    """The head, with the final soft-cap and the padded vocab tail masked
+    to -1e30.  Both update the logits in place: the soft-cap a block of
+    rows at a time, so that its fp32 temporary stays at ``SOFTCAP_BLOCK``
+    values, where a whole long prefill's would be twice the logits."""
     adt = x.dtype
     Vp = padded_vocab(cfg)
     if cfg.tie_embeddings:
@@ -178,28 +196,30 @@ def lm_logits(params, x, cfg: ModelConfig, ctx: RunCtx | None = None):
     else:
         logits = x @ params["lm_head"].to(adt)
     if cfg.final_logit_softcap > 0.0:
-        logits = common.softcap(logits, cfg.final_logit_softcap)
+        flat = logits.view(-1, Vp)
+        step = max(1, SOFTCAP_BLOCK // Vp)
+        for i in range(0, flat.shape[0], step):
+            flat[i:i + step] = common.softcap(flat[i:i + step],
+                                              cfg.final_logit_softcap)
     if Vp != cfg.vocab_size:
-        mask = torch.arange(Vp, device=x.device) < cfg.vocab_size
-        logits = torch.where(mask, logits,
-                             torch.tensor(-1e30, dtype=logits.dtype,
-                                          device=x.device))
+        logits[..., cfg.vocab_size:] = -1e30
     return logits
 
 
-def _norm(x, scale, cfg: ModelConfig):
-    return common.rmsnorm(x, scale, cfg.norm_eps, gemma_style=cfg.post_norms)
+def _norm(x, scale, cfg: ModelConfig, ctx: RunCtx):
+    return ops.rmsnorm(x, scale, eps=cfg.norm_eps, gemma_style=cfg.post_norms,
+                       policy=ctx.kernel_policy)
 
 
-def _ffn(blk, x, a, cfg: ModelConfig):
+def _ffn(blk, x, a, cfg: ModelConfig, ctx: RunCtx):
     """Residual add of the attention output, then the MLP half."""
     if cfg.post_norms:
-        a = _norm(a, blk["post_attn_norm"], cfg)
+        a = _norm(a, blk["post_attn_norm"], cfg, ctx)
     x = x + a
-    h = _norm(x, blk["norm2"], cfg)
+    h = _norm(x, blk["norm2"], cfg, ctx)
     f = mlp_forward(blk["ffn"], h, cfg)
     if cfg.post_norms:
-        f = _norm(f, blk["post_ffn_norm"], cfg)
+        f = _norm(f, blk["post_ffn_norm"], cfg, ctx)
     return x + f
 
 
@@ -207,35 +227,44 @@ def _ffn(blk, x, a, cfg: ModelConfig):
 # prefill
 # ==========================================================================
 def prefill(params, tokens, cfg: ModelConfig, ctx: RunCtx = RunCtx(), *,
-            max_len: int = 0):
+            max_len: int = 0, full_cache: bool = False):
     """Process the whole prompt and build its decode cache.
 
     tokens (B, S) -> (logits (B, S, Vp), cache) with the ring cache
-    ``{"pos": S (0-d int32 on the tokens' device), "units": {"sub0": {"k",
-    "v": (n_units, B, max_len, Hkv, hd)}}}``: position p at slot
-    ``p % max_len`` (linear while ``S <= max_len``)."""
+    ``{"pos": S (0-d int32 on the tokens' device), "units": {"sub<i>":
+    {"k", "v": (n_units, B, C, Hkv, hd)}}}``: position p at slot ``p % C``
+    (linear while ``S <= C``), C = ``max_len``, or ``min(max_len, window)``
+    for a windowed sub.  ``full_cache=True`` keeps the windowed subs
+    linear at ``max_len`` too: the engine's page inject needs the rows of
+    a padded prompt bucket in place, since in the ring layout the pad rows
+    would overwrite the real window tail (the window still masks the
+    scores)."""
     _require_ported(cfg)
     x = embed_tokens(params, tokens, cfg, ctx)
     B, S = x.shape[:2]
     max_len = max_len or max(cfg.max_seq_len, S)
     positions = torch.arange(S, device=x.device)[None, :]
-    caches = {f"sub{i}": {"k": [], "v": []} for i in range(unit_size(cfg))}
-    for l in range(n_units(cfg)):
+    nu = n_units(cfg)
+    units = {}
+    for l in range(nu):
         unit = _layer(params["layers"], l)
         for i in range(unit_size(cfg)):
             blk = unit[f"sub{i}"]
-            h = _norm(x, blk["norm1"], cfg)
+            w = cfg.window_for_layer(i)
+            cap = min(max_len, w) if (w > 0 and not full_cache) else max_len
+            h = _norm(x, blk["norm1"], cfg, ctx)
             a, (k, v) = attn.gqa_prefill(blk["attn"], h, positions, cfg,
-                                         window=cfg.window_for_layer(i),
-                                         cache_len=max_len,
+                                         window=w, cache_len=cap,
                                          policy=ctx.kernel_policy)
-            caches[f"sub{i}"]["k"].append(k)
-            caches[f"sub{i}"]["v"].append(v)
-            x = _ffn(blk, x, a, cfg)
-    x = _norm(x, params["final_norm"], cfg)
+            if l == 0:      # the stacked cache, filled layer by layer
+                units[f"sub{i}"] = {
+                    key: t.new_empty((nu, *t.shape))
+                    for key, t in (("k", k), ("v", v))}
+            units[f"sub{i}"]["k"][l] = k
+            units[f"sub{i}"]["v"][l] = v
+            x = _ffn(blk, x, a, cfg, ctx)
+    x = _norm(x, params["final_norm"], cfg, ctx)
     logits = lm_logits(params, x, cfg, ctx)
-    units = {name: {key: torch.stack(vals) for key, vals in c.items()}
-             for name, c in caches.items()}
     pos = torch.tensor(S, dtype=torch.int32, device=x.device)
     return logits, {"pos": pos, "units": units}
 
@@ -246,17 +275,22 @@ def prefill(params, tokens, cfg: ModelConfig, ctx: RunCtx = RunCtx(), *,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype: str = "bfloat16", device=None):
     """Zero-filled ring decode cache, dense GQA branch: per-unit k/v ring
-    buffers of capacity ``max_len``, ``pos`` 0.  The MLA, SSM, hybrid,
-    first-dense and windowed branches raise by name."""
+    buffers of capacity ``max_len`` (``min(max_len, window)`` for a
+    windowed sub), ``pos`` 0.  The MLA, SSM, hybrid and first-dense
+    branches raise by name."""
     _require_ported(cfg)
     if dtype == "int8":
         raise NotImplementedError("int8 KV caches: KV-tier slice")
     adt = common.dt(dtype)
-    shape = (n_units(cfg), batch, max_len, cfg.padded_kv_heads,
-             cfg.resolved_head_dim)
-    units = {f"sub{i}": {"k": torch.zeros(shape, dtype=adt, device=device),
-                         "v": torch.zeros(shape, dtype=adt, device=device)}
-             for i in range(unit_size(cfg))}
+    units = {}
+    for i in range(unit_size(cfg)):
+        w = cfg.window_for_layer(i)
+        cap = min(max_len, w) if w > 0 else max_len
+        shape = (n_units(cfg), batch, cap, cfg.padded_kv_heads,
+                 cfg.resolved_head_dim)
+        units[f"sub{i}"] = {
+            "k": torch.zeros(shape, dtype=adt, device=device),
+            "v": torch.zeros(shape, dtype=adt, device=device)}
     return {"pos": torch.zeros((), dtype=torch.int32, device=device),
             "units": units}
 
@@ -281,13 +315,13 @@ def decode_step(params, cache, tokens, cfg: ModelConfig,
         unit = _layer(params["layers"], l)
         for i in range(unit_size(cfg)):
             blk, c = unit[f"sub{i}"], cache["units"][f"sub{i}"]
-            h = _norm(x, blk["norm1"], cfg)
+            h = _norm(x, blk["norm1"], cfg, ctx)
             a, _ = attn.gqa_decode(blk["attn"], h, pos,
                                    (c["k"][l], c["v"][l]), cfg,
                                    window=cfg.window_for_layer(i),
                                    policy=ctx.kernel_policy)
-            x = _ffn(blk, x, a, cfg)
-    x = _norm(x, params["final_norm"], cfg)
+            x = _ffn(blk, x, a, cfg, ctx)
+    x = _norm(x, params["final_norm"], cfg, ctx)
     logits = lm_logits(params, x, cfg, ctx)
     return logits, {**cache, "pos": pos + 1}
 
@@ -324,9 +358,13 @@ def commit_spec(cache, pending, n_accept, cfg: ModelConfig):
 def init_paged_cache(cfg: ModelConfig, n_slots: int, n_pages: int,
                      page_size: int, max_blocks: int,
                      dtype: str = "bfloat16", device=None):
-    """Zero-filled paged decode cache: per-unit k/v page pools shared by
-    every slot (full-attention GQA group), one block table and one
-    position counter per slot."""
+    """Zero-filled paged decode cache, one block table and one position
+    counter per slot.  A full-attention sub holds k/v page pools shared by
+    every slot, addressed through the block tables; a windowed sub holds a
+    PRIVATE ring of ``nbw = ceil(min(max_len, window) / page_size)`` pages
+    per slot, pool (n_units, n_slots * nbw, page_size, Hkv, hd), slot s's
+    ring being pages ``s * nbw .. s * nbw + nbw - 1`` (no table): O(window)
+    bytes per slot however deep its stream runs."""
     _require_ported(cfg)
     if dtype == "int8":
         raise NotImplementedError("int8 KV pages: KV-tier slice")
@@ -334,10 +372,15 @@ def init_paged_cache(cfg: ModelConfig, n_slots: int, n_pages: int,
     hd = cfg.resolved_head_dim
     nu = n_units(cfg)
     hkv = cfg.padded_kv_heads
-    shape = (nu, n_pages, page_size, hkv, hd)
-    units = {f"sub{i}": {"k": torch.zeros(shape, dtype=adt, device=device),
-                         "v": torch.zeros(shape, dtype=adt, device=device)}
-             for i in range(unit_size(cfg))}
+    max_len = max_blocks * page_size
+    units = {}
+    for i in range(unit_size(cfg)):
+        w = cfg.window_for_layer(i)
+        n = n_slots * -(-min(max_len, w) // page_size) if w > 0 else n_pages
+        shape = (nu, n, page_size, hkv, hd)
+        units[f"sub{i}"] = {
+            "k": torch.zeros(shape, dtype=adt, device=device),
+            "v": torch.zeros(shape, dtype=adt, device=device)}
     return {"pos": torch.zeros((n_slots,), dtype=torch.int32, device=device),
             "block_tables": torch.zeros((n_slots, max_blocks),
                                         dtype=torch.int32, device=device),
@@ -348,8 +391,10 @@ def _paged_decode_step(params, cache, tokens, cfg: ModelConfig, ctx: RunCtx,
                        active=None):
     """One decode step over the paged cache: tokens (B, 1) -> (logits
     (B, 1, Vp), cache with pos advanced where ``active``).  Parked slots
-    keep rewriting row ``pos[b]`` of their scratch page; the engine drops
-    their tokens."""
+    keep rewriting row ``pos[b]`` of their scratch page (or of their
+    private ring); the engine drops their tokens.  A windowed sub decodes
+    against the slots' private rings, viewed as (B, nbw * page_size, Hkv,
+    hd), at each slot's own position."""
     _require_ported(cfg)
     pos = cache["pos"]
     bt = cache["block_tables"]
@@ -358,13 +403,22 @@ def _paged_decode_step(params, cache, tokens, cfg: ModelConfig, ctx: RunCtx,
         unit = _layer(params["layers"], l)
         for i in range(unit_size(cfg)):
             blk, c = unit[f"sub{i}"], cache["units"][f"sub{i}"]
-            h = _norm(x, blk["norm1"], cfg)
-            a, _ = attn.gqa_decode_paged(blk["attn"], h, pos,
-                                         (c["k"][l], c["v"][l]), bt, cfg,
-                                         window=cfg.window_for_layer(i),
-                                         policy=ctx.kernel_policy)
-            x = _ffn(blk, x, a, cfg)
-    x = _norm(x, params["final_norm"], cfg)
+            w = cfg.window_for_layer(i)
+            h = _norm(x, blk["norm1"], cfg, ctx)
+            if w > 0:
+                B = pos.shape[0]
+                ring = [p[l].view(B, -1, *p.shape[3:])
+                        for p in (c["k"], c["v"])]
+                a, _ = attn.gqa_decode_ragged(blk["attn"], h, pos,
+                                              tuple(ring), cfg, window=w,
+                                              policy=ctx.kernel_policy)
+            else:
+                a, _ = attn.gqa_decode_paged(blk["attn"], h, pos,
+                                             (c["k"][l], c["v"][l]), bt,
+                                             cfg, window=0,
+                                             policy=ctx.kernel_policy)
+            x = _ffn(blk, x, a, cfg, ctx)
+    x = _norm(x, params["final_norm"], cfg, ctx)
     logits = lm_logits(params, x, cfg, ctx)
     adv = torch.ones_like(pos) if active is None else active.to(pos.dtype)
     return logits, {**cache, "pos": pos + adv}
@@ -394,7 +448,7 @@ def verify_step(params, cache, tokens, cfg: ModelConfig,
         unit = _layer(params["layers"], l)
         for i in range(unit_size(cfg)):
             blk, c = unit[f"sub{i}"], cache["units"][f"sub{i}"]
-            h = _norm(x, blk["norm1"], cfg)
+            h = _norm(x, blk["norm1"], cfg, ctx)
             kv = (c["k"][l], c["v"][l])
             if paged:       # paged sweeps run window-free, as in JAX
                 a, (k, v) = attn.gqa_verify_paged(blk["attn"], h, pos, kv,
@@ -406,8 +460,8 @@ def verify_step(params, cache, tokens, cfg: ModelConfig,
                                             policy=ctx.kernel_policy)
             pend[f"sub{i}"]["k"].append(k)
             pend[f"sub{i}"]["v"].append(v)
-            x = _ffn(blk, x, a, cfg)
-    x = _norm(x, params["final_norm"], cfg)
+            x = _ffn(blk, x, a, cfg, ctx)
+    x = _norm(x, params["final_norm"], cfg, ctx)
     logits = lm_logits(params, x, cfg, ctx)
     pending = {name: {key: torch.stack(vals) for key, vals in p.items()}
                for name, p in pend.items()}

@@ -9,9 +9,13 @@
 
 Joins with a prefix-cache hit map shared read-only pages and prefill only
 the uncached suffix (chunked, through the paged verify sweep); cold
-prompts run the bucketed prefill + page inject.  The host bookkeeping
-(``PagedKVCache``, ``Scheduler``) is the JAX package's, copied; the device
-steps are the port's torch functions on the engine's device.
+prompts run the bucketed prefill + page inject.  Windowed layers (gemma2's
+local layers) keep a private ring of pages per slot: the inject writes the
+last ``window`` prompt rows into it, and models with such layers keep the
+cold path (no prefix cache, no speculation), as in the JAX package.  The
+host bookkeeping (``PagedKVCache``, ``Scheduler``) is the JAX package's,
+copied; the device steps are the port's torch functions on the engine's
+device.
 
 Speculative mode (``EngineConfig.spec_k > 0``): each chunk iteration
 becomes a K+1-token verify step (draft -> verify -> accept -> commit, per
@@ -233,6 +237,12 @@ class ServeEngine:
                                    lazy=engine_cfg.preempt,
                                    prefix=self._use_prefix)
         self.cache = self.kv.make_cache(self.device)
+        # unit subs whose page axis rides the main block tables: the only
+        # pools a page copy may touch (a windowed sub's axis 1 holds the
+        # slots' private rings)
+        self._table_subs = frozenset(
+            f"sub{i}" for i in range(tfm.unit_size(cfg))
+            if cfg.window_for_layer(i) == 0)
         self._ctx = make_run_ctx(cfg, self.step_cfg)
         self._loops: dict[tuple[int, bool], Callable] = {}
         self._suffix = make_prefill_suffix_step(cfg, self.step_cfg) \
@@ -281,14 +291,38 @@ class ServeEngine:
                     temperature=self.ecfg.temperature)
         return self._loops[key]
 
-    def _inject(self, pcache, rows: np.ndarray) -> None:
-        """Scatter a (padded) prefill cache into the slot's pages, in
-        place; rows past the prompt (out of bounds) are dropped."""
-        keep = rows < self.kv.n_pages * self.kv.page_size
-        idx = self._tensor(rows[keep], torch.int64)
-        sel = self._tensor(np.nonzero(keep)[0], torch.int64)
+    def _inject_rows(self, slot: int, bucket: int, L: int) -> dict:
+        """Per-sub flat destination rows for :meth:`_inject`: length-
+        ``bucket`` arrays mapping prefill index ``p`` to a pool row, out of
+        bounds (dropped) where ``p`` is padding or outside the sub's
+        retention.  Table subs take ``PagedKVCache.inject_rows``; a
+        window-``w`` sub keeps only ``[max(0, L - w), L)``, at ring offset
+        ``p % Cw`` of the slot's private pages (older rows can never be
+        attended again)."""
+        ps = self.kv.page_size
+        main = np.asarray(self.kv.inject_rows(slot, bucket, L))
+        rows = {}
+        for i in range(tfm.unit_size(self.cfg)):
+            w = self.cfg.window_for_layer(i)
+            if w <= 0:
+                rows[f"sub{i}"] = main
+                continue
+            cw = -(-min(self.kv.max_blocks * ps, w) // ps) * ps
+            p = np.arange(bucket)
+            valid = (p >= max(0, L - w)) & (p < L)
+            rows[f"sub{i}"] = np.where(valid, slot * cw + p % cw,
+                                       self.ecfg.n_slots * cw)
+        return rows
+
+    def _inject(self, pcache, rows: dict) -> None:
+        """Scatter a (padded, linear) prefill cache into the slot's pages
+        and private rings, in place; out-of-bounds rows are dropped."""
         for name, c in self.cache["units"].items():
             src = pcache["units"][name]
+            r = rows[name]
+            keep = r < c["k"].shape[1] * c["k"].shape[2]
+            idx = self._tensor(r[keep], torch.int64)
+            sel = self._tensor(np.nonzero(keep)[0], torch.int64)
             for key in ("k", "v"):
                 pool = c[key]
                 nu = pool.shape[0]
@@ -299,7 +333,9 @@ class ServeEngine:
     def _page_copy(self, src: int, dst: int, n_rows: int) -> None:
         """Copy-on-write: rows 0..n_rows-1 of ``src`` page into ``dst``
         across every pool, in place."""
-        for c in self.cache["units"].values():
+        for name, c in self.cache["units"].items():
+            if name not in self._table_subs:
+                continue
             for pool in c.values():
                 pool[:, dst, :n_rows] = pool[:, src, :n_rows]
 
@@ -354,10 +390,13 @@ class ServeEngine:
             bucket = self._bucket(L)
             inputs = np.zeros((1, bucket), np.int32)
             inputs[0, :L] = req.prompt
+            # full_cache: windowed subs stay linear, so that the bucket's
+            # pad rows cannot wrap over the real window tail
             logits, pcache = tfm.prefill(self.params, self._tensor(inputs),
-                                         self.cfg, self._ctx, max_len=bucket)
+                                         self.cfg, self._ctx, max_len=bucket,
+                                         full_cache=True)
             logits_row = logits[0, L - 1]
-            self._inject(pcache, self.kv.inject_rows(slot, bucket, L))
+            self._inject(pcache, self._inject_rows(slot, bucket, L))
         first = self._sample_first(logits_row, req.rid)
         self._pos[slot] = L
         if self._use_prefix:

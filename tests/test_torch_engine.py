@@ -134,7 +134,8 @@ def test_cpu_engine_launches_no_kernel(smollm):
         ServeEngine(tcfg, EngineConfig(**BASE, spec_k=spec_k), tparams,
                     device="cpu").run(reqs)
     assert set(da.LAUNCHES) == {"sweep_decode", "sweep_verify", "merge",
-                                "ring_decode", "ring_verify"}
+                                "ring_decode", "ring_verify",
+                                "flash_attention", "rmsnorm"}
     assert all(n == 0 for n in da.LAUNCHES.values())
 
 
@@ -220,8 +221,8 @@ def test_serve_refuses_unported_flags(extra, item):
 
 
 def test_serve_unknown_arch_names_the_ported_ones():
-    with pytest.raises(KeyError, match="smollm-135m"):
-        serve.run(["--arch", "gemma2-27b", "--device", "cpu",
+    with pytest.raises(KeyError, match="gemma2-27b.*smollm-135m"):
+        serve.run(["--arch", "mamba2-370m", "--device", "cpu",
                    "--traffic", "poisson"])
 
 

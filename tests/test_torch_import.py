@@ -16,14 +16,18 @@ from repro_torch import device
 from repro_torch.configs import ARCH_SPECS, get_arch
 from repro_torch.core import DEVICES, H100_SXM
 from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
+from repro_torch.kernels import rmsnorm as rms
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 
 
 def test_port_import_pulls_in_no_jax():
-    code = ("import sys, repro_torch.launch.serve, repro_torch.bridge\n"
+    code = ("import sys, repro_torch.launch.serve, repro_torch.bridge, "
+            "repro_torch.kernels.flash_attention, "
+            "repro_torch.kernels.rmsnorm\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.'))\n"
@@ -86,17 +90,34 @@ def test_cpu_calls_launch_no_kernel():
         ops.verify_attention(qv, kc, vc, kn, vn, rpos, policy=policy)
     da.ring_attention(qv, kc, vc, rpos.reshape(1), k_new=kn, v_new=vn,
                       n_splits=3, block_k=4)
+    qp, kk, vv = r(2, 9, 6, 16), r(2, 9, 2, 16), r(2, 9, 2, 16)
+    x, w = r(2, 5, 16), r(16)
+    for backend in ("auto", "cuda", "ref"):
+        ops.rmsnorm(x, w, gemma_style=True,
+                    policy=ops.KernelPolicy(rmsnorm=backend))
+    for backend in ("auto", "cuda", "ref", "chunked"):
+        ops.attention(qp, kk, vv, window=4, logit_cap=5.0,
+                      policy=ops.KernelPolicy(attention=backend))
+    fa.flash_attention(qp, kk, vv, q_offset=3)
+    rms.rmsnorm(x, w)
     assert set(da.LAUNCHES) == {"sweep_decode", "sweep_verify", "merge",
-                                "ring_decode", "ring_verify"}
+                                "ring_decode", "ring_verify",
+                                "flash_attention", "rmsnorm"}
     assert all(n == 0 for n in da.LAUNCHES.values())
 
 
 def test_only_ported_archs_are_listed():
-    assert sorted(ARCH_SPECS) == ["smollm-135m"]
+    assert sorted(ARCH_SPECS) == ["gemma2-27b", "smollm-135m"]
     cfg = get_arch("smollm-135m").config
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
             cfg.resolved_head_dim, cfg.vocab_size) == (30, 576, 9, 3, 64,
                                                        49152)
+    g = get_arch("gemma2-27b").config
+    assert (g.n_layers, g.d_model, g.n_heads, g.n_kv_heads,
+            g.resolved_head_dim, g.d_ff, g.vocab_size, g.local_window,
+            g.attn_logit_softcap, g.final_logit_softcap) == (
+        46, 4608, 32, 16, 128, 36864, 256000, 4096, 50.0, 30.0)
+    assert g.query_scale == 144.0 ** -0.5 and g.post_norms
     with pytest.raises(KeyError, match="smollm-135m"):
         get_arch("mamba2-370m")
 

@@ -174,10 +174,20 @@ def test_unported_features_are_named(models):
     assert tfm.paged_cache_blockers(tcfg) == ()
     assert tfm.chunked_prefill_blockers(tcfg) == ()
     assert tfm.int8_paged_blockers(tcfg)
-    windowed = dataclasses.replace(tcfg, sliding_window=16)
-    assert tfm.paged_cache_blockers(windowed) == ("sliding_window",)
-    with pytest.raises(NotImplementedError, match="sliding_window"):
-        tfm.init_paged_cache(windowed, 2, 8, PS, 4)
+    # a windowed config now builds its paged cache: a private ring of
+    # ceil(min(max_len, window) / ps) pages per slot; MLA and SSM still
+    # raise by name
+    windowed = dataclasses.replace(tcfg, sliding_window=6)
+    assert tfm.paged_cache_blockers(windowed) == ()
+    assert tfm.chunked_prefill_blockers(windowed) == ("sliding_window",)
+    wc = tfm.init_paged_cache(windowed, 2, 8, PS, 4, dtype="float32")
+    assert tuple(wc["units"]["sub0"]["k"].shape) == (
+        tfm.n_units(tcfg), 2 * 2, PS, tcfg.n_kv_heads, tcfg.resolved_head_dim)
+    for over, name in (({"use_mla": True}, "use_mla"),
+                       ({"family": "ssm", "ssm_state": 16}, "uses_ssm")):
+        with pytest.raises(NotImplementedError, match=name):
+            tfm.init_paged_cache(dataclasses.replace(tcfg, **over), 2, 8,
+                                 PS, 4)
 
 
 def test_lm_logits_masks_padded_vocab(models):

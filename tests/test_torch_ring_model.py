@@ -113,13 +113,19 @@ def test_init_cache_has_the_jax_layout(models):
 
 
 @pytest.mark.parametrize("cfg_over,name", [
-    ({"sliding_window": 16}, "sliding_window"),
+    ({"sliding_window": 6}, "sliding_window"),
     ({"use_mla": True}, "use_mla"),
     ({"family": "ssm", "ssm_state": 16}, "uses_ssm"),
     ({"first_dense_layers": 1}, "first_dense_layers")])
 def test_unported_ring_families_raise_by_name(models, cfg_over, name):
+    """Unported families raise by name; a windowed config (ported since)
+    builds its ring cache, of capacity min(max_len, window)."""
     _, _, tcfg, _ = models
     cfg = dataclasses.replace(tcfg, **cfg_over)
+    if name == "sliding_window":
+        c = tfm.init_cache(cfg, 1, 8)
+        assert c["units"]["sub0"]["k"].shape[2] == 6
+        return
     with pytest.raises(NotImplementedError, match=name):
         tfm.init_cache(cfg, 1, 8)
 
