@@ -26,7 +26,13 @@ Phases, in order; any failure exits non-zero (nothing is caught):
                 50, scale 144^-0.5), a q_offset case and ragged Sq 37 and
                 1000, in bf16 and fp32 (rows that see no key: finite); the
                 fused RMSNorm (K9) at d 576 and 4608, both forms, 1 to
-                8192 rows;
+                8192 rows; the chunked SSD scan (K8) at mamba2-370m's
+                heads (H 32, P 64, N 128, chunk 128; G 1 and 2), S of
+                512, 4000 (ragged), 37 and 1, with and without D, with an
+                initial state and the final state returned, at atol =
+                rtol = 2e-2 in bf16 and 1e-3 in fp32 (the order of the
+                JAX tests' chunked-vs-sequential 2e-3: the sums run in
+                another order);
   3. reference — full-width smollm-135m at fp32, twice on the kernels and
                 twice on the plain torch path (chunked prefill twin,
                 RMSNorm oracle, torch decode backends, the same split
@@ -42,7 +48,12 @@ Phases, in order; any failure exits non-zero (nothing is caught):
                 + 16 new (the window masks prefill, the local rings wrap)
                 and the engine on a trace whose requests pass 4096
                 positions (the private rings wrap at inject and in
-                decode);
+                decode).  Then mamba2-370m at full width and depth in
+                fp32: the static batch (8 x 512 prompt tokens + 32 decode
+                steps) and the engine on a Poisson trace of 8 requests
+                over 4 slots with two preemptions forced (its state slots
+                have no page pool to run dry, so the run refuses the pages
+                itself, identically on both paths);
   4. main paths — ``repro_torch.launch.serve`` at full width (bf16,
                 random weights from a seed drawn on the card, FROST plane
                 on): smollm-135m's engine on a Poisson trace of 8 requests
@@ -52,11 +63,15 @@ Phases, in order; any failure exits non-zero (nothing is caught):
                 ``--spec-k 3``; then gemma2-27b (46 layers, 54.5 GB of
                 weights): the batch of 4 x 512 prompt tokens + 33 new, the
                 engine on 8 Poisson requests over 4 slots, and the long
-                batch of 2 x 4352 + 17 new.  The launch counts are zeroed
-                just before each run and read just after it.  Every
-                request must finish its token budget with finite logits,
-                and every kernel of a path, K4 and K9 on all seven, must
-                have been launched on it;
+                batch of 2 x 4352 + 17 new; then mamba2-370m (48 layers):
+                the batch of 8 x 512 + 33 new, the engine on 8 Poisson
+                requests over 4 slots, and the long batch of 2 x 4000 + 17
+                new (32 chunks, the last ragged).  The launch counts are
+                zeroed just before each run and read just after it.
+                Every request must finish its token budget with finite
+                logits, and every kernel of a path must have been launched
+                on it: K4 and K9 on the seven attention paths, K8 and K9
+                on the three mamba2 paths;
   5. timing   — CUDA-event times of each kernel, its plain version and a
                 library yardstick at the main paths' shapes, beside the
                 least time the card could take.
@@ -83,6 +98,7 @@ PAGED_SRC = "src/repro_torch/kernels/csrc/paged_attention.cu"
 RING_SRC = "src/repro_torch/kernels/csrc/ring_attention.cu"
 FA_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
 RMS_SRC = "src/repro_torch/kernels/csrc/rmsnorm.cu"
+SSD_SRC = "src/repro_torch/kernels/csrc/ssd_scan.cu"
 # kernel entry -> (source, the Pallas function it replaces, launch key)
 KERNELS = {
     "paged_attention_sweep (decode)": (
@@ -100,13 +116,19 @@ KERNELS = {
     "flash_attention": (
         FA_SRC, "src/repro/kernels/flash_attention.py:94", "flash_attention"),
     "rmsnorm": (RMS_SRC, "src/repro/kernels/rmsnorm.py:27", "rmsnorm"),
+    "ssd_scan": (SSD_SRC, "src/repro/kernels/ssd_scan.py:76", "ssd"),
 }
+# K8's tolerance: fp32 at the order of the JAX tests' chunked-vs-sequential
+# 2e-3 (tests/test_kernels.py), since the kernel sums in another order
+SSD_TOL = {"bfloat16": 2e-2, "float32": 1e-3}
 # the static batch path of phases 3 to 5: 8 requests, 512 prompt tokens,
 # 33 new, so a ring of 545 slots (5 blocks of 109)
 BATCH, PLEN, GEN = 8, 512, 33
 # gemma2's long prompt: past the local layers' window of 4096, so that the
 # window masks prefill and the local rings wrap
 G_LONG = 4352
+# mamba2's long prompt: 32 chunks of 128, the last one ragged
+M_LONG = 4000
 
 
 def fail(msg: str) -> None:
@@ -516,6 +538,83 @@ def check_prefill_kernels(torch, np, dev, fa, rms, ops, common, errs):
         "Dv != D and width 12 raise ValueError, no plain fallback")
 
 
+def ssd_case(torch, np, dev, *, B, S, dtype, seed, G=1, D=True, init=False,
+             H=32, P=64, N=128):
+    """Seeded K8 inputs on the card, mamba2-370m's heads by default: x, B,
+    C unit normals, dt = softplus(n - 1), A = -exp(u) with u uniform in
+    [0, log 16] (the range of the model's A_log), D, initial state."""
+    rng = np.random.default_rng(seed)
+    dt_ = getattr(torch, dtype)
+
+    def r(*shape):
+        return torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
+                            device=dev)
+
+    inp = {"x": r(B, S, H, P).to(dt_),
+           "dt": torch.nn.functional.softplus(r(B, S, H) - 1.0),
+           "A": -torch.exp(torch.tensor(rng.uniform(0.0, np.log(16.0), H),
+                                        dtype=torch.float32, device=dev)),
+           "B_mat": r(B, S, G, N).to(dt_), "C_mat": r(B, S, G, N).to(dt_),
+           "D": r(H) if D else None}
+    return inp, (r(B, H, P, N) if init else None)
+
+
+def check_ssd_kernels(torch, np, dev, ss, ops, errs):
+    """Phase 2, K8 against its twin ``ssd_scan_torch`` (the chunked plain
+    version over the padded sequence), y and the final state."""
+    cases = [("2 x 512", dict(B=2, S=512)),
+             ("2 x 512, G 2, no D, initial state",
+              dict(B=2, S=512, G=2, D=False, init=True)),
+             ("1 x 4000 (ragged), initial state",
+              dict(B=1, S=M_LONG, init=True)),
+             ("3 x 37, G 2, initial state", dict(B=3, S=37, G=2, init=True)),
+             ("4 x 1, no D, initial state", dict(B=4, S=1, D=False,
+                                                 init=True))]
+    errs["ssd_scan"] = 0.0
+    for dtype in ("bfloat16", "float32"):
+        tol = SSD_TOL[dtype]
+        for i, (label, shp) in enumerate(cases):
+            inp, h0 = ssd_case(torch, np, dev, dtype=dtype, seed=800 + i,
+                               **shp)
+            y, h = ss.ssd_scan(**inp, initial_state=h0, return_state=True)
+            y_only = ss.ssd_scan(**inp, initial_state=h0)
+            wy, wh = ss.ssd_scan_torch(**inp, initial_state=h0,
+                                       return_state=True)
+            what = f"K8 {label} {dtype}"
+            e = max(max_err(torch, y, wy, tol, what + " y"),
+                    max_err(torch, y_only, wy, tol, what + " y (no state)"),
+                    max_err(torch, h, wh, tol, what + " final state"))
+            errs["ssd_scan"] = max(errs["ssd_scan"], e)
+            torch.cuda.synchronize()
+            say(f"kernels ok: K8 {label} ({dtype}), max |kernel - plain| "
+                f"{e:.3e} (tol {tol}; |y| up to "
+                f"{float(wy.float().abs().max()):.1f})")
+    # the dispatch: auto launches K8 on CUDA tensors; what it does not take
+    # raises instead of taking a plain version
+    inp, _ = ssd_case(torch, np, dev, B=1, S=64, dtype="bfloat16", seed=899)
+    before = ss.LAUNCHES["ssd"]
+    ops.ssd(**inp)
+    if ss.LAUNCHES["ssd"] - before != 1:
+        fail("ops.ssd under auto did not launch K8 on CUDA tensors")
+    wide, _ = ssd_case(torch, np, dev, B=1, S=8, N=256, dtype="bfloat16",
+                       seed=898)
+    for what, call in (
+            ("K8 chunk 256", lambda: ss.ssd_scan(**inp, chunk=256)),
+            ("K8 N 256", lambda: ss.ssd_scan(**wide)),
+            ("K8 fp16", lambda: ss.ssd_scan(**{
+                k: (v.half() if k in ("x", "B_mat", "C_mat") else v)
+                for k, v in inp.items()}))):
+        try:
+            call()
+        except ValueError:
+            continue
+        fail(f"{what} on the card did not raise ValueError")
+    if ss.LAUNCHES["ssd"] - before != 1:
+        fail("a refused K8 call launched a kernel")
+    say("kernels ok: auto launches K8 on CUDA tensors; chunk 256, N 256 "
+        "and fp16 raise ValueError, no plain fallback")
+
+
 # --------------------------------------------------------------------------
 # phase 3 / 4 helpers
 # --------------------------------------------------------------------------
@@ -554,10 +653,11 @@ def step_configs(steps):
     torch decode backends) with the same split counts."""
     base = steps.StepConfig().kernel_policy
     return {"cuda": steps.StepConfig(kernel_policy=dataclasses.replace(
-                base, attention="cuda", rmsnorm="cuda", decode="cuda")),
+                base, attention="cuda", rmsnorm="cuda", decode="cuda",
+                ssd="cuda")),
             "torch": steps.StepConfig(kernel_policy=dataclasses.replace(
                 base, attention="chunked", rmsnorm="ref", decode="torch",
-                q_chunk=256, k_chunk=256))}
+                ssd="chunked", q_chunk=256, k_chunk=256))}
 
 
 def reference_check(torch, dev, cfg, tfm, serving, steps, bridge):
@@ -767,6 +867,98 @@ def gemma_reference(torch, np, dev, gcfg, tfm, serving, steps, bridge):
         f"of 4200 (inject wraps the 4096-row private ring), 4080 + 40 new "
         f"(decode wraps it) and 64: streams equal on kernels and plain path,"
         f" {len(calls['cuda'])} logits calls within {err:.3e}")
+
+
+def refuse_pages(engine, n_refusals: int, first: int):
+    """Make the engine's page pool say no ``n_refusals`` times, from its
+    ``first``-th ``kv.ensure`` call on, whenever two slots or more are
+    active (so that the asking slot or another can be preempted).  A state-
+    slot model has no pool to run dry: this is how its run forces
+    preemption, the same way on both paths."""
+    inner, state = engine.kv.ensure, {"calls": 0, "left": n_refusals}
+
+    def ensure(slot, n_tokens):
+        state["calls"] += 1
+        if state["left"] and state["calls"] >= first \
+                and engine.scheduler.n_active > 1:
+            state["left"] -= 1
+            return False
+        return inner(slot, n_tokens)
+
+    engine.kv.ensure = ensure
+    return engine
+
+
+def mamba_reference(torch, np, dev, mcfg, tfm, serving, steps, bridge):
+    """Phase 3, mamba2-370m at full width and depth in fp32, on the kernels
+    and on the plain path: the static batch (8 x 512 prompt tokens + 32
+    decode steps) and the engine on 8 Poisson requests over 4 slots with
+    two forced preemptions.  Greedy streams equal, every logits call (its
+    last position) within 1e-3."""
+    cfg = dataclasses.replace(mcfg, dtype="float32")
+    params = tfm.prepare_params(bridge.init_lm(
+        cfg, torch.Generator(device=dev).manual_seed(5), dev), cfg)
+    prompts = batch_prompts(torch, np, dev, cfg.vocab_size)
+
+    def compare(label, streams, calls):
+        if not all(np.array_equal(a, b)
+                   for a, b in zip(streams["cuda"], streams["torch"])):
+            fail(f"mamba2 reference {label}: kernel stream differs from the "
+                 "plain path's")
+        if len(calls["cuda"]) != len(calls["torch"]):
+            fail(f"mamba2 reference {label}: different logits calls")
+        err = max(float((a - b).abs().max())
+                  for a, b in zip(calls["cuda"], calls["torch"]))
+        if err > 1e-3:
+            fail(f"mamba2 reference {label}: logits differ by {err:.3e} > "
+                 "1e-3")
+        return err
+
+    streams, calls = {}, {}
+    with torch.no_grad():
+        for backend, scfg in step_configs(steps).items():
+            with LogitsTap(torch, tfm, record=True, last_only=True) as tap:
+                pre = steps.make_prefill_step(cfg, scfg, max_len=PLEN + GEN)
+                last, cache = pre(params, {"inputs": prompts})
+                tok0 = torch.argmax(last, dim=-1).to(torch.int32)[:, None]
+                toks, cache = steps.make_decode_loop(cfg, scfg, GEN - 1)(
+                    params, cache, tok0)
+            streams[backend] = torch.cat([tok0, toks], 1).cpu().numpy()
+            calls[backend] = tap.calls
+            del cache
+    err = compare("batch", streams, calls)
+    say(f"reference ok: mamba2 fp32 full width, 48 layers, batch of {BATCH} "
+        f"x {PLEN} tokens + {GEN - 1} decode steps: streams equal on kernels"
+        f" and plain path, {len(calls['cuda'])} logits calls within "
+        f"{err:.3e}")
+
+    reqs = serving.poisson_trace(8, rate_per_step=0.5, seed=8,
+                                 vocab_size=cfg.vocab_size,
+                                 prompt_len=(16, 64),
+                                 max_new_tokens=(8, 24))
+    ecfg = serving.EngineConfig(n_slots=4, page_size=16, max_len=96,
+                                decode_chunk=4, cache_dtype="float32")
+    streams, calls = {}, {}
+    for backend, scfg in step_configs(steps).items():
+        eng = refuse_pages(serving.ServeEngine(cfg, ecfg, params,
+                                               step_cfg=scfg, device=dev),
+                           2, first=6)
+        with LogitsTap(torch, tfm, record=True, last_only=True) as tap:
+            rep = eng.run(reqs)
+        for r in rep.results:
+            if r.n_tokens != r.max_new_tokens:
+                fail(f"mamba2 reference engine: rid {r.rid} finished "
+                     f"{r.n_tokens}/{r.max_new_tokens}")
+        if rep.n_preemptions != 2:
+            fail(f"mamba2 reference engine: {rep.n_preemptions} "
+                 "preemptions, 2 forced")
+        streams[backend] = [r.tokens for r in rep.results]
+        calls[backend] = tap.calls
+    err = compare("engine", streams, calls)
+    say(f"reference ok: mamba2 fp32 full width, 48 layers, engine: 8 "
+        f"Poisson requests over 4 slots, 2 preemptions (folded prompts "
+        f"prefilled again): streams equal on kernels and plain path, "
+        f"{len(calls['cuda'])} logits calls within {err:.3e}")
 
 
 # --------------------------------------------------------------------------
@@ -1125,6 +1317,48 @@ def prefill_timings(torch, np, dev, fa, rms, ops, common):
     return out
 
 
+def ssd_work(B, S, H, P, G, N, es, chunk=128, init=False):
+    """(bytes, flops) of K8: x, dt, B, C (and an initial state) read once,
+    y and the final state written once; per chunk, C.B^T over the causal
+    band once per group, and per head the band times x, C h^T and the
+    state update x^T (w B), 2 flops a multiply-add."""
+    nbytes = (2 * B * S * H * P * es + B * S * H * 4 + 2 * B * S * G * N * es
+              + B * H * P * N * 4 * (2 if init else 1))
+    flops = 0.0
+    for c0 in range(0, S, chunk):
+        q = min(chunk, S - c0)
+        band = q * (q + 1) / 2
+        flops += B * (2 * band * N * G + H * (2 * band * P + 4 * q * N * P))
+    return nbytes, flops
+
+
+def ssd_timings(torch, np, dev, ss):
+    """Phase 5, K8 at the mamba2 main paths' prefill shapes (bf16, H 32, P
+    64, N 128, G 1, chunk 128, D, final state returned): 8 x 512 (the JSON
+    row) and the long batch's 2 x 4000.  No single PyTorch call computes
+    the scan: no library yardstick."""
+    out = {}
+    for i, (label, B, S) in enumerate((("8 x 512", BATCH, PLEN),
+                                       ("2 x 4000", 2, M_LONG))):
+        inp, _ = ssd_case(torch, np, dev, B=B, S=S, dtype="bfloat16",
+                          seed=900 + i)
+        reps = 20 if S <= 1024 else 4
+        ms = time_ms(torch, lambda: ss.ssd_scan(**inp, return_state=True),
+                     iters=5, reps=reps)
+        plain = time_ms(torch, lambda: ss.ssd_scan_torch(
+            **inp, return_state=True), iters=3, reps=3)
+        b_ms, b_by = bound(*ssd_work(B, S, 32, 64, 1, 128, 2))
+        say(f"K8 {label}: kernel {ms * 1e3:.1f} us, plain "
+            f"{plain * 1e3:.1f} us, library n/a, bound {b_ms * 1e3:.2f} us "
+            f"({b_by})")
+        if i == 0:
+            out["ssd_scan"] = dict(ms=ms, plain_ms=plain, library_ms=None,
+                                   bound_ms=b_ms, bound_by=b_by,
+                                   shape=f"mamba2 {label}")
+        del inp
+    return out
+
+
 def serve_run(torch, da, tfm, serve, label, argv):
     """One main-path run through the launcher: launch counts zeroed just
     before, read just after; finite logits required."""
@@ -1158,6 +1392,7 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.kernels import rmsnorm as rms
+    from repro_torch.kernels import ssd_scan as ss
     from repro_torch.launch import serve
     from repro_torch.models import common
     from repro_torch.models import transformer as tfm
@@ -1187,6 +1422,7 @@ def main() -> int:
     check_ring_kernels(torch, np, dev, da, ops, errs)
     errs.update(flash_attention=0.0, rmsnorm=0.0)
     check_prefill_kernels(torch, np, dev, fa, rms, ops, common, errs)
+    check_ssd_kernels(torch, np, dev, ss, ops, errs)
 
     # 3. reference: kernels vs plain torch, full width, fp32 ------------------
     cfg = get_arch("smollm-135m").config
@@ -1195,6 +1431,9 @@ def main() -> int:
                           bridge)
     gcfg = get_arch("gemma2-27b").config
     gemma_reference(torch, np, dev, gcfg, tfm, serving, steps, bridge)
+    torch.cuda.empty_cache()
+    mcfg = get_arch("mamba2-370m").config
+    mamba_reference(torch, np, dev, mcfg, tfm, serving, steps, bridge)
     torch.cuda.empty_cache()
 
     # 4. the main paths -------------------------------------------------------
@@ -1210,38 +1449,53 @@ def main() -> int:
                        "--prompt-len", str(PLEN), "--gen", str(GEN)]
     g_long = gemma + ["--traffic", "batch", "--requests", "2",
                       "--prompt-len", str(G_LONG), "--gen", "17"]
-    prefill = ("flash_attention", "rmsnorm")
-    paths = [("poisson", poisson, ("sweep_decode", "sweep_verify", "merge")),
-             ("batch", batch, ("ring_decode", "merge")),
+    mamba = ["--arch", "mamba2-370m"]
+    m_batch = mamba + ["--traffic", "batch", "--requests", str(BATCH),
+                       "--prompt-len", str(PLEN), "--gen", str(GEN)]
+    m_poisson = mamba + ["--traffic", "poisson", "--requests", "8",
+                         "--n-slots", "4", "--page-size", "16"]
+    m_long = mamba + ["--traffic", "batch", "--requests", "2",
+                      "--prompt-len", str(M_LONG), "--gen", "17"]
+    attn = ("flash_attention", "rmsnorm")
+    ssm = ("ssd", "rmsnorm")
+    # (label, argv, kernels the path must launch, requests, new tokens)
+    paths = [("poisson", poisson,
+              ("sweep_decode", "sweep_verify", "merge") + attn, 8, None),
+             ("batch", batch, ("ring_decode", "merge") + attn, BATCH, GEN),
              ("batch --spec-k 3", batch + ["--spec-k", "3"],
-              ("ring_verify", "merge")),
+              ("ring_verify", "merge") + attn, BATCH, GEN),
              ("poisson --spec-k 3", poisson + ["--spec-k", "3"],
-              ("sweep_verify", "merge")),
-             ("gemma2 batch", g_batch, ("ring_decode", "merge")),
-             ("gemma2 poisson", g_poisson, ("sweep_decode", "ring_decode")),
-             ("gemma2 long batch", g_long, ("ring_decode", "merge"))]
+              ("sweep_verify", "merge") + attn, 8, None),
+             ("gemma2 batch", g_batch, ("ring_decode", "merge") + attn, 4,
+              GEN),
+             ("gemma2 poisson", g_poisson,
+              ("sweep_decode", "ring_decode") + attn, 8, None),
+             ("gemma2 long batch", g_long, ("ring_decode", "merge") + attn,
+              2, 17),
+             ("mamba2 batch", m_batch, ssm, BATCH, GEN),
+             ("mamba2 poisson", m_poisson, ssm, 8, None),
+             ("mamba2 long batch", m_long, ssm, 2, 17)]
     launches = {key: 0 for key in da.LAUNCHES}
-    for label, argv, keys in paths:
+    for label, argv, keys, n_req, gen in paths:
         torch.cuda.reset_peak_memory_stats()
         out, counts = serve_run(torch, da, tfm, serve, label, argv)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         torch.cuda.empty_cache()
-        for key in keys + prefill:
+        for key in keys:
             if counts[key] <= 0:
                 fail(f"{label}: kernel {key} was never launched")
         for key, n in counts.items():
             launches[key] += n
-        n_req = 4 if label == "gemma2 batch" else \
-            2 if label == "gemma2 long batch" else BATCH
         if "poisson" in label:
             rep = out
-            if len(rep.results) != 8:
-                fail(f"{label}: {len(rep.results)} results, expected 8")
+            if len(rep.results) != n_req:
+                fail(f"{label}: {len(rep.results)} results, expected "
+                     f"{n_req}")
             for r in rep.results:
                 if r.n_tokens != r.max_new_tokens:
                     fail(f"{label}: rid {r.rid} finished {r.n_tokens}/"
                          f"{r.max_new_tokens} tokens ({r.finish_reason})")
-            if not label.startswith("gemma2") \
+            if not label.startswith(("gemma2", "mamba2")) \
                     and rep.prefill_tokens_saved <= 0:
                 fail(f"{label}: no prefix-cache hit, the suffix prefill "
                      "never ran")
@@ -1253,7 +1507,6 @@ def main() -> int:
                 f"measured, {rep.j_per_token:.4g} J/token (analytic H100 "
                 f"SXM model){extra}, peak {peak:.1f} GiB, launches {counts}")
         else:
-            gen = 17 if label == "gemma2 long batch" else GEN
             if out["tokens"].shape != (n_req, gen):
                 fail(f"{label}: generated {out['tokens'].shape}, expected "
                      f"{(n_req, gen)}")
@@ -1270,6 +1523,7 @@ def main() -> int:
     times = timings(torch, np, dev, da, ops)
     times.update(ring_timings(torch, np, dev, da, ops))
     times.update(prefill_timings(torch, np, dev, fa, rms, ops, common))
+    times.update(ssd_timings(torch, np, dev, ss))
     kernels = []
     for name, t in times.items():
         source, replaces, key = KERNELS[name]

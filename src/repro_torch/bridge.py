@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as _device
-from repro_torch.models import common
+from repro_torch.models import common, ssm
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
 
@@ -36,8 +36,21 @@ def _tensor(leaf) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a).copy())
 
 
+def _mamba_shapes(cfg: ModelConfig, nu: int) -> dict:
+    """An SSM layer's parameter shapes (``repro.models.ssm.init_mamba``)."""
+    d, di = cfg.d_model, cfg.d_inner
+    H, GN = cfg.resolved_ssm_heads, cfg.ssm_groups * cfg.ssm_state
+    cd = ssm.conv_dim(cfg)
+    return {"pre_norm": (nu, d), "wz": (nu, d, di), "wx": (nu, d, di),
+            "wB": (nu, d, GN), "wC": (nu, d, GN), "wdt": (nu, d, H),
+            "conv_w": (nu, cfg.conv_width, cd), "conv_b": (nu, cd),
+            "A_log": (nu, H), "D": (nu, H), "dt_bias": (nu, H),
+            "norm_scale": (nu, di), "wout": (nu, di, d)}
+
+
 def _shapes(cfg: ModelConfig) -> dict:
-    """The dense family's parameter shapes, nested as the JAX tree."""
+    """The parameter shapes of the dense and SSM families, nested as the
+    JAX tree."""
     d, hd, ff = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
     hq, hkv = cfg.padded_q_heads, cfg.padded_kv_heads
     nu = tfm.n_units(cfg)
@@ -48,6 +61,8 @@ def _shapes(cfg: ModelConfig) -> dict:
            "attn": {"wq": (nu, d, hq, hd), "wk": (nu, d, hkv, hd),
                     "wv": (nu, d, hkv, hd), "wo": (nu, hq, hd, d)},
            "ffn": ffn}
+    if cfg.uses_ssm:
+        sub = _mamba_shapes(cfg, nu)
     if cfg.post_norms:
         sub["post_attn_norm"] = (nu, d)
         sub["post_ffn_norm"] = (nu, d)
@@ -119,12 +134,18 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator, device=None) -> dict:
     gemma (1 + w) form).  The matmul weights are made in the compute dtype
     ``cfg.dtype``, to which ``transformer.prepare_params`` would cast them
     anyway, from fp32 draws of at most 2**27 values at a time; the norm
-    scales keep ``param_dtype``."""
+    scales keep ``param_dtype``.  An SSM layer's other leaves follow the
+    deterministic parts of ``repro.models.ssm.init_mamba``, in
+    ``param_dtype``: ``A_log = log(linspace(1, 16, H))``, ``dt_bias`` the
+    inverse softplus of a log-uniform draw in [1e-3, 1e-1], ``D`` at 1,
+    ``conv_b`` at 0 and ``conv_w`` N(0, 0.1)."""
     dev = _device.resolve(device)
     gdev = generator.device
+    pdt = common.dt(cfg.param_dtype)
 
-    def normal(shape, std):
-        out = torch.empty(shape, dtype=common.dt(cfg.dtype), device=dev)
+    def normal(shape, std, dtype=None):
+        out = torch.empty(shape, dtype=dtype or common.dt(cfg.dtype),
+                          device=dev)
         flat = out.view(shape[0], -1)
         step = max(1, 2 ** 27 // max(flat.shape[1], 1))
         for i in range(0, shape[0], step):
@@ -133,11 +154,29 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator, device=None) -> dict:
             rows.copy_(draw.mul_(std))
         return out
 
+    def mamba_leaf(key, shape):
+        nu, H = shape[0], shape[-1]
+        if key == "A_log":
+            row = torch.log(torch.linspace(1.0, 16.0, H, device=dev))
+            return row.expand(nu, H).to(pdt).contiguous()
+        if key == "dt_bias":
+            u = torch.rand(shape, generator=generator, device=gdev).to(dev)
+            lo, hi = np.log(1e-3), np.log(0.1)
+            target = torch.exp(u * (hi - lo) + lo)
+            return torch.log(torch.expm1(target)).to(pdt)
+        if key == "D":
+            return torch.ones(shape, dtype=pdt, device=dev)
+        if key == "conv_b":
+            return torch.zeros(shape, dtype=pdt, device=dev)
+        return normal(shape, 0.1, pdt)                    # conv_w
+
     def build(shapes):
         out = {}
         for key, shape in shapes.items():
             if isinstance(shape, dict):
                 out[key] = build(shape)
+            elif key in ("A_log", "dt_bias", "D", "conv_b", "conv_w"):
+                out[key] = mamba_leaf(key, shape)
             elif "norm" in key:
                 fill = 0.0 if cfg.post_norms else 1.0
                 out[key] = torch.full(shape, fill,

@@ -12,6 +12,16 @@ Counterpart of ``repro.kernels.ops`` for the ops the port runs:
     ``ref.rmsnorm_ref``) or ``cuda`` (the fused kernel K9,
     ``kernels/rmsnorm.py``).  ``auto`` is ``cuda`` for CUDA tensors and
     ``ref`` for CPU tensors, as in the JAX package.
+  * ``ssd`` (Mamba2's chunked scan, every SSM prefill) on
+    ``KernelPolicy.ssd``: ``ref`` (the sequential recurrence,
+    ``ref.ssd_ref``), ``chunked`` (``ssd_chunked_torch``, the JAX
+    ``ssd_chunked_jnp`` mirror, which falls back to ``ref`` when the
+    chunk does not divide S, as JAX does) or ``cuda`` (the hand-written
+    Hopper kernel K8, ``kernels/ssd_scan.py``, any S).  ``auto`` is
+    ``cuda`` for CUDA tensors; for CPU tensors it chooses as the JAX
+    package does under ``auto`` (``ref`` up to 64 steps, else
+    ``chunked``).  ``ssd_decode_step``, the O(1) recurrence of a decode
+    step, is plain torch: it is no Pallas kernel in JAX either.
   * ``paged_decode_attention`` / ``paged_verify_attention`` (the engine's
     hot path) and ``decode_attention`` / ``verify_attention`` (the static
     batch's ring cache) on ``KernelPolicy.decode``: ``ref`` the fp32
@@ -53,6 +63,7 @@ from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import rmsnorm as rms
+from repro_torch.kernels import ssd_scan as ss
 from repro_torch.kernels.decode_attention import lse_merge_torch
 from repro_torch.kernels.ref import NEG_INF
 
@@ -61,7 +72,7 @@ from repro_torch.kernels.ref import NEG_INF
 class KernelPolicy:
     """Which implementation backs each op."""
     attention: str = "auto"      # auto | ref | chunked | cuda
-    ssd: str = "auto"
+    ssd: str = "auto"            # auto | ref | chunked | cuda
     rmsnorm: str = "auto"        # auto | ref | cuda
     decode: str = "auto"         # auto | ref | torch | cuda
     q_chunk: int = 1024
@@ -262,6 +273,112 @@ def rmsnorm(x, scale, *, eps=1e-6, gemma_style=False,
         return _ref.rmsnorm_ref(x, scale, eps=eps, gemma_style=gemma_style)
     raise ValueError(f"unknown rmsnorm backend {backend!r} "
                      "(ported: auto | ref | cuda)")
+
+
+# ==========================================================================
+# Mamba2 SSD
+# ==========================================================================
+def _segsum(a):
+    """L[t, s] = sum_{r=s+1..t} a[r] for s <= t, else -inf.  a: (..., Q)."""
+    Q = a.shape[-1]
+    cs = torch.cumsum(a, dim=-1)
+    L = cs[..., :, None] - cs[..., None, :]
+    mask = torch.ones((Q, Q), dtype=torch.bool, device=a.device).tril()
+    return L.masked_fill(~mask, float("-inf"))
+
+
+def ssd_chunked_torch(x, dt, A, B_mat, C_mat, D=None, *, chunk: int = 128,
+                      initial_state=None, return_state: bool = False):
+    """Chunked SSD (state-space duality), Mamba2's Algorithm 1 in plain
+    torch: the quadratic form inside each chunk of ``chunk`` steps, the
+    state carried from chunk to chunk.  Same contract as ``ref.ssd_ref``,
+    which it falls back to when ``chunk`` does not divide S (as the JAX
+    ``ssd_chunked_jnp`` does)."""
+    Bb, S, H, P = x.shape
+    G, N = B_mat.shape[2], B_mat.shape[3]
+    rep = H // G
+    if S % chunk:
+        return _ref.ssd_ref(x, dt, A, B_mat, C_mat, D,
+                            initial_state=initial_state,
+                            return_state=return_state)
+    nc = S // chunk
+    xf = x.float().reshape(Bb, nc, chunk, H, P)
+    dtf = dt.float().reshape(Bb, nc, chunk, H)
+    Af = A.float()
+    Bf = torch.repeat_interleave(B_mat.float(), rep, dim=2).reshape(
+        Bb, nc, chunk, H, N)
+    Cf = torch.repeat_interleave(C_mat.float(), rep, dim=2).reshape(
+        Bb, nc, chunk, H, N)
+    h = (torch.zeros((Bb, H, P, N), dtype=torch.float32, device=x.device)
+         if initial_state is None else initial_state.float())
+    ys = []
+    for c in range(nc):
+        xc, dtc, Bc, Cc = xf[:, c], dtf[:, c], Bf[:, c], Cf[:, c]
+        a_t = (dtc * Af).transpose(1, 2)                    # (B, H, Q)
+        cs = torch.cumsum(a_t, dim=-1)
+        # 1. inside the chunk (the diagonal block), attention-like
+        L = torch.exp(_segsum(a_t))                         # (B, H, Q, Q)
+        Gm = torch.einsum("bqhn,bshn->bhqs", Cc, Bc)
+        M = Gm * L * dtc.transpose(1, 2)[:, :, None, :]
+        y_diag = torch.einsum("bhqs,bshp->bqhp", M, xc)
+        # 2. the carried-in state's contribution
+        y_off = torch.einsum("bqhn,bhpn,bhq->bqhp", Cc, h, torch.exp(cs))
+        # 3. the next state
+        total = cs[..., -1:]                                # (B, H, 1)
+        w = dtc * torch.exp(total - cs).transpose(1, 2)     # (B, Q, H)
+        dBx = torch.einsum("bqhn,bqhp->bhpn", Bc * w[..., None], xc)
+        h = torch.exp(total)[..., None] * h + dBx
+        ys.append(y_diag + y_off)
+    y = torch.stack(ys, dim=1).reshape(Bb, S, H, P)
+    if D is not None:
+        y = y + D.float()[:, None] * x.float()
+    y = y.to(x.dtype)
+    if return_state:
+        return y, h
+    return y
+
+
+def ssd_decode_step(h, x_t, dt_t, A, B_t, C_t, D=None):
+    """One-token SSD recurrence for decode, O(1) in context length.
+    h (B, H, P, N), x_t (B, H, P), dt_t (B, H), B_t / C_t (B, G, N) ->
+    (new h fp32, y (B, H, P) in x_t's dtype)."""
+    H = x_t.shape[1]
+    rep = H // B_t.shape[1]
+    Bf = torch.repeat_interleave(B_t.float(), rep, dim=1)      # (B, H, N)
+    Cf = torch.repeat_interleave(C_t.float(), rep, dim=1)
+    dtf = dt_t.float()
+    decay = torch.exp(dtf * A.float())[..., None, None]
+    upd = (dtf[..., None] * x_t.float())[..., None] * Bf[:, :, None, :]
+    h_new = decay * h.float() + upd
+    y = torch.einsum("bhpn,bhn->bhp", h_new, Cf)
+    if D is not None:
+        y = y + D.float()[:, None] * x_t.float()
+    return h_new, y.to(x_t.dtype)
+
+
+def ssd(x, dt, A, B_mat, C_mat, D=None, *, initial_state=None,
+        return_state: bool = False, policy: KernelPolicy = DEFAULT_POLICY):
+    """Backend-dispatching SSD scan over a whole sequence (prefill)."""
+    backend = policy.ssd
+    if backend == "auto" and x.device.type == "cuda":
+        backend = "cuda"
+    elif backend == "auto":
+        backend = "ref" if x.shape[1] <= 64 else "chunked"
+    if backend == "cuda":
+        return ss.ssd_scan(x, dt, A, B_mat, C_mat, D, chunk=policy.ssd_chunk,
+                           initial_state=initial_state,
+                           return_state=return_state)
+    if backend == "ref":
+        return _ref.ssd_ref(x, dt, A, B_mat, C_mat, D,
+                            initial_state=initial_state,
+                            return_state=return_state)
+    if backend == "chunked":
+        return ssd_chunked_torch(x, dt, A, B_mat, C_mat, D,
+                                 chunk=policy.ssd_chunk,
+                                 initial_state=initial_state,
+                                 return_state=return_state)
+    raise ValueError(f"unknown ssd backend {backend!r} "
+                     "(ported: auto | ref | chunked | cuda)")
 
 
 # ==========================================================================

@@ -5,8 +5,8 @@ Counterparts of ``repro.kernels.ref``'s ``attention_ref``,
 ``decode_attention_ref``, ``decode_attention_split_ref``,
 ``verify_attention_ref``, ``merge_kv_splits_ref``,
 ``paged_decode_attention_split_ref``, ``paged_verify_attention_ref``,
-``paged_decode_attention_ref`` and ``rmsnorm_ref`` (same shapes, layouts
-and masks), for bf16 and fp32 caches.  The int8 (scaled) forms belong to
+``paged_decode_attention_ref``, ``ssd_ref`` and ``rmsnorm_ref`` (same
+shapes, layouts and masks), for bf16 and fp32 caches.  The int8 (scaled) forms belong to
 the KV-tier slice: a scale raises by name (:func:`no_int8`).
 """
 from __future__ import annotations
@@ -291,6 +291,43 @@ def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, pos, *,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgk,bkhd->bhgd", p, vg)
     return o.reshape(B, 1, Hq, v_pages.shape[-1]).to(q.dtype)
+
+
+# --------------------------------------------------------------------------
+# Mamba2 SSD oracle: the sequential recurrence over time
+# --------------------------------------------------------------------------
+def ssd_ref(x, dt, A, B_mat, C_mat, D=None, *, initial_state=None,
+            return_state: bool = False):
+    """Exact recurrence ``h_t = exp(dt_t A) h_{t-1} + dt_t x_t B_t^T``,
+    ``y_t = C_t h_t + D x_t``, in fp32.  x (B, S, H, P), dt (B, S, H), A
+    (H,), B_mat / C_mat (B, S, G, N) shared by the H // G heads of a group,
+    D (H,) or None, initial_state (B, H, P, N) or None.  Returns y in x's
+    dtype, and with ``return_state`` also the final state (B, H, P, N)
+    fp32."""
+    Bb, S, H, P = x.shape
+    G, N = B_mat.shape[2], B_mat.shape[3]
+    rep = H // G
+    xf = x.float()
+    dtf = dt.float()
+    Af = A.float()
+    Bf = torch.repeat_interleave(B_mat.float(), rep, dim=2)   # (B, S, H, N)
+    Cf = torch.repeat_interleave(C_mat.float(), rep, dim=2)
+    h = (torch.zeros((Bb, H, P, N), dtype=torch.float32, device=x.device)
+         if initial_state is None else initial_state.float())
+    ys = []
+    for t in range(S):
+        decay = torch.exp(dtf[:, t] * Af)[..., None, None]    # (B, H, 1, 1)
+        upd = (dtf[:, t, :, None] * xf[:, t])[..., None] \
+            * Bf[:, t, :, None, :]                              # (B, H, P, N)
+        h = decay * h + upd
+        ys.append(torch.einsum("bhpn,bhn->bhp", h, Cf[:, t]))
+    y = torch.stack(ys, dim=1) if ys else xf.new_zeros((Bb, 0, H, P))
+    if D is not None:
+        y = y + D.float()[:, None] * xf
+    y = y.to(x.dtype)
+    if return_state:
+        return y, h
+    return y
 
 
 # --------------------------------------------------------------------------

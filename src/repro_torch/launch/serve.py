@@ -13,6 +13,10 @@ plus ``--device``.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-27b \
         --requests 4 --prompt-len 512 --gen 33
 
+    # mamba2-370m at full width and depth (SSM state slots, no KV cache)
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
+        --traffic poisson --requests 8 --n-slots 4
+
     # at smoke size on the CPU (plain torch paths, no kernels)
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
         --smoke --device cpu
@@ -31,7 +35,8 @@ Two traffic modes:
 self-drafted tokens plus one bonus (``--drafter ngram`` or ``repeat``);
 greedy output is identical to the plain loop's.  As in the JAX launcher,
 the model's blockers decide: gemma2's windowed layers allow it on the
-batch path and refuse it in the engine (``local_global``).
+batch path and refuse it in the engine (``local_global``); mamba2's
+recurrent state refuses it in both (``uses_ssm``).
 
 FROST (unless ``--no-frost``): every chunk emits one ``StepDone`` +
 ``PowerSampled`` with the measured wall time and useful tokens; the

@@ -1,5 +1,5 @@
-"""Shared model building blocks of the port: dtypes, RMSNorm, activations,
-soft-cap, RoPE — counterparts of ``repro.models.common`` with the same
+"""Shared model building blocks of the port: dtypes, RMSNorm, Mamba2's
+gated RMSNorm, activations, soft-cap, RoPE — counterparts of ``repro.models.common`` with the same
 shapes and fp32 internals."""
 from __future__ import annotations
 
@@ -27,6 +27,15 @@ def rmsnorm(x, scale, eps: float = 1e-6, gemma_style: bool = False):
     if gemma_style:
         w = 1.0 + w
     return (y * w).to(x.dtype)
+
+
+def gated_rmsnorm(x, gate, scale, eps: float = 1e-6):
+    """Mamba2's norm: RMSNorm(x * silu(gate)) in fp32, cast back to
+    x.dtype."""
+    x32 = x.float() * torch.nn.functional.silu(gate.float())
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps) * scale.float()
+    return y.to(x.dtype)
 
 
 def activation(name: str):

@@ -1,13 +1,16 @@
 """The LM trunk of the port, dense GQA family with its windowed members
-(gemma2's local/global layer pairs, sliding-window layers): prefill, the
-decode step and the verify sweep over both cache layouts (ring and
-paged), suffix prefill and the speculative commits — counterparts of
+(gemma2's local/global layer pairs, sliding-window layers) and the SSM
+family (Mamba2 layers, ``models/ssm.py``): prefill, the decode step and
+the verify sweep over both cache layouts (ring and paged), suffix prefill
+and the speculative commits — counterparts of
 ``repro.models.transformer``'s functions of the same names, with the same
 shapes and parameter layout.
 
 Parameters are the nested dict of the JAX package (``embed``,
 ``layers/sub0/{norm1, attn/{wq,wk,wv,wo}, norm2, ffn/{wi_gate,wi_up,wo}}``
-stacked on a leading ``n_units`` axis, ``final_norm``), so a JAX
+stacked on a leading ``n_units`` axis, ``final_norm``; an SSM layer's
+sub is ``{pre_norm, wz, wx, wB, wC, wdt, conv_w, conv_b, A_log, D,
+dt_bias, norm_scale, wout}``), so a JAX
 checkpoint loads without reshaping (``repro_torch.bridge``).  Where JAX
 scanned over the stacked layers, the port loops in Python.
 
@@ -18,7 +21,10 @@ window)``.  The paged cache is ``{"pos": (n_slots,) int32,
 "block_tables": (n_slots, max_blocks) int32, "units": {"sub<i>": {"k",
 "v": (n_units, n_pages, page_size, Hkv, hd)}}}``; a windowed sub holds a
 private ring of ``nbw`` pages per slot instead, (n_units, n_slots * nbw,
-page_size, Hkv, hd).  Both are updated IN PLACE (the decode writes and
+page_size, Hkv, hd).  An SSM sub holds its recurrent state instead, in
+both layouts: ``{"conv": (n_units, B, conv_width - 1, conv_dim), "ssm":
+(n_units, B, H, P, N) fp32}``, one state slot per batch row or engine
+slot.  Both are updated IN PLACE (the decode writes and
 the commits go through ``index_copy_``), where JAX donated the buffers
 and returned new ones; the functions still return the cache dict, with a
 new ``pos``.  The decode steps and the ring commit compute their indices
@@ -33,7 +39,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
-from repro_torch.models import common
+from repro_torch.models import common, ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import mlp_forward
 
@@ -73,9 +79,10 @@ def n_units(cfg: ModelConfig) -> int:
 def paged_cache_blockers(cfg: ModelConfig) -> tuple[str, ...]:
     """Named config features the port does not serve yet, on either cache
     layout (each family comes with its own slice; see ROADMAP.md).  Empty,
-    as in the JAX package, for the dense GQA family and its windowed
-    members."""
-    checks = (("uses_ssm", cfg.uses_ssm), ("use_mla", cfg.use_mla),
+    as in the JAX package, for the dense GQA family, its windowed members
+    and the SSM family (state slots); the hybrid family stays blocked by
+    its shared attention block."""
+    checks = (("use_mla", cfg.use_mla),
               ("n_experts", cfg.uses_moe),
               ("n_codebooks", bool(cfg.n_codebooks)),
               ("first_dense_layers", bool(cfg.first_dense_layers)),
@@ -130,7 +137,7 @@ def supports_speculative(cfg: ModelConfig) -> bool:
 
 def _require_ported(cfg: ModelConfig) -> None:
     """Both cache layouts serve the dense GQA family (windowed layers
-    included) only so far."""
+    included) and the SSM family only so far."""
     blockers = paged_cache_blockers(cfg)
     if blockers:
         raise NotImplementedError(f"{cfg.name}: {blockers[0]} is not ported "
@@ -141,13 +148,15 @@ def _require_ported(cfg: ModelConfig) -> None:
 # parameters
 # ==========================================================================
 _MATMUL_KEYS = ("wq", "wk", "wv", "wo", "wi_gate", "wi_up", "embed",
-                "lm_head")
+                "lm_head", "wz", "wx", "wB", "wC", "wdt", "wout")
 
 
 def prepare_params(params, cfg: ModelConfig):
     """Cast the matmul weights once to the compute dtype ``cfg.dtype``
     (the JAX package casts them at every use — same values); norm scales
-    keep ``param_dtype``, since rmsnorm reads them in fp32."""
+    keep ``param_dtype``, since rmsnorm reads them in fp32, and so do an
+    SSM layer's ``A_log``, ``D``, ``dt_bias`` and ``norm_scale``; its
+    ``conv_w`` and ``conv_b`` are cast at use, as in JAX."""
     adt = common.dt(cfg.dtype)
 
     def walk(tree):
@@ -226,6 +235,39 @@ def _ffn(blk, x, a, cfg: ModelConfig, ctx: RunCtx):
 # ==========================================================================
 # prefill
 # ==========================================================================
+def _stack_layer(units, name: str, l: int, nu: int, leaves: dict) -> None:
+    """Write layer ``l``'s cache leaves into the stacked cache of sub
+    ``name``, allocated at layer 0: the cache is filled layer by layer."""
+    if l == 0:
+        units[name] = {key: t.new_empty((nu, *t.shape))
+                       for key, t in leaves.items()}
+    for key, t in leaves.items():
+        units[name][key][l] = t
+
+
+def _ssm_state(cfg: ModelConfig, batch: int, dtype, device):
+    """Zero-filled recurrent state of one SSM sub, one slot per batch row:
+    the conv tail in the cache dtype, the SSM state in fp32."""
+    H, P, N = cfg.resolved_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    nu = n_units(cfg)
+    return {"conv": torch.zeros((nu, batch, cfg.conv_width - 1,
+                                 ssm.conv_dim(cfg)), dtype=dtype,
+                                device=device),
+            "ssm": torch.zeros((nu, batch, H, P, N),
+                               dtype=torch.float32, device=device)}
+
+
+def _ssm_decode(blk, x, c, l: int, cfg: ModelConfig, ctx: RunCtx):
+    """One decode step of an SSM sub of layer ``l``: every state slot
+    advances (parked engine slots too, as in JAX), written in place."""
+    h = _norm(x, blk["pre_norm"], cfg, ctx)
+    out, (conv, state) = ssm.mamba_decode(blk, h, (c["conv"][l],
+                                                   c["ssm"][l]), cfg)
+    c["conv"][l].copy_(conv)
+    c["ssm"][l].copy_(state)
+    return x + out
+
+
 def prefill(params, tokens, cfg: ModelConfig, ctx: RunCtx = RunCtx(), *,
             max_len: int = 0, full_cache: bool = False):
     """Process the whole prompt and build its decode cache.
@@ -238,7 +280,9 @@ def prefill(params, tokens, cfg: ModelConfig, ctx: RunCtx = RunCtx(), *,
     linear at ``max_len`` too: the engine's page inject needs the rows of
     a padded prompt bucket in place, since in the ring layout the pad rows
     would overwrite the real window tail (the window still masks the
-    scores)."""
+    scores).  An SSM sub's cache is its recurrent state after the prompt
+    (``mamba_forward(..., return_state=True)``): every prompt token enters
+    it, so the engine prefills SSM prompts at their exact length."""
     _require_ported(cfg)
     x = embed_tokens(params, tokens, cfg, ctx)
     B, S = x.shape[:2]
@@ -250,18 +294,21 @@ def prefill(params, tokens, cfg: ModelConfig, ctx: RunCtx = RunCtx(), *,
         unit = _layer(params["layers"], l)
         for i in range(unit_size(cfg)):
             blk = unit[f"sub{i}"]
+            if cfg.uses_ssm:
+                h = _norm(x, blk["pre_norm"], cfg, ctx)
+                out, (conv, state) = ssm.mamba_forward(
+                    blk, h, cfg, policy=ctx.kernel_policy, return_state=True)
+                x = x + out
+                _stack_layer(units, f"sub{i}", l, nu,
+                             {"conv": conv, "ssm": state})
+                continue
             w = cfg.window_for_layer(i)
             cap = min(max_len, w) if (w > 0 and not full_cache) else max_len
             h = _norm(x, blk["norm1"], cfg, ctx)
             a, (k, v) = attn.gqa_prefill(blk["attn"], h, positions, cfg,
                                          window=w, cache_len=cap,
                                          policy=ctx.kernel_policy)
-            if l == 0:      # the stacked cache, filled layer by layer
-                units[f"sub{i}"] = {
-                    key: t.new_empty((nu, *t.shape))
-                    for key, t in (("k", k), ("v", v))}
-            units[f"sub{i}"]["k"][l] = k
-            units[f"sub{i}"]["v"][l] = v
+            _stack_layer(units, f"sub{i}", l, nu, {"k": k, "v": v})
             x = _ffn(blk, x, a, cfg, ctx)
     x = _norm(x, params["final_norm"], cfg, ctx)
     logits = lm_logits(params, x, cfg, ctx)
@@ -276,14 +323,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype: str = "bfloat16", device=None):
     """Zero-filled ring decode cache, dense GQA branch: per-unit k/v ring
     buffers of capacity ``max_len`` (``min(max_len, window)`` for a
-    windowed sub), ``pos`` 0.  The MLA, SSM, hybrid and first-dense
-    branches raise by name."""
+    windowed sub), ``pos`` 0; an SSM sub's zero state, one slot per batch
+    row.  The MLA, hybrid and first-dense branches raise by name."""
     _require_ported(cfg)
     if dtype == "int8":
         raise NotImplementedError("int8 KV caches: KV-tier slice")
     adt = common.dt(dtype)
     units = {}
     for i in range(unit_size(cfg)):
+        if cfg.uses_ssm:
+            units[f"sub{i}"] = _ssm_state(cfg, batch, adt, device)
+            continue
         w = cfg.window_for_layer(i)
         cap = min(max_len, w) if w > 0 else max_len
         shape = (n_units(cfg), batch, cap, cfg.padded_kv_heads,
@@ -315,6 +365,9 @@ def decode_step(params, cache, tokens, cfg: ModelConfig,
         unit = _layer(params["layers"], l)
         for i in range(unit_size(cfg)):
             blk, c = unit[f"sub{i}"], cache["units"][f"sub{i}"]
+            if cfg.uses_ssm:
+                x = _ssm_decode(blk, x, c, l, cfg, ctx)
+                continue
             h = _norm(x, blk["norm1"], cfg, ctx)
             a, _ = attn.gqa_decode(blk["attn"], h, pos,
                                    (c["k"][l], c["v"][l]), cfg,
@@ -364,7 +417,9 @@ def init_paged_cache(cfg: ModelConfig, n_slots: int, n_pages: int,
     PRIVATE ring of ``nbw = ceil(min(max_len, window) / page_size)`` pages
     per slot, pool (n_units, n_slots * nbw, page_size, Hkv, hd), slot s's
     ring being pages ``s * nbw .. s * nbw + nbw - 1`` (no table): O(window)
-    bytes per slot however deep its stream runs."""
+    bytes per slot however deep its stream runs.  An SSM sub holds one
+    state slot per engine slot instead, (n_units, n_slots, ...): no pages,
+    no table."""
     _require_ported(cfg)
     if dtype == "int8":
         raise NotImplementedError("int8 KV pages: KV-tier slice")
@@ -375,6 +430,9 @@ def init_paged_cache(cfg: ModelConfig, n_slots: int, n_pages: int,
     max_len = max_blocks * page_size
     units = {}
     for i in range(unit_size(cfg)):
+        if cfg.uses_ssm:
+            units[f"sub{i}"] = _ssm_state(cfg, n_slots, adt, device)
+            continue
         w = cfg.window_for_layer(i)
         n = n_slots * -(-min(max_len, w) // page_size) if w > 0 else n_pages
         shape = (nu, n, page_size, hkv, hd)
@@ -394,7 +452,9 @@ def _paged_decode_step(params, cache, tokens, cfg: ModelConfig, ctx: RunCtx,
     keep rewriting row ``pos[b]`` of their scratch page (or of their
     private ring); the engine drops their tokens.  A windowed sub decodes
     against the slots' private rings, viewed as (B, nbw * page_size, Hkv,
-    hd), at each slot's own position."""
+    hd), at each slot's own position.  An SSM sub advances every slot's
+    state, parked slots included (the engine's inject overwrites a slot's
+    state when a request joins)."""
     _require_ported(cfg)
     pos = cache["pos"]
     bt = cache["block_tables"]
@@ -403,6 +463,9 @@ def _paged_decode_step(params, cache, tokens, cfg: ModelConfig, ctx: RunCtx,
         unit = _layer(params["layers"], l)
         for i in range(unit_size(cfg)):
             blk, c = unit[f"sub{i}"], cache["units"][f"sub{i}"]
+            if cfg.uses_ssm:
+                x = _ssm_decode(blk, x, c, l, cfg, ctx)
+                continue
             w = cfg.window_for_layer(i)
             h = _norm(x, blk["norm1"], cfg, ctx)
             if w > 0:

@@ -12,7 +12,10 @@ the uncached suffix (chunked, through the paged verify sweep); cold
 prompts run the bucketed prefill + page inject.  Windowed layers (gemma2's
 local layers) keep a private ring of pages per slot: the inject writes the
 last ``window`` prompt rows into it, and models with such layers keep the
-cold path (no prefix cache, no speculation), as in the JAX package.  The
+cold path (no prefix cache, no speculation), as in the JAX package.  SSM
+layers (mamba2) keep one recurrent state slot per engine slot: a cold
+join prefills the prompt at its exact length (a pad token would enter the
+state) and overwrites the slot's state; they too keep the cold path.  The
 host bookkeeping (``PagedKVCache``, ``Scheduler``) is the JAX package's,
 copied; the device steps are the port's torch functions on the engine's
 device.
@@ -239,10 +242,10 @@ class ServeEngine:
         self.cache = self.kv.make_cache(self.device)
         # unit subs whose page axis rides the main block tables: the only
         # pools a page copy may touch (a windowed sub's axis 1 holds the
-        # slots' private rings)
+        # slots' private rings, an SSM sub's their state slots)
         self._table_subs = frozenset(
             f"sub{i}" for i in range(tfm.unit_size(cfg))
-            if cfg.window_for_layer(i) == 0)
+            if not cfg.uses_ssm and cfg.window_for_layer(i) == 0)
         self._ctx = make_run_ctx(cfg, self.step_cfg)
         self._loops: dict[tuple[int, bool], Callable] = {}
         self._suffix = make_prefill_suffix_step(cfg, self.step_cfg) \
@@ -298,11 +301,13 @@ class ServeEngine:
         retention.  Table subs take ``PagedKVCache.inject_rows``; a
         window-``w`` sub keeps only ``[max(0, L - w), L)``, at ring offset
         ``p % Cw`` of the slot's private pages (older rows can never be
-        attended again)."""
+        attended again).  SSM subs have state slots, not rows: none."""
         ps = self.kv.page_size
         main = np.asarray(self.kv.inject_rows(slot, bucket, L))
         rows = {}
         for i in range(tfm.unit_size(self.cfg)):
+            if self.cfg.uses_ssm:
+                continue
             w = self.cfg.window_for_layer(i)
             if w <= 0:
                 rows[f"sub{i}"] = main
@@ -314,11 +319,16 @@ class ServeEngine:
                                        self.ecfg.n_slots * cw)
         return rows
 
-    def _inject(self, pcache, rows: dict) -> None:
+    def _inject(self, pcache, rows: dict, slot: int) -> None:
         """Scatter a (padded, linear) prefill cache into the slot's pages
-        and private rings, in place; out-of-bounds rows are dropped."""
+        and private rings, in place; out-of-bounds rows are dropped.  An
+        SSM sub's state slot is overwritten with the prompt's state."""
         for name, c in self.cache["units"].items():
             src = pcache["units"][name]
+            if "conv" in c:
+                for key in ("conv", "ssm"):
+                    c[key][:, slot] = src[key][:, 0].to(c[key].dtype)
+                continue
             r = rows[name]
             keep = r < c["k"].shape[1] * c["k"].shape[2]
             idx = self._tensor(r[keep], torch.int64)
@@ -387,7 +397,9 @@ class ServeEngine:
         if m > 0:
             logits_row = self._prefill_suffix(slot, req, m)
         else:
-            bucket = self._bucket(L)
+            # SSM prompts prefill at their exact length: the recurrent
+            # state is a reduction over every fed token, pad included
+            bucket = L if self.cfg.uses_ssm else self._bucket(L)
             inputs = np.zeros((1, bucket), np.int32)
             inputs[0, :L] = req.prompt
             # full_cache: windowed subs stay linear, so that the bucket's
@@ -396,7 +408,7 @@ class ServeEngine:
                                          self.cfg, self._ctx, max_len=bucket,
                                          full_cache=True)
             logits_row = logits[0, L - 1]
-            self._inject(pcache, self._inject_rows(slot, bucket, L))
+            self._inject(pcache, self._inject_rows(slot, bucket, L), slot)
         first = self._sample_first(logits_row, req.rid)
         self._pos[slot] = L
         if self._use_prefix:

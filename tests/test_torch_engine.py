@@ -135,7 +135,7 @@ def test_cpu_engine_launches_no_kernel(smollm):
                     device="cpu").run(reqs)
     assert set(da.LAUNCHES) == {"sweep_decode", "sweep_verify", "merge",
                                 "ring_decode", "ring_verify",
-                                "flash_attention", "rmsnorm"}
+                                "flash_attention", "rmsnorm", "ssd"}
     assert all(n == 0 for n in da.LAUNCHES.values())
 
 
@@ -221,8 +221,8 @@ def test_serve_refuses_unported_flags(extra, item):
 
 
 def test_serve_unknown_arch_names_the_ported_ones():
-    with pytest.raises(KeyError, match="gemma2-27b.*smollm-135m"):
-        serve.run(["--arch", "mamba2-370m", "--device", "cpu",
+    with pytest.raises(KeyError, match="gemma2-27b.*mamba2-370m.*smollm"):
+        serve.run(["--arch", "deepseek-v2-236b", "--device", "cpu",
                    "--traffic", "poisson"])
 
 

@@ -19,6 +19,7 @@ from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import rmsnorm as rms
+from repro_torch.kernels import ssd_scan as ss
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -27,7 +28,8 @@ PORT = ROOT / "src" / "repro_torch"
 def test_port_import_pulls_in_no_jax():
     code = ("import sys, repro_torch.launch.serve, repro_torch.bridge, "
             "repro_torch.kernels.flash_attention, "
-            "repro_torch.kernels.rmsnorm\n"
+            "repro_torch.kernels.rmsnorm, repro_torch.kernels.ssd_scan, "
+            "repro_torch.models.ssm\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.'))\n"
@@ -100,14 +102,20 @@ def test_cpu_calls_launch_no_kernel():
                       policy=ops.KernelPolicy(attention=backend))
     fa.flash_attention(qp, kk, vv, q_offset=3)
     rms.rmsnorm(x, w)
+    xs, dt = r(2, 9, 4, 8), torch.rand(2, 9, 4) + 0.1
+    A, bc = -torch.rand(4) - 0.5, r(2, 9, 2, 16)
+    for backend in ("auto", "cuda", "ref", "chunked"):
+        ops.ssd(xs, dt, A, bc, bc, r(4), return_state=True,
+                policy=ops.KernelPolicy(ssd=backend, ssd_chunk=4))
+    ss.ssd_scan(xs, dt, A, bc, bc, chunk=4, initial_state=r(2, 4, 8, 16))
     assert set(da.LAUNCHES) == {"sweep_decode", "sweep_verify", "merge",
                                 "ring_decode", "ring_verify",
-                                "flash_attention", "rmsnorm"}
+                                "flash_attention", "rmsnorm", "ssd"}
     assert all(n == 0 for n in da.LAUNCHES.values())
 
 
 def test_only_ported_archs_are_listed():
-    assert sorted(ARCH_SPECS) == ["gemma2-27b", "smollm-135m"]
+    assert sorted(ARCH_SPECS) == ["gemma2-27b", "mamba2-370m", "smollm-135m"]
     cfg = get_arch("smollm-135m").config
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
             cfg.resolved_head_dim, cfg.vocab_size) == (30, 576, 9, 3, 64,
@@ -118,8 +126,13 @@ def test_only_ported_archs_are_listed():
             g.attn_logit_softcap, g.final_logit_softcap) == (
         46, 4608, 32, 16, 128, 36864, 256000, 4096, 50.0, 30.0)
     assert g.query_scale == 144.0 ** -0.5 and g.post_norms
+    m = get_arch("mamba2-370m").config
+    assert (m.n_layers, m.d_model, m.d_inner, m.resolved_ssm_heads,
+            m.ssm_head_dim, m.ssm_state, m.ssm_groups, m.ssm_chunk,
+            m.conv_width, m.vocab_size) == (48, 1024, 2048, 32, 64, 128, 1,
+                                            128, 4, 50280)
     with pytest.raises(KeyError, match="smollm-135m"):
-        get_arch("mamba2-370m")
+        get_arch("deepseek-v2-236b")
 
 
 def test_h100_device_model_is_the_ports_own():

@@ -175,19 +175,23 @@ def test_unported_features_are_named(models):
     assert tfm.chunked_prefill_blockers(tcfg) == ()
     assert tfm.int8_paged_blockers(tcfg)
     # a windowed config now builds its paged cache: a private ring of
-    # ceil(min(max_len, window) / ps) pages per slot; MLA and SSM still
-    # raise by name
+    # ceil(min(max_len, window) / ps) pages per slot, and an SSM config
+    # one state slot per engine slot; MLA still raises by name
     windowed = dataclasses.replace(tcfg, sliding_window=6)
     assert tfm.paged_cache_blockers(windowed) == ()
     assert tfm.chunked_prefill_blockers(windowed) == ("sliding_window",)
     wc = tfm.init_paged_cache(windowed, 2, 8, PS, 4, dtype="float32")
     assert tuple(wc["units"]["sub0"]["k"].shape) == (
         tfm.n_units(tcfg), 2 * 2, PS, tcfg.n_kv_heads, tcfg.resolved_head_dim)
-    for over, name in (({"use_mla": True}, "use_mla"),
-                       ({"family": "ssm", "ssm_state": 16}, "uses_ssm")):
-        with pytest.raises(NotImplementedError, match=name):
-            tfm.init_paged_cache(dataclasses.replace(tcfg, **over), 2, 8,
-                                 PS, 4)
+    ssm = dataclasses.replace(tcfg, family="ssm", ssm_state=16)
+    assert tfm.paged_cache_blockers(ssm) == ()
+    assert tfm.chunked_prefill_blockers(ssm) == ("uses_ssm",)
+    sc = tfm.init_paged_cache(ssm, 2, 8, PS, 4, dtype="float32")
+    assert tuple(sc["units"]["sub0"]["ssm"].shape) == (
+        tfm.n_units(tcfg), 2, ssm.resolved_ssm_heads, ssm.ssm_head_dim, 16)
+    with pytest.raises(NotImplementedError, match="use_mla"):
+        tfm.init_paged_cache(dataclasses.replace(tcfg, use_mla=True), 2, 8,
+                             PS, 4)
 
 
 def test_lm_logits_masks_padded_vocab(models):

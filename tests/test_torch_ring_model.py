@@ -119,12 +119,19 @@ def test_init_cache_has_the_jax_layout(models):
     ({"first_dense_layers": 1}, "first_dense_layers")])
 def test_unported_ring_families_raise_by_name(models, cfg_over, name):
     """Unported families raise by name; a windowed config (ported since)
-    builds its ring cache, of capacity min(max_len, window)."""
+    builds its ring cache, of capacity min(max_len, window), and an SSM
+    config (ported since) its state, one slot per batch row."""
     _, _, tcfg, _ = models
     cfg = dataclasses.replace(tcfg, **cfg_over)
     if name == "sliding_window":
         c = tfm.init_cache(cfg, 1, 8)
         assert c["units"]["sub0"]["k"].shape[2] == 6
+        return
+    if name == "uses_ssm":
+        c = tfm.init_cache(cfg, 1, 8)
+        assert tuple(c["units"]["sub0"]["ssm"].shape) == (
+            tfm.n_units(cfg), 1, cfg.resolved_ssm_heads, cfg.ssm_head_dim,
+            16)
         return
     with pytest.raises(NotImplementedError, match=name):
         tfm.init_cache(cfg, 1, 8)
