@@ -32,7 +32,15 @@ Phases, in order; any failure exits non-zero (nothing is caught):
                 initial state and the final state returned, at atol =
                 rtol = 2e-2 in bf16 and 1e-3 in fp32 (the order of the
                 JAX tests' chunked-vs-sequential 2e-3: the sums run in
-                another order);
+                another order); deepseek-v2's latent sweep (Hq 128, latent
+                rows of 576, values of 512, pages of 16): decode with 1,
+                the engine's and 5 splits, deep 4096-position tables,
+                verify with Q 4 and 16 and pending rows, ragged
+                positions, bf16 and fp32, its partials merged at Dv 512,
+                ids past a request never read and a bad id inside it
+                stopping the kernel; K4 at (D, Dv) = (192, 128) (4 x 512,
+                ragged Sq 37, a q_offset case) and K9 at widths 512 and
+                1536;
   3. reference — full-width smollm-135m at fp32, twice on the kernels and
                 twice on the plain torch path (chunked prefill twin,
                 RMSNorm oracle, torch decode backends, the same split
@@ -53,7 +61,12 @@ Phases, in order; any failure exits non-zero (nothing is caught):
                 steps) and the engine on a Poisson trace of 8 requests
                 over 4 slots with two preemptions forced (its state slots
                 have no page pool to run dry, so the run refuses the pages
-                itself, identically on both paths);
+                itself, identically on both paths).  Then deepseek-v2 at
+                full width in fp32, cut to 3 layers (1 dense + 2 MoE):
+                the batch of 2 x 256 prompt tokens (the MoE drops pairs
+                past its capacity) + 15 decode steps, and the engine on 6
+                Poisson requests over 4 slots with prefix hits (the
+                latent verify form) and two forced preemptions;
   4. main paths — ``repro_torch.launch.serve`` at full width (bf16,
                 random weights from a seed drawn on the card, FROST plane
                 on): smollm-135m's engine on a Poisson trace of 8 requests
@@ -66,15 +79,23 @@ Phases, in order; any failure exits non-zero (nothing is caught):
                 batch of 2 x 4352 + 17 new; then mamba2-370m (48 layers):
                 the batch of 8 x 512 + 33 new, the engine on 8 Poisson
                 requests over 4 slots, and the long batch of 2 x 4000 + 17
-                new (32 chunks, the last ragged).  The launch counts are
-                zeroed just before each run and read just after it.
-                Every request must finish its token budget with finite
-                logits, and every kernel of a path must have been launched
-                on it: K4 and K9 on the seven attention paths, K8 and K9
-                on the three mamba2 paths;
+                new (32 chunks, the last ragged); then deepseek-v2 at full
+                width cut to 8 layers (1 dense + 7 MoE, 54.1 GiB of
+                weights), through ``serve(args, cfg)``: the batch of 4 x
+                512 + 33 new and the engine on 8 Poisson requests over 4
+                slots with 2 shared 32-token prompt heads.  The launch
+                counts are zeroed just before each run and read just
+                after it.  Every request must finish its token budget
+                with finite logits, and every kernel of a path must have
+                been launched on it: K4 and K9 on the nine attention
+                paths, K8 and K9 on the three mamba2 paths, the latent
+                sweep's decode and verify forms and the merge on
+                deepseek's engine;
   5. timing   — CUDA-event times of each kernel, its plain version and a
                 library yardstick at the main paths' shapes, beside the
-                least time the card could take.
+                least time the card could take (the latent sweep beside
+                SDPA over the gathered latent as one kv head; K4 at
+                deepseek's 4 x 512 beside SDPA).
 
 The last two lines are a JSON object of per-kernel numbers and
 ``{"ok": true, "device": {...}}``.
@@ -82,6 +103,7 @@ The last two lines are a JSON object of per-kernel numbers and
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import pathlib
 import subprocess
@@ -99,6 +121,7 @@ RING_SRC = "src/repro_torch/kernels/csrc/ring_attention.cu"
 FA_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
 RMS_SRC = "src/repro_torch/kernels/csrc/rmsnorm.cu"
 SSD_SRC = "src/repro_torch/kernels/csrc/ssd_scan.cu"
+MLA_SRC = "src/repro_torch/kernels/csrc/mla_attention.cu"
 # kernel entry -> (source, the Pallas function it replaces, launch key)
 KERNELS = {
     "paged_attention_sweep (decode)": (
@@ -117,6 +140,10 @@ KERNELS = {
         FA_SRC, "src/repro/kernels/flash_attention.py:94", "flash_attention"),
     "rmsnorm": (RMS_SRC, "src/repro/kernels/rmsnorm.py:27", "rmsnorm"),
     "ssd_scan": (SSD_SRC, "src/repro/kernels/ssd_scan.py:76", "ssd"),
+    "mla_latent_sweep (decode)": (
+        MLA_SRC, "src/repro/kernels/decode_attention.py:1483", "mla_decode"),
+    "mla_latent_sweep (verify)": (
+        MLA_SRC, "src/repro/kernels/decode_attention.py:970", "mla_verify"),
 }
 # K8's tolerance: fp32 at the order of the JAX tests' chunked-vs-sequential
 # 2e-3 (tests/test_kernels.py), since the kernel sums in another order
@@ -129,6 +156,13 @@ BATCH, PLEN, GEN = 8, 512, 33
 G_LONG = 4352
 # mamba2's long prompt: 32 chunks of 128, the last one ragged
 M_LONG = 4000
+# deepseek-v2's latent shapes: 128 heads, latent row 512 + 64, MLA's scale
+# of the decompressed head dim 128 + 64
+MLA = dict(Hq=128, R=576, r_kv=512, scale=192 ** -0.5)
+# deepseek-v2 at full width cut in depth: 8 layers (1 dense + 7 MoE,
+# 54.1 GiB of bf16 weights) on the main paths, 3 (1 dense + 2 MoE, about
+# 36 GB of fp32) for the fp32 reference
+DS_LAYERS, DS_REF_LAYERS = 8, 3
 
 
 def fail(msg: str) -> None:
@@ -295,12 +329,12 @@ print("bad id accepted", flush=True)
 """
 
 
-def check_bad_page_id():
+def check_bad_page_id(probe=BAD_ID_PROBE, kernel="paged sweep"):
     """A table id outside the pool inside a request's length must stop the
     kernel, not drop the page's keys.  The probe runs in a process of its
     own, since the failed launch leaves that process's CUDA context
     unusable."""
-    proc = subprocess.run([sys.executable, "-c", BAD_ID_PROBE,
+    proc = subprocess.run([sys.executable, "-c", probe,
                            str(ROOT / "src")], capture_output=True,
                           text=True, timeout=120)
     if "past-length id skipped" not in proc.stdout:
@@ -311,8 +345,8 @@ def check_bad_page_id():
     if "CUDA error" not in proc.stderr:
         fail(f"bad-id probe failed for another reason:\n{proc.stderr}")
     why = next(x for x in proc.stderr.splitlines() if "CUDA error" in x)
-    say("kernels ok: a page id outside the pool inside a request's length "
-        f"stops the kernel ({why.strip()})")
+    say(f"kernels ok: a page id outside the pool inside a request's length "
+        f"stops the {kernel} ({why.strip()})")
 
 
 def make_ring_case(torch, np, dev, *, B, Hq, Hkv, D, C, pos, Q, dtype,
@@ -613,6 +647,168 @@ def check_ssd_kernels(torch, np, dev, ss, ops, errs):
         fail("a refused K8 call launched a kernel")
     say("kernels ok: auto launches K8 on CUDA tensors; chunk 256, N 256 "
         "and fp16 raise ValueError, no plain fallback")
+
+
+def mla_case(torch, np, dev, *, B, nb, pos, Q, dtype, seed, ps=16):
+    """Seeded latent-sweep inputs on the card at deepseek-v2's shapes: a
+    pool of B * nb shuffled private pages plus one scratch page per slot,
+    ragged ``pos``, pending rows for verify."""
+    rng = np.random.default_rng(seed)
+    dt = getattr(torch, dtype)
+
+    def r(*shape):
+        return torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
+                            device=dev).to(dt)
+
+    bt = (B + rng.permutation(B * nb)).reshape(B, nb).astype(np.int32)
+    return {"q": r(B, Q, MLA["Hq"], MLA["R"]),
+            "pool": r(B * nb + B, ps, MLA["R"]),
+            "block_tables": torch.tensor(bt, device=dev),
+            "pos": torch.tensor(np.asarray(pos, np.int32), device=dev),
+            "pending": r(B, Q, MLA["R"]) if Q > 1 else None}
+
+
+def mla_args(c):
+    return ((c["q"], c["pool"], c["block_tables"], c["pos"]),
+            dict(r_kv=MLA["r_kv"], scale=MLA["scale"], pending=c["pending"]))
+
+
+def check_mla_kernels(torch, np, dev, da, fa, rms, ops, common, errs):
+    """Phase 2, deepseek-v2's kernels: the latent sweep against its twin
+    (decode with 1, the engine's and 5 splits, deep 4096-position tables,
+    verify with Q 4 and 16 and pending rows, ragged positions, bf16 and
+    fp32), the merge of its split partials at Dv 512, table ids past a
+    request never read and a bad id inside it stopping the kernel; K4 at
+    (D, Dv) = (192, 128); K9 at widths 512 and 1536."""
+    errs.update({"mla_latent_sweep (decode)": 0.0,
+                 "mla_latent_sweep (verify)": 0.0})
+    main, deep = dict(B=4, nb=5), dict(B=4, nb=256)
+    cases = [("main decode", main, [17, 40, 63, 79], 1),
+             ("deep decode", deep, [4095, 3001, 2048, 777], 1),
+             ("main verify Q=4", main, [32, 48, 0, 20], 4),
+             ("main verify Q=16", main, [32, 48, 0, 20], 16),
+             ("deep verify Q=16", deep, [4000, 2900, 16, 1031], 16)]
+    for dtype in ("bfloat16", "float32"):
+        tol = TOL[dtype]
+        for i, (label, shp, pos, Q) in enumerate(cases):
+            c = mla_case(torch, np, dev, pos=pos, Q=Q, dtype=dtype,
+                         seed=1000 + i, **shp)
+            verify = Q > 1
+            entry = "mla_latent_sweep (verify)" if verify \
+                else "mla_latent_sweep (decode)"
+            q_heads = MLA["Hq"] if verify else 1
+            auto = ops.choose_kv_splits(shp["B"], shp["nb"] * 16, q_heads,
+                                        block=16, device=dev)
+            case_err = 0.0
+            for n_splits in sorted({1, auto, 5}):
+                args, kw = mla_args(c)
+                got = da.mla_latent_sweep(*args, **kw, n_splits=n_splits)
+                want = da.mla_latent_sweep_torch(*args, **kw,
+                                                 n_splits=n_splits)
+                what = f"latent sweep {label} {dtype} n_splits={n_splits}"
+                if n_splits == 1:
+                    e = max_err(torch, got, want, tol, what)
+                else:
+                    e = max(max_err(torch, got[0], want[0], tol,
+                                    what + " partial"),
+                            max_err(torch, got[1], want[1], tol,
+                                    what + " lse"))
+                    em = max_err(torch, da.lse_merge(*got, c["q"].dtype),
+                                 da.lse_merge_torch(*got, c["q"].dtype), tol,
+                                 what + " merge at Dv 512")
+                    errs["lse_merge"] = max(errs["lse_merge"], em)
+                    e = max(e, em)
+                errs[entry] = max(errs[entry], e)
+                case_err = max(case_err, e)
+            torch.cuda.synchronize()
+            say(f"kernels ok: latent sweep {label} ({dtype}; n_splits 1, "
+                f"{auto}, 5), max |kernel - plain| {case_err:.3e} (tol "
+                f"{tol})")
+    for Q, pos in ((1, [17, 40, 3, 79]), (16, [32, 48, 0, 20])):
+        c = mla_case(torch, np, dev, pos=pos, Q=Q, dtype="bfloat16",
+                     seed=1100 + Q, **main)
+        junk = dict(c)
+        junk["block_tables"] = c["block_tables"].clone()
+        P = c["pool"].shape[0]
+        for b, p in enumerate(pos):
+            last = (p - 1 if Q > 1 else p) // 16
+            junk["block_tables"][b, last + 1:] = P + 1000 if b % 2 else -7
+        for n_splits in (1, 5):
+            args, kw = mla_args(c)
+            jargs, _ = mla_args(junk)
+            a = da.mla_latent_sweep(*args, **kw, n_splits=n_splits)
+            b = da.mla_latent_sweep(*jargs, **kw, n_splits=n_splits)
+            same = (torch.equal(a, b) if n_splits == 1 else
+                    torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]))
+            if not same:
+                fail(f"latent sweep Q={Q} n_splits={n_splits}: output "
+                     "depends on table ids past pos")
+    torch.cuda.synchronize()
+    say("kernels ok: the latent sweep never reads table ids past a "
+        "request's length")
+    check_bad_page_id(MLA_BAD_ID_PROBE, "latent sweep")
+
+    errs["flash_attention"] = errs.get("flash_attention", 0.0)
+    for i, (label, Sq, Sk, kw) in enumerate((
+            ("4 x 512", 512, 512, {}), ("ragged Sq 37", 37, 37, {}),
+            ("q_offset 64", 64, 128, {"q_offset": 64}))):
+        for dtype in ("bfloat16", "float32"):
+            rng = np.random.default_rng(1200 + i)
+            B = 4 if Sq == 512 else 2
+            dt = getattr(torch, dtype)
+
+            def r(*shape):
+                return torch.tensor(rng.standard_normal(shape),
+                                    dtype=torch.float32, device=dev).to(dt)
+
+            q, k, v = r(B, Sq, 128, 192), r(B, Sk, 128, 192), \
+                r(B, Sk, 128, 128)
+            got = fa.flash_attention(q, k, v, scale=MLA["scale"], **kw)
+            want = ops.flash_attention_torch(q, k, v, scale=MLA["scale"],
+                                             q_chunk=256, k_chunk=256, **kw)
+            e = max_err(torch, got, want, TOL[dtype],
+                        f"K4 (192, 128) {label} {dtype}")
+            errs["flash_attention"] = max(errs["flash_attention"], e)
+            torch.cuda.synchronize()
+            say(f"kernels ok: K4 at (D, Dv) = (192, 128), {label} "
+                f"({dtype}), max |kernel - plain| {e:.3e}")
+    rng = np.random.default_rng(1300)
+    for d in (512, 1536):
+        for rows in (4, 2048):
+            for dtype in ("bfloat16", "float32"):
+                x = torch.tensor(rng.standard_normal((rows, d)),
+                                 dtype=torch.float32,
+                                 device=dev).to(getattr(torch, dtype))
+                w = torch.tensor(1.0 + 0.1 * rng.standard_normal(d),
+                                 dtype=torch.float32, device=dev)
+                e = max_err(torch, rms.rmsnorm(x, w), common.rmsnorm(x, w),
+                            TOL[dtype], f"K9 d {d} x {rows} {dtype}")
+                errs["rmsnorm"] = max(errs["rmsnorm"], e)
+    torch.cuda.synchronize()
+    say("kernels ok: K9 at deepseek's norm widths 512 and 1536 (4 and "
+        "2048 rows, bf16 and fp32)")
+
+
+MLA_BAD_ID_PROBE = """
+import sys
+import torch
+sys.path.insert(0, sys.argv[1])
+from repro_torch.kernels import decode_attention as da
+dev = torch.device("cuda", 0)
+q = torch.ones(1, 1, 128, 576, dtype=torch.bfloat16, device=dev)
+pool = torch.ones(2, 16, 576, dtype=torch.bfloat16, device=dev)
+bt = torch.tensor([[1, 2]], dtype=torch.int32, device=dev)  # 2: past the pool
+# pos 15: column 1 lies past the request, so its id is never read
+da.mla_latent_sweep(q, pool, bt, torch.tensor([15], dtype=torch.int32,
+                    device=dev), r_kv=512, scale=0.07)
+torch.cuda.synchronize()
+print("past-length id skipped", flush=True)
+# pos 20: key 20 lies in column 1, whose id names no page of the pool
+da.mla_latent_sweep(q, pool, bt, torch.tensor([20], dtype=torch.int32,
+                    device=dev), r_kv=512, scale=0.07)
+torch.cuda.synchronize()
+print("bad id accepted", flush=True)
+"""
 
 
 # --------------------------------------------------------------------------
@@ -959,6 +1155,86 @@ def mamba_reference(torch, np, dev, mcfg, tfm, serving, steps, bridge):
         f"Poisson requests over 4 slots, 2 preemptions (folded prompts "
         f"prefilled again): streams equal on kernels and plain path, "
         f"{len(calls['cuda'])} logits calls within {err:.3e}")
+
+
+def deepseek_reference(torch, np, dev, dcfg, tfm, serving, steps, bridge):
+    """Phase 3, deepseek-v2 at full width in fp32, cut to 3 layers (1 dense
+    + 2 MoE), on the kernels and on the plain path: the static batch (2 x
+    256 prompt tokens, so the MoE's capacity drops pairs, + 16 new) and the
+    engine on 6 Poisson requests over 4 slots with 2 shared 21-token
+    prompt heads (prefix hits run the latent verify form) and two forced
+    preemptions.  Greedy streams equal, every logits call (its last
+    position) within 1e-3."""
+    cfg = dataclasses.replace(dcfg, n_layers=DS_REF_LAYERS, dtype="float32")
+    params = tfm.prepare_params(bridge.init_lm(
+        cfg, torch.Generator(device=dev).manual_seed(7), dev), cfg)
+    rng = np.random.default_rng(9)
+    prompts = torch.tensor(rng.integers(0, cfg.vocab_size, (2, 256)),
+                           dtype=torch.int32, device=dev)
+
+    def compare(label, streams, calls):
+        if not all(np.array_equal(a, b)
+                   for a, b in zip(streams["cuda"], streams["torch"])):
+            fail(f"deepseek reference {label}: kernel stream differs from "
+                 "the plain path's")
+        if len(calls["cuda"]) != len(calls["torch"]):
+            fail(f"deepseek reference {label}: different logits calls")
+        err = max(float((a - b).abs().max())
+                  for a, b in zip(calls["cuda"], calls["torch"]))
+        if err > 1e-3:
+            fail(f"deepseek reference {label}: logits differ by {err:.3e} > "
+                 "1e-3")
+        return err
+
+    streams, calls = {}, {}
+    with torch.no_grad():
+        for backend, scfg in step_configs(steps).items():
+            with LogitsTap(torch, tfm, record=True, last_only=True) as tap:
+                pre = steps.make_prefill_step(cfg, scfg, max_len=256 + 16)
+                last, cache = pre(params, {"inputs": prompts})
+                tok0 = torch.argmax(last, dim=-1).to(torch.int32)[:, None]
+                toks, cache = steps.make_decode_loop(cfg, scfg, 15)(
+                    params, cache, tok0)
+            streams[backend] = torch.cat([tok0, toks], 1).cpu().numpy()
+            calls[backend] = tap.calls
+            del cache
+    err = compare("batch", streams, calls)
+    say(f"reference ok: deepseek fp32 full width, {DS_REF_LAYERS} layers, "
+        f"batch of 2 x 256 tokens + 15 decode steps (MoE capacity drops at "
+        f"prefill, ring latent decode): streams equal on kernels and plain "
+        f"path, {len(calls['cuda'])} logits calls within {err:.3e}")
+
+    reqs = serving.poisson_trace(6, rate_per_step=0.5, seed=11,
+                                 vocab_size=cfg.vocab_size,
+                                 prompt_len=(8, 24), max_new_tokens=(6, 12),
+                                 shared_prefix_len=21, prompt_pools=2)
+    ecfg = serving.EngineConfig(n_slots=4, page_size=16, max_len=64,
+                                decode_chunk=4, cache_dtype="float32")
+    streams, calls, reps = {}, {}, {}
+    for backend, scfg in step_configs(steps).items():
+        eng = refuse_pages(serving.ServeEngine(cfg, ecfg, params,
+                                               step_cfg=scfg, device=dev),
+                           2, first=6)
+        with LogitsTap(torch, tfm, record=True, last_only=True) as tap:
+            rep = eng.run(reqs)
+        for r in rep.results:
+            if r.n_tokens != r.max_new_tokens:
+                fail(f"deepseek reference engine: rid {r.rid} finished "
+                     f"{r.n_tokens}/{r.max_new_tokens}")
+        if rep.n_preemptions != 2 or rep.prefill_tokens_saved <= 0:
+            fail(f"deepseek reference engine: {rep.n_preemptions} "
+                 f"preemptions (2 forced), {rep.prefill_tokens_saved} "
+                 "prompt tokens restored from the prefix cache")
+        streams[backend] = [r.tokens for r in rep.results]
+        calls[backend] = tap.calls
+        reps[backend] = rep
+    err = compare("engine", streams, calls)
+    say(f"reference ok: deepseek fp32 full width, {DS_REF_LAYERS} layers, "
+        f"engine: 6 Poisson requests over 4 slots, "
+        f"{reps['cuda'].prefill_tokens_saved} prompt tokens restored "
+        f"(latent verify form), 2 preemptions: streams equal on kernels and "
+        f"plain path, {len(calls['cuda'])} logits calls within {err:.3e}")
+    del params
 
 
 # --------------------------------------------------------------------------
@@ -1359,12 +1635,127 @@ def ssd_timings(torch, np, dev, ss):
     return out
 
 
-def serve_run(torch, da, tfm, serve, label, argv):
-    """One main-path run through the launcher: launch counts zeroed just
-    before, read just after; finite logits required."""
+def mla_work(c, n_splits):
+    """(bytes, flops) of the latent sweep on these inputs: q, the latent
+    rows of every page holding a valid key, their table entries and pos,
+    the pending rows (verify) read once, the output (or partials + lse)
+    written once; 2 flops a multiply-add over R for the score and r_kv
+    for the value, per (query row, head, valid key)."""
+    q = c["q"]
+    B, Q, Hq, R = q.shape
+    ps, nb = c["pool"].shape[1], c["block_tables"].shape[1]
+    r_kv, es = MLA["r_kv"], q.element_size()
+    verify = c["pending"] is not None
+    keys = [p if verify else p + 1 for p in c["pos"].tolist()]
+    pages = sum(min(nb, -(-k // ps)) for k in keys)
+    nbytes = q.numel() * es + pages * ps * R * es + pages * 4 + B * 4
+    if verify:
+        nbytes += B * Q * R * es
+    S = max(1, min(n_splits, nb))
+    nbytes += (B * Q * Hq * r_kv * es if S == 1
+               else B * Hq * S * Q * (r_kv + 1) * 4)
+    k_tot = Q * sum(keys) + (B * Q * (Q + 1) // 2 if verify else 0)
+    return nbytes, 2.0 * Hq * (R + r_kv) * k_tot
+
+
+def mla_sdpa_yardstick(torch, c):
+    """One F.scaled_dot_product_attention call over the latent rows
+    gathered in logical order as one kv head (k the whole row, v its first
+    512 lanes, expanded over the heads without a copy), with the same
+    masks and scale."""
+    F = torch.nn.functional
+    q = c["q"]
+    B, Q, Hq, R = q.shape
+    ps, nb = c["pool"].shape[1], c["block_tables"].shape[1]
+    lat = c["pool"][c["block_tables"].long()].reshape(B, nb * ps, R)
+    pos = c["pos"].long()[:, None, None]
+    kp = torch.arange(nb * ps, device=q.device)[None, None, :]
+    if c["pending"] is not None:
+        lat = torch.cat([lat, c["pending"]], dim=1)
+        qi = torch.arange(Q, device=q.device)[None, :, None]
+        nj = torch.arange(Q, device=q.device)[None, None, :]
+        mask = torch.cat([(kp < pos).expand(B, Q, nb * ps),
+                          (nj <= qi).expand(B, Q, Q)], dim=-1)
+    else:
+        mask = kp <= pos
+    K = lat.shape[1]
+    k = lat[:, None].expand(B, Hq, K, R)
+    v = lat[:, None, :, :MLA["r_kv"]].expand(B, Hq, K, MLA["r_kv"])
+    qt = q.transpose(1, 2)
+    return lambda: F.scaled_dot_product_attention(
+        qt, k, v, attn_mask=mask[:, None], scale=MLA["scale"])
+
+
+def mla_timings(torch, np, dev, da, fa, ops):
+    """Phase 5, deepseek-v2's kernels at the engine's shapes (bf16, 4
+    slots, Hq 128, pages of 16, 5 table columns): the latent sweep's
+    decode at the engine's split count (the JSON row) and at 1 split, and
+    its verify form at Q 16 (the prefix hit's suffix chunk), each beside
+    SDPA over the gathered latent as one kv head; the merge at Dv 512; K4
+    at deepseek's 4 x 512 prefill, (D, Dv) = (192, 128), beside SDPA."""
+    out = {}
+    main = dict(B=4, nb=5)
+    for verify, pos, Q in ((False, [64, 71, 75, 79], 1),
+                           (True, [32, 48, 16, 32], 16)):
+        name = ("mla_latent_sweep (verify)" if verify
+                else "mla_latent_sweep (decode)")
+        c = mla_case(torch, np, dev, pos=pos, Q=Q, dtype="bfloat16",
+                     seed=1400 + Q, **main)
+        S = ops.choose_kv_splits(4, 80, MLA["Hq"] if verify else 1,
+                                 block=16, device=dev)
+        args, kw = mla_args(c)
+        lib = time_ms(torch, mla_sdpa_yardstick(torch, c))
+        for n in sorted({S, 1}):
+            ms = time_ms(torch, lambda: da.mla_latent_sweep(
+                *args, **kw, n_splits=n))
+            plain = time_ms(torch, lambda: da.mla_latent_sweep_torch(
+                *args, **kw, n_splits=n), iters=3, reps=5)
+            b_ms, b_by = bound(*mla_work(c, n))
+            say(f"{name} (n_splits {n}): kernel {ms * 1e3:.1f} us, plain "
+                f"{plain * 1e3:.1f} us, sdpa over the latent "
+                f"{lib * 1e3:.1f} us, bound {b_ms * 1e3:.3f} us ({b_by})")
+            if n == S:
+                out[name] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                                 bound_ms=b_ms, bound_by=b_by, n_splits=S)
+        if not verify:
+            partial, lse = da.mla_latent_sweep(*args, **kw, n_splits=S)
+            m_ms = time_ms(torch, lambda: da.lse_merge(partial, lse,
+                                                       torch.bfloat16))
+            mb, _ = bound((partial.numel() + lse.numel()) * 4
+                          + partial.numel() // S * 2, 3.0 * partial.numel())
+            say(f"lse_merge at Dv 512 (4 x 128 rows, n_splits {S}): kernel "
+                f"{m_ms * 1e3:.1f} us, bound {mb * 1e3:.3f} us")
+    rng = np.random.default_rng(1500)
+
+    def r(*shape):
+        return torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
+                            device=dev).to(torch.bfloat16)
+
+    q, k, v = r(4, 512, 128, 192), r(4, 512, 128, 192), r(4, 512, 128, 128)
+    kw = dict(scale=MLA["scale"])
+    ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, **kw), iters=5,
+                 reps=10)
+    plain = time_ms(torch, lambda: ops.flash_attention_torch(q, k, v, **kw),
+                    iters=3, reps=3)
+    lib = time_ms(torch, sdpa_prefill_yardstick(torch, q, k, v, **kw),
+                  iters=5, reps=10)
+    nbytes = 2 * (2 * 4 * 512 * 128 * 192 + 2 * 4 * 512 * 128 * 128)
+    flops = 2.0 * 4 * 128 * (192 + 128) * (512 * 513 // 2)
+    b_ms, b_by = bound(nbytes, flops)
+    say(f"K4 deepseek 4 x 512 (Hq 128, D 192, Dv 128): kernel "
+        f"{ms * 1e3:.1f} us, plain {plain * 1e3:.1f} us, sdpa "
+        f"{lib * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us ({b_by})")
+    return out
+
+
+def serve_run(torch, da, tfm, serve, label, argv, cfg=None):
+    """One main-path run through the launcher (``serve.serve(args, cfg)``
+    with a config cut in depth where ``cfg`` is given): launch counts
+    zeroed just before, read just after; finite logits required."""
+    args = serve.build_parser().parse_args(argv) if cfg is not None else None
     da.reset_launches()
     with LogitsTap(torch, tfm) as tap:
-        out = serve.run(argv)
+        out = serve.run(argv) if cfg is None else serve.serve(args, cfg)
     torch.cuda.synchronize()
     launches = dict(da.LAUNCHES)
     if tap.finite is None or not bool(tap.finite):
@@ -1423,6 +1814,7 @@ def main() -> int:
     errs.update(flash_attention=0.0, rmsnorm=0.0)
     check_prefill_kernels(torch, np, dev, fa, rms, ops, common, errs)
     check_ssd_kernels(torch, np, dev, ss, ops, errs)
+    check_mla_kernels(torch, np, dev, da, fa, rms, ops, common, errs)
 
     # 3. reference: kernels vs plain torch, full width, fp32 ------------------
     cfg = get_arch("smollm-135m").config
@@ -1434,6 +1826,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     mcfg = get_arch("mamba2-370m").config
     mamba_reference(torch, np, dev, mcfg, tfm, serving, steps, bridge)
+    torch.cuda.empty_cache()
+    dcfg = get_arch("deepseek-v2-236b").config
+    deepseek_reference(torch, np, dev, dcfg, tfm, serving, steps, bridge)
+    # refuse_pages ties each engine to its page pool in a reference cycle:
+    # collect it, or its 36 GB of fp32 weights outlive the phase
+    gc.collect()
     torch.cuda.empty_cache()
 
     # 4. the main paths -------------------------------------------------------
@@ -1456,9 +1854,19 @@ def main() -> int:
                          "--n-slots", "4", "--page-size", "16"]
     m_long = mamba + ["--traffic", "batch", "--requests", "2",
                       "--prompt-len", str(M_LONG), "--gen", "17"]
+    # deepseek-v2 at full width, cut to 8 layers (the published 60 do not
+    # fit one card), served through serve(args, cfg)
+    ds_cfg = dataclasses.replace(dcfg, n_layers=DS_LAYERS)
+    ds = ["--arch", "deepseek-v2-236b"]
+    d_batch = ds + ["--traffic", "batch", "--requests", "4",
+                    "--prompt-len", str(PLEN), "--gen", str(GEN)]
+    d_poisson = ds + ["--traffic", "poisson", "--requests", "8",
+                      "--shared-prefix-len", "32", "--prompt-pools", "2",
+                      "--n-slots", "4", "--page-size", "16"]
     attn = ("flash_attention", "rmsnorm")
     ssm = ("ssd", "rmsnorm")
-    # (label, argv, kernels the path must launch, requests, new tokens)
+    # (label, argv, kernels the path must launch, requests, new tokens,
+    # config cut in depth or None for the registry's)
     paths = [("poisson", poisson,
               ("sweep_decode", "sweep_verify", "merge") + attn, 8, None),
              ("batch", batch, ("ring_decode", "merge") + attn, BATCH, GEN),
@@ -1474,11 +1882,16 @@ def main() -> int:
               2, 17),
              ("mamba2 batch", m_batch, ssm, BATCH, GEN),
              ("mamba2 poisson", m_poisson, ssm, 8, None),
-             ("mamba2 long batch", m_long, ssm, 2, 17)]
+             ("mamba2 long batch", m_long, ssm, 2, 17),
+             ("deepseek batch", d_batch, attn, 4, GEN),
+             ("deepseek poisson", d_poisson,
+              ("mla_decode", "mla_verify", "merge") + attn, 8, None)]
+    paths = [p + (ds_cfg if p[0].startswith("deepseek") else None,)
+             for p in paths]
     launches = {key: 0 for key in da.LAUNCHES}
-    for label, argv, keys, n_req, gen in paths:
+    for label, argv, keys, n_req, gen, cut in paths:
         torch.cuda.reset_peak_memory_stats()
-        out, counts = serve_run(torch, da, tfm, serve, label, argv)
+        out, counts = serve_run(torch, da, tfm, serve, label, argv, cut)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         torch.cuda.empty_cache()
         for key in keys:
@@ -1524,6 +1937,7 @@ def main() -> int:
     times.update(ring_timings(torch, np, dev, da, ops))
     times.update(prefill_timings(torch, np, dev, fa, rms, ops, common))
     times.update(ssd_timings(torch, np, dev, ss))
+    times.update(mla_timings(torch, np, dev, da, fa, ops))
     kernels = []
     for name, t in times.items():
         source, replaces, key = KERNELS[name]

@@ -4,9 +4,10 @@
     ``jax.tree.map(np.asarray, params)`` yields for the JAX package's
     ``transformer.init_lm`` params, as the port's parameter dict.
   * ``load_step_dir(path)`` — one ``repro.checkpoint`` step directory
-    (``manifest.json`` + ``arrays.npz`` keyed by ``/``-joined tree paths),
-    read with numpy alone.  bfloat16 leaves were saved as raw 2-byte void
-    records: their bits are reinterpreted, never their values cast.
+    (``manifest.json`` + ``arrays.npz`` keyed by ``/``-joined tree paths,
+    a list index written ``[i]``), read with numpy alone.  bfloat16 leaves
+    were saved as raw 2-byte void records: their bits are reinterpreted,
+    never their values cast.
   * ``init_lm(cfg, generator, device)`` — random weights at full width from
     an explicit ``torch.Generator``, on the generator's device, with the
     JAX package's initialiser shapes and scales (not its numbers).
@@ -48,27 +49,78 @@ def _mamba_shapes(cfg: ModelConfig, nu: int) -> dict:
             "norm_scale": (nu, di), "wout": (nu, di, d)}
 
 
-def _shapes(cfg: ModelConfig) -> dict:
-    """The parameter shapes of the dense and SSM families, nested as the
-    JAX tree."""
-    d, hd, ff = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
+def _mla_shapes(cfg: ModelConfig, lead: tuple) -> dict:
+    """An MLA attention's parameter shapes (``repro.models.attention.
+    init_mla``), behind the leading axes ``lead``."""
+    d, H = cfg.d_model, cfg.n_heads
+    r_kv, r_q = cfg.kv_lora_rank, cfg.q_lora_rank
+    dn, dr, dv = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    out = {"wdkv": (*lead, d, r_kv + dr), "kv_norm": (*lead, r_kv),
+           "wuk": (*lead, r_kv, H, dn), "wuv": (*lead, r_kv, H, dv),
+           "wo": (*lead, H, dv, d)}
+    if r_q:
+        out.update(wdq=(*lead, d, r_q), q_norm=(*lead, r_q),
+                   wuq=(*lead, r_q, H, dn + dr))
+    else:
+        out["wuq"] = (*lead, d, H, dn + dr)
+    return out
+
+
+def _moe_shapes(cfg: ModelConfig, lead: tuple) -> dict:
+    """A MoE FFN's parameter shapes (``repro.models.layers.init_moe``):
+    the router, the (E, d, ff) experts and the shared experts' hidden
+    concatenated, behind ``lead``."""
+    d, E, ff = cfg.d_model, cfg.n_experts, cfg.resolved_moe_d_ff
+    out = {"router": (*lead, d, E), "wi_gate": (*lead, E, d, ff),
+           "wi_up": (*lead, E, d, ff), "wo": (*lead, E, ff, d)}
+    if cfg.n_shared_experts:
+        sff = cfg.resolved_shared_d_ff * cfg.n_shared_experts
+        out["shared"] = {"wi_gate": (*lead, d, sff),
+                         "wi_up": (*lead, d, sff), "wo": (*lead, sff, d)}
+    return out
+
+
+def _block_shapes(cfg: ModelConfig, lead: tuple, *, moe: bool,
+                  d_ff: int) -> dict:
+    """One attention block (``repro.models.transformer._init_block``):
+    norms, GQA or MLA attention, MLP or MoE FFN, behind ``lead``."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
     hq, hkv = cfg.padded_q_heads, cfg.padded_kv_heads
-    nu = tfm.n_units(cfg)
-    ffn = {"wi_up": (nu, d, ff), "wo": (nu, ff, d)}
-    if cfg.gated_mlp:
-        ffn["wi_gate"] = (nu, d, ff)
-    sub = {"norm1": (nu, d), "norm2": (nu, d),
-           "attn": {"wq": (nu, d, hq, hd), "wk": (nu, d, hkv, hd),
-                    "wv": (nu, d, hkv, hd), "wo": (nu, hq, hd, d)},
+    if moe:
+        ffn = _moe_shapes(cfg, lead)
+    else:
+        ffn = {"wi_up": (*lead, d, d_ff), "wo": (*lead, d_ff, d)}
+        if cfg.gated_mlp:
+            ffn["wi_gate"] = (*lead, d, d_ff)
+    attn = _mla_shapes(cfg, lead) if cfg.use_mla else {
+        "wq": (*lead, d, hq, hd), "wk": (*lead, d, hkv, hd),
+        "wv": (*lead, d, hkv, hd), "wo": (*lead, hq, hd, d)}
+    blk = {"norm1": (*lead, d), "norm2": (*lead, d), "attn": attn,
            "ffn": ffn}
+    if cfg.post_norms:
+        blk["post_attn_norm"] = (*lead, d)
+        blk["post_ffn_norm"] = (*lead, d)
+    return blk
+
+
+def _shapes(cfg: ModelConfig) -> dict:
+    """The parameter shapes of the dense, SSM and MLA / MoE families,
+    nested as the JAX tree: the units stacked on a leading ``n_units``
+    axis, ``dense_layers`` a list of unstacked blocks."""
+    d = cfg.d_model
+    nu = tfm.n_units(cfg)
     if cfg.uses_ssm:
         sub = _mamba_shapes(cfg, nu)
-    if cfg.post_norms:
-        sub["post_attn_norm"] = (nu, d)
-        sub["post_ffn_norm"] = (nu, d)
+    else:
+        sub = _block_shapes(cfg, (nu,), moe=cfg.uses_moe, d_ff=cfg.d_ff)
     out = {"embed": (tfm.padded_vocab(cfg), d),
            "layers": {f"sub{i}": sub for i in range(tfm.unit_size(cfg))},
            "final_norm": (d,)}
+    if cfg.first_dense_layers:
+        out["dense_layers"] = [
+            _block_shapes(cfg, (), moe=False,
+                          d_ff=cfg.dense_d_ff or cfg.d_ff)
+            for _ in range(cfg.first_dense_layers)]
     if not cfg.tie_embeddings:
         out["lm_head"] = (d, tfm.padded_vocab(cfg))
     return out
@@ -89,6 +141,13 @@ def params_from_numpy(tree, cfg: ModelConfig, device=None) -> dict:
         for key, want in shapes.items():
             if isinstance(want, dict):
                 out[key] = walk(t[key], want, f"{path}/{key}")
+                continue
+            if isinstance(want, list):
+                if len(t[key]) != len(want):
+                    raise ValueError(f"params{path}/{key}: {len(t[key])} "
+                                     f"layers != expected {len(want)}")
+                out[key] = [walk(tj, wj, f"{path}/{key}/[{j}]")
+                            for j, (tj, wj) in enumerate(zip(t[key], want))]
                 continue
             leaf = _tensor(t[key])
             if tuple(leaf.shape) != want:
@@ -122,7 +181,19 @@ def load_step_dir(path) -> dict:
             for p in parts[:-1]:
                 node = node.setdefault(p, {})
             node[parts[-1]] = t
-    return tree
+    return _lists(tree)
+
+
+def _lists(tree):
+    """Nodes keyed ``[0] .. [n-1]`` (a JAX list, such as ``dense_layers``)
+    back into lists."""
+    if not isinstance(tree, dict):
+        return tree
+    out = {k: _lists(v) for k, v in tree.items()}
+    idx = [f"[{i}]" for i in range(len(out))]
+    if out and sorted(out) == sorted(idx):
+        return [out[k] for k in idx]
+    return out
 
 
 def init_lm(cfg: ModelConfig, generator: torch.Generator, device=None) -> dict:
@@ -130,11 +201,13 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator, device=None) -> dict:
     generator's device (a CUDA generator draws a full-width model on the
     card, with no host copy; the numbers then differ from a CPU
     generator's): embeddings N(0, 0.02), matmul weights N(0, 1/fan_in)
-    with fan_in the leading (per-layer) axis, norm scales at 1 (0 for the
-    gemma (1 + w) form).  The matmul weights are made in the compute dtype
-    ``cfg.dtype``, to which ``transformer.prepare_params`` would cast them
-    anyway, from fp32 draws of at most 2**27 values at a time; the norm
-    scales keep ``param_dtype``.  An SSM layer's other leaves follow the
+    with fan_in the leading per-layer axis (as JAX's ``fan_in_init`` takes
+    a leaf's first axis: the expert axis E of a MoE's (E, d, ff) weights),
+    norm scales at 1 (0 for the gemma (1 + w) form).  The matmul weights
+    are made in the compute dtype ``cfg.dtype``, to which
+    ``transformer.prepare_params`` would cast them anyway, from fp32 draws
+    of at most 2**27 values at a time (never the whole bf16 model in
+    fp32 first); the norm scales keep ``param_dtype``.  An SSM layer's other leaves follow the
     deterministic parts of ``repro.models.ssm.init_mamba``, in
     ``param_dtype``: ``A_log = log(linspace(1, 16, H))``, ``dt_bias`` the
     inverse softplus of a log-uniform draw in [1e-3, 1e-1], ``D`` at 1,
@@ -147,8 +220,11 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator, device=None) -> dict:
         out = torch.empty(shape, dtype=dtype or common.dt(cfg.dtype),
                           device=dev)
         flat = out.view(shape[0], -1)
-        step = max(1, 2 ** 27 // max(flat.shape[1], 1))
-        for i in range(0, shape[0], step):
+        n = flat.shape[1]
+        if n > 2 ** 27:          # a leading row too large to draw whole
+            flat, n = out.view(-1, 1), 1
+        step = max(1, 2 ** 27 // max(n, 1))
+        for i in range(0, flat.shape[0], step):
             rows = flat[i:i + step]
             draw = torch.randn(rows.shape, generator=generator, device=gdev)
             rows.copy_(draw.mul_(std))
@@ -170,11 +246,13 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator, device=None) -> dict:
             return torch.zeros(shape, dtype=pdt, device=dev)
         return normal(shape, 0.1, pdt)                    # conv_w
 
-    def build(shapes):
+    def build(shapes, stacked=True):
         out = {}
         for key, shape in shapes.items():
             if isinstance(shape, dict):
-                out[key] = build(shape)
+                out[key] = build(shape, stacked)
+            elif isinstance(shape, list):      # unstacked: fan_in = axis 0
+                out[key] = [build(s, stacked=False) for s in shape]
             elif key in ("A_log", "dt_bias", "D", "conv_b", "conv_w"):
                 out[key] = mamba_leaf(key, shape)
             elif "norm" in key:
@@ -185,7 +263,8 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator, device=None) -> dict:
             elif key in ("embed", "lm_head"):
                 out[key] = normal(shape, 0.02)
             else:                                  # stacked: fan_in = axis 1
-                out[key] = normal(shape, 1.0 / np.sqrt(max(shape[1], 1)))
+                fan_in = shape[1] if stacked else shape[0]
+                out[key] = normal(shape, 1.0 / np.sqrt(max(fan_in, 1)))
         return out
 
     return build(_shapes(cfg))

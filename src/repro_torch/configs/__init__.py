@@ -4,7 +4,8 @@ Only the families whose serving path has been ported are listed; the
 others join with their own slices (see ROADMAP.md)."""
 from __future__ import annotations
 
-from repro_torch.configs import gemma2_27b, mamba2_370m, smollm_135m
+from repro_torch.configs import (deepseek_v2_236b, gemma2_27b, mamba2_370m,
+                                 smollm_135m)
 from repro_torch.configs.base import ArchSpec, reduce_for_smoke
 from repro_torch.configs.shapes import ALL_SHAPES, SHAPES, Shape
 
@@ -14,6 +15,7 @@ ARCH_SPECS: dict[str, ArchSpec] = {
         smollm_135m.SPEC,
         gemma2_27b.SPEC,
         mamba2_370m.SPEC,
+        deepseek_v2_236b.SPEC,
     )
 }
 

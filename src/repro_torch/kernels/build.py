@@ -112,7 +112,9 @@ def library() -> ctypes.CDLL:
         lib.ring_attention_sweep.restype = i
         lib.lse_merge.argtypes = [p, p, p, i, i, i, i, i, p]
         lib.lse_merge.restype = i
-        lib.flash_attention_fwd.argtypes = [p] * 4 + [i] * 10 + [f, f, i, p]
+        lib.mla_latent_sweep.argtypes = [p] * 8 + [i] * 11 + [f, f, i, p]
+        lib.mla_latent_sweep.restype = i
+        lib.flash_attention_fwd.argtypes = [p] * 4 + [i] * 11 + [f, f, i, p]
         lib.flash_attention_fwd.restype = i
         lib.rmsnorm_fwd.argtypes = [p, p, p, ctypes.c_long, i, f, i, i, i, p]
         lib.rmsnorm_fwd.restype = i

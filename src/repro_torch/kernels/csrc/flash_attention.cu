@@ -4,10 +4,12 @@
 // wraps it).
 //
 //   flash_attention_fwd  forward GQA attention of a whole prompt: q (B, Sq,
-//                        Hq, D) against k, v (B, Sk, Hkv, D), out (B, Sq,
-//                        Hq, D) in q's dtype; fp32 online softmax; causal,
-//                        sliding window, tanh soft-cap (before the mask),
-//                        any query scale, q_offset.
+//                        Hq, D) against k (B, Sk, Hkv, D) and v (B, Sk, Hkv,
+//                        Dv), out (B, Sq, Hq, Dv) in q's dtype; fp32 online
+//                        softmax; causal, sliding window, tanh soft-cap
+//                        (before the mask), any query scale, q_offset.
+//                        (D, Dv) is (64, 64), (128, 128) or deepseek-v2's
+//                        MLA prefill (192, 128): [nope | rope] q/k, v 128.
 //
 // It launches on the caller's stream, allocates nothing and returns
 // cudaGetLastError() so that a refused launch is reported.
@@ -25,11 +27,15 @@ constexpr int KPT = FA_BK / 16;      // keys per thread in the score tile
 constexpr int PLD = FA_BK + 16;      // p tile row stride: the two rows a
                                      // warp touches sit 16 banks apart
 
-template <int HD>
+// q and k tiles of HD columns (odd strides), the v tile of HDV, the p tile
+template <int HD, int HDV>
 constexpr size_t fa_smem_bytes() {
   return sizeof(float) * ((size_t)FA_ROWS * (HD + 1) + (size_t)FA_BK * (HD + 1)
-                          + (size_t)FA_BK * HD + (size_t)FA_ROWS * PLD);
+                          + (size_t)FA_BK * HDV + (size_t)FA_ROWS * PLD);
 }
+// the largest pair, (192, 128), needs 221,952 bytes of the 232,448 a
+// Hopper block may opt into
+static_assert(fa_smem_bytes<192, 128>() <= 232448, "K4 shared memory");
 
 // Replaces, from src/repro/kernels/flash_attention.py:
 //   flash_attention  (:94, kernel _fa_kernel :36, pallas_call :130)
@@ -42,7 +48,7 @@ constexpr size_t fa_smem_bytes() {
 // keys that its q range can see (causal end, window start: the band the
 // chunked twin computes), reading q, k and v in place in their (B, S, H,
 // D) layout and staging them in shared memory as fp32.  Each thread holds
-// 8 rows: their 8 x 4 scores of a tile and their 8 x D/16 output
+// 8 rows: their 8 x 4 scores of a tile and their 8 x Dv/16 output
 // accumulators, with the (m, l) state, in registers; the 16 lanes of a
 // half-warp share those rows, so the row max and sum are 4 shuffles.  The
 // update is the reference's (_fa_kernel), once per tile.  Ragged Sq and Sk
@@ -55,7 +61,7 @@ constexpr size_t fa_smem_bytes() {
 // keys are all masked in every tile its block visits weighs each in-range
 // key of those tiles equally (the mean of their v rows), as the Pallas
 // kernel does over its own blocks; a row whose block visits no tile gets 0.
-template <typename T, int HD>
+template <typename T, int HD, int HDV>
 __global__ void __launch_bounds__(FA_NT) flash_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, T* __restrict__ out, int Sq, int Sk, int Hq,
@@ -63,14 +69,15 @@ __global__ void __launch_bounds__(FA_NT) flash_attention_kernel(
     float scale) {
   constexpr int QLD = HD + 1;        // odd strides: conflict-free columns
   constexpr int KLD = HD + 1;
-  constexpr int CPT = HD / 16;       // output columns per thread
+  constexpr int CPT = HDV / 16;      // output columns per thread
   constexpr int VN = 16 / sizeof(T); // elements per 16-byte load
   constexpr int PER_ROW = HD / VN;
+  constexpr int PER_ROW_V = HDV / VN;
   extern __shared__ float smem[];
   float* qs = smem;                        // FA_ROWS x QLD
   float* ks = qs + FA_ROWS * QLD;          // FA_BK x KLD
-  float* vs = ks + FA_BK * KLD;            // FA_BK x HD
-  float* ps = vs + FA_BK * HD;             // FA_ROWS x PLD
+  float* vs = ks + FA_BK * KLD;            // FA_BK x HDV
+  float* ps = vs + FA_BK * HDV;            // FA_ROWS x PLD
 
   const int G = Hq / Hkv;
   const int qt = gridDim.x - 1 - blockIdx.x;   // longest causal bands first
@@ -82,8 +89,10 @@ __global__ void __launch_bounds__(FA_NT) flash_attention_kernel(
   const int rg = 2 * warp + (lane >> 4);       // row group: rows rg + 16 j
   const int cg = lane & 15;                    // key / column group
 
-  const long q_row = (long)Hq * HD;            // q / out position stride
-  const long kv_row = (long)Hkv * HD;          // k / v position stride
+  const long q_row = (long)Hq * HD;            // q position stride
+  const long o_row = (long)Hq * HDV;           // out position stride
+  const long k_row = (long)Hkv * HD;           // k position stride
+  const long v_row = (long)Hkv * HDV;          // v position stride
   for (int c = threadIdx.x; c < FA_ROWS * PER_ROW; c += FA_NT) {
     const int r = c / PER_ROW, col = (c - r * PER_ROW) * VN;
     float x[VN];
@@ -121,21 +130,29 @@ __global__ void __launch_bounds__(FA_NT) flash_attention_kernel(
     __syncthreads();                   // the last tile's readers are done
     for (int c = threadIdx.x; c < FA_BK * PER_ROW; c += FA_NT) {
       const int r = c / PER_ROW, col = (c - r * PER_ROW) * VN;
-      float kx[VN], vx[VN];
+      float kx[VN];
       if (r < nk) {
-        const long off = ((long)b * Sk + k0 + r) * kv_row + (long)hk * HD
-                         + col;
-        load16(k + off, kx);
-        load16(v + off, vx);
+        load16(k + ((long)b * Sk + k0 + r) * k_row + (long)hk * HD + col,
+               kx);
       } else {
 #pragma unroll
-        for (int j = 0; j < VN; ++j) kx[j] = vx[j] = 0.f;
+        for (int j = 0; j < VN; ++j) kx[j] = 0.f;
       }
 #pragma unroll
-      for (int j = 0; j < VN; ++j) {
-        ks[r * KLD + col + j] = kx[j];
-        vs[r * HD + col + j] = vx[j];
+      for (int j = 0; j < VN; ++j) ks[r * KLD + col + j] = kx[j];
+    }
+    for (int c = threadIdx.x; c < FA_BK * PER_ROW_V; c += FA_NT) {
+      const int r = c / PER_ROW_V, col = (c - r * PER_ROW_V) * VN;
+      float vx[VN];
+      if (r < nk) {
+        load16(v + ((long)b * Sk + k0 + r) * v_row + (long)hk * HDV + col,
+               vx);
+      } else {
+#pragma unroll
+        for (int j = 0; j < VN; ++j) vx[j] = 0.f;
       }
+#pragma unroll
+      for (int j = 0; j < VN; ++j) vs[r * HDV + col + j] = vx[j];
     }
     __syncthreads();
 
@@ -203,7 +220,7 @@ __global__ void __launch_bounds__(FA_NT) flash_attention_kernel(
     for (int kk = 0; kk < nk; ++kk) {
       float vk[CPT];
 #pragma unroll
-      for (int c = 0; c < CPT; ++c) vk[c] = vs[kk * HD + cg + 16 * c];
+      for (int c = 0; c < CPT; ++c) vk[c] = vs[kk * HDV + cg + 16 * c];
 #pragma unroll
       for (int j = 0; j < RPT; ++j) {
         const float p = ps[(rg + 16 * j) * PLD + kk];
@@ -218,22 +235,22 @@ __global__ void __launch_bounds__(FA_NT) flash_attention_kernel(
     const int r = rg + 16 * j;
     if (r >= live) continue;
     const int i = r / G, g = r - (r / G) * G;
-    T* o = out + ((long)b * Sq + q0 + i) * q_row + (long)(hk * G + g) * HD;
+    T* o = out + ((long)b * Sq + q0 + i) * o_row + (long)(hk * G + g) * HDV;
     const float den = fmaxf(l[j], 1e-30f);
 #pragma unroll
     for (int c = 0; c < CPT; ++c) store(o + cg + 16 * c, acc[j][c] / den);
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int HDV>
 int launch_fa(const void* q, const void* k, const void* v, void* out, int B,
               int Sq, int Sk, int Hq, int Hkv, int bq, int causal,
               int window, int q_offset, float logit_cap, float scale,
               cudaStream_t stream) {
-  constexpr size_t smem = fa_smem_bytes<HD>();
-  auto kern = flash_attention_kernel<T, HD>;
+  constexpr size_t smem = fa_smem_bytes<HD, HDV>();
+  auto kern = flash_attention_kernel<T, HD, HDV>;
   // once per instantiation, so that a launch inside a CUDA-graph capture
-  // makes no attribute call
+  // makes no attribute call; a refusal is returned, never worked around
   static bool smem_set = false;
   if (!smem_set) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -249,34 +266,48 @@ int launch_fa(const void* q, const void* k, const void* v, void* out, int B,
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch_fa_dims(const void* q, const void* k, const void* v, void* out,
+                   int B, int Sq, int Sk, int Hq, int Hkv, int D, int Dv,
+                   int bq, int causal, int window, int q_offset,
+                   float logit_cap, float scale, cudaStream_t stream) {
+  if (D == 64 && Dv == 64)
+    return launch_fa<T, 64, 64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, bq, causal,
+                                window, q_offset, logit_cap, scale, stream);
+  if (D == 128 && Dv == 128)
+    return launch_fa<T, 128, 128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, bq,
+                                  causal, window, q_offset, logit_cap, scale,
+                                  stream);
+  if (D == 192 && Dv == 128)
+    return launch_fa<T, 192, 128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, bq,
+                                  causal, window, q_offset, logit_cap, scale,
+                                  stream);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it).  bq = 128 /
-// (Hq / Hkv) q positions per block.  Sq, Sk >= 1.
+// (Hq / Hkv) q positions per block.  Sq, Sk >= 1.  (head_dim, v_head_dim)
+// in {(64, 64), (128, 128), (192, 128)}.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* out, int B, int Sq,
                                    int Sk, int Hq, int Hkv, int head_dim,
-                                   int bq, int causal, int window,
-                                   int q_offset, float logit_cap,
+                                   int v_head_dim, int bq, int causal,
+                                   int window, int q_offset, float logit_cap,
                                    float scale, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B < 1 || Sq < 1 || Sk < 1 || Hkv < 1 || Hq % Hkv
       || bq * (Hq / Hkv) > FA_ROWS || bq < 1)
     return (int)cudaErrorInvalidValue;
-  if (dtype == 1 && head_dim == 64)
-    return launch_fa<__nv_bfloat16, 64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, bq,
-                                        causal, window, q_offset, logit_cap,
-                                        scale, st);
-  if (dtype == 1 && head_dim == 128)
-    return launch_fa<__nv_bfloat16, 128>(q, k, v, out, B, Sq, Sk, Hq, Hkv,
-                                         bq, causal, window, q_offset,
-                                         logit_cap, scale, st);
-  if (dtype == 0 && head_dim == 64)
-    return launch_fa<float, 64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, bq, causal,
-                                window, q_offset, logit_cap, scale, st);
-  if (dtype == 0 && head_dim == 128)
-    return launch_fa<float, 128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, bq,
-                                 causal, window, q_offset, logit_cap, scale,
-                                 st);
+  if (dtype == 1)
+    return launch_fa_dims<__nv_bfloat16>(q, k, v, out, B, Sq, Sk, Hq, Hkv,
+                                         head_dim, v_head_dim, bq, causal,
+                                         window, q_offset, logit_cap, scale,
+                                         st);
+  if (dtype == 0)
+    return launch_fa_dims<float>(q, k, v, out, B, Sq, Sk, Hq, Hkv, head_dim,
+                                 v_head_dim, bq, causal, window, q_offset,
+                                 logit_cap, scale, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,8 +1,8 @@
 """GQA attention sweeps + LSE merge: the hand-written Hopper kernels of
 the serving hot paths, their wrappers, and their plain PyTorch versions.
 
-Three kernels replace the nine Pallas functions of the JAX package's
-paged and ring families:
+Four kernels replace the eleven Pallas functions of the JAX package's
+paged, ring and MLA families:
 
   * **K-sweep** ``paged_attention_sweep`` (``csrc/paged_attention.cu``) —
     stage 1 of paged GQA attention: ``Q`` query rows per ``(b, h)`` (1 for
@@ -16,10 +16,18 @@ paged and ring families:
     (``ref = pos`` for decode, ``pos - 1`` for verify, which also masks the
     slots the sequential loop would have overwritten), walked in
     ``ring_block_k`` blocks.
-  * **K-merge** ``lse_merge`` — stage 2 of both: ``out = sum_s partial_s
-    exp(lse_s - m) / sum_s exp(lse_s - m)``, denominator clamped at 1e-30.
+  * **Latent sweep** ``mla_latent_sweep`` (``csrc/mla_attention.cu``) —
+    stage 1 of deepseek-v2's absorbed MLA attention over the paged latent
+    pool ``(P, ps, R)``: every (query, head) row ``[q_abs | q_rope]``
+    scores the whole R-wide latent row, whose first ``Dv = r_kv`` lanes
+    are the value; one block per ``(tile of 16 rows, split, b)``.  It
+    serves the decode (K7a, K7b) and the MLA form of the paged verify
+    (K3's, Hkv 1 with v a leading slice of k's rows).
+  * **K-merge** ``lse_merge`` — stage 2 of all three: ``out = sum_s
+    partial_s exp(lse_s - m) / sum_s exp(lse_s - m)``, denominator clamped
+    at 1e-30.
 
-Both sweeps fold verify's in-flight candidate rows, causally, into the
+The sweeps fold verify's in-flight candidate rows, causally, into the
 last split only.  One split writes the normalised output in the query
 dtype; several write fp32 ``partial (B, Hq, S, Q, Dv)`` + ``lse (B, Hq,
 S, Q)``.
@@ -251,6 +259,24 @@ def lse_merge_torch(partial, lse, out_dtype):
     return (acc / den[..., None]).to(out_dtype)
 
 
+def mla_latent_sweep_torch(q, pool, block_tables, pos, *, r_kv: int,
+                           pending=None, n_splits: int = 1,
+                           logit_cap: float = 0.0, scale: float):
+    """The latent sweep's function in plain torch: the paged K-sweep's twin
+    at the MLA form, one kv head whose k rows are the whole latent rows
+    ``pool (P, ps, R)`` and whose v rows are their first ``r_kv`` lanes
+    (the pending rows ``(B, Q, R)`` likewise), page by page as the kernel
+    walks them.  Returns as :func:`paged_attention_sweep_torch`, with
+    ``Dv = r_kv``."""
+    k_new = v_new = None
+    if pending is not None:
+        k_new, v_new = pending[:, :, None], pending[:, :, None, :r_kv]
+    return paged_attention_sweep_torch(
+        q, pool[:, :, None], pool[:, :, None, :r_kv], block_tables, pos,
+        k_new=k_new, v_new=v_new, n_splits=n_splits, logit_cap=logit_cap,
+        scale=scale)
+
+
 # ==========================================================================
 # kernel wrappers
 # ==========================================================================
@@ -432,6 +458,79 @@ def lse_merge(partial, lse, out_dtype):
     return out
 
 
+# (latent width, value width) the latent sweep is built for: deepseek-v2's
+# kv_lora_rank 512 + rope 64
+MLA_DIMS = ((576, 512),)
+MLA_ROWS = 16            # (query, head) rows per latent-sweep block
+
+
+def mla_smem_bytes(R: int, kt: int) -> int:
+    """The latent sweep's dynamic shared memory: q and key tiles of R + 4
+    floats a row, the p tile and the (m, l, corr) state."""
+    return 4 * ((MLA_ROWS + kt) * (R + 4) + MLA_ROWS * kt + 3 * MLA_ROWS)
+
+
+def mla_latent_sweep(q, pool, block_tables, pos, *, r_kv: int, pending=None,
+                     n_splits: int = 1, logit_cap: float = 0.0,
+                     scale: float):
+    """The latent sweep.  q (B, Q, Hq, R) latent queries ``[q_abs |
+    q_rope]``; pool (P, ps, R); block_tables (B, nb) int32; pos (B,) int32;
+    optional pending latent rows (B, Q, R) select the verify form (pool
+    rows ``k_pos < pos``, then pending row j for query i when ``j <= i``).
+    ``scale`` is MLA's, of the decompressed head dim.  Output as
+    :func:`mla_latent_sweep_torch`."""
+    if q.device.type == "cpu":
+        return mla_latent_sweep_torch(q, pool, block_tables, pos, r_kv=r_kv,
+                                      pending=pending, n_splits=n_splits,
+                                      logit_cap=logit_cap, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"mla_latent_sweep: unsupported device {q.device}")
+    from repro_torch.kernels import build
+    B, Q, Hq, R = q.shape
+    P, ps = pool.shape[0], pool.shape[1]
+    nb = block_tables.shape[1]
+    verify = pending is not None
+    if q.dtype not in DTYPE_CODE:
+        raise ValueError(f"mla_latent_sweep: dtype {q.dtype} not supported "
+                         "(float32 | bfloat16)")
+    if (R, r_kv) not in MLA_DIMS:
+        raise ValueError(f"mla_latent_sweep: (R, r_kv) {(R, r_kv)} not "
+                         f"supported {MLA_DIMS}")
+    kt = max(ps, Q) if verify else ps
+    if mla_smem_bytes(R, kt) > _SMEM_MAX:
+        raise ValueError(f"mla_latent_sweep: {kt} key rows need "
+                         f"{mla_smem_bytes(R, kt)} bytes of shared memory "
+                         f"(max {_SMEM_MAX})")
+    dev = q.device
+    check("q", q, dtype=q.dtype, shape=(B, Q, Hq, R), device=dev,
+          vector=True)
+    check("pool", pool, dtype=q.dtype, shape=(P, ps, R), device=dev,
+          vector=True)
+    check("block_tables", block_tables, dtype=torch.int32, shape=(B, nb),
+          device=dev)
+    check("pos", pos, dtype=torch.int32, shape=(B,), device=dev)
+    if verify:
+        check("pending", pending, dtype=q.dtype, shape=(B, Q, R),
+              device=dev, vector=True)
+    S, ppb = split_blocks(nb, n_splits)
+    out = partial = lse = None
+    if S == 1:
+        out = torch.empty((B, Q, Hq, r_kv), dtype=q.dtype, device=dev)
+    else:
+        partial = torch.empty((B, Hq, S, Q, r_kv), dtype=torch.float32,
+                              device=dev)
+        lse = torch.empty((B, Hq, S, Q), dtype=torch.float32, device=dev)
+    err = build.library().mla_latent_sweep(
+        ptr(q), ptr(pool), ptr(pending), ptr(block_tables), ptr(pos),
+        ptr(out), ptr(partial), ptr(lse), B, Q, Hq, P, ps, nb, R, r_kv, S,
+        ppb, int(verify), float(logit_cap), float(scale),
+        DTYPE_CODE[q.dtype], torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"mla_latent_sweep: CUDA error {err}")
+    LAUNCHES["mla_verify" if verify else "mla_decode"] += 1
+    return out if S == 1 else (partial, lse)
+
+
 # ==========================================================================
 # the attention function the model calls (backend "cuda")
 # ==========================================================================
@@ -463,6 +562,20 @@ def ring_attention(q, k_cache, v_cache, pos, *, k_new=None, v_new=None,
                                v_new=v_new, n_splits=n_splits,
                                block_k=block_k, window=window,
                                logit_cap=logit_cap, scale=scale)
+    if isinstance(res, torch.Tensor):
+        return res
+    return lse_merge(*res, q.dtype).transpose(1, 2)
+
+
+def mla_attention(q, pool, block_tables, pos, *, r_kv: int, pending=None,
+                  logit_cap: float = 0.0, scale: float, n_splits: int = 1):
+    """Absorbed MLA attention over the paged latent pool on the kernels:
+    the latent sweep, then K-merge when it split.  Without pending rows it
+    is the single-token decode (K7a / K7b); with them the multi-query
+    verify sweep.  -> (B, Q, Hq, r_kv) in ``q.dtype``."""
+    res = mla_latent_sweep(q, pool, block_tables, pos, r_kv=r_kv,
+                           pending=pending, n_splits=n_splits,
+                           logit_cap=logit_cap, scale=scale)
     if isinstance(res, torch.Tensor):
         return res
     return lse_merge(*res, q.dtype).transpose(1, 2)

@@ -22,16 +22,21 @@ import torch
 from repro_torch.kernels.binding import DTYPE_CODE, LAUNCHES, check, ptr
 
 ROWS = 128          # (q position, q head) rows per kernel block
+# (q/k head dim, v head dim) pairs built: the dense families' and
+# deepseek-v2's MLA prefill ([nope 128 | rope 64] q/k, v 128); the
+# kernel's shared memory at each is checked against Hopper's 227 KB when
+# it compiles (221,952 bytes at (192, 128))
+HEAD_DIMS = ((64, 64), (128, 128), (192, 128))
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     logit_cap: float = 0.0, scale: float | None = None,
                     q_offset: int = 0):
     """K4.  q (B, Sq, Hq, D), k (B, Sk, Hkv, D), v (B, Sk, Hkv, Dv) ->
-    (B, Sq, Hq, Dv) in q's dtype.  fp32 online softmax; the soft-cap
-    ``logit_cap * tanh(s / logit_cap)`` comes before the causal / window
-    mask; ``scale`` defaults to ``D ** -0.5``; query row i sits at position
-    ``q_offset + i``."""
+    (B, Sq, Hq, Dv) in q's dtype, (D, Dv) one of ``HEAD_DIMS``.  fp32
+    online softmax; the soft-cap ``logit_cap * tanh(s / logit_cap)`` comes
+    before the causal / window mask; ``scale`` defaults to ``D ** -0.5``;
+    query row i sits at position ``q_offset + i``."""
     if q.device.type == "cpu":
         from repro_torch.kernels.ops import flash_attention_torch
         return flash_attention_torch(q, k, v, causal=causal, window=window,
@@ -45,12 +50,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if q.dtype not in DTYPE_CODE:
         raise ValueError(f"flash_attention: dtype {q.dtype} not supported "
                          "(float32 | bfloat16)")
-    if D not in (64, 128):
-        raise ValueError(f"flash_attention: head_dim {D} not supported "
-                         "(64 | 128)")
-    if Dv != D:
-        raise ValueError(f"flash_attention: v head_dim {Dv} != q head_dim "
-                         f"{D} (D != Dv comes with the MLA slice)")
+    if (D, Dv) not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: (head_dim, v head_dim) "
+                         f"{(D, Dv)} not supported {HEAD_DIMS}")
     if Hq % Hkv or Hq // Hkv > ROWS:
         raise ValueError(f"flash_attention: Hq {Hq} not a multiple of Hkv "
                          f"{Hkv} with at most {ROWS} q heads per kv head")
@@ -61,15 +63,15 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
           vector=True)
     check("k", k, dtype=q.dtype, shape=(B, Sk, Hkv, D), device=dev,
           vector=True)
-    check("v", v, dtype=q.dtype, shape=(B, Sk, Hkv, D), device=dev,
+    check("v", v, dtype=q.dtype, shape=(B, Sk, Hkv, Dv), device=dev,
           vector=True)
-    out = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=dev)
+    out = torch.empty((B, Sq, Hq, Dv), dtype=q.dtype, device=dev)
     if B == 0 or Sq == 0:
         return out
     if scale is None:
         scale = D ** -0.5
     err = build.library().flash_attention_fwd(
-        ptr(q), ptr(k), ptr(v), ptr(out), B, Sq, Sk, Hq, Hkv, D,
+        ptr(q), ptr(k), ptr(v), ptr(out), B, Sq, Sk, Hq, Hkv, D, Dv,
         ROWS // (Hq // Hkv), int(causal), int(window), int(q_offset),
         float(logit_cap), float(scale), DTYPE_CODE[q.dtype],
         torch.cuda.current_stream(dev).cuda_stream)

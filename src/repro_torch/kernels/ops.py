@@ -32,6 +32,16 @@ Counterpart of ``repro.kernels.ops`` for the ops the port runs:
     positions from ``pos``, so a custom ring ``k_pos`` slot layout raises
     on CUDA tensors under ``cuda``; on CPU tensors it takes ``torch``, with
     a warning given once per entry point.
+  * ``mla_decode_paged`` (deepseek-v2's absorbed MLA decode over the
+    paged latent pool) on ``KernelPolicy.decode``: ``ref``
+    (``ref.mla_decode_paged_ref``), ``torch`` (``mla_decode_paged_torch``,
+    the JAX ``mla_decode_paged_jnp`` mirror) or ``cuda`` (the latent sweep,
+    ``decode_attention.mla_attention``).  Under ``cuda``,
+    ``paged_verify_attention`` sends the latent form that
+    ``mla_verify_paged`` gives it (one kv head whose v rows are a leading
+    slice of its k rows) to the same latent sweep.  The ring
+    ``mla_decode`` runs ``mla_absorbed_attend_torch``, plain torch, as the
+    JAX package runs its jnp body there.
 
 Each plain version of a sweep has one role:
 
@@ -503,19 +513,41 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, pos, *,
     raise ValueError(f"unknown decode backend {backend!r}")
 
 
+def _latent_form(k_pages, v_pages, k_new, v_new) -> bool:
+    """Is this the MLA form of the paged verify: one kv head whose v rows
+    (pool and pending) are a leading slice of the same memory as its k
+    rows?"""
+    def leading(k, v):
+        return (k.shape[2] == 1 and v.shape[-1] < k.shape[-1]
+                and v.data_ptr() == k.data_ptr()
+                and v.stride() == k.stride())
+    return leading(k_pages, v_pages) and leading(k_new, v_new)
+
+
 def paged_verify_attention(q, k_pages, v_pages, k_new, v_new, block_tables,
                            pos, *, window: int = 0, logit_cap: float = 0.0,
                            scale: float | None = None, k_scale=None,
                            v_scale=None,
                            policy: KernelPolicy = DEFAULT_POLICY):
     """Backend-dispatching multi-query attention over the paged KV cache:
-    speculative verify and the prefix-hit suffix prefill share it."""
+    speculative verify and the prefix-hit suffix prefill share it.  Under
+    ``cuda`` the MLA latent form goes to the latent sweep."""
     _ref.no_int8(k_scale, v_scale, "pages")
     backend = _decode_backend(policy, q)
     ps, nb = k_pages.shape[1], block_tables.shape[1]
     n_splits = _resolve_kv_splits(policy, q.shape[0],
                                   effective_kv_len(nb * ps, window),
                                   q.shape[2], block=ps, device=q.device)
+    if backend == "cuda" and _latent_form(k_pages, v_pages, k_new, v_new):
+        if window > 0:
+            raise ValueError("paged_verify_attention: the latent sweep has "
+                             "no window")
+        if scale is None:
+            scale = q.shape[-1] ** -0.5
+        return da.mla_attention(q, k_pages[:, :, 0], block_tables, pos,
+                                r_kv=v_pages.shape[-1],
+                                pending=k_new[:, :, 0], logit_cap=logit_cap,
+                                scale=scale, n_splits=n_splits)
     if backend == "cuda":
         return da.paged_attention(q, k_pages, v_pages, block_tables, pos,
                                   k_new=k_new, v_new=v_new, window=window,
@@ -530,6 +562,80 @@ def paged_verify_attention(q, k_pages, v_pages, k_new, v_new, block_tables,
             q, k_pages, v_pages, k_new, v_new, block_tables, pos,
             window=window, logit_cap=logit_cap, scale=scale,
             n_splits=n_splits)
+    raise ValueError(f"unknown decode backend {backend!r}")
+
+
+# ==========================================================================
+# MLA compressed-latent decode (absorbed-matmul form)
+# ==========================================================================
+def mla_absorbed_attend_torch(q_abs, q_rope, c_kv, k_rope, valid, *,
+                              scale: float, logit_cap: float = 0.0,
+                              n_splits: int = 1):
+    """The absorbed MLA attend shared by the ring ``mla_decode`` and the
+    paged torch path (mirror of the JAX ``mla_absorbed_attend_jnp``): one
+    latent row per token attended by every head, the value the compressed
+    latent itself.  q_abs (B, H, r_kv), q_rope (B, H, dr), c_kv (B, C,
+    r_kv), k_rope (B, C, dr), valid (B, C) bool.  Scores and values
+    accumulate in fp32 (the JAX ``preferred_element_type``); ``n_splits >
+    1`` runs the two-stage split-and-merge.  -> (B, H, r_kv) in q_abs's
+    dtype."""
+    s = torch.einsum("bhr,bcr->bhc", q_abs.float(), c_kv.float()) \
+        + torch.einsum("bhk,bck->bhc", q_rope.float(), k_rope.float())
+    s = s * scale
+    if logit_cap > 0.0:
+        s = logit_cap * torch.tanh(s / logit_cap)
+    s = torch.where(valid[:, None, :], s, NEG_INF)
+    if n_splits > 1:
+        o = _split_attend_torch(s[:, None, :, None, :], c_kv[:, :, None, :],
+                                n_splits)[:, 0, :, 0, :]
+    else:
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bhc,bcr->bhr", p, c_kv.float())
+    return o.to(q_abs.dtype)
+
+
+def mla_decode_paged_torch(q_lat, lat_pages, block_tables, pos, *,
+                           r_kv: int, scale: float, logit_cap: float = 0.0,
+                           n_splits: int = 1):
+    """Paged MLA decode in plain torch (mirror of the JAX
+    ``mla_decode_paged_jnp``): gather the latent pages into logical order,
+    then the shared absorbed attend; valid is ``k_pos <= pos[b]``."""
+    B = q_lat.shape[0]
+    ps, nb = lat_pages.shape[1], block_tables.shape[1]
+    latg = _gather(lat_pages, block_tables)                   # (B, K, R)
+    valid = torch.arange(nb * ps, device=q_lat.device)[None, :] \
+        <= pos.reshape(B, 1).to(q_lat.device)
+    o = mla_absorbed_attend_torch(
+        q_lat[:, 0, :, :r_kv], q_lat[:, 0, :, r_kv:], latg[..., :r_kv],
+        latg[..., r_kv:], valid, scale=scale, logit_cap=logit_cap,
+        n_splits=n_splits)
+    return o[:, None]                                         # (B,1,Hq,r_kv)
+
+
+def mla_decode_paged(q_lat, lat_pages, block_tables, pos, *, r_kv: int,
+                     scale: float, logit_cap: float = 0.0,
+                     policy: KernelPolicy = DEFAULT_POLICY):
+    """Backend-dispatching absorbed MLA decode over the paged latent pool.
+    The split count is the JAX package's rule at the MLA grid: every head
+    shares the one latent row, so ``q_heads = 1`` and the block is the
+    page.  -> latent outputs (B, 1, Hq, r_kv); the ``W_uv`` / ``W_o``
+    expansion is the caller's."""
+    backend = _decode_backend(policy, q_lat)
+    ps, nb = lat_pages.shape[1], block_tables.shape[1]
+    n_splits = _resolve_kv_splits(policy, q_lat.shape[0], nb * ps, 1,
+                                  block=ps, device=q_lat.device)
+    if backend == "cuda":
+        return da.mla_attention(q_lat, lat_pages, block_tables, pos,
+                                r_kv=r_kv, logit_cap=logit_cap, scale=scale,
+                                n_splits=n_splits)
+    if backend == "ref":
+        return _ref.mla_decode_paged_ref(q_lat, lat_pages, block_tables, pos,
+                                         r_kv=r_kv, scale=scale,
+                                         logit_cap=logit_cap)
+    if backend == "torch":
+        return mla_decode_paged_torch(q_lat, lat_pages, block_tables, pos,
+                                      r_kv=r_kv, scale=scale,
+                                      logit_cap=logit_cap, n_splits=n_splits)
     raise ValueError(f"unknown decode backend {backend!r}")
 
 

@@ -5,8 +5,9 @@ Counterparts of ``repro.kernels.ref``'s ``attention_ref``,
 ``decode_attention_ref``, ``decode_attention_split_ref``,
 ``verify_attention_ref``, ``merge_kv_splits_ref``,
 ``paged_decode_attention_split_ref``, ``paged_verify_attention_ref``,
-``paged_decode_attention_ref``, ``ssd_ref`` and ``rmsnorm_ref`` (same
-shapes, layouts and masks), for bf16 and fp32 caches.  The int8 (scaled) forms belong to
+``paged_decode_attention_ref``, ``mla_decode_paged_ref``,
+``mla_decode_split_ref``, ``ssd_ref`` and ``rmsnorm_ref`` (same shapes,
+layouts and masks), for bf16 and fp32 caches.  The int8 (scaled) forms belong to
 the KV-tier slice: a scale raises by name (:func:`no_int8`).
 """
 from __future__ import annotations
@@ -291,6 +292,54 @@ def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, pos, *,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgk,bkhd->bhgd", p, vg)
     return o.reshape(B, 1, Hq, v_pages.shape[-1]).to(q.dtype)
+
+
+# --------------------------------------------------------------------------
+# MLA compressed-latent paged decode oracles, absorbed-matmul form
+# --------------------------------------------------------------------------
+def _mla_scores(q_lat, lat_pages, block_tables, pos, *, scale, logit_cap):
+    """Gathered latent rows (B, K, R) fp32 and the masked scores (B, 1, Hq,
+    K) of the latent queries against the whole row, ``k_pos <= pos``."""
+    B, _, Hq, R = q_lat.shape
+    ps, nb = lat_pages.shape[1], block_tables.shape[1]
+    latg = lat_pages.float()[block_tables.long()].reshape(B, nb * ps, R)
+    qf = q_lat.float().reshape(B, 1, Hq, R)               # (B, Hkv=1, G, R)
+    s = torch.einsum("bhgd,bkd->bhgk", qf, latg) * scale
+    if logit_cap > 0.0:
+        s = logit_cap * torch.tanh(s / logit_cap)
+    k_pos = torch.arange(nb * ps, device=q_lat.device)[None, :]
+    valid = k_pos <= pos.reshape(B, 1).to(q_lat.device)
+    return latg, torch.where(valid[:, None, None], s, NEG_INF)
+
+
+def mla_decode_paged_ref(q_lat, lat_pages, block_tables, pos, *, r_kv: int,
+                         scale: float, logit_cap: float = 0.0):
+    """Naive MLA paged decode oracle in absorbed form: one latent row per
+    token shared by every q head (Hkv = 1, G = Hq); the score is one dot
+    of ``[q_abs | q_rope]`` against the whole row, the value its first
+    ``r_kv`` lanes.  q_lat (B, 1, Hq, R), lat_pages (P, ps, R) -> latent
+    outputs (B, 1, Hq, r_kv).  ``scale`` is mandatory: MLA scales by the
+    decompressed head dim, not R."""
+    B, _, Hq, _ = q_lat.shape
+    latg, s = _mla_scores(q_lat, lat_pages, block_tables, pos, scale=scale,
+                          logit_cap=logit_cap)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgk,bkd->bhgd", p, latg[..., :r_kv])
+    return o.reshape(B, 1, Hq, r_kv).to(q_lat.dtype)
+
+
+def mla_decode_split_ref(q_lat, lat_pages, block_tables, pos, *, r_kv: int,
+                         n_splits: int, scale: float,
+                         logit_cap: float = 0.0):
+    """Stage-1 oracle of the split MLA sweep: the gather of
+    :func:`mla_decode_paged_ref`, split over pages by the shared
+    ``_split_partials`` body at Hkv = 1, G = Hq, Dv = r_kv ->
+    ``(partial (B, Hq, S, 1, r_kv), lse (B, Hq, S, 1))``."""
+    latg, s = _mla_scores(q_lat, lat_pages, block_tables, pos, scale=scale,
+                          logit_cap=logit_cap)
+    return _split_partials(s, latg[..., :r_kv][:, :, None, :],
+                           n_units=block_tables.shape[1],
+                           unit=lat_pages.shape[1], n_splits=n_splits)
 
 
 # --------------------------------------------------------------------------

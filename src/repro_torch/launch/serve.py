@@ -501,14 +501,21 @@ def _refuse_unported(args) -> None:
 
 
 def run(argv=None):
-    """Parse ``argv``, serve, print the ``[serve]`` / ``[frost-ctrl]``
-    lines; returns the engine's report (poisson) or ``run_batch``'s
-    result (batch)."""
+    """Parse ``argv``, choose the config (``--arch``, ``--smoke``) and
+    :func:`serve` it."""
     args = build_parser().parse_args(argv)
     _refuse_unported(args)
-    device = resolve(args.device)
     spec = get_arch(args.arch)
-    cfg = spec.smoke if args.smoke else spec.config
+    return serve(args, spec.smoke if args.smoke else spec.config)
+
+
+def serve(args, cfg):
+    """Serve ``cfg`` as the parsed ``args`` ask, print the ``[serve]`` /
+    ``[frost-ctrl]`` lines; returns the engine's report (poisson) or
+    ``run_batch``'s result (batch).  A caller may hand a config the
+    registry does not hold, such as a published one cut in depth to fit
+    one card."""
+    device = resolve(args.device)
     step_cfg = with_decode_policy(StepConfig(),
                                   kv_splits=_parse_kv_splits(args.kv_splits),
                                   decode_k_chunk=max(1, args.decode_k_chunk))

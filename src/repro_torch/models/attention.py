@@ -1,9 +1,13 @@
-"""GQA attention blocks of the port (RoPE / sliding window / logit
+"""Attention blocks of the port.  GQA (RoPE / sliding window / logit
 soft-cap): prefill, ring decode and verify, paged decode and verify, and
 the decode over per-slot private rings at ragged positions, counterparts
 of ``repro.models.attention``'s ``gqa_prefill``, ``gqa_decode``,
 ``gqa_verify``, ``gqa_decode_paged``, ``gqa_verify_paged`` and
-``gqa_decode_ragged`` with the same shapes.
+``gqa_decode_ragged`` with the same shapes.  MLA (deepseek-v2): the
+counterparts of ``mla_forward``, ``mla_prefill``, ``mla_decode`` (ring),
+``mla_decode_paged`` and ``mla_verify_paged``, whose cache is one
+compressed latent row ``[c_kv | k_rope]`` (R = kv_lora_rank +
+rope_head_dim) per token, shared by every head.
 
 Parameters are a dict ``{"wq": (d, Hq, hd), "wk": (d, Hkv, hd),
 "wv": (d, Hkv, hd), "wo": (Hq, hd, d)}``; weights are cast to the
@@ -193,3 +197,171 @@ def gqa_verify_paged(params, x, pos, cache_kv, block_tables,
                                    scale=_scale(cfg), policy=policy)
     o = _mask_padded_heads(o, cfg)
     return _out_proj(o, params["wo"]), (k, v)
+
+
+# ==========================================================================
+# MLA (DeepSeek-V2)
+# ==========================================================================
+# Parameters {"wdkv": (d, r_kv + dr), "kv_norm": (r_kv,), "wuk": (r_kv, H,
+# dn), "wuv": (r_kv, H, dv), "wo": (H, dv, d), "wdq": (d, r_q), "q_norm":
+# (r_q,), "wuq": (r_q, H, dn + dr)} (``wuq`` (d, H, dn + dr) without a q
+# LoRA), as ``repro.models.attention.init_mla`` lays them out.
+def _mla_scale(cfg: ModelConfig) -> float:
+    """MLA scales by the decompressed head dim, not the latent width."""
+    return cfg.query_scale or (cfg.nope_head_dim + cfg.rope_head_dim) ** -0.5
+
+
+def _mla_norm(x, scale, cfg: ModelConfig, policy):
+    return ops.rmsnorm(x.contiguous(), scale, eps=cfg.norm_eps,
+                       policy=policy)
+
+
+def _mla_queries(params, x, positions, cfg: ModelConfig, policy):
+    """-> (q_nope (B, S, H, dn), q_rope (B, S, H, dr) rotated)."""
+    dn = cfg.nope_head_dim
+    if cfg.q_lora_rank:
+        cq = x @ params["wdq"].to(x.dtype)
+        cq = _mla_norm(cq, params["q_norm"], cfg, policy)
+        q = _proj(cq, params["wuq"])
+    else:
+        q = _proj(x, params["wuq"])
+    q_rope = common.apply_rope(q[..., dn:], positions, cfg.rope_theta)
+    return q[..., :dn], q_rope
+
+
+def _mla_latent(params, x, positions, cfg: ModelConfig, policy):
+    """Down-project to the compressed latent: -> (c_kv (B, S, r_kv),
+    k_rope (B, S, dr) rotated)."""
+    r_kv = cfg.kv_lora_rank
+    ckv_rope = x @ params["wdkv"].to(x.dtype)
+    c_kv = _mla_norm(ckv_rope[..., :r_kv], params["kv_norm"], cfg, policy)
+    k_rope = common.apply_rope(ckv_rope[:, :, None, r_kv:], positions,
+                               cfg.rope_theta)[:, :, 0, :]
+    return c_kv, k_rope
+
+
+def _absorb(q_nope, wuk):
+    """q_nope (B, S, H, dn) through W_uk (r_kv, H, dn) -> (B, S, H, r_kv),
+    the absorbed query that scores the latent directly."""
+    return torch.einsum("bshk,rhk->bshr", q_nope, wuk.to(q_nope.dtype))
+
+
+def _mla_out(o_lat, params):
+    """Latent outputs (B, S, H, r_kv) through W_uv (r_kv, H, dv), then W_o
+    -> (B, S, d)."""
+    o = torch.einsum("bshr,rhk->bshk", o_lat, params["wuv"].to(o_lat.dtype))
+    return _out_proj(o, params["wo"])
+
+
+def mla_forward(params, x, positions, cfg: ModelConfig, *,
+                policy=ops.DEFAULT_POLICY):
+    """Prefill MLA: the latent expanded to per-head k / v, flash attention
+    with ``[nope | rope]`` q and k (head dim dn + dr, v head dim dv).
+    -> (out (B, S, d), (c_kv, k_rope))."""
+    H, dr = cfg.n_heads, cfg.rope_head_dim
+    q_nope, q_rope = _mla_queries(params, x, positions, cfg, policy)
+    c_kv, k_rope = _mla_latent(params, x, positions, cfg, policy)
+    k_nope = _proj(c_kv, params["wuk"])
+    v = _proj(c_kv, params["wuv"])
+    k_rope_h = k_rope[:, :, None, :].expand(*k_rope.shape[:2], H, dr)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope_h], dim=-1)
+    o = ops.attention(q, k, v, causal=True, scale=_mla_scale(cfg),
+                      logit_cap=cfg.attn_logit_softcap, policy=policy)
+    return _out_proj(o, params["wo"]), (c_kv, k_rope)
+
+
+def mla_prefill(params, x, positions, cfg: ModelConfig, *, cache_len: int,
+                policy=ops.DEFAULT_POLICY):
+    """Prefill that also emits the compressed cache: the latent rows
+    ``[c_kv | k_rope]`` (B, cache_len, R) in the ring layout (slot = pos %
+    cache_len).  -> (out (B, S, d), lat)."""
+    out, (c_kv, k_rope) = mla_forward(params, x, positions, cfg,
+                                      policy=policy)
+    S = x.shape[1]
+    lat = torch.cat([c_kv, k_rope], dim=-1)
+    if cache_len >= S:
+        lat = torch.nn.functional.pad(lat, (0, 0, 0, cache_len - S))
+    else:
+        lat = torch.roll(lat[:, -cache_len:], S % cache_len, dims=1)
+    return out, lat
+
+
+def mla_decode(params, x, pos, cache_lat, cfg: ModelConfig, *,
+               policy: ops.KernelPolicy = ops.DEFAULT_POLICY):
+    """Absorbed-matmul decode against the ring latent cache (B, C, R): the
+    new latent row goes to slot ``pos % C`` in place, then the absorbed
+    attend (``ops.mla_absorbed_attend_torch``, the body the paged torch
+    path shares, as in JAX) and the W_uv / W_o expansion.  pos a 0-d int32
+    tensor.  -> (out (B, 1, d), cache_lat)."""
+    r_kv = cfg.kv_lora_rank
+    B, C = cache_lat.shape[0], cache_lat.shape[1]
+    posb = pos.reshape(1, 1)
+    q_nope, q_rope = _mla_queries(params, x, posb, cfg, policy)
+    c_kv, k_rope = _mla_latent(params, x, posb, cfg, policy)
+    lat_t = torch.cat([c_kv, k_rope], dim=-1)
+    slot = torch.remainder(pos, C).long().reshape(1)
+    cache_lat.index_copy_(1, slot, lat_t.to(cache_lat.dtype))
+    q_abs = _absorb(q_nope, params["wuk"])[:, 0]             # (B, H, r_kv)
+    k_pos = pos - torch.remainder(pos - torch.arange(C, device=x.device), C)
+    valid = ((k_pos >= 0) & (k_pos <= pos))[None].expand(B, C)
+    o_lat = ops.mla_absorbed_attend_torch(
+        q_abs, q_rope[:, 0], cache_lat[..., :r_kv].to(x.dtype),
+        cache_lat[..., r_kv:].to(x.dtype), valid, scale=_mla_scale(cfg),
+        logit_cap=cfg.attn_logit_softcap)
+    return _mla_out(o_lat[:, None], params), cache_lat
+
+
+def mla_decode_paged(params, x, pos, cache_lat, block_tables,
+                     cfg: ModelConfig, *,
+                     policy: ops.KernelPolicy = ops.DEFAULT_POLICY):
+    """One-token absorbed MLA decode against the paged latent pool (P, ps,
+    R).  The new latent row goes to physical row ``block_tables[b, pos[b]
+    // ps] * ps + pos[b] % ps`` in place, then the latent queries ``[q_abs
+    | q_rope]`` (B, 1, H, R) sweep the pool through
+    ``ops.mla_decode_paged``: the latent row serves scores and values.
+    pos (B,) int32.  -> (out (B, 1, d), cache_lat)."""
+    r_kv = cfg.kv_lora_rank
+    P, ps, R = cache_lat.shape
+    posb = pos[:, None]
+    q_nope, q_rope = _mla_queries(params, x, posb, cfg, policy)
+    c_kv, k_rope = _mla_latent(params, x, posb, cfg, policy)
+    lat_row = torch.cat([c_kv, k_rope], dim=-1)[:, 0]           # (B, R)
+    page = torch.gather(block_tables, 1,
+                        (pos // ps)[:, None].long())[:, 0].long()
+    row = page * ps + (pos % ps).long()
+    cache_lat.view(P * ps, R).index_copy_(0, row,
+                                          lat_row.to(cache_lat.dtype))
+    q_lat = torch.cat([_absorb(q_nope, params["wuk"]), q_rope], dim=-1)
+    o_lat = ops.mla_decode_paged(q_lat, cache_lat, block_tables, pos,
+                                 r_kv=r_kv, scale=_mla_scale(cfg),
+                                 logit_cap=cfg.attn_logit_softcap,
+                                 policy=policy)                # (B,1,H,r_kv)
+    return _mla_out(o_lat, params), cache_lat
+
+
+def mla_verify_paged(params, x, pos, cache_lat, block_tables,
+                     cfg: ModelConfig, *,
+                     policy: ops.KernelPolicy = ops.DEFAULT_POLICY):
+    """Multi-query MLA sweep over the paged latent pool (the prefix-hit
+    suffix prefill; speculation stays blocked by ``use_mla``, as in JAX).
+    In absorbed form the pool is a GQA pool with one kv head: k = the
+    latent rows (P, ps, 1, R), v = their first r_kv lanes, queries
+    ``[q_abs | q_rope]`` (B, Q, H, R), through
+    ``ops.paged_verify_attention`` (which sends this form to the latent
+    sweep on the card).  The pool is not written: the pending latent rows
+    (B, Q, R) come back for the caller's commit.  -> (out (B, Q, d),
+    lat_new)."""
+    r_kv = cfg.kv_lora_rank
+    Q = x.shape[1]
+    posq = pos[:, None] + torch.arange(Q, device=pos.device)[None, :]
+    q_nope, q_rope = _mla_queries(params, x, posq, cfg, policy)
+    c_kv, k_rope = _mla_latent(params, x, posq, cfg, policy)
+    lat_new = torch.cat([c_kv, k_rope], dim=-1)                # (B, Q, R)
+    q_lat = torch.cat([_absorb(q_nope, params["wuk"]), q_rope], dim=-1)
+    o_lat = ops.paged_verify_attention(
+        q_lat, cache_lat[:, :, None, :], cache_lat[:, :, None, :r_kv],
+        lat_new[:, :, None, :], lat_new[:, :, None, :r_kv], block_tables,
+        pos, scale=_mla_scale(cfg), logit_cap=cfg.attn_logit_softcap,
+        policy=policy)                                         # (B,Q,H,r_kv)
+    return _mla_out(o_lat, params), lat_new

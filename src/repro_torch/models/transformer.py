@@ -1,35 +1,44 @@
 """The LM trunk of the port, dense GQA family with its windowed members
-(gemma2's local/global layer pairs, sliding-window layers) and the SSM
-family (Mamba2 layers, ``models/ssm.py``): prefill, the decode step and
-the verify sweep over both cache layouts (ring and paged), suffix prefill
-and the speculative commits — counterparts of
-``repro.models.transformer``'s functions of the same names, with the same
-shapes and parameter layout.
+(gemma2's local/global layer pairs, sliding-window layers), the SSM
+family (Mamba2 layers, ``models/ssm.py``) and deepseek-v2's MLA + MoE
+family with its first dense layers: prefill, the decode step and the
+verify sweep over both cache layouts (ring and paged), suffix prefill and
+the speculative commits — counterparts of ``repro.models.transformer``'s
+functions of the same names, with the same shapes and parameter layout.
 
 Parameters are the nested dict of the JAX package (``embed``,
 ``layers/sub0/{norm1, attn/{wq,wk,wv,wo}, norm2, ffn/{wi_gate,wi_up,wo}}``
 stacked on a leading ``n_units`` axis, ``final_norm``; an SSM layer's
 sub is ``{pre_norm, wz, wx, wB, wC, wdt, conv_w, conv_b, A_log, D,
-dt_bias, norm_scale, wout}``), so a JAX
-checkpoint loads without reshaping (``repro_torch.bridge``).  Where JAX
-scanned over the stacked layers, the port loops in Python.
+dt_bias, norm_scale, wout}``; an MLA sub's attn is ``{wdkv, kv_norm,
+wuk, wuv, wo, wdq, q_norm, wuq}``, a MoE sub's ffn ``{router, wi_gate,
+wi_up, wo, shared}``; ``dense_layers`` is a LIST of unstacked blocks run
+before the units), so a JAX checkpoint loads without reshaping
+(``repro_torch.bridge``).  Where JAX scanned over the stacked layers, the
+port loops in Python.
 
 The ring cache (``prefill``, ``init_cache``) is a dict ``{"pos": 0-d
 int32 tensor, "units": {"sub<i>": {"k", "v": (n_units, B, C, Hkv, hd)}}}``
 with position p at slot ``p % C``; a windowed sub's C is ``min(max_len,
-window)``.  The paged cache is ``{"pos": (n_slots,) int32,
+window)``; an MLA sub holds one latent row per token, ``{"lat":
+(n_units, B, C, R)}``, R = kv_lora_rank + rope_head_dim; the first dense
+layers add ``"dense"``, a list of one such dict per layer without the
+unit axis.  The paged cache is ``{"pos": (n_slots,) int32,
 "block_tables": (n_slots, max_blocks) int32, "units": {"sub<i>": {"k",
 "v": (n_units, n_pages, page_size, Hkv, hd)}}}``; a windowed sub holds a
 private ring of ``nbw`` pages per slot instead, (n_units, n_slots * nbw,
-page_size, Hkv, hd).  An SSM sub holds its recurrent state instead, in
-both layouts: ``{"conv": (n_units, B, conv_width - 1, conv_dim), "ssm":
-(n_units, B, H, P, N) fp32}``, one state slot per batch row or engine
-slot.  Both are updated IN PLACE (the decode writes and
-the commits go through ``index_copy_``), where JAX donated the buffers
-and returned new ones; the functions still return the cache dict, with a
-new ``pos``.  The decode steps and the ring commit compute their indices
-on the device and read nothing back to the host; the paged commit reads
-its accepted-row count once per sweep.
+page_size, Hkv, hd); an MLA sub a latent pool ``{"lat": (n_units,
+n_pages, page_size, R)}``; the first dense layers a stacked group
+``"dense"`` of the same form, (n_dense, n_pages, ...), on the same page
+ids.  An SSM sub holds its recurrent state instead, in both layouts:
+``{"conv": (n_units, B, conv_width - 1, conv_dim), "ssm": (n_units, B, H,
+P, N) fp32}``, one state slot per batch row or engine slot.  Both are
+updated IN PLACE (the decode writes and the commits go through
+``index_copy_``), where JAX donated the buffers and returned new ones; the
+functions still return the cache dict, with a new ``pos``.  The decode
+steps and the ring commit compute their indices on the device and read
+nothing back to the host; the paged commit reads its accepted-row count
+once per sweep.
 """
 from __future__ import annotations
 
@@ -41,7 +50,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models import common, ssm
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import mlp_forward
+from repro_torch.models.layers import mlp_forward, moe_forward
 
 VOCAB_PAD = 256
 
@@ -79,13 +88,10 @@ def n_units(cfg: ModelConfig) -> int:
 def paged_cache_blockers(cfg: ModelConfig) -> tuple[str, ...]:
     """Named config features the port does not serve yet, on either cache
     layout (each family comes with its own slice; see ROADMAP.md).  Empty,
-    as in the JAX package, for the dense GQA family, its windowed members
-    and the SSM family (state slots); the hybrid family stays blocked by
-    its shared attention block."""
-    checks = (("use_mla", cfg.use_mla),
-              ("n_experts", cfg.uses_moe),
-              ("n_codebooks", bool(cfg.n_codebooks)),
-              ("first_dense_layers", bool(cfg.first_dense_layers)),
+    as in the JAX package, for the dense GQA family, its windowed members,
+    the SSM family (state slots) and the MLA / MoE / first-dense family;
+    the hybrid family stays blocked by its shared attention block."""
+    checks = (("n_codebooks", bool(cfg.n_codebooks)),
               ("hybrid_attn_every",
                cfg.family == "hybrid" and bool(cfg.hybrid_attn_every)),
               ("heads_padded", cfg.heads_padded))
@@ -137,7 +143,8 @@ def supports_speculative(cfg: ModelConfig) -> bool:
 
 def _require_ported(cfg: ModelConfig) -> None:
     """Both cache layouts serve the dense GQA family (windowed layers
-    included) and the SSM family only so far."""
+    included), the SSM family and the MLA / MoE / first-dense family only
+    so far."""
     blockers = paged_cache_blockers(cfg)
     if blockers:
         raise NotImplementedError(f"{cfg.name}: {blockers[0]} is not ported "
@@ -148,7 +155,8 @@ def _require_ported(cfg: ModelConfig) -> None:
 # parameters
 # ==========================================================================
 _MATMUL_KEYS = ("wq", "wk", "wv", "wo", "wi_gate", "wi_up", "embed",
-                "lm_head", "wz", "wx", "wB", "wC", "wdt", "wout")
+                "lm_head", "wz", "wx", "wB", "wC", "wdt", "wout", "wdkv",
+                "wuk", "wuv", "wdq", "wuq", "router")
 
 
 def prepare_params(params, cfg: ModelConfig):
@@ -156,7 +164,8 @@ def prepare_params(params, cfg: ModelConfig):
     (the JAX package casts them at every use — same values); norm scales
     keep ``param_dtype``, since rmsnorm reads them in fp32, and so do an
     SSM layer's ``A_log``, ``D``, ``dt_bias`` and ``norm_scale``; its
-    ``conv_w`` and ``conv_b`` are cast at use, as in JAX."""
+    ``conv_w`` and ``conv_b`` are cast at use, as in JAX; an MLA layer's
+    ``kv_norm`` and ``q_norm`` too.  ``dense_layers`` is a list of blocks."""
     adt = common.dt(cfg.dtype)
 
     def walk(tree):
@@ -164,6 +173,8 @@ def prepare_params(params, cfg: ModelConfig):
         for key, val in tree.items():
             if isinstance(val, dict):
                 out[key] = walk(val)
+            elif isinstance(val, list):
+                out[key] = [walk(v) for v in val]
             elif key in _MATMUL_KEYS:
                 out[key] = val.to(adt)
             else:
@@ -221,12 +232,15 @@ def _norm(x, scale, cfg: ModelConfig, ctx: RunCtx):
 
 
 def _ffn(blk, x, a, cfg: ModelConfig, ctx: RunCtx):
-    """Residual add of the attention output, then the MLP half."""
+    """Residual add of the attention output, then the MLP or MoE half."""
     if cfg.post_norms:
         a = _norm(a, blk["post_attn_norm"], cfg, ctx)
     x = x + a
     h = _norm(x, blk["norm2"], cfg, ctx)
-    f = mlp_forward(blk["ffn"], h, cfg)
+    if "router" in blk["ffn"]:
+        f, _ = moe_forward(blk["ffn"], h, cfg)
+    else:
+        f = mlp_forward(blk["ffn"], h, cfg)
     if cfg.post_norms:
         f = _norm(f, blk["post_ffn_norm"], cfg, ctx)
     return x + f
@@ -257,6 +271,24 @@ def _ssm_state(cfg: ModelConfig, batch: int, dtype, device):
                                dtype=torch.float32, device=device)}
 
 
+def _block_prefill(blk, x, positions, cfg: ModelConfig, ctx: RunCtx, *,
+                   window: int, cache_len: int):
+    """One attention sublayer over the prompt, plus its cache leaves:
+    ``{"lat"}`` for MLA, ``{"k", "v"}`` otherwise."""
+    h = _norm(x, blk["norm1"], cfg, ctx)
+    if cfg.use_mla:
+        a, lat = attn.mla_prefill(blk["attn"], h, positions, cfg,
+                                  cache_len=cache_len,
+                                  policy=ctx.kernel_policy)
+        c = {"lat": lat}
+    else:
+        a, (k, v) = attn.gqa_prefill(blk["attn"], h, positions, cfg,
+                                     window=window, cache_len=cache_len,
+                                     policy=ctx.kernel_policy)
+        c = {"k": k, "v": v}
+    return _ffn(blk, x, a, cfg, ctx), c
+
+
 def _ssm_decode(blk, x, c, l: int, cfg: ModelConfig, ctx: RunCtx):
     """One decode step of an SSM sub of layer ``l``: every state slot
     advances (parked engine slots too, as in JAX), written in place."""
@@ -282,12 +314,21 @@ def prefill(params, tokens, cfg: ModelConfig, ctx: RunCtx = RunCtx(), *,
     would overwrite the real window tail (the window still masks the
     scores).  An SSM sub's cache is its recurrent state after the prompt
     (``mamba_forward(..., return_state=True)``): every prompt token enters
-    it, so the engine prefills SSM prompts at their exact length."""
+    it, so the engine prefills SSM prompts at their exact length.  The
+    first dense layers run before the units, each into its own entry of
+    the ``"dense"`` list."""
     _require_ported(cfg)
     x = embed_tokens(params, tokens, cfg, ctx)
     B, S = x.shape[:2]
     max_len = max_len or max(cfg.max_seq_len, S)
     positions = torch.arange(S, device=x.device)[None, :]
+    dense = []
+    for blk in params.get("dense_layers", []):
+        w = cfg.sliding_window
+        cap = min(max_len, w) if (w and not full_cache) else max_len
+        x, c = _block_prefill(blk, x, positions, cfg, ctx, window=w,
+                              cache_len=cap)
+        dense.append(c)
     nu = n_units(cfg)
     units = {}
     for l in range(nu):
@@ -304,16 +345,16 @@ def prefill(params, tokens, cfg: ModelConfig, ctx: RunCtx = RunCtx(), *,
                 continue
             w = cfg.window_for_layer(i)
             cap = min(max_len, w) if (w > 0 and not full_cache) else max_len
-            h = _norm(x, blk["norm1"], cfg, ctx)
-            a, (k, v) = attn.gqa_prefill(blk["attn"], h, positions, cfg,
-                                         window=w, cache_len=cap,
-                                         policy=ctx.kernel_policy)
-            _stack_layer(units, f"sub{i}", l, nu, {"k": k, "v": v})
-            x = _ffn(blk, x, a, cfg, ctx)
+            x, c = _block_prefill(blk, x, positions, cfg, ctx, window=w,
+                                  cache_len=cap)
+            _stack_layer(units, f"sub{i}", l, nu, c)
     x = _norm(x, params["final_norm"], cfg, ctx)
     logits = lm_logits(params, x, cfg, ctx)
     pos = torch.tensor(S, dtype=torch.int32, device=x.device)
-    return logits, {"pos": pos, "units": units}
+    cache = {"pos": pos, "units": units}
+    if dense:
+        cache["dense"] = dense
+    return logits, cache
 
 
 # ==========================================================================
@@ -321,14 +362,24 @@ def prefill(params, tokens, cfg: ModelConfig, ctx: RunCtx = RunCtx(), *,
 # ==========================================================================
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype: str = "bfloat16", device=None):
-    """Zero-filled ring decode cache, dense GQA branch: per-unit k/v ring
-    buffers of capacity ``max_len`` (``min(max_len, window)`` for a
-    windowed sub), ``pos`` 0; an SSM sub's zero state, one slot per batch
-    row.  The MLA, hybrid and first-dense branches raise by name."""
+    """Zero-filled ring decode cache: per-unit k/v ring buffers of capacity
+    ``max_len`` (``min(max_len, window)`` for a windowed sub), or one
+    latent row per slot for MLA, ``pos`` 0; an SSM sub's zero state, one
+    slot per batch row; the first dense layers' list of caches of
+    capacity ``max_len``.  The hybrid branch raises by name."""
     _require_ported(cfg)
     if dtype == "int8":
         raise NotImplementedError("int8 KV caches: KV-tier slice")
     adt = common.dt(dtype)
+    hd, hkv = cfg.resolved_head_dim, cfg.padded_kv_heads
+    R = cfg.kv_lora_rank + cfg.rope_head_dim
+
+    def attn_cache(lead):
+        if cfg.use_mla:
+            return {"lat": torch.zeros((*lead, R), dtype=adt, device=device)}
+        return {key: torch.zeros((*lead, hkv, hd), dtype=adt, device=device)
+                for key in ("k", "v")}
+
     units = {}
     for i in range(unit_size(cfg)):
         if cfg.uses_ssm:
@@ -336,17 +387,52 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
             continue
         w = cfg.window_for_layer(i)
         cap = min(max_len, w) if w > 0 else max_len
-        shape = (n_units(cfg), batch, cap, cfg.padded_kv_heads,
-                 cfg.resolved_head_dim)
-        units[f"sub{i}"] = {
-            "k": torch.zeros(shape, dtype=adt, device=device),
-            "v": torch.zeros(shape, dtype=adt, device=device)}
-    return {"pos": torch.zeros((), dtype=torch.int32, device=device),
-            "units": units}
+        units[f"sub{i}"] = attn_cache((n_units(cfg), batch, cap))
+    cache = {"pos": torch.zeros((), dtype=torch.int32, device=device),
+             "units": units}
+    if cfg.first_dense_layers:
+        cache["dense"] = [attn_cache((batch, max_len))
+                          for _ in range(cfg.first_dense_layers)]
+    return cache
 
 
 def _pos_tensor(pos, device) -> torch.Tensor:
     return torch.as_tensor(pos, dtype=torch.int32, device=device)
+
+
+def _block_decode(blk, x, pos, c, cfg: ModelConfig, ctx: RunCtx, *,
+                  window: int, block_tables=None):
+    """One attention sublayer's decode step against this layer's cache
+    leaves ``c`` (views, written in place): the MLA latent pool or ring,
+    a windowed sub's private rings (paged), the shared k/v pools (paged)
+    or the ring buffers."""
+    h = _norm(x, blk["norm1"], cfg, ctx)
+    pol = ctx.kernel_policy
+    if cfg.use_mla and block_tables is not None:
+        a, _ = attn.mla_decode_paged(blk["attn"], h, pos, c["lat"],
+                                     block_tables, cfg, policy=pol)
+    elif cfg.use_mla:
+        a, _ = attn.mla_decode(blk["attn"], h, pos, c["lat"], cfg,
+                               policy=pol)
+    elif block_tables is not None and window > 0:
+        B = pos.shape[0]
+        ring = tuple(c[key].view(B, -1, *c[key].shape[2:])
+                     for key in ("k", "v"))
+        a, _ = attn.gqa_decode_ragged(blk["attn"], h, pos, ring, cfg,
+                                      window=window, policy=pol)
+    elif block_tables is not None:
+        a, _ = attn.gqa_decode_paged(blk["attn"], h, pos, (c["k"], c["v"]),
+                                     block_tables, cfg, window=window,
+                                     policy=pol)
+    else:
+        a, _ = attn.gqa_decode(blk["attn"], h, pos, (c["k"], c["v"]), cfg,
+                               window=window, policy=pol)
+    return _ffn(blk, x, a, cfg, ctx)
+
+
+def _group_layer(group, l: int) -> dict:
+    """Layer ``l``'s leaves of a stacked cache group, as views."""
+    return {key: t[l] for key, t in group.items()}
 
 
 def decode_step(params, cache, tokens, cfg: ModelConfig,
@@ -361,6 +447,9 @@ def decode_step(params, cache, tokens, cfg: ModelConfig,
     _require_ported(cfg)
     x = embed_tokens(params, tokens, cfg, ctx)
     pos = _pos_tensor(cache["pos"], x.device)
+    for blk, c in zip(params.get("dense_layers", []), cache.get("dense", [])):
+        x = _block_decode(blk, x, pos, c, cfg, ctx,
+                          window=cfg.sliding_window)
     for l in range(n_units(cfg)):
         unit = _layer(params["layers"], l)
         for i in range(unit_size(cfg)):
@@ -368,12 +457,8 @@ def decode_step(params, cache, tokens, cfg: ModelConfig,
             if cfg.uses_ssm:
                 x = _ssm_decode(blk, x, c, l, cfg, ctx)
                 continue
-            h = _norm(x, blk["norm1"], cfg, ctx)
-            a, _ = attn.gqa_decode(blk["attn"], h, pos,
-                                   (c["k"][l], c["v"][l]), cfg,
-                                   window=cfg.window_for_layer(i),
-                                   policy=ctx.kernel_policy)
-            x = _ffn(blk, x, a, cfg, ctx)
+            x = _block_decode(blk, x, pos, _group_layer(c, l), cfg, ctx,
+                              window=cfg.window_for_layer(i))
     x = _norm(x, params["final_norm"], cfg, ctx)
     logits = lm_logits(params, x, cfg, ctx)
     return logits, {**cache, "pos": pos + 1}
@@ -419,7 +504,10 @@ def init_paged_cache(cfg: ModelConfig, n_slots: int, n_pages: int,
     ring being pages ``s * nbw .. s * nbw + nbw - 1`` (no table): O(window)
     bytes per slot however deep its stream runs.  An SSM sub holds one
     state slot per engine slot instead, (n_units, n_slots, ...): no pages,
-    no table."""
+    no table.  An MLA sub holds ONE latent pool (n_units, n_pages,
+    page_size, R) on the block tables, a single row per token shared by
+    every head; the first dense layers a stacked group ``"dense"``
+    (n_dense, n_pages, page_size, ...) on the same page ids."""
     _require_ported(cfg)
     if dtype == "int8":
         raise NotImplementedError("int8 KV pages: KV-tier slice")
@@ -427,22 +515,31 @@ def init_paged_cache(cfg: ModelConfig, n_slots: int, n_pages: int,
     hd = cfg.resolved_head_dim
     nu = n_units(cfg)
     hkv = cfg.padded_kv_heads
+    R = cfg.kv_lora_rank + cfg.rope_head_dim
     max_len = max_blocks * page_size
+
+    def pools(lead):
+        if cfg.use_mla:
+            return {"lat": torch.zeros((*lead, R), dtype=adt, device=device)}
+        return {key: torch.zeros((*lead, hkv, hd), dtype=adt, device=device)
+                for key in ("k", "v")}
+
     units = {}
     for i in range(unit_size(cfg)):
         if cfg.uses_ssm:
             units[f"sub{i}"] = _ssm_state(cfg, n_slots, adt, device)
             continue
-        w = cfg.window_for_layer(i)
+        w = 0 if cfg.use_mla else cfg.window_for_layer(i)
         n = n_slots * -(-min(max_len, w) // page_size) if w > 0 else n_pages
-        shape = (nu, n, page_size, hkv, hd)
-        units[f"sub{i}"] = {
-            "k": torch.zeros(shape, dtype=adt, device=device),
-            "v": torch.zeros(shape, dtype=adt, device=device)}
-    return {"pos": torch.zeros((n_slots,), dtype=torch.int32, device=device),
-            "block_tables": torch.zeros((n_slots, max_blocks),
-                                        dtype=torch.int32, device=device),
-            "units": units}
+        units[f"sub{i}"] = pools((nu, n, page_size))
+    cache = {"pos": torch.zeros((n_slots,), dtype=torch.int32,
+                                device=device),
+             "block_tables": torch.zeros((n_slots, max_blocks),
+                                         dtype=torch.int32, device=device),
+             "units": units}
+    if cfg.first_dense_layers:
+        cache["dense"] = pools((cfg.first_dense_layers, n_pages, page_size))
+    return cache
 
 
 def _paged_decode_step(params, cache, tokens, cfg: ModelConfig, ctx: RunCtx,
@@ -459,6 +556,9 @@ def _paged_decode_step(params, cache, tokens, cfg: ModelConfig, ctx: RunCtx,
     pos = cache["pos"]
     bt = cache["block_tables"]
     x = embed_tokens(params, tokens, cfg, ctx)
+    for j, blk in enumerate(params.get("dense_layers", [])):
+        x = _block_decode(blk, x, pos, _group_layer(cache["dense"], j), cfg,
+                          ctx, window=cfg.sliding_window, block_tables=bt)
     for l in range(n_units(cfg)):
         unit = _layer(params["layers"], l)
         for i in range(unit_size(cfg)):
@@ -466,25 +566,40 @@ def _paged_decode_step(params, cache, tokens, cfg: ModelConfig, ctx: RunCtx,
             if cfg.uses_ssm:
                 x = _ssm_decode(blk, x, c, l, cfg, ctx)
                 continue
-            w = cfg.window_for_layer(i)
-            h = _norm(x, blk["norm1"], cfg, ctx)
-            if w > 0:
-                B = pos.shape[0]
-                ring = [p[l].view(B, -1, *p.shape[3:])
-                        for p in (c["k"], c["v"])]
-                a, _ = attn.gqa_decode_ragged(blk["attn"], h, pos,
-                                              tuple(ring), cfg, window=w,
-                                              policy=ctx.kernel_policy)
-            else:
-                a, _ = attn.gqa_decode_paged(blk["attn"], h, pos,
-                                             (c["k"][l], c["v"][l]), bt,
-                                             cfg, window=0,
-                                             policy=ctx.kernel_policy)
-            x = _ffn(blk, x, a, cfg, ctx)
+            x = _block_decode(blk, x, pos, _group_layer(c, l), cfg, ctx,
+                              window=cfg.window_for_layer(i),
+                              block_tables=bt)
     x = _norm(x, params["final_norm"], cfg, ctx)
     logits = lm_logits(params, x, cfg, ctx)
     adv = torch.ones_like(pos) if active is None else active.to(pos.dtype)
     return logits, {**cache, "pos": pos + adv}
+
+
+def _block_verify(blk, x, pos, c, cfg: ModelConfig, ctx: RunCtx, *,
+                  window: int, block_tables=None):
+    """_block_decode's multi-query sibling: scores the fed block in one
+    sweep of this layer's cache and returns its PENDING rows (``{"lat"}``
+    for MLA, ``{"k", "v"}`` otherwise) instead of writing them."""
+    h = _norm(x, blk["norm1"], cfg, ctx)
+    pol = ctx.kernel_policy
+    if cfg.use_mla:         # paged only: the ring gate names use_mla
+        a, lat = attn.mla_verify_paged(blk["attn"], h, pos, c["lat"],
+                                       block_tables, cfg, policy=pol)
+        pend = {"lat": lat}
+    elif block_tables is not None:
+        a, (k, v) = attn.gqa_verify_paged(blk["attn"], h, pos,
+                                          (c["k"], c["v"]), block_tables,
+                                          cfg, window=window, policy=pol)
+        pend = {"k": k, "v": v}
+    else:
+        a, (k, v) = attn.gqa_verify(blk["attn"], h, pos, (c["k"], c["v"]),
+                                    cfg, window=window, policy=pol)
+        pend = {"k": k, "v": v}
+    return _ffn(blk, x, a, cfg, ctx), pend
+
+
+def _stack_pending(rows: list) -> dict:
+    return {key: torch.stack([p[key] for p in rows]) for key in rows[0]}
 
 
 def verify_step(params, cache, tokens, cfg: ModelConfig,
@@ -492,8 +607,10 @@ def verify_step(params, cache, tokens, cfg: ModelConfig,
     """Score ``Q`` fed tokens (B, Q) at positions ``pos .. pos+Q-1`` in ONE
     sweep of the cache, ring or paged (told apart as in ``decode_step``).
     Returns (logits (B, Q, Vp), pending) with pending ``{"sub0": {"k", "v":
-    (n_units, B, Q, Hkv, hd)}}`` — nothing is committed until
-    :func:`commit_spec` / :func:`commit_spec_paged`.  The ring sweep needs
+    (n_units, B, Q, Hkv, hd)}}`` (``{"lat": (n_units, B, Q, R)}`` for MLA;
+    the first dense layers' rows under ``"__dense__"``, stacked over the
+    layers) — nothing is committed until :func:`commit_spec` /
+    :func:`commit_spec_paged`.  The ring sweep needs
     ``speculative_blockers`` empty, the paged one
     ``chunked_prefill_blockers``."""
     paged = "block_tables" in cache
@@ -506,53 +623,63 @@ def verify_step(params, cache, tokens, cfg: ModelConfig,
     bt = cache.get("block_tables")
     x = embed_tokens(params, tokens, cfg, ctx)
     pos = cache["pos"] if paged else _pos_tensor(cache["pos"], x.device)
-    pend = {f"sub{i}": {"k": [], "v": []} for i in range(unit_size(cfg))}
+    dense = []
+    for j, blk in enumerate(params.get("dense_layers", [])):
+        x, p = _block_verify(blk, x, pos, _group_layer(cache["dense"], j),
+                             cfg, ctx, window=cfg.sliding_window,
+                             block_tables=bt)
+        dense.append(p)
+    pend = {f"sub{i}": [] for i in range(unit_size(cfg))}
     for l in range(n_units(cfg)):
         unit = _layer(params["layers"], l)
         for i in range(unit_size(cfg)):
-            blk, c = unit[f"sub{i}"], cache["units"][f"sub{i}"]
-            h = _norm(x, blk["norm1"], cfg, ctx)
-            kv = (c["k"][l], c["v"][l])
-            if paged:       # paged sweeps run window-free, as in JAX
-                a, (k, v) = attn.gqa_verify_paged(blk["attn"], h, pos, kv,
-                                                  bt, cfg, window=0,
-                                                  policy=ctx.kernel_policy)
-            else:
-                a, (k, v) = attn.gqa_verify(blk["attn"], h, pos, kv, cfg,
-                                            window=cfg.window_for_layer(i),
-                                            policy=ctx.kernel_policy)
-            pend[f"sub{i}"]["k"].append(k)
-            pend[f"sub{i}"]["v"].append(v)
-            x = _ffn(blk, x, a, cfg, ctx)
+            c = _group_layer(cache["units"][f"sub{i}"], l)
+            # paged sweeps run window-free, as in JAX
+            w = 0 if paged else cfg.window_for_layer(i)
+            x, p = _block_verify(unit[f"sub{i}"], x, pos, c, cfg, ctx,
+                                 window=w, block_tables=bt)
+            pend[f"sub{i}"].append(p)
     x = _norm(x, params["final_norm"], cfg, ctx)
     logits = lm_logits(params, x, cfg, ctx)
-    pending = {name: {key: torch.stack(vals) for key, vals in p.items()}
-               for name, p in pend.items()}
+    pending = {name: _stack_pending(rows) for name, rows in pend.items()}
+    if dense:
+        pending["__dense__"] = _stack_pending(dense)
     return logits, pending
+
+
+def _commit_group(c, pend, pos, bt, n_accept, active) -> None:
+    """Scatter rows ``0..n_accept[b]`` of each active slot's pending rows
+    through its block table into one stacked pool group, in place."""
+    keys = [key for key in ("k", "v", "lat") if key in c]
+    ng, P, ps = c[keys[0]].shape[:3]
+    nb = bt.shape[1]
+    Q = pend[keys[0]].shape[2]
+    i = torch.arange(Q, device=pos.device)[None, :]
+    posq = pos[:, None].long() + i                           # (B, Q)
+    page = torch.gather(bt.long(), 1, torch.clamp(posq // ps, max=nb - 1))
+    row = page * ps + posq % ps
+    ok = (i <= n_accept[:, None]) & (active[:, None] > 0)
+    rows = row[ok]
+    for key in keys:
+        pool = c[key]
+        flat = pool.view(ng, P * ps, *pool.shape[3:])
+        flat.index_copy_(1, rows, pend[key][:, ok].to(pool.dtype))
 
 
 def commit_spec_paged(cache, pending, n_accept, active, cfg: ModelConfig):
     """Paged commit: rows ``0..n_accept[b]`` of each active slot's pending
-    k/v scatter through its block table into the shared pools (in place);
-    rejected or inactive rows are dropped, and ``pos`` advances by
-    ``n_accept + 1`` on active slots only.  bf16/fp32 pools."""
+    k/v (or latent) rows scatter through its block table into the shared
+    pools (in place), the first dense layers' into ``cache["dense"]`` on
+    the same page ids; rejected or inactive rows are dropped, and ``pos``
+    advances by ``n_accept + 1`` on active slots only.  bf16/fp32 pools."""
+    del cfg
     pos = cache["pos"]
     bt = cache["block_tables"]
-    nb = bt.shape[1]
     for name, c in cache["units"].items():
-        pend = pending[name]
-        ng, P, ps = c["k"].shape[0], c["k"].shape[1], c["k"].shape[2]
-        Q = pend["k"].shape[2]
-        i = torch.arange(Q, device=pos.device)[None, :]
-        posq = pos[:, None].long() + i                       # (B, Q)
-        page = torch.gather(bt.long(), 1, torch.clamp(posq // ps, max=nb - 1))
-        row = page * ps + posq % ps
-        ok = (i <= n_accept[:, None]) & (active[:, None] > 0)
-        rows = row[ok]
-        for key in ("k", "v"):
-            pool = c[key]
-            flat = pool.view(ng, P * ps, *pool.shape[3:])
-            flat.index_copy_(1, rows, pend[key][:, ok].to(pool.dtype))
+        _commit_group(c, pending[name], pos, bt, n_accept, active)
+    if "__dense__" in pending:
+        _commit_group(cache["dense"], pending["__dense__"], pos, bt,
+                      n_accept, active)
     adv = torch.where(active > 0, n_accept + 1, torch.zeros_like(n_accept))
     return {**cache, "pos": pos + adv.to(pos.dtype)}
 

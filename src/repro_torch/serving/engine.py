@@ -15,7 +15,11 @@ last ``window`` prompt rows into it, and models with such layers keep the
 cold path (no prefix cache, no speculation), as in the JAX package.  SSM
 layers (mamba2) keep one recurrent state slot per engine slot: a cold
 join prefills the prompt at its exact length (a pad token would enter the
-state) and overwrites the slot's state; they too keep the cold path.  The
+state) and overwrites the slot's state; they too keep the cold path.  MLA
+layers (deepseek-v2) keep one latent row per token on the main block
+tables, and its first dense layers a stacked pool group on the same page
+ids: both ride the prefix cache and the copy-on-write page copy like the
+k/v pools.  The
 host bookkeeping (``PagedKVCache``, ``Scheduler``) is the JAX package's,
 copied; the device steps are the port's torch functions on the engine's
 device.
@@ -242,10 +246,12 @@ class ServeEngine:
         self.cache = self.kv.make_cache(self.device)
         # unit subs whose page axis rides the main block tables: the only
         # pools a page copy may touch (a windowed sub's axis 1 holds the
-        # slots' private rings, an SSM sub's their state slots)
+        # slots' private rings, an SSM sub's their state slots); MLA subs
+        # always do, and so does the first dense layers' group
         self._table_subs = frozenset(
             f"sub{i}" for i in range(tfm.unit_size(cfg))
-            if not cfg.uses_ssm and cfg.window_for_layer(i) == 0)
+            if not cfg.uses_ssm
+            and (cfg.use_mla or cfg.window_for_layer(i) == 0))
         self._ctx = make_run_ctx(cfg, self.step_cfg)
         self._loops: dict[tuple[int, bool], Callable] = {}
         self._suffix = make_prefill_suffix_step(cfg, self.step_cfg) \
@@ -301,14 +307,18 @@ class ServeEngine:
         retention.  Table subs take ``PagedKVCache.inject_rows``; a
         window-``w`` sub keeps only ``[max(0, L - w), L)``, at ring offset
         ``p % Cw`` of the slot's private pages (older rows can never be
-        attended again).  SSM subs have state slots, not rows: none."""
+        attended again).  SSM subs have state slots, not rows: none.  MLA
+        subs and the first dense layers' group (``__dense__``) take the
+        main rows."""
         ps = self.kv.page_size
         main = np.asarray(self.kv.inject_rows(slot, bucket, L))
         rows = {}
+        if self.cfg.first_dense_layers:
+            rows["__dense__"] = main
         for i in range(tfm.unit_size(self.cfg)):
             if self.cfg.uses_ssm:
                 continue
-            w = self.cfg.window_for_layer(i)
+            w = 0 if self.cfg.use_mla else self.cfg.window_for_layer(i)
             if w <= 0:
                 rows[f"sub{i}"] = main
                 continue
@@ -322,30 +332,39 @@ class ServeEngine:
     def _inject(self, pcache, rows: dict, slot: int) -> None:
         """Scatter a (padded, linear) prefill cache into the slot's pages
         and private rings, in place; out-of-bounds rows are dropped.  An
-        SSM sub's state slot is overwritten with the prompt's state."""
-        for name, c in self.cache["units"].items():
-            src = pcache["units"][name]
+        SSM sub's state slot is overwritten with the prompt's state.  The
+        prefill keeps the first dense layers' caches as a list; they are
+        stacked into the paged group's layout."""
+        groups = [(c, pcache["units"][name], rows.get(name))
+                  for name, c in self.cache["units"].items()]
+        if "dense" in self.cache:
+            src = {key: torch.stack([c[key] for c in pcache["dense"]])
+                   for key in self.cache["dense"]}
+            groups.append((self.cache["dense"], src, rows["__dense__"]))
+        for c, src, r in groups:
             if "conv" in c:
                 for key in ("conv", "ssm"):
                     c[key][:, slot] = src[key][:, 0].to(c[key].dtype)
                 continue
-            r = rows[name]
-            keep = r < c["k"].shape[1] * c["k"].shape[2]
+            first = next(iter(c.values()))
+            keep = r < first.shape[1] * first.shape[2]
             idx = self._tensor(r[keep], torch.int64)
             sel = self._tensor(np.nonzero(keep)[0], torch.int64)
-            for key in ("k", "v"):
-                pool = c[key]
+            for key, pool in c.items():                  # k / v, or lat
                 nu = pool.shape[0]
-                vals = src[key][:, 0].index_select(1, sel)   # (nu, n, Hkv, hd)
+                vals = src[key][:, 0].index_select(1, sel)   # (nu, n, ...)
                 pool.view(nu, -1, *pool.shape[3:]).index_copy_(
                     1, idx, vals.to(pool.dtype))
 
     def _page_copy(self, src: int, dst: int, n_rows: int) -> None:
         """Copy-on-write: rows 0..n_rows-1 of ``src`` page into ``dst``
-        across every pool, in place."""
-        for name, c in self.cache["units"].items():
-            if name not in self._table_subs:
-                continue
+        across every pool on the block tables, the first dense layers'
+        group included, in place."""
+        groups = [c for name, c in self.cache["units"].items()
+                  if name in self._table_subs]
+        if "dense" in self.cache:
+            groups.append(self.cache["dense"])
+        for c in groups:
             for pool in c.values():
                 pool[:, dst, :n_rows] = pool[:, src, :n_rows]
 
@@ -658,4 +677,6 @@ class ServeEngine:
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
     return tree.to(device)

@@ -135,7 +135,8 @@ def test_cpu_engine_launches_no_kernel(smollm):
                     device="cpu").run(reqs)
     assert set(da.LAUNCHES) == {"sweep_decode", "sweep_verify", "merge",
                                 "ring_decode", "ring_verify",
-                                "flash_attention", "rmsnorm", "ssd"}
+                                "flash_attention", "rmsnorm", "ssd",
+                                "mla_decode", "mla_verify"}
     assert all(n == 0 for n in da.LAUNCHES.values())
 
 
@@ -221,8 +222,9 @@ def test_serve_refuses_unported_flags(extra, item):
 
 
 def test_serve_unknown_arch_names_the_ported_ones():
-    with pytest.raises(KeyError, match="gemma2-27b.*mamba2-370m.*smollm"):
-        serve.run(["--arch", "deepseek-v2-236b", "--device", "cpu",
+    with pytest.raises(KeyError, match="deepseek-v2-236b.*gemma2-27b.*"
+                                       "mamba2-370m.*smollm"):
+        serve.run(["--arch", "zamba2-1.2b", "--device", "cpu",
                    "--traffic", "poisson"])
 
 

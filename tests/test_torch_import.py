@@ -29,7 +29,9 @@ def test_port_import_pulls_in_no_jax():
     code = ("import sys, repro_torch.launch.serve, repro_torch.bridge, "
             "repro_torch.kernels.flash_attention, "
             "repro_torch.kernels.rmsnorm, repro_torch.kernels.ssd_scan, "
-            "repro_torch.models.ssm\n"
+            "repro_torch.models.ssm, repro_torch.models.layers, "
+            "repro_torch.models.attention, "
+            "repro_torch.configs.deepseek_v2_236b\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.'))\n"
@@ -108,14 +110,27 @@ def test_cpu_calls_launch_no_kernel():
         ops.ssd(xs, dt, A, bc, bc, r(4), return_state=True,
                 policy=ops.KernelPolicy(ssd=backend, ssd_chunk=4))
     ss.ssd_scan(xs, dt, A, bc, bc, chunk=4, initial_state=r(2, 4, 8, 16))
+    ql, pool, pend = r(2, 2, 6, 24), r(8, 4, 24), r(2, 2, 24)
+    for backend in ("auto", "cuda", "torch", "ref"):
+        policy = ops.KernelPolicy(decode=backend, kv_splits=2)
+        ops.mla_decode_paged(ql[:, :1], pool, bt, pos, r_kv=16, scale=0.2,
+                             policy=policy)
+        ops.paged_verify_attention(ql, pool[:, :, None],
+                                   pool[:, :, None, :16], pend[:, :, None],
+                                   pend[:, :, None, :16], bt, pos, scale=0.2,
+                                   policy=policy)
+    da.mla_attention(ql, pool, bt, pos, r_kv=16, pending=pend, scale=0.2,
+                     n_splits=3)
     assert set(da.LAUNCHES) == {"sweep_decode", "sweep_verify", "merge",
                                 "ring_decode", "ring_verify",
-                                "flash_attention", "rmsnorm", "ssd"}
+                                "flash_attention", "rmsnorm", "ssd",
+                                "mla_decode", "mla_verify"}
     assert all(n == 0 for n in da.LAUNCHES.values())
 
 
 def test_only_ported_archs_are_listed():
-    assert sorted(ARCH_SPECS) == ["gemma2-27b", "mamba2-370m", "smollm-135m"]
+    assert sorted(ARCH_SPECS) == ["deepseek-v2-236b", "gemma2-27b",
+                                  "mamba2-370m", "smollm-135m"]
     cfg = get_arch("smollm-135m").config
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
             cfg.resolved_head_dim, cfg.vocab_size) == (30, 576, 9, 3, 64,
@@ -131,8 +146,14 @@ def test_only_ported_archs_are_listed():
             m.ssm_head_dim, m.ssm_state, m.ssm_groups, m.ssm_chunk,
             m.conv_width, m.vocab_size) == (48, 1024, 2048, 32, 64, 128, 1,
                                             128, 4, 50280)
-    with pytest.raises(KeyError, match="smollm-135m"):
-        get_arch("deepseek-v2-236b")
+    d = get_arch("deepseek-v2-236b").config
+    assert (d.n_layers, d.d_model, d.n_heads, d.kv_lora_rank,
+            d.q_lora_rank, d.rope_head_dim, d.nope_head_dim, d.v_head_dim,
+            d.n_experts, d.experts_per_token, d.n_shared_experts,
+            d.first_dense_layers, d.dense_d_ff, d.vocab_size) == (
+        60, 5120, 128, 512, 1536, 64, 128, 128, 160, 6, 2, 1, 12288, 102400)
+    with pytest.raises(KeyError, match="deepseek-v2-236b.*smollm-135m"):
+        get_arch("zamba2-1.2b")
 
 
 def test_h100_device_model_is_the_ports_own():

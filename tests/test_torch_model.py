@@ -176,7 +176,9 @@ def test_unported_features_are_named(models):
     assert tfm.int8_paged_blockers(tcfg)
     # a windowed config now builds its paged cache: a private ring of
     # ceil(min(max_len, window) / ps) pages per slot, and an SSM config
-    # one state slot per engine slot; MLA still raises by name
+    # one state slot per engine slot, an MLA config one latent pool on the
+    # block tables (and a first dense layer its own group); the hybrid
+    # family still raises by name
     windowed = dataclasses.replace(tcfg, sliding_window=6)
     assert tfm.paged_cache_blockers(windowed) == ()
     assert tfm.chunked_prefill_blockers(windowed) == ("sliding_window",)
@@ -189,9 +191,18 @@ def test_unported_features_are_named(models):
     sc = tfm.init_paged_cache(ssm, 2, 8, PS, 4, dtype="float32")
     assert tuple(sc["units"]["sub0"]["ssm"].shape) == (
         tfm.n_units(tcfg), 2, ssm.resolved_ssm_heads, ssm.ssm_head_dim, 16)
-    with pytest.raises(NotImplementedError, match="use_mla"):
-        tfm.init_paged_cache(dataclasses.replace(tcfg, use_mla=True), 2, 8,
-                             PS, 4)
+    mla = dataclasses.replace(tcfg, use_mla=True, kv_lora_rank=32,
+                              rope_head_dim=16, first_dense_layers=1)
+    assert tfm.paged_cache_blockers(mla) == ()
+    assert tfm.chunked_prefill_blockers(mla) == ()
+    mc = tfm.init_paged_cache(mla, 2, 8, PS, 4, dtype="float32")
+    assert tuple(mc["units"]["sub0"]["lat"].shape) == (
+        tfm.n_units(mla), 8, PS, 48)
+    assert tuple(mc["dense"]["lat"].shape) == (1, 8, PS, 48)
+    hybrid = dataclasses.replace(tcfg, family="hybrid", hybrid_attn_every=2,
+                                 ssm_state=16)
+    with pytest.raises(NotImplementedError, match="hybrid_attn_every"):
+        tfm.init_paged_cache(hybrid, 2, 8, PS, 4)
 
 
 def test_lm_logits_masks_padded_vocab(models):

@@ -114,15 +114,30 @@ def test_init_cache_has_the_jax_layout(models):
 
 @pytest.mark.parametrize("cfg_over,name", [
     ({"sliding_window": 6}, "sliding_window"),
-    ({"use_mla": True}, "use_mla"),
+    ({"use_mla": True, "kv_lora_rank": 32, "rope_head_dim": 16}, "use_mla"),
     ({"family": "ssm", "ssm_state": 16}, "uses_ssm"),
-    ({"first_dense_layers": 1}, "first_dense_layers")])
+    ({"first_dense_layers": 1}, "first_dense_layers"),
+    ({"family": "hybrid", "hybrid_attn_every": 2, "ssm_state": 16},
+     "hybrid_attn_every")])
 def test_unported_ring_families_raise_by_name(models, cfg_over, name):
-    """Unported families raise by name; a windowed config (ported since)
-    builds its ring cache, of capacity min(max_len, window), and an SSM
-    config (ported since) its state, one slot per batch row."""
+    """Unported families (the hybrid) raise by name; a windowed config
+    (ported since) builds its ring cache, of capacity min(max_len,
+    window), an SSM config (ported since) its state, one slot per batch
+    row, an MLA config (ported since) one latent row per slot and a first
+    dense layer (ported since) its own cache in the ``"dense"`` list."""
     _, _, tcfg, _ = models
     cfg = dataclasses.replace(tcfg, **cfg_over)
+    if name == "use_mla":
+        c = tfm.init_cache(cfg, 1, 8)
+        assert tuple(c["units"]["sub0"]["lat"].shape) == (
+            tfm.n_units(cfg), 1, 8, 48)
+        return
+    if name == "first_dense_layers":
+        c = tfm.init_cache(cfg, 1, 8)
+        assert tuple(c["dense"][0]["k"].shape) == (
+            1, 8, cfg.n_kv_heads, cfg.resolved_head_dim)
+        assert tfm.n_units(cfg) == tfm.n_units(tcfg) - 1
+        return
     if name == "sliding_window":
         c = tfm.init_cache(cfg, 1, 8)
         assert c["units"]["sub0"]["k"].shape[2] == 6
