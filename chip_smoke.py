@@ -40,7 +40,14 @@ Phases, in order; any failure exits non-zero (nothing is caught):
                 ids past a request never read and a bad id inside it
                 stopping the kernel; K4 at (D, Dv) = (192, 128) (4 x 512,
                 ragged Sq 37, a q_offset case) and K9 at widths 512 and
-                1536;
+                1536; the int8 templates of the paged and ring sweeps
+                (int8 caches with per-row fp32 scales) against their twins
+                on the same int8 caches: paged decode (1 and 5 splits) and
+                verify Q 16 (1 and 5) at the engine's shapes, ring decode
+                (1 and 3) and verify Q 4 (1 and 3) on a wrapped ring of
+                545, head_dim 64 and 128, q bf16 and fp32, each run
+                proved to have launched the int8 template; the bad-id
+                probe again on the int8 template;
   3. reference — full-width smollm-135m at fp32, twice on the kernels and
                 twice on the plain torch path (chunked prefill twin,
                 RMSNorm oracle, torch decode backends, the same split
@@ -66,14 +73,23 @@ Phases, in order; any failure exits non-zero (nothing is caught):
                 the batch of 2 x 256 prompt tokens (the MoE drops pairs
                 past its capacity) + 15 decode steps, and the engine on 6
                 Poisson requests over 4 slots with prefix hits (the
-                latent verify form) and two forced preemptions;
+                latent verify form) and two forced preemptions.  Then
+                smollm-135m's int8 KV pages at fp32 compute: the int8
+                engine on the kernels against the int8 engine on the
+                plain twins (streams equal, logits within 1e-3), and a
+                tight pool of 10 pages with the host tier on against it
+                off, for int8 and for bf16 pools (streams equal, pages
+                paged out and back);
   4. main paths — ``repro_torch.launch.serve`` at full width (bf16,
                 random weights from a seed drawn on the card, FROST plane
                 on): smollm-135m's engine on a Poisson trace of 8 requests
                 over 4 slots with 2 shared 32-token prompt heads, its
                 static batch of 8 requests (512 prompt tokens, 33 new),
-                the same with ``--spec-k 3``, and the Poisson run with
-                ``--spec-k 3``; then gemma2-27b (46 layers, 54.5 GB of
+                the same with ``--spec-k 3``, the Poisson run with
+                ``--spec-k 3``, and three int8 Poisson runs (``--kv-dtype
+                int8``; with ``--spec-k 3``; with ``--host-tier --n-pages
+                10``, which must page out and back, every page moved
+                being 195,840 bytes); then gemma2-27b (46 layers, 54.5 GB of
                 weights): the batch of 4 x 512 prompt tokens + 33 new, the
                 engine on 8 Poisson requests over 4 slots, and the long
                 batch of 2 x 4352 + 17 new; then mamba2-370m (48 layers):
@@ -87,15 +103,18 @@ Phases, in order; any failure exits non-zero (nothing is caught):
                 counts are zeroed just before each run and read just
                 after it.  Every request must finish its token budget
                 with finite logits, and every kernel of a path must have
-                been launched on it: K4 and K9 on the nine attention
+                been launched on it: K4 and K9 on the twelve attention
                 paths, K8 and K9 on the three mamba2 paths, the latent
                 sweep's decode and verify forms and the merge on
-                deepseek's engine;
+                deepseek's engine, the int8 templates (and never the bf16
+                sweep) on the int8 paths;
   5. timing   — CUDA-event times of each kernel, its plain version and a
                 library yardstick at the main paths' shapes, beside the
                 least time the card could take (the latent sweep beside
                 SDPA over the gathered latent as one kv head; K4 at
-                deepseek's 4 x 512 beside SDPA).
+                deepseek's 4 x 512 beside SDPA; the int8 sweeps at the
+                bf16 rows' shapes, bound at D + 4 bytes a kv row, beside
+                SDPA over the cache dequantized to bf16 beforehand).
 
 The last two lines are a JSON object of per-kernel numbers and
 ``{"ok": true, "device": {...}}``.
@@ -144,7 +163,25 @@ KERNELS = {
         MLA_SRC, "src/repro/kernels/decode_attention.py:1483", "mla_decode"),
     "mla_latent_sweep (verify)": (
         MLA_SRC, "src/repro/kernels/decode_attention.py:970", "mla_verify"),
+    "paged_attention_sweep int8 (decode)": (
+        PAGED_SRC, "src/repro/kernels/decode_attention.py:1232",
+        "sweep_decode_int8"),
+    "paged_attention_sweep int8 (verify)": (
+        PAGED_SRC, "src/repro/kernels/decode_attention.py:970",
+        "sweep_verify_int8"),
+    "ring_attention_sweep int8 (decode)": (
+        RING_SRC, "src/repro/kernels/decode_attention.py:384",
+        "ring_decode_int8"),
+    "ring_attention_sweep int8 (verify)": (
+        RING_SRC, "src/repro/kernels/decode_attention.py:682",
+        "ring_verify_int8"),
 }
+# the int8 host-tier main path's page pool: small enough that cold prefix
+# pages are paged out and back (8 requests over 4 slots, 2 shared heads)
+TIER_PAGES = 10
+# bytes of one smollm-135m page of 16 rows with int8 k/v and their fp32
+# scales: 30 layers x 16 rows x 3 kv heads x (64 + 4) bytes x (k, v)
+TIER_PAGE_BYTES = 30 * 16 * 3 * (64 + 4) * 2
 # K8's tolerance: fp32 at the order of the JAX tests' chunked-vs-sequential
 # 2e-3 (tests/test_kernels.py), since the kernel sums in another order
 SSD_TOL = {"bfloat16": 2e-2, "float32": 1e-3}
@@ -201,7 +238,17 @@ def make_case(torch, np, dev, *, B, Hq, Hkv, D, ps, nb, pos, Q, dtype, seed):
 def sweep_args(c, verify):
     args = (c["q"], c["k_pages"], c["v_pages"], c["block_tables"], c["pos"])
     kw = {"k_new": c["k_new"], "v_new": c["v_new"]} if verify else {}
+    kw.update({key: c[key] for key in ("k_scale", "v_scale") if key in c})
     return args, kw
+
+
+def quantize_case(quant, c, keys):
+    """The case with its kv ``keys`` (pools or rings) replaced by their int8
+    rows, the per-row fp32 scales beside them (``k_scale``, ``v_scale``)."""
+    out = dict(c)
+    for key, name in zip(keys, ("k_scale", "v_scale")):
+        out[key], out[name] = quant.quantize_int8_rows(c[key])
+    return out
 
 
 def max_err(torch, a, b, tol, what):
@@ -369,6 +416,7 @@ def make_ring_case(torch, np, dev, *, B, Hq, Hkv, D, C, pos, Q, dtype,
 def ring_args(c, verify):
     args = (c["q"], c["k"], c["v"], c["pos"])
     kw = {"k_new": c["k_new"], "v_new": c["v_new"]} if verify else {}
+    kw.update({key: c[key] for key in ("k_scale", "v_scale") if key in c})
     return args, kw
 
 
@@ -460,6 +508,104 @@ def check_ring_kernels(torch, np, dev, da, ops, errs):
         fail("ring: a refused custom k_pos launched a kernel")
     say("kernels ok: a custom ring k_pos on the card raises "
         "NotImplementedError, no plain fallback")
+
+
+def check_int8_kernels(torch, np, dev, da, quant, errs):
+    """Phase 2, the int8 templates of both sweeps against their plain twins
+    on the same int8 caches and scales: paged decode (1 split and S = 5)
+    and verify at Q 16 (1 and 5) at the main path's shapes, ring decode
+    (1 and 3) and verify at Q 4 (1 and 3) on a wrapped ring of 545 slots;
+    head_dim 64 and 128, q in bf16 (tolerance 2e-2) and fp32 (1e-4)."""
+    paged = dict(B=4, Hq=9, Hkv=3, ps=16, nb=5)
+    ring = dict(B=BATCH, Hq=9, Hkv=3, C=PLEN + GEN)
+    wrap = 3 * ring["C"] + 17
+    for D in (64, 128):
+        heads = {} if D == 64 else dict(Hq=8, Hkv=2)
+        for dtype in ("bfloat16", "float32"):
+            tol = TOL[dtype]
+            for verify, pos, Q in ((False, [17, 40, 63, 79], 1),
+                                   (True, [32, 48, 0, 20], 16)):
+                c = make_case(torch, np, dev, pos=pos, Q=Q, dtype=dtype,
+                              D=D, seed=400 + D + Q, **dict(paged, **heads))
+                c = quantize_case(quant, c, ("k_pages", "v_pages"))
+                entry = ("paged_attention_sweep int8 (verify)" if verify
+                         else "paged_attention_sweep int8 (decode)")
+                case_err = int8_case(torch, da, errs, entry, c, verify, tol,
+                                     da.paged_attention_sweep,
+                                     da.paged_attention_sweep_torch, {},
+                                     (1, 5), f"int8 paged D {D} {dtype}")
+                say(f"kernels ok: int8 paged {'verify Q=16' if verify else 'decode'}"
+                    f" D {D} q {dtype} (n_splits 1, 5), max |kernel - "
+                    f"plain| {case_err:.3e} (tol {tol})")
+            for verify, Q in ((False, 1), (True, 4)):
+                c = make_ring_case(torch, np, dev, pos=wrap, Q=Q,
+                                   dtype=dtype, D=D, seed=500 + D + Q,
+                                   **dict(ring, **heads))
+                c = quantize_case(quant, c, ("k", "v"))
+                entry = ("ring_attention_sweep int8 (verify)" if verify
+                         else "ring_attention_sweep int8 (decode)")
+                case_err = int8_case(torch, da, errs, entry, c, verify, tol,
+                                     da.ring_attention_sweep,
+                                     da.ring_attention_sweep_torch,
+                                     {"block_k": 256}, (1, 3),
+                                     f"int8 ring D {D} {dtype}", ring=True)
+                say(f"kernels ok: int8 wrapped ring {'verify Q=4' if verify else 'decode'}"
+                    f" D {D} q {dtype} (n_splits 1, 3), max |kernel - "
+                    f"plain| {case_err:.3e} (tol {tol})")
+    check_bad_page_id(BAD_ID_PROBE_INT8, "int8 paged sweep")
+
+
+def int8_case(torch, da, errs, entry, c, verify, tol, kernel, plain, extra,
+              splits, label, ring=False):
+    """One int8 case at each split count: the kernel against its twin (and,
+    split, both merges); returns the case's max error."""
+    case_err = 0.0
+    before = dict(da.LAUNCHES)
+    for n_splits in splits:
+        args, kw = (ring_args if ring else sweep_args)(c, verify)
+        got = kernel(*args, **kw, n_splits=n_splits, **extra)
+        want = plain(*args, **kw, n_splits=n_splits, **extra)
+        what = f"{label} {'verify' if verify else 'decode'} n_splits={n_splits}"
+        if isinstance(want, torch.Tensor):
+            e = max_err(torch, got, want, tol, what)
+        else:
+            e = max(max_err(torch, got[0], want[0], tol, what + " partial"),
+                    max_err(torch, got[1], want[1], tol, what + " lse"))
+            em = max_err(torch, da.lse_merge(*got, c["q"].dtype),
+                         da.lse_merge_torch(*got, c["q"].dtype), tol,
+                         what + " merge")
+            errs["lse_merge"] = max(errs["lse_merge"], em)
+            e = max(e, em)
+        errs[entry] = max(errs[entry], e)
+        case_err = max(case_err, e)
+    torch.cuda.synchronize()
+    key = KERNELS[entry][2]
+    if da.LAUNCHES[key] - before[key] != len(splits):
+        fail(f"{label}: the int8 template {key} was not the one launched")
+    return case_err
+
+
+BAD_ID_PROBE_INT8 = """
+import sys
+import torch
+sys.path.insert(0, sys.argv[1])
+from repro_torch.kernels import decode_attention as da
+dev = torch.device("cuda", 0)
+q = torch.ones(1, 1, 3, 64, dtype=torch.bfloat16, device=dev)
+pages = torch.ones(2, 16, 1, 64, dtype=torch.int8, device=dev)
+scale = torch.ones(2, 16, 1, 1, dtype=torch.float32, device=dev)
+bt = torch.tensor([[1, 2]], dtype=torch.int32, device=dev)  # 2: past the pool
+# pos 15: column 1 lies past the request, so its id is never read
+da.paged_attention_sweep(q, pages, pages, bt, torch.tensor(
+    [15], dtype=torch.int32, device=dev), k_scale=scale, v_scale=scale)
+torch.cuda.synchronize()
+print("past-length id skipped", flush=True)
+# pos 20: key 20 lies in column 1, whose id names no page of the pool
+da.paged_attention_sweep(q, pages, pages, bt, torch.tensor(
+    [20], dtype=torch.int32, device=dev), k_scale=scale, v_scale=scale)
+torch.cuda.synchronize()
+print("bad id accepted", flush=True)
+"""
 
 
 GEMMA_ATTN = {"logit_cap": 50.0, "scale": 144.0 ** -0.5}
@@ -889,6 +1035,113 @@ def reference_check(torch, dev, cfg, tfm, serving, steps, bridge):
         f"{len(calls_k)} logits calls, max |dlogits| {err:.3e})")
 
 
+def int8_reference(torch, np, dev, cfg, tfm, serving, steps, bridge):
+    """Phase 3, int8 KV pages and the host tier on smollm at full width:
+    the int8 engine (fp32 compute) on the kernels against the int8 engine
+    on the plain twins (streams equal, logits within 1e-3); then a tight
+    page pool with the host tier, every page-in checked bit for bit
+    against its page-out: with bf16 pools (bf16 compute) the tier on and
+    off give equal streams; with int8 pools (fp32 compute) the tier-on
+    streams on the kernels equal the twins', and how far the tier-off run
+    parts from them is printed."""
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = bridge.init_lm(cfg32, torch.Generator().manual_seed(5), dev)
+    reqs = serving.poisson_trace(4, rate_per_step=0.5, seed=3,
+                                 vocab_size=cfg.vocab_size,
+                                 prompt_len=(8, 24), max_new_tokens=(6, 12),
+                                 shared_prefix_len=21, prompt_pools=2)
+    ecfg = serving.EngineConfig(n_slots=4, page_size=16, max_len=64,
+                                decode_chunk=4, kv_dtype="int8")
+    runs = {}
+    for backend, scfg in step_configs(steps).items():
+        with LogitsTap(torch, tfm, record=True) as tap:
+            eng = serving.ServeEngine(cfg32, ecfg, params, step_cfg=scfg,
+                                      device=dev)
+            rep = eng.run(reqs)
+        if eng.cache["units"]["sub0"]["k"].dtype != torch.int8:
+            fail("int8 reference: the engine's pools are not int8")
+        runs[backend] = (rep, tap.calls)
+    (rep_k, calls_k), (rep_t, calls_t) = runs["cuda"], runs["torch"]
+    if rep_t.prefill_tokens_saved <= 0:
+        fail("int8 reference trace had no prefix-cache hit")
+    for a, b in zip(rep_k.results, rep_t.results):
+        if a.tokens != b.tokens:
+            fail(f"int8 reference: rid {a.rid} kernel stream {a.tokens} != "
+                 f"plain {b.tokens}")
+    if len(calls_k) != len(calls_t):
+        fail("int8 reference: different numbers of logits calls")
+    err = max(float((a - b).abs().max()) for a, b in zip(calls_k, calls_t))
+    if err > 1e-3:
+        fail(f"int8 reference: logits differ by {err:.3e} > 1e-3")
+    say(f"reference ok: fp32 full-width int8 engine streams equal on "
+        f"kernels and plain twins "
+        f"({sum(len(r.tokens) for r in rep_k.results)} tokens, "
+        f"{len(calls_k)} logits calls, max |dlogits| {err:.3e})")
+    # the launcher's poisson trace on a pool tight enough to page out
+    treqs = serving.poisson_trace(8, rate_per_step=0.25, seed=0,
+                                  vocab_size=cfg.vocab_size,
+                                  prompt_len=(16, 32), max_new_tokens=(8, 16),
+                                  shared_prefix_len=32, prompt_pools=2)
+    # the sweeps take pools in q's dtype, so bf16 pools run a bf16 model
+    params16 = bridge.init_lm(cfg, torch.Generator().manual_seed(5), dev)
+    models = {"int8": (cfg32, params), "bfloat16": (cfg, params16)}
+    scfgs = step_configs(steps)
+
+    def tier_run(kv_dtype, tier, backend="cuda"):
+        model, weights = models[kv_dtype]
+        tcfg = serving.EngineConfig(
+            n_slots=4, page_size=16, max_len=80, decode_chunk=8,
+            n_pages=TIER_PAGES, kv_dtype=kv_dtype, host_tier=tier)
+        eng = serving.ServeEngine(model, tcfg, weights,
+                                  step_cfg=scfgs[backend], device=dev)
+        inexact = []
+        if tier:
+            restore = eng.kv._restore_page
+
+            def checked(page, blob):
+                # every page-in must give back the paged-out bytes exactly
+                restore(page, blob)
+                back = eng._fetch_page(page)
+                inexact.extend(key for key in blob if not np.array_equal(
+                    back[key].view(np.uint8), blob[key].view(np.uint8)))
+            eng.kv._restore_page = checked
+        rep = eng.run(treqs)
+        if inexact:
+            fail(f"host tier ({kv_dtype} pools): a page-in did not restore "
+                 f"the paged-out bytes ({sorted(set(inexact))})")
+        return [r.tokens for r in rep.results], rep
+
+    for kv_dtype in ("int8", "bfloat16"):
+        on, rep = tier_run(kv_dtype, True)
+        off, rep_off = tier_run(kv_dtype, False)
+        if rep.n_demotions <= 0 or rep.n_promotions <= 0:
+            fail(f"host tier ({kv_dtype} pools): {rep.n_demotions} "
+                 f"page-outs, {rep.n_promotions} page-ins")
+        differ = [i for i, (a, b) in enumerate(zip(on, off)) if a != b]
+        if kv_dtype == "int8":
+            # with the tier off, evicted prefixes are recomputed (other
+            # matmul shapes, so other last bits of fp32) where the tier
+            # restores them; int8 rows turn such bits into whole steps, so
+            # the two runs may part: what must hold is the tier's own
+            # exactness (checked above) and the kernels against the twins
+            twin, _ = tier_run(kv_dtype, True, backend="torch")
+            if twin != on:
+                fail("host tier (int8 pools): kernel streams differ from "
+                     "the plain twins' with the tier on")
+            note = (f"kernels equal the twins with the tier on; tier off "
+                    f"recomputes {rep_off.prompt_tokens - rep_off.prefill_tokens_saved}"
+                    f" prompt tokens against {rep.prompt_tokens - rep.prefill_tokens_saved}"
+                    f" and its streams differ at requests {differ}")
+        else:
+            if differ:
+                fail(f"host tier ({kv_dtype} pools): streams differ with "
+                     f"the tier on and off at requests {differ}")
+            note = "streams equal with the tier on and off"
+        say(f"reference ok: host tier, {kv_dtype} pools, {TIER_PAGES} pages: "
+            f"{rep.n_demotions} paged out, {rep.n_promotions} paged in, every "
+            f"page-in bit-exact, {rep.transfer_j:.4g} J modelled; {note}")
+
+
 def batch_prompts(torch, np, dev, vocab):
     """The static batch's prompts: a 64-token pattern per request, repeated
     to PLEN tokens, so that the n-gram drafter finds its matches."""
@@ -1284,7 +1537,8 @@ def sweep_work(c, n_splits, verify):
     pos = c["pos"].tolist()
     keys = [p if verify else p + 1 for p in pos]          # valid keys / req
     pages = sum(min(nb, -(-k // ps)) for k in keys)
-    nbytes = q.numel() * es + 2 * pages * ps * Hkv * D * es + pages * 4 + B * 4
+    nbytes = (q.numel() * es + 2 * pages * ps * Hkv * kv_row_bytes(c, "k_pages")
+              + pages * 4 + B * 4)
     if verify:
         nbytes += 2 * B * Q * Hkv * D * es
     S = max(1, min(n_splits, nb))
@@ -1293,6 +1547,22 @@ def sweep_work(c, n_splits, verify):
     k_tot = sum(keys) + (Q if verify else 0) * B
     flops = 4.0 * Q * Hq * D * k_tot
     return nbytes, flops
+
+
+def kv_row_bytes(c, key):
+    """Bytes of one cached kv row: D values in the cache's dtype, plus the
+    fp32 scale of an int8 row."""
+    t = c[key]
+    return t.shape[-1] * t.element_size() + (4 if "k_scale" in c else 0)
+
+
+def dequantized(torch, c, keys):
+    """An int8 case's caches dequantized to q's dtype and its scales
+    dropped: the library yardstick's inputs, made outside the timed call."""
+    out = {k: v for k, v in c.items() if k not in ("k_scale", "v_scale")}
+    for key, name in zip(keys, ("k_scale", "v_scale")):
+        out[key] = (c[key].float() * c[name]).to(c["q"].dtype)
+    return out
 
 
 def bound(nbytes, flops):
@@ -1419,7 +1689,7 @@ def ring_work(torch, c, n_splits, verify):
     es = q.element_size()
     valid = ring_valid(torch, c, verify)                   # (B, Q, C)
     slots = int(valid.any(dim=1).sum())
-    nbytes = (q.numel() * es + 2 * slots * Hkv * D * es
+    nbytes = (q.numel() * es + 2 * slots * Hkv * kv_row_bytes(c, "k")
               + c["pos"].numel() * 4)
     k_tot = int(valid.sum())
     if verify:
@@ -1499,6 +1769,103 @@ def ring_timings(torch, np, dev, da, ops):
         f"sweep+merge {d_ms * 1e3:.1f} us, sdpa {d_lib * 1e3:.1f} us, bound "
         f"{bound(nbytes, flops)[0] * 1e3:.2f} us ({nbytes / 1e6:.2f} MB)")
     return out
+
+
+def int8_timings(torch, np, dev, da, ops, quant):
+    """Phase 5, the int8 templates at the bf16 rows' shapes and positions:
+    paged at 4 slots (decode pos 64..79, verify Q 16), ring at 8 requests
+    over 545 slots (pos 528, verify Q 4); q bf16.  The bound counts D + 4
+    bytes a kv row; the yardstick is SDPA over the cache dequantized to
+    bf16 before the timed call."""
+    out = {}
+    main = dict(B=4, Hq=9, Hkv=3, D=64, ps=16, nb=5)
+    S = ops.choose_kv_splits(4, 80, 9, block=16, device=dev)
+    for verify, pos, Q in ((False, [64, 71, 75, 79], 1),
+                           (True, [32, 48, 16, 32], 16)):
+        name = ("paged_attention_sweep int8 (verify)" if verify
+                else "paged_attention_sweep int8 (decode)")
+        c = quantize_case(quant, make_case(
+            torch, np, dev, pos=pos, Q=Q, dtype="bfloat16", seed=100 + Q,
+            **main), ("k_pages", "v_pages"))
+        args, kw = sweep_args(c, verify)
+        row = {}
+        for n_splits in (S, 1):
+            ms = time_ms(torch, lambda: da.paged_attention_sweep(
+                *args, **kw, n_splits=n_splits))
+            plain = time_ms(torch, lambda: da.paged_attention_sweep_torch(
+                *args, **kw, n_splits=n_splits), iters=5, reps=10)
+            b_ms, b_by = bound(*sweep_work(c, n_splits, verify))
+            row[n_splits] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms,
+                                 bound_by=b_by, n_splits=n_splits)
+        lib = time_ms(torch, sdpa_yardstick(
+            torch, dequantized(torch, c, ("k_pages", "v_pages")), verify))
+        out[name] = dict(row[S], library_ms=lib)
+        one = row[1]
+        say(f"{name} (n_splits 1): kernel {one['ms'] * 1e3:.1f} us, plain "
+            f"{one['plain_ms'] * 1e3:.1f} us, bound "
+            f"{one['bound_ms'] * 1e3:.3f} us, sdpa over the dequantized "
+            f"cache {lib * 1e3:.1f} us")
+    shp = dict(B=BATCH, Hq=9, Hkv=3, D=64, C=PLEN + GEN)
+    S = ops.choose_kv_splits(BATCH, PLEN + GEN, 9, block=256, device=dev)
+    for verify, Q in ((False, 1), (True, 4)):
+        name = ("ring_attention_sweep int8 (verify)" if verify
+                else "ring_attention_sweep int8 (decode)")
+        c = quantize_case(quant, make_ring_case(
+            torch, np, dev, pos=528, Q=Q, dtype="bfloat16", seed=300 + Q,
+            **shp), ("k", "v"))
+        args, kw = ring_args(c, verify)
+        row = {}
+        for n_splits in (S, 1):
+            ms = time_ms(torch, lambda: da.ring_attention_sweep(
+                *args, **kw, n_splits=n_splits, block_k=256))
+            plain = time_ms(torch, lambda: da.ring_attention_sweep_torch(
+                *args, **kw, n_splits=n_splits, block_k=256), iters=5,
+                reps=10)
+            b_ms, b_by = bound(*ring_work(torch, c, n_splits, verify))
+            row[n_splits] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms,
+                                 bound_by=b_by, n_splits=n_splits)
+        lib = time_ms(torch, ring_sdpa_yardstick(
+            torch, dequantized(torch, c, ("k", "v")), verify))
+        out[name] = dict(row[S], library_ms=lib)
+        one = row[1]
+        say(f"{name} (n_splits 1): kernel {one['ms'] * 1e3:.1f} us, plain "
+            f"{one['plain_ms'] * 1e3:.1f} us, bound "
+            f"{one['bound_ms'] * 1e3:.3f} us, sdpa over the dequantized "
+            f"cache {lib * 1e3:.1f} us")
+    return out
+
+
+def int8_step_cost(torch, np, dev, cfg, tfm, steps, bridge):
+    """Phase 5, what the int8 write costs a paged decode step: smollm at
+    full width (bf16), 4 active slots from positions 64 to 79 over 6-page
+    tables, chunks of 8 steps on bf16 pools and on int8 pools in turns
+    (bf16, int8, int8, bf16, twice), each chunk timed on the host clock
+    and ended by a synchronize.  Returns the median ms a step of each."""
+    params = tfm.prepare_params(
+        bridge.init_lm(cfg, torch.Generator(device=dev).manual_seed(7), dev),
+        cfg)
+    loop = steps.make_paged_decode_loop(cfg, steps.StepConfig(), 8)
+    rng = np.random.default_rng(8)
+    bt = torch.tensor((4 + rng.permutation(24)).reshape(4, 6),
+                      dtype=torch.int32, device=dev)
+    tok = torch.tensor(rng.integers(0, cfg.vocab_size, (4, 1)),
+                       dtype=torch.int32, device=dev)
+    active = torch.ones(4, dtype=torch.int32, device=dev)
+    times = {"bfloat16": [], "int8": []}
+    with torch.no_grad():
+        for kv_dtype in ("bfloat16", "int8", "int8", "bfloat16") * 2:
+            cache = tfm.init_paged_cache(cfg, 4, 28, 16, 6, dtype=kv_dtype,
+                                         device=dev)
+            for _ in range(3):                  # two timed, one warm-up
+                cache = {**cache, "block_tables": bt,
+                         "pos": torch.tensor([64, 69, 74, 79],
+                                             dtype=torch.int32, device=dev)}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loop(params, cache, tok, active)
+                torch.cuda.synchronize()
+                times[kv_dtype].append((time.perf_counter() - t0) / 8 * 1e3)
+    return {k: float(np.median(v[1:])) for k, v in times.items()}
 
 
 def fa_work(np, B, Sq, Sk, Hq, Hkv, D, es, *, window=0, q_offset=0, **_):
@@ -1776,6 +2143,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch import bridge
+    from repro_torch import quant
     from repro_torch import serving
     from repro_torch.configs import get_arch
     from repro_torch.kernels import build
@@ -1811,6 +2179,8 @@ def main() -> int:
     # 2. kernels against their plain versions ---------------------------------
     errs = check_kernels(torch, np, dev, da, ops)
     check_ring_kernels(torch, np, dev, da, ops, errs)
+    errs.update({name: 0.0 for name in KERNELS if "int8" in name})
+    check_int8_kernels(torch, np, dev, da, quant, errs)
     errs.update(flash_attention=0.0, rmsnorm=0.0)
     check_prefill_kernels(torch, np, dev, fa, rms, ops, common, errs)
     check_ssd_kernels(torch, np, dev, ss, ops, errs)
@@ -1821,6 +2191,7 @@ def main() -> int:
     reference_check(torch, dev, cfg, tfm, serving, steps, bridge)
     reference_batch_check(torch, np, dev, cfg, tfm, steps, speculate,
                           bridge)
+    int8_reference(torch, np, dev, cfg, tfm, serving, steps, bridge)
     gcfg = get_arch("gemma2-27b").config
     gemma_reference(torch, np, dev, gcfg, tfm, serving, steps, bridge)
     torch.cuda.empty_cache()
@@ -1863,6 +2234,7 @@ def main() -> int:
     d_poisson = ds + ["--traffic", "poisson", "--requests", "8",
                       "--shared-prefix-len", "32", "--prompt-pools", "2",
                       "--n-slots", "4", "--page-size", "16"]
+    int8 = ["--kv-dtype", "int8"]
     attn = ("flash_attention", "rmsnorm")
     ssm = ("ssd", "rmsnorm")
     # (label, argv, kernels the path must launch, requests, new tokens,
@@ -1874,6 +2246,14 @@ def main() -> int:
               ("ring_verify", "merge") + attn, BATCH, GEN),
              ("poisson --spec-k 3", poisson + ["--spec-k", "3"],
               ("sweep_verify", "merge") + attn, 8, None),
+             ("poisson int8", poisson + int8,
+              ("sweep_decode_int8", "sweep_verify_int8", "merge") + attn,
+              8, None),
+             ("poisson int8 --spec-k 3", poisson + int8 + ["--spec-k", "3"],
+              ("sweep_verify_int8", "merge") + attn, 8, None),
+             ("poisson int8 host tier", poisson + int8 + [
+                 "--host-tier", "--n-pages", str(TIER_PAGES)],
+              ("sweep_decode_int8", "sweep_verify_int8") + attn, 8, None),
              ("gemma2 batch", g_batch, ("ring_decode", "merge") + attn, 4,
               GEN),
              ("gemma2 poisson", g_poisson,
@@ -1916,6 +2296,24 @@ def main() -> int:
                 fail(f"{label}: no draft was proposed")
             extra = (f", acceptance {rep.acceptance_rate:.0%}"
                      if "spec" in label else "")
+            if "int8" in label and (counts["sweep_decode"]
+                                    or counts["sweep_verify"]):
+                fail(f"{label}: an int8 path launched the bf16 sweep")
+            if "host tier" in label:
+                moved = rep.n_demotions + rep.n_promotions
+                if rep.n_demotions <= 0 or rep.n_promotions <= 0 \
+                        or rep.transfer_j <= 0.0:
+                    fail(f"{label}: {rep.n_demotions} page-outs, "
+                         f"{rep.n_promotions} page-ins, transfer_j "
+                         f"{rep.transfer_j}")
+                page_bytes = rep.transfer_j / 1e-9 / moved
+                if abs(page_bytes - TIER_PAGE_BYTES) > 1e-6 * TIER_PAGE_BYTES:
+                    fail(f"{label}: {page_bytes:.1f} bytes a page moved, "
+                         f"expected {TIER_PAGE_BYTES}")
+                extra += (f", {rep.n_demotions} pages out / "
+                          f"{rep.n_promotions} in of {page_bytes:.0f} B, "
+                          f"transfer {rep.transfer_j:.4g} J, "
+                          f"{rep.n_preemptions} preemptions")
             say(f"main path {label} on {card}: {rep.tok_per_s:.1f} tok/s "
                 f"measured, {rep.j_per_token:.4g} J/token (analytic H100 "
                 f"SXM model){extra}, peak {peak:.1f} GiB, launches {counts}")
@@ -1938,6 +2336,12 @@ def main() -> int:
     times.update(prefill_timings(torch, np, dev, fa, rms, ops, common))
     times.update(ssd_timings(torch, np, dev, ss))
     times.update(mla_timings(torch, np, dev, da, fa, ops))
+    times.update(int8_timings(torch, np, dev, da, ops, quant))
+    step = int8_step_cost(torch, np, dev, cfg, tfm, steps, bridge)
+    say(f"paged decode step, smollm-135m full width, 4 slots, host clock "
+        f"(median of chunks of 8 in turns): bf16 pools "
+        f"{step['bfloat16']:.2f} ms, int8 pools {step['int8']:.2f} ms "
+        f"(+{step['int8'] - step['bfloat16']:.2f} ms) on {card}")
     kernels = []
     for name, t in times.items():
         source, replaces, key = KERNELS[name]

@@ -105,10 +105,10 @@ def library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.paged_attention_sweep.argtypes = (
-            [p] * 10 + [i] * 12 + [f, f, i, p])
+            [p] * 12 + [i] * 12 + [f, f, i, p])
         lib.paged_attention_sweep.restype = i
         lib.ring_attention_sweep.argtypes = (
-            [p] * 9 + [i] * 13 + [f, f, i, p])
+            [p] * 11 + [i] * 13 + [f, f, i, p])
         lib.ring_attention_sweep.restype = i
         lib.lse_merge.argtypes = [p, p, p, i, i, i, i, i, p]
         lib.lse_merge.restype = i

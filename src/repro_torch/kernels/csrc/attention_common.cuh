@@ -1,13 +1,16 @@
 // Device code shared by the port's attention sweeps (paged_attention.cu,
 // ring_attention.cu): the masked-score constant, 16-byte row loads into
-// shared memory, warp reductions and the epilogue that writes a sweep's
-// result (normalised output for one split, partial + log-sum-exp for
-// several).  Everything is internal to the translation unit that includes
-// it.
+// shared memory (with the int8 rows' fused dequant), warp reductions and
+// the epilogue that writes a sweep's result (normalised output for one
+// split, partial + log-sum-exp for several).  Everything is internal to
+// the translation unit that includes it.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -32,6 +35,13 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* src, float* dst) {
   }
 }
 
+__device__ __forceinline__ void load16(const int8_t* src, float* dst) {
+  const int4 v = *reinterpret_cast<const int4*>(src);
+  const int8_t* b = reinterpret_cast<const int8_t*>(&v);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) dst[i] = static_cast<float>(b[i]);
+}
+
 __device__ __forceinline__ void store(float* dst, float x) { *dst = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* dst, float x) {
   *dst = __float2bfloat16(x);
@@ -53,6 +63,46 @@ __device__ __forceinline__ void load_rows(const T* base, long row_stride,
 #pragma unroll
     for (int j = 0; j < VN; ++j) dst[r * LD + col + j] = v[j];
   }
+}
+
+// The fused-dequant load, the port of the JAX sweeps' _load_kv
+// (src/repro/kernels/decode_attention.py:94): n_rows int8 rows of HD
+// values, row r at base + r * row_stride, each multiplied by its fp32
+// scale scale[r * scale_stride] as it lands in the fp32 tile (the JAX
+// oracle's q.astype(f32) * scale, the same one rounding).  One 16-byte
+// load per 16 values, neighbouring threads on neighbouring addresses; the
+// scales are read in place with the pool's or ring's own row stride.
+template <int HD, int LD = HD>
+__device__ __forceinline__ void load_rows_int8(const int8_t* base,
+                                               long row_stride,
+                                               const float* scale,
+                                               long scale_stride, int n_rows,
+                                               float* dst) {
+  constexpr int PER_ROW = HD / 16;
+  float v[16];
+  for (int c = threadIdx.x; c < n_rows * PER_ROW; c += NT) {
+    const int r = c / PER_ROW;
+    const int col = (c - r * PER_ROW) * 16;
+    load16(base + r * row_stride + col, v);
+    const float s = scale[r * scale_stride];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) dst[r * LD + col + j] = v[j] * s;
+  }
+}
+
+// A sweep's k or v rows into the fp32 tile: the int8 storage through the
+// dequantizing load (scale rows r * scale_stride apart), any other through
+// load_rows (scale unused, null).
+template <typename TKV, int HD, int LD = HD>
+__device__ __forceinline__ void load_kv_rows(const TKV* base, long row_stride,
+                                             const float* scale,
+                                             long scale_stride, int n_rows,
+                                             float* dst) {
+  if constexpr (std::is_same<TKV, int8_t>::value)
+    load_rows_int8<HD, LD>(base, row_stride, scale, scale_stride, n_rows,
+                           dst);
+  else
+    load_rows<TKV, HD, LD>(base, row_stride, n_rows, dst);
 }
 
 __device__ __forceinline__ float warp_sum(float x) {

@@ -5,7 +5,9 @@
 //
 //   paged_attention_sweep  stage 1 of paged GQA attention: Q query rows per
 //                          (batch, q head) over the pages of one split, online
-//                          softmax in fp32, optional in-flight candidate fold.
+//                          softmax in fp32, optional in-flight candidate fold;
+//                          pools in the query dtype, or int8 with per-row
+//                          fp32 scales dequantized as each page lands.
 //   lse_merge              stage 2: exact log-sum-exp merge of the splits.
 //
 // Both launch on the caller's stream, allocate nothing and return
@@ -86,7 +88,9 @@ __device__ void tile_update(const float* qs, const float* ks, const float* vs,
   __syncthreads();
 }
 
-// Replaces, from src/repro/kernels/decode_attention.py:
+// Replaces, from src/repro/kernels/decode_attention.py, in their bf16/fp32
+// and their int8 forms (scales (P, ps, Hkv, 1), dequantized in the block
+// load, _load_kv :94):
 //   paged_decode_attention_pallas           (:1232, kernel :1067)
 //   paged_decode_attention_pallas_partials  (:1154, kernel :1110)
 //   paged_verify_attention_pallas           (:970,  kernel :781)
@@ -102,13 +106,19 @@ __device__ void tile_update(const float* qs, const float* ks, const float* vs,
 // outside the request's valid range is skipped by position before its
 // table entry is read (columns past a request's length hold arbitrary
 // ids), so the bytes moved follow the requests' lengths, not the table
-// width.  Still simple: no wgmma, no TMA, no overlap of the next page's
-// load with this page's math, and the G q heads of one kv head read the
-// same page separately (L2 keeps the repeats off HBM).
-template <typename T, int HD>
+// width.  TKV is T, or int8_t for int8 pools: a row then costs HD + 4
+// bytes (its values and its fp32 scale, read in place at the pool's
+// (P, ps, Hkv, 1) strides) instead of 2 HD, and is dequantized as it lands
+// in the fp32 tile, so everything after the load is the bf16/fp32 sweep.
+// q, the candidates and the output stay in T (JAX never quantizes the
+// candidates).  Still simple: no wgmma, no TMA, no overlap of the next
+// page's load with this page's math, and the G q heads of one kv head read
+// the same page separately (L2 keeps the repeats off HBM).
+template <typename T, typename TKV, int HD>
 __global__ void __launch_bounds__(NT) paged_attention_sweep_kernel(
-    const T* __restrict__ q, const T* __restrict__ k_pages,
-    const T* __restrict__ v_pages, const T* __restrict__ k_new,
+    const T* __restrict__ q, const TKV* __restrict__ k_pages,
+    const TKV* __restrict__ v_pages, const float* __restrict__ k_scale,
+    const float* __restrict__ v_scale, const T* __restrict__ k_new,
     const T* __restrict__ v_new, const int* __restrict__ block_tables,
     const int* __restrict__ pos_arr, T* __restrict__ out,
     float* __restrict__ partial, float* __restrict__ lse, int Q, int Hq,
@@ -153,9 +163,12 @@ __global__ void __launch_bounds__(NT) paged_attention_sweep_kernel(
     // stops instead, and the launch fails at the next synchronisation
     const int page = block_tables[(long)b * nb + j];
     if (page < 0 || page >= P) __trap();
-    const long base = ((long)page * ps * Hkv + hk) * HD;
-    load_rows<T, HD>(k_pages + base, kv_row, ps, ks);
-    load_rows<T, HD>(v_pages + base, kv_row, ps, vs);
+    const long srow = (long)page * ps * Hkv + hk;       // the row's scale
+    const long base = srow * HD;
+    load_kv_rows<TKV, HD>(k_pages + base, kv_row,
+                          k_scale ? k_scale + srow : nullptr, Hkv, ps, ks);
+    load_kv_rows<TKV, HD>(v_pages + base, kv_row,
+                          v_scale ? v_scale + srow : nullptr, Hkv, ps, vs);
     __syncthreads();
     tile_update<HD>(qs, ks, vs, ss, ms, ls, cs, accs, Q, ps,
                     verify ? VERIFY : DECODE, k0, pos, window, logit_cap,
@@ -203,18 +216,19 @@ __global__ void lse_merge_kernel(const float* __restrict__ partial,
   }
 }
 
-template <typename T, int HD>
+template <typename T, typename TKV, int HD>
 int launch_sweep(const void* q, const void* kp, const void* vp,
-                 const void* kn, const void* vn, const int* bt,
-                 const int* pos, void* out, float* partial, float* lse, int B,
-                 int Q, int Hq, int Hkv, int P, int ps, int nb, int n_splits,
-                 int ppb, int verify, int window, float logit_cap,
-                 float scale, cudaStream_t stream) {
+                 const float* ksc, const float* vsc, const void* kn,
+                 const void* vn, const int* bt, const int* pos, void* out,
+                 float* partial, float* lse, int B, int Q, int Hq, int Hkv,
+                 int P, int ps, int nb, int n_splits, int ppb, int verify,
+                 int window, float logit_cap, float scale,
+                 cudaStream_t stream) {
   const int R = (verify && Q > ps) ? Q : ps;
   const size_t smem =
       sizeof(float) * (2 * (size_t)Q * HD + 2 * (size_t)R * HD +
                        (size_t)Q * R + 3 * (size_t)Q);
-  auto kern = paged_attention_sweep_kernel<T, HD>;
+  auto kern = paged_attention_sweep_kernel<T, TKV, HD>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -222,25 +236,48 @@ int launch_sweep(const void* q, const void* kp, const void* vp,
   }
   dim3 grid(B * Hq, n_splits);
   kern<<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), static_cast<const T*>(kn),
+      static_cast<const T*>(q), static_cast<const TKV*>(kp),
+      static_cast<const TKV*>(vp), ksc, vsc, static_cast<const T*>(kn),
       static_cast<const T*>(vn), bt, pos, static_cast<T*>(out), partial, lse,
       Q, Hq, Hkv, P, ps, nb, n_splits, ppb, verify, window, logit_cap, scale);
   return (int)cudaGetLastError();
 }
 
+// The pools' storage: the query dtype T (no scales) or int8 (both given).
+template <typename T, int HD>
+int launch_sweep_kv(const void* q, const void* kp, const void* vp,
+                    const float* ksc, const float* vsc, const void* kn,
+                    const void* vn, const int* bt, const int* pos, void* out,
+                    float* partial, float* lse, int B, int Q, int Hq,
+                    int Hkv, int P, int ps, int nb, int n_splits, int ppb,
+                    int verify, int window, float logit_cap, float scale,
+                    cudaStream_t stream) {
+  if ((ksc == nullptr) != (vsc == nullptr)) return (int)cudaErrorInvalidValue;
+  if (ksc != nullptr)
+    return launch_sweep<T, int8_t, HD>(q, kp, vp, ksc, vsc, kn, vn, bt, pos,
+        out, partial, lse, B, Q, Hq, Hkv, P, ps, nb, n_splits, ppb, verify,
+        window, logit_cap, scale, stream);
+  return launch_sweep<T, T, HD>(q, kp, vp, ksc, vsc, kn, vn, bt, pos, out,
+      partial, lse, B, Q, Hq, Hkv, P, ps, nb, n_splits, ppb, verify, window,
+      logit_cap, scale, stream);
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, pools, candidates and out share it).
-// verify = 0: decode (k_new / v_new unused).  n_splits == 1 writes out
-// (B, Q, Hq, HD); otherwise partial (B, Hq, S, Q, HD) and lse (B, Hq, S, Q).
+// dtype: 0 = float32, 1 = bfloat16 (q, candidates and out share it, and
+// the pools when k_scale / v_scale are null).  With k_scale / v_scale
+// (P, ps, Hkv, 1) fp32, the pools are int8.  verify = 0: decode (k_new /
+// v_new unused).  n_splits == 1 writes out (B, Q, Hq, HD); otherwise
+// partial (B, Hq, S, Q, HD) and lse (B, Hq, S, Q).
 extern "C" int paged_attention_sweep(
     const void* q, const void* k_pages, const void* v_pages,
-    const void* k_new, const void* v_new, const void* block_tables,
-    const void* pos, void* out, void* partial, void* lse, int B, int Q,
-    int Hq, int Hkv, int P, int ps, int nb, int head_dim, int n_splits,
-    int ppb, int verify, int window, float logit_cap, float scale, int dtype,
-    void* stream) {
+    const void* k_scale, const void* v_scale, const void* k_new,
+    const void* v_new, const void* block_tables, const void* pos, void* out,
+    void* partial, void* lse, int B, int Q, int Hq, int Hkv, int P, int ps,
+    int nb, int head_dim, int n_splits, int ppb, int verify, int window,
+    float logit_cap, float scale, int dtype, void* stream) {
+  const float* ksc = static_cast<const float*>(k_scale);
+  const float* vsc = static_cast<const float*>(v_scale);
   const int* bt = static_cast<const int*>(block_tables);
   const int* ps_arr = static_cast<const int*>(pos);
   float* pp = static_cast<float*>(partial);
@@ -248,21 +285,21 @@ extern "C" int paged_attention_sweep(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (Q < 1 || Q > NT) return (int)cudaErrorInvalidValue;
   if (dtype == 1 && head_dim == 64)
-    return launch_sweep<__nv_bfloat16, 64>(q, k_pages, v_pages, k_new, v_new,
-        bt, ps_arr, out, pp, lp, B, Q, Hq, Hkv, P, ps, nb, n_splits, ppb,
-        verify, window, logit_cap, scale, st);
+    return launch_sweep_kv<__nv_bfloat16, 64>(q, k_pages, v_pages, ksc, vsc,
+        k_new, v_new, bt, ps_arr, out, pp, lp, B, Q, Hq, Hkv, P, ps, nb,
+        n_splits, ppb, verify, window, logit_cap, scale, st);
   if (dtype == 1 && head_dim == 128)
-    return launch_sweep<__nv_bfloat16, 128>(q, k_pages, v_pages, k_new,
+    return launch_sweep_kv<__nv_bfloat16, 128>(q, k_pages, v_pages, ksc,
+        vsc, k_new, v_new, bt, ps_arr, out, pp, lp, B, Q, Hq, Hkv, P, ps,
+        nb, n_splits, ppb, verify, window, logit_cap, scale, st);
+  if (dtype == 0 && head_dim == 64)
+    return launch_sweep_kv<float, 64>(q, k_pages, v_pages, ksc, vsc, k_new,
         v_new, bt, ps_arr, out, pp, lp, B, Q, Hq, Hkv, P, ps, nb, n_splits,
         ppb, verify, window, logit_cap, scale, st);
-  if (dtype == 0 && head_dim == 64)
-    return launch_sweep<float, 64>(q, k_pages, v_pages, k_new, v_new, bt,
-        ps_arr, out, pp, lp, B, Q, Hq, Hkv, P, ps, nb, n_splits, ppb, verify,
-        window, logit_cap, scale, st);
   if (dtype == 0 && head_dim == 128)
-    return launch_sweep<float, 128>(q, k_pages, v_pages, k_new, v_new, bt,
-        ps_arr, out, pp, lp, B, Q, Hq, Hkv, P, ps, nb, n_splits, ppb, verify,
-        window, logit_cap, scale, st);
+    return launch_sweep_kv<float, 128>(q, k_pages, v_pages, ksc, vsc, k_new,
+        v_new, bt, ps_arr, out, pp, lp, B, Q, Hq, Hkv, P, ps, nb, n_splits,
+        ppb, verify, window, logit_cap, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -7,8 +7,10 @@
 //   ring_attention_sweep  stage 1 of GQA attention over a ring-buffer cache
 //                         (B, C, Hkv, D): Q query rows per (batch, q head)
 //                         over the blocks of one split, online softmax in
-//                         fp32, optional in-flight candidate fold.  Stage 2
-//                         is paged_attention.cu's lse_merge.
+//                         fp32, optional in-flight candidate fold; caches in
+//                         the query dtype, or int8 with per-row fp32 scales
+//                         dequantized as each tile lands.  Stage 2 is
+//                         paged_attention.cu's lse_merge.
 //
 // It launches on the caller's stream, allocates nothing and returns
 // cudaGetLastError() so that a refused launch is reported.
@@ -61,18 +63,25 @@ struct CandidateMask {
 // tiles of TILE rows, padded to HD + 1 floats so that one thread per
 // (row, key) reads conflict-free; the scores of the whole block sit in ss
 // (row stride sw) so that the softmax update is one per block, as in the
-// reference.  Ends with a barrier.
-template <typename T, int HD, typename Mask>
-__device__ void block_update(const T* kbase, const T* vbase, long row_stride,
-                             int nk, const float* qs, float* accs,
-                             float* tile, float* ss, int sw, float* ms,
-                             float* ls, float* cs, int Q, const Mask& valid,
-                             float logit_cap, float scale) {
+// reference.  E is the rows' storage: the query dtype (the candidates, an
+// unquantized ring) or int8, whose row r's fp32 scale sits at ksbase /
+// vsbase + r * scale_stride (null otherwise) and multiplies in as the row
+// lands in the tile.  Ends with a barrier.
+template <typename E, int HD, typename Mask>
+__device__ void block_update(const E* kbase, const E* vbase, long row_stride,
+                             const float* ksbase, const float* vsbase,
+                             long scale_stride, int nk, const float* qs,
+                             float* accs, float* tile, float* ss, int sw,
+                             float* ms, float* ls, float* cs, int Q,
+                             const Mask& valid, float logit_cap,
+                             float scale) {
   constexpr int LD = HD + 1;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int t0 = 0; t0 < nk; t0 += TILE) {
     const int nr = min(TILE, nk - t0);
-    load_rows<T, HD, LD>(kbase + t0 * row_stride, row_stride, nr, tile);
+    load_kv_rows<E, HD, LD>(kbase + t0 * row_stride, row_stride,
+                            ksbase ? ksbase + t0 * scale_stride : nullptr,
+                            scale_stride, nr, tile);
     __syncthreads();
     for (int idx = threadIdx.x; idx < Q * nr; idx += NT) {
       const int i = idx / nr, r = idx - i * nr;
@@ -115,7 +124,9 @@ __device__ void block_update(const T* kbase, const T* vbase, long row_stride,
   for (int t0 = 0; t0 < nk; t0 += TILE) {
     const int nr = min(TILE, nk - t0);
     __syncthreads();                 // the tile's last readers are done
-    load_rows<T, HD, LD>(vbase + t0 * row_stride, row_stride, nr, tile);
+    load_kv_rows<E, HD, LD>(vbase + t0 * row_stride, row_stride,
+                            vsbase ? vsbase + t0 * scale_stride : nullptr,
+                            scale_stride, nr, tile);
     __syncthreads();
     for (int idx = threadIdx.x; idx < Q * HD; idx += NT) {
       const int i = idx / HD, c = idx - i * HD;
@@ -128,7 +139,9 @@ __device__ void block_update(const T* kbase, const T* vbase, long row_stride,
   __syncthreads();
 }
 
-// Replaces, from src/repro/kernels/decode_attention.py:
+// Replaces, from src/repro/kernels/decode_attention.py, in their bf16/fp32
+// and their int8 forms (scales (B, C, Hkv, 1), dequantized in the block
+// load, _load_kv :94):
 //   decode_attention_pallas           (:384, kernel _decode_kernel :207)
 //   decode_attention_pallas_partials  (:298, kernel :251)
 //   verify_attention_pallas           (:682, kernel _verify_kernel :479)
@@ -147,11 +160,14 @@ __device__ void block_update(const T* kbase, const T* vbase, long row_stride,
 // candidates fold into the last split only.  Still simple: no wgmma, no TMA,
 // no overlap of the next tile's load with this tile's math, and the G q
 // heads of one kv head read the same rows separately (L2 keeps the repeats
-// off HBM).
-template <typename T, int HD>
+// off HBM).  TKV is T, or int8_t for an int8 ring: a row then costs HD + 4
+// bytes, its scale read in place at the ring's (B, C, Hkv, 1) strides (the
+// JAX wrapper's transpose of the scales is not needed either).
+template <typename T, typename TKV, int HD>
 __global__ void __launch_bounds__(NT) ring_attention_sweep_kernel(
-    const T* __restrict__ q, const T* __restrict__ k_cache,
-    const T* __restrict__ v_cache, const T* __restrict__ k_new,
+    const T* __restrict__ q, const TKV* __restrict__ k_cache,
+    const TKV* __restrict__ v_cache, const float* __restrict__ k_scale,
+    const float* __restrict__ v_scale, const T* __restrict__ k_new,
     const T* __restrict__ v_new, const int* __restrict__ pos_arr,
     int batch_pos, T* __restrict__ out, float* __restrict__ partial,
     float* __restrict__ lse, int Q, int Hq, int Hkv, int C, int block_k,
@@ -189,33 +205,37 @@ __global__ void __launch_bounds__(NT) ring_attention_sweep_kernel(
     for (int idx = threadIdx.x; idx < Q * block_k && !any; idx += NT)
       any = mask(idx / block_k, idx % block_k);
     if (!__syncthreads_or(any)) continue;        // block-uniform
-    const long base = ((long)b * C + (long)g * block_k) * kv_row + hk * HD;
-    block_update<T, HD>(k_cache + base, v_cache + base, kv_row, block_k, qs,
-                        accs, tile, ss, sw, ms, ls, cs, Q, mask, logit_cap,
-                        scale);
+    const long srow = ((long)b * C + (long)g * block_k) * Hkv + hk;
+    const long base = srow * HD;
+    block_update<TKV, HD>(k_cache + base, v_cache + base, kv_row,
+                          k_scale ? k_scale + srow : nullptr,
+                          v_scale ? v_scale + srow : nullptr, Hkv, block_k,
+                          qs, accs, tile, ss, sw, ms, ls, cs, Q, mask,
+                          logit_cap, scale);
   }
   if (verify && s == n_splits - 1) {
     const long base = (long)b * Q * kv_row + hk * HD;
-    block_update<T, HD>(k_new + base, v_new + base, kv_row, Q, qs, accs,
-                        tile, ss, sw, ms, ls, cs, Q, CandidateMask{window},
-                        logit_cap, scale);
+    block_update<T, HD>(k_new + base, v_new + base, kv_row, nullptr, nullptr,
+                        0, Q, qs, accs, tile, ss, sw, ms, ls, cs, Q,
+                        CandidateMask{window}, logit_cap, scale);
   }
   write_result<T, HD>(accs, ms, ls, Q, b, h, s, Hq, n_splits, out, partial,
                       lse);
 }
 
-template <typename T, int HD>
+template <typename T, typename TKV, int HD>
 int launch_ring(const void* q, const void* kc, const void* vc,
-                const void* kn, const void* vn, const int* pos,
-                int batch_pos, void* out, float* partial, float* lse, int B,
-                int Q, int Hq, int Hkv, int C, int block_k, int n_k,
-                int n_splits, int kpb, int verify, int window,
-                float logit_cap, float scale, cudaStream_t stream) {
+                const float* ksc, const float* vsc, const void* kn,
+                const void* vn, const int* pos, int batch_pos, void* out,
+                float* partial, float* lse, int B, int Q, int Hq, int Hkv,
+                int C, int block_k, int n_k, int n_splits, int kpb,
+                int verify, int window, float logit_cap, float scale,
+                cudaStream_t stream) {
   const int sw = (verify && Q > block_k) ? Q : block_k;
   const size_t smem =
       sizeof(float) * (2 * (size_t)Q * HD + (size_t)TILE * (HD + 1) +
                        (size_t)Q * sw + 3 * (size_t)Q);
-  auto kern = ring_attention_sweep_kernel<T, HD>;
+  auto kern = ring_attention_sweep_kernel<T, TKV, HD>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -223,27 +243,50 @@ int launch_ring(const void* q, const void* kc, const void* vc,
   }
   dim3 grid(B * Hq, n_splits);
   kern<<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kc),
-      static_cast<const T*>(vc), static_cast<const T*>(kn),
+      static_cast<const T*>(q), static_cast<const TKV*>(kc),
+      static_cast<const TKV*>(vc), ksc, vsc, static_cast<const T*>(kn),
       static_cast<const T*>(vn), pos, batch_pos, static_cast<T*>(out),
       partial, lse, Q, Hq, Hkv, C, block_k, n_k, n_splits, kpb, verify,
       window, logit_cap, scale);
   return (int)cudaGetLastError();
 }
 
+// The caches' storage: the query dtype T (no scales) or int8 (both given).
+template <typename T, int HD>
+int launch_ring_kv(const void* q, const void* kc, const void* vc,
+                   const float* ksc, const float* vsc, const void* kn,
+                   const void* vn, const int* pos, int batch_pos, void* out,
+                   float* partial, float* lse, int B, int Q, int Hq, int Hkv,
+                   int C, int block_k, int n_k, int n_splits, int kpb,
+                   int verify, int window, float logit_cap, float scale,
+                   cudaStream_t stream) {
+  if ((ksc == nullptr) != (vsc == nullptr)) return (int)cudaErrorInvalidValue;
+  if (ksc != nullptr)
+    return launch_ring<T, int8_t, HD>(q, kc, vc, ksc, vsc, kn, vn, pos,
+        batch_pos, out, partial, lse, B, Q, Hq, Hkv, C, block_k, n_k,
+        n_splits, kpb, verify, window, logit_cap, scale, stream);
+  return launch_ring<T, T, HD>(q, kc, vc, ksc, vsc, kn, vn, pos, batch_pos,
+      out, partial, lse, B, Q, Hq, Hkv, C, block_k, n_k, n_splits, kpb,
+      verify, window, logit_cap, scale, stream);
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, caches, candidates and out share it).
-// pos holds one int32 (batch_pos = 0) or one per batch row (batch_pos = 1).
-// verify = 0: decode (k_new / v_new unused).  n_splits == 1 writes out
-// (B, Q, Hq, HD); otherwise partial (B, Hq, S, Q, HD) and lse (B, Hq, S, Q).
+// dtype: 0 = float32, 1 = bfloat16 (q, candidates and out share it, and
+// the caches when k_scale / v_scale are null).  With k_scale / v_scale
+// (B, C, Hkv, 1) fp32, the caches are int8.  pos holds one int32
+// (batch_pos = 0) or one per batch row (batch_pos = 1).  verify = 0:
+// decode (k_new / v_new unused).  n_splits == 1 writes out (B, Q, Hq, HD);
+// otherwise partial (B, Hq, S, Q, HD) and lse (B, Hq, S, Q).
 extern "C" int ring_attention_sweep(
     const void* q, const void* k_cache, const void* v_cache,
-    const void* k_new, const void* v_new, const void* pos, void* out,
-    void* partial, void* lse, int B, int Q, int Hq, int Hkv, int C,
-    int head_dim, int block_k, int n_k, int n_splits, int kpb, int batch_pos,
-    int verify, int window, float logit_cap, float scale, int dtype,
-    void* stream) {
+    const void* k_scale, const void* v_scale, const void* k_new,
+    const void* v_new, const void* pos, void* out, void* partial, void* lse,
+    int B, int Q, int Hq, int Hkv, int C, int head_dim, int block_k, int n_k,
+    int n_splits, int kpb, int batch_pos, int verify, int window,
+    float logit_cap, float scale, int dtype, void* stream) {
+  const float* ksc = static_cast<const float*>(k_scale);
+  const float* vsc = static_cast<const float*>(v_scale);
   const int* pp = static_cast<const int*>(pos);
   float* part = static_cast<float*>(partial);
   float* lp = static_cast<float*>(lse);
@@ -251,20 +294,20 @@ extern "C" int ring_attention_sweep(
   if (Q < 1 || block_k < 1 || n_k * block_k != C)
     return (int)cudaErrorInvalidValue;
   if (dtype == 1 && head_dim == 64)
-    return launch_ring<__nv_bfloat16, 64>(q, k_cache, v_cache, k_new, v_new,
-        pp, batch_pos, out, part, lp, B, Q, Hq, Hkv, C, block_k, n_k,
-        n_splits, kpb, verify, window, logit_cap, scale, st);
+    return launch_ring_kv<__nv_bfloat16, 64>(q, k_cache, v_cache, ksc, vsc,
+        k_new, v_new, pp, batch_pos, out, part, lp, B, Q, Hq, Hkv, C,
+        block_k, n_k, n_splits, kpb, verify, window, logit_cap, scale, st);
   if (dtype == 1 && head_dim == 128)
-    return launch_ring<__nv_bfloat16, 128>(q, k_cache, v_cache, k_new,
+    return launch_ring_kv<__nv_bfloat16, 128>(q, k_cache, v_cache, ksc, vsc,
+        k_new, v_new, pp, batch_pos, out, part, lp, B, Q, Hq, Hkv, C,
+        block_k, n_k, n_splits, kpb, verify, window, logit_cap, scale, st);
+  if (dtype == 0 && head_dim == 64)
+    return launch_ring_kv<float, 64>(q, k_cache, v_cache, ksc, vsc, k_new,
         v_new, pp, batch_pos, out, part, lp, B, Q, Hq, Hkv, C, block_k, n_k,
         n_splits, kpb, verify, window, logit_cap, scale, st);
-  if (dtype == 0 && head_dim == 64)
-    return launch_ring<float, 64>(q, k_cache, v_cache, k_new, v_new, pp,
-        batch_pos, out, part, lp, B, Q, Hq, Hkv, C, block_k, n_k, n_splits,
-        kpb, verify, window, logit_cap, scale, st);
   if (dtype == 0 && head_dim == 128)
-    return launch_ring<float, 128>(q, k_cache, v_cache, k_new, v_new, pp,
-        batch_pos, out, part, lp, B, Q, Hq, Hkv, C, block_k, n_k, n_splits,
-        kpb, verify, window, logit_cap, scale, st);
+    return launch_ring_kv<float, 128>(q, k_cache, v_cache, ksc, vsc, k_new,
+        v_new, pp, batch_pos, out, part, lp, B, Q, Hq, Hkv, C, block_k, n_k,
+        n_splits, kpb, verify, window, logit_cap, scale, st);
   return (int)cudaErrorInvalidValue;
 }

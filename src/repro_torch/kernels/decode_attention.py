@@ -27,6 +27,12 @@ paged, ring and MLA families:
     partial_s exp(lse_s - m) / sum_s exp(lse_s - m)``, denominator clamped
     at 1e-30.
 
+The paged and ring sweeps also read int8 caches with per-row fp32 scales
+(``k_scale`` / ``v_scale``, the pool's or ring's layout with a last axis
+of 1): each row is dequantized as it lands in shared memory, so a kv row
+costs D + 4 bytes where bf16 costs 2D.  q, the candidates and the output
+stay in the query dtype.
+
 The sweeps fold verify's in-flight candidate rows, causally, into the
 last split only.  One split writes the normalised output in the query
 dtype; several write fp32 ``partial (B, Hq, S, Q, Dv)`` + ``lse (B, Hq,
@@ -72,11 +78,13 @@ def ring_block_k(cache_len: int, block_k: int) -> int:
 def paged_attention_sweep_torch(q, k_pages, v_pages, block_tables, pos, *,
                                 k_new=None, v_new=None, n_splits: int = 1,
                                 window: int = 0, logit_cap: float = 0.0,
-                                scale: float | None = None):
+                                scale: float | None = None, k_scale=None,
+                                v_scale=None):
     """The K-sweep's function in plain torch, page by page as the kernel
     (and the Pallas grid) walks it: a page whose every score is masked for
     every row is skipped, masked scores are NEG_INF, and the state update
-    is the reference's online softmax.  Returns the output
+    is the reference's online softmax.  int8 pools are dequantized page by
+    page with their (P, ps, Hkv, 1) scales.  Returns the output
     ``(B, Q, Hq, Dv)`` in ``q.dtype`` when the (clamped) split count is 1,
     else ``(partial (B, Hq, S, Q, Dv), lse (B, Hq, S, Q))`` in fp32."""
     B, Q, Hq, D = q.shape
@@ -115,8 +123,8 @@ def paged_attention_sweep_torch(q, k_pages, v_pages, block_tables, pos, *,
                 valid = valid & (k_pos > posb - window)
         valid = (valid & in_range).expand(B, S, Q, ps)
         pages = bt[:, gjc]                                      # (B, S)
-        kt = k_pages[pages][:, :, :, kv_head].float()           # (B,S,ps,Hq,D)
-        vt = v_pages[pages][:, :, :, kv_head].float()
+        kt = _rows(k_pages, k_scale, pages, kv_head)            # (B,S,ps,Hq,D)
+        vt = _rows(v_pages, v_scale, pages, kv_head)
         s = torch.einsum("bhqd,bskhd->bhsqk", qf, kt) * scale
         run = valid.reshape(B, S, -1).any(dim=-1).reshape(B, 1, S, 1)
         m, l, acc = _online_update((m, l, acc), s,
@@ -128,6 +136,16 @@ def paged_attention_sweep_torch(q, k_pages, v_pages, block_tables, pos, *,
                                      window=window, logit_cap=logit_cap,
                                      scale=scale)
     return _sweep_result(m, l, acc, q.dtype)
+
+
+def _rows(cache, scale, idx, kv_head):
+    """``cache[idx]`` at every q head's kv head, in fp32, dequantized by
+    the same rows of ``scale`` for an int8 cache (the kernels'
+    dequantizing load)."""
+    rows = cache[idx][..., kv_head, :].float()
+    if scale is None:
+        return rows
+    return rows * scale[idx][..., kv_head, :]
 
 
 def _online_update(state, s, vt, valid, run, logit_cap: float):
@@ -192,7 +210,8 @@ def ring_attention_sweep_torch(q, k_cache, v_cache, pos, *, k_new=None,
                                v_new=None, n_splits: int = 1,
                                block_k: int = 256, window: int = 0,
                                logit_cap: float = 0.0,
-                               scale: float | None = None):
+                               scale: float | None = None, k_scale=None,
+                               v_scale=None):
     """The ring sweep's function in plain torch, block by block as the
     kernel (and the Pallas grid) walks the cache (B, C, Hkv, D).  Slot s
     holds ``ref - ((ref - s) mod C)``, with ``ref = pos`` for decode and
@@ -200,7 +219,8 @@ def ring_attention_sweep_torch(q, k_cache, v_cache, pos, *, k_new=None,
     and verify row i (at ``pos + i``) also drops positions ``<= pos + i -
     C``, which the sequential loop would have overwritten.  A block whose
     every slot is masked for every row is skipped; masked scores are
-    NEG_INF.  ``pos`` is (1,) or (B,).  Returns as
+    NEG_INF.  ``pos`` is (1,) or (B,).  An int8 cache is dequantized
+    block by block with its (B, C, Hkv, 1) scales.  Returns as
     :func:`paged_attention_sweep_torch`."""
     B, Q, Hq, D = q.shape
     C, Hkv = k_cache.shape[1], k_cache.shape[2]
@@ -235,8 +255,9 @@ def ring_attention_sweep_torch(q, k_cache, v_cache, pos, *, k_new=None,
         if window > 0:
             valid = valid & (k_pos > q_pos - window)
         valid = valid.expand(B, S, Q, bk)
-        kt = k_cache[:, slots][:, :, :, kv_head].float()        # (B,S,bk,Hq,D)
-        vt = v_cache[:, slots][:, :, :, kv_head].float()
+        kt = _rows(k_cache, k_scale, (slice(None), slots),
+                   kv_head)                                 # (B,S,bk,Hq,D)
+        vt = _rows(v_cache, v_scale, (slice(None), slots), kv_head)
         s = torch.einsum("bhqd,bskhd->bhsqk", qf, kt) * scale
         run = valid.reshape(B, S, -1).any(dim=-1).reshape(B, 1, S, 1)
         m, l, acc = _online_update((m, l, acc), s,
@@ -280,19 +301,32 @@ def mla_latent_sweep_torch(q, pool, block_tables, pos, *, r_kv: int,
 # ==========================================================================
 # kernel wrappers
 # ==========================================================================
+def _kv_storage(name, k_scale, v_scale, q_dtype):
+    """The pools' dtype the sweep expects: int8 when both scales are
+    given, else the query dtype."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError(f"{name}: k_scale and v_scale must be given "
+                         "together")
+    return q_dtype if k_scale is None else torch.int8
+
+
 def paged_attention_sweep(q, k_pages, v_pages, block_tables, pos, *,
                           k_new=None, v_new=None, n_splits: int = 1,
                           window: int = 0, logit_cap: float = 0.0,
-                          scale: float | None = None):
-    """K-sweep.  q (B, Q, Hq, D); pools (P, ps, Hkv, D); block_tables
-    (B, nb) int32; pos (B,) int32; optional in-flight candidates k_new /
-    v_new (B, Q, Hkv, D) select the verify mask.  Output as
-    :func:`paged_attention_sweep_torch`."""
+                          scale: float | None = None, k_scale=None,
+                          v_scale=None):
+    """K-sweep.  q (B, Q, Hq, D); pools (P, ps, Hkv, D), in q's dtype, or
+    int8 with per-row fp32 ``k_scale`` / ``v_scale`` (P, ps, Hkv, 1);
+    block_tables (B, nb) int32; pos (B,) int32; optional in-flight
+    candidates k_new / v_new (B, Q, Hkv, D) in q's dtype select the verify
+    mask.  Output as :func:`paged_attention_sweep_torch`."""
+    kv_dtype = _kv_storage("paged_attention_sweep", k_scale, v_scale,
+                           q.dtype)
     if q.device.type == "cpu":
         return paged_attention_sweep_torch(
             q, k_pages, v_pages, block_tables, pos, k_new=k_new, v_new=v_new,
             n_splits=n_splits, window=window, logit_cap=logit_cap,
-            scale=scale)
+            scale=scale, k_scale=k_scale, v_scale=v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention_sweep: unsupported device "
                          f"{q.device}")
@@ -315,10 +349,15 @@ def paged_attention_sweep(q, k_pages, v_pages, block_tables, pos, *,
     dev = q.device
     check("q", q, dtype=q.dtype, shape=(B, Q, Hq, D), device=dev,
           vector=True)
-    check("k_pages", k_pages, dtype=q.dtype, shape=(P, ps, Hkv, D),
+    check("k_pages", k_pages, dtype=kv_dtype, shape=(P, ps, Hkv, D),
           device=dev, vector=True)
-    check("v_pages", v_pages, dtype=q.dtype, shape=(P, ps, Hkv, D),
+    check("v_pages", v_pages, dtype=kv_dtype, shape=(P, ps, Hkv, D),
           device=dev, vector=True)
+    if k_scale is not None:
+        check("k_scale", k_scale, dtype=torch.float32, shape=(P, ps, Hkv, 1),
+              device=dev)
+        check("v_scale", v_scale, dtype=torch.float32, shape=(P, ps, Hkv, 1),
+              device=dev)
     check("block_tables", block_tables, dtype=torch.int32, shape=(B, nb),
           device=dev)
     check("pos", pos, dtype=torch.int32, shape=(B,), device=dev)
@@ -338,15 +377,22 @@ def paged_attention_sweep(q, k_pages, v_pages, block_tables, pos, *,
                               device=dev)
         lse = torch.empty((B, Hq, S, Q), dtype=torch.float32, device=dev)
     err = build.library().paged_attention_sweep(
-        ptr(q), ptr(k_pages), ptr(v_pages), ptr(k_new), ptr(v_new),
-        ptr(block_tables), ptr(pos), ptr(out), ptr(partial), ptr(lse),
-        B, Q, Hq, Hkv, P, ps, nb, D, S, ppb, int(verify), int(window),
-        float(logit_cap), float(scale), DTYPE_CODE[q.dtype],
-        torch.cuda.current_stream(dev).cuda_stream)
+        ptr(q), ptr(k_pages), ptr(v_pages), ptr(k_scale), ptr(v_scale),
+        ptr(k_new), ptr(v_new), ptr(block_tables), ptr(pos), ptr(out),
+        ptr(partial), ptr(lse), B, Q, Hq, Hkv, P, ps, nb, D, S, ppb,
+        int(verify), int(window), float(logit_cap), float(scale),
+        DTYPE_CODE[q.dtype], torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_attention_sweep: CUDA error {err}")
-    LAUNCHES["sweep_verify" if verify else "sweep_decode"] += 1
+    LAUNCHES[launch_key("sweep", verify, k_scale)] += 1
     return out if S == 1 else (partial, lse)
+
+
+def launch_key(kernel: str, verify: bool, k_scale) -> str:
+    """The ``LAUNCHES`` key of a paged (``sweep``) or ring (``ring``)
+    sweep launch: its mode, and ``_int8`` for the int8 template."""
+    key = f"{kernel}_{'verify' if verify else 'decode'}"
+    return key if k_scale is None else key + "_int8"
 
 
 _SMEM_MAX = 227 * 1024       # shared memory a block may use on Hopper
@@ -355,17 +401,22 @@ _SMEM_MAX = 227 * 1024       # shared memory a block may use on Hopper
 def ring_attention_sweep(q, k_cache, v_cache, pos, *, k_new=None, v_new=None,
                          n_splits: int = 1, block_k: int = 256,
                          window: int = 0, logit_cap: float = 0.0,
-                         scale: float | None = None):
-    """The ring sweep.  q (B, Q, Hq, D); ring caches (B, C, Hkv, D); pos
-    (1,) or (B,) int32 on the card (the position of q's first row);
-    optional in-flight candidates k_new / v_new (B, Q, Hkv, D) select the
-    verify mask.  ``block_k`` is the requested block (``ring_block_k``
-    adjusts it).  Output as :func:`ring_attention_sweep_torch`."""
+                         scale: float | None = None, k_scale=None,
+                         v_scale=None):
+    """The ring sweep.  q (B, Q, Hq, D); ring caches (B, C, Hkv, D), in
+    q's dtype, or int8 with per-row fp32 ``k_scale`` / ``v_scale`` (B, C,
+    Hkv, 1); pos (1,) or (B,) int32 on the card (the position of q's first
+    row); optional in-flight candidates k_new / v_new (B, Q, Hkv, D) in
+    q's dtype select the verify mask.  ``block_k`` is the requested block
+    (``ring_block_k`` adjusts it).  Output as
+    :func:`ring_attention_sweep_torch`."""
+    kv_dtype = _kv_storage("ring_attention_sweep", k_scale, v_scale, q.dtype)
     if q.device.type == "cpu":
         return ring_attention_sweep_torch(
             q, k_cache, v_cache, pos, k_new=k_new, v_new=v_new,
             n_splits=n_splits, block_k=block_k, window=window,
-            logit_cap=logit_cap, scale=scale)
+            logit_cap=logit_cap, scale=scale, k_scale=k_scale,
+            v_scale=v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"ring_attention_sweep: unsupported device "
                          f"{q.device}")
@@ -395,10 +446,15 @@ def ring_attention_sweep(q, k_cache, v_cache, pos, *, k_new=None, v_new=None,
     dev = q.device
     check("q", q, dtype=q.dtype, shape=(B, Q, Hq, D), device=dev,
           vector=True)
-    check("k_cache", k_cache, dtype=q.dtype, shape=(B, C, Hkv, D),
+    check("k_cache", k_cache, dtype=kv_dtype, shape=(B, C, Hkv, D),
           device=dev, vector=True)
-    check("v_cache", v_cache, dtype=q.dtype, shape=(B, C, Hkv, D),
+    check("v_cache", v_cache, dtype=kv_dtype, shape=(B, C, Hkv, D),
           device=dev, vector=True)
+    if k_scale is not None:
+        check("k_scale", k_scale, dtype=torch.float32, shape=(B, C, Hkv, 1),
+              device=dev)
+        check("v_scale", v_scale, dtype=torch.float32, shape=(B, C, Hkv, 1),
+              device=dev)
     if pos.numel() not in (1, B):
         raise ValueError(f"ring_attention_sweep: pos must hold 1 or {B} "
                          f"positions, got {tuple(pos.shape)}")
@@ -419,14 +475,14 @@ def ring_attention_sweep(q, k_cache, v_cache, pos, *, k_new=None, v_new=None,
                               device=dev)
         lse = torch.empty((B, Hq, S, Q), dtype=torch.float32, device=dev)
     err = build.library().ring_attention_sweep(
-        ptr(q), ptr(k_cache), ptr(v_cache), ptr(k_new), ptr(v_new),
-        ptr(pos), ptr(out), ptr(partial), ptr(lse), B, Q, Hq, Hkv, C, D,
-        bk, n_k, S, kpb, int(pos.numel() > 1), int(verify), int(window),
-        float(logit_cap), float(scale), DTYPE_CODE[q.dtype],
-        torch.cuda.current_stream(dev).cuda_stream)
+        ptr(q), ptr(k_cache), ptr(v_cache), ptr(k_scale), ptr(v_scale),
+        ptr(k_new), ptr(v_new), ptr(pos), ptr(out), ptr(partial), ptr(lse),
+        B, Q, Hq, Hkv, C, D, bk, n_k, S, kpb, int(pos.numel() > 1),
+        int(verify), int(window), float(logit_cap), float(scale),
+        DTYPE_CODE[q.dtype], torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ring_attention_sweep: CUDA error {err}")
-    LAUNCHES["ring_verify" if verify else "ring_decode"] += 1
+    LAUNCHES[launch_key("ring", verify, k_scale)] += 1
     return out if S == 1 else (partial, lse)
 
 
@@ -536,15 +592,18 @@ def mla_latent_sweep(q, pool, block_tables, pos, *, r_kv: int, pending=None,
 # ==========================================================================
 def paged_attention(q, k_pages, v_pages, block_tables, pos, *, k_new=None,
                     v_new=None, window: int = 0, logit_cap: float = 0.0,
-                    scale: float | None = None, n_splits: int = 1):
+                    scale: float | None = None, n_splits: int = 1,
+                    k_scale=None, v_scale=None):
     """Paged GQA attention on the kernels: K-sweep, then K-merge when it
     split.  Without candidates it is the single-token decode; with the
-    in-flight ``k_new`` / ``v_new`` it is the multi-query verify sweep.
+    in-flight ``k_new`` / ``v_new`` it is the multi-query verify sweep;
+    ``k_scale`` / ``v_scale`` select the int8 pools' template.
     -> (B, Q, Hq, Dv) in ``q.dtype``."""
     res = paged_attention_sweep(q, k_pages, v_pages, block_tables, pos,
                                 k_new=k_new, v_new=v_new, n_splits=n_splits,
                                 window=window, logit_cap=logit_cap,
-                                scale=scale)
+                                scale=scale, k_scale=k_scale,
+                                v_scale=v_scale)
     if isinstance(res, torch.Tensor):
         return res
     return lse_merge(*res, q.dtype).transpose(1, 2)
@@ -553,15 +612,17 @@ def paged_attention(q, k_pages, v_pages, block_tables, pos, *, k_new=None,
 def ring_attention(q, k_cache, v_cache, pos, *, k_new=None, v_new=None,
                    window: int = 0, logit_cap: float = 0.0,
                    scale: float | None = None, n_splits: int = 1,
-                   block_k: int = 256):
+                   block_k: int = 256, k_scale=None, v_scale=None):
     """GQA attention over the ring cache on the kernels: the ring sweep,
     then K-merge when it split.  Without candidates it is the single-token
     decode; with the in-flight ``k_new`` / ``v_new`` the multi-query verify
-    sweep.  -> (B, Q, Hq, Dv) in ``q.dtype``."""
+    sweep; ``k_scale`` / ``v_scale`` select the int8 caches' template.
+    -> (B, Q, Hq, Dv) in ``q.dtype``."""
     res = ring_attention_sweep(q, k_cache, v_cache, pos, k_new=k_new,
                                v_new=v_new, n_splits=n_splits,
                                block_k=block_k, window=window,
-                               logit_cap=logit_cap, scale=scale)
+                               logit_cap=logit_cap, scale=scale,
+                               k_scale=k_scale, v_scale=v_scale)
     if isinstance(res, torch.Tensor):
         return res
     return lse_merge(*res, q.dtype).transpose(1, 2)

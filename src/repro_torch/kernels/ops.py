@@ -43,6 +43,13 @@ Counterpart of ``repro.kernels.ops`` for the ops the port runs:
     ``mla_decode`` runs ``mla_absorbed_attend_torch``, plain torch, as the
     JAX package runs its jnp body there.
 
+The four paged and ring entries take ``k_scale`` / ``v_scale`` (per-row
+fp32, int8 caches) on every backend: ``ref`` dequantizes the whole cache
+up front, ``torch`` gathers the scale rows through the block tables (or
+reads the ring's in place) and dequantizes before the einsums, and
+``cuda`` launches the sweeps' int8 templates, which dequantize each row as
+it lands in shared memory.  In-flight candidates stay unquantized.
+
 Each plain version of a sweep has one role:
 
   * ``ref`` (``kernels/ref.py``): the fp32 oracle, whole-matrix softmax.
@@ -90,7 +97,7 @@ class KernelPolicy:
     ssd_chunk: int = 128
     decode_k_chunk: int = 256    # ring sweep block (divisor-of-C rule)
     kv_splits: str | int = "auto"  # two-stage split count: "auto" | int (1 = single-stage)
-    kv_dtype: str = "bfloat16"   # KV-pool storage; "int8" is the KV-tier slice
+    kv_dtype: str = "bfloat16"   # KV-pool storage: "bfloat16" | "int8" (per-row fp32 scales)
 
 
 DEFAULT_POLICY = KernelPolicy()
@@ -400,14 +407,24 @@ def _gather(pages, block_tables):
                                               *pages.shape[2:])
 
 
+def _gather_kv(pages, block_tables, scale):
+    """The pages in logical order, fp32; an int8 pool's scale rows are
+    gathered through the same tables and multiply in (the JAX ``jnp``
+    backend's dequant)."""
+    g = _gather(pages, block_tables).float()
+    return g if scale is None else g * _gather(scale, block_tables)
+
+
 def paged_verify_attention_torch(q, k_pages, v_pages, k_new, v_new,
                                  block_tables, pos, *, window: int = 0,
                                  logit_cap: float = 0.0,
                                  scale: float | None = None,
-                                 n_splits: int = 1):
+                                 n_splits: int = 1, k_scale=None,
+                                 v_scale=None):
     """Gather-then-attend paged multi-query sweep, mirror of the JAX
-    ``paged_verify_attention_jnp``: pool committed through ``pos[b] - 1``,
-    in-flight candidates causal within the fed block."""
+    ``paged_verify_attention_jnp``: pool committed through ``pos[b] - 1``
+    (dequantized when ``k_scale`` / ``v_scale`` are given), in-flight
+    candidates causal within the fed block."""
     B, Q, Hq, D = q.shape
     Hkv = k_pages.shape[2]
     nb, ps = block_tables.shape[1], k_pages.shape[1]
@@ -416,8 +433,8 @@ def paged_verify_attention_torch(q, k_pages, v_pages, k_new, v_new,
     if scale is None:
         scale = D ** -0.5
     dev = q.device
-    kg = _gather(k_pages, block_tables).float()
-    vg = _gather(v_pages, block_tables).float()
+    kg = _gather_kv(k_pages, block_tables, k_scale)
+    vg = _gather_kv(v_pages, block_tables, v_scale)
     qf = q.float().reshape(B, Q, Hkv, G, D)
     posb = pos.reshape(B, 1, 1).to(dev)
     q_pos = posb + torch.arange(Q, device=dev)[None, :, None]
@@ -447,9 +464,11 @@ def paged_verify_attention_torch(q, k_pages, v_pages, k_new, v_new,
 def paged_decode_attention_torch(q, k_pages, v_pages, block_tables, pos, *,
                                  window: int = 0, logit_cap: float = 0.0,
                                  scale: float | None = None,
-                                 n_splits: int = 1):
+                                 n_splits: int = 1, k_scale=None,
+                                 v_scale=None):
     """Gather-then-attend paged single-token decode, mirror of the JAX
-    ``paged_decode_attention_jnp``."""
+    ``paged_decode_attention_jnp`` (int8 pools dequantized after the
+    gather)."""
     B, _, Hq, D = q.shape
     Hkv = k_pages.shape[2]
     nb, ps = block_tables.shape[1], k_pages.shape[1]
@@ -458,8 +477,8 @@ def paged_decode_attention_torch(q, k_pages, v_pages, block_tables, pos, *,
     if scale is None:
         scale = D ** -0.5
     dev = q.device
-    kg = _gather(k_pages, block_tables).float()
-    vg = _gather(v_pages, block_tables).float()
+    kg = _gather_kv(k_pages, block_tables, k_scale)
+    vg = _gather_kv(v_pages, block_tables, v_scale)
     qf = q.float().reshape(B, Hkv, G, D)
     s = torch.einsum("bhgd,bkhd->bhgk", qf, kg) * scale
     if logit_cap > 0.0:
@@ -491,8 +510,8 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, pos, *,
                            v_scale=None,
                            policy: KernelPolicy = DEFAULT_POLICY):
     """Backend-dispatching paged decode attention (the continuous-batching
-    hot path).  The split-K block is the page size."""
-    _ref.no_int8(k_scale, v_scale, "pages")
+    hot path).  The split-K block is the page size.  ``k_scale`` /
+    ``v_scale`` (P, ps, Hkv, 1) fp32 flag int8 pools."""
     backend = _decode_backend(policy, q)
     ps, nb = k_pages.shape[1], block_tables.shape[1]
     n_splits = _resolve_kv_splits(policy, q.shape[0],
@@ -501,15 +520,18 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, pos, *,
     if backend == "cuda":
         return da.paged_attention(q, k_pages, v_pages, block_tables, pos,
                                   window=window, logit_cap=logit_cap,
-                                  scale=scale, n_splits=n_splits)
+                                  scale=scale, n_splits=n_splits,
+                                  k_scale=k_scale, v_scale=v_scale)
     if backend == "ref":
         return _ref.paged_decode_attention_ref(
             q, k_pages, v_pages, block_tables, pos, window=window,
-            logit_cap=logit_cap, scale=scale)
+            logit_cap=logit_cap, scale=scale, k_scale=k_scale,
+            v_scale=v_scale)
     if backend == "torch":
         return paged_decode_attention_torch(
             q, k_pages, v_pages, block_tables, pos, window=window,
-            logit_cap=logit_cap, scale=scale, n_splits=n_splits)
+            logit_cap=logit_cap, scale=scale, n_splits=n_splits,
+            k_scale=k_scale, v_scale=v_scale)
     raise ValueError(f"unknown decode backend {backend!r}")
 
 
@@ -531,14 +553,15 @@ def paged_verify_attention(q, k_pages, v_pages, k_new, v_new, block_tables,
                            policy: KernelPolicy = DEFAULT_POLICY):
     """Backend-dispatching multi-query attention over the paged KV cache:
     speculative verify and the prefix-hit suffix prefill share it.  Under
-    ``cuda`` the MLA latent form goes to the latent sweep."""
-    _ref.no_int8(k_scale, v_scale, "pages")
+    ``cuda`` the MLA latent form goes to the latent sweep.  ``k_scale`` /
+    ``v_scale`` flag int8 pools; the candidates stay unquantized."""
     backend = _decode_backend(policy, q)
     ps, nb = k_pages.shape[1], block_tables.shape[1]
     n_splits = _resolve_kv_splits(policy, q.shape[0],
                                   effective_kv_len(nb * ps, window),
                                   q.shape[2], block=ps, device=q.device)
-    if backend == "cuda" and _latent_form(k_pages, v_pages, k_new, v_new):
+    if backend == "cuda" and k_scale is None \
+            and _latent_form(k_pages, v_pages, k_new, v_new):
         if window > 0:
             raise ValueError("paged_verify_attention: the latent sweep has "
                              "no window")
@@ -552,16 +575,18 @@ def paged_verify_attention(q, k_pages, v_pages, k_new, v_new, block_tables,
         return da.paged_attention(q, k_pages, v_pages, block_tables, pos,
                                   k_new=k_new, v_new=v_new, window=window,
                                   logit_cap=logit_cap, scale=scale,
-                                  n_splits=n_splits)
+                                  n_splits=n_splits, k_scale=k_scale,
+                                  v_scale=v_scale)
     if backend == "ref":
         return _ref.paged_verify_attention_ref(
             q, k_pages, v_pages, k_new, v_new, block_tables, pos,
-            window=window, logit_cap=logit_cap, scale=scale)
+            window=window, logit_cap=logit_cap, scale=scale,
+            k_scale=k_scale, v_scale=v_scale)
     if backend == "torch":
         return paged_verify_attention_torch(
             q, k_pages, v_pages, k_new, v_new, block_tables, pos,
             window=window, logit_cap=logit_cap, scale=scale,
-            n_splits=n_splits)
+            n_splits=n_splits, k_scale=k_scale, v_scale=v_scale)
     raise ValueError(f"unknown decode backend {backend!r}")
 
 
@@ -658,6 +683,23 @@ def _warn_k_pos_fallback(entry: str) -> None:
         RuntimeWarning, stacklevel=4)
 
 
+_KV_DTYPE_FALLBACK_WARNED: set[str] = set()
+
+
+def warn_kv_dtype_fallback(family: str, reason: str) -> None:
+    """One warning per model family when ``kv_dtype=int8`` was asked for
+    but the family's cache cannot hold int8 pages (``reason`` names the
+    blocking feature); the engine then serves its cache dtype, as the JAX
+    package does."""
+    if family in _KV_DTYPE_FALLBACK_WARNED:
+        return
+    _KV_DTYPE_FALLBACK_WARNED.add(family)
+    warnings.warn(
+        f"kv_dtype=int8 requested for model family {family!r} but {reason}; "
+        "falling back to unquantized (bfloat16) KV pools for this engine",
+        RuntimeWarning, stacklevel=3)
+
+
 def ring_positions(pos, cache_len: int):
     """Absolute position held by each ring slot under the canonical layout
     (slot = p % C): ``pos - ((pos - s) mod C)``, negative for slots not yet
@@ -671,17 +713,21 @@ def ring_positions(pos, cache_len: int):
 
 def decode_attention_torch(q, k_cache, v_cache, k_pos, pos, *,
                            window: int = 0, logit_cap: float = 0.0,
-                           scale: float | None = None, n_splits: int = 1):
+                           scale: float | None = None, n_splits: int = 1,
+                           k_scale=None, v_scale=None):
     """Single-token decode against a ring cache, mirror of the JAX
     ``decode_attention_jnp``: ``k_pos`` (C,) or (B, C), ``pos`` () or
-    (B,); ``n_splits > 1`` runs the two-stage split-and-merge."""
+    (B,); ``n_splits > 1`` runs the two-stage split-and-merge; an int8
+    cache is dequantized by ``k_scale`` / ``v_scale`` first."""
     B, _, Hq, D = q.shape
     C, Hkv = k_cache.shape[1], k_cache.shape[2]
     G = Hq // Hkv
     if scale is None:
         scale = D ** -0.5
+    kf = _ref._dequant(k_cache, k_scale)
+    vf = _ref._dequant(v_cache, v_scale)
     qf = q.float().reshape(B, Hkv, G, D)
-    s = torch.einsum("bhgd,bkhd->bhgk", qf, k_cache.float()) * scale
+    s = torch.einsum("bhgd,bkhd->bhgk", qf, kf) * scale
     if logit_cap > 0.0:
         s = logit_cap * torch.tanh(s / logit_cap)
     k_posb = torch.as_tensor(k_pos, device=q.device).reshape(-1, C)
@@ -691,21 +737,21 @@ def decode_attention_torch(q, k_cache, v_cache, k_pos, pos, *,
         valid &= k_posb > posb - window
     s = torch.where(valid[:, None, None], s, NEG_INF)
     if n_splits > 1:
-        o = _split_attend_torch(s[:, :, :, None, :], v_cache,
-                                n_splits)[..., 0, :]
+        o = _split_attend_torch(s[:, :, :, None, :], vf, n_splits)[..., 0, :]
     else:
         p = torch.softmax(s, dim=-1)
-        o = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
+        o = torch.einsum("bhgk,bkhd->bhgd", p, vf)
     return o.reshape(B, 1, Hq, v_cache.shape[-1]).to(q.dtype)
 
 
 def verify_attention_torch(q, k_cache, v_cache, k_new, v_new, k_pos, pos, *,
                            window: int = 0, logit_cap: float = 0.0,
-                           scale: float | None = None, n_splits: int = 1):
+                           scale: float | None = None, n_splits: int = 1,
+                           k_scale=None, v_scale=None):
     """Speculative multi-query decode against a ring cache, mirror of the
     JAX ``verify_attention_jnp``: query i at ``pos + i`` sees the committed
-    cache (newer than ``pos + i - C``, the ring's eviction) and candidates
-    ``j <= i``."""
+    cache (newer than ``pos + i - C``, the ring's eviction; dequantized by
+    ``k_scale`` / ``v_scale`` for int8) and candidates ``j <= i``."""
     B, Q, Hq, D = q.shape
     C, Hkv = k_cache.shape[1], k_cache.shape[2]
     Dv = v_cache.shape[-1]
@@ -717,7 +763,8 @@ def verify_attention_torch(q, k_cache, v_cache, k_new, v_new, k_pos, pos, *,
     q_pos = torch.as_tensor(pos, device=dev).reshape(()) \
         + torch.arange(Q, device=dev)[:, None]                    # (Q, 1)
     kp = torch.as_tensor(k_pos, device=dev).reshape(1, C)
-    s_c = torch.einsum("bqhgd,bkhd->bhgqk", qf, k_cache.float())
+    s_c = torch.einsum("bqhgd,bkhd->bhgqk", qf,
+                       _ref._dequant(k_cache, k_scale))
     s_n = torch.einsum("bqhgd,bkhd->bhgqk", qf, k_new.float())
     s = torch.cat([s_c, s_n], dim=-1) * scale
     if logit_cap > 0.0:
@@ -730,7 +777,7 @@ def verify_attention_torch(q, k_cache, v_cache, k_new, v_new, k_pos, pos, *,
         valid_n &= n_pos > q_pos - window
     valid = torch.cat([valid_c, valid_n], dim=-1)                 # (Q, C+Q)
     s = torch.where(valid, s, NEG_INF)
-    vf = torch.cat([v_cache.float(), v_new.float()], dim=1)
+    vf = torch.cat([_ref._dequant(v_cache, v_scale), v_new.float()], dim=1)
     if n_splits > 1:
         o = _split_attend_torch(s, vf, n_splits).permute(0, 3, 1, 2, 4)
     else:
@@ -772,25 +819,28 @@ def decode_attention(q, k_cache, v_cache, pos, *, k_pos=None, window: int = 0,
                      policy: KernelPolicy = DEFAULT_POLICY):
     """Backend-dispatching single-token decode against the ring cache
     (B, C, Hkv, D); ``pos`` () or (B,) is the position of q, already
-    written at slot ``pos % C``."""
-    _ref.no_int8(k_scale, v_scale)
+    written at slot ``pos % C``; ``k_scale`` / ``v_scale`` (B, C, Hkv, 1)
+    fp32 flag an int8 cache."""
     backend = _ring_backend(policy, q, k_pos, "decode_attention")
     n_splits = _ring_splits(policy, q, k_cache, window)
     if backend == "cuda":
         return da.ring_attention(q, k_cache, v_cache, _pos_arg(pos, q.device),
                                  window=window, logit_cap=logit_cap,
                                  scale=scale, n_splits=n_splits,
-                                 block_k=policy.decode_k_chunk)
+                                 block_k=policy.decode_k_chunk,
+                                 k_scale=k_scale, v_scale=v_scale)
     if k_pos is None:
         k_pos = ring_positions(pos, k_cache.shape[1])
     if backend == "ref":
         return _ref.decode_attention_ref(q, k_cache, v_cache, k_pos, pos,
                                          window=window, logit_cap=logit_cap,
-                                         scale=scale)
+                                         scale=scale, k_scale=k_scale,
+                                         v_scale=v_scale)
     if backend == "torch":
         return decode_attention_torch(q, k_cache, v_cache, k_pos, pos,
                                       window=window, logit_cap=logit_cap,
-                                      scale=scale, n_splits=n_splits)
+                                      scale=scale, n_splits=n_splits,
+                                      k_scale=k_scale, v_scale=v_scale)
     raise ValueError(f"unknown decode backend {backend!r}")
 
 
@@ -801,8 +851,8 @@ def verify_attention(q, k_cache, v_cache, k_new, v_new, pos, *, k_pos=None,
     """Backend-dispatching speculative verify against the ring cache,
     committed through ``pos - 1``: ``Q = K+1`` queries at ``pos ..
     pos+K`` in one sweep, the in-flight candidates ``k_new`` / ``v_new``
-    (B, Q, Hkv, D) folded causally, nothing written."""
-    _ref.no_int8(k_scale, v_scale)
+    (B, Q, Hkv, D) folded causally (never quantized), nothing written;
+    ``k_scale`` / ``v_scale`` flag an int8 cache."""
     backend = _ring_backend(policy, q, k_pos, "verify_attention")
     n_splits = _ring_splits(policy, q, k_cache, window)
     if backend == "cuda":
@@ -810,16 +860,19 @@ def verify_attention(q, k_cache, v_cache, k_new, v_new, pos, *, k_pos=None,
                                  k_new=k_new, v_new=v_new, window=window,
                                  logit_cap=logit_cap, scale=scale,
                                  n_splits=n_splits,
-                                 block_k=policy.decode_k_chunk)
+                                 block_k=policy.decode_k_chunk,
+                                 k_scale=k_scale, v_scale=v_scale)
     if k_pos is None:
         # the committed prefix ends at pos - 1: that is the ring reference
         k_pos = ring_positions(torch.as_tensor(pos) - 1, k_cache.shape[1])
     if backend == "ref":
         return _ref.verify_attention_ref(
             q, k_cache, v_cache, k_new, v_new, k_pos, pos, window=window,
-            logit_cap=logit_cap, scale=scale)
+            logit_cap=logit_cap, scale=scale, k_scale=k_scale,
+            v_scale=v_scale)
     if backend == "torch":
         return verify_attention_torch(
             q, k_cache, v_cache, k_new, v_new, k_pos, pos, window=window,
-            logit_cap=logit_cap, scale=scale, n_splits=n_splits)
+            logit_cap=logit_cap, scale=scale, n_splits=n_splits,
+            k_scale=k_scale, v_scale=v_scale)
     raise ValueError(f"unknown decode backend {backend!r}")

@@ -7,8 +7,10 @@ Counterparts of ``repro.kernels.ref``'s ``attention_ref``,
 ``paged_decode_attention_split_ref``, ``paged_verify_attention_ref``,
 ``paged_decode_attention_ref``, ``mla_decode_paged_ref``,
 ``mla_decode_split_ref``, ``ssd_ref`` and ``rmsnorm_ref`` (same shapes,
-layouts and masks), for bf16 and fp32 caches.  The int8 (scaled) forms belong to
-the KV-tier slice: a scale raises by name (:func:`no_int8`).
+layouts and masks), for bf16 and fp32 caches, and with ``k_scale`` /
+``v_scale`` the QUANTIZED oracles of int8 caches: the whole cache is
+dequantized up front (:func:`_dequant`) and the unquantized body runs.
+In-flight candidates stay unquantized, as in JAX.
 """
 from __future__ import annotations
 
@@ -17,11 +19,12 @@ import torch
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
 
-def no_int8(k_scale, v_scale, what: str = "caches") -> None:
-    """int8 KV storage (per-row fp32 scales) is the KV-tier slice."""
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(f"int8 KV {what}: KV-tier slice, not "
-                                  "ported")
+def _dequant(cache, scale) -> torch.Tensor:
+    """Whole-cache dequant for the quantized oracles: ``cache`` in fp32,
+    times the (..., 1) per-row ``scale`` (broadcast over head_dim) when
+    one is given."""
+    cf = cache.float()
+    return cf if scale is None else cf * scale
 
 
 def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
@@ -55,13 +58,14 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     return o.reshape(B, Sq, Hq, Dv).to(q.dtype)
 
 
-def _ring_scores(q, k_cache, k_pos, pos, *, window, logit_cap, scale):
-    """Masked single-token scores (B, Hkv, G, C) against a ring cache with
-    explicit slot positions ``k_pos`` (C,) or (B, C); ``pos`` () or (B,)."""
+def _ring_scores(q, kf, k_pos, pos, *, window, logit_cap, scale):
+    """Masked single-token scores (B, Hkv, G, C) against a (dequantized)
+    fp32 ring cache with explicit slot positions ``k_pos`` (C,) or (B, C);
+    ``pos`` () or (B,)."""
     B, _, Hq, D = q.shape
-    C, Hkv = k_cache.shape[1], k_cache.shape[2]
+    C, Hkv = kf.shape[1], kf.shape[2]
     qf = q.float().reshape(B, Hkv, Hq // Hkv, D)
-    s = torch.einsum("bhgd,bkhd->bhgk", qf, k_cache.float()) * scale
+    s = torch.einsum("bhgd,bkhd->bhgk", qf, kf) * scale
     if logit_cap > 0.0:
         s = logit_cap * torch.tanh(s / logit_cap)
     k_posb = torch.as_tensor(k_pos, device=q.device).reshape(-1, C)
@@ -76,15 +80,15 @@ def decode_attention_ref(q, k_cache, v_cache, k_pos, pos, *, window: int = 0,
                          logit_cap: float = 0.0, scale: float | None = None,
                          k_scale=None, v_scale=None) -> torch.Tensor:
     """Naive ring decode oracle: whole-cache fp32 math, explicit slot
-    positions.  q (B, 1, Hq, D), caches (B, C, Hkv, D) -> (B, 1, Hq, Dv)."""
-    no_int8(k_scale, v_scale)
+    positions.  q (B, 1, Hq, D), caches (B, C, Hkv, D) -> (B, 1, Hq, Dv);
+    with ``k_scale`` / ``v_scale`` (B, C, Hkv, 1) the quantized oracle."""
     B, _, Hq, D = q.shape
     if scale is None:
         scale = D ** -0.5
-    s = _ring_scores(q, k_cache, k_pos, pos, window=window,
-                     logit_cap=logit_cap, scale=scale)
+    s = _ring_scores(q, _dequant(k_cache, k_scale), k_pos, pos,
+                     window=window, logit_cap=logit_cap, scale=scale)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
+    o = torch.einsum("bhgk,bkhd->bhgd", p, _dequant(v_cache, v_scale))
     return o.reshape(B, 1, Hq, v_cache.shape[-1]).to(q.dtype)
 
 
@@ -97,16 +101,16 @@ def decode_attention_split_ref(q, k_cache, v_cache, k_pos, pos, *,
     k-block partitioning (the divisor-of-C ``block_k`` rule), whole-cache
     fp32 math per split.  -> ``(partial (B, Hq, S, 1, Dv), lse (B, Hq, S,
     1))``."""
-    no_int8(k_scale, v_scale)
     C = k_cache.shape[1]
     if scale is None:
         scale = q.shape[-1] ** -0.5
     block_k = min(block_k, C)
     if C % block_k:
         block_k = next(b for b in range(block_k, 0, -1) if C % b == 0)
-    s = _ring_scores(q, k_cache, k_pos, pos, window=window,
-                     logit_cap=logit_cap, scale=scale)
-    return _split_partials(s, v_cache, n_units=C // block_k, unit=block_k,
+    s = _ring_scores(q, _dequant(k_cache, k_scale), k_pos, pos,
+                     window=window, logit_cap=logit_cap, scale=scale)
+    return _split_partials(s, _dequant(v_cache, v_scale),
+                           n_units=C // block_k, unit=block_k,
                            n_splits=n_splits)
 
 
@@ -119,7 +123,6 @@ def verify_attention_ref(q, k_cache, v_cache, k_new, v_new, k_pos, pos, *,
     ``pos + i``, and newer than ``pos + i - C``: the sequential loop would
     have overwritten older slots) plus candidates ``j <= i``.
     -> (B, Q, Hq, Dv)."""
-    no_int8(k_scale, v_scale)
     B, Q, Hq, D = q.shape
     C, Hkv = k_cache.shape[1], k_cache.shape[2]
     Dv = v_cache.shape[-1]
@@ -131,7 +134,8 @@ def verify_attention_ref(q, k_cache, v_cache, k_new, v_new, k_pos, pos, *,
     q_pos = torch.as_tensor(pos, device=dev).reshape(()) \
         + torch.arange(Q, device=dev)[:, None]                    # (Q, 1)
     kp = torch.as_tensor(k_pos, device=dev).reshape(1, C)
-    s_c = torch.einsum("bqhgd,bkhd->bhgqk", qf, k_cache.float()) * scale
+    s_c = torch.einsum("bqhgd,bkhd->bhgqk", qf,
+                       _dequant(k_cache, k_scale)) * scale
     valid_c = (kp >= 0) & (kp <= q_pos) & (kp > q_pos - C)
     if window > 0:
         valid_c &= kp > q_pos - window
@@ -146,7 +150,7 @@ def verify_attention_ref(q, k_cache, v_cache, k_new, v_new, k_pos, pos, *,
     valid = torch.cat([valid_c, valid_n], dim=-1)                 # (Q, C+Q)
     s = torch.where(valid, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    vf = torch.cat([v_cache.float(), v_new.float()], dim=1)
+    vf = torch.cat([_dequant(v_cache, v_scale), v_new.float()], dim=1)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, vf)
     return o.reshape(B, Q, Hq, Dv).to(q.dtype)
 
@@ -161,12 +165,13 @@ def merge_kv_splits_ref(partial, lse) -> torch.Tensor:
     return acc / den[..., None]
 
 
-def _gather_pages(pages, block_tables):
+def _gather_pages(pages, block_tables, scale=None):
     """(P, ps, Hkv, D) pool + (B, nb) table -> (B, nb*ps, Hkv, D) fp32 in
-    logical order."""
+    logical order, dequantized by the (P, ps, Hkv, 1) ``scale`` when one
+    is given."""
     B, nb = block_tables.shape
     ps = pages.shape[1]
-    g = pages.float()[block_tables.long()]
+    g = _dequant(pages, scale)[block_tables.long()]
     return g.reshape(B, nb * ps, *pages.shape[2:])
 
 
@@ -222,13 +227,14 @@ def _decode_scores(q, kg, pos, *, window, logit_cap, scale):
 def paged_decode_attention_split_ref(q, k_pages, v_pages, block_tables, pos,
                                      *, n_splits: int, window: int = 0,
                                      logit_cap: float = 0.0,
-                                     scale: float | None = None):
+                                     scale: float | None = None,
+                                     k_scale=None, v_scale=None):
     """Stage-1 oracle for the split paged decode sweep: pages gathered into
-    logical order, split over pages."""
+    logical order (dequantized for int8 pools), split over pages."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    kg = _gather_pages(k_pages, block_tables)
-    vg = _gather_pages(v_pages, block_tables)
+    kg = _gather_pages(k_pages, block_tables, k_scale)
+    vg = _gather_pages(v_pages, block_tables, v_scale)
     s = _decode_scores(q, kg, pos, window=window, logit_cap=logit_cap,
                        scale=scale)
     return _split_partials(s, vg, n_units=block_tables.shape[1],
@@ -238,10 +244,12 @@ def paged_decode_attention_split_ref(q, k_pages, v_pages, block_tables, pos,
 def paged_verify_attention_ref(q, k_pages, v_pages, k_new, v_new,
                                block_tables, pos, *, window: int = 0,
                                logit_cap: float = 0.0,
-                               scale: float | None = None) -> torch.Tensor:
+                               scale: float | None = None, k_scale=None,
+                               v_scale=None) -> torch.Tensor:
     """Paged multi-query oracle: the pool is committed through
     ``pos[b] - 1``; query i (position ``pos[b] + i``) also sees in-flight
-    candidates ``j <= i``.  -> (B, Q, Hq, Dv)."""
+    candidates ``j <= i``; ``k_scale`` / ``v_scale`` dequantize an int8
+    pool up front.  -> (B, Q, Hq, Dv)."""
     B, Q, Hq, D = q.shape
     Hkv = k_pages.shape[2]
     Dv = v_pages.shape[-1]
@@ -249,8 +257,8 @@ def paged_verify_attention_ref(q, k_pages, v_pages, k_new, v_new,
     if scale is None:
         scale = D ** -0.5
     dev = q.device
-    kg = _gather_pages(k_pages, block_tables)
-    vg = _gather_pages(v_pages, block_tables)
+    kg = _gather_pages(k_pages, block_tables, k_scale)
+    vg = _gather_pages(v_pages, block_tables, v_scale)
     K = kg.shape[1]
     qf = q.float().reshape(B, Q, Hkv, G, D)
     posb = pos.reshape(B, 1, 1).to(dev)
@@ -279,14 +287,16 @@ def paged_verify_attention_ref(q, k_pages, v_pages, k_new, v_new,
 
 def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, pos, *,
                                window: int = 0, logit_cap: float = 0.0,
-                               scale: float | None = None) -> torch.Tensor:
+                               scale: float | None = None, k_scale=None,
+                               v_scale=None) -> torch.Tensor:
     """Naive paged decode oracle: gather each request's pages into logical
-    order, then whole-cache fp32 math.  -> (B, 1, Hq, Dv)."""
+    order (dequantized for int8 pools), then whole-cache fp32 math.
+    -> (B, 1, Hq, Dv)."""
     B, _, Hq, D = q.shape
     if scale is None:
         scale = D ** -0.5
-    kg = _gather_pages(k_pages, block_tables)
-    vg = _gather_pages(v_pages, block_tables)
+    kg = _gather_pages(k_pages, block_tables, k_scale)
+    vg = _gather_pages(v_pages, block_tables, v_scale)
     s = _decode_scores(q, kg, pos, window=window, logit_cap=logit_cap,
                        scale=scale)
     p = torch.softmax(s, dim=-1)

@@ -17,6 +17,11 @@ plus ``--device``.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
         --traffic poisson --requests 8 --n-slots 4
 
+    # int8 KV pages with the host-memory tier under a tight page pool
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
+        --traffic poisson --shared-prefix-len 32 --prompt-pools 2 \
+        --kv-dtype int8 --host-tier --n-pages 10
+
     # at smoke size on the CPU (plain torch paths, no kernels)
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
         --smoke --device cpu
@@ -38,14 +43,21 @@ the model's blockers decide: gemma2's windowed layers allow it on the
 batch path and refuse it in the engine (``local_global``); mamba2's
 recurrent state refuses it in both (``uses_ssm``).
 
+``--kv-dtype int8`` stores the engine's KV pages as int8 rows with per-row
+fp32 scales (a family blocked by ``int8_paged_blockers`` warns once and
+keeps its cache dtype, as in JAX); ``--host-tier`` pages cold prefix pages
+out to host memory (``--host-pages`` of them) and back on a hit, each
+direction charged at ``--transfer-j-per-byte``.  With the FROST plane on,
+a page is paged out only when its round trip costs less than recomputing
+its rows, priced from the plane's device model.
+
 FROST (unless ``--no-frost``): every chunk emits one ``StepDone`` +
 ``PowerSampled`` with the measured wall time and useful tokens; the
 ``OnlineCapProfiler`` amortises probes over the live stream against the
 analytic H100 SXM device model, and J/token charges useful tokens only.
 
-Not ported yet, each exits non-zero naming its ROADMAP.md item:
-``--kv-dtype int8`` and ``--host-tier`` (KV tiers), ``--chaos`` and
-``--snapshot-dir`` (chaos and snapshots).
+Not ported yet, and exiting non-zero naming its ROADMAP.md item:
+``--chaos`` and ``--snapshot-dir`` (chaos and snapshots).
 """
 from __future__ import annotations
 
@@ -304,6 +316,13 @@ def run_engine(args, cfg, step_cfg, params, frost: FrostPlane | None,
     Prints the JAX launcher's ``[serve]`` lines; returns the report."""
     greedy = args.temperature <= 0.0
     max_len = args.shared_prefix_len + args.prompt_len + args.gen
+    recompute_j = None
+    if args.host_tier and frost is not None:
+        # a page's recompute priced at the analytic one-sequence sweep
+        # cost per token at full power: the demote-or-drop rule compares
+        # the page's D2H + H2D round trip against re-prefilling its rows
+        recompute_j = frost.device.estimate(
+            decode_workload(cfg, 1), 1.0).energy_j
     ecfg = EngineConfig(n_slots=args.n_slots, page_size=args.page_size,
                         max_len=max_len, decode_chunk=max(1, args.decode_chunk),
                         n_pages=args.n_pages, greedy=greedy,
@@ -315,7 +334,11 @@ def run_engine(args, cfg, step_cfg, params, frost: FrostPlane | None,
                         max_skip=max(0, args.max_skip),
                         kv_splits=_parse_kv_splits(args.kv_splits),
                         decode_k_chunk=max(1, args.decode_k_chunk),
-                        spec_k=max(0, args.spec_k), drafter=args.drafter)
+                        spec_k=max(0, args.spec_k), drafter=args.drafter,
+                        kv_dtype=args.kv_dtype, host_tier=args.host_tier,
+                        host_pages=args.host_pages,
+                        transfer_j_per_byte=args.transfer_j_per_byte,
+                        recompute_j_per_token=recompute_j)
     # effective tokens per slot-step: 1.0 plain; under speculation a
     # running estimate (accepted + bonus per sweep), so that admission
     # prices occupancy at the throughput actually delivered
@@ -396,6 +419,10 @@ def run_engine(args, cfg, step_cfg, params, frost: FrostPlane | None,
               f"{rep.prompt_tokens} prompt tokens restored "
               f"({rep.prefill_tokens_saved} saved), "
               f"{rep.n_preemptions} preemptions{j_avoid}")
+    if ecfg.host_tier:
+        print(f"[serve] kv tier: {engine.kv_dtype} pages, "
+              f"{rep.n_demotions} paged out / {rep.n_promotions} paged in, "
+              f"transfer {rep.transfer_j:.3g} J (in the J/token ledger)")
     print(f"[serve] latency p50 {lat[50]:.0f} / p95 {lat[95]:.0f} steps; "
           f"queue wait mean {np.mean(waits):.1f} steps"
           if waits else "[serve] nothing admitted")
@@ -445,11 +472,15 @@ def build_parser() -> argparse.ArgumentParser:
                          "smaller pools exercise preemption/requeue)")
     ap.add_argument("--kv-dtype", choices=("bfloat16", "int8"),
                     default="bfloat16",
-                    help="KV page storage (int8: not ported yet)")
+                    help="KV page storage (int8: per-row fp32 scales, "
+                         "dequantized inside the attention sweeps)")
     ap.add_argument("--host-tier", action="store_true",
-                    help="host-memory KV tier (not ported yet)")
-    ap.add_argument("--host-pages", type=int, default=None)
-    ap.add_argument("--transfer-j-per-byte", type=float, default=1e-9)
+                    help="page cold prefix pages out to host memory and "
+                         "back on a prefix hit")
+    ap.add_argument("--host-pages", type=int, default=None,
+                    help="host-tier capacity in pages (default: unbounded)")
+    ap.add_argument("--transfer-j-per-byte", type=float, default=1e-9,
+                    help="modelled J per byte of each page-out / page-in")
     ap.add_argument("--shared-prefix-len", type=int, default=0,
                     help=">0: every prompt = pooled shared head of this "
                          "length + unique suffix")
@@ -492,12 +523,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args) -> None:
-    if args.kv_dtype == "int8" or args.host_tier:
-        raise NotPorted("--kv-dtype int8 / --host-tier (KV tiers)",
-                        "queue 2, item 1")
     if args.chaos or args.snapshot_dir:
         raise NotPorted("--chaos / --snapshot-dir (chaos and snapshots)",
-                        "queue 2, item 2")
+                        "queue 1, item 4")
 
 
 def run(argv=None):

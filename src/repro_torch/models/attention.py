@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import quant
 from repro_torch.kernels import ops
 from repro_torch.models import common
 from repro_torch.models.config import ModelConfig
@@ -160,23 +161,38 @@ def gqa_decode_paged(params, x, pos, cache_kv, block_tables,
 
     The new k/v row goes to physical row ``block_tables[b, pos[b] // ps]
     * ps + pos[b] % ps`` of the flattened pools, in place; slots parked on
-    their scratch page overwrite that scratch harmlessly."""
-    k_pages, v_pages = cache_kv
+    their scratch page overwrite that scratch harmlessly.
+
+    ``cache_kv`` may be the 4-tuple ``(k_pages, v_pages, k_scales,
+    v_scales)`` of int8 pools with per-row fp32 scales (P, ps, Hkv, 1):
+    the new row is quantized per kv-head row, its scale written at the
+    same physical row, and the scales ride into the sweep for its fused
+    dequant.  Returns the cache in the arity it came."""
+    k_pages, v_pages = cache_kv[:2]
     P, ps = k_pages.shape[0], k_pages.shape[1]
     q, k, v = _qkv(params, x, pos[:, None], cfg)
     page = torch.gather(block_tables, 1,
                         (pos // ps)[:, None].long())[:, 0].long()
     row = page * ps + (pos % ps).long()                    # (B,)
+    k_row, v_row = k[:, 0], v[:, 0]                        # (B, Hkv, hd)
+    k_scales = v_scales = None
+    if len(cache_kv) == 4:
+        k_scales, v_scales = cache_kv[2:]
+        k_row, ks_row = quant.quantize_int8_rows(k_row)
+        v_row, vs_row = quant.quantize_int8_rows(v_row)
+        k_scales.view(P * ps, *k_scales.shape[2:]).index_copy_(0, row, ks_row)
+        v_scales.view(P * ps, *v_scales.shape[2:]).index_copy_(0, row, vs_row)
     k_pages.view(P * ps, *k_pages.shape[2:]).index_copy_(
-        0, row, k[:, 0].to(k_pages.dtype))
+        0, row, k_row.to(k_pages.dtype))
     v_pages.view(P * ps, *v_pages.shape[2:]).index_copy_(
-        0, row, v[:, 0].to(v_pages.dtype))
+        0, row, v_row.to(v_pages.dtype))
     o = ops.paged_decode_attention(q, k_pages, v_pages, block_tables, pos,
                                    window=window,
                                    logit_cap=cfg.attn_logit_softcap,
-                                   scale=_scale(cfg), policy=policy)
+                                   scale=_scale(cfg), policy=policy,
+                                   k_scale=k_scales, v_scale=v_scales)
     o = _mask_padded_heads(o, cfg)
-    return _out_proj(o, params["wo"]), (k_pages, v_pages)
+    return _out_proj(o, params["wo"]), cache_kv
 
 
 def gqa_verify_paged(params, x, pos, cache_kv, block_tables,
@@ -186,15 +202,33 @@ def gqa_verify_paged(params, x, pos, cache_kv, block_tables,
     of the pools (committed through ``pos[b] - 1``).  Nothing is written:
     the block's own (k, v) (B, Q, Hkv, hd) come back as pending rows for
     ``commit_spec_paged``.  Behind both speculative verify and the
-    prefix-hit suffix prefill."""
-    k_pages, v_pages = cache_kv
+    prefix-hit suffix prefill.
+
+    ``cache_kv`` may be the int8 4-tuple (see :func:`gqa_decode_paged`);
+    its scales are read only.  The sweep then sees the candidates at cache
+    precision: they go through the row quantizer and back (the pair the
+    commit will write), since a decode step reads its own row dequantized,
+    and a chunk boundary must not change the logits.  They stay in the
+    activation dtype, as the kernels take them; the pending rows returned
+    are the raw ones."""
+    k_pages, v_pages = cache_kv[:2]
+    k_scales = v_scales = None
+    if len(cache_kv) == 4:
+        k_scales, v_scales = cache_kv[2:]
     Q = x.shape[1]
     posq = pos[:, None] + torch.arange(Q, device=pos.device)[None, :]
     q, k, v = _qkv(params, x, posq, cfg)
-    o = ops.paged_verify_attention(q, k_pages, v_pages, k, v, block_tables,
-                                   pos, window=window,
+    k_sweep, v_sweep = k, v
+    if k_scales is not None:
+        k_sweep = quant.dequantize_int8_rows(
+            *quant.quantize_int8_rows(k)).to(k.dtype)
+        v_sweep = quant.dequantize_int8_rows(
+            *quant.quantize_int8_rows(v)).to(v.dtype)
+    o = ops.paged_verify_attention(q, k_pages, v_pages, k_sweep, v_sweep,
+                                   block_tables, pos, window=window,
                                    logit_cap=cfg.attn_logit_softcap,
-                                   scale=_scale(cfg), policy=policy)
+                                   scale=_scale(cfg), policy=policy,
+                                   k_scale=k_scales, v_scale=v_scales)
     o = _mask_padded_heads(o, cfg)
     return _out_proj(o, params["wo"]), (k, v)
 

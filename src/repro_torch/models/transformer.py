@@ -46,6 +46,7 @@ import dataclasses
 
 import torch
 
+from repro_torch import quant
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models import common, ssm
@@ -113,17 +114,17 @@ def chunked_prefill_blockers(cfg: ModelConfig) -> tuple[str, ...]:
 
 
 def int8_paged_blockers(cfg: ModelConfig) -> tuple[str, ...]:
-    """The JAX package's features blocking int8 KV pages (the per-row
-    scales pair with full-length page pools), then the KV-tier slice
-    itself, which blocks every config of this port so far."""
+    """Features blocking the int8 paged storage mode (the JAX package's
+    list): the per-row scale leaves pair with full-length k/v page pools,
+    which SSM state slots, latent (MLA) pools, private windowed rings and
+    the hybrid shared buffer do not carry."""
     checks = (("uses_ssm", cfg.uses_ssm), ("use_mla", cfg.use_mla),
               ("sliding_window", bool(cfg.sliding_window)),
               ("local_global", cfg.local_global),
               ("first_dense_layers", bool(cfg.first_dense_layers)),
               ("hybrid_attn_every",
                cfg.family == "hybrid" and bool(cfg.hybrid_attn_every)))
-    return tuple(name for name, on in checks if on) + (
-        "kv_dtype=int8 (KV-tier slice, not ported)",)
+    return tuple(name for name, on in checks if on)
 
 
 def speculative_blockers(cfg: ModelConfig) -> tuple[str, ...]:
@@ -369,7 +370,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     capacity ``max_len``.  The hybrid branch raises by name."""
     _require_ported(cfg)
     if dtype == "int8":
-        raise NotImplementedError("int8 KV caches: KV-tier slice")
+        # the JAX ring would cast to int8 without scales; int8 KV is the
+        # paged engine's storage mode (init_paged_cache)
+        raise NotImplementedError("int8 ring KV caches: no scale leaves; "
+                                  "int8 KV pages are the paged engine's")
     adt = common.dt(dtype)
     hd, hkv = cfg.resolved_head_dim, cfg.padded_kv_heads
     R = cfg.kv_lora_rank + cfg.rope_head_dim
@@ -421,13 +425,20 @@ def _block_decode(blk, x, pos, c, cfg: ModelConfig, ctx: RunCtx, *,
         a, _ = attn.gqa_decode_ragged(blk["attn"], h, pos, ring, cfg,
                                       window=window, policy=pol)
     elif block_tables is not None:
-        a, _ = attn.gqa_decode_paged(blk["attn"], h, pos, (c["k"], c["v"]),
+        a, _ = attn.gqa_decode_paged(blk["attn"], h, pos, _kv_leaves(c),
                                      block_tables, cfg, window=window,
                                      policy=pol)
     else:
         a, _ = attn.gqa_decode(blk["attn"], h, pos, (c["k"], c["v"]), cfg,
                                window=window, policy=pol)
     return _ffn(blk, x, a, cfg, ctx)
+
+
+def _kv_leaves(c) -> tuple:
+    """A paged sub's (k, v) pools, with their scale leaves for int8."""
+    if "k_scale" in c:
+        return c["k"], c["v"], c["k_scale"], c["v_scale"]
+    return c["k"], c["v"]
 
 
 def _group_layer(group, l: int) -> dict:
@@ -507,11 +518,22 @@ def init_paged_cache(cfg: ModelConfig, n_slots: int, n_pages: int,
     no table.  An MLA sub holds ONE latent pool (n_units, n_pages,
     page_size, R) on the block tables, a single row per token shared by
     every head; the first dense layers a stacked group ``"dense"``
-    (n_dense, n_pages, page_size, ...) on the same page ids."""
+    (n_dense, n_pages, page_size, ...) on the same page ids.
+
+    ``dtype="int8"`` selects the quantized storage mode: int8 k/v pools
+    plus per-row, per-kv-head fp32 scale leaves ``k_scale`` / ``v_scale``
+    (n_units, n_pages, page_size, Hkv, 1).  Rows are quantized once, when
+    they are written, and never rescale; the seams downstream tell the
+    mode by ``"k_scale" in`` a sub.  A config with int8 blockers raises
+    naming the first."""
     _require_ported(cfg)
-    if dtype == "int8":
-        raise NotImplementedError("int8 KV pages: KV-tier slice")
-    adt = common.dt(dtype)
+    quantized = dtype == "int8"
+    if quantized:
+        i8_block = int8_paged_blockers(cfg)
+        if i8_block:
+            raise ValueError(f"{cfg.name}: int8 paged cache blocked by "
+                             f"{i8_block[0]}")
+    adt = torch.int8 if quantized else common.dt(dtype)
     hd = cfg.resolved_head_dim
     nu = n_units(cfg)
     hkv = cfg.padded_kv_heads
@@ -532,6 +554,11 @@ def init_paged_cache(cfg: ModelConfig, n_slots: int, n_pages: int,
         w = 0 if cfg.use_mla else cfg.window_for_layer(i)
         n = n_slots * -(-min(max_len, w) // page_size) if w > 0 else n_pages
         units[f"sub{i}"] = pools((nu, n, page_size))
+        if quantized:
+            for key in ("k_scale", "v_scale"):
+                units[f"sub{i}"][key] = torch.zeros(
+                    (nu, n_pages, page_size, hkv, 1), dtype=torch.float32,
+                    device=device)
     cache = {"pos": torch.zeros((n_slots,), dtype=torch.int32,
                                 device=device),
              "block_tables": torch.zeros((n_slots, max_blocks),
@@ -588,7 +615,7 @@ def _block_verify(blk, x, pos, c, cfg: ModelConfig, ctx: RunCtx, *,
         pend = {"lat": lat}
     elif block_tables is not None:
         a, (k, v) = attn.gqa_verify_paged(blk["attn"], h, pos,
-                                          (c["k"], c["v"]), block_tables,
+                                          _kv_leaves(c), block_tables,
                                           cfg, window=window, policy=pol)
         pend = {"k": k, "v": v}
     else:
@@ -649,7 +676,9 @@ def verify_step(params, cache, tokens, cfg: ModelConfig,
 
 def _commit_group(c, pend, pos, bt, n_accept, active) -> None:
     """Scatter rows ``0..n_accept[b]`` of each active slot's pending rows
-    through its block table into one stacked pool group, in place."""
+    through its block table into one stacked pool group, in place.  An
+    int8 group quantizes its k/v rows here and writes each row's scale
+    through the same index."""
     keys = [key for key in ("k", "v", "lat") if key in c]
     ng, P, ps = c[keys[0]].shape[:3]
     nb = bt.shape[1]
@@ -660,10 +689,17 @@ def _commit_group(c, pend, pos, bt, n_accept, active) -> None:
     row = page * ps + posq % ps
     ok = (i <= n_accept[:, None]) & (active[:, None] > 0)
     rows = row[ok]
-    for key in keys:
-        pool = c[key]
+
+    def scatter(pool, vals):
         flat = pool.view(ng, P * ps, *pool.shape[3:])
-        flat.index_copy_(1, rows, pend[key][:, ok].to(pool.dtype))
+        flat.index_copy_(1, rows, vals.to(pool.dtype))
+
+    for key in keys:
+        vals = pend[key][:, ok]
+        if key + "_scale" in c:
+            vals, scales = quant.quantize_int8_rows(vals)
+            scatter(c[key + "_scale"], scales)
+        scatter(c[key], vals)
 
 
 def commit_spec_paged(cache, pending, n_accept, active, cfg: ModelConfig):
@@ -671,7 +707,9 @@ def commit_spec_paged(cache, pending, n_accept, active, cfg: ModelConfig):
     k/v (or latent) rows scatter through its block table into the shared
     pools (in place), the first dense layers' into ``cache["dense"]`` on
     the same page ids; rejected or inactive rows are dropped, and ``pos``
-    advances by ``n_accept + 1`` on active slots only.  bf16/fp32 pools."""
+    advances by ``n_accept + 1`` on active slots only.  int8 pools
+    quantize the accepted rows per row at commit, their scales written
+    beside them."""
     del cfg
     pos = cache["pos"]
     bt = cache["block_tables"]

@@ -31,10 +31,19 @@ number of tokens per slot per step, and the report adds the drafts
 proposed and accepted.  The per-slot drafter state is one more host
 mirror, seeded at prefill-on-join.
 
+int8 KV pages (``EngineConfig.kv_dtype="int8"``): the k/v pools hold int8
+rows with per-row fp32 scales, quantized once when they are written (the
+decode scatter, the commit, the prefill inject here) and dequantized
+inside the attention sweeps.  A family whose cache cannot hold them
+(``int8_paged_blockers``) warns once and serves its cache dtype, as the
+JAX engine does.  The host tier (``host_tier``): cold prefix pages are
+paged out to host memory and back on a prefix hit (``PagedKVCache``'s
+demote / promote), each direction charged at ``transfer_j_per_byte`` into
+the J/token ledger.
+
 ``EngineConfig``, ``ChunkStats``, ``EngineReport`` and
-``EnergyAwareAdmission`` are unchanged.  Configurations this slice does
-not serve raise ``NotImplementedError`` naming the feature: int8 KV pages,
-the host tier, fault injection and snapshots.
+``EnergyAwareAdmission`` are unchanged.  Fault injection and snapshots
+raise ``NotImplementedError`` naming the feature.
 
 ``ChunkStats.wall_s`` is taken after ``torch.cuda.synchronize()``: it
 measures the chunk's execution on the card, not its enqueue.
@@ -43,12 +52,15 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import Callable
 
 import numpy as np
 import torch
 
 from repro_torch import device as _device
+from repro_torch import quant
+from repro_torch.kernels import ops
 from repro_torch.models import transformer as tfm
 from repro_torch.runtime import speculate
 from repro_torch.runtime.steps import (StepConfig, make_paged_decode_loop,
@@ -191,11 +203,7 @@ class EnergyAwareAdmission:
         return est.power_w <= self.budget_w
 
 
-def _unported(ecfg: EngineConfig, injector, snapshot_dir) -> str | None:
-    if ecfg.kv_dtype == "int8":
-        return "int8 KV pages (kv_dtype='int8')"
-    if ecfg.host_tier:
-        return "host-memory KV tier (host_tier)"
+def _unported(injector, snapshot_dir) -> str | None:
     if injector is not None:
         return "fault injection (injector)"
     if snapshot_dir is not None:
@@ -213,7 +221,7 @@ class ServeEngine:
                  admission=None, injector=None,
                  on_heartbeat: Callable[[int, float], None] | None = None,
                  snapshot_dir: str | None = None):
-        missing = _unported(engine_cfg, injector, snapshot_dir)
+        missing = _unported(injector, snapshot_dir)
         if missing:
             raise NotImplementedError(f"{missing} is not ported to "
                                       "repro_torch yet")
@@ -222,7 +230,18 @@ class ServeEngine:
         self.device = _device.resolve(device)
         self.params = tfm.prepare_params(
             {k: _to(v, self.device) for k, v in params.items()}, cfg)
-        self.kv_dtype = engine_cfg.cache_dtype
+        # int8 pages pair per-row scales with full-length k/v pools: a
+        # family whose pools are latent rows, private rings or state slots
+        # warns once, naming the feature, and keeps its cache dtype
+        kv_dtype = engine_cfg.cache_dtype
+        if engine_cfg.kv_dtype == "int8":
+            i8_block = tfm.int8_paged_blockers(cfg)
+            if not i8_block:
+                kv_dtype = "int8"
+            else:
+                ops.warn_kv_dtype_fallback(
+                    cfg.name, f"int8 paged cache blocked by {i8_block[0]}")
+        self.kv_dtype = kv_dtype
         self.step_cfg = with_decode_policy(
             step_cfg or StepConfig(),
             kv_splits=engine_cfg.kv_splits,
@@ -235,7 +254,11 @@ class ServeEngine:
                                page_size=engine_cfg.page_size,
                                max_len=engine_cfg.max_len,
                                n_pages=engine_cfg.n_pages,
-                               dtype=self.kv_dtype)
+                               dtype=self.kv_dtype,
+                               host_tier=engine_cfg.host_tier,
+                               host_pages=engine_cfg.host_pages,
+                               transfer_j_per_byte=engine_cfg.transfer_j_per_byte,
+                               recompute_j_per_token=engine_cfg.recompute_j_per_token)
         self._use_prefix = (engine_cfg.prefix_cache
                             and not tfm.chunked_prefill_blockers(cfg))
         self.scheduler = Scheduler(engine_cfg.n_slots, self.kv,
@@ -252,6 +275,16 @@ class ServeEngine:
             f"sub{i}" for i in range(tfm.unit_size(cfg))
             if not cfg.uses_ssm
             and (cfg.use_mla or cfg.window_for_layer(i) == 0))
+        self._transfer_seen = 0.0            # kv.transfer_j folded so far
+        if engine_cfg.host_tier:
+            if self.kv.tables_active:
+                self.kv.attach_tier(self._fetch_page, self._restore_page,
+                                    self._cache_page_bytes())
+            else:
+                warnings.warn(
+                    f"config {cfg.name!r}: host KV tier disabled: no page "
+                    "pool rides the block tables (state-slot layout)",
+                    RuntimeWarning, stacklevel=2)
         self._ctx = make_run_ctx(cfg, self.step_cfg)
         self._loops: dict[tuple[int, bool], Callable] = {}
         self._suffix = make_prefill_suffix_step(cfg, self.step_cfg) \
@@ -334,13 +367,18 @@ class ServeEngine:
         and private rings, in place; out-of-bounds rows are dropped.  An
         SSM sub's state slot is overwritten with the prompt's state.  The
         prefill keeps the first dense layers' caches as a list; they are
-        stacked into the paged group's layout."""
+        stacked into the paged group's layout.  int8 pools quantize the
+        rows per row and write their scales beside them."""
         groups = [(c, pcache["units"][name], rows.get(name))
                   for name, c in self.cache["units"].items()]
         if "dense" in self.cache:
             src = {key: torch.stack([c[key] for c in pcache["dense"]])
                    for key in self.cache["dense"]}
             groups.append((self.cache["dense"], src, rows["__dense__"]))
+        def scatter(pool, vals):
+            pool.view(pool.shape[0], -1, *pool.shape[3:]).index_copy_(
+                1, idx, vals.to(pool.dtype))
+
         for c, src, r in groups:
             if "conv" in c:
                 for key in ("conv", "ssm"):
@@ -350,23 +388,89 @@ class ServeEngine:
             keep = r < first.shape[1] * first.shape[2]
             idx = self._tensor(r[keep], torch.int64)
             sel = self._tensor(np.nonzero(keep)[0], torch.int64)
-            for key, pool in c.items():                  # k / v, or lat
-                nu = pool.shape[0]
+            for key in ("k", "v", "lat"):
+                if key not in c:
+                    continue
                 vals = src[key][:, 0].index_select(1, sel)   # (nu, n, ...)
-                pool.view(nu, -1, *pool.shape[3:]).index_copy_(
-                    1, idx, vals.to(pool.dtype))
+                if key + "_scale" in c:
+                    # int8 pools: the prefill rows quantize on the way in,
+                    # as the decode scatter and the commit do
+                    vals, scales = quant.quantize_int8_rows(vals)
+                    scatter(c[key + "_scale"], scales)
+                scatter(c[key], vals)
 
     def _page_copy(self, src: int, dst: int, n_rows: int) -> None:
         """Copy-on-write: rows 0..n_rows-1 of ``src`` page into ``dst``
-        across every pool on the block tables, the first dense layers'
-        group included, in place."""
-        groups = [c for name, c in self.cache["units"].items()
-                  if name in self._table_subs]
-        if "dense" in self.cache:
-            groups.append(self.cache["dense"])
-        for c in groups:
+        across every pool on the block tables (scale pools in int8 mode),
+        the first dense layers' group included, in place."""
+        for c in self._table_groups().values():
             for pool in c.values():
                 pool[:, dst, :n_rows] = pool[:, src, :n_rows]
+
+    # -- host tier (two-tier KV hierarchy) -------------------------------------
+    def _table_groups(self) -> dict:
+        """Pool groups whose axis 1 is the main page-id space: the unit
+        subs on the block tables plus the stacked first dense layers.
+        Slot-indexed groups (windowed rings, SSM state) are not pages."""
+        groups = {name: c for name, c in self.cache["units"].items()
+                  if name in self._table_subs}
+        if "dense" in self.cache:
+            groups["dense"] = self.cache["dense"]
+        return groups
+
+    def _cache_page_bytes(self) -> int:
+        """Device bytes of ONE page across every table pool, scale pools
+        included in int8 mode: what each page-out and page-in is charged
+        for."""
+        return sum(pool.numel() // pool.shape[1] * pool.element_size()
+                   for c in self._table_groups().values()
+                   for pool in c.values())
+
+    def _fetch_page(self, page: int) -> dict:
+        """D2H: one device page's rows of every table pool as host numpy
+        blobs (keys ``group/pool``).  numpy has no bfloat16, so a bf16
+        pool goes out as its uint16 bit pattern.  The copy waits for the
+        device, as JAX's ``np.asarray`` does: one wait per demotion
+        (``PagedKVCache.n_demotions`` counts them)."""
+        blobs = {}
+        for name, c in self._table_groups().items():
+            for key, pool in c.items():
+                # a host tensor of its own: on a CPU engine ``.cpu()`` would
+                # alias the pool, whose page is about to be reused
+                rows = torch.empty(pool.shape[:1] + pool.shape[2:],
+                                   dtype=pool.dtype)
+                rows.copy_(pool[:, page])
+                if rows.dtype == torch.bfloat16:
+                    rows = rows.view(torch.int16).numpy().view(np.uint16)
+                else:
+                    rows = rows.numpy()
+                blobs[f"{name}/{key}"] = rows
+        return blobs
+
+    def _restore_page(self, page: int, blob: dict) -> None:
+        """H2D: write a fetched blob back into device page ``page`` of
+        every table pool, bit for bit (a bf16 pool takes its uint16 bits
+        back)."""
+        for name, c in self._table_groups().items():
+            for key, pool in c.items():
+                rows = np.asarray(blob[f"{name}/{key}"])
+                if pool.dtype == torch.bfloat16:
+                    t = torch.from_numpy(rows.view(np.int16)).view(
+                        torch.bfloat16)
+                else:
+                    t = torch.from_numpy(rows)
+                pool[:, page] = t.to(self.device)
+
+    def _sync_transfer(self) -> None:
+        """Fold the tier-transfer energy the page manager charged since the
+        last sync into the run's ledger: modelled (bytes x J/byte), not
+        measured; ``energy_j`` includes it and ``transfer_j`` breaks it
+        out, so J/token includes the cost of paging."""
+        delta = self.kv.transfer_j - self._transfer_seen
+        if delta > 0.0:
+            self._transfer_seen = self.kv.transfer_j
+            self._report.energy_j += delta
+            self._report.transfer_j += delta
 
     def _bucket(self, L: int) -> int:
         b = self.ecfg.min_prefill_bucket
@@ -568,6 +672,7 @@ class ServeEngine:
         self._chunk_idx = 0
         self._occ_sum = 0.0
         self._report = EngineReport(results=[], spec_k=self.ecfg.spec_k)
+        self._transfer_seen = self.kv.transfer_j
         self._eff_chunk = self.ecfg.decode_chunk
 
     def run(self, requests: list[Request]) -> EngineReport:
@@ -592,6 +697,9 @@ class ServeEngine:
                 self._join(slot, req, m, copy, t0)
             if ecfg.preempt:
                 self._grow_pages(t0, eff_chunk * (eff_k + 1))
+            # joins may have paged prefixes in, growth cold pages out:
+            # their modelled energy enters the ledger before the chunk's
+            self._sync_transfer()
             self._sync()
             report.prefill_wall_s += time.perf_counter() - t_p
 
@@ -669,6 +777,9 @@ class ServeEngine:
             if self.on_heartbeat is not None:
                 self.on_heartbeat(self._now, wall)
 
+        self._sync_transfer()
+        report.n_demotions = self.kv.n_demotions
+        report.n_promotions = self.kv.n_promotions
         report.occupancy = self._occ_sum / max(report.n_chunks, 1)
         report.results = [self._results[rid] for rid in self._req_order]
         return report

@@ -136,7 +136,9 @@ def test_cpu_engine_launches_no_kernel(smollm):
     assert set(da.LAUNCHES) == {"sweep_decode", "sweep_verify", "merge",
                                 "ring_decode", "ring_verify",
                                 "flash_attention", "rmsnorm", "ssd",
-                                "mla_decode", "mla_verify"}
+                                "mla_decode", "mla_verify",
+                                "sweep_decode_int8", "sweep_verify_int8",
+                                "ring_decode_int8", "ring_verify_int8"}
     assert all(n == 0 for n in da.LAUNCHES.values())
 
 
@@ -174,8 +176,6 @@ def test_sampled_speculative_streams_are_deterministic(smollm):
 
 
 @pytest.mark.parametrize("over,kw,feature", [
-    ({"kv_dtype": "int8"}, {}, "int8"),
-    ({"host_tier": True}, {}, "host-memory"),
     ({}, {"injector": object()}, "fault injection"),
     ({}, {"snapshot_dir": "snapshots"}, "snapshots")])
 def test_unported_engine_features_raise(smollm, over, kw, feature):
@@ -209,8 +209,6 @@ def test_serve_poisson_prints_the_jax_lines(capsys):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--traffic", "poisson", "--kv-dtype", "int8"], "KV tiers"),
-    (["--traffic", "poisson", "--host-tier"], "KV tiers"),
     (["--traffic", "poisson", "--chaos", "crash@4"], "chaos")])
 def test_serve_refuses_unported_flags(extra, item):
     with pytest.raises(SystemExit) as exc:

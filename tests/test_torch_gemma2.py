@@ -212,10 +212,9 @@ def test_blockers_equal_jax(arch):
     assert tfm.chunked_prefill_blockers(cfg) \
         == jtfm.chunked_prefill_blockers(jcfg)
     assert tfm.speculative_blockers(cfg) == jtfm.speculative_blockers(jcfg)
-    # the port's int8 list is JAX's plus the unported KV-tier slice
-    assert tfm.int8_paged_blockers(cfg)[:-1] \
-        == jtfm.int8_paged_blockers(jcfg)
-    assert "KV-tier" in tfm.int8_paged_blockers(cfg)[-1]
+    assert tfm.int8_paged_blockers(cfg) == jtfm.int8_paged_blockers(jcfg)
+    if arch == "smollm-135m":
+        assert tfm.int8_paged_blockers(cfg) == ()
 
 
 def test_engine_refuses_speculation_as_jax(gemma):

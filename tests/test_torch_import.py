@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from repro.core import DEVICES as JAX_DEVICES
-from repro_torch import device
+from repro_torch import device, quant
 from repro_torch.configs import ARCH_SPECS, get_arch
 from repro_torch.core import DEVICES, H100_SXM
 from repro_torch.kernels import decode_attention as da
@@ -30,7 +30,7 @@ def test_port_import_pulls_in_no_jax():
             "repro_torch.kernels.flash_attention, "
             "repro_torch.kernels.rmsnorm, repro_torch.kernels.ssd_scan, "
             "repro_torch.models.ssm, repro_torch.models.layers, "
-            "repro_torch.models.attention, "
+            "repro_torch.models.attention, repro_torch.quant, "
             "repro_torch.configs.deepseek_v2_236b\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
@@ -94,6 +94,21 @@ def test_cpu_calls_launch_no_kernel():
         ops.verify_attention(qv, kc, vc, kn, vn, rpos, policy=policy)
     da.ring_attention(qv, kc, vc, rpos.reshape(1), k_new=kn, v_new=vn,
                       n_splits=3, block_k=4)
+    # int8 caches: the same wrappers and backends, the int8 launch keys
+    k8, ks = quant.quantize_int8_rows(kp)
+    c8, cs = quant.quantize_int8_rows(kc)
+    qv2, kn2 = r(2, 3, 6, 16), r(2, 3, 2, 16)
+    for backend in ("auto", "cuda", "torch", "ref"):
+        policy = ops.KernelPolicy(decode=backend, kv_splits=2,
+                                  decode_k_chunk=4)
+        ops.paged_decode_attention(q, k8, k8, bt, pos, k_scale=ks,
+                                   v_scale=ks, policy=policy)
+        ops.paged_verify_attention(qv2, k8, k8, kn2, kn2, bt, pos,
+                                   k_scale=ks, v_scale=ks, policy=policy)
+        ops.decode_attention(q, c8, c8, rpos, k_scale=cs, v_scale=cs,
+                             policy=policy)
+        ops.verify_attention(qv, c8, c8, kn, vn, rpos, k_scale=cs,
+                             v_scale=cs, policy=policy)
     qp, kk, vv = r(2, 9, 6, 16), r(2, 9, 2, 16), r(2, 9, 2, 16)
     x, w = r(2, 5, 16), r(16)
     for backend in ("auto", "cuda", "ref"):
@@ -124,7 +139,9 @@ def test_cpu_calls_launch_no_kernel():
     assert set(da.LAUNCHES) == {"sweep_decode", "sweep_verify", "merge",
                                 "ring_decode", "ring_verify",
                                 "flash_attention", "rmsnorm", "ssd",
-                                "mla_decode", "mla_verify"}
+                                "mla_decode", "mla_verify",
+                                "sweep_decode_int8", "sweep_verify_int8",
+                                "ring_decode_int8", "ring_verify_int8"}
     assert all(n == 0 for n in da.LAUNCHES.values())
 
 

@@ -278,17 +278,42 @@ def test_ops_dispatch_backends_agree(kv_splits):
 
 
 def test_int8_pools_raise_by_name():
+    """int8 pools are served now: the K-sweep's twin (through
+    ``paged_attention``, 1 and 5 splits) and the port's ``ref`` / ``torch``
+    dispatch on int8 pools with per-row scales match the JAX ``jnp``
+    backend's int8 form; a pool whose scales come alone raises by name."""
     a = _inputs(4, 2, seed=1)
-    scale = torch.ones((P, PS, 2, 1))
-    with pytest.raises(NotImplementedError, match="int8 KV pages"):
-        ops.paged_decode_attention(_t(a["q1"]), _t(a["kp"]), _t(a["vp"]),
-                                   _t(a["bt"]), _t(DECODE_POS),
-                                   k_scale=scale, v_scale=scale)
-    with pytest.raises(NotImplementedError, match="int8 KV pages"):
-        ops.paged_verify_attention(_t(a["qv"]), _t(a["kp"]), _t(a["vp"]),
-                                   _t(a["kn"]), _t(a["vn"]), _t(a["bt"]),
-                                   _t(VERIFY_POS), k_scale=scale,
-                                   v_scale=scale)
+    rng = np.random.default_rng(2)
+    kq = rng.integers(-127, 128, a["kp"].shape).astype(np.int8)
+    vq = rng.integers(-127, 128, a["vp"].shape).astype(np.int8)
+    ks = rng.uniform(1e-3, 2e-2, (P, PS, 2, 1)).astype(np.float32)
+    vs = rng.uniform(1e-3, 2e-2, (P, PS, 2, 1)).astype(np.float32)
+    q8 = dict(a, kp=kq, vp=vq)
+    for verify, pos in ((False, DECODE_POS), (True, VERIFY_POS)):
+        pos = np.asarray(pos, np.int32)
+        bt = _park_tail(a["bt"], pos, verify=verify)
+        if verify:
+            want = jops.paged_verify_attention_jnp(
+                _j(a["qv"]), _j(kq), _j(vq), _j(a["kn"]), _j(a["vn"]),
+                _j(bt), _j(pos), k_scale=_j(ks), v_scale=_j(vs))
+        else:
+            want = jops.paged_decode_attention_jnp(
+                _j(a["q1"]), _j(kq), _j(vq), _j(bt), _j(pos),
+                k_scale=_j(ks), v_scale=_j(vs))
+        run = _port_verify if verify else _port_decode
+        for n_splits in (1, 5):
+            _close(run(q8, pos, bt, n_splits, k_scale=_t(ks),
+                       v_scale=_t(vs)), want)
+        entry = ops.paged_verify_attention if verify \
+            else ops.paged_decode_attention
+        args = ((a["qv"], kq, vq, a["kn"], a["vn"], bt, pos) if verify
+                else (a["q1"], kq, vq, bt, pos))
+        for backend in ("ref", "torch"):
+            _close(entry(*map(_t, args), k_scale=_t(ks), v_scale=_t(vs),
+                         policy=ops.KernelPolicy(decode=backend)), want)
+    with pytest.raises(ValueError, match="k_scale and v_scale"):
+        da.paged_attention_sweep(_t(a["q1"]), _t(kq), _t(vq), _t(a["bt"]),
+                                 _t(DECODE_POS), k_scale=_t(ks))
 
 
 @pytest.mark.parametrize("batch,kv_len,heads,cores,block", [

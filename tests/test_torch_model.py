@@ -165,15 +165,25 @@ def test_init_paged_cache_matches_jax(models):
         assert tuple(tc["units"]["sub0"][key].shape) \
             == jc["units"]["sub0"][key].shape
         assert tc["units"]["sub0"][key].dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="int8"):
-        tfm.init_paged_cache(tcfg, 3, N_PAGES, PS, MAX_BLOCKS, dtype="int8")
+    # int8 pages: int8 pools and fp32 per-row scale leaves, JAX's layout
+    jc = jtfm.init_paged_cache(jcfg, 3, N_PAGES, PS, MAX_BLOCKS,
+                               dtype="int8")
+    tc = tfm.init_paged_cache(tcfg, 3, N_PAGES, PS, MAX_BLOCKS,
+                              dtype="int8", device="cpu")
+    assert set(tc["units"]["sub0"]) == set(jc["units"]["sub0"]) \
+        == {"k", "v", "k_scale", "v_scale"}
+    for key, dt in (("k", torch.int8), ("v", torch.int8),
+                    ("k_scale", torch.float32), ("v_scale", torch.float32)):
+        assert tuple(tc["units"]["sub0"][key].shape) \
+            == jc["units"]["sub0"][key].shape
+        assert tc["units"]["sub0"][key].dtype == dt
 
 
 def test_unported_features_are_named(models):
     _, _, tcfg, tparams = models
     assert tfm.paged_cache_blockers(tcfg) == ()
     assert tfm.chunked_prefill_blockers(tcfg) == ()
-    assert tfm.int8_paged_blockers(tcfg)
+    assert tfm.int8_paged_blockers(tcfg) == ()
     # a windowed config now builds its paged cache: a private ring of
     # ceil(min(max_len, window) / ps) pages per slot, and an SSM config
     # one state slot per engine slot, an MLA config one latent pool on the

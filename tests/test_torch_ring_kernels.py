@@ -358,24 +358,44 @@ def test_smoke_batch_shape_splits_three_ways():
 
 
 def test_int8_ring_caches_raise_by_name():
+    """int8 ring caches are served now at op level: the ring sweep's twin
+    (through ``ring_attention``, 1 and 5 splits) and the port's ``ref`` /
+    ``torch`` dispatch on int8 caches with per-row scales match the JAX
+    ``jnp`` backend's int8 form, wrapped and not; scales that come alone
+    raise by name."""
     a = _inputs(4, 2, seed=1)
-    p = _t(_pos(13))
-    scale = torch.ones((B, C, 2, 1))
-    with pytest.raises(NotImplementedError, match="int8 KV caches"):
-        ops.decode_attention(_t(a["q1"]), _t(a["k"]), _t(a["v"]), p,
-                             k_scale=scale, v_scale=scale)
-    with pytest.raises(NotImplementedError, match="int8 KV caches"):
-        ops.verify_attention(_t(a["qv"]), _t(a["k"]), _t(a["v"]),
-                             _t(a["kn"]), _t(a["vn"]), p, k_scale=scale,
-                             v_scale=scale)
-    kp = ops.ring_positions(p, C)
-    for oracle in (ref.decode_attention_ref, ref.decode_attention_split_ref):
-        kw = {"n_splits": 2} if oracle is ref.decode_attention_split_ref \
-            else {}
-        with pytest.raises(NotImplementedError, match="int8 KV caches"):
-            oracle(_t(a["q1"]), _t(a["k"]), _t(a["v"]), kp, p,
-                   k_scale=scale, v_scale=scale, **kw)
-    with pytest.raises(NotImplementedError, match="int8 KV caches"):
-        ref.verify_attention_ref(_t(a["qv"]), _t(a["k"]), _t(a["v"]),
-                                 _t(a["kn"]), _t(a["vn"]), kp, p,
-                                 k_scale=scale, v_scale=scale)
+    rng = np.random.default_rng(2)
+    kq = rng.integers(-127, 128, a["k"].shape).astype(np.int8)
+    vq = rng.integers(-127, 128, a["v"].shape).astype(np.int8)
+    ks = rng.uniform(1e-3, 2e-2, (B, C, 2, 1)).astype(np.float32)
+    vs = rng.uniform(1e-3, 2e-2, (B, C, 2, 1)).astype(np.float32)
+    i8 = {"k_scale": _t(ks), "v_scale": _t(vs)}
+    for p in (13, 131):
+        pos = _t(_pos(p))
+        want = jops.decode_attention_jnp(
+            _j(a["q1"]), _j(kq), _j(vq), jops.ring_positions(p, C), p,
+            k_scale=_j(ks), v_scale=_j(vs))
+        for n_splits in (1, 5):
+            _close(da.ring_attention(_t(a["q1"]), _t(kq), _t(vq), pos[None],
+                                     n_splits=n_splits, block_k=BK, **i8),
+                   want)
+        for backend in ("ref", "torch"):
+            _close(ops.decode_attention(
+                _t(a["q1"]), _t(kq), _t(vq), pos, policy=ops.KernelPolicy(
+                    decode=backend, decode_k_chunk=BK), **i8), want)
+        want = jops.verify_attention_jnp(
+            _j(a["qv"]), _j(kq), _j(vq), _j(a["kn"]), _j(a["vn"]),
+            jops.ring_positions(p - 1, C), p, k_scale=_j(ks), v_scale=_j(vs))
+        for n_splits in (1, 5):
+            _close(da.ring_attention(_t(a["qv"]), _t(kq), _t(vq), pos[None],
+                                     k_new=_t(a["kn"]), v_new=_t(a["vn"]),
+                                     n_splits=n_splits, block_k=BK, **i8),
+                   want)
+        for backend in ("ref", "torch"):
+            _close(ops.verify_attention(
+                _t(a["qv"]), _t(kq), _t(vq), _t(a["kn"]), _t(a["vn"]), pos,
+                policy=ops.KernelPolicy(decode=backend, decode_k_chunk=BK),
+                **i8), want)
+    with pytest.raises(ValueError, match="k_scale and v_scale"):
+        da.ring_attention_sweep(_t(a["q1"]), _t(kq), _t(vq), _t(_pos([13])),
+                                v_scale=_t(vs))
