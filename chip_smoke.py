@@ -45,9 +45,18 @@ Phases, in order; any failure exits non-zero (nothing is caught):
                 on the same int8 caches: paged decode (1 and 5 splits) and
                 verify Q 16 (1 and 5) at the engine's shapes, ring decode
                 (1 and 3) and verify Q 4 (1 and 3) on a wrapped ring of
-                545, head_dim 64 and 128, q bf16 and fp32, each run
-                proved to have launched the int8 template; the bad-id
-                probe again on the int8 template;
+                545, head_dim 64, 120 (3 kv heads: odd rows 8 bytes off
+                16) and 128, q bf16 and fp32, each run proved to have
+                launched the int8 template; the bad-id probe again on the
+                int8 template.  head_dim 120 (h2o-danube-3: Hq 32, Hkv
+                8): K4 over 8192 keys with and without the 4096 window,
+                with a q_offset, ragged Sq 37 and 1000; the ring sweep
+                (decode 1 and 3 splits, verify Q 4) on a wrapped 4096-slot
+                ring with per-row positions; the paged sweep (decode 1, the
+                auto count and 5 splits, verify Q 16) and the bad-id probe
+                at 120; K4 at llava-next's G 7 (Hq 56, Hkv 8), 4 x 512 and
+                ragged; K9 at widths 2048, 3840, 4096 and 7168; head_dim
+                96 raises ValueError in both sweeps, launching nothing;
   3. reference — full-width smollm-135m at fp32, twice on the kernels and
                 twice on the plain torch path (chunked prefill twin,
                 RMSNorm oracle, torch decode backends, the same split
@@ -79,7 +88,12 @@ Phases, in order; any failure exits non-zero (nothing is caught):
                 plain twins (streams equal, logits within 1e-3), and a
                 tight pool of 10 pages with the host tier on against it
                 off, for int8 and for bf16 pools (streams equal, pages
-                paged out and back);
+                paged out and back).  Then the zoo at full width and
+                fp32, cut to 2 layers: h2o-danube-3's batch of 2 x 4352 +
+                16 new (the 4096 window masks prefill, the rings wrap) and
+                its engine on requests past 4096 positions; stablelm,
+                phi3.5-moe and llava-next on 2 x 512 + 16 new and on 6
+                Poisson requests with prefix hits;
   4. main paths — ``repro_torch.launch.serve`` at full width (bf16,
                 random weights from a seed drawn on the card, FROST plane
                 on): smollm-135m's engine on a Poisson trace of 8 requests
@@ -99,22 +113,36 @@ Phases, in order; any failure exits non-zero (nothing is caught):
                 width cut to 8 layers (1 dense + 7 MoE, 54.1 GiB of
                 weights), through ``serve(args, cfg)``: the batch of 4 x
                 512 + 33 new and the engine on 8 Poisson requests over 4
-                slots with 2 shared 32-token prompt heads.  The launch
-                counts are zeroed just before each run and read just
-                after it.  Every request must finish its token budget
-                with finite logits, and every kernel of a path must have
-                been launched on it: K4 and K9 on the twelve attention
-                paths, K8 and K9 on the three mamba2 paths, the latent
-                sweep's decode and verify forms and the merge on
+                slots with 2 shared 32-token prompt heads; then
+                h2o-danube-3-4b (24 layers, head dim 120): the batch of 4
+                x 512 + 33 new, the same with ``--spec-k 3``, and the
+                engine on 8 Poisson requests over 4 slots; stablelm-1.6b
+                (the batch of 8 x 512 + 33 new), phi3.5-moe cut to 24 of
+                its 32 layers through ``serve(args, cfg)`` and
+                llava-next-34b at its 60 layers (batches of 4 x 512 + 33
+                new), each also on the engine with 2 shared 32-token
+                prompt heads.  The launch counts are zeroed just before
+                each run and read just after it.  Every request must
+                finish its token budget with finite logits, no peak may
+                pass the card's 79.1 GiB, and every kernel of a path must
+                have been launched on it: K4 and K9 on the twenty-one
+                attention paths, K8 and K9 on the three mamba2 paths, the
+                latent sweep's decode and verify forms and the merge on
                 deepseek's engine, the int8 templates (and never the bf16
-                sweep) on the int8 paths;
+                sweep) on the int8 paths, the ring sweep on h2o's (its
+                verify form with ``--spec-k 3``), the paged sweep and the
+                merge on the zoo's engines;
   5. timing   — CUDA-event times of each kernel, its plain version and a
                 library yardstick at the main paths' shapes, beside the
                 least time the card could take (the latent sweep beside
                 SDPA over the gathered latent as one kv head; K4 at
                 deepseek's 4 x 512 beside SDPA; the int8 sweeps at the
                 bf16 rows' shapes, bound at D + 4 bytes a kv row, beside
-                SDPA over the cache dequantized to bf16 beforehand).
+                SDPA over the cache dequantized to bf16 beforehand); both
+                sweeps at head_dim 120 in bf16 and int8 (paged at the
+                engine's shapes, ring at h2o's batch shape), the merge at
+                Dv 120, K4 at h2o's and llava's 4 x 512, K9 at the zoo's
+                widths.
 
 The last two lines are a JSON object of per-kernel numbers and
 ``{"ok": true, "device": {...}}``.
@@ -133,6 +161,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BPS = 3.35e12          # H100 SXM HBM3, bytes/s (data sheet)
+CARD_GIB = 79.1            # device memory PyTorch can allocate on an H100
 BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor peak, FLOP/s
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 PAGED_SRC = "src/repro_torch/kernels/csrc/paged_attention.cu"
@@ -196,6 +225,26 @@ M_LONG = 4000
 # deepseek-v2's latent shapes: 128 heads, latent row 512 + 64, MLA's scale
 # of the decompressed head dim 128 + 64
 MLA = dict(Hq=128, R=576, r_kv=512, scale=192 ** -0.5)
+# h2o-danube-3-4b's attention: 32 q / 8 kv heads of 120, every layer
+# windowed at 4096 (its batch rings hold min(max_len, 4096) slots); ring
+# positions of four requests at and past the window, per row, as the
+# engine's private rings hold them
+H2O_HEADS = dict(Hq=32, Hkv=8, D=120)
+H2O_WINDOW = 4096
+H2O_RING_POS = [4100, 5000, 4095, 3 * 4096 + 17]
+# llava-next-34b's attention: 56 q / 8 kv heads of 128 (G 7, which does not
+# divide K4's 128 rows: 18 positions a tile)
+LLAVA_HEADS = dict(Hq=56, Hkv=8, D=128)
+# phi3.5-moe's attention (32 q / 8 kv heads of 128) and stablelm-1.6b's (32
+# / 32 of 64, G 1)
+PHI_HEADS = dict(Hq=32, Hkv=8, D=128)
+STABLELM_HEADS = dict(Hq=32, Hkv=32, D=64)
+# phi3.5-moe at full width cut in depth to fit one card: 24 of its 32
+# layers (58.6 GiB of bf16 weights; 32 are 78.0 GiB)
+PHI_LAYERS = 24
+# the fp32 references of phase 3 cut stablelm, h2o-danube-3, phi3.5-moe
+# and llava-next to 2 layers at full width
+ZOO_REF_LAYERS = 2
 # deepseek-v2 at full width cut in depth: 8 layers (1 dense + 7 MoE,
 # 54.1 GiB of bf16 weights) on the main paths, 3 (1 dense + 2 MoE, about
 # 36 GB of fp32) for the fp32 reference
@@ -251,6 +300,13 @@ def quantize_case(quant, c, keys):
     return out
 
 
+def note(errs, e, entry, form=None):
+    """Keep the largest |kernel - plain| of ``entry`` and, for a form that
+    phase 5 times on a row of its own, of ``entry form`` too."""
+    for name in (entry,) + ((f"{entry} {form}",) if form else ()):
+        errs[name] = max(errs.get(name, 0.0), e)
+
+
 def max_err(torch, a, b, tol, what):
     """max |a - b|, failing unless allclose at atol = rtol = tol."""
     a, b = a.float(), b.float()
@@ -287,13 +343,34 @@ def check_kernels(torch, np, dev, da, ops):
          "float32", {}),
         ("head_dim 128 decode", dict(main, D=128, Hq=8, Hkv=2),
          [17, 40, 63, 79], 1, "bfloat16", {}),
+        # h2o-danube-3's head dim and G 4: no serving path reaches the
+        # paged sweep at 120 (its layers are all windowed), so op level
+        ("head_dim 120 decode", dict(main, **H2O_HEADS), [17, 40, 63, 79],
+         1, "bfloat16", {}),
+        ("head_dim 120 verify Q=16", dict(main, **H2O_HEADS),
+         [32, 48, 0, 20], 16, "bfloat16", {}),
+        ("head_dim 120 fp32 decode", dict(main, **H2O_HEADS),
+         [17, 40, 63, 79], 1, "float32", {}),
+        ("head_dim 120 fp32 verify Q=16", dict(main, **H2O_HEADS),
+         [32, 48, 0, 20], 16, "float32", {}),
     ]
+    # the heads of the poisson paths whose prefix hits reach the paged
+    # sweeps: phi3.5-moe 32 / 8 and llava-next 56 / 8 of 128, stablelm 32
+    # / 32 of 64 (G 1)
+    for heads in (PHI_HEADS, LLAVA_HEADS, STABLELM_HEADS):
+        form = f"{heads['Hq']}/{heads['Hkv']} D {heads['D']}"
+        for dtype in ("bfloat16", "float32"):
+            cases += [(f"{form} {dtype} decode", dict(main, **heads),
+                       [17, 40, 63, 79], 1, dtype, {}),
+                      (f"{form} {dtype} verify Q=16", dict(main, **heads),
+                       [32, 48, 0, 20], 16, dtype, {})]
     for i, (label, shp, pos, Q, dtype, kw) in enumerate(cases):
         c = make_case(torch, np, dev, pos=pos, Q=Q, dtype=dtype, seed=i,
                       **shp)
         verify = "verify" in label
         entry = ("paged_attention_sweep (verify)" if verify
                  else "paged_attention_sweep (decode)")
+        form = "D 120" if shp["D"] == 120 else None
         auto = ops.choose_kv_splits(shp["B"], shp["nb"] * shp["ps"],
                                     shp["Hq"], block=shp["ps"], device=dev)
         tol = TOL[dtype]
@@ -307,22 +384,23 @@ def check_kernels(torch, np, dev, da, ops):
             what = f"{label} n_splits={n_splits}"
             if n_splits == 1:
                 e = max_err(torch, got, want, tol, what)
-                errs[entry] = max(errs[entry], e)
+                note(errs, e, entry, form)
                 case_err = max(case_err, e)
                 continue
             e = max(max_err(torch, got[0], want[0], tol, what + " partial"),
                     max_err(torch, got[1], want[1], tol, what + " lse"))
-            errs[entry] = max(errs[entry], e)
+            note(errs, e, entry, form)
             merged = da.lse_merge(*got, c["q"].dtype)
             plain = da.lse_merge_torch(*got, c["q"].dtype)
             em = max_err(torch, merged, plain, tol, what + " merge")
-            errs["lse_merge"] = max(errs["lse_merge"], em)
+            note(errs, em, "lse_merge", form and "Dv 120")
             case_err = max(case_err, e, em)
         torch.cuda.synchronize()
         say(f"kernels ok: {label} (n_splits 1, {auto}, 5), max |kernel - "
             f"plain| {case_err:.3e} (tol {tol})")
     check_table_tail(torch, np, dev, da, main)
     check_bad_page_id()
+    check_bad_page_id(kernel="paged sweep at head_dim 120", head_dim=120)
     return errs
 
 
@@ -360,8 +438,9 @@ import torch
 sys.path.insert(0, sys.argv[1])
 from repro_torch.kernels import decode_attention as da
 dev = torch.device("cuda", 0)
-q = torch.ones(1, 1, 3, 64, dtype=torch.bfloat16, device=dev)
-pages = torch.ones(2, 16, 1, 64, dtype=torch.bfloat16, device=dev)
+D = int(sys.argv[2])
+q = torch.ones(1, 1, 3, D, dtype=torch.bfloat16, device=dev)
+pages = torch.ones(2, 16, 1, D, dtype=torch.bfloat16, device=dev)
 bt = torch.tensor([[1, 2]], dtype=torch.int32, device=dev)  # 2: past the pool
 # pos 15: column 1 lies past the request, so its id is never read
 da.paged_attention_sweep(q, pages, pages, bt, torch.tensor(
@@ -376,14 +455,15 @@ print("bad id accepted", flush=True)
 """
 
 
-def check_bad_page_id(probe=BAD_ID_PROBE, kernel="paged sweep"):
+def check_bad_page_id(probe=BAD_ID_PROBE, kernel="paged sweep",
+                      head_dim=64):
     """A table id outside the pool inside a request's length must stop the
     kernel, not drop the page's keys.  The probe runs in a process of its
     own, since the failed launch leaves that process's CUDA context
     unusable."""
     proc = subprocess.run([sys.executable, "-c", probe,
-                           str(ROOT / "src")], capture_output=True,
-                          text=True, timeout=120)
+                           str(ROOT / "src"), str(head_dim)],
+                          capture_output=True, text=True, timeout=120)
     if "past-length id skipped" not in proc.stdout:
         fail(f"bad-id probe did not run its control call:\n{proc.stderr}")
     if proc.returncode == 0 or "bad id accepted" in proc.stdout:
@@ -426,6 +506,7 @@ def check_ring_kernels(torch, np, dev, da, ops, errs):
     and 5) and around them."""
     main = dict(B=BATCH, Hq=9, Hkv=3, D=64, C=PLEN + GEN)
     deep = dict(B=4, Hq=9, Hkv=3, D=64, C=4096)
+    h2o = dict(B=4, C=H2O_WINDOW, **H2O_HEADS)
     wrap = 3 * main["C"] + 17
     cases = [
         ("main decode", main, 530, 1, "bfloat16", {}),
@@ -454,16 +535,41 @@ def check_ring_kernels(torch, np, dev, da, ops, errs):
          {}),
         ("head_dim 128 verify Q=4", dict(main, D=128, Hq=8, Hkv=2), wrap, 4,
          "bfloat16", {}),
+        # h2o-danube-3: head dim 120, G 4, window 4096 over a 4096-slot
+        # ring that has wrapped, per-row positions as the engine's private
+        # rings have them
+        ("head_dim 120 wrapped 4096 decode", h2o, H2O_RING_POS, 1,
+         "bfloat16", {"window": H2O_WINDOW}),
+        ("head_dim 120 wrapped 4096 verify Q=4", h2o, H2O_RING_POS, 4,
+         "bfloat16", {"window": H2O_WINDOW}),
+        ("head_dim 120 fp32 wrapped 4096 decode", h2o, H2O_RING_POS, 1,
+         "float32", {"window": H2O_WINDOW}),
+        ("head_dim 120 fp32 wrapped 4096 verify Q=4", h2o, H2O_RING_POS, 4,
+         "float32", {"window": H2O_WINDOW}),
     ]
+    # the zoo's batch paths at their own shapes, mid-run (pos 528): h2o 4
+    # x 545 (32 / 8 of 120), stablelm 8 x 545 (32 / 32 of 64), phi3.5 and
+    # llava 4 x 545 (32 / 8 and 56 / 8 of 128)
+    for B, heads in ((4, H2O_HEADS), (BATCH, STABLELM_HEADS), (4, PHI_HEADS),
+                     (4, LLAVA_HEADS)):
+        shp = dict(B=B, C=PLEN + GEN, **heads)
+        form = (f"batch {B} x {PLEN + GEN} {heads['Hq']}/{heads['Hkv']} "
+                f"D {heads['D']}")
+        for dtype in ("bfloat16", "float32"):
+            cases += [(f"{form} {dtype} decode", shp, 528, 1, dtype, {}),
+                      (f"{form} {dtype} verify Q=4", shp, 528, 4, dtype, {})]
     for i, (label, shp, pos, Q, dtype, kw) in enumerate(cases):
         c = make_ring_case(torch, np, dev, pos=pos, Q=Q, dtype=dtype,
                            seed=200 + i, **shp)
         verify = "verify" in label
         entry = ("ring_attention_sweep (verify)" if verify
                  else "ring_attention_sweep (decode)")
+        form = "D 120" if shp["D"] == 120 else None
         auto = ops.choose_kv_splits(shp["B"], shp["C"], shp["Hq"],
                                     block=256, device=dev)
-        splits = sorted({auto} if "deep" in label else {1, 3, 5})
+        splits = sorted({auto} if "deep" in label
+                        else {1, 3, auto} if "120" in label
+                        else {1, 3, 5, auto})
         tol = TOL[dtype]
         case_err = 0.0
         for n_splits in splits:
@@ -476,16 +582,16 @@ def check_ring_kernels(torch, np, dev, da, ops, errs):
             what = f"ring {label} n_splits={n_splits}"
             if isinstance(want, torch.Tensor):
                 e = max_err(torch, got, want, tol, what)
-                errs[entry] = max(errs[entry], e)
+                note(errs, e, entry, form)
                 case_err = max(case_err, e)
                 continue
             e = max(max_err(torch, got[0], want[0], tol, what + " partial"),
                     max_err(torch, got[1], want[1], tol, what + " lse"))
-            errs[entry] = max(errs[entry], e)
+            note(errs, e, entry, form)
             merged = da.lse_merge(*got, c["q"].dtype)
             plain = da.lse_merge_torch(*got, c["q"].dtype)
             em = max_err(torch, merged, plain, tol, what + " merge")
-            errs["lse_merge"] = max(errs["lse_merge"], em)
+            note(errs, em, "lse_merge", form and "Dv 120")
             case_err = max(case_err, e, em)
         torch.cuda.synchronize()
         say(f"kernels ok: ring {label} (n_splits {splits}), max |kernel - "
@@ -508,6 +614,26 @@ def check_ring_kernels(torch, np, dev, da, ops, errs):
         fail("ring: a refused custom k_pos launched a kernel")
     say("kernels ok: a custom ring k_pos on the card raises "
         "NotImplementedError, no plain fallback")
+    # a head dim neither sweep is built for raises before any launch
+    c = make_ring_case(torch, np, dev, pos=20, Q=1, dtype="bfloat16",
+                       seed=298, **dict(main, D=96))
+    p = make_case(torch, np, dev, pos=[17, 40, 63, 79], Q=1,
+                  dtype="bfloat16", seed=298, B=4, Hq=9, Hkv=3, D=96, ps=16,
+                  nb=5)
+    for what, call in (
+            ("ring sweep", lambda: da.ring_attention_sweep(*ring_args(
+                c, False)[0])),
+            ("paged sweep", lambda: da.paged_attention_sweep(*sweep_args(
+                p, False)[0]))):
+        try:
+            call()
+        except ValueError:
+            continue
+        fail(f"{what} at head_dim 96 on the card did not raise ValueError")
+    if da.LAUNCHES != before:
+        fail("a refused head_dim 96 sweep launched a kernel")
+    say("kernels ok: head_dim 96 raises ValueError in both sweeps, no "
+        "launch")
 
 
 def check_int8_kernels(torch, np, dev, da, quant, errs):
@@ -515,12 +641,15 @@ def check_int8_kernels(torch, np, dev, da, quant, errs):
     on the same int8 caches and scales: paged decode (1 split and S = 5)
     and verify at Q 16 (1 and 5) at the main path's shapes, ring decode
     (1 and 3) and verify at Q 4 (1 and 3) on a wrapped ring of 545 slots;
-    head_dim 64 and 128, q in bf16 (tolerance 2e-2) and fp32 (1e-4)."""
+    head_dim 64, 120 (3 kv heads, odd ones included) and 128, q in bf16
+    (tolerance 2e-2) and fp32 (1e-4)."""
     paged = dict(B=4, Hq=9, Hkv=3, ps=16, nb=5)
     ring = dict(B=BATCH, Hq=9, Hkv=3, C=PLEN + GEN)
     wrap = 3 * ring["C"] + 17
-    for D in (64, 128):
-        heads = {} if D == 64 else dict(Hq=8, Hkv=2)
+    # head dim 120 at 3 kv heads: rows of 120 bytes put every odd row 8
+    # bytes off a 16-byte boundary, so the 8-byte loads are exercised
+    for D in (64, 120, 128):
+        heads = {64: {}, 120: dict(Hq=12, Hkv=3), 128: dict(Hq=8, Hkv=2)}[D]
         for dtype in ("bfloat16", "float32"):
             tol = TOL[dtype]
             for verify, pos, Q in ((False, [17, 40, 63, 79], 1),
@@ -560,6 +689,7 @@ def int8_case(torch, da, errs, entry, c, verify, tol, kernel, plain, extra,
     """One int8 case at each split count: the kernel against its twin (and,
     split, both merges); returns the case's max error."""
     case_err = 0.0
+    form = "D 120" if c["q"].shape[-1] == 120 else None
     before = dict(da.LAUNCHES)
     for n_splits in splits:
         args, kw = (ring_args if ring else sweep_args)(c, verify)
@@ -574,9 +704,9 @@ def int8_case(torch, da, errs, entry, c, verify, tol, kernel, plain, extra,
             em = max_err(torch, da.lse_merge(*got, c["q"].dtype),
                          da.lse_merge_torch(*got, c["q"].dtype), tol,
                          what + " merge")
-            errs["lse_merge"] = max(errs["lse_merge"], em)
+            note(errs, em, "lse_merge", form and "Dv 120")
             e = max(e, em)
-        errs[entry] = max(errs[entry], e)
+        note(errs, e, entry, form)
         case_err = max(case_err, e)
     torch.cuda.synchronize()
     key = KERNELS[entry][2]
@@ -591,8 +721,9 @@ import torch
 sys.path.insert(0, sys.argv[1])
 from repro_torch.kernels import decode_attention as da
 dev = torch.device("cuda", 0)
-q = torch.ones(1, 1, 3, 64, dtype=torch.bfloat16, device=dev)
-pages = torch.ones(2, 16, 1, 64, dtype=torch.int8, device=dev)
+D = int(sys.argv[2])
+q = torch.ones(1, 1, 3, D, dtype=torch.bfloat16, device=dev)
+pages = torch.ones(2, 16, 1, D, dtype=torch.int8, device=dev)
 scale = torch.ones(2, 16, 1, 1, dtype=torch.float32, device=dev)
 bt = torch.tensor([[1, 2]], dtype=torch.int32, device=dev)  # 2: past the pool
 # pos 15: column 1 lies past the request, so its id is never read
@@ -625,10 +756,12 @@ def fa_case(torch, np, dev, *, B, Sq, Sk, Hq, Hkv, D, dtype, seed):
 
 def check_prefill_kernels(torch, np, dev, fa, rms, ops, common, errs):
     """Phase 2, K4 and K9.  K4 against ``flash_attention_torch`` at
-    smollm's prefill shape, at gemma2's over 8192 keys with and without
-    its 4096 window, with a q_offset, ragged (Sq 37 and 1000); rows that
-    see no key only finite.  K9 against ``common.rmsnorm`` at d 576 and
-    4608, plain and gemma forms, 1 to 8192 rows, fp32 and bf16 scales."""
+    smollm's prefill shape, at gemma2's and h2o-danube-3's (D 120) over
+    8192 keys with and without their 4096 window, with a q_offset, ragged
+    (Sq 37 and 1000), and at llava-next's G 7 (4 x 512 and ragged); rows
+    that see no key only finite.  K9 against ``common.rmsnorm`` at d 576,
+    2048, 3840, 4096, 4608 and 7168, plain and gemma forms, 1 to 8192
+    rows, fp32 and bf16 scales."""
     smol = dict(B=8, Sq=512, Sk=512, Hq=9, Hkv=3, D=64)
     gem = dict(Hq=32, Hkv=16, D=128)
     cases = [
@@ -643,6 +776,21 @@ def check_prefill_kernels(torch, np, dev, fa, rms, ops, common, errs):
         ("ragged Sq 37", dict(smol, B=3, Sq=37, Sk=37), {"window": 16}),
         ("ragged Sq 1000", dict(gem, B=1, Sq=1000, Sk=1000),
          dict(GEMMA_ATTN, window=300)),
+        # h2o-danube-3: (D, Dv) = (120, 120), G 4, window 4096
+        ("h2o 8192 keys, window 4096", dict(H2O_HEADS, B=1, Sq=8192,
+                                            Sk=8192), {"window": H2O_WINDOW}),
+        ("h2o 8192 keys, no window", dict(H2O_HEADS, B=1, Sq=8192, Sk=8192),
+         {}),
+        ("h2o q_offset 1536 over 2048 keys, window 1000",
+         dict(H2O_HEADS, B=2, Sq=512, Sk=2048),
+         {"q_offset": 1536, "window": 1000}),
+        ("h2o ragged Sq 37", dict(H2O_HEADS, B=3, Sq=37, Sk=37),
+         {"window": 16}),
+        ("h2o ragged Sq 1000", dict(H2O_HEADS, B=1, Sq=1000, Sk=1000),
+         {"window": 300}),
+        # llava-next: G 7, 18 positions (126 rows) a block
+        ("llava G 7 4 x 512", dict(LLAVA_HEADS, B=4, Sq=512, Sk=512), {}),
+        ("llava G 7 ragged Sq 37", dict(LLAVA_HEADS, B=3, Sq=37, Sk=37), {}),
     ]
     for dtype in ("bfloat16", "float32"):
         tol = TOL[dtype]
@@ -652,7 +800,9 @@ def check_prefill_kernels(torch, np, dev, fa, rms, ops, common, errs):
             got = fa.flash_attention(q, k, v, **kw)
             want = ops.flash_attention_torch(q, k, v, **kw)
             e = max_err(torch, got, want, tol, f"K4 {label} {dtype}")
-            errs["flash_attention"] = max(errs["flash_attention"], e)
+            note(errs, e, "flash_attention",
+                 "(120, 120)" if label.startswith("h2o") else
+                 "G 7" if label.startswith("llava") else None)
             torch.cuda.synchronize()
             say(f"kernels ok: K4 {label} ({dtype}), max |kernel - plain| "
                 f"{e:.3e} (tol {tol})")
@@ -667,7 +817,7 @@ def check_prefill_kernels(torch, np, dev, fa, rms, ops, common, errs):
     for dtype in ("bfloat16", "float32"):
         tol = TOL[dtype]
         worst = 0.0
-        for d in (8, 576, 4608, 8192):
+        for d in (8, 576, 2048, 3840, 4096, 4608, 7168, 8192):
             for rows in (1, 7, 1000, 8192):
                 x = torch.tensor(3.0 * rng.standard_normal((rows, d)),
                                  dtype=torch.float32, device=dev).to(
@@ -679,14 +829,15 @@ def check_prefill_kernels(torch, np, dev, fa, rms, ops, common, errs):
                     for gemma in (False, True):
                         got = rms.rmsnorm(x, w, eps=1e-6, gemma_style=gemma)
                         want = common.rmsnorm(x, w, 1e-6, gemma_style=gemma)
-                        worst = max(worst, max_err(
-                            torch, got, want, tol,
-                            f"K9 d {d} rows {rows} {dtype} w {w_dtype} "
-                            f"gemma {gemma}"))
-        errs["rmsnorm"] = max(errs["rmsnorm"], worst)
+                        e = max_err(torch, got, want, tol,
+                                    f"K9 d {d} rows {rows} {dtype} w "
+                                    f"{w_dtype} gemma {gemma}")
+                        note(errs, e, "rmsnorm", f"d {d}")
+                        worst = max(worst, e)
         torch.cuda.synchronize()
-        say(f"kernels ok: K9 d 8 / 576 / 4608 / 8192, 1 to 8192 rows, both "
-            f"forms ({dtype}), max |kernel - plain| {worst:.3e} (tol {tol})")
+        say(f"kernels ok: K9 d 8 / 576 / 2048 / 3840 / 4096 / 4608 / 7168 / "
+            f"8192, 1 to 8192 rows, both forms ({dtype}), max |kernel - "
+            f"plain| {worst:.3e} (tol {tol})")
     # the dispatch: auto launches the kernels on CUDA tensors, and shapes
     # the kernels do not take raise instead of taking a plain version
     q, k, v = fa_case(torch, np, dev, B=1, Sq=64, Sk=64, Hq=4, Hkv=2, D=64,
@@ -1240,82 +1391,148 @@ def reference_batch_check(torch, np, dev, cfg, tfm, steps, speculate,
 
 def gemma_reference(torch, np, dev, gcfg, tfm, serving, steps, bridge):
     """Phase 3, gemma2 at full width in fp32, cut to 2 local/global units
-    (4 layers): the static batch (2 x 4352 prompt tokens, 16 new) and the
-    engine on a trace that runs one request past 4096 positions, each on
-    the kernels and on the plain path.  Greedy streams equal, every
-    logits call (its last position) within 1e-3."""
-    cfg = dataclasses.replace(gcfg, n_layers=4, dtype="float32")
-    params = bridge.init_lm(cfg, torch.Generator(device=dev).manual_seed(3),
-                            dev)
-    g = torch.Generator(device=dev).manual_seed(4)
-    for blk in params["layers"].values():       # read the (1 + w) form
-        for key, t in blk.items():
-            if "norm" in key:
-                t.add_(0.1 * torch.randn(t.shape, generator=g, device=dev))
-    params = tfm.prepare_params(params, cfg)
-    cfgs = step_configs(steps)
-    rng = np.random.default_rng(6)
-    prompts = torch.tensor(rng.integers(0, cfg.vocab_size, (2, G_LONG)),
-                           dtype=torch.int32, device=dev)
+    (4 layers), its norm weights perturbed so that the (1 + w) form is
+    read: :func:`zoo_reference` on the static batch of 2 x 4352 prompt
+    tokens + 16 new and on the engine trace of :func:`long_trace`."""
+    def perturb(params):
+        g = torch.Generator(device=dev).manual_seed(4)
+        for blk in params["layers"].values():
+            for key, t in blk.items():
+                if "norm" in key:
+                    t.add_(0.1 * torch.randn(t.shape, generator=g,
+                                             device=dev))
 
-    def compare(label, streams, calls):
+    reqs, ecfg = long_trace(serving, np.random.default_rng(6),
+                            gcfg.vocab_size)
+    zoo_reference(torch, np, dev, gcfg, tfm, serving, steps, bridge,
+                  "gemma2", seed=3, batch=2, plen=G_LONG, gen=16, reqs=reqs,
+                  ecfg=ecfg, ring=gcfg.local_window, n_layers=4,
+                  perturb=perturb)
+
+
+def long_trace(serving, rng, vocab):
+    """The engine trace of a model whose layers are windowed at 4096: a
+    prompt of 4200 (inject wraps the private ring), 4080 + 40 new (decode
+    wraps it) and a late 64, over 2 slots."""
+    prompt = lambda n: rng.integers(0, vocab, n).astype("int32")
+    reqs = [serving.Request(0, prompt(4200), 8),
+            serving.Request(1, prompt(4080), 40),
+            serving.Request(2, prompt(64), 16, arrival_step=2)]
+    return reqs, serving.EngineConfig(n_slots=2, page_size=16,
+                                      max_len=G_LONG, decode_chunk=8,
+                                      cache_dtype="float32")
+
+
+def zoo_reference(torch, np, dev, full, tfm, serving, steps, bridge, label,
+                  *, seed, batch, plen, gen, reqs, ecfg, ring=0,
+                  n_layers=ZOO_REF_LAYERS, perturb=None):
+    """Phase 3, a model at full width in fp32, cut to ``n_layers`` layers,
+    on the kernels and on the plain path: the static batch of ``batch`` x
+    ``plen`` prompt tokens + ``gen`` new, then the engine on ``reqs``.
+    Greedy streams equal, every logits call (its last position) within
+    1e-3, every request finishing its budget.  ``ring``: the window's ring
+    size, which the batch's rings must hold and wrap; ``perturb``: called
+    on the drawn parameters before they are prepared."""
+    cfg = dataclasses.replace(full, n_layers=n_layers, dtype="float32")
+    params = bridge.init_lm(
+        cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    if perturb is not None:
+        perturb(params)
+    params = tfm.prepare_params(params, cfg)
+    prompts = torch.tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (batch, plen)), dtype=torch.int32, device=dev)
+
+    def compare(what, streams, calls):
         if not all(np.array_equal(a, b)
                    for a, b in zip(streams["cuda"], streams["torch"])):
-            fail(f"gemma2 reference {label}: kernel stream differs from the "
+            fail(f"{label} reference {what}: kernel stream differs from the "
                  "plain path's")
         if len(calls["cuda"]) != len(calls["torch"]):
-            fail(f"gemma2 reference {label}: different logits calls")
-        return max(float((a - b).abs().max())
-                   for a, b in zip(calls["cuda"], calls["torch"]))
+            fail(f"{label} reference {what}: different logits calls")
+        err = max(float((a - b).abs().max())
+                  for a, b in zip(calls["cuda"], calls["torch"]))
+        if err > 1e-3:
+            fail(f"{label} reference {what}: logits differ by {err:.3e} > "
+                 "1e-3")
+        return err
 
     streams, calls = {}, {}
     with torch.no_grad():
-        for backend, scfg in cfgs.items():
+        for backend, scfg in step_configs(steps).items():
             with LogitsTap(torch, tfm, record=True, last_only=True) as tap:
-                pre = steps.make_prefill_step(cfg, scfg, max_len=G_LONG + 16)
+                pre = steps.make_prefill_step(cfg, scfg, max_len=plen + gen)
                 last, cache = pre(params, {"inputs": prompts})
                 tok0 = torch.argmax(last, dim=-1).to(torch.int32)[:, None]
-                toks, cache = steps.make_decode_loop(cfg, scfg, 15)(
+                toks, cache = steps.make_decode_loop(cfg, scfg, gen - 1)(
                     params, cache, tok0)
-            if cache["units"]["sub0"]["k"].shape[2] != 4096 \
-                    or int(cache["pos"]) != G_LONG + 15:
-                fail("gemma2 reference batch: the local ring is not 4096 "
-                     "slots past its wrap")
+            if ring and (cache["units"]["sub0"]["k"].shape[2] != ring
+                         or int(cache["pos"]) <= ring):
+                fail(f"{label} reference batch: the rings are not {ring} "
+                     "slots past their wrap")
             streams[backend] = torch.cat([tok0, toks], 1).cpu().numpy()
             calls[backend] = tap.calls
             del cache
     err = compare("batch", streams, calls)
-    if err > 1e-3:
-        fail(f"gemma2 reference batch: logits differ by {err:.3e} > 1e-3")
-    say(f"reference ok: gemma2 fp32 full width, 4 layers, batch of 2 x "
-        f"{G_LONG} tokens + 16 new (window 4096 masks prefill, local rings "
-        f"wrapped): streams equal on kernels and plain path, "
+    say(f"reference ok: {label} fp32 full width, {n_layers} layers, "
+        f"batch of {batch} x {plen} tokens + {gen} new"
+        + (f" (window {ring} masks prefill, rings wrapped)" if ring else "")
+        + f": streams equal on kernels and plain path, "
         f"{len(calls['cuda'])} logits calls within {err:.3e}")
 
-    prompt = lambda n: rng.integers(0, cfg.vocab_size, n).astype(np.int32)
-    reqs = [serving.Request(0, prompt(4200), 8),
-            serving.Request(1, prompt(4080), 40),
-            serving.Request(2, prompt(64), 16, arrival_step=2)]
-    ecfg = serving.EngineConfig(n_slots=2, page_size=16, max_len=4352,
-                                decode_chunk=8, cache_dtype="float32")
-    streams, calls = {}, {}
-    for backend, scfg in cfgs.items():
+    streams, calls, reps = {}, {}, {}
+    for backend, scfg in step_configs(steps).items():
         with LogitsTap(torch, tfm, record=True, last_only=True) as tap:
             rep = serving.ServeEngine(cfg, ecfg, params, step_cfg=scfg,
                                       device=dev).run(reqs)
         for r in rep.results:
             if r.n_tokens != r.max_new_tokens:
-                fail(f"gemma2 reference engine: rid {r.rid} finished "
+                fail(f"{label} reference engine: rid {r.rid} finished "
                      f"{r.n_tokens}/{r.max_new_tokens}")
         streams[backend] = [r.tokens for r in rep.results]
         calls[backend] = tap.calls
+        reps[backend] = rep
+    if not ring and reps["cuda"].prefill_tokens_saved <= 0:
+        fail(f"{label} reference engine: no prefix-cache hit")
     err = compare("engine", streams, calls)
-    if err > 1e-3:
-        fail(f"gemma2 reference engine: logits differ by {err:.3e} > 1e-3")
-    say(f"reference ok: gemma2 fp32 full width, 4 layers, engine: prompts "
-        f"of 4200 (inject wraps the 4096-row private ring), 4080 + 40 new "
-        f"(decode wraps it) and 64: streams equal on kernels and plain path,"
-        f" {len(calls['cuda'])} logits calls within {err:.3e}")
+    longest = max(r.prompt_len + r.n_tokens for r in reps["cuda"].results)
+    say(f"reference ok: {label} fp32 full width, {n_layers} layers, "
+        f"engine: {len(reqs)} requests over {ecfg.n_slots} slots, "
+        f"{reps['cuda'].prefill_tokens_saved} prompt tokens restored, "
+        f"longest {longest} positions: streams equal on kernels and plain "
+        f"path, {len(calls['cuda'])} logits calls within {err:.3e}")
+    del params
+
+
+def zoo_references(torch, np, dev, get_arch, tfm, serving, steps, bridge):
+    """Phase 3 for the four zoo families: h2o-danube-3 on the batch of 2 x
+    G_LONG prompt tokens + 16 new (the 4096 window masks prefill, the
+    rings wrap) and an engine trace whose requests pass 4096 positions
+    (the private rings wrap at inject and in decode); stablelm, phi3.5
+    and llava on 2 x 512 + 16 new and 6 Poisson requests over 4 slots with
+    2 shared 21-token prompt heads (prefix hits run the paged verify
+    sweep)."""
+    h2o = get_arch("h2o-danube-3-4b").config
+    reqs, ecfg = long_trace(serving, np.random.default_rng(12),
+                            h2o.vocab_size)
+    zoo_reference(torch, np, dev, h2o, tfm, serving, steps, bridge,
+                  "h2o-danube-3", seed=13, batch=2, plen=G_LONG, gen=16,
+                  reqs=reqs, ecfg=ecfg, ring=H2O_WINDOW)
+    torch.cuda.empty_cache()
+    for i, arch in enumerate(("stablelm-1.6b", "phi3.5-moe-42b-a6.6b",
+                              "llava-next-34b")):
+        full = get_arch(arch).config
+        reqs = serving.poisson_trace(6, rate_per_step=0.5, seed=11,
+                                     vocab_size=full.vocab_size,
+                                     prompt_len=(8, 24),
+                                     max_new_tokens=(6, 12),
+                                     shared_prefix_len=21, prompt_pools=2)
+        zoo_reference(
+            torch, np, dev, full, tfm, serving, steps, bridge, arch,
+            seed=14 + i, batch=2, plen=PLEN, gen=16, reqs=reqs,
+            ecfg=serving.EngineConfig(n_slots=4, page_size=16, max_len=64,
+                                      decode_chunk=4,
+                                      cache_dtype="float32"))
+        torch.cuda.empty_cache()
 
 
 def refuse_pages(engine, n_refusals: int, first: int):
@@ -1771,67 +1988,84 @@ def ring_timings(torch, np, dev, da, ops):
     return out
 
 
-def int8_timings(torch, np, dev, da, ops, quant):
-    """Phase 5, the int8 templates at the bf16 rows' shapes and positions:
-    paged at 4 slots (decode pos 64..79, verify Q 16), ring at 8 requests
-    over 545 slots (pos 528, verify Q 4); q bf16.  The bound counts D + 4
-    bytes a kv row; the yardstick is SDPA over the cache dequantized to
-    bf16 before the timed call."""
+def form_timings(torch, np, dev, da, ops, quant, *, heads, batch, int8,
+                 family=None):
+    """Phase 5, both sweeps in one form, bf16 q: paged at the engine's
+    shapes (4 slots, 5 pages of 16, decode pos 64..79, verify Q 16), ring
+    at a batch path's (``batch`` requests, a ring of 545 slots, pos 528,
+    verify Q 4), pools and rings in bf16 or int8, at ``heads`` (Hq, Hkv,
+    D).  Each entry at its split count (the returned row) and at 1 split,
+    beside its bound (an int8 kv row D + 4 bytes) and SDPA over the cache
+    (dequantized to bf16 before the timed call, for int8); the merge on
+    the ring decode's partials.  With ``family`` (the main paths that run
+    this head dim) the rows are named ``entry D <D>`` and count that
+    family's launches, the 1-split times and the bf16 form's merge are
+    rows too."""
     out = {}
-    main = dict(B=4, Hq=9, Hkv=3, D=64, ps=16, nb=5)
-    S = ops.choose_kv_splits(4, 80, 9, block=16, device=dev)
-    for verify, pos, Q in ((False, [64, 71, 75, 79], 1),
-                           (True, [32, 48, 16, 32], 16)):
-        name = ("paged_attention_sweep int8 (verify)" if verify
-                else "paged_attention_sweep int8 (decode)")
-        c = quantize_case(quant, make_case(
-            torch, np, dev, pos=pos, Q=Q, dtype="bfloat16", seed=100 + Q,
-            **main), ("k_pages", "v_pages"))
-        args, kw = sweep_args(c, verify)
-        row = {}
-        for n_splits in (S, 1):
-            ms = time_ms(torch, lambda: da.paged_attention_sweep(
-                *args, **kw, n_splits=n_splits))
-            plain = time_ms(torch, lambda: da.paged_attention_sweep_torch(
-                *args, **kw, n_splits=n_splits), iters=5, reps=10)
-            b_ms, b_by = bound(*sweep_work(c, n_splits, verify))
-            row[n_splits] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms,
-                                 bound_by=b_by, n_splits=n_splits)
-        lib = time_ms(torch, sdpa_yardstick(
-            torch, dequantized(torch, c, ("k_pages", "v_pages")), verify))
-        out[name] = dict(row[S], library_ms=lib)
-        one = row[1]
-        say(f"{name} (n_splits 1): kernel {one['ms'] * 1e3:.1f} us, plain "
-            f"{one['plain_ms'] * 1e3:.1f} us, bound "
-            f"{one['bound_ms'] * 1e3:.3f} us, sdpa over the dequantized "
-            f"cache {lib * 1e3:.1f} us")
-    shp = dict(B=BATCH, Hq=9, Hkv=3, D=64, C=PLEN + GEN)
-    S = ops.choose_kv_splits(BATCH, PLEN + GEN, 9, block=256, device=dev)
-    for verify, Q in ((False, 1), (True, 4)):
-        name = ("ring_attention_sweep int8 (verify)" if verify
-                else "ring_attention_sweep int8 (decode)")
-        c = quantize_case(quant, make_ring_case(
-            torch, np, dev, pos=528, Q=Q, dtype="bfloat16", seed=300 + Q,
-            **shp), ("k", "v"))
-        args, kw = ring_args(c, verify)
-        row = {}
-        for n_splits in (S, 1):
-            ms = time_ms(torch, lambda: da.ring_attention_sweep(
-                *args, **kw, n_splits=n_splits, block_k=256))
-            plain = time_ms(torch, lambda: da.ring_attention_sweep_torch(
-                *args, **kw, n_splits=n_splits, block_k=256), iters=5,
-                reps=10)
-            b_ms, b_by = bound(*ring_work(torch, c, n_splits, verify))
-            row[n_splits] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms,
-                                 bound_by=b_by, n_splits=n_splits)
-        lib = time_ms(torch, ring_sdpa_yardstick(
-            torch, dequantized(torch, c, ("k", "v")), verify))
-        out[name] = dict(row[S], library_ms=lib)
-        one = row[1]
-        say(f"{name} (n_splits 1): kernel {one['ms'] * 1e3:.1f} us, plain "
-            f"{one['plain_ms'] * 1e3:.1f} us, bound "
-            f"{one['bound_ms'] * 1e3:.3f} us, sdpa over the dequantized "
-            f"cache {lib * 1e3:.1f} us")
+    tag = " int8" if int8 else ""
+    form = f"D {heads['D']}{tag or ' bf16'}"
+    for kind, verify, Q in (("paged", False, 1), ("paged", True, 16),
+                            ("ring", False, 1), ("ring", True, 4)):
+        entry = (f"{kind}_attention_sweep{tag} "
+                 f"({'verify' if verify else 'decode'})")
+        name = f"{entry} D {heads['D']}" if family else entry
+        if kind == "paged":
+            pos = [32, 48, 16, 32] if verify else [64, 71, 75, 79]
+            c = make_case(torch, np, dev, pos=pos, Q=Q, dtype="bfloat16",
+                          seed=100 + Q, B=4, ps=16, nb=5, **heads)
+            keys, extra, args_of = ("k_pages", "v_pages"), {}, sweep_args
+            S = ops.choose_kv_splits(4, 80, heads["Hq"], block=16,
+                                     device=dev)
+            kernel, plain = (da.paged_attention_sweep,
+                             da.paged_attention_sweep_torch)
+            work = lambda c, n: sweep_work(c, n, verify)
+            yard = sdpa_yardstick
+        else:
+            c = make_ring_case(torch, np, dev, pos=528, Q=Q,
+                               dtype="bfloat16", seed=300 + Q, B=batch,
+                               C=PLEN + GEN, **heads)
+            keys, extra, args_of = ("k", "v"), {"block_k": 256}, ring_args
+            S = ops.choose_kv_splits(batch, PLEN + GEN, heads["Hq"],
+                                     block=256, device=dev)
+            kernel, plain = (da.ring_attention_sweep,
+                             da.ring_attention_sweep_torch)
+            work = lambda c, n: ring_work(torch, c, n, verify)
+            yard = ring_sdpa_yardstick
+        if int8:
+            c = quantize_case(quant, c, keys)
+        args, kw = args_of(c, verify)
+        lib = time_ms(torch, yard(torch, dequantized(torch, c, keys)
+                                  if int8 else c, verify))
+        for n in (S, 1):
+            ms = time_ms(torch, lambda: kernel(*args, **kw, n_splits=n,
+                                               **extra))
+            pl = time_ms(torch, lambda: plain(*args, **kw, n_splits=n,
+                                              **extra), iters=5, reps=10)
+            b_ms, b_by = bound(*work(c, n))
+            if n == S or family:
+                row = name if n == S else f"{name}, 1 split"
+                out[row] = dict(ms=ms, plain_ms=pl, library_ms=lib,
+                                bound_ms=b_ms, bound_by=b_by, n_splits=n,
+                                entry=entry, family=family, err=name)
+            say(f"{entry} {form} (n_splits {n}): kernel {ms * 1e3:.1f} us, "
+                f"plain {pl * 1e3:.1f} us, bound {b_ms * 1e3:.3f} us "
+                f"({b_by}), sdpa {lib * 1e3:.1f} us")
+        if kind == "ring" and not verify and S > 1:
+            partial, lse = kernel(*args, **kw, n_splits=S, **extra)
+            m_ms = time_ms(torch, lambda: da.lse_merge(partial, lse,
+                                                       torch.bfloat16))
+            m_pl = time_ms(torch, lambda: da.lse_merge_torch(
+                partial, lse, torch.bfloat16), iters=5, reps=10)
+            mb, mby = bound((partial.numel() + lse.numel()) * 4
+                            + partial.numel() // S * 2, 3.0 * partial.numel())
+            say(f"lse_merge on the {form} ring decode's partials (n_splits "
+                f"{S}): kernel {m_ms * 1e3:.1f} us, plain {m_pl * 1e3:.1f} "
+                f"us, bound {mb * 1e3:.3f} us ({mby})")
+            if family and not int8:
+                out[f"lse_merge Dv {heads['D']}"] = dict(
+                    ms=m_ms, plain_ms=m_pl, library_ms=None, bound_ms=mb,
+                    bound_by=mby, n_splits=S, entry="lse_merge",
+                    family=family)
     return out
 
 
@@ -1901,10 +2135,12 @@ def sdpa_prefill_yardstick(torch, q, k, v, *, window=0, scale=None, **_):
 def prefill_timings(torch, np, dev, fa, rms, ops, common):
     """Phase 5, K4 and K9 at the main paths' shapes (bf16): K4 at gemma2's
     batch prefill (4 x 512, Hq 32, Hkv 16, D 128, cap 50, the JSON row),
-    smollm's (8 x 512, Hq 9, Hkv 3, D 64) and gemma2's long local layer
-    (2 x 4352, window 4096); K9 at gemma2's 2048 prefill rows of 4608
-    (gemma form, the JSON row), smollm's 4096 rows of 576 and a 4-row
-    decode step of gemma2."""
+    smollm's (8 x 512, Hq 9, Hkv 3, D 64), gemma2's long local layer
+    (2 x 4352, window 4096), h2o-danube-3's 4 x 512 (D 120) and
+    llava-next's (G 7); K9 at gemma2's 2048 prefill rows of 4608 (gemma
+    form, the JSON row), smollm's 4096 rows of 576, a 4-row decode step
+    of gemma2 and the prefill rows of stablelm (8 x 512 of 2048), h2o
+    (3840), phi3.5 (4096) and llava (7168)."""
     out = {}
     cases = [("gemma2 4 x 512", dict(B=4, Sq=512, Sk=512, Hq=32, Hkv=16,
                                      D=128), GEMMA_ATTN),
@@ -1912,7 +2148,14 @@ def prefill_timings(torch, np, dev, fa, rms, ops, common):
                                      D=64), {}),
              ("gemma2 2 x 4352 local", dict(B=2, Sq=G_LONG, Sk=G_LONG, Hq=32,
                                             Hkv=16, D=128),
-              dict(GEMMA_ATTN, window=4096))]
+              dict(GEMMA_ATTN, window=4096)),
+             ("h2o 4 x 512 (D 120)", dict(B=4, Sq=512, Sk=512, **H2O_HEADS),
+              {"window": H2O_WINDOW}),
+             ("llava 4 x 512 (G 7)", dict(B=4, Sq=512, Sk=512,
+                                          **LLAVA_HEADS), {})]
+    # the forms with rows of their own: (name, the paths that run it)
+    rows = {3: ("flash_attention (120, 120)", "h2o"),
+            4: ("flash_attention G 7", "llava")}
     for i, (label, shp, kw) in enumerate(cases):
         q, k, v = fa_case(torch, np, dev, dtype="bfloat16", seed=600 + i,
                           **shp)
@@ -1931,13 +2174,23 @@ def prefill_timings(torch, np, dev, fa, rms, ops, common):
             out["flash_attention"] = dict(ms=ms, plain_ms=plain,
                                           library_ms=lib, bound_ms=b_ms,
                                           bound_by=b_by, shape=label)
+        if i in rows:
+            name, family = rows[i]
+            out[name] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                             bound_ms=b_ms, bound_by=b_by, shape=label,
+                             entry="flash_attention", family=family)
         del q, k, v
     F = torch.nn.functional
     rng = np.random.default_rng(700)
     for i, (label, rows, d, gemma) in enumerate((
             ("gemma2 2048 x 4608", 2048, 4608, True),
             ("smollm 4096 x 576", 4096, 576, False),
-            ("gemma2 decode 4 x 4608", 4, 4608, True))):
+            ("gemma2 decode 4 x 4608", 4, 4608, True),
+            ("stablelm 4096 x 2048", 4096, 2048, False),
+            ("h2o 2048 x 3840", 2048, 3840, False),
+            ("phi3.5 2048 x 4096", 2048, 4096, False),
+            ("llava 2048 x 7168", 2048, 7168, False))):
+        family = label.split()[0]
         x = torch.tensor(rng.standard_normal((rows, d)), dtype=torch.float32,
                          device=dev).to(torch.bfloat16)
         w = torch.tensor(0.1 * rng.standard_normal(d), dtype=torch.float32,
@@ -1957,6 +2210,10 @@ def prefill_timings(torch, np, dev, fa, rms, ops, common):
         if i == 0:
             out["rmsnorm"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                                   bound_ms=b_ms, bound_by=b_by, shape=label)
+        if i >= 3:
+            out[f"rmsnorm d {d}"] = dict(
+                ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                bound_by=b_by, shape=label, entry="rmsnorm", family=family)
     return out
 
 
@@ -2204,6 +2461,7 @@ def main() -> int:
     # collect it, or its 36 GB of fp32 weights outlive the phase
     gc.collect()
     torch.cuda.empty_cache()
+    zoo_references(torch, np, dev, get_arch, tfm, serving, steps, bridge)
 
     # 4. the main paths -------------------------------------------------------
     poisson = ["--arch", "smollm-135m", "--traffic", "poisson",
@@ -2234,13 +2492,35 @@ def main() -> int:
     d_poisson = ds + ["--traffic", "poisson", "--requests", "8",
                       "--shared-prefix-len", "32", "--prompt-pools", "2",
                       "--n-slots", "4", "--page-size", "16"]
+    # the zoo: h2o-danube-3 (head dim 120, every layer windowed, so its
+    # engine runs private rings and no prefix cache), stablelm (G 1),
+    # phi3.5-moe cut to 24 of its 32 layers, llava-next (G 7) at full depth
+    h2o = ["--arch", "h2o-danube-3-4b"]
+    h_batch = h2o + ["--traffic", "batch", "--requests", "4",
+                     "--prompt-len", str(PLEN), "--gen", str(GEN)]
+    h_poisson = h2o + ["--traffic", "poisson", "--requests", "8",
+                       "--n-slots", "4", "--page-size", "16"]
+
+    def zoo(arch, n_batch):
+        return (["--arch", arch, "--traffic", "batch", "--requests",
+                 str(n_batch), "--prompt-len", str(PLEN), "--gen", str(GEN)],
+                ["--arch", arch, "--traffic", "poisson", "--requests", "8",
+                 "--shared-prefix-len", "32", "--prompt-pools", "2",
+                 "--n-slots", "4", "--page-size", "16"])
+
+    s_batch, s_poisson = zoo("stablelm-1.6b", BATCH)
+    p_batch, p_poisson = zoo("phi3.5-moe-42b-a6.6b", 4)
+    l_batch, l_poisson = zoo("llava-next-34b", 4)
+    phi_cfg = dataclasses.replace(get_arch("phi3.5-moe-42b-a6.6b").config,
+                                  n_layers=PHI_LAYERS)
+    cuts = {"deepseek": ds_cfg, "phi3.5": phi_cfg}
     int8 = ["--kv-dtype", "int8"]
     attn = ("flash_attention", "rmsnorm")
     ssm = ("ssd", "rmsnorm")
+    paged = ("sweep_decode", "sweep_verify", "merge") + attn
     # (label, argv, kernels the path must launch, requests, new tokens,
     # config cut in depth or None for the registry's)
-    paths = [("poisson", poisson,
-              ("sweep_decode", "sweep_verify", "merge") + attn, 8, None),
+    paths = [("poisson", poisson, paged, 8, None),
              ("batch", batch, ("ring_decode", "merge") + attn, BATCH, GEN),
              ("batch --spec-k 3", batch + ["--spec-k", "3"],
               ("ring_verify", "merge") + attn, BATCH, GEN),
@@ -2265,20 +2545,39 @@ def main() -> int:
              ("mamba2 long batch", m_long, ssm, 2, 17),
              ("deepseek batch", d_batch, attn, 4, GEN),
              ("deepseek poisson", d_poisson,
-              ("mla_decode", "mla_verify", "merge") + attn, 8, None)]
-    paths = [p + (ds_cfg if p[0].startswith("deepseek") else None,)
-             for p in paths]
+              ("mla_decode", "mla_verify", "merge") + attn, 8, None),
+             ("h2o batch", h_batch, ("ring_decode",) + attn, 4, GEN),
+             ("h2o batch --spec-k 3", h_batch + ["--spec-k", "3"],
+              ("ring_verify",) + attn, 4, GEN),
+             ("h2o poisson", h_poisson, ("ring_decode",) + attn, 8, None),
+             ("stablelm batch", s_batch, ("ring_decode",) + attn, BATCH,
+              GEN),
+             ("stablelm poisson", s_poisson, paged, 8, None),
+             ("phi3.5 batch", p_batch, ("ring_decode",) + attn, 4, GEN),
+             ("phi3.5 poisson", p_poisson, paged, 8, None),
+             ("llava batch", l_batch, ("ring_decode",) + attn, 4, GEN),
+             ("llava poisson", l_poisson, paged, 8, None)]
+    paths = [p + (cuts.get(p[0].split()[0]),) for p in paths]
     launches = {key: 0 for key in da.LAUNCHES}
+    # launches by model family (a label's first word), for the rows of a
+    # form only one family runs (head dim 120: h2o-danube-3; G 7: llava)
+    by_family = {}
     for label, argv, keys, n_req, gen, cut in paths:
         torch.cuda.reset_peak_memory_stats()
         out, counts = serve_run(torch, da, tfm, serve, label, argv, cut)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         torch.cuda.empty_cache()
+        if peak > CARD_GIB:
+            fail(f"{label}: peak {peak:.1f} GiB exceeds the card's "
+                 f"{CARD_GIB} GiB")
         for key in keys:
             if counts[key] <= 0:
                 fail(f"{label}: kernel {key} was never launched")
+        fam = by_family.setdefault(label.split()[0],
+                                   {key: 0 for key in da.LAUNCHES})
         for key, n in counts.items():
             launches[key] += n
+            fam[key] += n
         if "poisson" in label:
             rep = out
             if len(rep.results) != n_req:
@@ -2288,7 +2587,7 @@ def main() -> int:
                 if r.n_tokens != r.max_new_tokens:
                     fail(f"{label}: rid {r.rid} finished {r.n_tokens}/"
                          f"{r.max_new_tokens} tokens ({r.finish_reason})")
-            if not label.startswith(("gemma2", "mamba2")) \
+            if not label.startswith(("gemma2", "mamba2", "h2o")) \
                     and rep.prefill_tokens_saved <= 0:
                 fail(f"{label}: no prefix-cache hit, the suffix prefill "
                      "never ran")
@@ -2336,7 +2635,14 @@ def main() -> int:
     times.update(prefill_timings(torch, np, dev, fa, rms, ops, common))
     times.update(ssd_timings(torch, np, dev, ss))
     times.update(mla_timings(torch, np, dev, da, fa, ops))
-    times.update(int8_timings(torch, np, dev, da, ops, quant))
+    times.update(form_timings(torch, np, dev, da, ops, quant,
+                              heads=dict(Hq=9, Hkv=3, D=64), batch=BATCH,
+                              int8=True))
+    # h2o-danube-3's head dim 120, bf16 and int8, on rows of their own
+    for int8 in (False, True):
+        times.update(form_timings(torch, np, dev, da, ops, quant,
+                                  heads=H2O_HEADS, batch=4, int8=int8,
+                                  family="h2o"))
     step = int8_step_cost(torch, np, dev, cfg, tfm, steps, bridge)
     say(f"paged decode step, smollm-135m full width, 4 slots, host clock "
         f"(median of chunks of 8 in turns): bf16 pools "
@@ -2344,11 +2650,12 @@ def main() -> int:
         f"(+{step['int8'] - step['bfloat16']:.2f} ms) on {card}")
     kernels = []
     for name, t in times.items():
-        source, replaces, key = KERNELS[name]
+        source, replaces, key = KERNELS[t.get("entry") or name]
+        counted = by_family[t["family"]] if t.get("family") else launches
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[key],
-            "max_abs_err": errs[name],
+            "replaces": replaces, "launches": counted[key],
+            "max_abs_err": errs[t.get("err", name)],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})

@@ -1,11 +1,13 @@
 """Architecture registry of the PyTorch port: ``--arch <id>`` resolution.
 
-Only the families whose serving path has been ported are listed; the
-others join with their own slices (see ROADMAP.md)."""
+Eight of the JAX package's ten families are listed: ``musicgen-medium``
+and ``zamba2-1.2b`` need model code of their own and join with their own
+slices (see ROADMAP.md)."""
 from __future__ import annotations
 
-from repro_torch.configs import (deepseek_v2_236b, gemma2_27b, mamba2_370m,
-                                 smollm_135m)
+from repro_torch.configs import (deepseek_v2_236b, gemma2_27b,
+                                 h2o_danube3_4b, llava_next_34b, mamba2_370m,
+                                 phi35_moe, smollm_135m, stablelm_1_6b)
 from repro_torch.configs.base import ArchSpec, reduce_for_smoke
 from repro_torch.configs.shapes import ALL_SHAPES, SHAPES, Shape
 
@@ -13,9 +15,13 @@ ARCH_SPECS: dict[str, ArchSpec] = {
     spec.arch_id: spec
     for spec in (
         smollm_135m.SPEC,
+        h2o_danube3_4b.SPEC,
+        stablelm_1_6b.SPEC,
         gemma2_27b.SPEC,
-        mamba2_370m.SPEC,
+        phi35_moe.SPEC,
         deepseek_v2_236b.SPEC,
+        llava_next_34b.SPEC,
+        mamba2_370m.SPEC,
     )
 }
 

@@ -1,9 +1,10 @@
 // Device code shared by the port's attention sweeps (paged_attention.cu,
 // ring_attention.cu): the masked-score constant, 16-byte row loads into
-// shared memory (with the int8 rows' fused dequant), warp reductions and
-// the epilogue that writes a sweep's result (normalised output for one
-// split, partial + log-sum-exp for several).  Everything is internal to
-// the translation unit that includes it.
+// shared memory (with the int8 rows' fused dequant, in 8-byte loads where
+// a row's width is not a multiple of 16), warp reductions and the epilogue
+// that writes a sweep's result (normalised output for one split, partial
+// + log-sum-exp for several).  Everything is internal to the translation
+// unit that includes it.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -35,11 +36,17 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* src, float* dst) {
   }
 }
 
-__device__ __forceinline__ void load16(const int8_t* src, float* dst) {
-  const int4 v = *reinterpret_cast<const int4*>(src);
+// N int8 values in one N-byte load (N = 16, or 8 where rows are only
+// 8-byte aligned: a row of 120 values puts every odd row 8 bytes off a
+// 16-byte boundary)
+template <int N>
+__device__ __forceinline__ void load_int8(const int8_t* src, float* dst) {
+  static_assert(N == 16 || N == 8, "int8 loads of 16 or 8 bytes");
+  using V = typename std::conditional<N == 16, int4, int2>::type;
+  const V v = *reinterpret_cast<const V*>(src);
   const int8_t* b = reinterpret_cast<const int8_t*>(&v);
 #pragma unroll
-  for (int i = 0; i < 16; ++i) dst[i] = static_cast<float>(b[i]);
+  for (int i = 0; i < N; ++i) dst[i] = static_cast<float>(b[i]);
 }
 
 __device__ __forceinline__ void store(float* dst, float x) { *dst = x; }
@@ -54,6 +61,7 @@ template <typename T, int HD, int LD = HD>
 __device__ __forceinline__ void load_rows(const T* base, long row_stride,
                                           int n_rows, float* dst) {
   constexpr int VN = 16 / sizeof(T);
+  static_assert(HD % VN == 0, "a row must be whole 16-byte loads");
   constexpr int PER_ROW = HD / VN;
   float v[VN];
   for (int c = threadIdx.x; c < n_rows * PER_ROW; c += NT) {
@@ -70,23 +78,28 @@ __device__ __forceinline__ void load_rows(const T* base, long row_stride,
 // values, row r at base + r * row_stride, each multiplied by its fp32
 // scale scale[r * scale_stride] as it lands in the fp32 tile (the JAX
 // oracle's q.astype(f32) * scale, the same one rounding).  One 16-byte
-// load per 16 values, neighbouring threads on neighbouring addresses; the
-// scales are read in place with the pool's or ring's own row stride.
+// load per 16 values where HD is a multiple of 16, else one 8-byte load
+// per 8 (HD 120: rows of 120 bytes are 8-byte aligned only), neighbouring
+// threads on neighbouring addresses; the scales are read in place with
+// the pool's or ring's own row stride.
 template <int HD, int LD = HD>
 __device__ __forceinline__ void load_rows_int8(const int8_t* base,
                                                long row_stride,
                                                const float* scale,
                                                long scale_stride, int n_rows,
                                                float* dst) {
-  constexpr int PER_ROW = HD / 16;
-  float v[16];
+  constexpr int VN = HD % 16 == 0 ? 16 : 8;
+  static_assert(HD % VN == 0, "an int8 row must be whole 16- or 8-byte "
+                "loads");
+  constexpr int PER_ROW = HD / VN;
+  float v[VN];
   for (int c = threadIdx.x; c < n_rows * PER_ROW; c += NT) {
     const int r = c / PER_ROW;
-    const int col = (c - r * PER_ROW) * 16;
-    load16(base + r * row_stride + col, v);
+    const int col = (c - r * PER_ROW) * VN;
+    load_int8<VN>(base + r * row_stride + col, v);
     const float s = scale[r * scale_stride];
 #pragma unroll
-    for (int j = 0; j < 16; ++j) dst[r * LD + col + j] = v[j] * s;
+    for (int j = 0; j < VN; ++j) dst[r * LD + col + j] = v[j] * s;
   }
 }
 

@@ -8,8 +8,9 @@
 //                        Dv), out (B, Sq, Hq, Dv) in q's dtype; fp32 online
 //                        softmax; causal, sliding window, tanh soft-cap
 //                        (before the mask), any query scale, q_offset.
-//                        (D, Dv) is (64, 64), (128, 128) or deepseek-v2's
-//                        MLA prefill (192, 128): [nope | rope] q/k, v 128.
+//                        (D, Dv) is (64, 64), h2o-danube's (120, 120),
+//                        (128, 128) or deepseek-v2's MLA prefill (192,
+//                        128): [nope | rope] q/k, v 128.
 //
 // It launches on the caller's stream, allocates nothing and returns
 // cudaGetLastError() so that a refused launch is reported.
@@ -34,8 +35,9 @@ constexpr size_t fa_smem_bytes() {
                           + (size_t)FA_BK * HDV + (size_t)FA_ROWS * PLD);
 }
 // the largest pair, (192, 128), needs 221,952 bytes of the 232,448 a
-// Hopper block may opt into
+// Hopper block may opt into; (120, 120) 164,608
 static_assert(fa_smem_bytes<192, 128>() <= 232448, "K4 shared memory");
+static_assert(fa_smem_bytes<120, 120>() <= 232448, "K4 shared memory");
 
 // Replaces, from src/repro/kernels/flash_attention.py:
 //   flash_attention  (:94, kernel _fa_kernel :36, pallas_call :130)
@@ -50,7 +52,13 @@ static_assert(fa_smem_bytes<192, 128>() <= 232448, "K4 shared memory");
 // D) layout and staging them in shared memory as fp32.  Each thread holds
 // 8 rows: their 8 x 4 scores of a tile and their 8 x Dv/16 output
 // accumulators, with the (m, l) state, in registers; the 16 lanes of a
-// half-warp share those rows, so the row max and sum are 4 shuffles.  The
+// half-warp share those rows, so the row max and sum are 4 shuffles.  A
+// Dv that is not a multiple of 16 (h2o-danube's 120) gives each thread
+// ceil(Dv / 16) column slots, the last one predicated: lanes whose column
+// cg + 16 c lies past Dv read no v and write nothing, so the wrapper
+// never pads q, k or v.  G need not divide 128: at G = 7 (llava-next) a
+// tile holds 18 positions, 126 rows, and rows 126 and 127 are never
+// written.  The
 // update is the reference's (_fa_kernel), once per tile.  Ragged Sq and Sk
 // are predicated: keys past Sk score -inf (weight exactly 0, their v rows
 // zero-filled), q rows past Sq are never written.  Still simple: fp32 FMAs
@@ -69,8 +77,10 @@ __global__ void __launch_bounds__(FA_NT) flash_attention_kernel(
     float scale) {
   constexpr int QLD = HD + 1;        // odd strides: conflict-free columns
   constexpr int KLD = HD + 1;
-  constexpr int CPT = HDV / 16;      // output columns per thread
+  constexpr int CPT = (HDV + 15) / 16;   // output column slots per thread
   constexpr int VN = 16 / sizeof(T); // elements per 16-byte load
+  static_assert(HD % VN == 0 && HDV % VN == 0,
+                "q, k and v rows must be whole 16-byte loads");
   constexpr int PER_ROW = HD / VN;
   constexpr int PER_ROW_V = HDV / VN;
   extern __shared__ float smem[];
@@ -88,6 +98,8 @@ __global__ void __launch_bounds__(FA_NT) flash_attention_kernel(
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int rg = 2 * warp + (lane >> 4);       // row group: rows rg + 16 j
   const int cg = lane & 15;                    // key / column group
+  // whether column slot c lies inside Dv (always, where 16 divides Dv)
+  auto col_ok = [cg](int c) { return HDV % 16 == 0 || cg + 16 * c < HDV; };
 
   const long q_row = (long)Hq * HD;            // q position stride
   const long o_row = (long)Hq * HDV;           // out position stride
@@ -220,7 +232,8 @@ __global__ void __launch_bounds__(FA_NT) flash_attention_kernel(
     for (int kk = 0; kk < nk; ++kk) {
       float vk[CPT];
 #pragma unroll
-      for (int c = 0; c < CPT; ++c) vk[c] = vs[kk * HDV + cg + 16 * c];
+      for (int c = 0; c < CPT; ++c)
+        vk[c] = col_ok(c) ? vs[kk * HDV + cg + 16 * c] : 0.f;
 #pragma unroll
       for (int j = 0; j < RPT; ++j) {
         const float p = ps[(rg + 16 * j) * PLD + kk];
@@ -238,7 +251,8 @@ __global__ void __launch_bounds__(FA_NT) flash_attention_kernel(
     T* o = out + ((long)b * Sq + q0 + i) * o_row + (long)(hk * G + g) * HDV;
     const float den = fmaxf(l[j], 1e-30f);
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) store(o + cg + 16 * c, acc[j][c] / den);
+    for (int c = 0; c < CPT; ++c)
+      if (col_ok(c)) store(o + cg + 16 * c, acc[j][c] / den);
   }
 }
 
@@ -274,6 +288,10 @@ int launch_fa_dims(const void* q, const void* k, const void* v, void* out,
   if (D == 64 && Dv == 64)
     return launch_fa<T, 64, 64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, bq, causal,
                                 window, q_offset, logit_cap, scale, stream);
+  if (D == 120 && Dv == 120)
+    return launch_fa<T, 120, 120>(q, k, v, out, B, Sq, Sk, Hq, Hkv, bq,
+                                  causal, window, q_offset, logit_cap, scale,
+                                  stream);
   if (D == 128 && Dv == 128)
     return launch_fa<T, 128, 128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, bq,
                                   causal, window, q_offset, logit_cap, scale,
@@ -289,7 +307,7 @@ int launch_fa_dims(const void* q, const void* k, const void* v, void* out,
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it).  bq = 128 /
 // (Hq / Hkv) q positions per block.  Sq, Sk >= 1.  (head_dim, v_head_dim)
-// in {(64, 64), (128, 128), (192, 128)}.
+// in {(64, 64), (120, 120), (128, 128), (192, 128)}.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* out, int B, int Sq,
                                    int Sk, int Hq, int Hkv, int head_dim,

@@ -262,13 +262,41 @@ int launch_sweep_kv(const void* q, const void* kp, const void* vp,
       logit_cap, scale, stream);
 }
 
+// The head dims built: 64 (smollm), 120 (h2o-danube) and 128.
+template <typename T>
+int launch_sweep_dims(const void* q, const void* kp, const void* vp,
+                      const float* ksc, const float* vsc, const void* kn,
+                      const void* vn, const int* bt, const int* pos,
+                      void* out, float* partial, float* lse, int B, int Q,
+                      int Hq, int Hkv, int P, int ps, int nb, int head_dim,
+                      int n_splits, int ppb, int verify, int window,
+                      float logit_cap, float scale, cudaStream_t stream) {
+  switch (head_dim) {
+    case 64:
+      return launch_sweep_kv<T, 64>(q, kp, vp, ksc, vsc, kn, vn, bt, pos,
+          out, partial, lse, B, Q, Hq, Hkv, P, ps, nb, n_splits, ppb, verify,
+          window, logit_cap, scale, stream);
+    case 120:
+      return launch_sweep_kv<T, 120>(q, kp, vp, ksc, vsc, kn, vn, bt, pos,
+          out, partial, lse, B, Q, Hq, Hkv, P, ps, nb, n_splits, ppb, verify,
+          window, logit_cap, scale, stream);
+    case 128:
+      return launch_sweep_kv<T, 128>(q, kp, vp, ksc, vsc, kn, vn, bt, pos,
+          out, partial, lse, B, Q, Hq, Hkv, P, ps, nb, n_splits, ppb, verify,
+          window, logit_cap, scale, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, candidates and out share it, and
 // the pools when k_scale / v_scale are null).  With k_scale / v_scale
-// (P, ps, Hkv, 1) fp32, the pools are int8.  verify = 0: decode (k_new /
-// v_new unused).  n_splits == 1 writes out (B, Q, Hq, HD); otherwise
-// partial (B, Hq, S, Q, HD) and lse (B, Hq, S, Q).
+// (P, ps, Hkv, 1) fp32, the pools are int8.  head_dim 64, 120 or 128.
+// verify = 0: decode (k_new / v_new unused).  n_splits == 1 writes out
+// (B, Q, Hq, HD); otherwise partial (B, Hq, S, Q, HD) and lse (B, Hq, S,
+// Q).
 extern "C" int paged_attention_sweep(
     const void* q, const void* k_pages, const void* v_pages,
     const void* k_scale, const void* v_scale, const void* k_new,
@@ -284,22 +312,14 @@ extern "C" int paged_attention_sweep(
   float* lp = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (Q < 1 || Q > NT) return (int)cudaErrorInvalidValue;
-  if (dtype == 1 && head_dim == 64)
-    return launch_sweep_kv<__nv_bfloat16, 64>(q, k_pages, v_pages, ksc, vsc,
+  if (dtype == 1)
+    return launch_sweep_dims<__nv_bfloat16>(q, k_pages, v_pages, ksc, vsc,
         k_new, v_new, bt, ps_arr, out, pp, lp, B, Q, Hq, Hkv, P, ps, nb,
+        head_dim, n_splits, ppb, verify, window, logit_cap, scale, st);
+  if (dtype == 0)
+    return launch_sweep_dims<float>(q, k_pages, v_pages, ksc, vsc, k_new,
+        v_new, bt, ps_arr, out, pp, lp, B, Q, Hq, Hkv, P, ps, nb, head_dim,
         n_splits, ppb, verify, window, logit_cap, scale, st);
-  if (dtype == 1 && head_dim == 128)
-    return launch_sweep_kv<__nv_bfloat16, 128>(q, k_pages, v_pages, ksc,
-        vsc, k_new, v_new, bt, ps_arr, out, pp, lp, B, Q, Hq, Hkv, P, ps,
-        nb, n_splits, ppb, verify, window, logit_cap, scale, st);
-  if (dtype == 0 && head_dim == 64)
-    return launch_sweep_kv<float, 64>(q, k_pages, v_pages, ksc, vsc, k_new,
-        v_new, bt, ps_arr, out, pp, lp, B, Q, Hq, Hkv, P, ps, nb, n_splits,
-        ppb, verify, window, logit_cap, scale, st);
-  if (dtype == 0 && head_dim == 128)
-    return launch_sweep_kv<float, 128>(q, k_pages, v_pages, ksc, vsc, k_new,
-        v_new, bt, ps_arr, out, pp, lp, B, Q, Hq, Hkv, P, ps, nb, n_splits,
-        ppb, verify, window, logit_cap, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

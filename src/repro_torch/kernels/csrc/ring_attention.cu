@@ -270,14 +270,42 @@ int launch_ring_kv(const void* q, const void* kc, const void* vc,
       verify, window, logit_cap, scale, stream);
 }
 
+// The head dims built: 64 (smollm), 120 (h2o-danube) and 128.
+template <typename T>
+int launch_ring_dims(const void* q, const void* kc, const void* vc,
+                     const float* ksc, const float* vsc, const void* kn,
+                     const void* vn, const int* pos, int batch_pos, void* out,
+                     float* partial, float* lse, int B, int Q, int Hq,
+                     int Hkv, int C, int head_dim, int block_k, int n_k,
+                     int n_splits, int kpb, int verify, int window,
+                     float logit_cap, float scale, cudaStream_t stream) {
+  switch (head_dim) {
+    case 64:
+      return launch_ring_kv<T, 64>(q, kc, vc, ksc, vsc, kn, vn, pos,
+          batch_pos, out, partial, lse, B, Q, Hq, Hkv, C, block_k, n_k,
+          n_splits, kpb, verify, window, logit_cap, scale, stream);
+    case 120:
+      return launch_ring_kv<T, 120>(q, kc, vc, ksc, vsc, kn, vn, pos,
+          batch_pos, out, partial, lse, B, Q, Hq, Hkv, C, block_k, n_k,
+          n_splits, kpb, verify, window, logit_cap, scale, stream);
+    case 128:
+      return launch_ring_kv<T, 128>(q, kc, vc, ksc, vsc, kn, vn, pos,
+          batch_pos, out, partial, lse, B, Q, Hq, Hkv, C, block_k, n_k,
+          n_splits, kpb, verify, window, logit_cap, scale, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, candidates and out share it, and
 // the caches when k_scale / v_scale are null).  With k_scale / v_scale
-// (B, C, Hkv, 1) fp32, the caches are int8.  pos holds one int32
-// (batch_pos = 0) or one per batch row (batch_pos = 1).  verify = 0:
-// decode (k_new / v_new unused).  n_splits == 1 writes out (B, Q, Hq, HD);
-// otherwise partial (B, Hq, S, Q, HD) and lse (B, Hq, S, Q).
+// (B, C, Hkv, 1) fp32, the caches are int8.  head_dim 64, 120 or 128.
+// pos holds one int32 (batch_pos = 0) or one per batch row (batch_pos =
+// 1).  verify = 0: decode (k_new / v_new unused).  n_splits == 1 writes
+// out (B, Q, Hq, HD); otherwise partial (B, Hq, S, Q, HD) and lse (B, Hq,
+// S, Q).
 extern "C" int ring_attention_sweep(
     const void* q, const void* k_cache, const void* v_cache,
     const void* k_scale, const void* v_scale, const void* k_new,
@@ -293,21 +321,14 @@ extern "C" int ring_attention_sweep(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (Q < 1 || block_k < 1 || n_k * block_k != C)
     return (int)cudaErrorInvalidValue;
-  if (dtype == 1 && head_dim == 64)
-    return launch_ring_kv<__nv_bfloat16, 64>(q, k_cache, v_cache, ksc, vsc,
+  if (dtype == 1)
+    return launch_ring_dims<__nv_bfloat16>(q, k_cache, v_cache, ksc, vsc,
         k_new, v_new, pp, batch_pos, out, part, lp, B, Q, Hq, Hkv, C,
+        head_dim, block_k, n_k, n_splits, kpb, verify, window, logit_cap,
+        scale, st);
+  if (dtype == 0)
+    return launch_ring_dims<float>(q, k_cache, v_cache, ksc, vsc, k_new,
+        v_new, pp, batch_pos, out, part, lp, B, Q, Hq, Hkv, C, head_dim,
         block_k, n_k, n_splits, kpb, verify, window, logit_cap, scale, st);
-  if (dtype == 1 && head_dim == 128)
-    return launch_ring_kv<__nv_bfloat16, 128>(q, k_cache, v_cache, ksc, vsc,
-        k_new, v_new, pp, batch_pos, out, part, lp, B, Q, Hq, Hkv, C,
-        block_k, n_k, n_splits, kpb, verify, window, logit_cap, scale, st);
-  if (dtype == 0 && head_dim == 64)
-    return launch_ring_kv<float, 64>(q, k_cache, v_cache, ksc, vsc, k_new,
-        v_new, pp, batch_pos, out, part, lp, B, Q, Hq, Hkv, C, block_k, n_k,
-        n_splits, kpb, verify, window, logit_cap, scale, st);
-  if (dtype == 0 && head_dim == 128)
-    return launch_ring_kv<float, 128>(q, k_cache, v_cache, ksc, vsc, k_new,
-        v_new, pp, batch_pos, out, part, lp, B, Q, Hq, Hkv, C, block_k, n_k,
-        n_splits, kpb, verify, window, logit_cap, scale, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -301,6 +301,11 @@ def mla_latent_sweep_torch(q, pool, block_tables, pos, *, r_kv: int,
 # ==========================================================================
 # kernel wrappers
 # ==========================================================================
+# head dims both sweeps are built for, bf16 / fp32 and int8 alike:
+# smollm's 64, h2o-danube's 120 (its int8 rows take 8-byte loads) and 128
+SWEEP_HEAD_DIMS = (64, 120, 128)
+
+
 def _kv_storage(name, k_scale, v_scale, q_dtype):
     """The pools' dtype the sweep expects: int8 when both scales are
     given, else the query dtype."""
@@ -338,9 +343,9 @@ def paged_attention_sweep(q, k_pages, v_pages, block_tables, pos, *,
     if q.dtype not in DTYPE_CODE:
         raise ValueError(f"paged_attention_sweep: dtype {q.dtype} not "
                          "supported (float32 | bfloat16)")
-    if D not in (64, 128):
+    if D not in SWEEP_HEAD_DIMS:
         raise ValueError(f"paged_attention_sweep: head_dim {D} not "
-                         "supported (64 | 128)")
+                         f"supported {SWEEP_HEAD_DIMS}")
     if Hq % Hkv:
         raise ValueError(f"paged_attention_sweep: Hq {Hq} not a multiple of "
                          f"Hkv {Hkv}")
@@ -427,9 +432,9 @@ def ring_attention_sweep(q, k_cache, v_cache, pos, *, k_new=None, v_new=None,
     if q.dtype not in DTYPE_CODE:
         raise ValueError(f"ring_attention_sweep: dtype {q.dtype} not "
                          "supported (float32 | bfloat16)")
-    if D not in (64, 128):
+    if D not in SWEEP_HEAD_DIMS:
         raise ValueError(f"ring_attention_sweep: head_dim {D} not "
-                         "supported (64 | 128)")
+                         f"supported {SWEEP_HEAD_DIMS}")
     if Hq % Hkv:
         raise ValueError(f"ring_attention_sweep: Hq {Hq} not a multiple of "
                          f"Hkv {Hkv}")

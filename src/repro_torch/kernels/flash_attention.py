@@ -22,11 +22,11 @@ import torch
 from repro_torch.kernels.binding import DTYPE_CODE, LAUNCHES, check, ptr
 
 ROWS = 128          # (q position, q head) rows per kernel block
-# (q/k head dim, v head dim) pairs built: the dense families' and
-# deepseek-v2's MLA prefill ([nope 128 | rope 64] q/k, v 128); the
-# kernel's shared memory at each is checked against Hopper's 227 KB when
-# it compiles (221,952 bytes at (192, 128))
-HEAD_DIMS = ((64, 64), (128, 128), (192, 128))
+# (q/k head dim, v head dim) pairs built: the dense families' (h2o-danube's
+# 120 among them) and deepseek-v2's MLA prefill ([nope 128 | rope 64] q/k,
+# v 128); the kernel's shared memory at each is checked against Hopper's
+# 227 KB when it compiles (221,952 bytes at (192, 128))
+HEAD_DIMS = ((64, 64), (120, 120), (128, 128), (192, 128))
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,

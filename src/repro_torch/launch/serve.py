@@ -57,7 +57,9 @@ FROST (unless ``--no-frost``): every chunk emits one ``StepDone`` +
 analytic H100 SXM device model, and J/token charges useful tokens only.
 
 Not ported yet, and exiting non-zero naming its ROADMAP.md item:
-``--chaos`` and ``--snapshot-dir`` (chaos and snapshots).
+``--chaos`` and ``--snapshot-dir`` (chaos and snapshots).  A config whose
+weights alone exceed the card's free memory exits non-zero too, naming
+it (``refuse_oversized``), before any weight is drawn.
 """
 from __future__ import annotations
 
@@ -76,6 +78,7 @@ from repro_torch.core import (BALANCED, H100_SXM, PowerCappedDevice,
 from repro_torch.core.profiler import RecordingBackend
 from repro_torch.data import DataConfig, TokenBatches
 from repro_torch.device import resolve
+from repro_torch.models import common
 from repro_torch.models import transformer as tfm
 from repro_torch.runtime import speculate
 from repro_torch.runtime.fault import ServingSupervisor
@@ -522,6 +525,19 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def refuse_oversized(cfg, free_bytes: int) -> None:
+    """Exit, naming the cause, when ``cfg``'s weights alone (in
+    ``cfg.dtype``, from ``param_count``) exceed ``free_bytes``, the memory
+    free on the serving card, before any of them is drawn."""
+    need = cfg.param_count() * common.dt(cfg.dtype).itemsize
+    if need > free_bytes:
+        raise SystemExit(
+            f"[serve] {cfg.name}: {need / 2 ** 30:.1f} GiB of {cfg.dtype} "
+            f"weights exceed the {free_bytes / 2 ** 30:.1f} GiB free on the "
+            f"card; serve it with --smoke, or hand serve() a config cut in "
+            f"depth")
+
+
 def _refuse_unported(args) -> None:
     if args.chaos or args.snapshot_dir:
         raise NotPorted("--chaos / --snapshot-dir (chaos and snapshots)",
@@ -544,6 +560,8 @@ def serve(args, cfg):
     registry does not hold, such as a published one cut in depth to fit
     one card."""
     device = resolve(args.device)
+    if device.type == "cuda":
+        refuse_oversized(cfg, torch.cuda.mem_get_info(device)[0])
     step_cfg = with_decode_policy(StepConfig(),
                                   kv_splits=_parse_kv_splits(args.kv_splits),
                                   decode_k_chunk=max(1, args.decode_k_chunk))

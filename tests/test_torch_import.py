@@ -147,7 +147,9 @@ def test_cpu_calls_launch_no_kernel():
 
 def test_only_ported_archs_are_listed():
     assert sorted(ARCH_SPECS) == ["deepseek-v2-236b", "gemma2-27b",
-                                  "mamba2-370m", "smollm-135m"]
+                                  "h2o-danube-3-4b", "llava-next-34b",
+                                  "mamba2-370m", "phi3.5-moe-42b-a6.6b",
+                                  "smollm-135m", "stablelm-1.6b"]
     cfg = get_arch("smollm-135m").config
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
             cfg.resolved_head_dim, cfg.vocab_size) == (30, 576, 9, 3, 64,
@@ -169,8 +171,17 @@ def test_only_ported_archs_are_listed():
             d.n_experts, d.experts_per_token, d.n_shared_experts,
             d.first_dense_layers, d.dense_d_ff, d.vocab_size) == (
         60, 5120, 128, 512, 1536, 64, 128, 128, 160, 6, 2, 1, 12288, 102400)
+    h = get_arch("h2o-danube-3-4b").config
+    assert (h.n_layers, h.d_model, h.n_heads, h.n_kv_heads,
+            h.resolved_head_dim, h.sliding_window) == (24, 3840, 32, 8, 120,
+                                                       4096)
+    assert get_arch("stablelm-1.6b").config.rope_fraction == 0.25
+    assert get_arch("phi3.5-moe-42b-a6.6b").config.n_experts == 16
+    assert get_arch("llava-next-34b").config.n_heads == 56
     with pytest.raises(KeyError, match="deepseek-v2-236b.*smollm-135m"):
         get_arch("zamba2-1.2b")
+    with pytest.raises(KeyError, match="not ported"):
+        get_arch("musicgen-medium")
 
 
 def test_h100_device_model_is_the_ports_own():

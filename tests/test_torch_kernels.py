@@ -31,20 +31,25 @@ Q = 4                  # verify / suffix-prefill rows
 SPLITS = [1, 2, 5]     # 2 does not divide 5 pages; 5 = one page per split
 TOL = 5e-6             # fp32, as tests/test_split_kv.py
 HEADS = [(4, 2), (4, 1), (9, 3)]   # GQA, MQA, smollm's G = 3
+# (Hq, Hkv, head dim): HEADS at D, and h2o-danube-3's head dim 120 (G 4)
+HEAD_CASES = [pytest.param(hq, hkv, D, id=f"{hq}-{hkv}")
+              for hq, hkv in HEADS] + [pytest.param(8, 2, 120, id="8-2-D120")]
+# the bf16 checks: smollm's heads at D, and h2o-danube-3's at 120
+BF16_HEADS = [HEAD_CASES[2], HEAD_CASES[3]]
 DECODE_POS = [3, 37, 79]           # ragged: 1 page, 3 pages, all 5
 VERIFY_POS = [0, 41, 76]           # pos 0: only the candidates are visible
 
 
-def _inputs(Hq, Hkv, *, seed):
+def _inputs(Hq, Hkv, *, seed, hd=D):
     """Seeded numpy inputs: shuffled page tables, and columns past each
     request's length pointing at page 0 (the engine's scratch page)."""
     rng = np.random.default_rng(seed)
     r = lambda *s: rng.standard_normal(s).astype(np.float32)
     B = 3
     bt = (1 + rng.permutation(P - 1)[:B * NB]).reshape(B, NB).astype(np.int32)
-    return {"q1": r(B, 1, Hq, D), "qv": r(B, Q, Hq, D),
-            "kp": r(P, PS, Hkv, D), "vp": r(P, PS, Hkv, D),
-            "kn": r(B, Q, Hkv, D), "vn": r(B, Q, Hkv, D), "bt": bt}
+    return {"q1": r(B, 1, Hq, hd), "qv": r(B, Q, Hq, hd),
+            "kp": r(P, PS, Hkv, hd), "vp": r(P, PS, Hkv, hd),
+            "kn": r(B, Q, Hkv, hd), "vn": r(B, Q, Hkv, hd), "bt": bt}
 
 
 def _park_tail(bt, pos, *, verify):
@@ -102,19 +107,19 @@ def _port_verify(a, pos, bt, n_splits, **kw):
 # --------------------------------------------------------------------------
 # K-sweep + K-merge, end to end
 # --------------------------------------------------------------------------
-@pytest.mark.parametrize("Hq,Hkv", HEADS)
+@pytest.mark.parametrize("Hq,Hkv,hd", HEAD_CASES)
 @pytest.mark.parametrize("n_splits", SPLITS)
-def test_paged_decode_matches_jax(Hq, Hkv, n_splits):
-    a = _inputs(Hq, Hkv, seed=Hq * 30 + Hkv + n_splits)
+def test_paged_decode_matches_jax(Hq, Hkv, hd, n_splits):
+    a = _inputs(Hq, Hkv, seed=Hq * 30 + Hkv + n_splits, hd=hd)
     pos = np.asarray(DECODE_POS, np.int32)
     bt = _park_tail(a["bt"], pos, verify=False)
     got = _port_decode(a, pos, bt, n_splits)
-    assert got.shape == (3, 1, Hq, D) and got.dtype == torch.float32
+    assert got.shape == (3, 1, Hq, hd) and got.dtype == torch.float32
     args = (_j(a["q1"]), _j(a["kp"]), _j(a["vp"]), _j(bt), _j(pos))
     _close(got, _jx(jref.paged_decode_attention_ref, *args))
     _close(got, _jx(jops.paged_decode_attention_jnp, *args,
                     n_splits=n_splits))
-    if Hq == 9:                          # interpret mode is slow: one G
+    if Hq == 9 or hd == 120:             # interpret mode is slow: one G
         _close(got, _jx(jda.paged_decode_attention_pallas, *args,
                         n_splits=n_splits, interpret=True))
     targs = tuple(_t(x) for x in (a["q1"], a["kp"], a["vp"], bt, pos))
@@ -122,20 +127,20 @@ def test_paged_decode_matches_jax(Hq, Hkv, n_splits):
     _close(got, ops.paged_decode_attention_torch(*targs, n_splits=n_splits))
 
 
-@pytest.mark.parametrize("Hq,Hkv", HEADS)
+@pytest.mark.parametrize("Hq,Hkv,hd", HEAD_CASES)
 @pytest.mark.parametrize("n_splits", SPLITS)
-def test_paged_verify_matches_jax(Hq, Hkv, n_splits):
-    a = _inputs(Hq, Hkv, seed=Hq * 40 + Hkv + n_splits)
+def test_paged_verify_matches_jax(Hq, Hkv, hd, n_splits):
+    a = _inputs(Hq, Hkv, seed=Hq * 40 + Hkv + n_splits, hd=hd)
     pos = np.asarray(VERIFY_POS, np.int32)
     bt = _park_tail(a["bt"], pos, verify=True)
     got = _port_verify(a, pos, bt, n_splits)
-    assert got.shape == (3, Q, Hq, D) and got.dtype == torch.float32
+    assert got.shape == (3, Q, Hq, hd) and got.dtype == torch.float32
     args = (_j(a["qv"]), _j(a["kp"]), _j(a["vp"]), _j(a["kn"]), _j(a["vn"]),
             _j(bt), _j(pos))
     _close(got, _jx(jref.paged_verify_attention_ref, *args))
     _close(got, _jx(jops.paged_verify_attention_jnp, *args,
                     n_splits=n_splits))
-    if Hq == 9:
+    if Hq == 9 or hd == 120:
         _close(got, _jx(jda.paged_verify_attention_pallas, *args,
                         n_splits=n_splits, interpret=True))
     targs = tuple(_t(x) for x in (a["qv"], a["kp"], a["vp"], a["kn"],
@@ -214,18 +219,25 @@ def test_window_and_softcap_match_jax(verify, kw):
     _close(got, want)
 
 
-def test_sweep_single_split_keeps_query_dtype():
-    """One split writes the normalised output in q's dtype (no merge)."""
-    a = _inputs(9, 3, seed=12)
-    pos = np.asarray(DECODE_POS, np.int32)
-    bt = _park_tail(a["bt"], pos, verify=False)
-    bf = lambda x: _t(x).to(torch.bfloat16)
-    out = da.paged_attention_sweep(bf(a["q1"]), bf(a["kp"]), bf(a["vp"]),
-                                   _t(bt), _t(pos), n_splits=1)
+@pytest.mark.parametrize("Hq,Hkv,hd", BF16_HEADS)
+@pytest.mark.parametrize("verify", [False, True])
+def test_sweep_single_split_keeps_query_dtype(Hq, Hkv, hd, verify):
+    """One split writes the normalised output in q's dtype (no merge),
+    within one bf16 rounding (2e-2) of JAX's reference at bf16."""
+    a = _inputs(Hq, Hkv, seed=12 + verify, hd=hd)
+    pos = np.asarray(VERIFY_POS if verify else DECODE_POS, np.int32)
+    bt = _park_tail(a["bt"], pos, verify=verify)
+    names = ("qv", "kp", "vp", "kn", "vn") if verify else ("q1", "kp", "vp")
+    bf = [_t(a[n]).to(torch.bfloat16) for n in names]
+    jbf = [_j(a[n]).astype(jnp.bfloat16) for n in names]
+    if verify:
+        out = da.paged_attention_sweep(*bf[:3], _t(bt), _t(pos), k_new=bf[3],
+                                       v_new=bf[4], n_splits=1)
+        want = _jx(jref.paged_verify_attention_ref, *jbf, _j(bt), _j(pos))
+    else:
+        out = da.paged_attention_sweep(*bf, _t(bt), _t(pos), n_splits=1)
+        want = _jx(jref.paged_decode_attention_ref, *jbf, _j(bt), _j(pos))
     assert isinstance(out, torch.Tensor) and out.dtype == torch.bfloat16
-    jbf = lambda x: _j(x).astype(jnp.bfloat16)
-    want = _jx(jref.paged_decode_attention_ref, jbf(a["q1"]), jbf(a["kp"]),
-               jbf(a["vp"]), _j(bt), _j(pos))
     _close(out.float(), np.asarray(want, np.float32), 2e-2)
 
 

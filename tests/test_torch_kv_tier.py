@@ -51,6 +51,10 @@ D = 16
 Q = 4                  # verify block (K+1)
 TOL = 5e-6             # fp32, as tests/test_kv_tier.py
 HEADS = [(4, 2), (4, 1)]
+# (Hq, Hkv, head dim): HEADS at D, and h2o-danube-3's head dim 120, whose
+# int8 rows take 8-byte loads on the card
+HEAD_CASES = [pytest.param(hq, hkv, D, id=f"{hq}-{hkv}")
+              for hq, hkv in HEADS] + [pytest.param(8, 2, 120, id="8-2-D120")]
 RING_POS = {"wrap": C + 15, "partial": 10}
 PORT_BACKENDS = ["torch", "ref", "cuda"]   # cuda on CPU: the kernels' twins
 
@@ -124,17 +128,18 @@ def test_quantize_per_tensor_bit_equal_to_jax():
 # --------------------------------------------------------------------------
 # op level: the four sweep families on int8 caches
 # --------------------------------------------------------------------------
-def _arrays(B, Hq, Hkv, *, seed):
+def _arrays(B, Hq, Hkv, *, seed, hd=D):
     """Seeded q / candidates plus int8 ring caches and page pools with
     their per-row fp32 scales, quantized by the JAX package (the port's
     quantizer is bit-equal, above), as numpy."""
     rng = np.random.default_rng(seed)
     r = lambda *s: rng.standard_normal(s).astype(np.float32)
-    a = {"q1": r(B, 1, Hq, D), "qv": r(B, Q, Hq, D),
-         "kn": r(B, Q, Hkv, D), "vn": r(B, Q, Hkv, D),
+    a = {"q1": r(B, 1, Hq, hd), "qv": r(B, Q, Hq, hd),
+         "kn": r(B, Q, Hkv, hd), "vn": r(B, Q, Hkv, hd),
          "bt": rng.permutation(16)[:B * NB].reshape(B, NB).astype(np.int32)}
-    for name, shape in (("k", (B, C, Hkv, D)), ("v", (B, C, Hkv, D)),
-                        ("kp", (16, PS, Hkv, D)), ("vp", (16, PS, Hkv, D))):
+    for name, shape in (("k", (B, C, Hkv, hd)), ("v", (B, C, Hkv, hd)),
+                        ("kp", (16, PS, Hkv, hd)),
+                        ("vp", (16, PS, Hkv, hd))):
         qv, sc = jquant.quantize_int8_rows(jnp.asarray(r(*shape)))
         a[name], a[name + "s"] = np.asarray(qv), np.asarray(sc)
     return a
@@ -159,10 +164,10 @@ def _check_family(jfn, tfn, oracle, n_splits, **kw):
         _close(tfn(_tpol(backend, n_splits), **kw), want)
 
 
-@pytest.mark.parametrize("Hq,Hkv", HEADS)
+@pytest.mark.parametrize("Hq,Hkv,hd", HEAD_CASES)
 @pytest.mark.parametrize("n_splits", [1, 2])
-def test_ring_decode_int8_matches_jax(Hq, Hkv, n_splits):
-    a = _arrays(2, Hq, Hkv, seed=Hq * 10 + Hkv + n_splits)
+def test_ring_decode_int8_matches_jax(Hq, Hkv, hd, n_splits):
+    a = _arrays(2, Hq, Hkv, seed=Hq * 10 + Hkv + n_splits, hd=hd)
     j = {k: jnp.asarray(v) for k, v in a.items()}
     for pos_v in RING_POS.values():
         pos = jnp.int32(pos_v)
@@ -179,10 +184,10 @@ def test_ring_decode_int8_matches_jax(Hq, Hkv, n_splits):
             n_splits)
 
 
-@pytest.mark.parametrize("Hq,Hkv", HEADS)
+@pytest.mark.parametrize("Hq,Hkv,hd", HEAD_CASES)
 @pytest.mark.parametrize("n_splits", [1, 2])
-def test_ring_verify_int8_matches_jax(Hq, Hkv, n_splits):
-    a = _arrays(2, Hq, Hkv, seed=Hq * 20 + Hkv + n_splits)
+def test_ring_verify_int8_matches_jax(Hq, Hkv, hd, n_splits):
+    a = _arrays(2, Hq, Hkv, seed=Hq * 20 + Hkv + n_splits, hd=hd)
     j = {k: jnp.asarray(v) for k, v in a.items()}
     for pos_v in RING_POS.values():
         pos = jnp.int32(pos_v)
@@ -201,10 +206,10 @@ def test_ring_verify_int8_matches_jax(Hq, Hkv, n_splits):
             n_splits)
 
 
-@pytest.mark.parametrize("Hq,Hkv", HEADS)
+@pytest.mark.parametrize("Hq,Hkv,hd", HEAD_CASES)
 @pytest.mark.parametrize("n_splits", [1, 2])
-def test_paged_decode_int8_matches_jax(Hq, Hkv, n_splits):
-    a = _arrays(3, Hq, Hkv, seed=Hq * 30 + Hkv + n_splits)
+def test_paged_decode_int8_matches_jax(Hq, Hkv, hd, n_splits):
+    a = _arrays(3, Hq, Hkv, seed=Hq * 30 + Hkv + n_splits, hd=hd)
     j = {k: jnp.asarray(v) for k, v in a.items()}
     pos = np.asarray([3, 37, 79], np.int32)            # ragged occupancy
     _check_family(
@@ -220,10 +225,10 @@ def test_paged_decode_int8_matches_jax(Hq, Hkv, n_splits):
         n_splits)
 
 
-@pytest.mark.parametrize("Hq,Hkv", HEADS)
+@pytest.mark.parametrize("Hq,Hkv,hd", HEAD_CASES)
 @pytest.mark.parametrize("n_splits", [1, 2])
-def test_paged_verify_int8_matches_jax(Hq, Hkv, n_splits):
-    a = _arrays(3, Hq, Hkv, seed=Hq * 40 + Hkv + n_splits)
+def test_paged_verify_int8_matches_jax(Hq, Hkv, hd, n_splits):
+    a = _arrays(3, Hq, Hkv, seed=Hq * 40 + Hkv + n_splits, hd=hd)
     j = {k: jnp.asarray(v) for k, v in a.items()}
     pos = np.asarray([5, 41, 76], np.int32)
     _check_family(

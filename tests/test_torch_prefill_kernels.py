@@ -45,6 +45,12 @@ FA_CASES = [
     ("ragged-37-G3-D64", 2, 37, 37, 6, 2, 64, {"window": 9,
                                                 "logit_cap": 5.0}),
     ("ragged-q_offset-G2-D128", 1, 21, 45, 4, 2, 128, {"q_offset": 24}),
+    # h2o-danube-3's head dim 120 (Dv 120: the kernel's last column slot
+    # is predicated) at its G 4, windowed; ragged with a q_offset
+    ("window-G4-D120", 1, 48, 48, 8, 2, 120, {"window": 16}),
+    ("ragged-q_offset-G4-D120", 2, 21, 45, 8, 2, 120, {"q_offset": 24}),
+    # llava-next's G 7, which does not divide the kernel's 128 rows
+    ("ragged-G7-D128", 1, 37, 37, 14, 2, 128, {}),
 ]
 
 

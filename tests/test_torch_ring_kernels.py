@@ -32,16 +32,21 @@ B = 3
 SPLITS = [1, 2, 5]     # 2 does not divide 5 blocks; 5 = one block per split
 TOL = 5e-6             # fp32, as tests/test_split_kv.py
 HEADS = [(4, 2), (4, 1), (9, 3)]   # GQA, MQA, smollm's G = 3
+# (Hq, Hkv, head dim): HEADS at D, and h2o-danube-3's head dim 120 (G 4)
+HEAD_CASES = [pytest.param(hq, hkv, D, id=f"{hq}-{hkv}")
+              for hq, hkv in HEADS] + [pytest.param(8, 2, 120, id="8-2-D120")]
+# the bf16 checks: smollm's heads at D, and h2o-danube-3's at 120
+BF16_HEADS = [HEAD_CASES[2], HEAD_CASES[3]]
 DECODE_POS = [13, 131]             # ring not yet full; wrapped 3 times
 VERIFY_POS = [0, 13, 131]          # pos 0: only the candidates are visible
 
 
-def _inputs(Hq, Hkv, *, seed, cache_len=C):
+def _inputs(Hq, Hkv, *, seed, cache_len=C, hd=D):
     rng = np.random.default_rng(seed)
     r = lambda *s: rng.standard_normal(s).astype(np.float32)
-    return {"q1": r(B, 1, Hq, D), "qv": r(B, Q, Hq, D),
-            "k": r(B, cache_len, Hkv, D), "v": r(B, cache_len, Hkv, D),
-            "kn": r(B, Q, Hkv, D), "vn": r(B, Q, Hkv, D)}
+    return {"q1": r(B, 1, Hq, hd), "qv": r(B, Q, Hq, hd),
+            "k": r(B, cache_len, Hkv, hd), "v": r(B, cache_len, Hkv, hd),
+            "kn": r(B, Q, Hkv, hd), "vn": r(B, Q, Hkv, hd)}
 
 
 _JITTED = {}
@@ -89,19 +94,19 @@ def _pos(p):
 # ring sweep + K-merge, end to end
 # --------------------------------------------------------------------------
 @pytest.mark.parametrize("pos", DECODE_POS)
-@pytest.mark.parametrize("Hq,Hkv", HEADS)
+@pytest.mark.parametrize("Hq,Hkv,hd", HEAD_CASES)
 @pytest.mark.parametrize("n_splits", SPLITS)
-def test_ring_decode_matches_jax(Hq, Hkv, n_splits, pos):
-    a = _inputs(Hq, Hkv, seed=Hq * 30 + Hkv + n_splits + pos)
+def test_ring_decode_matches_jax(Hq, Hkv, hd, n_splits, pos):
+    a = _inputs(Hq, Hkv, seed=Hq * 30 + Hkv + n_splits + pos, hd=hd)
     p = _pos(pos)
     got = ops.decode_attention(_t(a["q1"]), _t(a["k"]), _t(a["v"]), _t(p),
                                policy=_policy(n_splits))
-    assert got.shape == (B, 1, Hq, D) and got.dtype == torch.float32
+    assert got.shape == (B, 1, Hq, hd) and got.dtype == torch.float32
     kp = jops.ring_positions(_j(p), C)
     args = (_j(a["q1"]), _j(a["k"]), _j(a["v"]), kp, _j(p))
     _close(got, _jx(jref.decode_attention_ref, *args))
     _close(got, _jx(jops.decode_attention_jnp, *args, n_splits=n_splits))
-    if Hq == 9:                          # interpret mode is slow: one G
+    if Hq == 9 or hd == 120:             # interpret mode is slow: one G
         _close(got, _jx(jda.decode_attention_pallas, _j(a["q1"]), _j(a["k"]),
                         _j(a["v"]), _j(p), block_k=BK, n_splits=n_splits,
                         interpret=True))
@@ -112,21 +117,21 @@ def test_ring_decode_matches_jax(Hq, Hkv, n_splits, pos):
 
 
 @pytest.mark.parametrize("pos", VERIFY_POS)
-@pytest.mark.parametrize("Hq,Hkv", HEADS)
+@pytest.mark.parametrize("Hq,Hkv,hd", HEAD_CASES)
 @pytest.mark.parametrize("n_splits", SPLITS)
-def test_ring_verify_matches_jax(Hq, Hkv, n_splits, pos):
-    a = _inputs(Hq, Hkv, seed=Hq * 40 + Hkv + n_splits + pos)
+def test_ring_verify_matches_jax(Hq, Hkv, hd, n_splits, pos):
+    a = _inputs(Hq, Hkv, seed=Hq * 40 + Hkv + n_splits + pos, hd=hd)
     p = _pos(pos)
     got = ops.verify_attention(_t(a["qv"]), _t(a["k"]), _t(a["v"]),
                                _t(a["kn"]), _t(a["vn"]), _t(p),
                                policy=_policy(n_splits))
-    assert got.shape == (B, Q, Hq, D) and got.dtype == torch.float32
+    assert got.shape == (B, Q, Hq, hd) and got.dtype == torch.float32
     kp = jops.ring_positions(_j(p) - 1, C)
     args = (_j(a["qv"]), _j(a["k"]), _j(a["v"]), _j(a["kn"]), _j(a["vn"]),
             kp, _j(p))
     _close(got, _jx(jref.verify_attention_ref, *args))
     _close(got, _jx(jops.verify_attention_jnp, *args, n_splits=n_splits))
-    if Hq == 9:
+    if Hq == 9 or hd == 120:
         _close(got, _jx(jda.verify_attention_pallas, *args[:5], _j(p),
                         block_k=BK, n_splits=n_splits, interpret=True))
     targs = (_t(a["qv"]), _t(a["k"]), _t(a["v"]), _t(a["kn"]), _t(a["vn"]),
@@ -259,16 +264,28 @@ def test_ragged_decode_pos_matches_jax():
                     _j(a["v"]), jops.ring_positions(_j(p), C), _j(p)))
 
 
-def test_sweep_single_split_keeps_query_dtype():
-    a = _inputs(9, 3, seed=12)
+@pytest.mark.parametrize("Hq,Hkv,hd", BF16_HEADS)
+@pytest.mark.parametrize("verify", [False, True])
+def test_sweep_single_split_keeps_query_dtype(Hq, Hkv, hd, verify):
+    """One split writes the normalised output in q's dtype (no merge), on
+    a wrapped ring, within one bf16 rounding (2e-2) of JAX's reference at
+    bf16."""
+    a = _inputs(Hq, Hkv, seed=12 + verify, hd=hd)
     p = _pos(131)
-    bf = lambda x: _t(x).to(torch.bfloat16)
-    out = da.ring_attention_sweep(bf(a["q1"]), bf(a["k"]), bf(a["v"]),
-                                  _t(p).reshape(1), n_splits=1, block_k=BK)
+    names = ("qv", "k", "v", "kn", "vn") if verify else ("q1", "k", "v")
+    bf = [_t(a[n]).to(torch.bfloat16) for n in names]
+    jbf = [_j(a[n]).astype(jnp.bfloat16) for n in names]
+    if verify:
+        out = da.ring_attention_sweep(*bf[:3], _t(p).reshape(1), k_new=bf[3],
+                                      v_new=bf[4], n_splits=1, block_k=BK)
+        want = _jx(jref.verify_attention_ref, *jbf,
+                   jops.ring_positions(_j(p) - 1, C), _j(p))
+    else:
+        out = da.ring_attention_sweep(*bf, _t(p).reshape(1), n_splits=1,
+                                      block_k=BK)
+        want = _jx(jref.decode_attention_ref, *jbf,
+                   jops.ring_positions(_j(p), C), _j(p))
     assert isinstance(out, torch.Tensor) and out.dtype == torch.bfloat16
-    jbf = lambda x: _j(x).astype(jnp.bfloat16)
-    want = _jx(jref.decode_attention_ref, jbf(a["q1"]), jbf(a["k"]),
-               jbf(a["v"]), jops.ring_positions(_j(p), C), _j(p))
     _close(out.float(), np.asarray(want, np.float32), 2e-2)
 
 
