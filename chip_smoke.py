@@ -7,7 +7,10 @@ Phases, in order; any failure exits non-zero (nothing is caught):
 
   1. build    — compile the port's CUDA kernels from the sources in this
                 checkout (one nvcc per source, all started together,
-                sm_90a) and print the card's name and power limit;
+                sm_90a) and print the card's name and power limit; K4's
+                bf16 kernels must hold HMMA (tensor-core) instructions and
+                its fp32 ones none (``cuobjdump -sass``), and each K4 form
+                prints its blocks per SM, shared memory and registers;
   2. kernels  — hold every kernel against its plain PyTorch version on the
                 same inputs, tolerance atol = rtol = 2e-2 for bf16 (1e-4
                 for fp32).  The paged K-sweep (decode / split decode /
@@ -55,7 +58,13 @@ Phases, in order; any failure exits non-zero (nothing is caught):
                 ring with per-row positions; the paged sweep (decode 1, the
                 auto count and 5 splits, verify Q 16) and the bad-id probe
                 at 120; K4 at llava-next's G 7 (Hq 56, Hkv 8), 4 x 512 and
-                ragged; K9 at widths 2048, 3840, 4096 and 7168; head_dim
+                ragged; K4 at the tensor-core kernel's tile edges (Sk 65
+                and 127, Sq 1 at G 2 and G 1, D 120 with Sk 17, G 7 with
+                Sq 19, B 3 with ragged Sk 100, non-causal Sq 16 over Sk
+                65, stablelm's G 1, and (192, 128) ragged at Sq = Sk =
+                1000), each case's error printed and K4's largest bf16
+                error over all of them; K9 at widths 2048, 3840, 4096 and
+                7168; head_dim
                 96 raises ValueError in both sweeps, launching nothing;
   3. reference — full-width smollm-135m at fp32, twice on the kernels and
                 twice on the plain torch path (chunked prefill twin,
@@ -135,14 +144,14 @@ Phases, in order; any failure exits non-zero (nothing is caught):
   5. timing   — CUDA-event times of each kernel, its plain version and a
                 library yardstick at the main paths' shapes, beside the
                 least time the card could take (the latent sweep beside
-                SDPA over the gathered latent as one kv head; K4 at
-                deepseek's 4 x 512 beside SDPA; the int8 sweeps at the
+                SDPA over the gathered latent as one kv head; K4 on a row
+                of its own at each of ``K4_SHAPES`` beside SDPA; the int8
+                sweeps at the
                 bf16 rows' shapes, bound at D + 4 bytes a kv row, beside
                 SDPA over the cache dequantized to bf16 beforehand); both
                 sweeps at head_dim 120 in bf16 and int8 (paged at the
                 engine's shapes, ring at h2o's batch shape), the merge at
-                Dv 120, K4 at h2o's and llava's 4 x 512, K9 at the zoo's
-                widths.
+                Dv 120, K9 at the zoo's widths.
 
 The last two lines are a JSON object of per-kernel numbers and
 ``{"ok": true, "device": {...}}``.
@@ -258,6 +267,52 @@ def fail(msg: str) -> None:
 
 def say(msg: str) -> None:
     print(f"[chip_smoke] {msg}", flush=True)
+
+
+# --------------------------------------------------------------------------
+# phase 1 helper
+# --------------------------------------------------------------------------
+def k4_forms(torch, fa, build):
+    """Phase 1, K4: the tensor cores in the bf16 kernel's code and none in
+    the fp32 one (HMMA instructions per K4 function in ``cuobjdump -sass``
+    of the built library; no bf16 instantiation of the CUDA-core kernel
+    may remain), and each form's blocks per SM, shared memory and
+    registers as the card runs it."""
+    import re
+    sass = subprocess.run(
+        [build.cuda_tool("cuobjdump"), "-sass", str(build.build())],
+        capture_output=True, text=True, check=True).stdout
+    hmma = {}
+    for part in sass.split("Function : ")[1:]:
+        name = part.split(None, 1)[0]
+        dims = re.search(r"Li(\d+)ELi(\d+)E", name)
+        if "flash_attention" not in name or dims is None:
+            continue
+        if "flash_attention_kernelI13__nv_bfloat16" in name:
+            fail(f"K4: a bf16 instantiation of the CUDA-core kernel is "
+                 f"built ({name})")
+        kind = ("bfloat16" if "flash_attention_mma_kernelI" in name
+                else "float32" if "flash_attention_kernelIf" in name
+                else None)
+        if kind is None:
+            fail(f"K4: unexpected kernel {name} in the library")
+        form = (int(dims.group(1)), int(dims.group(2)))
+        hmma[kind, form] = sum("HMMA" in line for line in part.splitlines())
+    for D, Dv in fa.HEAD_DIMS:
+        for dtype in (torch.bfloat16, torch.float32):
+            kind = str(dtype).split(".")[1]
+            n = hmma.get((kind, (D, Dv)))
+            if n is None:
+                fail(f"K4 ({D}, {Dv}) {kind}: no kernel in the library")
+            if (n > 0) != (kind == "bfloat16"):
+                fail(f"K4 ({D}, {Dv}) {kind}: {n} HMMA instructions")
+            occ = fa.occupancy(D, Dv, dtype)
+            if occ["blocks_per_sm"] < 1:
+                fail(f"K4 ({D}, {Dv}) {kind}: no block fits an SM")
+            say(f"K4 ({D}, {Dv}) {kind}: {n} HMMA instructions, "
+                f"{occ['smem_bytes']} B of shared memory, "
+                f"{occ['registers']} registers a thread, "
+                f"{occ['blocks_per_sm']} blocks an SM")
 
 
 # --------------------------------------------------------------------------
@@ -742,8 +797,9 @@ print("bad id accepted", flush=True)
 GEMMA_ATTN = {"logit_cap": 50.0, "scale": 144.0 ** -0.5}
 
 
-def fa_case(torch, np, dev, *, B, Sq, Sk, Hq, Hkv, D, dtype, seed):
-    """Seeded q (B, Sq, Hq, D), k and v (B, Sk, Hkv, D) on the card."""
+def fa_case(torch, np, dev, *, B, Sq, Sk, Hq, Hkv, D, dtype, seed, Dv=None):
+    """Seeded q (B, Sq, Hq, D), k (B, Sk, Hkv, D) and v (B, Sk, Hkv, Dv)
+    on the card (Dv defaults to D)."""
     rng = np.random.default_rng(seed)
     dt = getattr(torch, dtype)
 
@@ -751,58 +807,94 @@ def fa_case(torch, np, dev, *, B, Sq, Sk, Hq, Hkv, D, dtype, seed):
         return torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
                             device=dev).to(dt)
 
-    return r(B, Sq, Hq, D), r(B, Sk, Hkv, D), r(B, Sk, Hkv, D)
+    return r(B, Sq, Hq, D), r(B, Sk, Hkv, D), r(B, Sk, Hkv, Dv or D)
+
+
+def note_k4(errs, e, dtype, form):
+    """K4's error under its entry, its form's row and, for bf16 (where p
+    enters the p.v product as two bf16 terms), the largest bf16 error."""
+    note(errs, e, "flash_attention", form)
+    if dtype == "bfloat16":
+        note(errs, e, "flash_attention bf16")
 
 
 def check_prefill_kernels(torch, np, dev, fa, rms, ops, common, errs):
     """Phase 2, K4 and K9.  K4 against ``flash_attention_torch`` at
-    smollm's prefill shape, at gemma2's and h2o-danube-3's (D 120) over
-    8192 keys with and without their 4096 window, with a q_offset, ragged
-    (Sq 37 and 1000), and at llava-next's G 7 (4 x 512 and ragged); rows
-    that see no key only finite.  K9 against ``common.rmsnorm`` at d 576,
-    2048, 3840, 4096, 4608 and 7168, plain and gemma forms, 1 to 8192
-    rows, fp32 and bf16 scales."""
+    smollm's prefill shape, at stablelm's G 1, at gemma2's and
+    h2o-danube-3's (D 120) over 8192 keys with and without their 4096
+    window, with a q_offset, ragged (Sq 37 and 1000), at llava-next's G 7
+    (4 x 512 and ragged), and at the tensor-core kernel's tile edges (Sk
+    65 and 127 about the 64-key tile, Sq 1, D 120 with Sk 17, G 7 with Sq
+    19 about a block's 18 positions, B 3 with ragged Sk); rows that see no
+    key only finite.  K9 against ``common.rmsnorm`` at d 576, 2048, 3840,
+    4096, 4608 and 7168, plain and gemma forms, 1 to 8192 rows, fp32 and
+    bf16 scales."""
     smol = dict(B=8, Sq=512, Sk=512, Hq=9, Hkv=3, D=64)
     gem = dict(Hq=32, Hkv=16, D=128)
+    # (label, shape, keyword arguments, the phase-5 row of its form)
+    d64, g_long, d120, g7 = ("(64, 64)", "gemma2 2 x 4352", "(120, 120)",
+                             "G 7")
     cases = [
-        ("smollm 8 x 512 causal", smol, {}),
+        ("smollm 8 x 512 causal", smol, {}, d64),
         ("gemma2 8192 keys, window 4096, cap 50",
-         dict(gem, B=1, Sq=8192, Sk=8192), dict(GEMMA_ATTN, window=4096)),
+         dict(gem, B=1, Sq=8192, Sk=8192), dict(GEMMA_ATTN, window=4096),
+         g_long),
         ("gemma2 8192 keys, no window, cap 50",
-         dict(gem, B=1, Sq=8192, Sk=8192), GEMMA_ATTN),
+         dict(gem, B=1, Sq=8192, Sk=8192), GEMMA_ATTN, g_long),
         ("gemma2 q_offset 1536 over 2048 keys, window 1000",
          dict(gem, B=2, Sq=512, Sk=2048),
-         dict(GEMMA_ATTN, q_offset=1536, window=1000)),
-        ("ragged Sq 37", dict(smol, B=3, Sq=37, Sk=37), {"window": 16}),
+         dict(GEMMA_ATTN, q_offset=1536, window=1000), g_long),
+        ("ragged Sq 37", dict(smol, B=3, Sq=37, Sk=37), {"window": 16}, d64),
         ("ragged Sq 1000", dict(gem, B=1, Sq=1000, Sk=1000),
-         dict(GEMMA_ATTN, window=300)),
+         dict(GEMMA_ATTN, window=300), None),
         # h2o-danube-3: (D, Dv) = (120, 120), G 4, window 4096
         ("h2o 8192 keys, window 4096", dict(H2O_HEADS, B=1, Sq=8192,
-                                            Sk=8192), {"window": H2O_WINDOW}),
+                                            Sk=8192), {"window": H2O_WINDOW},
+         d120),
         ("h2o 8192 keys, no window", dict(H2O_HEADS, B=1, Sq=8192, Sk=8192),
-         {}),
+         {}, d120),
         ("h2o q_offset 1536 over 2048 keys, window 1000",
          dict(H2O_HEADS, B=2, Sq=512, Sk=2048),
-         {"q_offset": 1536, "window": 1000}),
+         {"q_offset": 1536, "window": 1000}, d120),
         ("h2o ragged Sq 37", dict(H2O_HEADS, B=3, Sq=37, Sk=37),
-         {"window": 16}),
+         {"window": 16}, d120),
         ("h2o ragged Sq 1000", dict(H2O_HEADS, B=1, Sq=1000, Sk=1000),
-         {"window": 300}),
+         {"window": 300}, d120),
         # llava-next: G 7, 18 positions (126 rows) a block
-        ("llava G 7 4 x 512", dict(LLAVA_HEADS, B=4, Sq=512, Sk=512), {}),
-        ("llava G 7 ragged Sq 37", dict(LLAVA_HEADS, B=3, Sq=37, Sk=37), {}),
+        ("llava G 7 4 x 512", dict(LLAVA_HEADS, B=4, Sq=512, Sk=512), {},
+         g7),
+        ("llava G 7 ragged Sq 37", dict(LLAVA_HEADS, B=3, Sq=37, Sk=37), {},
+         g7),
+        # stablelm's G 1: 128 positions a block
+        ("stablelm G 1 2 x 512", dict(STABLELM_HEADS, B=2, Sq=512, Sk=512),
+         {}, d64),
+        # the tensor-core kernel's tile edges: 64-key tiles, 128 rows
+        ("Sk 65, one key past a tile", dict(gem, B=2, Sq=65, Sk=65),
+         GEMMA_ATTN, g_long),
+        ("Sk 127, one key short of two tiles", dict(gem, B=2, Sq=127,
+                                                    Sk=127),
+         GEMMA_ATTN, g_long),
+        ("non-causal Sq 16 over Sk 65", dict(gem, B=2, Sq=16, Sk=65),
+         {"causal": False}, None),
+        ("Sq 1, a one-token cold join", dict(gem, B=2, Sq=1, Sk=1),
+         GEMMA_ATTN, g_long),
+        ("stablelm G 1 Sq 1", dict(STABLELM_HEADS, B=2, Sq=1, Sk=1), {},
+         d64),
+        ("h2o D 120, Sk 17", dict(H2O_HEADS, B=2, Sq=17, Sk=17),
+         {"window": H2O_WINDOW}, d120),
+        ("llava G 7, Sq 19", dict(LLAVA_HEADS, B=2, Sq=19, Sk=19), {}, g7),
+        ("B 3, ragged Sk 100", dict(gem, B=3, Sq=100, Sk=100), GEMMA_ATTN,
+         g_long),
     ]
     for dtype in ("bfloat16", "float32"):
         tol = TOL[dtype]
-        for i, (label, shp, kw) in enumerate(cases):
+        for i, (label, shp, kw, form) in enumerate(cases):
             q, k, v = fa_case(torch, np, dev, dtype=dtype, seed=400 + i,
                               **shp)
             got = fa.flash_attention(q, k, v, **kw)
             want = ops.flash_attention_torch(q, k, v, **kw)
             e = max_err(torch, got, want, tol, f"K4 {label} {dtype}")
-            note(errs, e, "flash_attention",
-                 "(120, 120)" if label.startswith("h2o") else
-                 "G 7" if label.startswith("llava") else None)
+            note_k4(errs, e, dtype, form)
             torch.cuda.synchronize()
             say(f"kernels ok: K4 {label} ({dtype}), max |kernel - plain| "
                 f"{e:.3e} (tol {tol})")
@@ -1045,13 +1137,13 @@ def check_mla_kernels(torch, np, dev, da, fa, rms, ops, common, errs):
         "request's length")
     check_bad_page_id(MLA_BAD_ID_PROBE, "latent sweep")
 
-    errs["flash_attention"] = errs.get("flash_attention", 0.0)
     for i, (label, Sq, Sk, kw) in enumerate((
             ("4 x 512", 512, 512, {}), ("ragged Sq 37", 37, 37, {}),
-            ("q_offset 64", 64, 128, {"q_offset": 64}))):
+            ("q_offset 64", 64, 128, {"q_offset": 64}),
+            ("ragged Sq 1000 (128 positions a block)", 1000, 1000, {}))):
         for dtype in ("bfloat16", "float32"):
             rng = np.random.default_rng(1200 + i)
-            B = 4 if Sq == 512 else 2
+            B = {512: 4, 1000: 1}.get(Sq, 2)
             dt = getattr(torch, dtype)
 
             def r(*shape):
@@ -1065,7 +1157,7 @@ def check_mla_kernels(torch, np, dev, da, fa, rms, ops, common, errs):
                                              q_chunk=256, k_chunk=256, **kw)
             e = max_err(torch, got, want, TOL[dtype],
                         f"K4 (192, 128) {label} {dtype}")
-            errs["flash_attention"] = max(errs["flash_attention"], e)
+            note_k4(errs, e, dtype, "(192, 128)")
             torch.cuda.synchronize()
             say(f"kernels ok: K4 at (D, Dv) = (192, 128), {label} "
                 f"({dtype}), max |kernel - plain| {e:.3e}")
@@ -2102,16 +2194,19 @@ def int8_step_cost(torch, np, dev, cfg, tfm, steps, bridge):
     return {k: float(np.median(v[1:])) for k, v in times.items()}
 
 
-def fa_work(np, B, Sq, Sk, Hq, Hkv, D, es, *, window=0, q_offset=0, **_):
-    """(bytes, flops) of K4: q, k, v read once, out written once; 4 flops
-    per (q row, visible key, dim, q head) for q.k and p.v, over the
-    causal / window band these shapes need."""
+def fa_work(np, B, Sq, Sk, Hq, Hkv, D, es, *, Dv=None, window=0,
+            q_offset=0, **_):
+    """(bytes, flops) of K4: q, k (D wide) and v (Dv) read once, out (Dv)
+    written once; 2 flops per (q row, visible key, q head) and dim of q.k
+    (D) and of p.v (Dv), over the causal / window band these shapes
+    need."""
+    Dv = Dv or D
     qp = q_offset + np.arange(Sq)
     hi = np.minimum(qp + 1, Sk)
     lo = np.maximum(qp - window + 1, 0) if window > 0 else 0
     pairs = int(np.maximum(hi - lo, 0).sum())
-    nbytes = es * (2 * B * Sq * Hq * D + 2 * B * Sk * Hkv * D)
-    return nbytes, 4.0 * B * Hq * D * pairs
+    nbytes = es * (B * Sq * Hq * (D + Dv) + B * Sk * Hkv * (D + Dv))
+    return nbytes, 2.0 * B * Hq * (D + Dv) * pairs
 
 
 def sdpa_prefill_yardstick(torch, q, k, v, *, window=0, scale=None, **_):
@@ -2132,31 +2227,34 @@ def sdpa_prefill_yardstick(torch, q, k, v, *, window=0, scale=None, **_):
                                                   attn_mask=mask, scale=scale)
 
 
-def prefill_timings(torch, np, dev, fa, rms, ops, common):
-    """Phase 5, K4 and K9 at the main paths' shapes (bf16): K4 at gemma2's
-    batch prefill (4 x 512, Hq 32, Hkv 16, D 128, cap 50, the JSON row),
-    smollm's (8 x 512, Hq 9, Hkv 3, D 64), gemma2's long local layer
-    (2 x 4352, window 4096), h2o-danube-3's 4 x 512 (D 120) and
-    llava-next's (G 7); K9 at gemma2's 2048 prefill rows of 4608 (gemma
-    form, the JSON row), smollm's 4096 rows of 576, a 4-row decode step
-    of gemma2 and the prefill rows of stablelm (8 x 512 of 2048), h2o
-    (3840), phi3.5 (4096) and llava (7168)."""
+# K4's phase-5 shapes (bf16), each a row of the kernels line: (row, label,
+# shape, keyword arguments, the main paths whose launches it counts: a
+# label's first word, or None for all)
+K4_SHAPES = [
+    ("flash_attention", "gemma2 4 x 512",
+     dict(B=4, Sq=512, Sk=512, Hq=32, Hkv=16, D=128), GEMMA_ATTN, None),
+    ("flash_attention (64, 64)", "smollm 8 x 512",
+     dict(B=8, Sq=512, Sk=512, Hq=9, Hkv=3, D=64), {},
+     ("poisson", "batch", "stablelm")),
+    ("flash_attention gemma2 2 x 4352", "gemma2 2 x 4352 local",
+     dict(B=2, Sq=G_LONG, Sk=G_LONG, Hq=32, Hkv=16, D=128),
+     dict(GEMMA_ATTN, window=4096), ("gemma2",)),
+    ("flash_attention (120, 120)", "h2o 4 x 512 (D 120)",
+     dict(B=4, Sq=512, Sk=512, **H2O_HEADS), {"window": H2O_WINDOW},
+     ("h2o",)),
+    ("flash_attention G 7", "llava 4 x 512 (G 7)",
+     dict(B=4, Sq=512, Sk=512, **LLAVA_HEADS), {}, ("llava",)),
+    ("flash_attention (192, 128)", "deepseek 4 x 512 (D 192, Dv 128)",
+     dict(B=4, Sq=512, Sk=512, Hq=128, Hkv=128, D=192, Dv=128),
+     {"scale": MLA["scale"]}, ("deepseek",)),
+]
+
+
+def k4_timings(torch, np, dev, fa, ops):
+    """Phase 5, K4 at ``K4_SHAPES`` (bf16): kernel, plain version and SDPA
+    (without the soft-cap) beside the bound; one row each."""
     out = {}
-    cases = [("gemma2 4 x 512", dict(B=4, Sq=512, Sk=512, Hq=32, Hkv=16,
-                                     D=128), GEMMA_ATTN),
-             ("smollm 8 x 512", dict(B=8, Sq=512, Sk=512, Hq=9, Hkv=3,
-                                     D=64), {}),
-             ("gemma2 2 x 4352 local", dict(B=2, Sq=G_LONG, Sk=G_LONG, Hq=32,
-                                            Hkv=16, D=128),
-              dict(GEMMA_ATTN, window=4096)),
-             ("h2o 4 x 512 (D 120)", dict(B=4, Sq=512, Sk=512, **H2O_HEADS),
-              {"window": H2O_WINDOW}),
-             ("llava 4 x 512 (G 7)", dict(B=4, Sq=512, Sk=512,
-                                          **LLAVA_HEADS), {})]
-    # the forms with rows of their own: (name, the paths that run it)
-    rows = {3: ("flash_attention (120, 120)", "h2o"),
-            4: ("flash_attention G 7", "llava")}
-    for i, (label, shp, kw) in enumerate(cases):
+    for i, (name, label, shp, kw, family) in enumerate(K4_SHAPES):
         q, k, v = fa_case(torch, np, dev, dtype="bfloat16", seed=600 + i,
                           **shp)
         reps = 5 if shp["Sq"] > 1024 else 20
@@ -2170,16 +2268,21 @@ def prefill_timings(torch, np, dev, fa, rms, ops, common):
         say(f"K4 {label}: kernel {ms * 1e3:.1f} us, plain "
             f"{plain * 1e3:.1f} us, sdpa (no cap) {lib * 1e3:.1f} us, "
             f"bound {b_ms * 1e3:.2f} us ({b_by})")
-        if i == 0:
-            out["flash_attention"] = dict(ms=ms, plain_ms=plain,
-                                          library_ms=lib, bound_ms=b_ms,
-                                          bound_by=b_by, shape=label)
-        if i in rows:
-            name, family = rows[i]
-            out[name] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                             bound_ms=b_ms, bound_by=b_by, shape=label,
-                             entry="flash_attention", family=family)
+        out[name] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                         bound_ms=b_ms, bound_by=b_by, shape=label)
+        if family:
+            out[name].update(entry="flash_attention", family=family)
         del q, k, v
+    return out
+
+
+def prefill_timings(torch, np, dev, fa, rms, ops, common):
+    """Phase 5, K4 (``k4_timings``) and K9 at the main paths' shapes
+    (bf16): K9 at gemma2's 2048 prefill rows of 4608 (gemma form, the
+    JSON row), smollm's 4096 rows of 576, a 4-row decode step of gemma2
+    and the prefill rows of stablelm (8 x 512 of 2048), h2o (3840), phi3.5
+    (4096) and llava (7168)."""
+    out = k4_timings(torch, np, dev, fa, ops)
     F = torch.nn.functional
     rng = np.random.default_rng(700)
     for i, (label, rows, d, gemma) in enumerate((
@@ -2310,13 +2413,13 @@ def mla_sdpa_yardstick(torch, c):
         qt, k, v, attn_mask=mask[:, None], scale=MLA["scale"])
 
 
-def mla_timings(torch, np, dev, da, fa, ops):
+def mla_timings(torch, np, dev, da, ops):
     """Phase 5, deepseek-v2's kernels at the engine's shapes (bf16, 4
     slots, Hq 128, pages of 16, 5 table columns): the latent sweep's
     decode at the engine's split count (the JSON row) and at 1 split, and
     its verify form at Q 16 (the prefix hit's suffix chunk), each beside
-    SDPA over the gathered latent as one kv head; the merge at Dv 512; K4
-    at deepseek's 4 x 512 prefill, (D, Dv) = (192, 128), beside SDPA."""
+    SDPA over the gathered latent as one kv head; the merge at Dv 512.
+    (K4 at deepseek's (D, Dv) = (192, 128) is a row of ``k4_timings``.)"""
     out = {}
     main = dict(B=4, nb=5)
     for verify, pos, Q in ((False, [64, 71, 75, 79], 1),
@@ -2349,26 +2452,6 @@ def mla_timings(torch, np, dev, da, fa, ops):
                           + partial.numel() // S * 2, 3.0 * partial.numel())
             say(f"lse_merge at Dv 512 (4 x 128 rows, n_splits {S}): kernel "
                 f"{m_ms * 1e3:.1f} us, bound {mb * 1e3:.3f} us")
-    rng = np.random.default_rng(1500)
-
-    def r(*shape):
-        return torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
-                            device=dev).to(torch.bfloat16)
-
-    q, k, v = r(4, 512, 128, 192), r(4, 512, 128, 192), r(4, 512, 128, 128)
-    kw = dict(scale=MLA["scale"])
-    ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, **kw), iters=5,
-                 reps=10)
-    plain = time_ms(torch, lambda: ops.flash_attention_torch(q, k, v, **kw),
-                    iters=3, reps=3)
-    lib = time_ms(torch, sdpa_prefill_yardstick(torch, q, k, v, **kw),
-                  iters=5, reps=10)
-    nbytes = 2 * (2 * 4 * 512 * 128 * 192 + 2 * 4 * 512 * 128 * 128)
-    flops = 2.0 * 4 * 128 * (192 + 128) * (512 * 513 // 2)
-    b_ms, b_by = bound(nbytes, flops)
-    say(f"K4 deepseek 4 x 512 (Hq 128, D 192, Dv 128): kernel "
-        f"{ms * 1e3:.1f} us, plain {plain * 1e3:.1f} us, sdpa "
-        f"{lib * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us ({b_by})")
     return out
 
 
@@ -2432,6 +2515,7 @@ def main() -> int:
     for line in build.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             say(f"  ptxas: {line.strip()}")
+    k4_forms(torch, fa, build)
 
     # 2. kernels against their plain versions ---------------------------------
     errs = check_kernels(torch, np, dev, da, ops)
@@ -2442,6 +2526,8 @@ def main() -> int:
     check_prefill_kernels(torch, np, dev, fa, rms, ops, common, errs)
     check_ssd_kernels(torch, np, dev, ss, ops, errs)
     check_mla_kernels(torch, np, dev, da, fa, rms, ops, common, errs)
+    say(f"kernels ok: K4's largest bf16 |kernel - plain| over every case "
+        f"{errs['flash_attention bf16']:.3e} (tol {TOL['bfloat16']})")
 
     # 3. reference: kernels vs plain torch, full width, fp32 ------------------
     cfg = get_arch("smollm-135m").config
@@ -2560,7 +2646,8 @@ def main() -> int:
     paths = [p + (cuts.get(p[0].split()[0]),) for p in paths]
     launches = {key: 0 for key in da.LAUNCHES}
     # launches by model family (a label's first word), for the rows of a
-    # form only one family runs (head dim 120: h2o-danube-3; G 7: llava)
+    # form only some families run (head dim 120: h2o-danube-3; G 7: llava;
+    # K4's (64, 64): smollm's paths and stablelm's)
     by_family = {}
     for label, argv, keys, n_req, gen, cut in paths:
         torch.cuda.reset_peak_memory_stats()
@@ -2634,7 +2721,7 @@ def main() -> int:
     times.update(ring_timings(torch, np, dev, da, ops))
     times.update(prefill_timings(torch, np, dev, fa, rms, ops, common))
     times.update(ssd_timings(torch, np, dev, ss))
-    times.update(mla_timings(torch, np, dev, da, fa, ops))
+    times.update(mla_timings(torch, np, dev, da, ops))
     times.update(form_timings(torch, np, dev, da, ops, quant,
                               heads=dict(Hq=9, Hkv=3, D=64), batch=BATCH,
                               int8=True))
@@ -2651,10 +2738,13 @@ def main() -> int:
     kernels = []
     for name, t in times.items():
         source, replaces, key = KERNELS[t.get("entry") or name]
-        counted = by_family[t["family"]] if t.get("family") else launches
+        fams = t.get("family") or ()
+        fams = (fams,) if isinstance(fams, str) else fams
+        n_launch = (sum(by_family[f][key] for f in fams) if fams
+                    else launches[key])
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": counted[key],
+            "replaces": replaces, "launches": n_launch,
             "max_abs_err": errs[t.get("err", name)],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

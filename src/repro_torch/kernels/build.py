@@ -34,15 +34,19 @@ def sources() -> list[pathlib.Path]:
     return sorted(_CSRC.glob("*.cu"))
 
 
-def _nvcc() -> str:
+def cuda_tool(name: str = "nvcc") -> str:
+    """The path of a CUDA toolkit program (``nvcc``, ``cuobjdump``):
+    ``$CUDA_HOME/bin``, the toolkit's default install where ``CUDA_HOME``
+    is unset, else ``PATH``."""
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = pathlib.Path(cuda_home) / "bin" / "nvcc"
+    cand = pathlib.Path(cuda_home) / "bin" / name
     if cand.exists():
         return str(cand)
-    found = shutil.which("nvcc")
+    found = shutil.which(name)
     if found is None:
-        raise RuntimeError("nvcc not found (CUDA_HOME or PATH): the port's "
-                           "CUDA kernels cannot be built on this machine")
+        raise RuntimeError(f"{name} not found (CUDA_HOME or PATH): the "
+                           "port's CUDA kernels cannot be built or read on "
+                           "this machine")
     return found
 
 
@@ -61,7 +65,7 @@ def build(force: bool = False) -> pathlib.Path:
     if not force and not _stale():
         return _LIB_PATH
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
+    nvcc = cuda_tool()
     tag = os.getpid()
     t0 = time.perf_counter()
     jobs = []
@@ -116,6 +120,8 @@ def library() -> ctypes.CDLL:
         lib.mla_latent_sweep.restype = i
         lib.flash_attention_fwd.argtypes = [p] * 4 + [i] * 11 + [f, f, i, p]
         lib.flash_attention_fwd.restype = i
+        lib.flash_attention_occupancy.argtypes = [i, i, i, p]
+        lib.flash_attention_occupancy.restype = i
         lib.rmsnorm_fwd.argtypes = [p, p, p, ctypes.c_long, i, f, i, i, i, p]
         lib.rmsnorm_fwd.restype = i
         lg = ctypes.c_long

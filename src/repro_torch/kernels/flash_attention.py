@@ -1,6 +1,8 @@
-"""Prefill flash attention: the hand-written Hopper kernel of K4
+"""Prefill flash attention: the hand-written Hopper kernels of K4
 (``csrc/flash_attention.cu``, replacing the JAX package's Pallas
-``flash_attention``) and its wrapper.
+``flash_attention``) and their wrapper.  bf16 runs on the tensor cores
+(``mma.sync`` m16n8k16, fp32 accumulators, k/v tiles copied
+asynchronously); fp32 on the CUDA cores, in full fp32.
 
 Its plain version is ``ops.flash_attention_torch`` (the JAX
 ``flash_attention_jnp`` mirror, chunked online softmax in plain torch).
@@ -10,12 +12,14 @@ it launches the kernel or raises, with no fallback.  ``LAUNCHES
 
 Rows that see no key (only ``q_offset`` or window edge cases make them;
 every model row sees itself) follow the reference's finite ``NEG_INF``: the
-kernel returns the mean of the v rows of the in-range keys of the 64-key
-tiles its block visits, or 0 when the block visits none.  Like the
-reference's, that value depends on the tile size, so it differs from the
-plain version's; it is finite.
+kernel returns the mean of the v rows of the in-range keys of the key
+tiles its block visits (64 keys; 32 in the bf16 kernel at D 192), or 0
+when the block visits none.  Like the reference's, that value depends on
+the tile size, so it differs from the plain version's; it is finite.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -24,8 +28,8 @@ from repro_torch.kernels.binding import DTYPE_CODE, LAUNCHES, check, ptr
 ROWS = 128          # (q position, q head) rows per kernel block
 # (q/k head dim, v head dim) pairs built: the dense families' (h2o-danube's
 # 120 among them) and deepseek-v2's MLA prefill ([nope 128 | rope 64] q/k,
-# v 128); the kernel's shared memory at each is checked against Hopper's
-# 227 KB when it compiles (221,952 bytes at (192, 128))
+# v 128); the kernels' shared memory at each is checked against Hopper's
+# 227 KB when they compile
 HEAD_DIMS = ((64, 64), (120, 120), (128, 128), (192, 128))
 
 
@@ -79,3 +83,17 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         raise RuntimeError(f"flash_attention: CUDA error {err}")
     LAUNCHES["flash_attention"] += 1
     return out
+
+
+def occupancy(head_dim: int, v_head_dim: int, dtype) -> dict:
+    """The kernel ``flash_attention`` launches for a (D, Dv, dtype) form, as
+    the card runs it: blocks per SM, dynamic shared memory bytes and
+    registers a thread."""
+    from repro_torch.kernels import build
+    info = (ctypes.c_int * 3)()
+    err = build.library().flash_attention_occupancy(
+        head_dim, v_head_dim, DTYPE_CODE[dtype], info)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_occupancy: CUDA error {err}")
+    return dict(blocks_per_sm=info[0], smem_bytes=info[1],
+                registers=info[2])

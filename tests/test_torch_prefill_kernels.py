@@ -31,7 +31,7 @@ from repro_torch.models import common
 
 TOL = {"float32": 5e-6, "bfloat16": 2e-2}
 
-# (id, B, Sq, Sk, Hq, Hkv, D, keyword arguments)
+# (id, B, Sq, Sk, Hq, Hkv, D, keyword arguments[, Dv when it is not D])
 FA_CASES = [
     ("causal-G1-D64", 2, 32, 32, 2, 2, 64, {}),
     ("window-cap-scale-G2-D128", 1, 64, 64, 4, 2, 128,
@@ -45,19 +45,34 @@ FA_CASES = [
     ("ragged-37-G3-D64", 2, 37, 37, 6, 2, 64, {"window": 9,
                                                 "logit_cap": 5.0}),
     ("ragged-q_offset-G2-D128", 1, 21, 45, 4, 2, 128, {"q_offset": 24}),
-    # h2o-danube-3's head dim 120 (Dv 120: the kernel's last column slot
-    # is predicated) at its G 4, windowed; ragged with a q_offset
+    # h2o-danube-3's head dim 120 (Dv 120: the fp32 kernel predicates its
+    # last column slot, the bf16 one runs 15 n8 tiles) at its G 4,
+    # windowed; ragged with a q_offset
     ("window-G4-D120", 1, 48, 48, 8, 2, 120, {"window": 16}),
     ("ragged-q_offset-G4-D120", 2, 21, 45, 8, 2, 120, {"q_offset": 24}),
     # llava-next's G 7, which does not divide the kernel's 128 rows
     ("ragged-G7-D128", 1, 37, 37, 14, 2, 128, {}),
+    # the tensor-core kernel's tile edges: one key past a 64-key tile and
+    # one short of two, a one-token prompt, D 120 over 17 keys, G 7 one
+    # position past a block's 18, the last batch's rows past a ragged Sk,
+    # and deepseek's (D, Dv) = (192, 128) ragged against 128 positions a
+    # block
+    ("Sk65-cap-G2-D128", 2, 65, 65, 4, 2, 128,
+     {"logit_cap": 50.0, "scale": 144.0 ** -0.5}),
+    ("Sk127-G2-D64", 1, 127, 127, 4, 2, 64, {}),
+    ("Sq1-G2-D128", 2, 1, 1, 4, 2, 128, {}),
+    ("Sk17-window-G4-D120", 2, 17, 17, 8, 2, 120, {"window": 4096}),
+    ("Sq19-G7-D128", 1, 19, 19, 14, 2, 128, {}),
+    ("ragged-Sk100-B3-G2-D64", 3, 100, 100, 4, 2, 64, {"logit_cap": 5.0}),
+    ("ragged-1000-G1-D192-Dv128", 1, 1000, 1000, 2, 2, 192,
+     {"scale": 192 ** -0.5}, 128),
 ]
 
 
-def _fa_inputs(B, Sq, Sk, Hq, Hkv, D, seed):
+def _fa_inputs(B, Sq, Sk, Hq, Hkv, D, seed, Dv=None):
     rng = np.random.default_rng(seed)
     r = lambda *s: rng.standard_normal(s).astype(np.float32)
-    return r(B, Sq, Hq, D), r(B, Sk, Hkv, D), r(B, Sk, Hkv, D)
+    return r(B, Sq, Hq, D), r(B, Sk, Hkv, D), r(B, Sk, Hkv, Dv or D)
 
 
 def _to_jax(a, dtype):
@@ -91,13 +106,14 @@ def test_flash_attention_plain_matches_jax(case, dtype):
     """K4's plain path (the wrapper on CPU tensors) against the Pallas
     kernel in interpret mode (blocks of 16; ragged shapes take JAX's own
     chunked twin) and the oracle."""
-    _, B, Sq, Sk, Hq, Hkv, D, kw = case
-    q, k, v = _fa_inputs(B, Sq, Sk, Hq, Hkv, D, seed=len(case[0]))
+    _, B, Sq, Sk, Hq, Hkv, D, kw, *dv = case
+    Dv = dv[0] if dv else D
+    q, k, v = _fa_inputs(B, Sq, Sk, Hq, Hkv, D, seed=len(case[0]), Dv=Dv)
     tq, tk, tv = (_to_torch(a, dtype) for a in (q, k, v))
     jq, jk, jv = (_to_jax(a, dtype) for a in (q, k, v))
     got = fa.flash_attention(tq, tk, tv, **kw)
     assert got.dtype == getattr(torch, dtype)
-    assert tuple(got.shape) == (B, Sq, Hq, D)
+    assert tuple(got.shape) == (B, Sq, Hq, Dv)
     pallas = _jfa(tuple(sorted(kw.items())), 16)(jq, jk, jv)
     oracle = jref.attention_ref(jq, jk, jv, **kw)
     _close(got, pallas, TOL[dtype])
