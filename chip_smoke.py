@@ -8,9 +8,10 @@ Phases, in order; any failure exits non-zero (nothing is caught):
   1. build    — compile the port's CUDA kernels from the sources in this
                 checkout (one nvcc per source, all started together,
                 sm_90a) and print the card's name and power limit; K4's
-                bf16 kernels must hold HMMA (tensor-core) instructions and
-                its fp32 ones none (``cuobjdump -sass``), and each K4 form
-                prints its blocks per SM, shared memory and registers;
+                and the paged sweep's bf16 kernels must hold HMMA
+                (tensor-core) instructions and their fp32 ones none
+                (``cuobjdump -sass``), and each form of both prints its
+                blocks per SM, shared memory and registers;
   2. kernels  — hold every kernel against its plain PyTorch version on the
                 same inputs, tolerance atol = rtol = 2e-2 for bf16 (1e-4
                 for fp32).  The paged K-sweep (decode / split decode /
@@ -64,7 +65,12 @@ Phases, in order; any failure exits non-zero (nothing is caught):
                 65, stablelm's G 1, and (192, 128) ragged at Sq = Sk =
                 1000), each case's error printed and K4's largest bf16
                 error over all of them; K9 at widths 2048, 3840, 4096 and
-                7168; head_dim
+                7168; the paged sweep at its tensor-core kernel's edges
+                (G 4 with Q 17 and Q 128, pages of 8, positions at page
+                edges, splits wholly past a request, a window of 8 under
+                a verify block of 16, gemma2's 32 / 16 of 128 with cap 50),
+                in bf16 and fp32, and its largest bf16 error over every
+                case printed; head_dim
                 96 raises ValueError in both sweeps, launching nothing;
   3. reference — full-width smollm-135m at fp32, twice on the kernels and
                 twice on the plain torch path (chunked prefill twin,
@@ -143,7 +149,11 @@ Phases, in order; any failure exits non-zero (nothing is caught):
                 merge on the zoo's engines;
   5. timing   — CUDA-event times of each kernel, its plain version and a
                 library yardstick at the main paths' shapes, beside the
-                least time the card could take (the latent sweep beside
+                least time the card could take (the paged sweep at
+                ``PAGED_FORMS``: decode and verify Q 16 at the engine's
+                split count and at 1 split, bf16 and int8 pools at D 64
+                and 120, gemma2's, llava's G 7, stablelm's G 1 and deep
+                4096-position tables; the latent sweep beside
                 SDPA over the gathered latent as one kv head; K4 on a row
                 of its own at each of ``K4_SHAPES`` beside SDPA; the int8
                 sweeps at the
@@ -272,19 +282,25 @@ def say(msg: str) -> None:
 # --------------------------------------------------------------------------
 # phase 1 helper
 # --------------------------------------------------------------------------
-def k4_forms(torch, fa, build):
-    """Phase 1, K4: the tensor cores in the bf16 kernel's code and none in
-    the fp32 one (HMMA instructions per K4 function in ``cuobjdump -sass``
-    of the built library; no bf16 instantiation of the CUDA-core kernel
-    may remain), and each form's blocks per SM, shared memory and
-    registers as the card runs it."""
-    import re
+def hmma_counts(build):
+    """HMMA (tensor-core) instructions per kernel of the built library, by
+    mangled name (``cuobjdump -sass``)."""
     sass = subprocess.run(
         [build.cuda_tool("cuobjdump"), "-sass", str(build.build())],
         capture_output=True, text=True, check=True).stdout
+    return {part.split(None, 1)[0]:
+            sum("HMMA" in line for line in part.splitlines())
+            for part in sass.split("Function : ")[1:]}
+
+
+def k4_forms(torch, fa, counts):
+    """Phase 1, K4: the tensor cores in the bf16 kernel's code and none in
+    the fp32 one (``hmma_counts``; no bf16 instantiation of the CUDA-core
+    kernel may remain), and each form's blocks per SM, shared memory and
+    registers as the card runs it."""
+    import re
     hmma = {}
-    for part in sass.split("Function : ")[1:]:
-        name = part.split(None, 1)[0]
+    for name, n in counts.items():
         dims = re.search(r"Li(\d+)ELi(\d+)E", name)
         if "flash_attention" not in name or dims is None:
             continue
@@ -297,7 +313,7 @@ def k4_forms(torch, fa, build):
         if kind is None:
             fail(f"K4: unexpected kernel {name} in the library")
         form = (int(dims.group(1)), int(dims.group(2)))
-        hmma[kind, form] = sum("HMMA" in line for line in part.splitlines())
+        hmma[kind, form] = n
     for D, Dv in fa.HEAD_DIMS:
         for dtype in (torch.bfloat16, torch.float32):
             kind = str(dtype).split(".")[1]
@@ -313,6 +329,42 @@ def k4_forms(torch, fa, build):
                 f"{occ['smem_bytes']} B of shared memory, "
                 f"{occ['registers']} registers a thread, "
                 f"{occ['blocks_per_sm']} blocks an SM")
+
+
+def sweep_forms(torch, da, counts):
+    """Phase 1, the paged sweep: every (q dtype, pools, head dim) form is
+    built, its bf16 instantiations hold HMMA instructions and its fp32
+    ones none (``hmma_counts``), and each form's blocks per SM, shared
+    memory and registers (at its widest block, 4 warps) as the card runs
+    it."""
+    import re
+    hmma = {}
+    for name, n in counts.items():
+        m = re.search(r"paged_attention_sweep_kernelI(13__nv_bfloat16|f)"
+                      r"(a|f|S\d*_)Li(\d+)E", name)
+        if "paged_attention_sweep" not in name:
+            continue
+        if m is None:
+            fail(f"paged sweep: unexpected kernel {name} in the library")
+        kind = "bfloat16" if m.group(1) != "f" else "float32"
+        hmma[kind, m.group(2) == "a", int(m.group(3))] = n
+    for D in da.SWEEP_HEAD_DIMS:
+        for dtype in (torch.bfloat16, torch.float32):
+            for int8 in (False, True):
+                kind = str(dtype).split(".")[1]
+                form = f"D {D} q {kind}, {'int8' if int8 else kind} pools"
+                n = hmma.get((kind, int8, D))
+                if n is None:
+                    fail(f"paged sweep {form}: no kernel in the library")
+                if (n > 0) != (kind == "bfloat16"):
+                    fail(f"paged sweep {form}: {n} HMMA instructions")
+                occ = da.sweep_occupancy(D, dtype, int8)
+                if occ["blocks_per_sm"] < 1:
+                    fail(f"paged sweep {form}: no block fits an SM")
+                say(f"paged sweep {form}: {n} HMMA instructions, "
+                    f"{occ['smem_bytes']} B of shared memory, "
+                    f"{occ['registers']} registers a thread, "
+                    f"{occ['blocks_per_sm']} blocks an SM")
 
 
 # --------------------------------------------------------------------------
@@ -419,13 +471,42 @@ def check_kernels(torch, np, dev, da, ops):
                        [17, 40, 63, 79], 1, dtype, {}),
                       (f"{form} {dtype} verify Q=16", dict(main, **heads),
                        [32, 48, 0, 20], 16, dtype, {})]
+    # the tensor-core sweep's edges: row tiles (Q 17, and Q 128 at G 4 is
+    # 512 rows, 16 tiles), pages of 8 keys (two a key tile), positions at
+    # page edges, splits wholly past a request (pos 0 and 5 hold one page
+    # of five), a window shorter than the verify block (each row its own
+    # key range); gemma2's global layers (32 / 16 of 128, cap 50)
+    g4 = dict(main, Hq=8, Hkv=2)
+    for dtype in ("bfloat16", "float32"):
+        cases += [
+            (f"G 4 Q=17 {dtype} verify", g4, [32, 48, 0, 20], 17, dtype, {}),
+            (f"G 4 Q=128 {dtype} verify", g4, [32, 48, 0, 20], 128, dtype,
+             {}),
+            (f"page 8 {dtype} decode", dict(main, ps=8, nb=10),
+             [17, 40, 63, 79], 1, dtype, {}),
+            (f"page 8 {dtype} verify Q=16", dict(main, ps=8, nb=10),
+             [32, 48, 0, 20], 16, dtype, {}),
+            (f"page edges {dtype} decode", main, [15, 16, 17, 31], 1, dtype,
+             {}),
+            (f"page edges {dtype} verify Q=16", main, [16, 17, 15, 32], 16,
+             dtype, {}),
+            (f"splits past the request {dtype} decode", main, [0, 5, 16, 2],
+             1, dtype, {}),
+            (f"splits past the request {dtype} verify Q=16", main,
+             [0, 5, 16, 2], 16, dtype, {}),
+            (f"window 8 {dtype} verify Q=16", main, [32, 48, 0, 20], 16,
+             dtype, {"window": 8}),
+            (f"gemma2 {dtype} decode", dict(main, Hq=32, Hkv=16, D=128),
+             [17, 40, 63, 79], 1, dtype, GEMMA_ATTN),
+            (f"gemma2 {dtype} verify Q=16", dict(main, Hq=32, Hkv=16, D=128),
+             [32, 48, 0, 20], 16, dtype, GEMMA_ATTN)]
     for i, (label, shp, pos, Q, dtype, kw) in enumerate(cases):
         c = make_case(torch, np, dev, pos=pos, Q=Q, dtype=dtype, seed=i,
                       **shp)
         verify = "verify" in label
         entry = ("paged_attention_sweep (verify)" if verify
                  else "paged_attention_sweep (decode)")
-        form = "D 120" if shp["D"] == 120 else None
+        form = paged_form(label, shp)
         auto = ops.choose_kv_splits(shp["B"], shp["nb"] * shp["ps"],
                                     shp["Hq"], block=shp["ps"], device=dev)
         tol = TOL[dtype]
@@ -440,11 +521,13 @@ def check_kernels(torch, np, dev, da, ops):
             if n_splits == 1:
                 e = max_err(torch, got, want, tol, what)
                 note(errs, e, entry, form)
+                note(errs, e, f"paged_attention_sweep {dtype}")
                 case_err = max(case_err, e)
                 continue
             e = max(max_err(torch, got[0], want[0], tol, what + " partial"),
                     max_err(torch, got[1], want[1], tol, what + " lse"))
             note(errs, e, entry, form)
+            note(errs, e, f"paged_attention_sweep {dtype}")
             merged = da.lse_merge(*got, c["q"].dtype)
             plain = da.lse_merge_torch(*got, c["q"].dtype)
             em = max_err(torch, merged, plain, tol, what + " merge")
@@ -457,6 +540,17 @@ def check_kernels(torch, np, dev, da, ops):
     check_bad_page_id()
     check_bad_page_id(kernel="paged sweep at head_dim 120", head_dim=120)
     return errs
+
+
+def paged_form(label, shp):
+    """The phase-5 form a phase-2 case of the paged sweep belongs to (its
+    rows' errors), or None for the main path's (Hq 9 / Hkv 3 of 64)."""
+    if shp["D"] == 120:
+        return "D 120"
+    for form in ("deep", "gemma2"):
+        if label.startswith(form):
+            return form
+    return {(56, 8): "G 7", (32, 32): "G 1"}.get((shp["Hq"], shp["Hkv"]))
 
 
 def check_table_tail(torch, np, dev, da, shp):
@@ -756,6 +850,10 @@ def int8_case(torch, da, errs, entry, c, verify, tol, kernel, plain, extra,
         else:
             e = max(max_err(torch, got[0], want[0], tol, what + " partial"),
                     max_err(torch, got[1], want[1], tol, what + " lse"))
+        if not ring:
+            note(errs, e, "paged_attention_sweep "
+                 + str(c["q"].dtype).split(".")[1])
+        if not isinstance(want, torch.Tensor):
             em = max_err(torch, da.lse_merge(*got, c["q"].dtype),
                          da.lse_merge_torch(*got, c["q"].dtype), tol,
                          what + " merge")
@@ -1879,9 +1977,10 @@ def bound(nbytes, flops):
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
-def sdpa_yardstick(torch, c, verify):
+def sdpa_yardstick(torch, c, verify, scale=None):
     """One F.scaled_dot_product_attention call over the pages gathered in
-    logical order (GQA heads expanded), with the same masks."""
+    logical order (GQA heads expanded), with the same masks and scale (no
+    soft-cap: no single call has one)."""
     F = torch.nn.functional
     q = c["q"]
     B, Q, Hq, D = q.shape
@@ -1908,51 +2007,96 @@ def sdpa_yardstick(torch, c, verify):
         mask = kp <= pos
     mask = mask[:, None]
     qt = q.transpose(1, 2).contiguous()
-    return lambda: F.scaled_dot_product_attention(qt, k, v, attn_mask=mask)
+    return lambda: F.scaled_dot_product_attention(qt, k, v, attn_mask=mask,
+                                                  scale=scale)
+
+
+# The paged sweep's phase-5 forms (q bf16): (form, heads, int8 pools, the
+# sweep's keyword arguments, the main paths whose launches its rows count:
+# a label's first word, or None for all).  A form gives four rows of the
+# kernels line, named "paged_attention_sweep[ int8] (decode|verify)[
+# form]", at the engine's split count (K2a, K3b) and ", 1 split" (K1,
+# K3a), at the engine's shapes (4 slots, 5 pages of 16, decode pos 64..79,
+# verify Q 16 at pos 16..48); "deep" at 256-page tables (4096 positions,
+# which no main path reaches on pages: no launches).
+PAGED_FORMS = [
+    ("", dict(Hq=9, Hkv=3, D=64), False, {}, None),
+    ("", dict(Hq=9, Hkv=3, D=64), True, {}, None),
+    ("D 120", H2O_HEADS, False, {}, ("h2o",)),
+    ("D 120", H2O_HEADS, True, {}, ("h2o",)),
+    ("gemma2", dict(Hq=32, Hkv=16, D=128), False, GEMMA_ATTN, ("gemma2",)),
+    ("G 7", LLAVA_HEADS, False, {}, ("llava",)),
+    ("G 1", STABLELM_HEADS, False, {}, ("stablelm",)),
+    ("deep", dict(Hq=9, Hkv=3, D=64, nb=256), False, {}, ("deep",)),
+]
+DEEP_POS = {False: [4095, 3001, 2048, 777], True: [4000, 2900, 16, 1031]}
+
+
+def paged_timings(torch, np, dev, da, ops, quant, plain=True):
+    """Phase 5, the paged sweep at ``PAGED_FORMS``: CUDA-event times of the
+    kernel beside its bound (an int8 kv row D + 4 bytes) and, with
+    ``plain``, its plain version and SDPA over the gathered cache (int8
+    dequantized to bf16 beforehand, outside the timed call; gemma2's scale
+    without its cap).  Returns the rows by name."""
+    out = {}
+    for form, heads, int8, kw, family in PAGED_FORMS:
+        shp = dict(dict(B=4, ps=16, nb=5), **heads)
+        tag = " int8" if int8 else ""
+        for verify, Q in ((False, 1), (True, 16)):
+            entry = (f"paged_attention_sweep{tag} "
+                     f"({'verify' if verify else 'decode'})")
+            name = f"{entry} {form}" if form else entry
+            if form == "deep":
+                pos = DEEP_POS[verify]
+            else:
+                pos = [32, 48, 16, 32] if verify else [64, 71, 75, 79]
+            c = make_case(torch, np, dev, pos=pos, Q=Q, dtype="bfloat16",
+                          seed=100 + Q, **shp)
+            if int8:
+                c = quantize_case(quant, c, ("k_pages", "v_pages"))
+            args, vkw = sweep_args(c, verify)
+            S = ops.choose_kv_splits(4, shp["nb"] * 16, heads["Hq"],
+                                     block=16, device=dev)
+            lib = (time_ms(torch, sdpa_yardstick(
+                torch, dequantized(torch, c, ("k_pages", "v_pages"))
+                if int8 else c, verify, kw.get("scale"))) if plain else None)
+            for n in sorted({S, 1}, reverse=True):
+                ms = time_ms(torch, lambda: da.paged_attention_sweep(
+                    *args, **vkw, n_splits=n, **kw))
+                slow = form == "deep" and n == 1
+                pl = (time_ms(torch, lambda: da.paged_attention_sweep_torch(
+                    *args, **vkw, n_splits=n, **kw), iters=3 if slow else 5,
+                    reps=3 if slow else 10) if plain else None)
+                b_ms, b_by = bound(*sweep_work(c, n, verify))
+                row = name if n == S else f"{name}, 1 split"
+                out[row] = dict(ms=ms, plain_ms=pl, library_ms=lib,
+                                bound_ms=b_ms, bound_by=b_by, n_splits=n,
+                                entry=entry, family=family, err=name)
+                if plain:
+                    say(f"{row} (n_splits {n}): kernel {ms * 1e3:.1f} us, "
+                        f"plain {pl * 1e3:.1f} us, bound {b_ms * 1e3:.3f} "
+                        f"us ({b_by}), sdpa {lib * 1e3:.1f} us")
+    return out
 
 
 def timings(torch, np, dev, da, ops):
-    """Phase 5 at the main path's shapes (4 slots, 5 pages of 16)."""
+    """Phase 5, the merge on the paged decode's partials at the main path's
+    shapes (4 slots, 5 pages of 16, the engine's split count), and the
+    deep decode's sweep + merge beside SDPA."""
     out = {}
     main = dict(B=4, Hq=9, Hkv=3, D=64, ps=16, nb=5)
-    for verify, pos, Q in ((False, [64, 71, 75, 79], 1),
-                           (True, [32, 48, 16, 32], 16)):
-        name = ("paged_attention_sweep (verify)" if verify
-                else "paged_attention_sweep (decode)")
-        c = make_case(torch, np, dev, pos=pos, Q=Q, dtype="bfloat16",
-                      seed=100 + Q, **main)
-        S = ops.choose_kv_splits(4, 80, 9, block=16, device=dev)
-        args, kw = sweep_args(c, verify)
-        ms = time_ms(torch, lambda: da.paged_attention_sweep(
-            *args, **kw, n_splits=S))
-        plain = time_ms(torch, lambda: da.paged_attention_sweep_torch(
-            *args, **kw, n_splits=S), iters=5, reps=10)
-        lib = time_ms(torch, sdpa_yardstick(torch, c, verify))
-        nbytes, flops = sweep_work(c, S, verify)
-        b_ms, b_by = bound(nbytes, flops)
-        out[name] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                         bound_by=b_by, n_splits=S)
-        # the single-split form (the output written directly, no merge)
-        one = time_ms(torch, lambda: da.paged_attention_sweep(
-            *args, **kw, n_splits=1))
-        one_plain = time_ms(torch, lambda: da.paged_attention_sweep_torch(
-            *args, **kw, n_splits=1), iters=5, reps=10)
-        say(f"{name} (n_splits 1): kernel {one * 1e3:.1f} us, plain "
-            f"{one_plain * 1e3:.1f} us, bound "
-            f"{bound(*sweep_work(c, 1, verify))[0] * 1e3:.3f} us")
-        if not verify:
-            partial, lse = da.paged_attention_sweep(*args, n_splits=S)
-            m_ms = time_ms(torch, lambda: da.lse_merge(partial, lse,
-                                                       torch.bfloat16))
-            m_plain = time_ms(torch, lambda: da.lse_merge_torch(
-                partial, lse, torch.bfloat16), iters=5, reps=10)
-            m_bytes = (partial.numel() + lse.numel()) * 4 \
-                + partial.numel() // S * 2
-            m_flops = 3.0 * partial.numel()
-            mb, mby = bound(m_bytes, m_flops)
-            out["lse_merge"] = dict(ms=m_ms, plain_ms=m_plain,
-                                    library_ms=None, bound_ms=mb,
-                                    bound_by=mby, n_splits=S)
+    c = make_case(torch, np, dev, pos=[64, 71, 75, 79], Q=1,
+                  dtype="bfloat16", seed=101, **main)
+    S = ops.choose_kv_splits(4, 80, 9, block=16, device=dev)
+    args, _ = sweep_args(c, False)
+    partial, lse = da.paged_attention_sweep(*args, n_splits=S)
+    m_ms = time_ms(torch, lambda: da.lse_merge(partial, lse, torch.bfloat16))
+    m_plain = time_ms(torch, lambda: da.lse_merge_torch(
+        partial, lse, torch.bfloat16), iters=5, reps=10)
+    m_bytes = (partial.numel() + lse.numel()) * 4 + partial.numel() // S * 2
+    mb, mby = bound(m_bytes, 3.0 * partial.numel())
+    out["lse_merge"] = dict(ms=m_ms, plain_ms=m_plain, library_ms=None,
+                            bound_ms=mb, bound_by=mby, n_splits=S)
     # the deep case, for the record (not the main path's shape)
     deep = dict(B=4, Hq=9, Hkv=3, D=64, ps=16, nb=256)
     c = make_case(torch, np, dev, pos=[4095, 3001, 2048, 777], Q=1,
@@ -2080,60 +2224,40 @@ def ring_timings(torch, np, dev, da, ops):
     return out
 
 
-def form_timings(torch, np, dev, da, ops, quant, *, heads, batch, int8,
-                 family=None):
-    """Phase 5, both sweeps in one form, bf16 q: paged at the engine's
-    shapes (4 slots, 5 pages of 16, decode pos 64..79, verify Q 16), ring
-    at a batch path's (``batch`` requests, a ring of 545 slots, pos 528,
-    verify Q 4), pools and rings in bf16 or int8, at ``heads`` (Hq, Hkv,
-    D).  Each entry at its split count (the returned row) and at 1 split,
-    beside its bound (an int8 kv row D + 4 bytes) and SDPA over the cache
-    (dequantized to bf16 before the timed call, for int8); the merge on
-    the ring decode's partials.  With ``family`` (the main paths that run
-    this head dim) the rows are named ``entry D <D>`` and count that
-    family's launches, the 1-split times and the bf16 form's merge are
-    rows too."""
+def ring_form_timings(torch, np, dev, da, ops, quant, *, heads, batch,
+                      int8, family=None):
+    """Phase 5, the ring sweep in one form, bf16 q, at a batch path's
+    shapes (``batch`` requests, a ring of 545 slots, pos 528, verify Q 4),
+    rings in bf16 or int8, at ``heads`` (Hq, Hkv, D).  Each entry at its
+    split count (the returned row) and at 1 split, beside its bound (an
+    int8 kv row D + 4 bytes) and SDPA over the cache (dequantized to bf16
+    before the timed call, for int8); the merge on the ring decode's
+    partials.  With ``family`` (the main paths that run this head dim) the
+    rows are named ``entry D <D>`` and count that family's launches, the
+    1-split times and the bf16 form's merge are rows too.  (The paged
+    sweep's rows: ``paged_timings``.)"""
     out = {}
     tag = " int8" if int8 else ""
     form = f"D {heads['D']}{tag or ' bf16'}"
-    for kind, verify, Q in (("paged", False, 1), ("paged", True, 16),
-                            ("ring", False, 1), ("ring", True, 4)):
-        entry = (f"{kind}_attention_sweep{tag} "
+    S = ops.choose_kv_splits(batch, PLEN + GEN, heads["Hq"], block=256,
+                             device=dev)
+    for verify, Q in ((False, 1), (True, 4)):
+        entry = (f"ring_attention_sweep{tag} "
                  f"({'verify' if verify else 'decode'})")
         name = f"{entry} D {heads['D']}" if family else entry
-        if kind == "paged":
-            pos = [32, 48, 16, 32] if verify else [64, 71, 75, 79]
-            c = make_case(torch, np, dev, pos=pos, Q=Q, dtype="bfloat16",
-                          seed=100 + Q, B=4, ps=16, nb=5, **heads)
-            keys, extra, args_of = ("k_pages", "v_pages"), {}, sweep_args
-            S = ops.choose_kv_splits(4, 80, heads["Hq"], block=16,
-                                     device=dev)
-            kernel, plain = (da.paged_attention_sweep,
-                             da.paged_attention_sweep_torch)
-            work = lambda c, n: sweep_work(c, n, verify)
-            yard = sdpa_yardstick
-        else:
-            c = make_ring_case(torch, np, dev, pos=528, Q=Q,
-                               dtype="bfloat16", seed=300 + Q, B=batch,
-                               C=PLEN + GEN, **heads)
-            keys, extra, args_of = ("k", "v"), {"block_k": 256}, ring_args
-            S = ops.choose_kv_splits(batch, PLEN + GEN, heads["Hq"],
-                                     block=256, device=dev)
-            kernel, plain = (da.ring_attention_sweep,
-                             da.ring_attention_sweep_torch)
-            work = lambda c, n: ring_work(torch, c, n, verify)
-            yard = ring_sdpa_yardstick
+        c = make_ring_case(torch, np, dev, pos=528, Q=Q, dtype="bfloat16",
+                           seed=300 + Q, B=batch, C=PLEN + GEN, **heads)
         if int8:
-            c = quantize_case(quant, c, keys)
-        args, kw = args_of(c, verify)
-        lib = time_ms(torch, yard(torch, dequantized(torch, c, keys)
-                                  if int8 else c, verify))
+            c = quantize_case(quant, c, ("k", "v"))
+        args, kw = ring_args(c, verify)
+        lib = time_ms(torch, ring_sdpa_yardstick(
+            torch, dequantized(torch, c, ("k", "v")) if int8 else c, verify))
         for n in (S, 1):
-            ms = time_ms(torch, lambda: kernel(*args, **kw, n_splits=n,
-                                               **extra))
-            pl = time_ms(torch, lambda: plain(*args, **kw, n_splits=n,
-                                              **extra), iters=5, reps=10)
-            b_ms, b_by = bound(*work(c, n))
+            ms = time_ms(torch, lambda: da.ring_attention_sweep(
+                *args, **kw, n_splits=n, block_k=256))
+            pl = time_ms(torch, lambda: da.ring_attention_sweep_torch(
+                *args, **kw, n_splits=n, block_k=256), iters=5, reps=10)
+            b_ms, b_by = bound(*ring_work(torch, c, n, verify))
             if n == S or family:
                 row = name if n == S else f"{name}, 1 split"
                 out[row] = dict(ms=ms, plain_ms=pl, library_ms=lib,
@@ -2142,8 +2266,9 @@ def form_timings(torch, np, dev, da, ops, quant, *, heads, batch, int8,
             say(f"{entry} {form} (n_splits {n}): kernel {ms * 1e3:.1f} us, "
                 f"plain {pl * 1e3:.1f} us, bound {b_ms * 1e3:.3f} us "
                 f"({b_by}), sdpa {lib * 1e3:.1f} us")
-        if kind == "ring" and not verify and S > 1:
-            partial, lse = kernel(*args, **kw, n_splits=S, **extra)
+        if not verify and S > 1:
+            partial, lse = da.ring_attention_sweep(*args, **kw, n_splits=S,
+                                                   block_k=256)
             m_ms = time_ms(torch, lambda: da.lse_merge(partial, lse,
                                                        torch.bfloat16))
             m_pl = time_ms(torch, lambda: da.lse_merge_torch(
@@ -2515,7 +2640,9 @@ def main() -> int:
     for line in build.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             say(f"  ptxas: {line.strip()}")
-    k4_forms(torch, fa, build)
+    counts = hmma_counts(build)
+    k4_forms(torch, fa, counts)
+    sweep_forms(torch, da, counts)
 
     # 2. kernels against their plain versions ---------------------------------
     errs = check_kernels(torch, np, dev, da, ops)
@@ -2528,6 +2655,9 @@ def main() -> int:
     check_mla_kernels(torch, np, dev, da, fa, rms, ops, common, errs)
     say(f"kernels ok: K4's largest bf16 |kernel - plain| over every case "
         f"{errs['flash_attention bf16']:.3e} (tol {TOL['bfloat16']})")
+    say(f"kernels ok: the paged sweep's largest bf16 |kernel - plain| over "
+        f"every case {errs['paged_attention_sweep bfloat16']:.3e} (tol "
+        f"{TOL['bfloat16']})")
 
     # 3. reference: kernels vs plain torch, full width, fp32 ------------------
     cfg = get_arch("smollm-135m").config
@@ -2717,19 +2847,20 @@ def main() -> int:
                 f"ms, peak {peak:.1f} GiB, launches {counts}")
 
     # 5. timing ---------------------------------------------------------------
-    times = timings(torch, np, dev, da, ops)
+    times = paged_timings(torch, np, dev, da, ops, quant)
+    times.update(timings(torch, np, dev, da, ops))
     times.update(ring_timings(torch, np, dev, da, ops))
     times.update(prefill_timings(torch, np, dev, fa, rms, ops, common))
     times.update(ssd_timings(torch, np, dev, ss))
     times.update(mla_timings(torch, np, dev, da, ops))
-    times.update(form_timings(torch, np, dev, da, ops, quant,
-                              heads=dict(Hq=9, Hkv=3, D=64), batch=BATCH,
-                              int8=True))
+    times.update(ring_form_timings(torch, np, dev, da, ops, quant,
+                                   heads=dict(Hq=9, Hkv=3, D=64),
+                                   batch=BATCH, int8=True))
     # h2o-danube-3's head dim 120, bf16 and int8, on rows of their own
     for int8 in (False, True):
-        times.update(form_timings(torch, np, dev, da, ops, quant,
-                                  heads=H2O_HEADS, batch=4, int8=int8,
-                                  family="h2o"))
+        times.update(ring_form_timings(torch, np, dev, da, ops, quant,
+                                       heads=H2O_HEADS, batch=4, int8=int8,
+                                       family="h2o"))
     step = int8_step_cost(torch, np, dev, cfg, tfm, steps, bridge)
     say(f"paged decode step, smollm-135m full width, 4 slots, host clock "
         f"(median of chunks of 8 in turns): bf16 pools "
@@ -2740,8 +2871,8 @@ def main() -> int:
         source, replaces, key = KERNELS[t.get("entry") or name]
         fams = t.get("family") or ()
         fams = (fams,) if isinstance(fams, str) else fams
-        n_launch = (sum(by_family[f][key] for f in fams) if fams
-                    else launches[key])
+        n_launch = (sum(by_family.get(f, {}).get(key, 0) for f in fams)
+                    if fams else launches[key])
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": n_launch,

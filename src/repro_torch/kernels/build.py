@@ -111,6 +111,8 @@ def library() -> ctypes.CDLL:
         lib.paged_attention_sweep.argtypes = (
             [p] * 12 + [i] * 12 + [f, f, i, p])
         lib.paged_attention_sweep.restype = i
+        lib.paged_attention_occupancy.argtypes = [i, i, i, p]
+        lib.paged_attention_occupancy.restype = i
         lib.ring_attention_sweep.argtypes = (
             [p] * 11 + [i] * 13 + [f, f, i, p])
         lib.ring_attention_sweep.restype = i

@@ -268,11 +268,6 @@ __device__ __forceinline__ float fast_tanh(float y) {
   return 1.f - __fdividef(2.f, __expf(2.f * y) + 1.f);
 }
 
-// A shared-memory row of n bf16 values is padded to an odd number of
-// 16-byte chunks, so the 8 row addresses of one ldmatrix fall on 8
-// distinct 16-byte bank groups (conflict-free without a swizzle)
-constexpr int tc_ld(int n) { return (n / 8) % 2 ? n : n + 8; }
-
 template <int HD, int HDV>
 struct TcTile {
   static constexpr int DK = (HD + 15) / 16 * 16;  // q.k depth, k16 steps

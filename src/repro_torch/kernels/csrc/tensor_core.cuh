@@ -1,6 +1,7 @@
-// Inline PTX for the port's tensor-core kernels (flash_attention.cu):
-// 16-byte asynchronous copies into shared memory with zero fill, ldmatrix
-// fragment loads, and the bf16 m16n8k16 mma with fp32 accumulators.
+// Inline PTX for the port's tensor-core kernels (flash_attention.cu,
+// paged_attention.cu): 16-, 8- and 4-byte asynchronous copies into shared
+// memory with zero fill, ldmatrix fragment loads, the bf16 m16n8k16 mma
+// with fp32 accumulators, and the padded row stride of a bf16 tile.
 // Everything is internal to the translation unit that includes it.
 //
 // Fragment layouts of mma.sync.aligned.m16n8k16.row.col (lane l, quad
@@ -31,6 +32,21 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool ok) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(smem_addr(dst)), "l"(src), "r"(ok ? 16 : 0));
+}
+
+// the same for 8 or 4 bytes (cached at all levels, since .cg takes only
+// 16): int8 rows of 120 values, which are 8-byte aligned only, and single
+// fp32 scales
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(ok ? 8 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(ok ? 4 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -92,5 +108,10 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = *reinterpret_cast<const uint32_t*>(&l);
 }
+
+// A shared-memory row of n bf16 values is padded to an odd number of
+// 16-byte chunks, so the 8 row addresses of one ldmatrix fall on 8
+// distinct 16-byte bank groups (conflict-free without a swizzle)
+constexpr int tc_ld(int n) { return (n / 8) % 2 ? n : n + 8; }
 
 }  // namespace

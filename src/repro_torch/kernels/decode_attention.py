@@ -8,8 +8,10 @@ paged, ring and MLA families:
     stage 1 of paged GQA attention: ``Q`` query rows per ``(b, h)`` (1 for
     decode, the chunk length for the prefix-hit suffix prefill, K+1 for
     speculative verify) over the pages in ``block_tables[b]`` for kv head
-    ``h // G``, online softmax in fp32, one block per ``(b * Hq + h,
-    split)`` looping over its split's contiguous page slice.
+    ``h // G``, online softmax in fp32.  One block per (16 of the kv
+    head's ``Q * G`` (query, head) rows, split, kv head, batch); the
+    split's keys are spread over the block's warps in tiles of 16, and
+    bf16 runs on the tensor cores.
   * **Ring sweep** ``ring_attention_sweep`` (``csrc/ring_attention.cu``) —
     the same stage 1 over the static batch's ring-buffer cache
     ``(B, C, Hkv, D)``: slot s holds position ``ref - ((ref - s) mod C)``
@@ -29,9 +31,10 @@ paged, ring and MLA families:
 
 The paged and ring sweeps also read int8 caches with per-row fp32 scales
 (``k_scale`` / ``v_scale``, the pool's or ring's layout with a last axis
-of 1): each row is dequantized as it lands in shared memory, so a kv row
-costs D + 4 bytes where bf16 costs 2D.  q, the candidates and the output
-stay in the query dtype.
+of 1), so a kv row costs D + 4 bytes where bf16 costs 2D: the ring sweep
+dequantizes each row as it lands in shared memory, the paged sweep keeps
+the int8 values as products' operands and applies the scales outside
+them.  q, the candidates and the output stay in the query dtype.
 
 The sweeps fold verify's in-flight candidate rows, causally, into the
 last split only.  One split writes the normalised output in the query
@@ -45,6 +48,8 @@ no fallback.  ``LAUNCHES`` (``kernels/binding.py``) counts kernel
 launches; the plain versions never touch it.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -391,6 +396,20 @@ def paged_attention_sweep(q, k_pages, v_pages, block_tables, pos, *,
         raise RuntimeError(f"paged_attention_sweep: CUDA error {err}")
     LAUNCHES[launch_key("sweep", verify, k_scale)] += 1
     return out if S == 1 else (partial, lse)
+
+
+def sweep_occupancy(head_dim: int, dtype, int8: bool = False) -> dict:
+    """Blocks per SM, dynamic shared memory (bytes) and registers a thread
+    of the paged sweep's kernel for one form (``dtype`` the query's,
+    ``int8`` the pools'), at its widest block, as the card runs it."""
+    from repro_torch.kernels import build
+    info = (ctypes.c_int * 3)()
+    err = build.library().paged_attention_occupancy(
+        int(head_dim), DTYPE_CODE[dtype], int(int8), info)
+    if err != 0:
+        raise RuntimeError(f"paged_attention_occupancy: CUDA error {err}")
+    return dict(blocks_per_sm=info[0], smem_bytes=info[1],
+                registers=info[2])
 
 
 def launch_key(kernel: str, verify: bool, k_scale) -> str:

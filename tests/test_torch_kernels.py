@@ -38,25 +38,47 @@ HEAD_CASES = [pytest.param(hq, hkv, D, id=f"{hq}-{hkv}")
 BF16_HEADS = [HEAD_CASES[2], HEAD_CASES[3]]
 DECODE_POS = [3, 37, 79]           # ragged: 1 page, 3 pages, all 5
 VERIFY_POS = [0, 41, 76]           # pos 0: only the candidates are visible
+# The kernel's edges, as more cases of the decode and verify tests: (Hq,
+# Hkv, head dim, query rows, page size, positions).  G 7 (llava) and G 1
+# (stablelm); row tiles of 32 (Q 17 at G 4 is 68 rows, Q 128 512); pages
+# of 8 (two a key tile); positions at page edges; every split but the
+# first wholly past each request.
+EDGE_CASES = [
+    pytest.param(7, 1, D, Q, PS, None, id="G7"),
+    pytest.param(2, 2, D, Q, PS, None, id="G1"),
+    pytest.param(4, 2, D, Q, 8, None, id="page8"),
+    pytest.param(4, 2, D, Q, PS, ([15, 16, 17], [16, 17, 15]),
+                 id="page-edges"),
+    pytest.param(4, 2, D, Q, PS, ([0, 5, 15], [0, 5, 16]),
+                 id="past-the-request")]
+ROW_TILE_CASES = [pytest.param(4, 1, D, 17, PS, None, id="G4-Q17"),
+                  pytest.param(4, 1, D, 128, PS, None, id="G4-Q128")]
+# the existing cases at Q 4, pages of 16 and the default positions
+BASE_CASES = [pytest.param(*c.values, Q, PS, None, id=c.id)
+              for c in HEAD_CASES]
 
 
-def _inputs(Hq, Hkv, *, seed, hd=D):
-    """Seeded numpy inputs: shuffled page tables, and columns past each
-    request's length pointing at page 0 (the engine's scratch page)."""
+def _inputs(Hq, Hkv, *, seed, hd=D, q=Q, ps=PS):
+    """Seeded numpy inputs: shuffled page tables (80 positions a request
+    in pages of ``ps``), and columns past each request's length pointing
+    at page 0 (the engine's scratch page)."""
     rng = np.random.default_rng(seed)
     r = lambda *s: rng.standard_normal(s).astype(np.float32)
     B = 3
-    bt = (1 + rng.permutation(P - 1)[:B * NB]).reshape(B, NB).astype(np.int32)
-    return {"q1": r(B, 1, Hq, hd), "qv": r(B, Q, Hq, hd),
-            "kp": r(P, PS, Hkv, hd), "vp": r(P, PS, Hkv, hd),
-            "kn": r(B, Q, Hkv, hd), "vn": r(B, Q, Hkv, hd), "bt": bt}
+    nb = NB * PS // ps
+    n_pages = (P - 1) * PS // ps + 1
+    bt = (1 + rng.permutation(n_pages - 1)[:B * nb]).reshape(
+        B, nb).astype(np.int32)
+    return {"q1": r(B, 1, Hq, hd), "qv": r(B, q, Hq, hd),
+            "kp": r(n_pages, ps, Hkv, hd), "vp": r(n_pages, ps, Hkv, hd),
+            "kn": r(B, q, Hkv, hd), "vn": r(B, q, Hkv, hd), "bt": bt}
 
 
-def _park_tail(bt, pos, *, verify):
+def _park_tail(bt, pos, *, verify, ps=PS):
     """Columns wholly past each request's last key -> scratch page 0."""
     bt = bt.copy()
     for b, p in enumerate(pos):
-        last = (p - 1 if verify else p) // PS
+        last = (p - 1 if verify else p) // ps
         bt[b, last + 1:] = 0
     return bt
 
@@ -107,12 +129,12 @@ def _port_verify(a, pos, bt, n_splits, **kw):
 # --------------------------------------------------------------------------
 # K-sweep + K-merge, end to end
 # --------------------------------------------------------------------------
-@pytest.mark.parametrize("Hq,Hkv,hd", HEAD_CASES)
+@pytest.mark.parametrize("Hq,Hkv,hd,q,ps,edge_pos", BASE_CASES + EDGE_CASES)
 @pytest.mark.parametrize("n_splits", SPLITS)
-def test_paged_decode_matches_jax(Hq, Hkv, hd, n_splits):
-    a = _inputs(Hq, Hkv, seed=Hq * 30 + Hkv + n_splits, hd=hd)
-    pos = np.asarray(DECODE_POS, np.int32)
-    bt = _park_tail(a["bt"], pos, verify=False)
+def test_paged_decode_matches_jax(Hq, Hkv, hd, q, ps, edge_pos, n_splits):
+    a = _inputs(Hq, Hkv, seed=Hq * 30 + Hkv + n_splits, hd=hd, ps=ps)
+    pos = np.asarray(edge_pos[0] if edge_pos else DECODE_POS, np.int32)
+    bt = _park_tail(a["bt"], pos, verify=False, ps=ps)
     got = _port_decode(a, pos, bt, n_splits)
     assert got.shape == (3, 1, Hq, hd) and got.dtype == torch.float32
     args = (_j(a["q1"]), _j(a["kp"]), _j(a["vp"]), _j(bt), _j(pos))
@@ -127,14 +149,15 @@ def test_paged_decode_matches_jax(Hq, Hkv, hd, n_splits):
     _close(got, ops.paged_decode_attention_torch(*targs, n_splits=n_splits))
 
 
-@pytest.mark.parametrize("Hq,Hkv,hd", HEAD_CASES)
+@pytest.mark.parametrize("Hq,Hkv,hd,q,ps,edge_pos",
+                         BASE_CASES + EDGE_CASES + ROW_TILE_CASES)
 @pytest.mark.parametrize("n_splits", SPLITS)
-def test_paged_verify_matches_jax(Hq, Hkv, hd, n_splits):
-    a = _inputs(Hq, Hkv, seed=Hq * 40 + Hkv + n_splits, hd=hd)
-    pos = np.asarray(VERIFY_POS, np.int32)
-    bt = _park_tail(a["bt"], pos, verify=True)
+def test_paged_verify_matches_jax(Hq, Hkv, hd, q, ps, edge_pos, n_splits):
+    a = _inputs(Hq, Hkv, seed=Hq * 40 + Hkv + n_splits, hd=hd, q=q, ps=ps)
+    pos = np.asarray(edge_pos[1] if edge_pos else VERIFY_POS, np.int32)
+    bt = _park_tail(a["bt"], pos, verify=True, ps=ps)
     got = _port_verify(a, pos, bt, n_splits)
-    assert got.shape == (3, Q, Hq, hd) and got.dtype == torch.float32
+    assert got.shape == (3, q, Hq, hd) and got.dtype == torch.float32
     args = (_j(a["qv"]), _j(a["kp"]), _j(a["vp"]), _j(a["kn"]), _j(a["vn"]),
             _j(bt), _j(pos))
     _close(got, _jx(jref.paged_verify_attention_ref, *args))
@@ -200,7 +223,10 @@ def test_verify_partials_match_pallas(n_splits):
 
 @pytest.mark.parametrize("verify", [False, True])
 @pytest.mark.parametrize("kw", [{"window": 24}, {"logit_cap": 2.0},
-                                {"window": 20, "logit_cap": 2.0}])
+                                {"window": 20, "logit_cap": 2.0},
+                                # shorter than the verify block: each row
+                                # its own key range
+                                {"window": 3}])
 def test_window_and_softcap_match_jax(verify, kw):
     a = _inputs(9, 3, seed=11 + verify)
     if verify:

@@ -55,6 +55,9 @@ HEADS = [(4, 2), (4, 1)]
 # int8 rows take 8-byte loads on the card
 HEAD_CASES = [pytest.param(hq, hkv, D, id=f"{hq}-{hkv}")
               for hq, hkv in HEADS] + [pytest.param(8, 2, 120, id="8-2-D120")]
+# the paged sweeps also at 3 kv heads of 120: int8 rows of 120 bytes put
+# every odd kv head 8 bytes off a 16-byte boundary
+PAGED_HEAD_CASES = HEAD_CASES + [pytest.param(6, 3, 120, id="6-3-D120")]
 RING_POS = {"wrap": C + 15, "partial": 10}
 PORT_BACKENDS = ["torch", "ref", "cuda"]   # cuda on CPU: the kernels' twins
 
@@ -206,7 +209,7 @@ def test_ring_verify_int8_matches_jax(Hq, Hkv, hd, n_splits):
             n_splits)
 
 
-@pytest.mark.parametrize("Hq,Hkv,hd", HEAD_CASES)
+@pytest.mark.parametrize("Hq,Hkv,hd", PAGED_HEAD_CASES)
 @pytest.mark.parametrize("n_splits", [1, 2])
 def test_paged_decode_int8_matches_jax(Hq, Hkv, hd, n_splits):
     a = _arrays(3, Hq, Hkv, seed=Hq * 30 + Hkv + n_splits, hd=hd)
@@ -225,7 +228,7 @@ def test_paged_decode_int8_matches_jax(Hq, Hkv, hd, n_splits):
         n_splits)
 
 
-@pytest.mark.parametrize("Hq,Hkv,hd", HEAD_CASES)
+@pytest.mark.parametrize("Hq,Hkv,hd", PAGED_HEAD_CASES)
 @pytest.mark.parametrize("n_splits", [1, 2])
 def test_paged_verify_int8_matches_jax(Hq, Hkv, hd, n_splits):
     a = _arrays(3, Hq, Hkv, seed=Hq * 40 + Hkv + n_splits, hd=hd)
