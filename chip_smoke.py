@@ -7,11 +7,13 @@ Phases, in order; any failure exits non-zero (nothing is caught):
 
   1. build    — compile the port's CUDA kernels from the sources in this
                 checkout (one nvcc per source, all started together,
-                sm_90a) and print the card's name and power limit; K4's
-                and the paged sweep's bf16 kernels must hold HMMA
-                (tensor-core) instructions and their fp32 ones none
-                (``cuobjdump -sass``), and each form of both prints its
-                blocks per SM, shared memory and registers;
+                sm_90a) and print the card's name and power limit; K4's,
+                the paged sweep's and the latent sweep's bf16 kernels
+                must hold HMMA (tensor-core) instructions and their fp32
+                ones none (``cuobjdump -sass``; no bf16 instantiation of
+                a CUDA-core kernel may remain), and each form of the
+                three prints its blocks per SM, shared memory and
+                registers;
   2. kernels  — hold every kernel against its plain PyTorch version on the
                 same inputs, tolerance atol = rtol = 2e-2 for bf16 (1e-4
                 for fp32).  The paged K-sweep (decode / split decode /
@@ -40,7 +42,10 @@ Phases, in order; any failure exits non-zero (nothing is caught):
                 rows of 576, values of 512, pages of 16): decode with 1,
                 the engine's and 5 splits, deep 4096-position tables,
                 verify with Q 4 and 16 and pending rows, ragged
-                positions, bf16 and fp32, its partials merged at Dv 512,
+                positions, and the tensor-core kernel's edges (Hq 20,
+                pages of 8 and 32, page-edge positions, splits past the
+                request, cap 50, verify at pos 0 with Q 40 and Q 17),
+                bf16 and fp32, its partials merged at Dv 512,
                 ids past a request never read and a bad id inside it
                 stopping the kernel; K4 at (D, Dv) = (192, 128) (4 x 512,
                 ragged Sq 37, a q_offset case) and K9 at widths 512 and
@@ -153,8 +158,10 @@ Phases, in order; any failure exits non-zero (nothing is caught):
                 ``PAGED_FORMS``: decode and verify Q 16 at the engine's
                 split count and at 1 split, bf16 and int8 pools at D 64
                 and 120, gemma2's, llava's G 7, stablelm's G 1 and deep
-                4096-position tables; the latent sweep beside
-                SDPA over the gathered latent as one kv head; K4 on a row
+                4096-position tables; the latent sweep at ``MLA_TIMED``
+                (decode at the engine's split count and at 1 split,
+                verify Q 16) beside SDPA over the gathered latent as one
+                kv head; K4 on a row
                 of its own at each of ``K4_SHAPES`` beside SDPA; the int8
                 sweeps at the
                 bf16 rows' shapes, bound at D + 4 bytes a kv row, beside
@@ -365,6 +372,46 @@ def sweep_forms(torch, da, counts):
                     f"{occ['smem_bytes']} B of shared memory, "
                     f"{occ['registers']} registers a thread, "
                     f"{occ['blocks_per_sm']} blocks an SM")
+
+
+def mla_forms(torch, da, counts):
+    """Phase 1, the latent sweep: its bf16 forms (every block width of
+    ``MLA_ROWS``) are the tensor-core kernel, with HMMA instructions, and
+    its fp32 form the CUDA-core kernel, with none; no bf16 instantiation
+    of the CUDA-core kernel may remain (``hmma_counts``).  Each form's
+    blocks per SM, shared memory and registers as the card runs it."""
+    import re
+    hmma = {}
+    for name, n in counts.items():
+        if "mla_latent" not in name:
+            continue
+        mma = re.search(r"mla_latent_mma_kernelILi(\d+)E", name)
+        cores = re.search(r"mla_latent_sweep_kernelI(13__nv_bfloat16|f)"
+                          r"Li576ELi512E", name)
+        if cores and cores.group(1) != "f":
+            fail(f"latent sweep: a bf16 instantiation of the CUDA-core "
+                 f"kernel is built ({name})")
+        if mma:
+            hmma["bfloat16", 16 * int(mma.group(1))] = n
+        elif cores:
+            hmma["float32", 16] = n
+        else:
+            fail(f"latent sweep: unexpected kernel {name} in the library")
+    for dtype, widths in da.MLA_ROWS.items():
+        kind = str(dtype).split(".")[1]
+        for rows in widths:
+            form = f"latent sweep {kind}, {rows} rows a block"
+            n = hmma.get((kind, rows))
+            if n is None:
+                fail(f"{form}: no kernel in the library")
+            if (n > 0) != (kind == "bfloat16"):
+                fail(f"{form}: {n} HMMA instructions")
+            occ = da.mla_occupancy(dtype, rows)
+            if occ["blocks_per_sm"] < 1:
+                fail(f"{form}: no block fits an SM")
+            say(f"{form}: {n} HMMA instructions, {occ['smem_bytes']} B of "
+                f"shared memory, {occ['registers']} registers a thread, "
+                f"{occ['blocks_per_sm']} blocks an SM")
 
 
 # --------------------------------------------------------------------------
@@ -1136,10 +1183,12 @@ def check_ssd_kernels(torch, np, dev, ss, ops, errs):
         "and fp16 raise ValueError, no plain fallback")
 
 
-def mla_case(torch, np, dev, *, B, nb, pos, Q, dtype, seed, ps=16):
-    """Seeded latent-sweep inputs on the card at deepseek-v2's shapes: a
-    pool of B * nb shuffled private pages plus one scratch page per slot,
-    ragged ``pos``, pending rows for verify."""
+def mla_case(torch, np, dev, *, B, nb, pos, Q, dtype, seed, ps=16,
+             Hq=MLA["Hq"], logit_cap=0.0):
+    """Seeded latent-sweep inputs on the card at deepseek-v2's latent
+    widths (128 heads unless ``Hq`` says otherwise): a pool of B * nb
+    shuffled private pages plus one scratch page per slot, ragged ``pos``,
+    pending rows for verify."""
     rng = np.random.default_rng(seed)
     dt = getattr(torch, dtype)
 
@@ -1148,33 +1197,54 @@ def mla_case(torch, np, dev, *, B, nb, pos, Q, dtype, seed, ps=16):
                             device=dev).to(dt)
 
     bt = (B + rng.permutation(B * nb)).reshape(B, nb).astype(np.int32)
-    return {"q": r(B, Q, MLA["Hq"], MLA["R"]),
+    return {"q": r(B, Q, Hq, MLA["R"]),
             "pool": r(B * nb + B, ps, MLA["R"]),
             "block_tables": torch.tensor(bt, device=dev),
             "pos": torch.tensor(np.asarray(pos, np.int32), device=dev),
-            "pending": r(B, Q, MLA["R"]) if Q > 1 else None}
+            "pending": r(B, Q, MLA["R"]) if Q > 1 else None,
+            "logit_cap": logit_cap}
 
 
 def mla_args(c):
     return ((c["q"], c["pool"], c["block_tables"], c["pos"]),
-            dict(r_kv=MLA["r_kv"], scale=MLA["scale"], pending=c["pending"]))
+            dict(r_kv=MLA["r_kv"], scale=MLA["scale"], pending=c["pending"],
+                 logit_cap=c["logit_cap"]))
 
 
 def check_mla_kernels(torch, np, dev, da, fa, rms, ops, common, errs):
     """Phase 2, deepseek-v2's kernels: the latent sweep against its twin
     (decode with 1, the engine's and 5 splits, deep 4096-position tables,
     verify with Q 4 and 16 and pending rows, ragged positions, bf16 and
-    fp32), the merge of its split partials at Dv 512, table ids past a
-    request never read and a bad id inside it stopping the kernel; K4 at
-    (D, Dv) = (192, 128); K9 at widths 512 and 1536."""
+    fp32; and the tensor-core kernel's edges: 20 heads, whose rows do not
+    fill a block, pages of 8 and 32, positions at page edges, verify at
+    pos 0 and at Q 40 (pending rows over three 16-key tiles), splits
+    wholly past the request, a logit cap of 50), the merge of its split
+    partials at Dv 512, table ids past a request never read and a bad id
+    inside it stopping the kernel; K4 at (D, Dv) = (192, 128); K9 at
+    widths 512 and 1536."""
     errs.update({"mla_latent_sweep (decode)": 0.0,
                  "mla_latent_sweep (verify)": 0.0})
     main, deep = dict(B=4, nb=5), dict(B=4, nb=256)
+    h20 = dict(B=4, nb=10, ps=8, Hq=20)
     cases = [("main decode", main, [17, 40, 63, 79], 1),
              ("deep decode", deep, [4095, 3001, 2048, 777], 1),
              ("main verify Q=4", main, [32, 48, 0, 20], 4),
              ("main verify Q=16", main, [32, 48, 0, 20], 16),
-             ("deep verify Q=16", deep, [4000, 2900, 16, 1031], 16)]
+             ("deep verify Q=16", deep, [4000, 2900, 16, 1031], 16),
+             ("Hq 20, pages of 8, page-edge decode", h20, [7, 8, 15, 79], 1),
+             ("pages of 32, page-edge decode", dict(B=4, nb=3, ps=32),
+              [31, 32, 63, 95], 1),
+             ("splits past the request decode", dict(B=4, nb=8),
+              [3, 15, 16, 0], 1),
+             ("cap 50 decode", dict(main, logit_cap=50.0), [17, 40, 63, 79],
+              1),
+             ("verify Q=40 at pos 0", main, [0, 40, 17, 0], 40),
+             ("Hq 20, pages of 8, verify Q=17", h20, [0, 8, 23, 63], 17),
+             ("pages of 32, verify Q=16", dict(B=4, nb=3, ps=32),
+              [32, 0, 64, 48], 16),
+             ("cap 50 verify Q=16", dict(main, logit_cap=50.0),
+              [32, 48, 0, 20], 16)]
+    bf16_err = 0.0
     for dtype in ("bfloat16", "float32"):
         tol = TOL[dtype]
         for i, (label, shp, pos, Q) in enumerate(cases):
@@ -1183,9 +1253,10 @@ def check_mla_kernels(torch, np, dev, da, fa, rms, ops, common, errs):
             verify = Q > 1
             entry = "mla_latent_sweep (verify)" if verify \
                 else "mla_latent_sweep (decode)"
-            q_heads = MLA["Hq"] if verify else 1
-            auto = ops.choose_kv_splits(shp["B"], shp["nb"] * 16, q_heads,
-                                        block=16, device=dev)
+            q_heads = c["q"].shape[2] if verify else 1
+            ps = c["pool"].shape[1]
+            auto = ops.choose_kv_splits(shp["B"], shp["nb"] * ps, q_heads,
+                                        block=ps, device=dev)
             case_err = 0.0
             for n_splits in sorted({1, auto, 5}):
                 args, kw = mla_args(c)
@@ -1208,9 +1279,13 @@ def check_mla_kernels(torch, np, dev, da, fa, rms, ops, common, errs):
                 errs[entry] = max(errs[entry], e)
                 case_err = max(case_err, e)
             torch.cuda.synchronize()
+            if dtype == "bfloat16":
+                bf16_err = max(bf16_err, case_err)
             say(f"kernels ok: latent sweep {label} ({dtype}; n_splits 1, "
                 f"{auto}, 5), max |kernel - plain| {case_err:.3e} (tol "
                 f"{tol})")
+    say(f"kernels ok: the latent sweep's largest bf16 |kernel - plain| over "
+        f"every case {bf16_err:.3e} (tol {TOL['bfloat16']})")
     for Q, pos in ((1, [17, 40, 3, 79]), (16, [32, 48, 0, 20])):
         c = mla_case(torch, np, dev, pos=pos, Q=Q, dtype="bfloat16",
                      seed=1100 + Q, **main)
@@ -2538,17 +2613,24 @@ def mla_sdpa_yardstick(torch, c):
         qt, k, v, attn_mask=mask[:, None], scale=MLA["scale"])
 
 
-def mla_timings(torch, np, dev, da, ops):
+# The latent sweep's phase-5 shapes: (verify, pos, Q) at 4 slots, Hq 128,
+# pages of 16, 5 table columns
+MLA_TIMED = ((False, [64, 71, 75, 79], 1), (True, [32, 48, 16, 32], 16))
+
+
+def mla_timings(torch, np, dev, da, ops, plain=True):
     """Phase 5, deepseek-v2's kernels at the engine's shapes (bf16, 4
     slots, Hq 128, pages of 16, 5 table columns): the latent sweep's
-    decode at the engine's split count (the JSON row) and at 1 split, and
-    its verify form at Q 16 (the prefix hit's suffix chunk), each beside
-    SDPA over the gathered latent as one kv head; the merge at Dv 512.
-    (K4 at deepseek's (D, Dv) = (192, 128) is a row of ``k4_timings``.)"""
+    decode at the engine's split count (K7b) and at 1 split (K7a), and its
+    verify form at Q 16 (the prefix hit's suffix chunk, K3's MLA form),
+    CUDA-event times of the kernel beside its bound and, with ``plain``,
+    its plain version and SDPA over the gathered latent as one kv head;
+    the merge at Dv 512.  Returns the rows by name: "mla_latent_sweep
+    (decode|verify)", and ", 1 split" where the engine splits.  (K4 at
+    deepseek's (D, Dv) = (192, 128) is a row of ``k4_timings``.)"""
     out = {}
     main = dict(B=4, nb=5)
-    for verify, pos, Q in ((False, [64, 71, 75, 79], 1),
-                           (True, [32, 48, 16, 32], 16)):
+    for verify, pos, Q in MLA_TIMED:
         name = ("mla_latent_sweep (verify)" if verify
                 else "mla_latent_sweep (decode)")
         c = mla_case(torch, np, dev, pos=pos, Q=Q, dtype="bfloat16",
@@ -2556,20 +2638,24 @@ def mla_timings(torch, np, dev, da, ops):
         S = ops.choose_kv_splits(4, 80, MLA["Hq"] if verify else 1,
                                  block=16, device=dev)
         args, kw = mla_args(c)
-        lib = time_ms(torch, mla_sdpa_yardstick(torch, c))
-        for n in sorted({S, 1}):
+        lib = time_ms(torch, mla_sdpa_yardstick(torch, c)) if plain else None
+        for n in sorted({S, 1}, reverse=True):
             ms = time_ms(torch, lambda: da.mla_latent_sweep(
                 *args, **kw, n_splits=n))
-            plain = time_ms(torch, lambda: da.mla_latent_sweep_torch(
-                *args, **kw, n_splits=n), iters=3, reps=5)
+            pl = (time_ms(torch, lambda: da.mla_latent_sweep_torch(
+                *args, **kw, n_splits=n), iters=3, reps=5) if plain
+                else None)
             b_ms, b_by = bound(*mla_work(c, n))
-            say(f"{name} (n_splits {n}): kernel {ms * 1e3:.1f} us, plain "
-                f"{plain * 1e3:.1f} us, sdpa over the latent "
-                f"{lib * 1e3:.1f} us, bound {b_ms * 1e3:.3f} us ({b_by})")
-            if n == S:
-                out[name] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                                 bound_ms=b_ms, bound_by=b_by, n_splits=S)
-        if not verify:
+            row = name if n == S else f"{name}, 1 split"
+            out[row] = dict(ms=ms, plain_ms=pl, library_ms=lib,
+                            bound_ms=b_ms, bound_by=b_by, n_splits=n,
+                            entry=name, err=name)
+            if plain:
+                say(f"{row} (n_splits {n}): kernel {ms * 1e3:.1f} us, plain "
+                    f"{pl * 1e3:.1f} us, sdpa over the latent "
+                    f"{lib * 1e3:.1f} us, bound {b_ms * 1e3:.3f} us "
+                    f"({b_by})")
+        if plain and not verify:
             partial, lse = da.mla_latent_sweep(*args, **kw, n_splits=S)
             m_ms = time_ms(torch, lambda: da.lse_merge(partial, lse,
                                                        torch.bfloat16))
@@ -2643,6 +2729,7 @@ def main() -> int:
     counts = hmma_counts(build)
     k4_forms(torch, fa, counts)
     sweep_forms(torch, da, counts)
+    mla_forms(torch, da, counts)
 
     # 2. kernels against their plain versions ---------------------------------
     errs = check_kernels(torch, np, dev, da, ops)

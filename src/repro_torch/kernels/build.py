@@ -120,6 +120,8 @@ def library() -> ctypes.CDLL:
         lib.lse_merge.restype = i
         lib.mla_latent_sweep.argtypes = [p] * 8 + [i] * 11 + [f, f, i, p]
         lib.mla_latent_sweep.restype = i
+        lib.mla_latent_occupancy.argtypes = [i, i, p]
+        lib.mla_latent_occupancy.restype = i
         lib.flash_attention_fwd.argtypes = [p] * 4 + [i] * 11 + [f, f, i, p]
         lib.flash_attention_fwd.restype = i
         lib.flash_attention_occupancy.argtypes = [i, i, i, p]

@@ -1,8 +1,10 @@
-// Device code of the attention sweeps whose keys are spread over the warps
-// of a block (paged_attention.cu): every warp holds the online-softmax
-// state of the same 16 rows, row tile against key tile, in the C fragments
-// of mma.sync m16n8k16 (tensor_core.cuh), and the block merges the warps'
-// states once, at the end, through shared memory.
+// Device code of the attention sweeps whose online-softmax state lives in
+// the C fragments of mma.sync m16n8k16 (tensor_core.cuh), 16 rows a warp:
+// the paged sweep (paged_attention.cu), whose keys are spread over the
+// warps of a block, every warp holding the state of the same 16 rows, row
+// tile against key tile, merged once, at the end, through shared memory;
+// and the latent sweep (mla_attention.cu), whose warps each hold a slice
+// of the value columns of their rows.
 //
 // The fragment layout (lane l, quad row l / 4, quad column 2 (l % 4)):
 // element e of n8 tile n is row 8 (e >> 1) + l / 4, column 8 n + 2 (l % 4)

@@ -1,7 +1,8 @@
 // Inline PTX for the port's tensor-core kernels (flash_attention.cu,
-// paged_attention.cu): 16-, 8- and 4-byte asynchronous copies into shared
-// memory with zero fill, ldmatrix fragment loads, the bf16 m16n8k16 mma
-// with fp32 accumulators, and the padded row stride of a bf16 tile.
+// paged_attention.cu, mla_attention.cu): 16-, 8- and 4-byte asynchronous
+// copies into shared memory with zero fill, ldmatrix fragment loads, the
+// bf16 m16n8k16 mma with fp32 accumulators, and the padded row stride of a
+// bf16 tile.
 // Everything is internal to the translation unit that includes it.
 //
 // Fragment layouts of mma.sync.aligned.m16n8k16.row.col (lane l, quad

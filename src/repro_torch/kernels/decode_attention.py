@@ -22,9 +22,12 @@ paged, ring and MLA families:
     stage 1 of deepseek-v2's absorbed MLA attention over the paged latent
     pool ``(P, ps, R)``: every (query, head) row ``[q_abs | q_rope]``
     scores the whole R-wide latent row, whose first ``Dv = r_kv`` lanes
-    are the value; one block per ``(tile of 16 rows, split, b)``.  It
-    serves the decode (K7a, K7b) and the MLA form of the paged verify
-    (K3's, Hkv 1 with v a leading slice of k's rows).
+    are the value.  It serves the decode (K7a, K7b) and the MLA form of
+    the paged verify (K3's, Hkv 1 with v a leading slice of k's rows).
+    bf16 runs on the tensor cores: one block per (16 or 32 rows, split,
+    b), every latent tile in shared memory feeding all of them, the
+    512-wide value split over four warps a 16-row tile; fp32 keeps a
+    CUDA-core kernel of 16 rows a block.
   * **K-merge** ``lse_merge`` — stage 2 of all three: ``out = sum_s
     partial_s exp(lse_s - m) / sum_s exp(lse_s - m)``, denominator clamped
     at 1e-30.
@@ -541,13 +544,20 @@ def lse_merge(partial, lse, out_dtype):
 # (latent width, value width) the latent sweep is built for: deepseek-v2's
 # kv_lora_rank 512 + rope 64
 MLA_DIMS = ((576, 512),)
-MLA_ROWS = 16            # (query, head) rows per latent-sweep block
+# (query, head) rows a latent-sweep block takes, by q dtype: the tensor-
+# core kernel's forms (the launch picks one) and the CUDA-core kernel's
+MLA_ROWS = {torch.bfloat16: (16, 32), torch.float32: (16,)}
 
 
-def mla_smem_bytes(R: int, kt: int) -> int:
-    """The latent sweep's dynamic shared memory: q and key tiles of R + 4
-    floats a row, the p tile and the (m, l, corr) state."""
-    return 4 * ((MLA_ROWS + kt) * (R + 4) + MLA_ROWS * kt + 3 * MLA_ROWS)
+def mla_smem_bytes(dtype, *, rows: int = 16, kt: int = 16) -> int:
+    """The latent sweep's dynamic shared memory at R 576.  bf16: the q tile
+    of ``rows`` rows and a ring of three 16-key latent tiles, rows 584 bf16
+    apart, and two tiles' partial 16 x 16 scores of every warp (four a 16-
+    row tile); fp32: q and ``kt`` key rows of 580 floats, the p tile and
+    the (m, l, corr) state."""
+    if dtype == torch.bfloat16:
+        return 2 * 584 * (rows + 3 * 16) + 2 * (rows // 16) * 4 * 1024
+    return 4 * ((16 + kt) * 580 + 16 * kt + 3 * 16)
 
 
 def mla_latent_sweep(q, pool, block_tables, pos, *, r_kv: int, pending=None,
@@ -576,11 +586,13 @@ def mla_latent_sweep(q, pool, block_tables, pos, *, r_kv: int, pending=None,
     if (R, r_kv) not in MLA_DIMS:
         raise ValueError(f"mla_latent_sweep: (R, r_kv) {(R, r_kv)} not "
                          f"supported {MLA_DIMS}")
-    kt = max(ps, Q) if verify else ps
-    if mla_smem_bytes(R, kt) > _SMEM_MAX:
-        raise ValueError(f"mla_latent_sweep: {kt} key rows need "
-                         f"{mla_smem_bytes(R, kt)} bytes of shared memory "
-                         f"(max {_SMEM_MAX})")
+    if q.dtype == torch.float32:
+        # the CUDA-core kernel holds a page, or all pending rows, at once
+        kt = max(ps, Q) if verify else ps
+        smem = mla_smem_bytes(q.dtype, kt=kt)
+        if smem > _SMEM_MAX:
+            raise ValueError(f"mla_latent_sweep: {kt} key rows need {smem} "
+                             f"bytes of shared memory (max {_SMEM_MAX})")
     dev = q.device
     check("q", q, dtype=q.dtype, shape=(B, Q, Hq, R), device=dev,
           vector=True)
@@ -609,6 +621,21 @@ def mla_latent_sweep(q, pool, block_tables, pos, *, r_kv: int, pending=None,
         raise RuntimeError(f"mla_latent_sweep: CUDA error {err}")
     LAUNCHES["mla_verify" if verify else "mla_decode"] += 1
     return out if S == 1 else (partial, lse)
+
+
+def mla_occupancy(dtype, rows: int = 16) -> dict:
+    """Blocks per SM, dynamic shared memory (bytes) and registers a thread
+    of the latent sweep's kernel for one form: bf16 at ``rows`` (query,
+    head) rows a block (``MLA_ROWS``), fp32 at 16 rows and 16 key rows, as
+    the card runs it."""
+    from repro_torch.kernels import build
+    info = (ctypes.c_int * 3)()
+    err = build.library().mla_latent_occupancy(DTYPE_CODE[dtype], int(rows),
+                                               info)
+    if err != 0:
+        raise RuntimeError(f"mla_latent_occupancy: CUDA error {err}")
+    return dict(blocks_per_sm=info[0], smem_bytes=info[1],
+                registers=info[2])
 
 
 # ==========================================================================

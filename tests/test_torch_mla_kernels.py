@@ -10,7 +10,13 @@ through the JAX oracles ``ref.mla_decode_paged_ref`` /
 and the Pallas kernels in interpret mode (as ``tests/test_mla_paged.py``
 runs them), all within 5e-6 in fp32.  Shapes as in that file: 2 slots, 8
 heads, r_kv 32 + rope 16, 8 pages of 4, split counts 1, 2 and 5, full,
-ragged and nearly empty positions."""
+ragged and nearly empty positions.  The edge cases (``EDGES``) pin the
+function the card's tensor-core kernel computes at each edge of its
+design: 16-key tiles over pages of 8 (two pages a tile) and 16, positions
+at page edges, splits wholly past the request, a logit cap, and verify
+blocks whose Q x 8 rows are no multiple of 16, 32 or 64 (Q 3, 17), whose
+pending rows fill more than one 16-key tile (Q 17, 40), or that start at
+pos 0, where only the pending rows are visible."""
 import functools
 
 import jax
@@ -35,14 +41,48 @@ SCALE = (2 * R_KV / HQ) ** -0.5
 TOL = 5e-6
 POS = {"full": [NB * PS - 1, NB * PS - 1], "ragged": [NB * PS - 1, 9],
        "partial": [6, 2]}
+# the edges: page size, table columns, positions (a verify's first row's)
+# and logit cap
+EDGES = {
+    "page-edges": dict(ps=PS, nb=NB, pos=[3, 4], cap=0.0),
+    "page8-edges": dict(ps=8, nb=6, pos=[7, 8], cap=0.0),
+    "page16": dict(ps=16, nb=3, pos=[15, 16], cap=0.0),
+    "past-the-request": dict(ps=PS, nb=NB, pos=[2, 1], cap=0.0),
+    "cap": dict(ps=PS, nb=NB, pos=[25, 9], cap=3.0),
+    "pos0": dict(ps=PS, nb=NB, pos=[0, 0], cap=0.0),
+    "page8-q17": dict(ps=8, nb=6, pos=[8, 23], cap=0.0),
+    "page16-q17": dict(ps=16, nb=4, pos=[16, 31], cap=0.0),
+    "q17-pos0": dict(ps=PS, nb=12, pos=[0, 20], cap=0.0),
+    "q40": dict(ps=8, nb=8, pos=[0, 17], cap=0.0),
+    "cap-verify": dict(ps=PS, nb=NB, pos=[25, 4], cap=3.0),
+    "past-the-request-verify": dict(ps=PS, nb=NB, pos=[2, 5], cap=0.0),
+}
+DECODE_EDGES = ["page-edges", "page8-edges", "page16", "past-the-request",
+                "cap"]
+VERIFY_CASES = (
+    [(Q, n, kind) for kind in ("ragged", "partial") for n in (1, 2, 5)
+     for Q in (1, 3, 6)]
+    + [(3, 1, "page8-q17"), (3, 3, "page8-q17"), (17, 1, "page8-q17"),
+       (17, 1, "page16-q17"), (17, 5, "page16-q17"), (17, 1, "q17-pos0"),
+       (17, 2, "q17-pos0"), (6, 1, "pos0"), (6, 2, "pos0"), (6, 5, "pos0"),
+       (40, 1, "q40"), (40, 2, "q40"), (3, 1, "cap-verify"),
+       (3, 5, "cap-verify"), (3, 5, "past-the-request-verify")])
 
 
-def _arrays(seed=0, Q=1):
+def _case(kind):
+    """(page size, table columns, positions, logit cap) of a case."""
+    if kind in POS:
+        return PS, NB, POS[kind], 0.0
+    e = EDGES[kind]
+    return e["ps"], e["nb"], e["pos"], e["cap"]
+
+
+def _arrays(seed=0, Q=1, ps=PS, nb=NB):
     rng = np.random.default_rng(seed)
-    n_pages = B * NB + 3                         # spare pages stay unread
+    n_pages = B * nb + 3                         # spare pages stay unread
     q = rng.standard_normal((B, Q, HQ, R)).astype(np.float32)
-    pages = rng.standard_normal((n_pages, PS, R)).astype(np.float32)
-    tables = rng.permutation(n_pages)[:B * NB].reshape(B, NB).astype(
+    pages = rng.standard_normal((n_pages, ps, R)).astype(np.float32)
+    tables = rng.permutation(n_pages)[:B * nb].reshape(B, nb).astype(
         np.int32)
     pend = rng.standard_normal((B, Q, R)).astype(np.float32)
     return q, pages, tables, pend
@@ -86,46 +126,46 @@ def test_oracles_match_jax(pos_kind):
         _close(tl, jl)
 
 
-@pytest.mark.parametrize("pos_kind", list(POS))
+@pytest.mark.parametrize("pos_kind", list(POS) + DECODE_EDGES)
 @pytest.mark.parametrize("n_splits", SPLITS)
 def test_latent_sweep_decode_matches_jax(pos_kind, n_splits):
     """K7a / K7b's plain version against the JAX oracle, the Pallas kernel
     in interpret mode and the jnp path; the torch mirror of the jnp path
     too."""
-    q, pages, tables, _ = _arrays(seed=n_splits)
-    pos = np.asarray(POS[pos_kind], np.int32)
+    ps, nb, pos, cap = _case(pos_kind)
+    q, pages, tables, _ = _arrays(seed=n_splits, ps=ps, nb=nb)
+    pos = np.asarray(pos, np.int32)
+    kw = dict(r_kv=R_KV, scale=SCALE, logit_cap=cap)
     jargs = _j(q, pages, tables, pos)
-    want = jref.mla_decode_paged_ref(*jargs, r_kv=R_KV, scale=SCALE)
+    want = jref.mla_decode_paged_ref(*jargs, **kw)
     pallas = jda.mla_paged_decode_attention_pallas(
-        *jargs, r_kv=R_KV, scale=SCALE, n_splits=n_splits, interpret=True)
+        *jargs, **kw, n_splits=n_splits, interpret=True)
     targs = _t(q, pages, tables, pos)
-    got = da.mla_attention(*targs, r_kv=R_KV, scale=SCALE,
-                           n_splits=n_splits)
+    got = da.mla_attention(*targs, **kw, n_splits=n_splits)
     _close(got, want)
     _close(got, pallas)
-    mirror = ops.mla_decode_paged_torch(*targs, r_kv=R_KV, scale=SCALE,
-                                        n_splits=n_splits)
-    _close(mirror, jops.mla_decode_paged_jnp(*jargs, r_kv=R_KV, scale=SCALE,
+    mirror = ops.mla_decode_paged_torch(*targs, **kw, n_splits=n_splits)
+    _close(mirror, jops.mla_decode_paged_jnp(*jargs, **kw,
                                              n_splits=n_splits))
     _close(mirror, want)
 
 
-@pytest.mark.parametrize("pos_kind", list(POS))
+@pytest.mark.parametrize("pos_kind", list(POS) + DECODE_EDGES)
 @pytest.mark.parametrize("n_splits", [2, 5])
 def test_latent_sweep_partials_match_jax(pos_kind, n_splits):
     """The split form's canonical (B, Hq, S, 1, r_kv) partials and (B, Hq,
     S, 1) lse against the stage-1 oracle and the Pallas partials kernel,
     empty splits included (lse NEG_INF); the merge against JAX's."""
-    q, pages, tables, _ = _arrays(seed=20 + n_splits)
-    pos = np.asarray(POS[pos_kind], np.int32)
+    ps, nb, pos, cap = _case(pos_kind)
+    q, pages, tables, _ = _arrays(seed=20 + n_splits, ps=ps, nb=nb)
+    pos = np.asarray(pos, np.int32)
+    kw = dict(r_kv=R_KV, n_splits=n_splits, scale=SCALE, logit_cap=cap)
     jargs = _j(q, pages, tables, pos)
-    jp, jl = jref.mla_decode_split_ref(*jargs, r_kv=R_KV, n_splits=n_splits,
-                                       scale=SCALE)
+    jp, jl = jref.mla_decode_split_ref(*jargs, **kw)
     pp, pl_ = jda.mla_paged_decode_attention_pallas_partials(
-        *jargs, r_kv=R_KV, n_splits=n_splits, scale=SCALE, interpret=True)
-    tp, tl = da.mla_latent_sweep(*_t(q, pages, tables, pos), r_kv=R_KV,
-                                 n_splits=n_splits, scale=SCALE)
-    S = min(n_splits, NB)
+        *jargs, **kw, interpret=True)
+    tp, tl = da.mla_latent_sweep(*_t(q, pages, tables, pos), **kw)
+    S = min(n_splits, nb)
     assert tuple(tp.shape) == (B, HQ, S, 1, R_KV)
     assert tuple(tl.shape) == (B, HQ, S, 1)
     for a, b in ((tp, jp), (tl, jl), (tp, pp), (tl, pl_)):
@@ -137,27 +177,32 @@ def test_latent_sweep_partials_match_jax(pos_kind, n_splits):
     _close(ref.merge_kv_splits_ref(tp, tl), jref.merge_kv_splits_ref(jp, jl))
 
 
-@pytest.mark.parametrize("Q", [1, 3, 6])
-@pytest.mark.parametrize("n_splits", [1, 2, 5])
-@pytest.mark.parametrize("pos_kind", ["ragged", "partial"])
+@pytest.mark.parametrize(
+    "Q,n_splits,pos_kind", VERIFY_CASES,
+    ids=[f"{kind}-{n}-{Q}" for Q, n, kind in VERIFY_CASES])
 def test_latent_sweep_verify_matches_jax(Q, n_splits, pos_kind):
     """K3's MLA form (what ``mla_verify_paged`` hands the paged verify):
     query i at ``pos + i`` sees pool rows ``k_pos < pos`` and pending rows
     ``j <= i``.  The latent sweep's plain version (the ``cuda`` dispatch on
     CPU tensors) against the JAX oracle and the Pallas verify kernel in
-    interpret mode at D = R, Dv = r_kv, one kv head."""
-    q, pages, tables, pend = _arrays(seed=40 + Q, Q=Q)
-    pos = np.asarray([p - Q + 1 for p in POS[pos_kind]], np.int32)
+    interpret mode at D = R, Dv = r_kv, one kv head.  The ``POS`` kinds'
+    blocks end at their positions; an edge names its first row's."""
+    ps, nb, pos, cap = _case(pos_kind)
+    q, pages, tables, pend = _arrays(seed=40 + Q, Q=Q, ps=ps, nb=nb)
+    if pos_kind in POS:
+        pos = [p - Q + 1 for p in pos]
+    pos = np.asarray(pos, np.int32)
+    kw = dict(scale=SCALE, logit_cap=cap)
     jq, jpages, jt, jpend, jpos = _j(q, pages, tables, pend, pos)
     jargs = (jq, jpages[:, :, None], jpages[:, :, None, :R_KV],
              jpend[:, :, None], jpend[:, :, None, :R_KV], jt, jpos)
-    want = jref.paged_verify_attention_ref(*jargs, scale=SCALE)
-    pallas = jda.paged_verify_attention_pallas(*jargs, scale=SCALE,
+    want = jref.paged_verify_attention_ref(*jargs, **kw)
+    pallas = jda.paged_verify_attention_pallas(*jargs, **kw,
                                                n_splits=n_splits,
                                                interpret=True)
     tq, tpages, tt, tpend, tpos = _t(q, pages, tables, pend, pos)
     got = da.mla_attention(tq, tpages, tt, tpos, r_kv=R_KV, pending=tpend,
-                           scale=SCALE, n_splits=n_splits)
+                           **kw, n_splits=n_splits)
     assert tuple(got.shape) == (B, Q, HQ, R_KV)
     _close(got, want)
     _close(got, pallas)
@@ -166,8 +211,7 @@ def test_latent_sweep_verify_matches_jax(Q, n_splits, pos_kind):
     assert ops._latent_form(*targs[1:5])
     for backend in ("cuda", "torch", "ref"):
         pol = ops.KernelPolicy(decode=backend, kv_splits=n_splits)
-        _close(ops.paged_verify_attention(*targs, scale=SCALE, policy=pol),
-               want)
+        _close(ops.paged_verify_attention(*targs, **kw, policy=pol), want)
 
 
 def test_latent_form_is_told_apart():
@@ -289,5 +333,7 @@ def test_wrappers_refuse_other_devices_and_shapes():
     out = da.mla_latent_sweep(*_t(q, pages, tables), pos, r_kv=R_KV,
                               scale=SCALE)
     assert tuple(out.shape) == (B, 1, HQ, R_KV)
-    assert da.mla_smem_bytes(576, 16) <= 227 * 1024
+    for dtype in da.MLA_ROWS:
+        for rows in da.MLA_ROWS[dtype]:
+            assert da.mla_smem_bytes(dtype, rows=rows) <= 227 * 1024
     assert da.LAUNCHES["mla_decode"] == da.LAUNCHES["mla_verify"] == 0
