@@ -8,12 +8,13 @@ Phases, in order; any failure exits non-zero (nothing is caught):
   1. build    — compile the port's CUDA kernels from the sources in this
                 checkout (one nvcc per source, all started together,
                 sm_90a) and print the card's name and power limit; K4's,
-                the paged sweep's and the latent sweep's bf16 kernels
-                must hold HMMA (tensor-core) instructions and their fp32
-                ones none (``cuobjdump -sass``; no bf16 instantiation of
-                a CUDA-core kernel may remain), and each form of the
-                three prints its blocks per SM, shared memory and
-                registers;
+                the paged sweep's, the ring sweep's and the latent
+                sweep's bf16 kernels must hold HMMA (tensor-core)
+                instructions and their fp32 ones none (``cuobjdump
+                -sass``; no bf16 instantiation of a CUDA-core kernel may
+                remain), the paged and ring sweeps' kernels must not
+                spill (``-Xptxas -v``), and each form of the four prints
+                its blocks per SM, shared memory and registers;
   2. kernels  — hold every kernel against its plain PyTorch version on the
                 same inputs, tolerance atol = rtol = 2e-2 for bf16 (1e-4
                 for fp32).  The paged K-sweep (decode / split decode /
@@ -23,10 +24,18 @@ Phases, in order; any failure exits non-zero (nothing is caught):
                 and head_dim-128 cases; table ids past a request's length
                 must never be read, and a bad id inside it must stop the
                 kernel.  The ring sweep (decode, and verify with Q = 4) at
-                the batch path's shapes (ring of 545 slots, n_splits 1, 3
-                and 5), wrapped, at pos 0, window / logit-cap, ragged
-                per-row positions, head_dim 128 and deep 4096-slot cases;
-                a custom ring ``k_pos`` on the card must raise.  The
+                the batch path's shapes (ring of 545 slots, n_splits 1, 3,
+                5, the engine's count and one past the blocks), wrapped,
+                at pos 0, window / logit-cap, ragged per-row positions,
+                head_dim 128 and deep 4096-slot cases, and the tensor-core
+                kernel's edges: the zoo's heads wrapped (G 7, G 1),
+                gemma2's global ring of 4369 slots (blocks of 17, cap
+                50), a prime ring of 557 (blocks of 1), wrapped verify
+                rows that differ inside one running block, the engine's
+                private rings of 48 slots with per-row positions, bf16
+                and fp32, and the ring sweep's largest bf16 error over
+                every case; a custom ring ``k_pos`` on the card must
+                raise.  The
                 prefill flash attention (K4) at smollm's 8 x 512, gemma2's
                 shape over 8192 keys with and without its 4096 window (cap
                 50, scale 144^-0.5), a q_offset case and ragged Sq 37 and
@@ -53,11 +62,13 @@ Phases, in order; any failure exits non-zero (nothing is caught):
                 (int8 caches with per-row fp32 scales) against their twins
                 on the same int8 caches: paged decode (1 and 5 splits) and
                 verify Q 16 (1 and 5) at the engine's shapes, ring decode
-                (1 and 3) and verify Q 4 (1 and 3) on a wrapped ring of
-                545, head_dim 64, 120 (3 kv heads: odd rows 8 bytes off
-                16) and 128, q bf16 and fp32, each run proved to have
-                launched the int8 template; the bad-id probe again on the
-                int8 template.  head_dim 120 (h2o-danube-3: Hq 32, Hkv
+                and verify Q 4 (1, 3, the engine's count, one past the
+                blocks) on a wrapped ring of 545, head_dim 64, 120 (3 kv
+                heads: odd rows 8 bytes off 16) and 128, and at h2o's
+                per-row positions under its 4096 window, llava's G 7,
+                stablelm's G 1 and gemma2's 4369-slot ring with cap 50, q
+                bf16 and fp32, each run proved to have launched the int8
+                template; the bad-id probe again on the int8 template.  head_dim 120 (h2o-danube-3: Hq 32, Hkv
                 8): K4 over 8192 keys with and without the 4096 window,
                 with a q_offset, ragged Sq 37 and 1000; the ring sweep
                 (decode 1 and 3 splits, verify Q 4) on a wrapped 4096-slot
@@ -167,8 +178,11 @@ Phases, in order; any failure exits non-zero (nothing is caught):
                 bf16 rows' shapes, bound at D + 4 bytes a kv row, beside
                 SDPA over the cache dequantized to bf16 beforehand); both
                 sweeps at head_dim 120 in bf16 and int8 (paged at the
-                engine's shapes, ring at h2o's batch shape), the merge at
-                Dv 120, K9 at the zoo's widths.
+                engine's shapes, ring at h2o's batch shape), the ring
+                sweep's rows at the engine's split count and at 1 split
+                (``ring_rows``) and at the engine's private rings (4 x 48
+                slots, per-row positions), the merge at Dv 120, K9 at the
+                zoo's widths.
 
 The last two lines are a JSON object of per-kernel numbers and
 ``{"ok": true, "device": {...}}``.
@@ -244,8 +258,10 @@ SSD_TOL = {"bfloat16": 2e-2, "float32": 1e-3}
 # 33 new, so a ring of 545 slots (5 blocks of 109)
 BATCH, PLEN, GEN = 8, 512, 33
 # gemma2's long prompt: past the local layers' window of 4096, so that the
-# window masks prefill and the local rings wrap
+# window masks prefill and the local rings wrap; its global layers' rings
+# hold 4352 + 17 = 4369 = 257 x 17 slots (blocks of 17)
 G_LONG = 4352
+G_RING = G_LONG + 17
 # mamba2's long prompt: 32 chunks of 128, the last one ragged
 M_LONG = 4000
 # deepseek-v2's latent shapes: 128 heads, latent row 512 + 64, MLA's scale
@@ -258,6 +274,11 @@ MLA = dict(Hq=128, R=576, r_kv=512, scale=192 ** -0.5)
 H2O_HEADS = dict(Hq=32, Hkv=8, D=120)
 H2O_WINDOW = 4096
 H2O_RING_POS = [4100, 5000, 4095, 3 * 4096 + 17]
+# h2o-danube-3's poisson path serves its windowed layers from the engine's
+# private rings: 4 slots, rings of max_len 32 + 16 = 48 slots (whole pages
+# of 16), one position per row, 1 split (one block of 48)
+PRIVATE_RING = dict(B=4, C=48, **H2O_HEADS)
+PRIVATE_POS = [20, 31, 40, 47]
 # llava-next-34b's attention: 56 q / 8 kv heads of 128 (G 7, which does not
 # divide K4's 128 rows: 18 positions a tile)
 LLAVA_HEADS = dict(Hq=56, Hkv=8, D=128)
@@ -300,6 +321,23 @@ def hmma_counts(build):
             for part in sass.split("Function : ")[1:]}
 
 
+def sweep_spills(log):
+    """The paged and ring sweeps' kernels (``gqa_sweep_kernel``) whose
+    ptxas report (``nvcc -Xptxas -v``) shows spill stores or loads."""
+    import re
+    name, out = None, []
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name and "gqa_sweep_kernel" in name and (
+                int(m.group(1)) or int(m.group(2))):
+            out.append(name)
+    return out
+
+
 def k4_forms(torch, fa, counts):
     """Phase 1, K4: the tensor cores in the bf16 kernel's code and none in
     the fp32 one (``hmma_counts``; no bf16 instantiation of the CUDA-core
@@ -338,37 +376,39 @@ def k4_forms(torch, fa, counts):
                 f"{occ['blocks_per_sm']} blocks an SM")
 
 
-def sweep_forms(torch, da, counts):
-    """Phase 1, the paged sweep: every (q dtype, pools, head dim) form is
-    built, its bf16 instantiations hold HMMA instructions and its fp32
-    ones none (``hmma_counts``), and each form's blocks per SM, shared
-    memory and registers (at its widest block, 4 warps) as the card runs
-    it."""
+def sweep_forms(torch, da, counts, sweep="paged"):
+    """Phase 1, the paged or ring sweep (one kernel template over two key
+    layouts): every (q dtype, cached rows, head dim) form is built, its
+    bf16 instantiations hold HMMA instructions and its fp32 ones none
+    (``hmma_counts``), and each form's blocks per SM, shared memory and
+    registers (at its widest block) as the card runs it."""
     import re
+    keys = {"paged": "PagedKeys", "ring": "RingKeys"}[sweep]
     hmma = {}
     for name, n in counts.items():
-        m = re.search(r"paged_attention_sweep_kernelI(13__nv_bfloat16|f)"
-                      r"(a|f|S\d*_)Li(\d+)E", name)
-        if "paged_attention_sweep" not in name:
+        if "gqa_sweep_kernel" not in name or keys not in name:
             continue
+        m = re.search(r"gqa_sweep_kernelI(13__nv_bfloat16|f)(a|f|S\d*_)"
+                      r"Li(\d+)E", name)
         if m is None:
-            fail(f"paged sweep: unexpected kernel {name} in the library")
+            fail(f"{sweep} sweep: unexpected kernel {name} in the library")
         kind = "bfloat16" if m.group(1) != "f" else "float32"
         hmma[kind, m.group(2) == "a", int(m.group(3))] = n
+    rows = "rings" if sweep == "ring" else "pools"
     for D in da.SWEEP_HEAD_DIMS:
         for dtype in (torch.bfloat16, torch.float32):
             for int8 in (False, True):
                 kind = str(dtype).split(".")[1]
-                form = f"D {D} q {kind}, {'int8' if int8 else kind} pools"
+                form = f"D {D} q {kind}, {'int8' if int8 else kind} {rows}"
                 n = hmma.get((kind, int8, D))
                 if n is None:
-                    fail(f"paged sweep {form}: no kernel in the library")
+                    fail(f"{sweep} sweep {form}: no kernel in the library")
                 if (n > 0) != (kind == "bfloat16"):
-                    fail(f"paged sweep {form}: {n} HMMA instructions")
-                occ = da.sweep_occupancy(D, dtype, int8)
+                    fail(f"{sweep} sweep {form}: {n} HMMA instructions")
+                occ = da.sweep_occupancy(D, dtype, int8, sweep)
                 if occ["blocks_per_sm"] < 1:
-                    fail(f"paged sweep {form}: no block fits an SM")
-                say(f"paged sweep {form}: {n} HMMA instructions, "
+                    fail(f"{sweep} sweep {form}: no block fits an SM")
+                say(f"{sweep} sweep {form}: {n} HMMA instructions, "
                     f"{occ['smem_bytes']} B of shared memory, "
                     f"{occ['registers']} registers a thread, "
                     f"{occ['blocks_per_sm']} blocks an SM")
@@ -696,14 +736,40 @@ def ring_args(c, verify):
     return args, kw
 
 
+def past_blocks(n_k):
+    """The least split count whose last split lies wholly past the ring's
+    n_k blocks (ceil(n_k / S) blocks a split), or None where none does."""
+    for S in range(2, n_k + 1):
+        if -(-n_k // S) * (S - 1) >= n_k:
+            return S
+    return None
+
+
+def ring_splits(da, ops, dev, shp):
+    """The split counts a ring case runs at: 1, the engine's (block 256),
+    and one past the blocks."""
+    n_k = shp["C"] // da.ring_block_k(shp["C"], 256)
+    auto = ops.choose_kv_splits(shp["B"], shp["C"], shp["Hq"], block=256,
+                                device=dev)
+    return {1, auto, past_blocks(n_k) or 1}
+
+
 def check_ring_kernels(torch, np, dev, da, ops, errs):
     """Phase 2, ring sweep: at the batch path's shapes (8 requests, a ring
-    of 545 slots = 5 blocks of 109 under the requested 256, n_splits 1, 3
-    and 5) and around them."""
+    of 545 slots = 5 blocks of 109 under the requested 256) and around
+    them, every case at 1 split, the engine's count, a count whose last
+    split lies past the blocks, 3 and 5.  The tensor-core kernel's edges:
+    blocks of 109 and of 17 (gemma2's global ring on its 2 x 4352 + 17
+    batch: 4352 + 17 = 4369 slots) and of 1 (a prime ring of 557)
+    that straddle 16-slot tiles, wrapped verify rows that differ inside one
+    running block, G 7 with Q 4 (two row tiles), G 1, per-row positions
+    with the window (h2o's 4096, and the engine's private rings of 48
+    slots), cap 50."""
     main = dict(B=BATCH, Hq=9, Hkv=3, D=64, C=PLEN + GEN)
     deep = dict(B=4, Hq=9, Hkv=3, D=64, C=4096)
     h2o = dict(B=4, C=H2O_WINDOW, **H2O_HEADS)
     wrap = 3 * main["C"] + 17
+    gemma = dict(B=2, Hq=32, Hkv=16, D=128, C=G_RING)
     cases = [
         ("main decode", main, 530, 1, "bfloat16", {}),
         ("main verify Q=4", main, 520, 4, "bfloat16", {}),
@@ -743,9 +809,9 @@ def check_ring_kernels(torch, np, dev, da, ops, errs):
         ("head_dim 120 fp32 wrapped 4096 verify Q=4", h2o, H2O_RING_POS, 4,
          "float32", {"window": H2O_WINDOW}),
     ]
-    # the zoo's batch paths at their own shapes, mid-run (pos 528): h2o 4
-    # x 545 (32 / 8 of 120), stablelm 8 x 545 (32 / 32 of 64), phi3.5 and
-    # llava 4 x 545 (32 / 8 and 56 / 8 of 128)
+    # the zoo's batch paths at their own shapes, mid-run (pos 528) and
+    # wrapped: h2o 4 x 545 (32 / 8 of 120), stablelm 8 x 545 (32 / 32 of
+    # 64, G 1), phi3.5 and llava 4 x 545 (32 / 8 and 56 / 8 of 128, G 7)
     for B, heads in ((4, H2O_HEADS), (BATCH, STABLELM_HEADS), (4, PHI_HEADS),
                      (4, LLAVA_HEADS)):
         shp = dict(B=B, C=PLEN + GEN, **heads)
@@ -753,7 +819,36 @@ def check_ring_kernels(torch, np, dev, da, ops, errs):
                 f"D {heads['D']}")
         for dtype in ("bfloat16", "float32"):
             cases += [(f"{form} {dtype} decode", shp, 528, 1, dtype, {}),
-                      (f"{form} {dtype} verify Q=4", shp, 528, 4, dtype, {})]
+                      (f"{form} {dtype} verify Q=4", shp, 528, 4, dtype, {}),
+                      (f"{form} {dtype} wrapped decode", shp, wrap, 1, dtype,
+                       {}),
+                      (f"{form} {dtype} wrapped verify Q=4", shp, wrap, 4,
+                       dtype, {})]
+    for dtype in ("bfloat16", "float32"):
+        cases += [
+            # gemma2's global ring (blocks of 17, cap 50): at the long
+            # batch's last position and wrapped
+            (f"gemma2 4369 {dtype} decode", gemma, G_RING - 1, 1, dtype,
+             GEMMA_ATTN),
+            (f"gemma2 4369 {dtype} wrapped verify Q=4", gemma,
+             2 * G_RING + 100, 4, dtype, GEMMA_ATTN),
+            # a prime ring: blocks of one slot
+            (f"prime 557 {dtype} decode", dict(main, C=557), 3 * 557 + 9, 1,
+             dtype, {}),
+            (f"prime 557 {dtype} verify Q=4", dict(main, C=557), 300, 4,
+             dtype, {}),
+            # wrapped verify at pos 3 C + 1 and + 108: rows 0..3 differ in
+            # which of a running block's slots they see
+            (f"rows differ {dtype} verify Q=4", main, 3 * main["C"] + 1, 4,
+             dtype, {}),
+            (f"rows differ {dtype} verify Q=4 block end", main,
+             3 * main["C"] + 108, 4, dtype, {}),
+            # the engine's private rings of h2o's poisson path: 48 slots,
+            # one position per row, window 4096
+            (f"head_dim 120 private rings {dtype} decode", PRIVATE_RING,
+             PRIVATE_POS, 1, dtype, {"window": H2O_WINDOW}),
+            (f"head_dim 120 private rings wrapped {dtype} decode",
+             PRIVATE_RING, [60, 95, 47, 200], 1, dtype, {"window": 40})]
     for i, (label, shp, pos, Q, dtype, kw) in enumerate(cases):
         c = make_ring_case(torch, np, dev, pos=pos, Q=Q, dtype=dtype,
                            seed=200 + i, **shp)
@@ -761,11 +856,7 @@ def check_ring_kernels(torch, np, dev, da, ops, errs):
         entry = ("ring_attention_sweep (verify)" if verify
                  else "ring_attention_sweep (decode)")
         form = "D 120" if shp["D"] == 120 else None
-        auto = ops.choose_kv_splits(shp["B"], shp["C"], shp["Hq"],
-                                    block=256, device=dev)
-        splits = sorted({auto} if "deep" in label
-                        else {1, 3, auto} if "120" in label
-                        else {1, 3, 5, auto})
+        splits = sorted(ring_splits(da, ops, dev, shp) | {3, 5})
         tol = TOL[dtype]
         case_err = 0.0
         for n_splits in splits:
@@ -779,11 +870,13 @@ def check_ring_kernels(torch, np, dev, da, ops, errs):
             if isinstance(want, torch.Tensor):
                 e = max_err(torch, got, want, tol, what)
                 note(errs, e, entry, form)
+                note(errs, e, f"ring_attention_sweep {dtype}")
                 case_err = max(case_err, e)
                 continue
             e = max(max_err(torch, got[0], want[0], tol, what + " partial"),
                     max_err(torch, got[1], want[1], tol, what + " lse"))
             note(errs, e, entry, form)
+            note(errs, e, f"ring_attention_sweep {dtype}")
             merged = da.lse_merge(*got, c["q"].dtype)
             plain = da.lse_merge_torch(*got, c["q"].dtype)
             em = max_err(torch, merged, plain, tol, what + " merge")
@@ -832,13 +925,16 @@ def check_ring_kernels(torch, np, dev, da, ops, errs):
         "launch")
 
 
-def check_int8_kernels(torch, np, dev, da, quant, errs):
+def check_int8_kernels(torch, np, dev, da, ops, quant, errs):
     """Phase 2, the int8 templates of both sweeps against their plain twins
     on the same int8 caches and scales: paged decode (1 split and S = 5)
-    and verify at Q 16 (1 and 5) at the main path's shapes, ring decode
-    (1 and 3) and verify at Q 4 (1 and 3) on a wrapped ring of 545 slots;
-    head_dim 64, 120 (3 kv heads, odd ones included) and 128, q in bf16
-    (tolerance 2e-2) and fp32 (1e-4)."""
+    and verify at Q 16 (1 and 5) at the main path's shapes, ring decode and
+    verify at Q 4 on a wrapped ring of 545 slots (1 split, 3, the engine's
+    count and one past the blocks); head_dim 64, 120 (3 kv heads, odd ones
+    included) and 128, q in bf16 (tolerance 2e-2) and fp32 (1e-4).  Then
+    the ring's edges in int8: h2o's per-row positions under its 4096
+    window, llava's G 7 verify, stablelm's G 1 and gemma2's global ring of
+    4369 slots (blocks of 17) with cap 50."""
     paged = dict(B=4, Hq=9, Hkv=3, ps=16, nb=5)
     ring = dict(B=BATCH, Hq=9, Hkv=3, C=PLEN + GEN)
     wrap = 3 * ring["C"] + 17
@@ -863,21 +959,45 @@ def check_int8_kernels(torch, np, dev, da, quant, errs):
                     f" D {D} q {dtype} (n_splits 1, 5), max |kernel - "
                     f"plain| {case_err:.3e} (tol {tol})")
             for verify, Q in ((False, 1), (True, 4)):
-                c = make_ring_case(torch, np, dev, pos=wrap, Q=Q,
-                                   dtype=dtype, D=D, seed=500 + D + Q,
-                                   **dict(ring, **heads))
-                c = quantize_case(quant, c, ("k", "v"))
-                entry = ("ring_attention_sweep int8 (verify)" if verify
-                         else "ring_attention_sweep int8 (decode)")
-                case_err = int8_case(torch, da, errs, entry, c, verify, tol,
-                                     da.ring_attention_sweep,
-                                     da.ring_attention_sweep_torch,
-                                     {"block_k": 256}, (1, 3),
-                                     f"int8 ring D {D} {dtype}", ring=True)
-                say(f"kernels ok: int8 wrapped ring {'verify Q=4' if verify else 'decode'}"
-                    f" D {D} q {dtype} (n_splits 1, 3), max |kernel - "
-                    f"plain| {case_err:.3e} (tol {tol})")
+                shp = dict(ring, D=D, **heads)
+                int8_ring_case(torch, np, dev, da, ops, quant, errs,
+                               f"wrapped D {D}", shp, wrap, Q, dtype, {},
+                               seed=500 + D + Q)
+    edges = [("h2o 4096 window", dict(B=4, C=H2O_WINDOW, **H2O_HEADS),
+              H2O_RING_POS, {"window": H2O_WINDOW}),
+             ("G 7", dict(B=4, C=PLEN + GEN, **LLAVA_HEADS), wrap, {}),
+             ("G 1", dict(B=BATCH, C=PLEN + GEN, **STABLELM_HEADS), wrap, {}),
+             ("gemma2 4369", dict(B=2, Hq=32, Hkv=16, D=128, C=G_RING),
+              2 * G_RING + 100, GEMMA_ATTN)]
+    for i, (label, shp, pos, kw) in enumerate(edges):
+        for dtype in ("bfloat16", "float32"):
+            for verify, Q in ((False, 1), (True, 4)):
+                int8_ring_case(torch, np, dev, da, ops, quant, errs, label,
+                               shp, pos, Q, dtype, kw, seed=600 + i + Q)
     check_bad_page_id(BAD_ID_PROBE_INT8, "int8 paged sweep")
+
+
+def int8_ring_case(torch, np, dev, da, ops, quant, errs, label, shp, pos, Q,
+                   dtype, kw, seed):
+    """One int8 ring case at 1 split, 3, the engine's count and one past the
+    blocks."""
+    verify = Q > 1
+    c = make_ring_case(torch, np, dev, pos=pos, Q=Q, dtype=dtype, seed=seed,
+                       **shp)
+    c = quantize_case(quant, c, ("k", "v"))
+    entry = ("ring_attention_sweep int8 (verify)" if verify
+             else "ring_attention_sweep int8 (decode)")
+    splits = tuple(sorted(ring_splits(da, ops, dev, shp) | {3}))
+    tol = TOL[dtype]
+    case_err = int8_case(torch, da, errs, entry, c, verify, tol,
+                         da.ring_attention_sweep,
+                         da.ring_attention_sweep_torch,
+                         dict(kw, block_k=256), splits,
+                         f"int8 ring {label} {dtype}", ring=True)
+    say(f"kernels ok: int8 ring {label} "
+        f"{'verify Q=4' if verify else 'decode'} q {dtype} (n_splits "
+        f"{', '.join(map(str, splits))}), max |kernel - plain| "
+        f"{case_err:.3e} (tol {tol})")
 
 
 def int8_case(torch, da, errs, entry, c, verify, tol, kernel, plain, extra,
@@ -897,9 +1017,9 @@ def int8_case(torch, da, errs, entry, c, verify, tol, kernel, plain, extra,
         else:
             e = max(max_err(torch, got[0], want[0], tol, what + " partial"),
                     max_err(torch, got[1], want[1], tol, what + " lse"))
-        if not ring:
-            note(errs, e, "paged_attention_sweep "
-                 + str(c["q"].dtype).split(".")[1])
+        note(errs, e, ("ring_attention_sweep " if ring
+                       else "paged_attention_sweep ")
+             + str(c["q"].dtype).split(".")[1])
         if not isinstance(want, torch.Tensor):
             em = max_err(torch, da.lse_merge(*got, c["q"].dtype),
                          da.lse_merge_torch(*got, c["q"].dtype), tol,
@@ -2255,9 +2375,11 @@ def ring_sdpa_yardstick(torch, c, verify):
     return lambda: F.scaled_dot_product_attention(qt, ke, ve, attn_mask=m)
 
 
-def ring_timings(torch, np, dev, da, ops):
+def ring_timings(torch, np, dev, da, ops, plain=True):
     """Phase 5, ring sweep, at the batch path's shapes (8 requests, ring
-    of 545 slots, bf16), mid-run (pos 528)."""
+    of 545 slots, bf16), mid-run (pos 528): each entry at the engine's
+    split count and at 1 split (``<entry>, 1 split``), beside its bound
+    and, with ``plain``, its plain version and SDPA."""
     out = {}
     shp = dict(B=BATCH, Hq=9, Hkv=3, D=64, C=PLEN + GEN)
     S = ops.choose_kv_splits(BATCH, PLEN + GEN, 9, block=256, device=dev)
@@ -2267,22 +2389,20 @@ def ring_timings(torch, np, dev, da, ops):
         c = make_ring_case(torch, np, dev, pos=528, Q=Q, dtype="bfloat16",
                            seed=300 + Q, **shp)
         args, kw = ring_args(c, verify)
-        ms = time_ms(torch, lambda: da.ring_attention_sweep(
-            *args, **kw, n_splits=S, block_k=256))
-        plain = time_ms(torch, lambda: da.ring_attention_sweep_torch(
-            *args, **kw, n_splits=S, block_k=256), iters=5, reps=10)
-        lib = time_ms(torch, ring_sdpa_yardstick(torch, c, verify))
-        nbytes, flops = ring_work(torch, c, S, verify)
-        b_ms, b_by = bound(nbytes, flops)
-        out[name] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                         bound_by=b_by, n_splits=S)
-        one = time_ms(torch, lambda: da.ring_attention_sweep(
-            *args, **kw, n_splits=1, block_k=256))
-        one_plain = time_ms(torch, lambda: da.ring_attention_sweep_torch(
-            *args, **kw, n_splits=1, block_k=256), iters=5, reps=10)
-        say(f"{name} (n_splits 1): kernel {one * 1e3:.1f} us, plain "
-            f"{one_plain * 1e3:.1f} us, bound "
-            f"{bound(*ring_work(torch, c, 1, verify))[0] * 1e3:.3f} us")
+        lib = (time_ms(torch, ring_sdpa_yardstick(torch, c, verify))
+               if plain else None)
+        for n in (S, 1):
+            ms = time_ms(torch, lambda: da.ring_attention_sweep(
+                *args, **kw, n_splits=n, block_k=256))
+            pl = (time_ms(torch, lambda: da.ring_attention_sweep_torch(
+                *args, **kw, n_splits=n, block_k=256), iters=5, reps=10)
+                  if plain else None)
+            b_ms, b_by = bound(*ring_work(torch, c, n, verify))
+            row = name if n == S else f"{name}, 1 split"
+            out[row] = dict(ms=ms, plain_ms=pl, library_ms=lib, bound_ms=b_ms,
+                            bound_by=b_by, n_splits=n, entry=name, err=name)
+    if not plain:
+        return out
     # the deep case, for the record (not the main path's shape)
     deep = dict(B=4, Hq=9, Hkv=3, D=64, C=4096)
     c = make_ring_case(torch, np, dev, pos=4000, Q=1, dtype="bfloat16",
@@ -2300,17 +2420,17 @@ def ring_timings(torch, np, dev, da, ops):
 
 
 def ring_form_timings(torch, np, dev, da, ops, quant, *, heads, batch,
-                      int8, family=None):
+                      int8, family=None, plain=True):
     """Phase 5, the ring sweep in one form, bf16 q, at a batch path's
     shapes (``batch`` requests, a ring of 545 slots, pos 528, verify Q 4),
     rings in bf16 or int8, at ``heads`` (Hq, Hkv, D).  Each entry at its
-    split count (the returned row) and at 1 split, beside its bound (an
-    int8 kv row D + 4 bytes) and SDPA over the cache (dequantized to bf16
-    before the timed call, for int8); the merge on the ring decode's
-    partials.  With ``family`` (the main paths that run this head dim) the
-    rows are named ``entry D <D>`` and count that family's launches, the
-    1-split times and the bf16 form's merge are rows too.  (The paged
-    sweep's rows: ``paged_timings``.)"""
+    split count and at 1 split (``<row>, 1 split``), beside its bound (an
+    int8 kv row D + 4 bytes) and, with ``plain``, its plain version, SDPA
+    over the cache (dequantized to bf16 before the timed call, for int8)
+    and the merge on the ring decode's partials.  With ``family`` (the
+    main paths that run this head dim) the rows are named ``entry D <D>``
+    and count that family's launches, and the bf16 form's merge is a row
+    too.  (The paged sweep's rows: ``paged_timings``.)"""
     out = {}
     tag = " int8" if int8 else ""
     form = f"D {heads['D']}{tag or ' bf16'}"
@@ -2325,23 +2445,21 @@ def ring_form_timings(torch, np, dev, da, ops, quant, *, heads, batch,
         if int8:
             c = quantize_case(quant, c, ("k", "v"))
         args, kw = ring_args(c, verify)
-        lib = time_ms(torch, ring_sdpa_yardstick(
+        lib = (time_ms(torch, ring_sdpa_yardstick(
             torch, dequantized(torch, c, ("k", "v")) if int8 else c, verify))
+            if plain else None)
         for n in (S, 1):
             ms = time_ms(torch, lambda: da.ring_attention_sweep(
                 *args, **kw, n_splits=n, block_k=256))
-            pl = time_ms(torch, lambda: da.ring_attention_sweep_torch(
+            pl = (time_ms(torch, lambda: da.ring_attention_sweep_torch(
                 *args, **kw, n_splits=n, block_k=256), iters=5, reps=10)
+                if plain else None)
             b_ms, b_by = bound(*ring_work(torch, c, n, verify))
-            if n == S or family:
-                row = name if n == S else f"{name}, 1 split"
-                out[row] = dict(ms=ms, plain_ms=pl, library_ms=lib,
-                                bound_ms=b_ms, bound_by=b_by, n_splits=n,
-                                entry=entry, family=family, err=name)
-            say(f"{entry} {form} (n_splits {n}): kernel {ms * 1e3:.1f} us, "
-                f"plain {pl * 1e3:.1f} us, bound {b_ms * 1e3:.3f} us "
-                f"({b_by}), sdpa {lib * 1e3:.1f} us")
-        if not verify and S > 1:
+            row = name if n == S else f"{name}, 1 split"
+            out[row] = dict(ms=ms, plain_ms=pl, library_ms=lib,
+                            bound_ms=b_ms, bound_by=b_by, n_splits=n,
+                            entry=entry, family=family, err=name)
+        if plain and not verify and S > 1:
             partial, lse = da.ring_attention_sweep(*args, **kw, n_splits=S,
                                                    block_k=256)
             m_ms = time_ms(torch, lambda: da.lse_merge(partial, lse,
@@ -2359,6 +2477,42 @@ def ring_form_timings(torch, np, dev, da, ops, quant, *, heads, batch,
                     bound_by=mby, n_splits=S, entry="lse_merge",
                     family=family)
     return out
+
+
+def ring_rows(torch, np, dev, da, ops, quant, plain=True):
+    """Phase 5, every row of the ring sweep: ``ring_timings`` (D 64, bf16
+    rings), ``ring_form_timings`` at D 64 with int8 rings and at h2o's D
+    120 with bf16 and int8 rings, and ``private_ring_timings``."""
+    rows = ring_timings(torch, np, dev, da, ops, plain)
+    rows.update(ring_form_timings(torch, np, dev, da, ops, quant,
+                                  heads=dict(Hq=9, Hkv=3, D=64),
+                                  batch=BATCH, int8=True, plain=plain))
+    for int8 in (False, True):
+        rows.update(ring_form_timings(torch, np, dev, da, ops, quant,
+                                      heads=H2O_HEADS, batch=4, int8=int8,
+                                      family="h2o", plain=plain))
+    rows.update(private_ring_timings(torch, np, dev, da, plain))
+    return rows
+
+
+def private_ring_timings(torch, np, dev, da, plain=True):
+    """Phase 5, K5a at the shape the engine's private rings launch it on
+    h2o's poisson path (``PRIVATE_RING``, window 4096), beside its bound
+    and, with ``plain``, its plain version and SDPA."""
+    c = make_ring_case(torch, np, dev, pos=PRIVATE_POS, Q=1,
+                       dtype="bfloat16", seed=310, **PRIVATE_RING)
+    args, _ = ring_args(c, False)
+    kw = dict(window=H2O_WINDOW, n_splits=1, block_k=256)
+    ms = time_ms(torch, lambda: da.ring_attention_sweep(*args, **kw))
+    pl = (time_ms(torch, lambda: da.ring_attention_sweep_torch(*args, **kw),
+                  iters=5, reps=10) if plain else None)
+    lib = (time_ms(torch, ring_sdpa_yardstick(torch, c, False))
+           if plain else None)
+    b_ms, b_by = bound(*ring_work(torch, c, 1, False))
+    return {"ring_attention_sweep (decode) D 120 private rings": dict(
+        ms=ms, plain_ms=pl, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+        n_splits=1, entry="ring_attention_sweep (decode)", family="h2o",
+        err="ring_attention_sweep (decode) D 120")}
 
 
 def int8_step_cost(torch, np, dev, cfg, tfm, steps, bridge):
@@ -2726,25 +2880,30 @@ def main() -> int:
     for line in build.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             say(f"  ptxas: {line.strip()}")
+    spilled = sweep_spills(build.build_log)
+    if spilled:
+        fail(f"the sweeps' kernels spill: {spilled}")
     counts = hmma_counts(build)
     k4_forms(torch, fa, counts)
     sweep_forms(torch, da, counts)
+    sweep_forms(torch, da, counts, "ring")
     mla_forms(torch, da, counts)
 
     # 2. kernels against their plain versions ---------------------------------
     errs = check_kernels(torch, np, dev, da, ops)
     check_ring_kernels(torch, np, dev, da, ops, errs)
     errs.update({name: 0.0 for name in KERNELS if "int8" in name})
-    check_int8_kernels(torch, np, dev, da, quant, errs)
+    check_int8_kernels(torch, np, dev, da, ops, quant, errs)
     errs.update(flash_attention=0.0, rmsnorm=0.0)
     check_prefill_kernels(torch, np, dev, fa, rms, ops, common, errs)
     check_ssd_kernels(torch, np, dev, ss, ops, errs)
     check_mla_kernels(torch, np, dev, da, fa, rms, ops, common, errs)
     say(f"kernels ok: K4's largest bf16 |kernel - plain| over every case "
         f"{errs['flash_attention bf16']:.3e} (tol {TOL['bfloat16']})")
-    say(f"kernels ok: the paged sweep's largest bf16 |kernel - plain| over "
-        f"every case {errs['paged_attention_sweep bfloat16']:.3e} (tol "
-        f"{TOL['bfloat16']})")
+    for sweep in ("paged", "ring"):
+        say(f"kernels ok: the {sweep} sweep's largest bf16 |kernel - plain| "
+            f"over every case {errs[f'{sweep}_attention_sweep bfloat16']:.3e}"
+            f" (tol {TOL['bfloat16']})")
 
     # 3. reference: kernels vs plain torch, full width, fp32 ------------------
     cfg = get_arch("smollm-135m").config
@@ -2936,18 +3095,10 @@ def main() -> int:
     # 5. timing ---------------------------------------------------------------
     times = paged_timings(torch, np, dev, da, ops, quant)
     times.update(timings(torch, np, dev, da, ops))
-    times.update(ring_timings(torch, np, dev, da, ops))
+    times.update(ring_rows(torch, np, dev, da, ops, quant))
     times.update(prefill_timings(torch, np, dev, fa, rms, ops, common))
     times.update(ssd_timings(torch, np, dev, ss))
     times.update(mla_timings(torch, np, dev, da, ops))
-    times.update(ring_form_timings(torch, np, dev, da, ops, quant,
-                                   heads=dict(Hq=9, Hkv=3, D=64),
-                                   batch=BATCH, int8=True))
-    # h2o-danube-3's head dim 120, bf16 and int8, on rows of their own
-    for int8 in (False, True):
-        times.update(ring_form_timings(torch, np, dev, da, ops, quant,
-                                       heads=H2O_HEADS, batch=4, int8=int8,
-                                       family="h2o"))
     step = int8_step_cost(torch, np, dev, cfg, tfm, steps, bridge)
     say(f"paged decode step, smollm-135m full width, 4 slots, host clock "
         f"(median of chunks of 8 in turns): bf16 pools "

@@ -116,6 +116,8 @@ def library() -> ctypes.CDLL:
         lib.ring_attention_sweep.argtypes = (
             [p] * 11 + [i] * 13 + [f, f, i, p])
         lib.ring_attention_sweep.restype = i
+        lib.ring_attention_occupancy.argtypes = [i, i, i, p]
+        lib.ring_attention_occupancy.restype = i
         lib.lse_merge.argtypes = [p, p, p, i, i, i, i, i, p]
         lib.lse_merge.restype = i
         lib.mla_latent_sweep.argtypes = [p] * 8 + [i] * 11 + [f, f, i, p]

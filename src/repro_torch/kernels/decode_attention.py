@@ -13,11 +13,12 @@ paged, ring and MLA families:
     split's keys are spread over the block's warps in tiles of 16, and
     bf16 runs on the tensor cores.
   * **Ring sweep** ``ring_attention_sweep`` (``csrc/ring_attention.cu``) —
-    the same stage 1 over the static batch's ring-buffer cache
-    ``(B, C, Hkv, D)``: slot s holds position ``ref - ((ref - s) mod C)``
-    (``ref = pos`` for decode, ``pos - 1`` for verify, which also masks the
-    slots the sequential loop would have overwritten), walked in
-    ``ring_block_k`` blocks.
+    the same stage 1, the same kernel template (``csrc/sweep_fragments.cuh``)
+    over the static batch's and the engine's private rings ``(B, C, Hkv,
+    D)``: slot s holds position ``ref - ((ref - s) mod C)`` (``ref = pos``
+    for decode, ``pos - 1`` for verify, which also masks the slots the
+    sequential loop would have overwritten); ``ring_block_k`` blocks,
+    skipped where no row sees a slot, cut the splits.
   * **Latent sweep** ``mla_latent_sweep`` (``csrc/mla_attention.cu``) —
     stage 1 of deepseek-v2's absorbed MLA attention over the paged latent
     pool ``(P, ps, R)``: every (query, head) row ``[q_abs | q_rope]``
@@ -34,10 +35,9 @@ paged, ring and MLA families:
 
 The paged and ring sweeps also read int8 caches with per-row fp32 scales
 (``k_scale`` / ``v_scale``, the pool's or ring's layout with a last axis
-of 1), so a kv row costs D + 4 bytes where bf16 costs 2D: the ring sweep
-dequantizes each row as it lands in shared memory, the paged sweep keeps
-the int8 values as products' operands and applies the scales outside
-them.  q, the candidates and the output stay in the query dtype.
+of 1), so a kv row costs D + 4 bytes where bf16 costs 2D: both keep the
+int8 values as products' operands and apply the scales outside them.  q,
+the candidates and the output stay in the query dtype.
 
 The sweeps fold verify's in-flight candidate rows, causally, into the
 last split only.  One split writes the normalised output in the query
@@ -312,6 +312,8 @@ def mla_latent_sweep_torch(q, pool, block_tables, pos, *, r_kv: int,
 # head dims both sweeps are built for, bf16 / fp32 and int8 alike:
 # smollm's 64, h2o-danube's 120 (its int8 rows take 8-byte loads) and 128
 SWEEP_HEAD_DIMS = (64, 120, 128)
+# query rows a call of either sweep takes (the C interface's SW_MAX_Q)
+SWEEP_MAX_Q = 128
 
 
 def _kv_storage(name, k_scale, v_scale, q_dtype):
@@ -357,8 +359,9 @@ def paged_attention_sweep(q, k_pages, v_pages, block_tables, pos, *,
     if Hq % Hkv:
         raise ValueError(f"paged_attention_sweep: Hq {Hq} not a multiple of "
                          f"Hkv {Hkv}")
-    if not 1 <= Q <= 128:
-        raise ValueError(f"paged_attention_sweep: {Q} query rows (1..128)")
+    if not 1 <= Q <= SWEEP_MAX_Q:
+        raise ValueError(f"paged_attention_sweep: {Q} query rows "
+                         f"(1..{SWEEP_MAX_Q})")
     dev = q.device
     check("q", q, dtype=q.dtype, shape=(B, Q, Hq, D), device=dev,
           vector=True)
@@ -401,16 +404,19 @@ def paged_attention_sweep(q, k_pages, v_pages, block_tables, pos, *,
     return out if S == 1 else (partial, lse)
 
 
-def sweep_occupancy(head_dim: int, dtype, int8: bool = False) -> dict:
+def sweep_occupancy(head_dim: int, dtype, int8: bool = False,
+                    sweep: str = "paged") -> dict:
     """Blocks per SM, dynamic shared memory (bytes) and registers a thread
-    of the paged sweep's kernel for one form (``dtype`` the query's,
-    ``int8`` the pools'), at its widest block, as the card runs it."""
+    of the ``paged`` or ``ring`` sweep's kernel for one form (``dtype`` the
+    query's, ``int8`` the cached rows'), at its widest block, as the card
+    runs it."""
     from repro_torch.kernels import build
     info = (ctypes.c_int * 3)()
-    err = build.library().paged_attention_occupancy(
-        int(head_dim), DTYPE_CODE[dtype], int(int8), info)
+    entry = f"{sweep}_attention_occupancy"
+    err = getattr(build.library(), entry)(int(head_dim), DTYPE_CODE[dtype],
+                                          int(int8), info)
     if err != 0:
-        raise RuntimeError(f"paged_attention_occupancy: CUDA error {err}")
+        raise RuntimeError(f"{entry}: CUDA error {err}")
     return dict(blocks_per_sm=info[0], smem_bytes=info[1],
                 registers=info[2])
 
@@ -460,16 +466,14 @@ def ring_attention_sweep(q, k_cache, v_cache, pos, *, k_new=None, v_new=None,
     if Hq % Hkv:
         raise ValueError(f"ring_attention_sweep: Hq {Hq} not a multiple of "
                          f"Hkv {Hkv}")
+    if not 1 <= Q <= SWEEP_MAX_Q:
+        raise ValueError(f"ring_attention_sweep: {Q} query rows "
+                         f"(1..{SWEEP_MAX_Q})")
     if verify and Q > C:
         raise ValueError(f"ring_attention_sweep: verify block {Q} exceeds "
                          f"cache capacity {C}")
     bk = ring_block_k(C, block_k)
     n_k = C // bk
-    sw = max(bk, Q) if verify else bk
-    smem = 4 * (2 * Q * D + 64 * (D + 1) + Q * sw + 3 * Q)
-    if smem > _SMEM_MAX:
-        raise ValueError(f"ring_attention_sweep: {Q} rows x block {bk} need "
-                         f"{smem} bytes of shared memory (max {_SMEM_MAX})")
     dev = q.device
     check("q", q, dtype=q.dtype, shape=(B, Q, Hq, D), device=dev,
           vector=True)

@@ -541,7 +541,7 @@ def refuse_oversized(cfg, free_bytes: int) -> None:
 def _refuse_unported(args) -> None:
     if args.chaos or args.snapshot_dir:
         raise NotPorted("--chaos / --snapshot-dir (chaos and snapshots)",
-                        "queue 1, item 4")
+                        "queue 1, item 1")
 
 
 def run(argv=None):

@@ -9,6 +9,13 @@ its plain version.  The same numpy inputs go through the JAX oracles
 kernels in interpret mode, as ``tests/test_split_kv.py`` runs them, and
 all must agree at the fp32 tolerance that file uses.  The port's own
 oracles, ``ops`` dispatch and ``ring_positions`` are checked the same way.
+
+Beside the default ring (40 slots in blocks of 8), the decode, verify and
+partials tests take the edges of the kernel's tiling (tiles of 16 slots,
+one block per kv head): blocks of 17 that straddle tiles, blocks of one
+slot (a prime ring), a split past the blocks, G 7 with Q 4, G 1, wrapped
+verify rows that differ inside one running block, per-row positions under
+a window, and a cap.
 """
 import functools
 import warnings
@@ -39,6 +46,51 @@ HEAD_CASES = [pytest.param(hq, hkv, D, id=f"{hq}-{hkv}")
 BF16_HEADS = [HEAD_CASES[2], HEAD_CASES[3]]
 DECODE_POS = [13, 131]             # ring not yet full; wrapped 3 times
 VERIFY_POS = [0, 13, 131]          # pos 0: only the candidates are visible
+HEAD_IDS = [(*c.values, c.id) for c in HEAD_CASES]
+# edge geometries: a ring of 51 under a requested block of 20 (3 blocks of
+# 17, straddling 16-slot tiles), a prime ring of 37 (blocks of 1); cap and
+# window on the 51-slot ring
+C51 = {"C": 51, "bk": 20}
+PRIME = {"C": 37, "bk": 8}
+
+
+def _edges(pos_by_edge, splits_by_edge):
+    """The edge cases of the decode or verify test: (n_splits, Hq, Hkv,
+    hd, pos, geometry) with ids ``<n>-<Hq>-<Hkv>-<edge>-<pos>``."""
+    out = []
+    for edge, (hq, hkv, geom) in {
+            "C51-bk17": (9, 3, C51), "prime37": (9, 3, PRIME),
+            "cap": (9, 3, dict(C51, cap=2.0)),
+            "window": (9, 3, dict(C51, window=12)),
+            "past-the-blocks": (9, 3, {}), "G7": (14, 2, {}),
+            "G1": (3, 3, {}), "rows-differ": (9, 3, {}),
+            "ragged-window": (9, 3, {"window": 12})}.items():
+        for n in splits_by_edge.get(edge, ()):
+            for pos in pos_by_edge[edge]:
+                pid = "-".join(map(str, np.ravel(pos)))
+                out.append(pytest.param(n, hq, hkv, D, pos, geom,
+                                        id=f"{n}-{hq}-{hkv}-{edge}-{pid}"))
+    return out
+
+
+DECODE_CASES = [pytest.param(n, hq, hkv, hd, pos, {}, id=f"{n}-{hid}-{pos}")
+                for n in SPLITS for hq, hkv, hd, hid in HEAD_IDS
+                for pos in DECODE_POS] + _edges(
+    {"C51-bk17": (30, 170), "prime37": (100,), "cap": (170,),
+     "past-the-blocks": (131,), "G7": (131,), "G1": (131,),
+     "ragged-window": ([5, 70, 131],)},
+    {"C51-bk17": (1, 3), "prime37": (1, 5), "cap": (1, 3),
+     "past-the-blocks": (4,), "G7": (1, 2), "G1": (1, 2),
+     "ragged-window": (1, 2)})
+VERIFY_CASES = [pytest.param(n, hq, hkv, hd, pos, {}, id=f"{n}-{hid}-{pos}")
+                for n in SPLITS for hq, hkv, hd, hid in HEAD_IDS
+                for pos in VERIFY_POS] + _edges(
+    {"C51-bk17": (30, 170), "prime37": (100,), "cap": (170,),
+     "window": (170,), "past-the-blocks": (131,), "G7": (131,),
+     "G1": (131,), "rows-differ": (121, 127)},
+    {"C51-bk17": (1, 3), "prime37": (1, 5), "cap": (1, 3), "window": (2,),
+     "past-the-blocks": (4,), "G7": (1, 2), "G1": (1, 2),
+     "rows-differ": (1, 5)})
 
 
 def _inputs(Hq, Hkv, *, seed, cache_len=C, hd=D):
@@ -81,119 +133,166 @@ def _close(a, b, tol=TOL):
     assert err < tol, err
 
 
-def _policy(n_splits, **kw):
+def _policy(n_splits, bk=BK, **kw):
     return ops.KernelPolicy(decode="cuda", kv_splits=n_splits,
-                            decode_k_chunk=BK, **kw)
+                            decode_k_chunk=bk, **kw)
 
 
 def _pos(p):
     return np.asarray(p, np.int32)
 
 
+def _geom(g):
+    """A case's ring length, requested block and the window / cap keyword
+    arguments of every entry point."""
+    kw = {k: v for k, v in (("window", g.get("window", 0)),
+                            ("logit_cap", g.get("cap", 0.0))) if v}
+    return g.get("C", C), g.get("bk", BK), kw
+
+
+def _by_row(call, p, *arrs):
+    """``call(*arrs, pos)`` where ``pos`` is one position; row by row,
+    stacked, where ``p`` holds one per batch row (the oracles take one)."""
+    if np.ndim(p) == 0:
+        return jax.tree.map(_np, call(*arrs, p))
+    rows = [jax.tree.map(_np, call(*(a[b:b + 1] for a in arrs), p[b]))
+            for b in range(len(p))]
+    return jax.tree.map(lambda *x: np.concatenate(x, axis=0), *rows)
+
+
 # --------------------------------------------------------------------------
 # ring sweep + K-merge, end to end
 # --------------------------------------------------------------------------
-@pytest.mark.parametrize("pos", DECODE_POS)
-@pytest.mark.parametrize("Hq,Hkv,hd", HEAD_CASES)
-@pytest.mark.parametrize("n_splits", SPLITS)
-def test_ring_decode_matches_jax(Hq, Hkv, hd, n_splits, pos):
-    a = _inputs(Hq, Hkv, seed=Hq * 30 + Hkv + n_splits + pos, hd=hd)
+@pytest.mark.parametrize("n_splits,Hq,Hkv,hd,pos,geom", DECODE_CASES)
+def test_ring_decode_matches_jax(Hq, Hkv, hd, n_splits, pos, geom):
+    cl, bk, kw = _geom(geom)
+    a = _inputs(Hq, Hkv, seed=Hq * 30 + Hkv + n_splits + int(np.sum(pos)),
+                hd=hd, cache_len=cl)
     p = _pos(pos)
-    got = ops.decode_attention(_t(a["q1"]), _t(a["k"]), _t(a["v"]), _t(p),
-                               policy=_policy(n_splits))
+    x = (a["q1"], a["k"], a["v"])
+    got = ops.decode_attention(*map(_t, x), _t(p),
+                               policy=_policy(n_splits, bk), **kw)
     assert got.shape == (B, 1, Hq, hd) and got.dtype == torch.float32
-    kp = jops.ring_positions(_j(p), C)
-    args = (_j(a["q1"]), _j(a["k"]), _j(a["v"]), kp, _j(p))
-    _close(got, _jx(jref.decode_attention_ref, *args))
-    _close(got, _jx(jops.decode_attention_jnp, *args, n_splits=n_splits))
-    if Hq == 9 or hd == 120:             # interpret mode is slow: one G
-        _close(got, _jx(jda.decode_attention_pallas, _j(a["q1"]), _j(a["k"]),
-                        _j(a["v"]), _j(p), block_k=BK, n_splits=n_splits,
-                        interpret=True))
-    targs = (_t(a["q1"]), _t(a["k"]), _t(a["v"]), ops.ring_positions(
-        _t(p), C), _t(p))
-    _close(got, ref.decode_attention_ref(*targs))
-    _close(got, ops.decode_attention_torch(*targs, n_splits=n_splits))
+    kp = jops.ring_positions(_j(p), cl)
+    _close(got, _jx(jops.decode_attention_jnp, *map(_j, x), kp, _j(p),
+                    n_splits=n_splits, **kw))
+    _close(got, _by_row(lambda q, k, v, pp: _jx(
+        jref.decode_attention_ref, _j(q), _j(k), _j(v),
+        jops.ring_positions(_j(pp), cl), _j(pp), **kw), p, *x))
+    if Hq != 4:                 # interpret mode is slow: not the G 2 / G 4
+        _close(got, _jx(jda.decode_attention_pallas, *map(_j, x), _j(p),
+                        block_k=bk, n_splits=n_splits, interpret=True, **kw))
+    _close(got, _by_row(lambda q, k, v, pp: ref.decode_attention_ref(
+        _t(q), _t(k), _t(v), ops.ring_positions(_t(pp), cl), _t(pp), **kw),
+        p, *x))
+    _close(got, _by_row(lambda q, k, v, pp: ops.decode_attention_torch(
+        _t(q), _t(k), _t(v), ops.ring_positions(_t(pp), cl), _t(pp),
+        n_splits=n_splits, **kw), p, *x))
 
 
-@pytest.mark.parametrize("pos", VERIFY_POS)
-@pytest.mark.parametrize("Hq,Hkv,hd", HEAD_CASES)
-@pytest.mark.parametrize("n_splits", SPLITS)
-def test_ring_verify_matches_jax(Hq, Hkv, hd, n_splits, pos):
-    a = _inputs(Hq, Hkv, seed=Hq * 40 + Hkv + n_splits + pos, hd=hd)
+@pytest.mark.parametrize("n_splits,Hq,Hkv,hd,pos,geom", VERIFY_CASES)
+def test_ring_verify_matches_jax(Hq, Hkv, hd, n_splits, pos, geom):
+    cl, bk, kw = _geom(geom)
+    a = _inputs(Hq, Hkv, seed=Hq * 40 + Hkv + n_splits + pos, hd=hd,
+                cache_len=cl)
     p = _pos(pos)
     got = ops.verify_attention(_t(a["qv"]), _t(a["k"]), _t(a["v"]),
                                _t(a["kn"]), _t(a["vn"]), _t(p),
-                               policy=_policy(n_splits))
+                               policy=_policy(n_splits, bk), **kw)
     assert got.shape == (B, Q, Hq, hd) and got.dtype == torch.float32
-    kp = jops.ring_positions(_j(p) - 1, C)
+    kp = jops.ring_positions(_j(p) - 1, cl)
     args = (_j(a["qv"]), _j(a["k"]), _j(a["v"]), _j(a["kn"]), _j(a["vn"]),
             kp, _j(p))
-    _close(got, _jx(jref.verify_attention_ref, *args))
-    _close(got, _jx(jops.verify_attention_jnp, *args, n_splits=n_splits))
-    if Hq == 9 or hd == 120:
+    _close(got, _jx(jref.verify_attention_ref, *args, **kw))
+    _close(got, _jx(jops.verify_attention_jnp, *args, n_splits=n_splits,
+                    **kw))
+    if Hq != 4:
         _close(got, _jx(jda.verify_attention_pallas, *args[:5], _j(p),
-                        block_k=BK, n_splits=n_splits, interpret=True))
+                        block_k=bk, n_splits=n_splits, interpret=True, **kw))
     targs = (_t(a["qv"]), _t(a["k"]), _t(a["v"]), _t(a["kn"]), _t(a["vn"]),
-             ops.ring_positions(_t(p) - 1, C), _t(p))
-    _close(got, ref.verify_attention_ref(*targs))
-    _close(got, ops.verify_attention_torch(*targs, n_splits=n_splits))
+             ops.ring_positions(_t(p) - 1, cl), _t(p))
+    _close(got, ref.verify_attention_ref(*targs, **kw))
+    _close(got, ops.verify_attention_torch(*targs, n_splits=n_splits, **kw))
 
 
 # --------------------------------------------------------------------------
 # stage 1: partials and log-sum-exps
 # --------------------------------------------------------------------------
-@pytest.mark.parametrize("n_splits", [2, 5])
-def test_ring_decode_partials_match_pallas(n_splits):
+@pytest.mark.parametrize("n_splits,pos,geom", [
+    pytest.param(2, 13, {}, id="2"), pytest.param(5, 13, {}, id="5"),
+    pytest.param(4, 13, {}, id="4-past-the-blocks"),
+    pytest.param(3, 30, C51, id="3-C51-bk17"),
+    pytest.param(3, 170, C51, id="3-C51-bk17-wrapped"),
+    pytest.param(5, 100, PRIME, id="5-prime37"),
+    pytest.param(3, 170, dict(C51, cap=2.0), id="3-cap"),
+    pytest.param(2, [5, 70, 131], {"window": 12}, id="2-ragged-window")])
+def test_ring_decode_partials_match_pallas(n_splits, pos, geom):
     """Stage-1 contract, empty splits included (pos 13 fills two of the
     five blocks: the later splits see no valid slot -> zero partial,
-    NEG_INF lse), and the merge after it."""
-    a = _inputs(9, 3, seed=7)
-    p = _pos(13)
-    pp, lp = da.ring_attention_sweep(_t(a["q1"]), _t(a["k"]), _t(a["v"]),
-                                     _t(p).reshape(1), n_splits=n_splits,
-                                     block_k=BK)
-    jp, jl = _jx(jda.decode_attention_pallas_partials, _j(a["q1"]),
-                 _j(a["k"]), _j(a["v"]), _j(p), n_splits=n_splits,
-                 block_k=BK, interpret=True)
+    NEG_INF lse), and the merge after it; and at the tiling's edges, where
+    a row whose keys in a running split are all masked weighs them alike."""
+    cl, bk, kw = _geom(geom)
+    a = _inputs(9, 3, seed=7, cache_len=cl)
+    p = _pos(pos)
+    x = (a["q1"], a["k"], a["v"])
+    pp, lp = da.ring_attention_sweep(*map(_t, x), _t(p).reshape(-1),
+                                     n_splits=n_splits, block_k=bk, **kw)
+    jp, jl = _jx(jda.decode_attention_pallas_partials, *map(_j, x), _j(p),
+                 n_splits=n_splits, block_k=bk, interpret=True, **kw)
     _close(pp, jp)
     _close(lp, jl, 1e-5)
-    kp = jops.ring_positions(_j(p), C)
-    rp, rl = _jx(jref.decode_attention_split_ref, _j(a["q1"]), _j(a["k"]),
-                 _j(a["v"]), kp, _j(p), n_splits=n_splits, block_k=BK)
+    rp, rl = _by_row(lambda q, k, v, pp_: _jx(
+        jref.decode_attention_split_ref, _j(q), _j(k), _j(v),
+        jops.ring_positions(_j(pp_), cl), _j(pp_), n_splits=n_splits,
+        block_k=bk, **kw), p, *x)
     _close(pp, rp)
     _close(lp, rl, 1e-5)
-    tp, tl = ref.decode_attention_split_ref(
-        _t(a["q1"]), _t(a["k"]), _t(a["v"]), ops.ring_positions(_t(p), C),
-        _t(p), n_splits=n_splits, block_k=BK)
+    tp, tl = _by_row(lambda q, k, v, pp_: ref.decode_attention_split_ref(
+        _t(q), _t(k), _t(v), ops.ring_positions(_t(pp_), cl), _t(pp_),
+        n_splits=n_splits, block_k=bk, **kw), p, *x)
     _close(tp, rp)
     _close(tl, rl, 1e-5)
-    assert float(lp[:, :, -1].max()) == np.float32(ref.NEG_INF)
+    if pos == 13:
+        assert float(lp[:, :, -1].max()) == np.float32(ref.NEG_INF)
     merged = da.lse_merge(pp, lp, torch.float32)
     _close(merged, _jx(jda.merge_kv_splits_pallas, jp, jl,
                        out_dtype=jnp.float32, interpret=True))
 
 
-@pytest.mark.parametrize("n_splits", [2, 5])
-def test_ring_verify_partials_match_pallas(n_splits):
+@pytest.mark.parametrize("n_splits,positions,geom", [
+    pytest.param(2, (0, 131), {}, id="2"),
+    pytest.param(5, (0, 131), {}, id="5"),
+    pytest.param(4, (0, 131), {}, id="4-past-the-blocks"),
+    pytest.param(3, (30, 170), C51, id="3-C51-bk17"),
+    pytest.param(5, (0, 100), PRIME, id="5-prime37"),
+    pytest.param(5, (121, 127), {}, id="5-rows-differ"),
+    pytest.param(3, (170,), dict(C51, cap=2.0, window=12),
+                 id="3-cap-window")])
+def test_ring_verify_partials_match_pallas(n_splits, positions, geom):
     """Verify at pos 0: every split but the last (the candidates' one) is
-    empty; at pos 131 the wrapped ring is live in every split."""
-    a = _inputs(9, 3, seed=8)
-    for pos in (0, 131):
+    empty; at pos 131 the wrapped ring is live in every split.  At 121 and
+    127 (3 C + 1, 3 C + 7) the Q rows see different slots of one running
+    block: each row's partial is its own, rows whose keys in a split are
+    all masked included."""
+    cl, bk, kw = _geom(geom)
+    a = _inputs(9, 3, seed=8, cache_len=cl)
+    for pos in positions:
         p = _pos(pos)
         pp, lp = da.ring_attention_sweep(
             _t(a["qv"]), _t(a["k"]), _t(a["v"]), _t(p).reshape(1),
             k_new=_t(a["kn"]), v_new=_t(a["vn"]), n_splits=n_splits,
-            block_k=BK)
+            block_k=bk, **kw)
         jp, jl = _jx(jda.verify_attention_pallas_partials, _j(a["qv"]),
                      _j(a["k"]), _j(a["v"]), _j(a["kn"]), _j(a["vn"]),
-                     _j(p), n_splits=n_splits, block_k=BK, interpret=True)
+                     _j(p), n_splits=n_splits, block_k=bk, interpret=True,
+                     **kw)
         _close(pp, jp)
         _close(lp, jl, 1e-5)
         if pos == 0:
             assert float(lp[:, :, :-1].max()) == np.float32(ref.NEG_INF)
             assert float(lp[:, :, -1].min()) > ref.NEG_INF
-        else:
+        elif pos == 131 and not geom:
+            # a split past the blocks is the last: it holds the candidates
             assert float(lp.min()) > ref.NEG_INF
 
 
