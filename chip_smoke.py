@@ -8,13 +8,14 @@ Phases, in order; any failure exits non-zero (nothing is caught):
   1. build    — compile the port's CUDA kernels from the sources in this
                 checkout (one nvcc per source, all started together,
                 sm_90a) and print the card's name and power limit; K4's,
-                the paged sweep's, the ring sweep's and the latent
-                sweep's bf16 kernels must hold HMMA (tensor-core)
-                instructions and their fp32 ones none (``cuobjdump
-                -sass``; no bf16 instantiation of a CUDA-core kernel may
-                remain), the paged and ring sweeps' kernels must not
-                spill (``-Xptxas -v``), and each form of the four prints
-                its blocks per SM, shared memory and registers;
+                the paged sweep's, the ring sweep's, the latent sweep's
+                and K8's bf16 kernels must hold HMMA (tensor-core)
+                instructions and their fp32 ones (K8's fp32 state pass
+                too) none (``cuobjdump -sass``; no bf16 instantiation of
+                a CUDA-core kernel may remain), the paged and ring sweeps',
+                K8's and K9's kernels must not spill (``-Xptxas -v``),
+                and each form of the first four prints its blocks per SM,
+                shared memory and registers;
   2. kernels  — hold every kernel against its plain PyTorch version on the
                 same inputs, tolerance atol = rtol = 2e-2 for bf16 (1e-4
                 for fp32).  The paged K-sweep (decode / split decode /
@@ -40,15 +41,22 @@ Phases, in order; any failure exits non-zero (nothing is caught):
                 shape over 8192 keys with and without its 4096 window (cap
                 50, scale 144^-0.5), a q_offset case and ragged Sq 37 and
                 1000, in bf16 and fp32 (rows that see no key: finite); the
-                fused RMSNorm (K9) at d 576 and 4608, both forms, 1 to
-                8192 rows; the chunked SSD scan (K8) at mamba2-370m's
-                heads (H 32, P 64, N 128, chunk 128; G 1 and 2), S of
-                512, 4000 (ragged), 37 and 1, with and without D, with an
-                initial state and the final state returned, at atol =
-                rtol = 2e-2 in bf16 and 1e-3 in fp32 (the order of the
-                JAX tests' chunked-vs-sequential 2e-3: the sums run in
-                another order); deepseek-v2's latent sweep (Hq 128, latent
-                rows of 576, values of 512, pages of 16): decode with 1,
+                fused RMSNorm (K9) at ``RMS_WIDTHS`` (every width the zoo
+                normalizes, and widths reaching each launch shape the
+                wrapper picks: rows of a few lanes, a warp, several warps,
+                several rows a block, ragged rows, the two-pass kernel
+                past 8192), both forms, 1 to 8192 rows (65536 at 576); the
+                chunked SSD scan (K8) at mamba2-370m's heads (H 32, P 64,
+                N 128) at ``SSD_CASES``: G 1, 2 and 4, S of 512, 4000
+                (ragged), 300, 200, 128, 37, 32 and 1, chunks of 128, 100,
+                37, 16 and 1 (padded inside to a multiple of 16; chunks of
+                one step in groups), with and without D, with and without
+                an initial state, y with and without the final state
+                returned, at atol = rtol = 2e-2 in bf16 and 1e-3 in fp32
+                (the order of the JAX tests' chunked-vs-sequential 2e-3:
+                the sums run in another order); deepseek-v2's latent
+                sweep (Hq 128, latent rows of 576, values of 512, pages
+                of 16): decode with 1,
                 the engine's and 5 splits, deep 4096-position tables,
                 verify with Q 4 and 16 and pending rows, ragged
                 positions, and the tensor-core kernel's edges (Hq 20,
@@ -181,8 +189,10 @@ Phases, in order; any failure exits non-zero (nothing is caught):
                 engine's shapes, ring at h2o's batch shape), the ring
                 sweep's rows at the engine's split count and at 1 split
                 (``ring_rows``) and at the engine's private rings (4 x 48
-                slots, per-row positions), the merge at Dv 120, K9 at the
-                zoo's widths.
+                slots, per-row positions), the merge at Dv 120, K9 at
+                ``RMS_TIMED`` (the zoo's prefill widths, decode steps of 4
+                and 8 rows beside F.rms_norm), K8 at ``SSD_TIMED`` (8 x
+                512, 2 x 4000 and one engine prompt of 1 x 32).
 
 The last two lines are a JSON object of per-kernel numbers and
 ``{"ok": true, "device": {...}}``.
@@ -321,9 +331,15 @@ def hmma_counts(build):
             for part in sass.split("Function : ")[1:]}
 
 
-def sweep_spills(log):
-    """The paged and ring sweeps' kernels (``gqa_sweep_kernel``) whose
-    ptxas report (``nvcc -Xptxas -v``) shows spill stores or loads."""
+# kernels that must not spill: the paged and ring sweeps' template, K8's
+# and K9's kernels
+NO_SPILL = ("gqa_sweep_kernel", "ssd_", "rmsnorm_")
+
+
+def sweep_spills(log, markers=NO_SPILL):
+    """The kernels named by ``markers`` (the paged and ring sweeps'
+    ``gqa_sweep_kernel``, K8's and K9's kernels) whose ptxas report
+    (``nvcc -Xptxas -v``) shows spill stores or loads."""
     import re
     name, out = None, []
     for line in log.splitlines():
@@ -332,10 +348,37 @@ def sweep_spills(log):
             name = m.group(1)
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
-        if m and name and "gqa_sweep_kernel" in name and (
+        if m and name and any(k in name for k in markers) and (
                 int(m.group(1)) or int(m.group(2))):
             out.append(name)
     return out
+
+
+def ssd_forms(counts):
+    """Phase 1, K8: its bf16 kernels (scores, chunk states and outputs at
+    every P tile) hold HMMA instructions; its fp32 kernel, the CUDA-core
+    ``ssd_scan_kernel``, and the fp32 state pass none (``hmma_counts``)."""
+    import re
+    seen = {}
+    for name, n in counts.items():
+        if "ssd_scan_cu" not in name:
+            continue
+        m = re.search(r"(ssd_scores_kernel|ssd_states_kernel|ssd_out_kernel|"
+                      r"ssd_pass_kernel|ssd_scan_kernel)(?:ILi(\d+)E)?", name)
+        if m is None:
+            fail(f"K8: unexpected kernel {name} in the library")
+        form = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+        seen[form] = n
+    want = (["ssd_scores_kernel"]
+            + [f"ssd_{k}_kernel<{pt}>" for k in ("states", "out")
+               for pt in (16, 32, 64)])
+    for form in want + ["ssd_pass_kernel", "ssd_scan_kernel"]:
+        n = seen.get(form)
+        if n is None:
+            fail(f"K8 {form}: no kernel in the library")
+        if (n > 0) != (form in want):
+            fail(f"K8 {form}: {n} HMMA instructions")
+        say(f"K8 {form}: {n} HMMA instructions")
 
 
 def k4_forms(torch, fa, counts):
@@ -1083,6 +1126,31 @@ def note_k4(errs, e, dtype, form):
         note(errs, e, "flash_attention bf16")
 
 
+# K9's phase-2 widths: every width the zoo normalizes (512, 576, 1024,
+# 1536, 2048, 3840, 4096, 4608, 5120, 7168), 8 and 8192, and widths that
+# reach every launch shape rmsnorm.py's launch_shape picks: a
+# row a thread (8, 24), rows of a few lanes (256, 576), a warp a row (512;
+# 136 ragged), several rows a block of several warps each (1024, 1536,
+# 2048; 296 and 1000 ragged), one row a block (3840 ... 8192; 5000
+# ragged), and the two-pass kernel past 8192 (8200, 16384)
+RMS_WIDTHS = (8, 24, 136, 256, 296, 512, 576, 1000, 1024, 1536, 2048, 3840,
+              4096, 4608, 5000, 5120, 7168, 8192, 8200, 16384)
+RMS_SHAPE_KINDS = ("lanes", "rows a block", "row a block", "ragged",
+                   "two-pass")
+
+
+def rms_shape_kind(d, shape):
+    """Which of ``RMS_SHAPE_KINDS`` K9's launch shape for width d is."""
+    tpr, nvec, rpb = shape
+    if tpr == 0:
+        return "two-pass"
+    if tpr * nvec != d // 8:
+        return "ragged"
+    if tpr < 32:
+        return "lanes"
+    return "rows a block" if rpb > 1 else "row a block"
+
+
 def check_prefill_kernels(torch, np, dev, fa, rms, ops, common, errs):
     """Phase 2, K4 and K9.  K4 against ``flash_attention_torch`` at
     smollm's prefill shape, at stablelm's G 1, at gemma2's and
@@ -1091,9 +1159,9 @@ def check_prefill_kernels(torch, np, dev, fa, rms, ops, common, errs):
     (4 x 512 and ragged), and at the tensor-core kernel's tile edges (Sk
     65 and 127 about the 64-key tile, Sq 1, D 120 with Sk 17, G 7 with Sq
     19 about a block's 18 positions, B 3 with ragged Sk); rows that see no
-    key only finite.  K9 against ``common.rmsnorm`` at d 576, 2048, 3840,
-    4096, 4608 and 7168, plain and gemma forms, 1 to 8192 rows, fp32 and
-    bf16 scales."""
+    key only finite.  K9 against ``common.rmsnorm`` at ``RMS_WIDTHS``
+    (every launch shape it picks), plain and gemma forms, 1 to 8192 rows,
+    fp32 and bf16 scales."""
     smol = dict(B=8, Sq=512, Sk=512, Hq=9, Hkv=3, D=64)
     gem = dict(Hq=32, Hkv=16, D=128)
     # (label, shape, keyword arguments, the phase-5 row of its form)
@@ -1171,11 +1239,13 @@ def check_prefill_kernels(torch, np, dev, fa, rms, ops, common, errs):
             fail(f"K4 rows without keys ({dtype}): non-finite output")
     say("kernels ok: K4 rows that see no key are finite")
     rng = np.random.default_rng(500)
+    shapes = {}
     for dtype in ("bfloat16", "float32"):
         tol = TOL[dtype]
         worst = 0.0
-        for d in (8, 576, 2048, 3840, 4096, 4608, 7168, 8192):
-            for rows in (1, 7, 1000, 8192):
+        for d in RMS_WIDTHS:
+            shapes[d] = (rms.launch_shape(d, 1), rms.launch_shape(d, 8192))
+            for rows in (1, 7, 1000, 8192) + ((65536,) if d == 576 else ()):
                 x = torch.tensor(3.0 * rng.standard_normal((rows, d)),
                                  dtype=torch.float32, device=dev).to(
                                      getattr(torch, dtype))
@@ -1192,9 +1262,17 @@ def check_prefill_kernels(torch, np, dev, fa, rms, ops, common, errs):
                         note(errs, e, "rmsnorm", f"d {d}")
                         worst = max(worst, e)
         torch.cuda.synchronize()
-        say(f"kernels ok: K9 d 8 / 576 / 2048 / 3840 / 4096 / 4608 / 7168 / "
-            f"8192, 1 to 8192 rows, both forms ({dtype}), max |kernel - "
+        say(f"kernels ok: K9 d {' / '.join(map(str, RMS_WIDTHS))}, 1 to "
+            f"8192 rows (65536 at 576), both forms ({dtype}), max |kernel - "
             f"plain| {worst:.3e} (tol {tol})")
+    kinds = {rms_shape_kind(d, shp) for d, pair in shapes.items()
+             for shp in pair}
+    if kinds != set(RMS_SHAPE_KINDS):
+        fail(f"K9: phase 2's widths reach the launch shapes {sorted(kinds)}, "
+             f"not all of {RMS_SHAPE_KINDS}")
+    say("kernels ok: K9's launch shapes (threads a row, vectors a thread, "
+        "rows a block) for 1 and 8192 rows " + ", ".join(
+            f"d {d} {few} {many}" for d, (few, many) in shapes.items()))
     # the dispatch: auto launches the kernels on CUDA tensors, and shapes
     # the kernels do not take raise instead of taking a plain version
     q, k, v = fa_case(torch, np, dev, B=1, Sq=64, Sk=64, Hq=4, Hkv=2, D=64,
@@ -1247,26 +1325,47 @@ def ssd_case(torch, np, dev, *, B, S, dtype, seed, G=1, D=True, init=False,
     return inp, (r(B, H, P, N) if init else None)
 
 
+# K8's phase-2 cases beside mamba2-370m's heads: (label, shape, chunk).
+# The first five came with the CUDA-core kernel; the rest reach the
+# tensor-core kernels' edges: chunks padded inside to a multiple of 16 (16
+# is the smoke config's, 37 and 100 are not multiples), G 4, one step with
+# and without an initial state, the state pass over 1, 2 and 32 chunks,
+# and chunks of one step, which the workspace takes in groups (the state
+# carried between groups).
+SSD_CASES = [
+    ("2 x 512", dict(B=2, S=512), 128),
+    ("2 x 512, G 2, no D, initial state",
+     dict(B=2, S=512, G=2, D=False, init=True), 128),
+    ("1 x 4000 (ragged), initial state", dict(B=1, S=M_LONG, init=True),
+     128),
+    ("3 x 37, G 2, initial state", dict(B=3, S=37, G=2, init=True), 128),
+    ("4 x 1, no D, initial state", dict(B=4, S=1, D=False, init=True), 128),
+    ("2 x 512, chunk 16 (32 chunks)", dict(B=2, S=512, init=True), 16),
+    ("2 x 300, chunk 37, initial state", dict(B=2, S=300, init=True), 37),
+    ("2 x 300, chunk 100, G 4", dict(B=2, S=300, G=4), 100),
+    ("1 x 1", dict(B=1, S=1), 128),
+    ("2 x 128, one chunk, initial state", dict(B=2, S=128, init=True), 128),
+    ("2 x 200, two chunks", dict(B=2, S=200), 128),
+    ("1 x 32, G 4, initial state", dict(B=1, S=32, G=4, init=True), 128),
+    ("2 x 600, chunk 1 (groups of chunks), initial state",
+     dict(B=2, S=600, init=True), 1),
+]
+
+
 def check_ssd_kernels(torch, np, dev, ss, ops, errs):
     """Phase 2, K8 against its twin ``ssd_scan_torch`` (the chunked plain
-    version over the padded sequence), y and the final state."""
-    cases = [("2 x 512", dict(B=2, S=512)),
-             ("2 x 512, G 2, no D, initial state",
-              dict(B=2, S=512, G=2, D=False, init=True)),
-             ("1 x 4000 (ragged), initial state",
-              dict(B=1, S=M_LONG, init=True)),
-             ("3 x 37, G 2, initial state", dict(B=3, S=37, G=2, init=True)),
-             ("4 x 1, no D, initial state", dict(B=4, S=1, D=False,
-                                                 init=True))]
+    version over the padded sequence) at ``SSD_CASES``, y (with and
+    without the final state asked) and the final state."""
     errs["ssd_scan"] = 0.0
     for dtype in ("bfloat16", "float32"):
         tol = SSD_TOL[dtype]
-        for i, (label, shp) in enumerate(cases):
+        for i, (label, shp, chunk) in enumerate(SSD_CASES):
             inp, h0 = ssd_case(torch, np, dev, dtype=dtype, seed=800 + i,
                                **shp)
-            y, h = ss.ssd_scan(**inp, initial_state=h0, return_state=True)
-            y_only = ss.ssd_scan(**inp, initial_state=h0)
-            wy, wh = ss.ssd_scan_torch(**inp, initial_state=h0,
+            y, h = ss.ssd_scan(**inp, chunk=chunk, initial_state=h0,
+                               return_state=True)
+            y_only = ss.ssd_scan(**inp, chunk=chunk, initial_state=h0)
+            wy, wh = ss.ssd_scan_torch(**inp, chunk=chunk, initial_state=h0,
                                        return_state=True)
             what = f"K8 {label} {dtype}"
             e = max(max_err(torch, y, wy, tol, what + " y"),
@@ -2630,47 +2729,74 @@ def k4_timings(torch, np, dev, fa, ops):
     return out
 
 
-def prefill_timings(torch, np, dev, fa, rms, ops, common):
-    """Phase 5, K4 (``k4_timings``) and K9 at the main paths' shapes
-    (bf16): K9 at gemma2's 2048 prefill rows of 4608 (gemma form, the
-    JSON row), smollm's 4096 rows of 576, a 4-row decode step of gemma2
-    and the prefill rows of stablelm (8 x 512 of 2048), h2o (3840), phi3.5
-    (4096) and llava (7168)."""
-    out = k4_timings(torch, np, dev, fa, ops)
+# K9's phase-5 rows (bf16): (label, rows, width, gemma form); the first
+# is the kernels line's "rmsnorm" row, the zoo's prefill rows are rows
+# "rmsnorm d <width>", the decode rows (4 and 8 rows, a step of the batch
+# paths) are printed beside F.rms_norm and the bound
+RMS_TIMED = (("gemma2 2048 x 4608", 2048, 4608, True),
+             ("smollm 4096 x 576", 4096, 576, False),
+             ("gemma2 decode 4 x 4608", 4, 4608, True),
+             ("stablelm 4096 x 2048", 4096, 2048, False),
+             ("h2o 2048 x 3840", 2048, 3840, False),
+             ("phi3.5 2048 x 4096", 2048, 4096, False),
+             ("llava 2048 x 7168", 2048, 7168, False),
+             *((f"{fam} decode {n} x {d}", n, d, False)
+               for fam, d in (("stablelm", 2048), ("h2o", 3840),
+                              ("phi3.5", 4096), ("llava", 7168))
+               for n in (4, 8)))
+
+
+def rms_rows(torch, np, dev, rms, common, plain=True, library=None):
+    """K9 at ``RMS_TIMED`` (bf16 x, fp32 scale): the kernel's time, with
+    ``plain`` its plain version's, with ``library`` (default: ``plain``)
+    F.rms_norm's (the library yardstick, never called by the port),
+    beside the bound, by label."""
+    library = plain if library is None else library
     F = torch.nn.functional
     rng = np.random.default_rng(700)
-    for i, (label, rows, d, gemma) in enumerate((
-            ("gemma2 2048 x 4608", 2048, 4608, True),
-            ("smollm 4096 x 576", 4096, 576, False),
-            ("gemma2 decode 4 x 4608", 4, 4608, True),
-            ("stablelm 4096 x 2048", 4096, 2048, False),
-            ("h2o 2048 x 3840", 2048, 3840, False),
-            ("phi3.5 2048 x 4096", 2048, 4096, False),
-            ("llava 2048 x 7168", 2048, 7168, False))):
-        family = label.split()[0]
+    out = {}
+    for label, rows, d, gemma in RMS_TIMED:
         x = torch.tensor(rng.standard_normal((rows, d)), dtype=torch.float32,
                          device=dev).to(torch.bfloat16)
         w = torch.tensor(0.1 * rng.standard_normal(d), dtype=torch.float32,
                          device=dev)
         ms = time_ms(torch, lambda: rms.rmsnorm(x, w, gemma_style=gemma))
-        plain = time_ms(torch, lambda: common.rmsnorm(x, w, 1e-6,
-                                                      gemma_style=gemma))
-        w_lib = ((1.0 + w) if gemma else w).to(x.dtype)
-        lib = (time_ms(torch, lambda: F.rms_norm(x, (d,), weight=w_lib,
-                                                 eps=1e-6))
-               if hasattr(F, "rms_norm") else None)
+        plain_ms = lib = None
+        if plain:
+            plain_ms = time_ms(torch, lambda: common.rmsnorm(
+                x, w, 1e-6, gemma_style=gemma))
+        if library:
+            w_lib = ((1.0 + w) if gemma else w).to(x.dtype)
+            lib = (time_ms(torch, lambda: F.rms_norm(x, (d,), weight=w_lib,
+                                                     eps=1e-6))
+                   if hasattr(F, "rms_norm") else None)
         b_ms, b_by = bound(2 * x.numel() * 2 + 4 * d, 4.0 * x.numel())
+        out[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib,
+                          bound_ms=b_ms, bound_by=b_by, rows=rows, d=d)
+    return out
+
+
+def prefill_timings(torch, np, dev, fa, rms, ops, common):
+    """Phase 5, K4 (``k4_timings``) and K9 at ``RMS_TIMED``: gemma2's 2048
+    prefill rows of 4608 (gemma form, the JSON row), smollm's 4096 rows of
+    576, the prefill rows of stablelm (8 x 512 of 2048), h2o (3840),
+    phi3.5 (4096) and llava (7168) (rows of their own), and decode steps
+    of 4 and 8 rows (gemma2's at 4608, the zoo's)."""
+    out = k4_timings(torch, np, dev, fa, ops)
+    for label, t in rms_rows(torch, np, dev, rms, common).items():
+        family, d = label.split()[0], t["d"]
+        lib = t["library_ms"]
         lib_s = "n/a" if lib is None else f"{lib * 1e3:.1f} us"
-        say(f"K9 {label}: kernel {ms * 1e3:.1f} us, plain "
-            f"{plain * 1e3:.1f} us, F.rms_norm {lib_s}, bound "
-            f"{b_ms * 1e3:.3f} us ({b_by})")
-        if i == 0:
-            out["rmsnorm"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                                  bound_ms=b_ms, bound_by=b_by, shape=label)
-        if i >= 3:
-            out[f"rmsnorm d {d}"] = dict(
-                ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                bound_by=b_by, shape=label, entry="rmsnorm", family=family)
+        say(f"K9 {label}: kernel {t['ms'] * 1e3:.1f} us, plain "
+            f"{t['plain_ms'] * 1e3:.1f} us, F.rms_norm {lib_s}, bound "
+            f"{t['bound_ms'] * 1e3:.3f} us ({t['bound_by']})")
+        row = dict(ms=t["ms"], plain_ms=t["plain_ms"], library_ms=lib,
+                   bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+                   shape=label)
+        if label == RMS_TIMED[0][0]:
+            out["rmsnorm"] = row
+        elif t["rows"] > 8 and family != "smollm":
+            out[f"rmsnorm d {d}"] = dict(row, entry="rmsnorm", family=family)
     return out
 
 
@@ -2689,30 +2815,48 @@ def ssd_work(B, S, H, P, G, N, es, chunk=128, init=False):
     return nbytes, flops
 
 
-def ssd_timings(torch, np, dev, ss):
-    """Phase 5, K8 at the mamba2 main paths' prefill shapes (bf16, H 32, P
-    64, N 128, G 1, chunk 128, D, final state returned): 8 x 512 (the JSON
-    row) and the long batch's 2 x 4000.  No single PyTorch call computes
-    the scan: no library yardstick."""
+# K8's phase-5 rows (bf16, H 32, P 64, N 128, G 1, chunk 128, D, final
+# state returned): (label, B, S): the batch path's prefill (the JSON row
+# "ssd_scan"), the long batch's, and one engine prompt (the poisson
+# paths' prompts are 16 to 32 tokens, prefilled one request at a time)
+SSD_TIMED = (("8 x 512", BATCH, PLEN), ("2 x 4000", 2, M_LONG),
+             ("1 x 32", 1, 32))
+
+
+def ssd_rows(torch, np, dev, ss, plain=True):
+    """K8 at ``SSD_TIMED``: the kernel's time and, with ``plain``, its
+    plain version's, beside the bound, by label."""
     out = {}
-    for i, (label, B, S) in enumerate((("8 x 512", BATCH, PLEN),
-                                       ("2 x 4000", 2, M_LONG))):
+    for i, (label, B, S) in enumerate(SSD_TIMED):
         inp, _ = ssd_case(torch, np, dev, B=B, S=S, dtype="bfloat16",
                           seed=900 + i)
         reps = 20 if S <= 1024 else 4
         ms = time_ms(torch, lambda: ss.ssd_scan(**inp, return_state=True),
                      iters=5, reps=reps)
-        plain = time_ms(torch, lambda: ss.ssd_scan_torch(
-            **inp, return_state=True), iters=3, reps=3)
+        plain_ms = (time_ms(torch, lambda: ss.ssd_scan_torch(
+            **inp, return_state=True), iters=3, reps=3) if plain else None)
         b_ms, b_by = bound(*ssd_work(B, S, 32, 64, 1, 128, 2))
-        say(f"K8 {label}: kernel {ms * 1e3:.1f} us, plain "
-            f"{plain * 1e3:.1f} us, library n/a, bound {b_ms * 1e3:.2f} us "
-            f"({b_by})")
-        if i == 0:
-            out["ssd_scan"] = dict(ms=ms, plain_ms=plain, library_ms=None,
-                                   bound_ms=b_ms, bound_by=b_by,
-                                   shape=f"mamba2 {label}")
+        out[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                          bound_by=b_by)
         del inp
+    return out
+
+
+def ssd_timings(torch, np, dev, ss):
+    """Phase 5, K8 at ``SSD_TIMED``: 8 x 512 is the JSON row
+    "ssd_scan", the others rows of their own.  No single PyTorch call
+    computes the scan: no library yardstick."""
+    out = {}
+    for label, t in ssd_rows(torch, np, dev, ss).items():
+        say(f"K8 {label}: kernel {t['ms'] * 1e3:.1f} us, plain "
+            f"{t['plain_ms'] * 1e3:.1f} us, library n/a, bound "
+            f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']})")
+        row = dict(t, library_ms=None, shape=f"mamba2 {label}")
+        if label == SSD_TIMED[0][0]:
+            out["ssd_scan"] = row
+        else:
+            out[f"ssd_scan {label}"] = dict(row, entry="ssd_scan",
+                                            family="mamba2", err="ssd_scan")
     return out
 
 
@@ -2882,9 +3026,10 @@ def main() -> int:
             say(f"  ptxas: {line.strip()}")
     spilled = sweep_spills(build.build_log)
     if spilled:
-        fail(f"the sweeps' kernels spill: {spilled}")
+        fail(f"the sweeps', K8's or K9's kernels spill: {spilled}")
     counts = hmma_counts(build)
     k4_forms(torch, fa, counts)
+    ssd_forms(counts)
     sweep_forms(torch, da, counts)
     sweep_forms(torch, da, counts, "ring")
     mla_forms(torch, da, counts)

@@ -128,10 +128,12 @@ def library() -> ctypes.CDLL:
         lib.flash_attention_fwd.restype = i
         lib.flash_attention_occupancy.argtypes = [i, i, i, p]
         lib.flash_attention_occupancy.restype = i
-        lib.rmsnorm_fwd.argtypes = [p, p, p, ctypes.c_long, i, f, i, i, i, p]
+        lib.rmsnorm_fwd.argtypes = [p, p, p, ctypes.c_long, i, f] + [i] * 6 + [
+            p]
         lib.rmsnorm_fwd.restype = i
         lg = ctypes.c_long
-        lib.ssd_scan_fwd.argtypes = [p] * 9 + [i] * 7 + [lg] * 3 + [i, p]
+        lib.ssd_scan_fwd.argtypes = ([p] * 10 + [i] * 8 + [lg] * 4
+                                     + [i, p])
         lib.ssd_scan_fwd.restype = i
         _lib = lib
     return _lib

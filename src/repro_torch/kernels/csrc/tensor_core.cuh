@@ -113,6 +113,8 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
 // A shared-memory row of n bf16 values is padded to an odd number of
 // 16-byte chunks, so the 8 row addresses of one ldmatrix fall on 8
 // distinct 16-byte bank groups (conflict-free without a swizzle)
-constexpr int tc_ld(int n) { return (n / 8) % 2 ? n : n + 8; }
+__host__ __device__ constexpr int tc_ld(int n) {
+  return (n / 8) % 2 ? n : n + 8;
+}
 
 }  // namespace

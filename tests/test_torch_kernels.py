@@ -387,3 +387,70 @@ def test_prefill_attention_matches_jax(backend, kw):
         attention=backend, q_chunk=4, k_chunk=4), **kw)
     _close(got, want)
     _close(got, _jx(jref.attention_ref, _j(q), _j(k), _j(v), **kw))
+
+
+def _zoo_norm_widths():
+    """Every width K9 normalizes in the registry's configs at their
+    published sizes: d_model, and MLA's latent widths."""
+    from repro_torch.configs import ARCH_SPECS
+    out = set()
+    for spec in ARCH_SPECS.values():
+        cfg = spec.config
+        out.add(cfg.d_model)
+        if cfg.use_mla:
+            out.update(w for w in (cfg.kv_lora_rank, cfg.q_lora_rank) if w)
+    return sorted(out)
+
+
+ZOO_NORM_WIDTHS = _zoo_norm_widths()
+
+
+@pytest.mark.parametrize("rows", [4, 4096])
+@pytest.mark.parametrize("d", sorted({8, 8192, *ZOO_NORM_WIDTHS}))
+def test_rmsnorm_launch_shape_is_whole_at_zoo_widths(d, rows):
+    """K9's launch shape at every zoo width (and phase 2's 8 and 8192),
+    for a decode step's rows and a prefill's: each thread of a row holds a
+    whole, equal count of 16-byte vectors (8 values), no row has more
+    threads than vectors, a row is a power of two up to 32 threads or a
+    multiple of 32, and a block is whole warps of at most ``BLOCK``
+    threads."""
+    from repro_torch.kernels import rmsnorm as rms
+    tpr, nvec, rpb = rms.launch_shape(d, rows)
+    assert tpr * nvec == d // 8
+    assert 1 <= tpr <= d // 8 and 1 <= nvec <= rms.VMAX
+    assert (tpr <= 32 and tpr & (tpr - 1) == 0) or tpr % 32 == 0
+    assert tpr * rpb <= rms.BLOCK and (tpr * rpb) % 32 == 0
+
+
+@pytest.mark.parametrize("d", [512, 1024, 1536, 2048])
+def test_rmsnorm_launch_shape_takes_fewer_vectors_for_few_rows(d):
+    """A decode step's rows take the fewest vectors a thread (a call is one
+    row's chain of latencies), a prefill's at least two where the width
+    allows; both whole."""
+    from repro_torch.kernels import rmsnorm as rms
+    few, many = rms.launch_shape(d, 8), rms.launch_shape(d, 2048)
+    assert few[1] == 1 and many[1] == 2
+    assert few[0] * few[1] == many[0] * many[1] == d // 8
+
+
+def test_zoo_norm_widths_are_the_zoos():
+    assert ZOO_NORM_WIDTHS == [512, 576, 1024, 1536, 2048, 3840, 4096, 4608,
+                               5120, 7168]
+
+
+@pytest.mark.parametrize("rows", [4, 4096])
+@pytest.mark.parametrize("d", [24, 136, 296, 1000, 5000, 8192, 8200, 16384])
+def test_rmsnorm_launch_shape_covers_other_widths(d, rows):
+    """Widths with no whole, equal split give the last threads of a row
+    fewer vectors (none for the last lanes of its last warp) but cover the
+    row; past ``MAX_WIDTH`` the two-pass kernel takes it."""
+    from repro_torch.kernels import rmsnorm as rms
+    tpr, nvec, rpb = rms.launch_shape(d, rows)
+    if d > rms.MAX_WIDTH:
+        assert (tpr, nvec, rpb) == (0, 0, 1)
+        return
+    assert tpr * nvec >= d // 8
+    assert tpr <= 32 or (tpr - 32) * nvec < d // 8
+    assert 1 <= nvec <= rms.VMAX
+    assert (tpr <= 32 and tpr & (tpr - 1) == 0) or tpr % 32 == 0
+    assert tpr * rpb <= rms.BLOCK and (tpr * rpb) % 32 == 0

@@ -9,7 +9,10 @@ and the ``cuda`` backend, whose wrapper runs the kernel's twin
 (``ssd_scan.ssd_scan_torch``, the chunked form over a padded sequence) on
 CPU tensors.  Like for like (oracle, chunked form) they agree within 1e-4
 of the output's scale; across algorithms (sequential against chunked, a
-different order of the same sums) within 1e-4 as well.
+different order of the same sums) within 1e-4 as well.  The bf16 kernels'
+own form, Mamba2's chunk-parallel stages over chunks padded to a multiple
+of 16 steps, is held the same way through its plain mirror
+``ssd_scan.ssd_staged_torch``, with the padding property it rests on.
 """
 import functools
 
@@ -130,6 +133,93 @@ def test_cuda_backend_twin_matches_pallas(shape):
                      policy=policy)
     _close(ty, jy)
     _close(th, jh)
+
+
+def _pad_chunks(a, Q, Qp):
+    """``a`` (B, S, ...) with S a multiple of Q: Qp - Q zero steps after
+    each chunk of Q steps."""
+    B, S = a.shape[:2]
+    a = a.reshape(B, S // Q, Q, *a.shape[2:])
+    zeros = np.zeros((B, S // Q, Qp - Q, *a.shape[3:]), a.dtype)
+    return np.concatenate([a, zeros], axis=2).reshape(
+        B, S // Q * Qp, *a.shape[3:])
+
+
+@pytest.mark.parametrize("init", [False, True])
+@pytest.mark.parametrize("G", [1, 2])
+@pytest.mark.parametrize("Q", [37, 100])
+def test_zero_steps_after_each_chunk_leave_the_scan(Q, G, init):
+    """The property K8's bf16 kernels pad by: Qp - Q zero steps (dt = 0, x
+    = B = C = 0) after each chunk of Q steps, Qp = Q rounded up to 16,
+    give JAX's ``ssd_chunked_jnp`` (at chunk Qp) its y at the real steps
+    (at chunk Q) and its final state, with and without an initial state;
+    the port's staged mirror, which pads so itself, agrees."""
+    Qp, nc = -(-Q // 16) * 16, 3
+    inp, h0 = _inputs(2, nc * Q, 4, 8, G, 16, 20 + Q + G, init=init)
+    padded = {k: (_pad_chunks(v, Q, Qp)
+                  if k in ("x", "dt", "B_mat", "C_mat") else v)
+              for k, v in inp.items()}
+    jy, jh = jops.ssd_chunked_jnp(*_jargs(inp), chunk=Q,
+                                  initial_state=_j(h0), return_state=True)
+    py, ph = jops.ssd_chunked_jnp(*_jargs(padded), chunk=Qp,
+                                  initial_state=_j(h0), return_state=True)
+    real = np.asarray(py).reshape(2, nc, Qp, 4, 8)[:, :, :Q]
+    _close(real.reshape(2, nc * Q, 4, 8), jy)
+    _close(ph, jh)
+    ty, th = ss.ssd_staged_torch(*_targs(inp), chunk=Q, initial_state=_t(h0),
+                                 return_state=True)
+    _close(ty, jy)
+    _close(th, jh)
+
+
+@pytest.mark.parametrize("init", [False, True])
+@pytest.mark.parametrize("chunk", [16, 37, 128])
+@pytest.mark.parametrize("shape", SSD_SHAPES, ids=str)
+def test_staged_mirror_matches_jax(shape, chunk, init):
+    """``ssd_staged_torch``, the plain mirror of the bf16 kernels' stages
+    (scores per group and chunk, chunk states, the state pass, the
+    outputs), against JAX's ``ssd_chunked_jnp`` (the exact recurrence
+    where ``chunk`` does not divide S), y and the final state; and
+    without an initial state against ``ssd_pallas`` in interpret mode
+    where its chunk divides S."""
+    B, S, H, P, G, N, _ = shape
+    inp, h0 = _inputs(B, S, H, P, G, N, 12, init=init)
+    ty, th = ss.ssd_staged_torch(*_targs(inp), chunk=chunk,
+                                 initial_state=_t(h0), return_state=True)
+    jy, jh = jops.ssd_chunked_jnp(*_jargs(inp), chunk=chunk,
+                                  initial_state=_j(h0), return_state=True)
+    _close(ty, jy)
+    _close(th, jh)
+    if not init and S % min(chunk, S) == 0:
+        _close(ss.ssd_staged_torch(*_targs(inp), chunk=chunk),
+               _jpallas(chunk)(*_jargs(inp)))
+
+
+@pytest.mark.parametrize("B,S,chunk", [(8, 512, 128), (2, 4000, 128),
+                                       (1, 32, 128), (2, 512, 16)])
+def test_workspace_holds_the_serving_shapes_in_one_group(B, S, chunk):
+    """At mamba2-370m's heads the bf16 kernels' workspace takes every
+    chunk in one group: one chunk's scores for a one-chunk prompt, else
+    per chunk its scores, a state slot and a decay, plus a slot and the
+    carry."""
+    H, P, G, N = 32, 64, 1, 128
+    n, group = ss.ssd_workspace(B, S, H, P, G, N, chunk)
+    nc = -(-S // chunk)
+    if nc == 1:
+        assert (n, group) == (B * G * chunk * chunk, 1)
+    else:
+        assert group == nc
+        assert n == (nc * (B * G * chunk * chunk + B * H * P * N + B * H)
+                     + 2 * B * H * P * N)
+    assert n <= ss.WORKSPACE_FLOATS
+
+
+def test_workspace_groups_long_runs_of_small_chunks():
+    """Chunks of one step over 600 steps do not fit one workspace: they go
+    in groups, the workspace within its bound."""
+    n, group = ss.ssd_workspace(2, 600, 32, 64, 1, 128, 1)
+    assert 1 <= group < 600
+    assert n <= ss.WORKSPACE_FLOATS
 
 
 @pytest.mark.parametrize("backend", ["auto", "ref", "chunked", "cuda"])
