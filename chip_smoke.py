@@ -95,7 +95,19 @@ Phases, in order; any failure exits non-zero (nothing is caught):
                 a verify block of 16, gemma2's 32 / 16 of 128 with cap 50),
                 in bf16 and fp32, and its largest bf16 error over every
                 case printed; head_dim
-                96 raises ValueError in both sweeps, launching nothing;
+                96 raises ValueError in both sweeps, launching nothing.
+                The merge folded into the split sweeps (``merge=True``):
+                at every split case above, and at ``fused_forms`` (the
+                paged and ring sweeps at D 64, 120 and 128, q bf16 and
+                fp32, kv rows in q's dtype and int8, decode and verify;
+                the latent sweep at Dv 512, bf16 and fp32, decode and
+                verify) at S 2, 3, 5 and 16 with an empty split, the
+                fused output must equal ``lse_merge`` of the unfused
+                launch's partials bit for bit and lie within the
+                tolerance of the plain version, 3 launches in a row and
+                2 x 20 launches
+                captured in a CUDA graph must give the same bits, and the
+                counter workspace must read all zero after each case;
   3. reference — full-width smollm-135m at fp32, twice on the kernels and
                 twice on the plain torch path (chunked prefill twin,
                 RMSNorm oracle, torch decode backends, the same split
@@ -166,11 +178,12 @@ Phases, in order; any failure exits non-zero (nothing is caught):
                 pass the card's 79.1 GiB, and every kernel of a path must
                 have been launched on it: K4 and K9 on the twenty-one
                 attention paths, K8 and K9 on the three mamba2 paths, the
-                latent sweep's decode and verify forms and the merge on
-                deepseek's engine, the int8 templates (and never the bf16
-                sweep) on the int8 paths, the ring sweep on h2o's (its
-                verify form with ``--spec-k 3``), the paged sweep and the
-                merge on the zoo's engines;
+                latent sweep's decode and verify forms and the fused merge
+                (``merge_fused``) on deepseek's engine, the int8 templates
+                (and never the bf16 sweep) on the int8 paths, the ring
+                sweep on h2o's (its verify form with ``--spec-k 3``), the
+                paged sweep and the fused merge on the zoo's engines; no
+                path may launch the standalone merge (``merge``);
   5. timing   — CUDA-event times of each kernel, its plain version and a
                 library yardstick at the main paths' shapes, beside the
                 least time the card could take (the paged sweep at
@@ -192,7 +205,19 @@ Phases, in order; any failure exits non-zero (nothing is caught):
                 slots, per-row positions), the merge at Dv 120, K9 at
                 ``RMS_TIMED`` (the zoo's prefill widths, decode steps of 4
                 and 8 rows beside F.rms_norm), K8 at ``SSD_TIMED`` (8 x
-                512, 2 x 4000 and one engine prompt of 1 x 32).
+                512, 2 x 4000 and one engine prompt of 1 x 32); each split
+                form at the main paths' shapes (``merge_forms``): stage 1
+                alone, the unfused pair (stage 1, ``lse_merge`` and, for Q
+                > 1, the copy of its transposed view) and the one fused
+                launch.  A row at the engine's split count times the
+                launch the main paths make, the fused one, and its bound
+                adds the tail's bytes (partials and log-sum-exps read
+                back, the output written); stage 1 alone is said beside
+                it.  The ``lse_merge`` rows (Dv 64, and Dv 120 on h2o's
+                ring) time the fused tail (the fused launch less stage 1)
+                and count the fused launches (``merge_fused``); the
+                standalone kernel, which no main path launches, is said
+                beside them.
 
 The last two lines are a JSON object of per-kernel numbers and
 ``{"ok": true, "device": {...}}``.
@@ -220,6 +245,7 @@ FA_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
 RMS_SRC = "src/repro_torch/kernels/csrc/rmsnorm.cu"
 SSD_SRC = "src/repro_torch/kernels/csrc/ssd_scan.cu"
 MLA_SRC = "src/repro_torch/kernels/csrc/mla_attention.cu"
+LSE_SRC = "src/repro_torch/kernels/csrc/lse_merge.cuh"
 # kernel entry -> (source, the Pallas function it replaces, launch key)
 KERNELS = {
     "paged_attention_sweep (decode)": (
@@ -228,8 +254,11 @@ KERNELS = {
     "paged_attention_sweep (verify)": (
         PAGED_SRC, "src/repro/kernels/decode_attention.py:970",
         "sweep_verify"),
+    # the merge's device code; its launches on the main paths are the
+    # split sweeps' fused tails (the standalone kernel must not run there)
     "lse_merge": (
-        PAGED_SRC, "src/repro/kernels/decode_attention.py:172", "merge"),
+        LSE_SRC, "src/repro/kernels/decode_attention.py:172",
+        "merge_fused"),
     "ring_attention_sweep (decode)": (
         RING_SRC, "src/repro/kernels/decode_attention.py:384", "ring_decode"),
     "ring_attention_sweep (verify)": (
@@ -555,6 +584,33 @@ def max_err(torch, a, b, tol, what):
     return err
 
 
+def counters_zero(torch, da, dev, what):
+    """The fused merge's counter workspace must read all zero after a
+    launch: its last blocks reset every counter they used."""
+    n = int(da.merge_counters(dev, 0).count_nonzero())
+    if n:
+        fail(f"{what}: {n} merge counters left non-zero")
+
+
+def check_fused(torch, da, call, got, want, tol, what):
+    """A split case's fused merge: ``call(merge=True)`` launches the sweep
+    that merges its own splits.  Its output (B, Q, Hq, Dv) must be
+    contiguous and, bit for bit, the standalone ``lse_merge`` of the
+    unfused launch's partials ``got`` (stage 1 writes the same bits
+    either way: each split's block computes alone), and lie within
+    ``tol`` of the plain merge of the plain partials ``want``; the
+    counters read zero after.  Returns |fused - plain|."""
+    out = call(merge=True)
+    if not out.is_contiguous() or not torch.equal(
+            out, da.lse_merge(*got, out.dtype).transpose(1, 2)):
+        fail(f"{what} fused: not lse_merge of the unfused launch's "
+             "partials, bit for bit")
+    counters_zero(torch, da, out.device, what)
+    return max_err(torch, out,
+                   da.lse_merge_torch(*want, out.dtype).transpose(1, 2), tol,
+                   what + " fused")
+
+
 def check_kernels(torch, np, dev, da, ops):
     """Phase 2.  Returns max abs error per kernel entry."""
     errs = {k: 0.0 for k in KERNELS}
@@ -661,11 +717,15 @@ def check_kernels(torch, np, dev, da, ops):
             merged = da.lse_merge(*got, c["q"].dtype)
             plain = da.lse_merge_torch(*got, c["q"].dtype)
             em = max_err(torch, merged, plain, tol, what + " merge")
+            em = max(em, check_fused(
+                torch, da, lambda **x: da.paged_attention_sweep(
+                    *args, **vkw, n_splits=n_splits, **kw, **x),
+                got, want, tol, what))
             note(errs, em, "lse_merge", form and "Dv 120")
             case_err = max(case_err, e, em)
         torch.cuda.synchronize()
-        say(f"kernels ok: {label} (n_splits 1, {auto}, 5), max |kernel - "
-            f"plain| {case_err:.3e} (tol {tol})")
+        say(f"kernels ok: {label} (n_splits 1, {auto}, 5; fused merges), "
+            f"max |kernel - plain| {case_err:.3e} (tol {tol})")
     check_table_tail(torch, np, dev, da, main)
     check_bad_page_id()
     check_bad_page_id(kernel="paged sweep at head_dim 120", head_dim=120)
@@ -923,11 +983,15 @@ def check_ring_kernels(torch, np, dev, da, ops, errs):
             merged = da.lse_merge(*got, c["q"].dtype)
             plain = da.lse_merge_torch(*got, c["q"].dtype)
             em = max_err(torch, merged, plain, tol, what + " merge")
+            em = max(em, check_fused(
+                torch, da, lambda **x: da.ring_attention_sweep(
+                    *args, **vkw, n_splits=n_splits, block_k=256, **kw, **x),
+                got, want, tol, what))
             note(errs, em, "lse_merge", form and "Dv 120")
             case_err = max(case_err, e, em)
         torch.cuda.synchronize()
-        say(f"kernels ok: ring {label} (n_splits {splits}), max |kernel - "
-            f"plain| {case_err:.3e} (tol {tol})")
+        say(f"kernels ok: ring {label} (n_splits {splits}; fused merges), "
+            f"max |kernel - plain| {case_err:.3e} (tol {tol})")
     # the kernel derives slot positions from pos: a custom slot layout on
     # the card raises instead of taking a plain version
     c = make_ring_case(torch, np, dev, pos=20, Q=1, dtype="float32",
@@ -1046,10 +1110,12 @@ def int8_ring_case(torch, np, dev, da, ops, quant, errs, label, shp, pos, Q,
 def int8_case(torch, da, errs, entry, c, verify, tol, kernel, plain, extra,
               splits, label, ring=False):
     """One int8 case at each split count: the kernel against its twin (and,
-    split, both merges); returns the case's max error."""
+    split, both merges and the fused one); returns the case's max
+    error."""
     case_err = 0.0
     form = "D 120" if c["q"].shape[-1] == 120 else None
     before = dict(da.LAUNCHES)
+    n_fused = 0
     for n_splits in splits:
         args, kw = (ring_args if ring else sweep_args)(c, verify)
         got = kernel(*args, **kw, n_splits=n_splits, **extra)
@@ -1067,13 +1133,18 @@ def int8_case(torch, da, errs, entry, c, verify, tol, kernel, plain, extra,
             em = max_err(torch, da.lse_merge(*got, c["q"].dtype),
                          da.lse_merge_torch(*got, c["q"].dtype), tol,
                          what + " merge")
+            em = max(em, check_fused(
+                torch, da, lambda **x: kernel(*args, **kw, n_splits=n_splits,
+                                              **extra, **x),
+                got, want, tol, what))
+            n_fused += 1
             note(errs, em, "lse_merge", form and "Dv 120")
             e = max(e, em)
         note(errs, e, entry, form)
         case_err = max(case_err, e)
     torch.cuda.synchronize()
     key = KERNELS[entry][2]
-    if da.LAUNCHES[key] - before[key] != len(splits):
+    if da.LAUNCHES[key] - before[key] != len(splits) + n_fused:
         fail(f"{label}: the int8 template {key} was not the one launched")
     return case_err
 
@@ -1493,6 +1564,10 @@ def check_mla_kernels(torch, np, dev, da, fa, rms, ops, common, errs):
                     em = max_err(torch, da.lse_merge(*got, c["q"].dtype),
                                  da.lse_merge_torch(*got, c["q"].dtype), tol,
                                  what + " merge at Dv 512")
+                    em = max(em, check_fused(
+                        torch, da, lambda **x: da.mla_latent_sweep(
+                            *args, **kw, n_splits=n_splits, **x),
+                        got, want, tol, what))
                     errs["lse_merge"] = max(errs["lse_merge"], em)
                     e = max(e, em)
                 errs[entry] = max(errs[entry], e)
@@ -1590,6 +1665,119 @@ da.mla_latent_sweep(q, pool, bt, torch.tensor([20], dtype=torch.int32,
 torch.cuda.synchronize()
 print("bad id accepted", flush=True)
 """
+
+
+# The fused merge's phase-2 split counts: up to choose_kv_splits' 16
+FUSED_SPLITS = (2, 3, 5, 16)
+
+
+def fused_forms(torch, np, dev, da, quant):
+    """Every split form of the three sweeps at 16 blocks of keys, so that
+    each of ``FUSED_SPLITS`` is a real split count: the paged sweep (4
+    slots, 16 pages of 16) and the ring sweep (4 rows, 4096 slots in
+    blocks of 256) at D 64 (9 / 3 heads), 120 (32 / 8) and 128 (32 / 8), q
+    bf16 and fp32, kv rows in q's dtype and int8; decode and verify (paged
+    Q 16, ring Q 4); the latent sweep at deepseek's widths (Hq 128, Dv
+    512, 16 pages of 16), bf16 and fp32, decode and verify Q 16.  Request
+    0 holds one or two blocks of keys (or, verifying at pos 0, only its
+    candidates, in the last split): its other splits are empty.  Yields (label, call, plain)
+    where ``call(**kw)`` launches the sweep and ``plain(n_splits)`` runs
+    its plain version."""
+    heads = {64: dict(Hq=9, Hkv=3), 120: dict(Hq=32, Hkv=8),
+             128: dict(Hq=32, Hkv=8)}
+    for dtype in ("bfloat16", "float32"):
+        for D in (64, 120, 128):
+            for int8 in (False, True):
+                for verify in (False, True):
+                    pos, Q = (([0, 90, 180, 240], 16) if verify
+                              else ([17, 100, 200, 255], 1))
+                    c = make_case(torch, np, dev, B=4, D=D, ps=16, nb=16,
+                                  pos=pos, Q=Q, dtype=dtype,
+                                  seed=2000 + D + Q, **heads[D])
+                    if int8:
+                        c = quantize_case(quant, c, ("k_pages", "v_pages"))
+                    args, kw = sweep_args(c, verify)
+                    yield (f"paged D {D} {dtype}{' int8' if int8 else ''} "
+                           f"{'verify Q=16' if verify else 'decode'}",
+                           lambda a=args, k=kw, **x: da.paged_attention_sweep(
+                               *a, **k, **x),
+                           lambda n, a=args, k=kw:
+                           da.paged_attention_sweep_torch(*a, **k,
+                                                          n_splits=n))
+                    pos, Q = (([0, 1000, 4090, 9000], 4) if verify
+                              else ([100, 1000, 4095, 3 * 4096 + 17], 1))
+                    c = make_ring_case(torch, np, dev, B=4, D=D, C=4096,
+                                       pos=pos, Q=Q, dtype=dtype,
+                                       seed=2100 + D + Q, **heads[D])
+                    if int8:
+                        c = quantize_case(quant, c, ("k", "v"))
+                    args, kw = ring_args(c, verify)
+                    yield (f"ring D {D} {dtype}{' int8' if int8 else ''} "
+                           f"{'verify Q=4' if verify else 'decode'}",
+                           lambda a=args, k=kw, **x: da.ring_attention_sweep(
+                               *a, **k, block_k=256, **x),
+                           lambda n, a=args, k=kw:
+                           da.ring_attention_sweep_torch(
+                               *a, **k, block_k=256, n_splits=n))
+        for verify in (False, True):
+            pos, Q = (([0, 90, 180, 240], 16) if verify
+                      else ([17, 100, 200, 255], 1))
+            c = mla_case(torch, np, dev, B=4, nb=16, pos=pos, Q=Q,
+                         dtype=dtype, seed=2200 + Q)
+            args, kw = mla_args(c)
+            yield (f"latent Dv 512 {dtype} "
+                   f"{'verify Q=16' if verify else 'decode'}",
+                   lambda a=args, k=kw, **x: da.mla_latent_sweep(*a, **k,
+                                                                 **x),
+                   lambda n, a=args, k=kw: da.mla_latent_sweep_torch(
+                       *a, **k, n_splits=n))
+
+
+def check_fused_merge(torch, np, dev, da, quant, errs):
+    """Phase 2, the merge folded into the split sweeps, at every form of
+    ``fused_forms`` and split count of ``FUSED_SPLITS``, an empty split in
+    each: the fused output equals ``lse_merge`` of the unfused launch's
+    partials bit for bit and lies within ``TOL`` of the plain version
+    (``check_fused``); the same launch run 3 times in a row, and 20 times
+    captured in one CUDA graph (replayed twice), gives those bits each
+    time; the counter workspace reads all zero after each case."""
+    n_cases = 0
+    for label, call, plain in fused_forms(torch, np, dev, da, quant):
+        tol = TOL["float32" if "float32" in label else "bfloat16"]
+        worst = 0.0
+        for S in FUSED_SPLITS:
+            what = f"fused {label} S {S}"
+            got = call(n_splits=S)
+            want = plain(S)
+            if float(got[1].min()) != float(np.float32(da.NEG_INF)):
+                fail(f"{what}: no empty split")
+            worst = max(worst, check_fused(torch, da, lambda **x: call(
+                n_splits=S, **x), got, want, tol, what))
+            first = call(n_splits=S, merge=True)
+            for k in range(3):
+                again = call(n_splits=S, merge=True)
+                if not torch.equal(again, first):
+                    fail(f"{what}: launch {k + 2} in a row differs")
+            counters_zero(torch, da, dev, what)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                outs = [call(n_splits=S, merge=True) for _ in range(20)]
+            for rep in range(2):
+                graph.replay()
+                torch.cuda.synchronize()
+                for k, o in enumerate(outs):
+                    if not torch.equal(o, first):
+                        fail(f"{what}: graph replay {rep + 1}, launch "
+                             f"{k + 1} of 20 differs")
+                counters_zero(torch, da, dev, f"{what} graph replay")
+            del graph, outs
+            n_cases += 1
+        errs["lse_merge"] = max(errs["lse_merge"], worst)
+        say(f"kernels ok: {label}, fused merge at S {FUSED_SPLITS}: bit "
+            f"for bit lse_merge of the partials, 3 launches in a row and 2 "
+            f"x 20 graph replays equal, counters zero; max |fused - plain| "
+            f"{worst:.3e} (tol {tol})")
+    say(f"kernels ok: the fused merge in {n_cases} split cases")
 
 
 # --------------------------------------------------------------------------
@@ -2271,6 +2459,60 @@ def bound(nbytes, flops):
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
+def form_row(torch, da, sweep, plain_sweep, n, work, *, plain=True,
+             iters=5, reps=10):
+    """A kernels-line row of one sweep form at ``n`` splits, timed in the
+    form the main paths launch: at one split the one launch; at several
+    the fused launch (``sweep(n_splits=n, merge=True)``: stage 1, then
+    the merge in the last block of each row tile), its bound ``work``
+    (stage 1's bytes and FLOPs) plus the tail's bytes (the partials and
+    log-sum-exps read back, the output written), its plain version the
+    plain sweep then ``lse_merge_torch``, and stage 1 alone (``merge=
+    False``) kept as ``stage1_ms``, a diagnostic."""
+    nbytes, flops = work
+    if n == 1:
+        ms = time_ms(torch, lambda: sweep(n_splits=1))
+        pl = (time_ms(torch, lambda: plain_sweep(1), iters=iters, reps=reps)
+              if plain else None)
+        extra = {}
+    else:
+        partial, lse = sweep(n_splits=n)
+        out = sweep(n_splits=n, merge=True)
+        nbytes += ((partial.numel() + lse.numel()) * 4
+                   + out.numel() * out.element_size())
+        ms = time_ms(torch, lambda: sweep(n_splits=n, merge=True))
+        pl = (time_ms(torch, lambda: da.lse_merge_torch(
+            *plain_sweep(n), out.dtype).transpose(1, 2).contiguous(),
+            iters=iters, reps=reps) if plain else None)
+        extra = dict(stage1_ms=time_ms(torch, lambda: sweep(n_splits=n)))
+    b_ms, b_by = bound(nbytes, flops)
+    return dict(ms=ms, plain_ms=pl, bound_ms=b_ms, bound_by=b_by,
+                n_splits=n, **extra)
+
+
+def tail_row(torch, da, row, partial, lse, **kw):
+    """The ``lse_merge`` row of the kernels line from a split form's
+    ``form_row`` and its partials: the fused tail's own cost (the fused
+    launch less stage 1, both timed in this run), its bound (the partials
+    and log-sum-exps read, the bf16 output written), the plain merge;
+    the standalone kernel's time (no main path launches it) is said."""
+    S = partial.shape[-3]
+    m_ms = time_ms(torch, lambda: da.lse_merge(partial, lse, torch.bfloat16))
+    m_pl = time_ms(torch, lambda: da.lse_merge_torch(
+        partial, lse, torch.bfloat16), iters=5, reps=10)
+    mb, mby = bound((partial.numel() + lse.numel()) * 4
+                    + partial.numel() // S * 2, 3.0 * partial.numel())
+    tail = row["ms"] - row["stage1_ms"]
+    say(f"lse_merge, {kw.get('what', 'paged decode')} (n_splits {S}): "
+        f"fused tail {tail * 1e3:.2f} us (fused launch "
+        f"{row['ms'] * 1e3:.2f} less stage 1 {row['stage1_ms'] * 1e3:.2f}),"
+        f" standalone kernel {m_ms * 1e3:.2f} us, plain {m_pl * 1e3:.1f} "
+        f"us, bound {mb * 1e3:.3f} us ({mby})")
+    return dict(ms=tail, plain_ms=m_pl, library_ms=None, bound_ms=mb,
+                bound_by=mby, n_splits=S, standalone_ms=m_ms,
+                **{k: v for k, v in kw.items() if k != "what"})
+
+
 def sdpa_yardstick(torch, c, verify, scale=None):
     """One F.scaled_dot_product_attention call over the pages gathered in
     logical order (GQA heads expanded), with the same masks and scale (no
@@ -2355,42 +2597,48 @@ def paged_timings(torch, np, dev, da, ops, quant, plain=True):
                 torch, dequantized(torch, c, ("k_pages", "v_pages"))
                 if int8 else c, verify, kw.get("scale"))) if plain else None)
             for n in sorted({S, 1}, reverse=True):
-                ms = time_ms(torch, lambda: da.paged_attention_sweep(
-                    *args, **vkw, n_splits=n, **kw))
                 slow = form == "deep" and n == 1
-                pl = (time_ms(torch, lambda: da.paged_attention_sweep_torch(
-                    *args, **vkw, n_splits=n, **kw), iters=3 if slow else 5,
-                    reps=3 if slow else 10) if plain else None)
-                b_ms, b_by = bound(*sweep_work(c, n, verify))
+                r = form_row(
+                    torch, da,
+                    lambda **x: da.paged_attention_sweep(*args, **vkw, **kw,
+                                                         **x),
+                    lambda m: da.paged_attention_sweep_torch(
+                        *args, **vkw, n_splits=m, **kw),
+                    n, sweep_work(c, n, verify), plain=plain,
+                    iters=3 if slow else 5, reps=3 if slow else 10)
                 row = name if n == S else f"{name}, 1 split"
-                out[row] = dict(ms=ms, plain_ms=pl, library_ms=lib,
-                                bound_ms=b_ms, bound_by=b_by, n_splits=n,
-                                entry=entry, family=family, err=name)
+                out[row] = dict(r, library_ms=lib, entry=entry,
+                                family=family, err=name)
                 if plain:
-                    say(f"{row} (n_splits {n}): kernel {ms * 1e3:.1f} us, "
-                        f"plain {pl * 1e3:.1f} us, bound {b_ms * 1e3:.3f} "
-                        f"us ({b_by}), sdpa {lib * 1e3:.1f} us")
+                    say(f"{row} (n_splits {n}): kernel {r['ms'] * 1e3:.1f} "
+                        f"us{stage1_note(r)}, plain "
+                        f"{r['plain_ms'] * 1e3:.1f} us, bound "
+                        f"{r['bound_ms'] * 1e3:.3f} us ({r['bound_by']}), "
+                        f"sdpa {lib * 1e3:.1f} us")
     return out
 
 
+def stage1_note(r):
+    """A split row's stage 1 alone, for its line."""
+    return (f" (fused; stage 1 alone {r['stage1_ms'] * 1e3:.2f} us)"
+            if "stage1_ms" in r else "")
+
+
 def timings(torch, np, dev, da, ops):
-    """Phase 5, the merge on the paged decode's partials at the main path's
-    shapes (4 slots, 5 pages of 16, the engine's split count), and the
-    deep decode's sweep + merge beside SDPA."""
+    """Phase 5, the merge at the main path's shapes (the paged decode's, 4
+    slots, 5 pages of 16, the engine's split count): the fused tail's own
+    cost (``tail_row``), and the deep decode's fused sweep beside SDPA."""
     out = {}
     main = dict(B=4, Hq=9, Hkv=3, D=64, ps=16, nb=5)
     c = make_case(torch, np, dev, pos=[64, 71, 75, 79], Q=1,
                   dtype="bfloat16", seed=101, **main)
     S = ops.choose_kv_splits(4, 80, 9, block=16, device=dev)
     args, _ = sweep_args(c, False)
-    partial, lse = da.paged_attention_sweep(*args, n_splits=S)
-    m_ms = time_ms(torch, lambda: da.lse_merge(partial, lse, torch.bfloat16))
-    m_plain = time_ms(torch, lambda: da.lse_merge_torch(
-        partial, lse, torch.bfloat16), iters=5, reps=10)
-    m_bytes = (partial.numel() + lse.numel()) * 4 + partial.numel() // S * 2
-    mb, mby = bound(m_bytes, 3.0 * partial.numel())
-    out["lse_merge"] = dict(ms=m_ms, plain_ms=m_plain, library_ms=None,
-                            bound_ms=mb, bound_by=mby, n_splits=S)
+    row = form_row(torch, da, lambda **x: da.paged_attention_sweep(*args,
+                                                                   **x),
+                   None, S, sweep_work(c, S, False), plain=False)
+    out["lse_merge"] = tail_row(torch, da, row,
+                                *da.paged_attention_sweep(*args, n_splits=S))
     # the deep case, for the record (not the main path's shape)
     deep = dict(B=4, Hq=9, Hkv=3, D=64, ps=16, nb=256)
     c = make_case(torch, np, dev, pos=[4095, 3001, 2048, 777], Q=1,
@@ -2404,7 +2652,7 @@ def timings(torch, np, dev, da, ops):
     d_lib = time_ms(torch, sdpa_yardstick(torch, c, False))
     nbytes, flops = sweep_work(c, S, False)
     say(f"deep decode (4 slots, 4096-position tables, n_splits {S}): "
-        f"sweep+merge {d_ms * 1e3:.1f} us, plain {d_plain * 1e3:.1f} us, "
+        f"fused sweep {d_ms * 1e3:.1f} us, plain {d_plain * 1e3:.1f} us, "
         f"sdpa {d_lib * 1e3:.1f} us, bound {bound(nbytes, flops)[0] * 1e3:.2f}"
         f" us ({nbytes / 1e6:.2f} MB)")
     return out
@@ -2491,15 +2739,15 @@ def ring_timings(torch, np, dev, da, ops, plain=True):
         lib = (time_ms(torch, ring_sdpa_yardstick(torch, c, verify))
                if plain else None)
         for n in (S, 1):
-            ms = time_ms(torch, lambda: da.ring_attention_sweep(
-                *args, **kw, n_splits=n, block_k=256))
-            pl = (time_ms(torch, lambda: da.ring_attention_sweep_torch(
-                *args, **kw, n_splits=n, block_k=256), iters=5, reps=10)
-                  if plain else None)
-            b_ms, b_by = bound(*ring_work(torch, c, n, verify))
+            r = form_row(
+                torch, da,
+                lambda **x: da.ring_attention_sweep(*args, **kw, block_k=256,
+                                                    **x),
+                lambda m: da.ring_attention_sweep_torch(
+                    *args, **kw, n_splits=m, block_k=256),
+                n, ring_work(torch, c, n, verify), plain=plain)
             row = name if n == S else f"{name}, 1 split"
-            out[row] = dict(ms=ms, plain_ms=pl, library_ms=lib, bound_ms=b_ms,
-                            bound_by=b_by, n_splits=n, entry=name, err=name)
+            out[row] = dict(r, library_ms=lib, entry=name, err=name)
     if not plain:
         return out
     # the deep case, for the record (not the main path's shape)
@@ -2513,7 +2761,7 @@ def ring_timings(torch, np, dev, da, ops, plain=True):
     d_lib = time_ms(torch, ring_sdpa_yardstick(torch, c, False))
     nbytes, flops = ring_work(torch, c, S, False)
     say(f"deep ring decode (4 requests, 4096 slots, n_splits {S}): "
-        f"sweep+merge {d_ms * 1e3:.1f} us, sdpa {d_lib * 1e3:.1f} us, bound "
+        f"fused sweep {d_ms * 1e3:.1f} us, sdpa {d_lib * 1e3:.1f} us, bound "
         f"{bound(nbytes, flops)[0] * 1e3:.2f} us ({nbytes / 1e6:.2f} MB)")
     return out
 
@@ -2548,33 +2796,23 @@ def ring_form_timings(torch, np, dev, da, ops, quant, *, heads, batch,
             torch, dequantized(torch, c, ("k", "v")) if int8 else c, verify))
             if plain else None)
         for n in (S, 1):
-            ms = time_ms(torch, lambda: da.ring_attention_sweep(
-                *args, **kw, n_splits=n, block_k=256))
-            pl = (time_ms(torch, lambda: da.ring_attention_sweep_torch(
-                *args, **kw, n_splits=n, block_k=256), iters=5, reps=10)
-                if plain else None)
-            b_ms, b_by = bound(*ring_work(torch, c, n, verify))
+            r = form_row(
+                torch, da,
+                lambda **x: da.ring_attention_sweep(*args, **kw, block_k=256,
+                                                    **x),
+                lambda m: da.ring_attention_sweep_torch(
+                    *args, **kw, n_splits=m, block_k=256),
+                n, ring_work(torch, c, n, verify), plain=plain)
             row = name if n == S else f"{name}, 1 split"
-            out[row] = dict(ms=ms, plain_ms=pl, library_ms=lib,
-                            bound_ms=b_ms, bound_by=b_by, n_splits=n,
-                            entry=entry, family=family, err=name)
+            out[row] = dict(r, library_ms=lib, entry=entry, family=family,
+                            err=name)
         if plain and not verify and S > 1:
-            partial, lse = da.ring_attention_sweep(*args, **kw, n_splits=S,
-                                                   block_k=256)
-            m_ms = time_ms(torch, lambda: da.lse_merge(partial, lse,
-                                                       torch.bfloat16))
-            m_pl = time_ms(torch, lambda: da.lse_merge_torch(
-                partial, lse, torch.bfloat16), iters=5, reps=10)
-            mb, mby = bound((partial.numel() + lse.numel()) * 4
-                            + partial.numel() // S * 2, 3.0 * partial.numel())
-            say(f"lse_merge on the {form} ring decode's partials (n_splits "
-                f"{S}): kernel {m_ms * 1e3:.1f} us, plain {m_pl * 1e3:.1f} "
-                f"us, bound {mb * 1e3:.3f} us ({mby})")
+            tail = tail_row(torch, da, out[name], *da.ring_attention_sweep(
+                *args, **kw, n_splits=S, block_k=256),
+                what=f"the {form} ring decode", entry="lse_merge",
+                family=family)
             if family and not int8:
-                out[f"lse_merge Dv {heads['D']}"] = dict(
-                    ms=m_ms, plain_ms=m_pl, library_ms=None, bound_ms=mb,
-                    bound_by=mby, n_splits=S, entry="lse_merge",
-                    family=family)
+                out[f"lse_merge Dv {heads['D']}"] = tail
     return out
 
 
@@ -2938,29 +3176,118 @@ def mla_timings(torch, np, dev, da, ops, plain=True):
         args, kw = mla_args(c)
         lib = time_ms(torch, mla_sdpa_yardstick(torch, c)) if plain else None
         for n in sorted({S, 1}, reverse=True):
-            ms = time_ms(torch, lambda: da.mla_latent_sweep(
-                *args, **kw, n_splits=n))
-            pl = (time_ms(torch, lambda: da.mla_latent_sweep_torch(
-                *args, **kw, n_splits=n), iters=3, reps=5) if plain
-                else None)
-            b_ms, b_by = bound(*mla_work(c, n))
+            r = form_row(
+                torch, da,
+                lambda **x: da.mla_latent_sweep(*args, **kw, **x),
+                lambda m: da.mla_latent_sweep_torch(*args, **kw, n_splits=m),
+                n, mla_work(c, n), plain=plain, iters=3, reps=5)
             row = name if n == S else f"{name}, 1 split"
-            out[row] = dict(ms=ms, plain_ms=pl, library_ms=lib,
-                            bound_ms=b_ms, bound_by=b_by, n_splits=n,
-                            entry=name, err=name)
+            out[row] = dict(r, library_ms=lib, entry=name, err=name)
             if plain:
-                say(f"{row} (n_splits {n}): kernel {ms * 1e3:.1f} us, plain "
-                    f"{pl * 1e3:.1f} us, sdpa over the latent "
-                    f"{lib * 1e3:.1f} us, bound {b_ms * 1e3:.3f} us "
-                    f"({b_by})")
-        if plain and not verify:
-            partial, lse = da.mla_latent_sweep(*args, **kw, n_splits=S)
-            m_ms = time_ms(torch, lambda: da.lse_merge(partial, lse,
-                                                       torch.bfloat16))
-            mb, _ = bound((partial.numel() + lse.numel()) * 4
-                          + partial.numel() // S * 2, 3.0 * partial.numel())
-            say(f"lse_merge at Dv 512 (4 x 128 rows, n_splits {S}): kernel "
-                f"{m_ms * 1e3:.1f} us, bound {mb * 1e3:.3f} us")
+                say(f"{row} (n_splits {n}): kernel {r['ms'] * 1e3:.1f} "
+                    f"us{stage1_note(r)}, plain {r['plain_ms'] * 1e3:.1f} "
+                    f"us, sdpa over the latent {lib * 1e3:.1f} us, bound "
+                    f"{r['bound_ms'] * 1e3:.3f} us ({r['bound_by']})")
+        if plain and not verify and S > 1:
+            tail_row(torch, da, out[name], *da.mla_latent_sweep(
+                *args, **kw, n_splits=S), what="Dv 512 (4 x 128 rows)")
+    return out
+
+
+def merge_forms(torch, np, dev, da, ops, quant):
+    """Phase 5, the split forms at the main paths' shapes (q bf16): the
+    paged sweep at ``PAGED_FORMS`` but the deep one (decode, verify Q 16;
+    4 slots, 5 pages of 16), the ring sweep at ``ring_rows``' batch shapes
+    (D 64 at 8 x 545 slots, D 120 at 4 x 545; bf16 and int8 rings; decode,
+    verify Q 4; pos 528) and the latent decode at ``MLA_TIMED``, each at
+    the engine's split count where it is above 1.  Yields (name, split
+    count, the sweep's call, the attention function's call, out rows):
+    ``sweep(**kw)`` launches the sweep, ``attend()`` the attention function
+    a model calls, its output then reshaped to (rows, Hq Dv) as
+    ``attention._out_proj`` reshapes it."""
+    for form, heads, int8, kw, _ in PAGED_FORMS:
+        if form == "deep":
+            continue
+        S = ops.choose_kv_splits(4, 80, heads["Hq"], block=16, device=dev)
+        if S == 1:
+            continue
+        for verify, Q in ((False, 1), (True, 16)):
+            pos = [32, 48, 16, 32] if verify else [64, 71, 75, 79]
+            c = make_case(torch, np, dev, B=4, ps=16, nb=5, pos=pos, Q=Q,
+                          dtype="bfloat16", seed=100 + Q, **heads)
+            if int8:
+                c = quantize_case(quant, c, ("k_pages", "v_pages"))
+            args, vkw = sweep_args(c, verify)
+            name = (f"paged_attention_sweep{' int8' if int8 else ''} "
+                    f"({'verify' if verify else 'decode'})"
+                    + (f" {form}" if form else ""))
+            yield (name, S,
+                   lambda a=args, v=vkw, k=kw, n=S, **x:
+                   da.paged_attention_sweep(*a, **v, n_splits=n, **k, **x),
+                   lambda a=args, v=vkw, k=kw, n=S:
+                   da.paged_attention(*a, **v, n_splits=n, **k),
+                   4 * Q)
+    for D, batch, heads in ((64, BATCH, dict(Hq=9, Hkv=3)),
+                            (120, 4, H2O_HEADS)):
+        heads = dict(heads, D=D)
+        S = ops.choose_kv_splits(batch, PLEN + GEN, heads["Hq"], block=256,
+                                 device=dev)
+        if S == 1:
+            continue
+        for int8 in (False, True):
+            for verify, Q in ((False, 1), (True, 4)):
+                c = make_ring_case(torch, np, dev, pos=528, Q=Q,
+                                   dtype="bfloat16", seed=300 + Q, B=batch,
+                                   C=PLEN + GEN, **heads)
+                if int8:
+                    c = quantize_case(quant, c, ("k", "v"))
+                args, vkw = ring_args(c, verify)
+                name = (f"ring_attention_sweep{' int8' if int8 else ''} "
+                        f"({'verify' if verify else 'decode'}) D {D}")
+                yield (name, S,
+                       lambda a=args, v=vkw, n=S, **x:
+                       da.ring_attention_sweep(*a, **v, n_splits=n,
+                                               block_k=256, **x),
+                       lambda a=args, v=vkw, n=S:
+                       da.ring_attention(*a, **v, n_splits=n, block_k=256),
+                       batch * Q)
+    for verify, pos, Q in MLA_TIMED:
+        S = ops.choose_kv_splits(4, 80, MLA["Hq"] if verify else 1,
+                                 block=16, device=dev)
+        if S == 1:
+            continue
+        c = mla_case(torch, np, dev, pos=pos, Q=Q, dtype="bfloat16",
+                     seed=1400 + Q, B=4, nb=5)
+        args, kw = mla_args(c)
+        yield (f"mla_latent_sweep ({'verify' if verify else 'decode'})", S,
+               lambda a=args, k=kw, n=S, **x:
+               da.mla_latent_sweep(*a, **k, n_splits=n, **x),
+               lambda a=args, k=kw, n=S: da.mla_attention(*a, **k,
+                                                          n_splits=n),
+               4 * Q)
+
+
+def merge_pairs(torch, np, dev, da, ops, quant, pair=True):
+    """Phase 5, what the fold saves at ``merge_forms``: CUDA-event times
+    over CUDA-graph replays of the sweep alone (stage 1, partials out) and
+    of the attention function followed by ``_out_proj``'s reshape (the
+    fused launch in this tree, the sweep, ``lse_merge`` and, for Q > 1, the
+    reshape's copy of the transposed view before the fold), and with
+    ``pair`` the unfused pair spelled out: the sweep, ``lse_merge``, the
+    transpose and the reshape.  Returns {name: dict(n_splits, stage1_ms,
+    call_ms[, pair_ms])}."""
+    out = {}
+    for name, S, sweep, attend, rows in merge_forms(torch, np, dev, da, ops,
+                                                    quant):
+        row = dict(n_splits=S, stage1_ms=time_ms(torch, sweep),
+                   call_ms=time_ms(torch, lambda: attend().reshape(rows, -1)))
+        if pair:
+            def unfused():
+                p, l = sweep()
+                return da.lse_merge(p, l, torch.bfloat16).transpose(
+                    1, 2).reshape(rows, -1)
+            row["pair_ms"] = time_ms(torch, unfused)
+        out[name] = row
     return out
 
 
@@ -3043,6 +3370,7 @@ def main() -> int:
     check_prefill_kernels(torch, np, dev, fa, rms, ops, common, errs)
     check_ssd_kernels(torch, np, dev, ss, ops, errs)
     check_mla_kernels(torch, np, dev, da, fa, rms, ops, common, errs)
+    check_fused_merge(torch, np, dev, da, quant, errs)
     say(f"kernels ok: K4's largest bf16 |kernel - plain| over every case "
         f"{errs['flash_attention bf16']:.3e} (tol {TOL['bfloat16']})")
     for sweep in ("paged", "ring"):
@@ -3124,35 +3452,36 @@ def main() -> int:
     int8 = ["--kv-dtype", "int8"]
     attn = ("flash_attention", "rmsnorm")
     ssm = ("ssd", "rmsnorm")
-    paged = ("sweep_decode", "sweep_verify", "merge") + attn
+    paged = ("sweep_decode", "sweep_verify", "merge_fused") + attn
     # (label, argv, kernels the path must launch, requests, new tokens,
     # config cut in depth or None for the registry's)
     paths = [("poisson", poisson, paged, 8, None),
-             ("batch", batch, ("ring_decode", "merge") + attn, BATCH, GEN),
+             ("batch", batch, ("ring_decode", "merge_fused") + attn, BATCH,
+              GEN),
              ("batch --spec-k 3", batch + ["--spec-k", "3"],
-              ("ring_verify", "merge") + attn, BATCH, GEN),
+              ("ring_verify", "merge_fused") + attn, BATCH, GEN),
              ("poisson --spec-k 3", poisson + ["--spec-k", "3"],
-              ("sweep_verify", "merge") + attn, 8, None),
+              ("sweep_verify", "merge_fused") + attn, 8, None),
              ("poisson int8", poisson + int8,
-              ("sweep_decode_int8", "sweep_verify_int8", "merge") + attn,
-              8, None),
+              ("sweep_decode_int8", "sweep_verify_int8", "merge_fused")
+              + attn, 8, None),
              ("poisson int8 --spec-k 3", poisson + int8 + ["--spec-k", "3"],
-              ("sweep_verify_int8", "merge") + attn, 8, None),
+              ("sweep_verify_int8", "merge_fused") + attn, 8, None),
              ("poisson int8 host tier", poisson + int8 + [
                  "--host-tier", "--n-pages", str(TIER_PAGES)],
               ("sweep_decode_int8", "sweep_verify_int8") + attn, 8, None),
-             ("gemma2 batch", g_batch, ("ring_decode", "merge") + attn, 4,
-              GEN),
+             ("gemma2 batch", g_batch, ("ring_decode", "merge_fused") + attn,
+              4, GEN),
              ("gemma2 poisson", g_poisson,
               ("sweep_decode", "ring_decode") + attn, 8, None),
-             ("gemma2 long batch", g_long, ("ring_decode", "merge") + attn,
-              2, 17),
+             ("gemma2 long batch", g_long,
+              ("ring_decode", "merge_fused") + attn, 2, 17),
              ("mamba2 batch", m_batch, ssm, BATCH, GEN),
              ("mamba2 poisson", m_poisson, ssm, 8, None),
              ("mamba2 long batch", m_long, ssm, 2, 17),
              ("deepseek batch", d_batch, attn, 4, GEN),
              ("deepseek poisson", d_poisson,
-              ("mla_decode", "mla_verify", "merge") + attn, 8, None),
+              ("mla_decode", "mla_verify", "merge_fused") + attn, 8, None),
              ("h2o batch", h_batch, ("ring_decode",) + attn, 4, GEN),
              ("h2o batch --spec-k 3", h_batch + ["--spec-k", "3"],
               ("ring_verify",) + attn, 4, GEN),
@@ -3181,6 +3510,10 @@ def main() -> int:
         for key in keys:
             if counts[key] <= 0:
                 fail(f"{label}: kernel {key} was never launched")
+        if counts["merge"]:
+            fail(f"{label}: the standalone merge was launched "
+                 f"{counts['merge']} times (the split sweeps merge their "
+                 "own splits)")
         fam = by_family.setdefault(label.split()[0],
                                    {key: 0 for key in da.LAUNCHES})
         for key, n in counts.items():
@@ -3244,6 +3577,11 @@ def main() -> int:
     times.update(prefill_timings(torch, np, dev, fa, rms, ops, common))
     times.update(ssd_timings(torch, np, dev, ss))
     times.update(mla_timings(torch, np, dev, da, ops))
+    for name, r in merge_pairs(torch, np, dev, da, ops, quant).items():
+        say(f"{name} (n_splits {r['n_splits']}): stage 1 "
+            f"{r['stage1_ms'] * 1e3:.2f} us; unfused pair (+ lse_merge, + "
+            f"the reshape's copy where Q > 1) {r['pair_ms'] * 1e3:.2f} us; "
+            f"one fused launch {r['call_ms'] * 1e3:.2f} us on {card}")
     step = int8_step_cost(torch, np, dev, cfg, tfm, steps, bridge)
     say(f"paged decode step, smollm-135m full width, 4 slots, host clock "
         f"(median of chunks of 8 in turns): bf16 pools "
@@ -3267,7 +3605,8 @@ def main() -> int:
             f"{t['library_ms'] * 1e3:.1f} us"
         say(f"{name} ({t.get('shape') or 'n_splits %d' % t['n_splits']}): "
             f"kernel "
-            f"{t['ms'] * 1e3:.1f} us, plain {t['plain_ms'] * 1e3:.1f} us, "
+            f"{t['ms'] * 1e3:.1f} us{stage1_note(t)}, plain "
+            f"{t['plain_ms'] * 1e3:.1f} us, "
             f"library {lib}, bound {t['bound_ms'] * 1e3:.3f} us "
             f"({t['bound_by']}) on {card}")
     say(f"total {time.perf_counter() - t_start:.1f} s")

@@ -3,7 +3,9 @@ dtype codes of the C interface, the argument check and the pointer helper.
 
 ``LAUNCHES`` holds plain integers, by kernel and mode.  Each wrapper adds
 one to its count where it launches its kernel, and nowhere else (the
-plain versions never touch them).  A run zeroes them with
+plain versions never touch them); ``merge`` counts the standalone
+merge, ``merge_fused`` the split sweeps' launches that merged their own
+splits (a sweep's own key counts them too).  A run zeroes them with
 :func:`reset_launches` and reads them after, to show which kernels its
 path went through."""
 from __future__ import annotations
@@ -11,6 +13,7 @@ from __future__ import annotations
 import torch
 
 LAUNCHES = {"sweep_decode": 0, "sweep_verify": 0, "merge": 0,
+            "merge_fused": 0,
             "ring_decode": 0, "ring_verify": 0, "flash_attention": 0,
             "rmsnorm": 0, "ssd": 0, "mla_decode": 0, "mla_verify": 0,
             "sweep_decode_int8": 0, "sweep_verify_int8": 0,

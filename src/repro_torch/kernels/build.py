@@ -109,18 +109,18 @@ def library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.paged_attention_sweep.argtypes = (
-            [p] * 12 + [i] * 12 + [f, f, i, p])
+            [p] * 13 + [i] * 12 + [f, f, i, p])
         lib.paged_attention_sweep.restype = i
         lib.paged_attention_occupancy.argtypes = [i, i, i, p]
         lib.paged_attention_occupancy.restype = i
         lib.ring_attention_sweep.argtypes = (
-            [p] * 11 + [i] * 13 + [f, f, i, p])
+            [p] * 12 + [i] * 13 + [f, f, i, p])
         lib.ring_attention_sweep.restype = i
         lib.ring_attention_occupancy.argtypes = [i, i, i, p]
         lib.ring_attention_occupancy.restype = i
         lib.lse_merge.argtypes = [p, p, p, i, i, i, i, i, p]
         lib.lse_merge.restype = i
-        lib.mla_latent_sweep.argtypes = [p] * 8 + [i] * 11 + [f, f, i, p]
+        lib.mla_latent_sweep.argtypes = [p] * 9 + [i] * 11 + [f, f, i, p]
         lib.mla_latent_sweep.restype = i
         lib.mla_latent_occupancy.argtypes = [i, i, p]
         lib.mla_latent_occupancy.restype = i

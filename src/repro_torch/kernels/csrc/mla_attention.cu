@@ -13,7 +13,10 @@
 //                         at pos .. pos + Q - 1 over the pool rows k_pos <
 //                         pos, then the Q pending latent rows folded
 //                         causally, j <= i).  bf16 runs on the tensor
-//                         cores, fp32 on the CUDA cores.  Stage 2 is
+//                         cores, fp32 on the CUDA cores.  Stage 2, the
+//                         merge, runs in the split's last block when
+//                         counters are given (merge_tail,
+//                         sweep_fragments.cuh), else it is
 //                         paged_attention.cu's lse_merge.
 //   mla_latent_occupancy  blocks per SM, dynamic shared memory and
 //                         registers of one form (dtype, rows a block).
@@ -161,15 +164,17 @@ __device__ void latent_update(const float* qs, const float* ks, float* pr,
 // wholly past the valid range is skipped by position before its table
 // entry is read; an id outside the pool inside the range stops the
 // kernel.  fp32 is what the exact-stream gates run, and stays on the CUDA
-// cores.
+// cores.  Split, with counters (one int a (batch row, row tile)), the last
+// block of a row tile merges its splits (merge_tail).
 template <typename T, int R, int DV>
 __global__ void __launch_bounds__(ML_NT) mla_latent_sweep_kernel(
     const T* __restrict__ q, const T* __restrict__ pool,
     const T* __restrict__ pend, const int* __restrict__ block_tables,
     const int* __restrict__ pos_arr, T* __restrict__ out,
-    float* __restrict__ partial, float* __restrict__ lse, int Q, int Hq,
-    int P, int ps, int nb, int n_splits, int ppb, int kt, int verify,
-    float logit_cap, float scale) {
+    float* __restrict__ partial, float* __restrict__ lse,
+    int* __restrict__ counters, int Q, int Hq, int P, int ps, int nb,
+    int n_splits, int ppb, int kt, int verify, float logit_cap,
+    float scale) {
   static_assert(R % 8 == 0 && DV % ML_NT == 0 && DV <= R, "shape");
   constexpr int LD = R + 4;
   constexpr int CPT = DV / ML_NT;
@@ -244,6 +249,10 @@ __global__ void __launch_bounds__(ML_NT) mla_latent_sweep_kernel(
         lse[cell] = l > 0.f ? ms[rr] + logf(den) : NEG_INF;
     }
   }
+  // split, with counters: the merge K2b folded in, as the GQA sweep's
+  if (n_splits > 1 && counters != nullptr)
+    merge_tail<T, DV>(counters + (long)b * gridDim.x + blockIdx.x, partial,
+                      lse, out, live, r0, Hq, 0, b, Q, Hq, n_splits);
 }
 
 // opt the fp32 kernel into dynamic shared memory for kt key rows: the
@@ -398,7 +407,11 @@ __device__ void write_slice(const FragRows<MCOLS / 8, true>& st,
 //   rows a block and cost 32-row blocks their second block an SM.)
 // - The epilogue (write_slice): each warp stages its rows' 128 bf16
 //   columns in shared memory and stores them 16 bytes a lane; fp32
-//   partials go straight from the fragments.
+//   partials go straight from the fragments.  Split, with counters (one
+//   int a (batch row, block of rows)), the block meets once every slice
+//   (the col0 0 one with the lse) is written, and the last of the S merges
+//   them (merge_tail: all the block's threads, each four float4 columns
+//   of a row at a time in blocks of 16 rows, two in blocks of 32).
 template <int MT>
 __global__ void __launch_bounds__(MlaForm<MT>::NT) mla_latent_mma_kernel(
     const __nv_bfloat16* __restrict__ q,
@@ -406,8 +419,9 @@ __global__ void __launch_bounds__(MlaForm<MT>::NT) mla_latent_mma_kernel(
     const __nv_bfloat16* __restrict__ pend,
     const int* __restrict__ block_tables, const int* __restrict__ pos_arr,
     __nv_bfloat16* __restrict__ out, float* __restrict__ partial,
-    float* __restrict__ lse, int Q, int Hq, int P, int ps, int nb,
-    int n_splits, int ppb, int verify, float logit_cap, float scale) {
+    float* __restrict__ lse, int* __restrict__ counters, int Q, int Hq,
+    int P, int ps, int nb, int n_splits, int ppb, int verify,
+    float logit_cap, float scale) {
   using F = MlaForm<MT>;
   using T = __nv_bfloat16;
   constexpr int ROWS = 16 * MT;
@@ -602,6 +616,10 @@ __global__ void __launch_bounds__(MlaForm<MT>::NT) mla_latent_mma_kernel(
   write_slice(st, reinterpret_cast<T*>(ml_smem + warp * F::OUT), out,
               partial, lse, live - mt * 16, r0 + mt * 16, wd * MCOLS, Q, Hq,
               b, s, n_splits);
+  if (n_splits > 1 && counters != nullptr)
+    merge_tail<T, MDV, MT == 1 ? 4 : MERGE_EPT>(
+        counters + (long)b * gridDim.x + blockIdx.x, partial, lse, out, live,
+        r0, Hq, 0, b, Q, Hq, n_splits);
 }
 
 struct MlaArgs {
@@ -609,6 +627,7 @@ struct MlaArgs {
   const int *bt, *pos;
   void* out;
   float *partial, *lse;
+  int* counters;
   int B, Q, Hq, P, ps, nb, n_splits, ppb, verify;
   float logit_cap, scale;
   cudaStream_t stream;
@@ -641,8 +660,9 @@ struct MlaMma {
         static_cast<const __nv_bfloat16*>(a.q),
         static_cast<const __nv_bfloat16*>(a.pool),
         static_cast<const __nv_bfloat16*>(a.pend), a.bt, a.pos,
-        static_cast<__nv_bfloat16*>(a.out), a.partial, a.lse, a.Q, a.Hq,
-        a.P, a.ps, a.nb, a.n_splits, a.ppb, a.verify, a.logit_cap, a.scale);
+        static_cast<__nv_bfloat16*>(a.out), a.partial, a.lse, a.counters,
+        a.Q, a.Hq, a.P, a.ps, a.nb, a.n_splits, a.ppb, a.verify, a.logit_cap,
+        a.scale);
     return (int)cudaGetLastError();
   }
 
@@ -683,24 +703,29 @@ int mla_form(int mt, Op&& op) {
 // it).  q (B, Q, Hq, R), pool (P, ps, R), pend (B, Q, R) (verify only),
 // block_tables (B, nb) and pos (B,) int32.  n_splits == 1 writes out
 // (B, Q, Hq, Dv); otherwise partial (B, Hq, S, Q, Dv) and lse (B, Hq, S, Q),
-// fp32.  (R, Dv) = (576, 512): deepseek-v2's kv_lora_rank 512 + rope 64.
+// fp32, and, with counters (int32, one a (batch row, 16-row tile), all
+// zero; zero again after the launch), also the merged out (B, Q, Hq, Dv)
+// in the query dtype.  (R, Dv) = (576, 512): deepseek-v2's kv_lora_rank
+// 512 + rope 64.
 extern "C" int mla_latent_sweep(
     const void* q, const void* pool, const void* pend,
     const void* block_tables, const void* pos, void* out, void* partial,
-    void* lse, int B, int Q, int Hq, int P, int ps, int nb, int R, int Dv,
-    int n_splits, int ppb, int verify, float logit_cap, float scale,
-    int dtype, void* stream) {
+    void* lse, void* counters, int B, int Q, int Hq, int P, int ps, int nb,
+    int R, int Dv, int n_splits, int ppb, int verify, float logit_cap,
+    float scale, int dtype, void* stream) {
   const int* bt = static_cast<const int*>(block_tables);
   const int* pp = static_cast<const int*>(pos);
   float* part = static_cast<float*>(partial);
   float* lp = static_cast<float*>(lse);
+  int* cnt = static_cast<int*>(counters);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B < 1 || Q < 1 || Hq < 1 || ps < 1 || nb < 1 || n_splits < 1
-      || ppb < 1 || R != 576 || Dv != 512)
+      || ppb < 1 || R != 576 || Dv != 512
+      || (cnt != nullptr && n_splits > 1 && out == nullptr))
     return (int)cudaErrorInvalidValue;
   if (dtype == 1) {
-    const MlaArgs a{q, pool, pend, bt, pp, out, part, lp, B, Q, Hq, P, ps,
-                    nb, n_splits, ppb, verify, logit_cap, scale, st};
+    const MlaArgs a{q, pool, pend, bt, pp, out, part, lp, cnt, B, Q, Hq, P,
+                    ps, nb, n_splits, ppb, verify, logit_cap, scale, st};
     return mla_form(mla_row_tiles(B, Q, Hq, n_splits),
                     [&](auto form) { return decltype(form)::run(a); });
   }
@@ -713,8 +738,8 @@ extern "C" int mla_latent_sweep(
         <<<grid, ML_NT, mla_smem_bytes<576>(kt), st>>>(
             static_cast<const float*>(q), static_cast<const float*>(pool),
             static_cast<const float*>(pend), bt, pp,
-            static_cast<float*>(out), part, lp, Q, Hq, P, ps, nb, n_splits,
-            ppb, kt, verify, logit_cap, scale);
+            static_cast<float*>(out), part, lp, cnt, Q, Hq, P, ps, nb,
+            n_splits, ppb, kt, verify, logit_cap, scale);
     return (int)cudaGetLastError();
   }
   return (int)cudaErrorInvalidValue;

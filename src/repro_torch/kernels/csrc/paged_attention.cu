@@ -14,7 +14,10 @@
 //                              registers of one (head dim, dtype, pools)
 //                              form at its widest block.
 //   lse_merge                  stage 2: exact log-sum-exp merge of the
-//                              splits.
+//                              splits, for a caller that holds partials;
+//                              a split sweep given counters merges its
+//                              own splits in its last block instead, on
+//                              the same device code (lse_merge.cuh).
 //
 // They launch on the caller's stream, allocate nothing and return
 // cudaGetLastError() so that a refused launch is reported.
@@ -120,30 +123,36 @@ struct PagedKeys {
 
 // Replaces merge_kv_splits_pallas, src/repro/kernels/decode_attention.py:172
 // (kernel _lse_merge_kernel :156).  Bound on the card: bytes (S fp32
-// partial rows in, one row out, ~3 FLOP per byte).  Design: one block per
-// output row, one thread per output element; each thread re-derives the
-// row's max and denominator from the S log-sum-exps (S <= 16, all in L1),
-// so no shared memory or barrier is needed.
-template <typename TO>
-__global__ void lse_merge_kernel(const float* __restrict__ partial,
-                                 const float* __restrict__ lse,
-                                 TO* __restrict__ out, int S, int R, int Dv) {
-  const long row = blockIdx.x;              // n * R + r
-  const long n = row / R;
-  const int r = (int)(row - n * R);
-  const float* lp = lse + n * S * R + r;
-  float m = lp[0];
-  for (int s = 1; s < S; ++s) m = fmaxf(m, lp[(long)s * R]);
-  float den = 0.f;
-  for (int s = 0; s < S; ++s) den += expf(lp[(long)s * R] - m);
-  den = fmaxf(den, 1e-30f);
-  for (int d = threadIdx.x; d < Dv; d += blockDim.x) {
-    float acc = 0.f;
-    for (int s = 0; s < S; ++s)
-      acc += partial[((n * S + s) * R + r) * Dv + d] *
-             expf(lp[(long)s * R] - m);
-    store(out + row * Dv + d, acc / den);
+// partial rows in, one row out, ~3 FLOP per byte), but at the engine's
+// shapes (tens of KB) a launch of its own costs far more than its bytes:
+// about 2 us in a CUDA-graph replay.  So the split sweeps merge their own
+// splits in their last block (merge_tail, sweep_fragments.cuh) and no main
+// path launches this kernel; it stays K2b's entry for a caller that
+// already holds partials.  Design: merge_rows (lse_merge.cuh), one
+// thread a group of MERGE_EPT float4 columns of a row, LM_THREADS threads
+// a block.
+constexpr int LM_THREADS = 128;
+
+// (n, s, r) cells of partial (N, S, R, Dv) and lse (N, S, R); output row
+// row0 + r of (N, R, Dv)
+struct FlatRows {
+  long row0;
+  int R, S;
+  __device__ __forceinline__ long cell(int r) const {      // split 0's
+    const long row = row0 + r, n = row / R;
+    return n * S * R + (row - n * R);
   }
+  __device__ __forceinline__ long out(int r) const { return row0 + r; }
+};
+
+template <typename TO>
+__global__ void __launch_bounds__(LM_THREADS)
+lse_merge_kernel(const float* __restrict__ partial,
+                 const float* __restrict__ lse, TO* __restrict__ out,
+                 long rows, int rpb, int S, int R, int Dv) {
+  const long row0 = (long)blockIdx.x * rpb;
+  merge_rows(lse, partial, out, (int)min((long)rpb, rows - row0), R, S, Dv,
+             FlatRows{row0, R, S});
 }
 
 }  // namespace
@@ -153,23 +162,27 @@ __global__ void lse_merge_kernel(const float* __restrict__ partial,
 // (P, ps, Hkv, 1) fp32, the pools are int8.  head_dim 64, 120 or 128.
 // verify = 0: decode (k_new / v_new unused).  n_splits == 1 writes out
 // (B, Q, Hq, HD); otherwise partial (B, Hq, S, Q, HD) and lse (B, Hq, S,
-// Q).
+// Q), and, with counters (int32, one a (batch, kv head, 16-row tile),
+// all zero; zero again after the launch), also the merged out (B, Q, Hq,
+// HD) in the query dtype.
 extern "C" int paged_attention_sweep(
     const void* q, const void* k_pages, const void* v_pages,
     const void* k_scale, const void* v_scale, const void* k_new,
     const void* v_new, const void* block_tables, const void* pos, void* out,
-    void* partial, void* lse, int B, int Q, int Hq, int Hkv, int P, int ps,
-    int nb, int head_dim, int n_splits, int ppb, int verify, int window,
-    float logit_cap, float scale, int dtype, void* stream) {
+    void* partial, void* lse, void* counters, int B, int Q, int Hq, int Hkv,
+    int P, int ps, int nb, int head_dim, int n_splits, int ppb, int verify,
+    int window, float logit_cap, float scale, int dtype, void* stream) {
   if (B < 1 || Q < 1 || Q > SW_MAX_Q || Hkv < 1 || Hq % Hkv || ps < 1
       || nb < 1 || n_splits < 1 || ppb < 1
-      || (k_scale == nullptr) != (v_scale == nullptr))
+      || (k_scale == nullptr) != (v_scale == nullptr)
+      || (counters != nullptr && n_splits > 1 && out == nullptr))
     return (int)cudaErrorInvalidValue;
   const SweepArgs a{q, k_pages, v_pages,
                     static_cast<const float*>(k_scale),
                     static_cast<const float*>(v_scale), k_new, v_new, out,
                     static_cast<float*>(partial), static_cast<float*>(lse),
-                    B, Q, Hq, Hkv, n_splits, verify, window, logit_cap, scale,
+                    static_cast<int*>(counters), B, Q, Hq, Hkv, n_splits,
+                    verify, window, logit_cap, scale,
                     static_cast<cudaStream_t>(stream)};
   const PagedKeys keys{static_cast<const int*>(block_tables),
                        static_cast<const int*>(pos), P, ps, nb, ppb};
@@ -190,20 +203,25 @@ extern "C" int paged_attention_occupancy(int head_dim, int dtype, int int8,
 }
 
 // partial (N, S, R, Dv) fp32 + lse (N, S, R) fp32 -> out (N, R, Dv) in
-// out_dtype (0 = float32, 1 = bfloat16).
+// out_dtype (0 = float32, 1 = bfloat16); Dv a multiple of 4.
 extern "C" int lse_merge(const void* partial, const void* lse, void* out,
                          int N, int S, int R, int Dv, int out_dtype,
                          void* stream) {
+  if (N < 1 || S < 1 || R < 1 || Dv < 4 || Dv % 4)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int threads = Dv < 256 ? ((Dv + 31) / 32) * 32 : 256;
+  const long rows = (long)N * R;
+  // rows a block: a column group a thread
+  const int rpb = max(1, LM_THREADS * MERGE_EPT / (Dv / 4 + MERGE_EPT - 1));
+  const unsigned blocks = (unsigned)((rows + rpb - 1) / rpb);
   const float* pp = static_cast<const float*>(partial);
   const float* lp = static_cast<const float*>(lse);
   if (out_dtype == 1)
-    lse_merge_kernel<__nv_bfloat16><<<N * R, threads, 0, st>>>(
-        pp, lp, static_cast<__nv_bfloat16*>(out), S, R, Dv);
+    lse_merge_kernel<__nv_bfloat16><<<blocks, LM_THREADS, 0, st>>>(
+        pp, lp, static_cast<__nv_bfloat16*>(out), rows, rpb, S, R, Dv);
   else if (out_dtype == 0)
-    lse_merge_kernel<float><<<N * R, threads, 0, st>>>(
-        pp, lp, static_cast<float*>(out), S, R, Dv);
+    lse_merge_kernel<float><<<blocks, LM_THREADS, 0, st>>>(
+        pp, lp, static_cast<float*>(out), rows, rpb, S, R, Dv);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

@@ -11,8 +11,10 @@
 //                             in-flight candidate fold; caches in the query
 //                             dtype, or int8 with per-row fp32 scales.
 //                             bf16 runs on the tensor cores, fp32 on the
-//                             CUDA cores.  Stage 2 is paged_attention.cu's
-//                             lse_merge.
+//                             CUDA cores.  Stage 2, the merge, runs in the
+//                             split's last block when counters are given
+//                             (sweep_fragments.cuh, merge_tail), else it is
+//                             paged_attention.cu's lse_merge.
 //   ring_attention_occupancy  blocks per SM, dynamic shared memory and
 //                             registers of one (head dim, dtype, caches)
 //                             form at its widest block.
@@ -165,23 +167,27 @@ struct RingKeys {
 // pos holds one int32 (batch_pos = 0) or one per batch row (batch_pos =
 // 1).  verify = 0: decode (k_new / v_new unused).  n_splits == 1 writes
 // out (B, Q, Hq, HD); otherwise partial (B, Hq, S, Q, HD) and lse (B, Hq,
-// S, Q).
+// S, Q), and, with counters (int32, one a (batch, kv head, 16-row tile),
+// all zero; zero again after the launch), also the merged out (B, Q, Hq,
+// HD) in the query dtype.
 extern "C" int ring_attention_sweep(
     const void* q, const void* k_cache, const void* v_cache,
     const void* k_scale, const void* v_scale, const void* k_new,
     const void* v_new, const void* pos, void* out, void* partial, void* lse,
-    int B, int Q, int Hq, int Hkv, int C, int head_dim, int block_k, int n_k,
-    int n_splits, int kpb, int batch_pos, int verify, int window,
-    float logit_cap, float scale, int dtype, void* stream) {
+    void* counters, int B, int Q, int Hq, int Hkv, int C, int head_dim,
+    int block_k, int n_k, int n_splits, int kpb, int batch_pos, int verify,
+    int window, float logit_cap, float scale, int dtype, void* stream) {
   if (B < 1 || Q < 1 || Q > SW_MAX_Q || Hkv < 1 || Hq % Hkv || block_k < 1
       || n_k * block_k != C || n_splits < 1 || kpb < 1
-      || (k_scale == nullptr) != (v_scale == nullptr))
+      || (k_scale == nullptr) != (v_scale == nullptr)
+      || (counters != nullptr && n_splits > 1 && out == nullptr))
     return (int)cudaErrorInvalidValue;
   const SweepArgs a{q, k_cache, v_cache,
                     static_cast<const float*>(k_scale),
                     static_cast<const float*>(v_scale), k_new, v_new, out,
                     static_cast<float*>(partial), static_cast<float*>(lse),
-                    B, Q, Hq, Hkv, n_splits, verify, window, logit_cap, scale,
+                    static_cast<int*>(counters), B, Q, Hq, Hkv, n_splits,
+                    verify, window, logit_cap, scale,
                     static_cast<cudaStream_t>(stream)};
   const RingKeys keys{static_cast<const int*>(pos), batch_pos ? 1 : 0, C,
                       block_k, n_k, kpb};

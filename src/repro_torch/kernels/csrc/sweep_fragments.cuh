@@ -6,7 +6,8 @@
 // gqa_sweep_kernel, which the paged sweep (paged_attention.cu) and the
 // ring sweep (ring_attention.cu) instantiate with their own key addressing
 // and masks; and the latent sweep (mla_attention.cu), whose warps each
-// hold a slice of the value columns of their rows.
+// hold a slice of the value columns of their rows.  Both end a split
+// launch in the same fused merge (merge_tail, on lse_merge.cuh).
 //
 // The fragment layout (lane l, quad row l / 4, quad column 2 (l % 4)):
 // element e of n8 tile n is row 8 (e >> 1) + l / 4, column 8 n + 2 (l % 4)
@@ -25,6 +26,7 @@
 #include <type_traits>
 
 #include "attention_common.cuh"
+#include "lse_merge.cuh"
 #include "tensor_core.cuh"
 
 namespace {
@@ -140,13 +142,6 @@ __device__ void merge_warps(const FragRows<NO, FAST>& st, float* ml,
   __syncthreads();
 }
 
-__device__ __forceinline__ void store2(float* dst, float x, float y) {
-  *reinterpret_cast<float2*>(dst) = make_float2(x, y);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* dst, float x, float y) {
-  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(x, y);
-}
-
 // Where one warp holds the block's only state (a block with at most one
 // tile), the sweep's result straight from its fragments, two columns a
 // store; rows, layouts and normalisation as write_rows.
@@ -227,6 +222,48 @@ __device__ void write_rows(const float* obuf0, const float* rml, int live,
           L > 0.f ? rml[2 * r] + logf(fmaxf(L, 1e-30f)) : NEG_INF;
     }
   }
+}
+
+// The fused merge, a split-K fix-up: once a block of a split sweep has
+// written its split's partial and lse, it arrives at the counter of its
+// rows (arrive_last), and the last of their S blocks merges them into out
+// (B, Q, Hq, DV) in the query dtype (merge_rows): every split read back
+// through L2, its own included and in split order, so the bits do not
+// depend on which block came last and equal lse_merge's of the same
+// partials.  The block's live rows are (query, head) rows row0 + r = i G
+// + g of kv head hk, head hk G + g; partial (B, Hq, S, Q, DV), lse (B,
+// Hq, S, Q).  Every block of the split reaches this point, one with no
+// key included (its partial 0, its lse NEG_INF).
+struct TailRows {
+  int row0, G, hk, b, Q, Hq, S;
+  __device__ __forceinline__ long cell(int r) const {      // split 0's
+    const int rr = row0 + r, i = rr / G;
+    return ((long)b * Hq + hk * G + rr - i * G) * S * Q + i;
+  }
+  __device__ __forceinline__ long out(int r) const {
+    const int rr = row0 + r, i = rr / G;
+    return ((long)b * Q + i) * Hq + hk * G + rr - i * G;
+  }
+};
+
+// EPT: float4 columns a thread merges at once (merge_rows).  The latent
+// sweep's bf16 blocks of 16 rows take 4: their 512-wide rows, read by one
+// block at an SM's L2 rate, then come in half the round trips (tools/
+// merge_variants.py, latent EPT 2), at no cost in blocks an SM (their
+// shared memory holds them to two); at 2 the 32-row and fp32 blocks keep
+// theirs.
+template <typename T, int DV, int EPT = MERGE_EPT>
+__device__ __forceinline__ void merge_tail(int* counter,
+                                           const float* partial,
+                                           const float* lse, T* out,
+                                           int live, int row0, int G, int hk,
+                                           int b, int Q, int Hq, int S) {
+  if (!arrive_last(counter, S)) return;
+  // head dim 120's bf16 paged sweep keeps its code and registers (and its
+  // 6.9 us verify at h2o's heads, against 9.6) only beside the smaller
+  // tail of four splits' loads at once (tools/merge_variants.py, SPC 4)
+  merge_rows<DV == 120 ? 4 : MERGE_SPC, EPT>(
+      lse, partial, out, live, Q, S, DV, TailRows{row0, G, hk, b, Q, Hq, S});
 }
 
 // ---------------------------------------------------------------------------
@@ -378,6 +415,10 @@ __device__ __forceinline__ void mask_range(float (&s)[2][4], int in_hi,
 //   8-byte aligned only: 8-byte copies.
 // - Head dim 120: 15 whole 16-byte copies a bf16 row, q.k over columns
 //   120..127 of the q and k tiles zeroed once, p.v as 15 n8 tiles.
+// - Split, with counters (one int a (batch, kv head, row tile), zero
+//   before the launch): the merge K2b folded in (merge_tail).  The S
+//   blocks of a row tile sit n_rt apart in blockIdx.x; the last to finish
+//   merges their partials and writes out, and no second launch is needed.
 template <typename T, typename TKV, int HD, typename Keys>
 __global__ void __launch_bounds__(SweepForm<T, TKV, HD>::MAXW * 32)
 gqa_sweep_kernel(
@@ -385,9 +426,9 @@ gqa_sweep_kernel(
     const TKV* __restrict__ v_rows, const float* __restrict__ k_scale,
     const float* __restrict__ v_scale, const T* __restrict__ k_new,
     const T* __restrict__ v_new, const Keys keys, T* __restrict__ out,
-    float* __restrict__ partial, float* __restrict__ lse, int Q, int Hq,
-    int Hkv, int n_splits, int n_rt, int verify, int window, float logit_cap,
-    float scale) {
+    float* __restrict__ partial, float* __restrict__ lse,
+    int* __restrict__ counters, int Q, int Hq, int Hkv, int n_splits,
+    int n_rt, int verify, int window, float logit_cap, float scale) {
   using F = SweepForm<T, TKV, HD>;
   constexpr int ROWS = SW_ROWS, KEYS = SW_KEYS;
   constexpr int QLD = F::QLD, KLD = F::KLD, VLD = F::VLD, NO = F::NO;
@@ -708,23 +749,28 @@ gqa_sweep_kernel(
     if (warp == 0)
       write_state<T, HD>(st, live, row0, G, Q, b, hk, s, Hq, n_splits, out,
                          partial, lse);
-    return;
+  } else {
+    merge_warps<NO, F::OLD>(st, ml, rml, reinterpret_cast<float*>(wbase));
+    write_rows<T, HD, F::OLD, (int)(F::WARP / sizeof(float))>(
+        reinterpret_cast<const float*>(warp0), rml, live, row0, G, Q, b, hk,
+        s, Hq, n_splits, out, partial, lse);
   }
-  merge_warps<NO, F::OLD>(st, ml, rml, reinterpret_cast<float*>(wbase));
-  write_rows<T, HD, F::OLD, (int)(F::WARP / sizeof(float))>(
-      reinterpret_cast<const float*>(warp0), rml, live, row0, G, Q, b, hk, s,
-      Hq, n_splits, out, partial, lse);
+  if (n_splits > 1 && counters != nullptr)
+    merge_tail<T, HD>(counters + ((long)b * Hkv + hk) * n_rt + rt, partial,
+                      lse, out, live, row0, G, hk, b, Q, Hq, n_splits);
 }
 
 // The arguments of a GQA sweep's launch that do not depend on its keys'
 // layout: q (B, Q, Hq, HD); the k and v rows and their scales (null unless
-// int8); the candidates (B, Q, Hkv, HD) of a verify; the outputs.
+// int8); the candidates (B, Q, Hkv, HD) of a verify; the outputs; the
+// fused merge's counters (null: a split launch writes its partials only).
 struct SweepArgs {
   const void *q, *k, *v;
   const float *ksc, *vsc;
   const void *kn, *vn;
   void* out;
   float *partial, *lse;
+  int* counters;
   int B, Q, Hq, Hkv, n_splits, verify, window;
   float logit_cap, scale;
   cudaStream_t stream;
@@ -764,8 +810,8 @@ struct GqaSweep {
         static_cast<const T*>(a.q), static_cast<const TKV*>(a.k),
         static_cast<const TKV*>(a.v), a.ksc, a.vsc,
         static_cast<const T*>(a.kn), static_cast<const T*>(a.vn), keys,
-        static_cast<T*>(a.out), a.partial, a.lse, a.Q, a.Hq, a.Hkv,
-        a.n_splits, n_rt, a.verify, a.window, a.logit_cap, a.scale);
+        static_cast<T*>(a.out), a.partial, a.lse, a.counters, a.Q, a.Hq,
+        a.Hkv, a.n_splits, n_rt, a.verify, a.window, a.logit_cap, a.scale);
     return (int)cudaGetLastError();
   }
 

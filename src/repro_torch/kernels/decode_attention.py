@@ -31,7 +31,12 @@ paged, ring and MLA families:
     CUDA-core kernel of 16 rows a block.
   * **K-merge** ``lse_merge`` — stage 2 of all three: ``out = sum_s
     partial_s exp(lse_s - m) / sum_s exp(lse_s - m)``, denominator clamped
-    at 1e-30.
+    at 1e-30.  On the main paths it is no launch of its own: with
+    ``merge=True`` a split sweep merges its own splits in the last block
+    of each row tile to finish (a split-K fix-up through a device counter,
+    ``merge_counters``), on the same device code (``csrc/lse_merge.cuh``),
+    so the fused output is bit for bit ``lse_merge`` of the launch's
+    partials.
 
 The paged and ring sweeps also read int8 caches with per-row fp32 scales
 (``k_scale`` / ``v_scale``, the pool's or ring's layout with a last axis
@@ -42,7 +47,8 @@ the candidates and the output stay in the query dtype.
 The sweeps fold verify's in-flight candidate rows, causally, into the
 last split only.  One split writes the normalised output in the query
 dtype; several write fp32 ``partial (B, Hq, S, Q, Dv)`` + ``lse (B, Hq,
-S, Q)``.
+S, Q)`` and, with ``merge=True``, also the merged output ``(B, Q, Hq,
+Dv)`` in the query dtype, which is then what the sweep returns.
 
 Each wrapper takes its plain version (``*_torch``, same arithmetic block
 by block, vectorised over batch, heads and splits) for a tensor that lies
@@ -325,23 +331,102 @@ def _kv_storage(name, k_scale, v_scale, q_dtype):
     return q_dtype if k_scale is None else torch.int8
 
 
+# (query, head) rows of a sweep block's tile (the C interface's SW_ROWS);
+# the latent sweep's bf16 blocks take one or two such tiles
+SWEEP_ROWS = 16
+
+
+def merge_counter_cells(B: int, Hkv: int, rows: int) -> int:
+    """Counters a merging split launch needs: one per (batch row, kv head,
+    tile of ``SWEEP_ROWS`` of the kv head's ``rows = Q * G`` (query, head)
+    rows); the latent sweep is one kv head of ``Q * Hq`` rows."""
+    return B * Hkv * -(-rows // SWEEP_ROWS)
+
+
+_COUNTERS: dict = {}     # device -> int32 counters, all zero between launches
+_OUTGROWN: list = []     # earlier workspaces, which a captured graph may use
+
+
+def merge_counters(device: torch.device, cells: int) -> torch.Tensor:
+    """The device's counter workspace, at least ``cells`` long: zeroed when
+    it is allocated, and zero again after every merging launch (its last
+    block resets each counter), as a CUDA-graph replay needs it.  It grows
+    only outside a graph capture; a capture that would need it grown
+    raises.  Launches that share it are ordered (one stream)."""
+    ws = _COUNTERS.get(device)
+    if ws is not None and ws.numel() >= cells:
+        return ws
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            f"merge_counters: a merging launch inside a CUDA-graph capture "
+            f"needs {cells} counters and the workspace holds "
+            f"{0 if ws is None else ws.numel()}: run the launch once before "
+            f"the capture")
+    if ws is not None:
+        _OUTGROWN.append(ws)
+    ws = torch.zeros(max(cells, 2 * (0 if ws is None else ws.numel())),
+                     dtype=torch.int32, device=device)
+    _COUNTERS[device] = ws
+    return ws
+
+
+def _split_buffers(q, out_shape, S, merge, Hkv, rows):
+    """One sweep launch's buffers on q's device: ``out`` (``out_shape``,
+    q's dtype) at one split or when merging; the fp32 ``partial`` (B, Hq,
+    S, Q, Dv) and ``lse`` (B, Hq, S, Q) at several; the counters when
+    merging several."""
+    B, Q, Hq, Dv = out_shape
+    dev = q.device
+    out = partial = lse = counters = None
+    if S == 1 or merge:
+        out = torch.empty(out_shape, dtype=q.dtype, device=dev)
+    if S > 1:
+        partial = torch.empty((B, Hq, S, Q, Dv), dtype=torch.float32,
+                              device=dev)
+        lse = torch.empty((B, Hq, S, Q), dtype=torch.float32, device=dev)
+        if merge:
+            counters = merge_counters(dev, merge_counter_cells(B, Hkv, rows))
+    return out, partial, lse, counters
+
+
+def _launched(key, out, partial, lse, counters):
+    """Count a sweep launch under ``key`` (and ``merge_fused`` where it
+    merged its splits); its result: ``out`` where it wrote one, else
+    ``(partial, lse)``."""
+    LAUNCHES[key] += 1
+    if counters is not None:
+        LAUNCHES["merge_fused"] += 1
+    return (partial, lse) if out is None else out
+
+
+def _plain_result(res, dtype, merge):
+    """A plain sweep's result as its wrapper returns it: with ``merge``,
+    split partials merged (``lse_merge_torch``) into (B, Q, Hq, Dv),
+    contiguous."""
+    if isinstance(res, torch.Tensor) or not merge:
+        return res
+    return lse_merge_torch(*res, dtype).transpose(1, 2).contiguous()
+
+
 def paged_attention_sweep(q, k_pages, v_pages, block_tables, pos, *,
                           k_new=None, v_new=None, n_splits: int = 1,
                           window: int = 0, logit_cap: float = 0.0,
                           scale: float | None = None, k_scale=None,
-                          v_scale=None):
+                          v_scale=None, merge: bool = False):
     """K-sweep.  q (B, Q, Hq, D); pools (P, ps, Hkv, D), in q's dtype, or
     int8 with per-row fp32 ``k_scale`` / ``v_scale`` (P, ps, Hkv, 1);
     block_tables (B, nb) int32; pos (B,) int32; optional in-flight
     candidates k_new / v_new (B, Q, Hkv, D) in q's dtype select the verify
-    mask.  Output as :func:`paged_attention_sweep_torch`."""
+    mask.  Output as :func:`paged_attention_sweep_torch`; with ``merge``,
+    ``(B, Q, Hq, D)`` in q's dtype at every split count (the splits merged
+    in the launch, :func:`merge_counters`)."""
     kv_dtype = _kv_storage("paged_attention_sweep", k_scale, v_scale,
                            q.dtype)
     if q.device.type == "cpu":
-        return paged_attention_sweep_torch(
+        return _plain_result(paged_attention_sweep_torch(
             q, k_pages, v_pages, block_tables, pos, k_new=k_new, v_new=v_new,
             n_splits=n_splits, window=window, logit_cap=logit_cap,
-            scale=scale, k_scale=k_scale, v_scale=v_scale)
+            scale=scale, k_scale=k_scale, v_scale=v_scale), q.dtype, merge)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention_sweep: unsupported device "
                          f"{q.device}")
@@ -385,23 +470,18 @@ def paged_attention_sweep(q, k_pages, v_pages, block_tables, pos, *,
     if scale is None:
         scale = D ** -0.5
     S, ppb = split_blocks(nb, n_splits)
-    out = partial = lse = None
-    if S == 1:
-        out = torch.empty((B, Q, Hq, D), dtype=q.dtype, device=dev)
-    else:
-        partial = torch.empty((B, Hq, S, Q, D), dtype=torch.float32,
-                              device=dev)
-        lse = torch.empty((B, Hq, S, Q), dtype=torch.float32, device=dev)
+    out, partial, lse, counters = _split_buffers(
+        q, (B, Q, Hq, D), S, merge, Hkv, Q * (Hq // Hkv))
     err = build.library().paged_attention_sweep(
         ptr(q), ptr(k_pages), ptr(v_pages), ptr(k_scale), ptr(v_scale),
         ptr(k_new), ptr(v_new), ptr(block_tables), ptr(pos), ptr(out),
-        ptr(partial), ptr(lse), B, Q, Hq, Hkv, P, ps, nb, D, S, ppb,
-        int(verify), int(window), float(logit_cap), float(scale),
+        ptr(partial), ptr(lse), ptr(counters), B, Q, Hq, Hkv, P, ps, nb, D,
+        S, ppb, int(verify), int(window), float(logit_cap), float(scale),
         DTYPE_CODE[q.dtype], torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_attention_sweep: CUDA error {err}")
-    LAUNCHES[launch_key("sweep", verify, k_scale)] += 1
-    return out if S == 1 else (partial, lse)
+    return _launched(launch_key("sweep", verify, k_scale), out, partial,
+                     lse, counters)
 
 
 def sweep_occupancy(head_dim: int, dtype, int8: bool = False,
@@ -435,21 +515,22 @@ def ring_attention_sweep(q, k_cache, v_cache, pos, *, k_new=None, v_new=None,
                          n_splits: int = 1, block_k: int = 256,
                          window: int = 0, logit_cap: float = 0.0,
                          scale: float | None = None, k_scale=None,
-                         v_scale=None):
+                         v_scale=None, merge: bool = False):
     """The ring sweep.  q (B, Q, Hq, D); ring caches (B, C, Hkv, D), in
     q's dtype, or int8 with per-row fp32 ``k_scale`` / ``v_scale`` (B, C,
     Hkv, 1); pos (1,) or (B,) int32 on the card (the position of q's first
     row); optional in-flight candidates k_new / v_new (B, Q, Hkv, D) in
     q's dtype select the verify mask.  ``block_k`` is the requested block
     (``ring_block_k`` adjusts it).  Output as
-    :func:`ring_attention_sweep_torch`."""
+    :func:`ring_attention_sweep_torch`; ``merge`` as in
+    :func:`paged_attention_sweep`."""
     kv_dtype = _kv_storage("ring_attention_sweep", k_scale, v_scale, q.dtype)
     if q.device.type == "cpu":
-        return ring_attention_sweep_torch(
+        return _plain_result(ring_attention_sweep_torch(
             q, k_cache, v_cache, pos, k_new=k_new, v_new=v_new,
             n_splits=n_splits, block_k=block_k, window=window,
             logit_cap=logit_cap, scale=scale, k_scale=k_scale,
-            v_scale=v_scale)
+            v_scale=v_scale), q.dtype, merge)
     if q.device.type != "cuda":
         raise ValueError(f"ring_attention_sweep: unsupported device "
                          f"{q.device}")
@@ -498,28 +579,26 @@ def ring_attention_sweep(q, k_cache, v_cache, pos, *, k_new=None, v_new=None,
     if scale is None:
         scale = D ** -0.5
     S, kpb = split_blocks(n_k, n_splits)
-    out = partial = lse = None
-    if S == 1:
-        out = torch.empty((B, Q, Hq, D), dtype=q.dtype, device=dev)
-    else:
-        partial = torch.empty((B, Hq, S, Q, D), dtype=torch.float32,
-                              device=dev)
-        lse = torch.empty((B, Hq, S, Q), dtype=torch.float32, device=dev)
+    out, partial, lse, counters = _split_buffers(
+        q, (B, Q, Hq, D), S, merge, Hkv, Q * (Hq // Hkv))
     err = build.library().ring_attention_sweep(
         ptr(q), ptr(k_cache), ptr(v_cache), ptr(k_scale), ptr(v_scale),
         ptr(k_new), ptr(v_new), ptr(pos), ptr(out), ptr(partial), ptr(lse),
-        B, Q, Hq, Hkv, C, D, bk, n_k, S, kpb, int(pos.numel() > 1),
-        int(verify), int(window), float(logit_cap), float(scale),
-        DTYPE_CODE[q.dtype], torch.cuda.current_stream(dev).cuda_stream)
+        ptr(counters), B, Q, Hq, Hkv, C, D, bk, n_k, S, kpb,
+        int(pos.numel() > 1), int(verify), int(window), float(logit_cap),
+        float(scale), DTYPE_CODE[q.dtype],
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ring_attention_sweep: CUDA error {err}")
-    LAUNCHES[launch_key("ring", verify, k_scale)] += 1
-    return out if S == 1 else (partial, lse)
+    return _launched(launch_key("ring", verify, k_scale), out, partial, lse,
+                     counters)
 
 
 def lse_merge(partial, lse, out_dtype):
     """K-merge: ``partial (..., S, R, Dv)`` fp32 + ``lse (..., S, R)`` fp32
-    -> ``(..., R, Dv)`` in ``out_dtype``."""
+    -> ``(..., R, Dv)`` in ``out_dtype``; on the card Dv is a multiple of
+    4.  The standalone launch, for a caller that holds partials: the
+    sweeps merge their own with ``merge=True``."""
     if partial.device.type == "cpu":
         return lse_merge_torch(partial, lse, out_dtype)
     if partial.device.type != "cuda":
@@ -529,8 +608,10 @@ def lse_merge(partial, lse, out_dtype):
     S, R, Dv = partial.shape[-3:]
     if out_dtype not in DTYPE_CODE:
         raise ValueError(f"lse_merge: out dtype {out_dtype} not supported")
+    if Dv % 4:
+        raise ValueError(f"lse_merge: Dv {Dv} is not a multiple of 4")
     check("partial", partial, dtype=torch.float32, shape=partial.shape,
-          device=partial.device)
+          device=partial.device, vector=True)
     check("lse", lse, dtype=torch.float32, shape=lead + (S, R),
           device=partial.device)
     N = partial.numel() // (S * R * Dv)
@@ -566,17 +647,19 @@ def mla_smem_bytes(dtype, *, rows: int = 16, kt: int = 16) -> int:
 
 def mla_latent_sweep(q, pool, block_tables, pos, *, r_kv: int, pending=None,
                      n_splits: int = 1, logit_cap: float = 0.0,
-                     scale: float):
+                     scale: float, merge: bool = False):
     """The latent sweep.  q (B, Q, Hq, R) latent queries ``[q_abs |
     q_rope]``; pool (P, ps, R); block_tables (B, nb) int32; pos (B,) int32;
     optional pending latent rows (B, Q, R) select the verify form (pool
     rows ``k_pos < pos``, then pending row j for query i when ``j <= i``).
     ``scale`` is MLA's, of the decompressed head dim.  Output as
-    :func:`mla_latent_sweep_torch`."""
+    :func:`mla_latent_sweep_torch`; ``merge`` as in
+    :func:`paged_attention_sweep`."""
     if q.device.type == "cpu":
-        return mla_latent_sweep_torch(q, pool, block_tables, pos, r_kv=r_kv,
-                                      pending=pending, n_splits=n_splits,
-                                      logit_cap=logit_cap, scale=scale)
+        return _plain_result(mla_latent_sweep_torch(
+            q, pool, block_tables, pos, r_kv=r_kv, pending=pending,
+            n_splits=n_splits, logit_cap=logit_cap, scale=scale), q.dtype,
+            merge)
     if q.device.type != "cuda":
         raise ValueError(f"mla_latent_sweep: unsupported device {q.device}")
     from repro_torch.kernels import build
@@ -609,22 +692,17 @@ def mla_latent_sweep(q, pool, block_tables, pos, *, r_kv: int, pending=None,
         check("pending", pending, dtype=q.dtype, shape=(B, Q, R),
               device=dev, vector=True)
     S, ppb = split_blocks(nb, n_splits)
-    out = partial = lse = None
-    if S == 1:
-        out = torch.empty((B, Q, Hq, r_kv), dtype=q.dtype, device=dev)
-    else:
-        partial = torch.empty((B, Hq, S, Q, r_kv), dtype=torch.float32,
-                              device=dev)
-        lse = torch.empty((B, Hq, S, Q), dtype=torch.float32, device=dev)
+    out, partial, lse, counters = _split_buffers(
+        q, (B, Q, Hq, r_kv), S, merge, 1, Q * Hq)
     err = build.library().mla_latent_sweep(
         ptr(q), ptr(pool), ptr(pending), ptr(block_tables), ptr(pos),
-        ptr(out), ptr(partial), ptr(lse), B, Q, Hq, P, ps, nb, R, r_kv, S,
-        ppb, int(verify), float(logit_cap), float(scale),
+        ptr(out), ptr(partial), ptr(lse), ptr(counters), B, Q, Hq, P, ps, nb,
+        R, r_kv, S, ppb, int(verify), float(logit_cap), float(scale),
         DTYPE_CODE[q.dtype], torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"mla_latent_sweep: CUDA error {err}")
-    LAUNCHES["mla_verify" if verify else "mla_decode"] += 1
-    return out if S == 1 else (partial, lse)
+    return _launched("mla_verify" if verify else "mla_decode", out, partial,
+                     lse, counters)
 
 
 def mla_occupancy(dtype, rows: int = 16) -> dict:
@@ -649,49 +727,43 @@ def paged_attention(q, k_pages, v_pages, block_tables, pos, *, k_new=None,
                     v_new=None, window: int = 0, logit_cap: float = 0.0,
                     scale: float | None = None, n_splits: int = 1,
                     k_scale=None, v_scale=None):
-    """Paged GQA attention on the kernels: K-sweep, then K-merge when it
-    split.  Without candidates it is the single-token decode; with the
-    in-flight ``k_new`` / ``v_new`` it is the multi-query verify sweep;
-    ``k_scale`` / ``v_scale`` select the int8 pools' template.
-    -> (B, Q, Hq, Dv) in ``q.dtype``."""
-    res = paged_attention_sweep(q, k_pages, v_pages, block_tables, pos,
-                                k_new=k_new, v_new=v_new, n_splits=n_splits,
-                                window=window, logit_cap=logit_cap,
-                                scale=scale, k_scale=k_scale,
-                                v_scale=v_scale)
-    if isinstance(res, torch.Tensor):
-        return res
-    return lse_merge(*res, q.dtype).transpose(1, 2)
+    """Paged GQA attention on the kernels: one K-sweep launch, which
+    merges its splits in its last blocks.  Without candidates it is the
+    single-token decode; with the in-flight ``k_new`` / ``v_new`` it is
+    the multi-query verify sweep; ``k_scale`` / ``v_scale`` select the
+    int8 pools' template.  -> (B, Q, Hq, Dv) in ``q.dtype``,
+    contiguous."""
+    return paged_attention_sweep(q, k_pages, v_pages, block_tables, pos,
+                                 k_new=k_new, v_new=v_new, n_splits=n_splits,
+                                 window=window, logit_cap=logit_cap,
+                                 scale=scale, k_scale=k_scale,
+                                 v_scale=v_scale, merge=True)
 
 
 def ring_attention(q, k_cache, v_cache, pos, *, k_new=None, v_new=None,
                    window: int = 0, logit_cap: float = 0.0,
                    scale: float | None = None, n_splits: int = 1,
                    block_k: int = 256, k_scale=None, v_scale=None):
-    """GQA attention over the ring cache on the kernels: the ring sweep,
-    then K-merge when it split.  Without candidates it is the single-token
-    decode; with the in-flight ``k_new`` / ``v_new`` the multi-query verify
-    sweep; ``k_scale`` / ``v_scale`` select the int8 caches' template.
-    -> (B, Q, Hq, Dv) in ``q.dtype``."""
-    res = ring_attention_sweep(q, k_cache, v_cache, pos, k_new=k_new,
-                               v_new=v_new, n_splits=n_splits,
-                               block_k=block_k, window=window,
-                               logit_cap=logit_cap, scale=scale,
-                               k_scale=k_scale, v_scale=v_scale)
-    if isinstance(res, torch.Tensor):
-        return res
-    return lse_merge(*res, q.dtype).transpose(1, 2)
+    """GQA attention over the ring cache on the kernels: one ring-sweep
+    launch, which merges its splits in its last blocks.  Without
+    candidates it is the single-token decode; with the in-flight ``k_new``
+    / ``v_new`` the multi-query verify sweep; ``k_scale`` / ``v_scale``
+    select the int8 caches' template.  -> (B, Q, Hq, Dv) in ``q.dtype``,
+    contiguous."""
+    return ring_attention_sweep(q, k_cache, v_cache, pos, k_new=k_new,
+                                v_new=v_new, n_splits=n_splits,
+                                block_k=block_k, window=window,
+                                logit_cap=logit_cap, scale=scale,
+                                k_scale=k_scale, v_scale=v_scale, merge=True)
 
 
 def mla_attention(q, pool, block_tables, pos, *, r_kv: int, pending=None,
                   logit_cap: float = 0.0, scale: float, n_splits: int = 1):
     """Absorbed MLA attention over the paged latent pool on the kernels:
-    the latent sweep, then K-merge when it split.  Without pending rows it
-    is the single-token decode (K7a / K7b); with them the multi-query
-    verify sweep.  -> (B, Q, Hq, r_kv) in ``q.dtype``."""
-    res = mla_latent_sweep(q, pool, block_tables, pos, r_kv=r_kv,
-                           pending=pending, n_splits=n_splits,
-                           logit_cap=logit_cap, scale=scale)
-    if isinstance(res, torch.Tensor):
-        return res
-    return lse_merge(*res, q.dtype).transpose(1, 2)
+    one latent-sweep launch, which merges its splits in its last blocks.
+    Without pending rows it is the single-token decode (K7a / K7b); with
+    them the multi-query verify sweep.  -> (B, Q, Hq, r_kv) in
+    ``q.dtype``, contiguous."""
+    return mla_latent_sweep(q, pool, block_tables, pos, r_kv=r_kv,
+                            pending=pending, n_splits=n_splits,
+                            logit_cap=logit_cap, scale=scale, merge=True)

@@ -134,7 +134,7 @@ def test_cpu_engine_launches_no_kernel(smollm):
         ServeEngine(tcfg, EngineConfig(**BASE, spec_k=spec_k), tparams,
                     device="cpu").run(reqs)
     assert set(da.LAUNCHES) == {"sweep_decode", "sweep_verify", "merge",
-                                "ring_decode", "ring_verify",
+                                "merge_fused", "ring_decode", "ring_verify",
                                 "flash_attention", "rmsnorm", "ssd",
                                 "mla_decode", "mla_verify",
                                 "sweep_decode_int8", "sweep_verify_int8",

@@ -137,7 +137,7 @@ def test_cpu_calls_launch_no_kernel():
     da.mla_attention(ql, pool, bt, pos, r_kv=16, pending=pend, scale=0.2,
                      n_splits=3)
     assert set(da.LAUNCHES) == {"sweep_decode", "sweep_verify", "merge",
-                                "ring_decode", "ring_verify",
+                                "merge_fused", "ring_decode", "ring_verify",
                                 "flash_attention", "rmsnorm", "ssd",
                                 "mla_decode", "mla_verify",
                                 "sweep_decode_int8", "sweep_verify_int8",

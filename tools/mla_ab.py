@@ -9,6 +9,9 @@ kernel library from its checkout's sources and times its
 128, pages of 16, 5 table columns: decode at the engine's split count and
 at one split, verify Q 16) with this checkout's ``chip_smoke.mla_timings``:
 the kernel alone, CUDA events around CUDA-graph replays, beside the bound.
+A row at several splits times the launch the main paths make, which
+merges its own splits (``merge=True``), so every checkout given must
+take ``merge=``.
 
     python3 tools/mla_ab.py OLD NEW NEW OLD
 

@@ -138,7 +138,7 @@ def main() -> int:
             print(f"[mla_variants] {name} spills: {spills}")
         lib = ctypes.CDLL(str(path))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.mla_latent_sweep.argtypes = [p] * 8 + [i] * 11 + [f, f, i, p]
+        lib.mla_latent_sweep.argtypes = [p] * 9 + [i] * 11 + [f, f, i, p]
         lib.mla_latent_sweep.restype = i
         libs[name] = lib
     card = subprocess.run(

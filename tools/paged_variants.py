@@ -129,8 +129,8 @@ def main(argv: list[str]) -> int:
         lib = ctypes.CDLL(str(path))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn = getattr(lib, entry)
-        fn.argtypes = ([p] * 12 + [i] * 12 if sweep == "paged"
-                       else [p] * 11 + [i] * 13) + [f, f, i, p]
+        fn.argtypes = ([p] * 13 + [i] * 12 if sweep == "paged"
+                       else [p] * 12 + [i] * 13) + [f, f, i, p]
         fn.restype = i
         libs[name] = lib
     card = subprocess.run(

@@ -11,6 +11,9 @@ and at one split: D 64 in bf16 and int8 rings, D 120 in bf16 and int8,
 and the engine's private rings of 48 slots at D 120) with this checkout's
 ``chip_smoke.ring_rows``: the kernel alone, CUDA events around CUDA-graph
 replays, beside the bound.
+A row at several splits times the launch the main paths make, which
+merges its own splits (``merge=True``), so every checkout given must
+take ``merge=``.
 
     python3 tools/ring_ab.py OLD NEW NEW OLD
 
