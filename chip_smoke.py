@@ -217,7 +217,28 @@ Phases, in order; any failure exits non-zero (nothing is caught):
                 ring) time the fused tail (the fused launch less stage 1)
                 and count the fused launches (``merge_fused``); the
                 standalone kernel, which no main path launches, is said
-                beside them.
+                beside them;
+  6. chaos    — crash-restore drills on the engine at smollm-135m's
+                published width and depth (random weights from a seed):
+                8 requests of 40 to 128 prompt tokens over 2 shared
+                32-token heads, 24 to 32 new, 4 slots, pages of 16, a
+                snapshot every 2 chunks, under ``CHAOS_SCHEDULE`` (a slot
+                crash, a page corruption, a stall, an emergency cap at
+                half power, an engine crash after a snapshot).  At fp32
+                the restored greedy streams must equal the fault-free
+                run's token for token, with one restore, every request's
+                budget served, a clean pool audit, degraded steps, a
+                silenced heartbeat, paged verify and decode sweeps
+                launched after the restore and every requeued request
+                restored through the prefix trie.  With bf16 weights,
+                int8 pages and the host tier on a pool of 20 pages, the
+                restored engine must hold host pages and lose no token
+                (how many streams equal the fault-free run's is printed).
+                Then the launcher's poisson path with ``--chaos
+                CHAOS_SPEC``: one restore and both ``[chaos]`` summary
+                lines.  Each drill prints its ``save_snapshot`` walls,
+                the snapshot's bytes on disk, the ``restore`` wall and
+                its decode rate beside the fault-free run's.
 
 The last two lines are a JSON object of per-kernel numbers and
 ``{"ok": true, "device": {...}}``.
@@ -3307,6 +3328,197 @@ def serve_run(torch, da, tfm, serve, label, argv, cfg=None):
 
 
 # --------------------------------------------------------------------------
+# phase 6 helpers
+# --------------------------------------------------------------------------
+# The chaos drills' trace (8 requests, 40 to 128 prompt tokens over 2
+# shared 32-token heads, 24 to 32 new) and schedule (kind, step, duration,
+# arg) on the engine clock: a slot crash, a page corruption, a stall, an
+# emergency cap of half the power for 12 steps, and an engine crash that
+# lands after the snapshot at step 42 (4 slots, pages of 16, chunks of 8).
+CHAOS_TRACE = dict(rate_per_step=0.25, seed=0, prompt_len=(8, 96),
+                   max_new_tokens=(24, 32), shared_prefix_len=32,
+                   prompt_pools=2)
+CHAOS_SCHEDULE = (("slot_crash", 12, 0, 0), ("page_corrupt", 20, 0, 0.0),
+                  ("stall", 20, 16, 0.0), ("emergency_cap", 28, 12, 0.5),
+                  ("engine_crash", 44, 0, 0.0))
+# the bf16 drill's page pool: tight enough that prefix pages go to the
+# host tier before the crash, and are held in it at the last snapshot
+CHAOS_TIER_PAGES = 20
+# the launcher's drill over phase 4's poisson path
+CHAOS_SPEC = "engine_crash@24,emergency_cap@8:8:0.5,bus_drop@4:2"
+
+
+def snapshot_bytes(snap):
+    """Bytes on disk of the newest committed snapshot in ``snap``."""
+    steps = sorted(d for d in pathlib.Path(snap).iterdir()
+                   if d.name.startswith("step_")
+                   and (d / "_COMMITTED").exists())
+    return sum(f.stat().st_size for f in steps[-1].iterdir())
+
+
+def chaos_drill(torch, dev, da, serving, chaos, cfg, params, label,
+                **ecfg_kw):
+    """One crash-restore drill on the engine: the fault-free run, then the
+    same trace under ``CHAOS_SCHEDULE`` with a snapshot every 2 chunks,
+    the engine crash caught, the engine restored and resumed.  Returns the
+    fault-free and restored reports, the restored engine, and what was
+    measured: every ``save_snapshot`` wall (synchronised), the last
+    snapshot's bytes on disk, the ``restore`` wall, the launch counts
+    before the crash and after the restore, and the requeued requests'
+    prompt tokens restored from the trie before and after the resume."""
+    import tempfile
+    ecfg = serving.EngineConfig(n_slots=4, page_size=16, max_len=160,
+                                decode_chunk=8, **ecfg_kw)
+    trace = serving.poisson_trace(8, vocab_size=cfg.vocab_size,
+                                  **CHAOS_TRACE)
+    base = serving.ServeEngine(cfg, ecfg, params, device=dev).run(trace)
+    inj = chaos.FaultInjector(seed=1)
+    for kind, step, duration, arg in CHAOS_SCHEDULE:
+        inj.schedule(kind, step, duration=duration, arg=arg)
+    with tempfile.TemporaryDirectory(prefix="chaos_drill_") as snap:
+        beats = []
+        kw = dict(device=dev, injector=inj, snapshot_every=2,
+                  on_heartbeat=lambda step, wall: beats.append(step))
+        eng = serving.ServeEngine(cfg, ecfg, params, snapshot_dir=snap, **kw)
+        saves = []
+        save = eng.save_snapshot
+
+        def timed_save():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            save()
+            torch.cuda.synchronize()
+            saves.append((time.perf_counter() - t) * 1e3)
+        eng.save_snapshot = timed_save
+        da.reset_launches()
+        try:
+            eng.run(trace)
+            fail(f"{label}: the engine crash never fired")
+        except serving.EngineCrash as crash:
+            crashed_at = crash.step
+        torch.cuda.synchronize()
+        before = dict(da.LAUNCHES)
+        nbytes = snapshot_bytes(snap)
+        t = time.perf_counter()
+        eng = serving.ServeEngine.restore(cfg, ecfg, params, snap, **kw)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t) * 1e3
+        host_pages = eng.kv.n_host_used()
+        folded = {r.rid: eng._results[r.rid].prefill_tokens_saved
+                  for r in eng._queue.pending()
+                  if eng._results[r.rid].tokens}
+        da.reset_launches()
+        rep = eng.resume()
+        torch.cuda.synchronize()
+        after = dict(da.LAUNCHES)
+    if rep.n_restores != 1:
+        fail(f"{label}: {rep.n_restores} restores, expected 1")
+    for r in rep.results:
+        if r.n_tokens != r.max_new_tokens:
+            fail(f"{label}: rid {r.rid} finished {r.n_tokens}/"
+                 f"{r.max_new_tokens} tokens ({r.finish_reason})")
+    bad = eng.kv.verify_invariants()
+    if bad:
+        fail(f"{label}: the pool breaks its invariants after the run: {bad}")
+    if rep.degraded_steps <= 0:
+        fail(f"{label}: the emergency cap degraded no step")
+    if len(beats) >= rep.n_chunks:
+        fail(f"{label}: the stall suppressed no heartbeat")
+    saved = {r.rid: r.prefill_tokens_saved for r in rep.results}
+    stats = dict(crashed_at=crashed_at, saves=saves, nbytes=nbytes,
+                 restore_ms=restore_ms, host_pages=host_pages,
+                 before=before, after=after,
+                 folded={rid: (n, saved[rid]) for rid, n in folded.items()})
+    return base, rep, eng, stats
+
+
+def chaos_line(label, base, rep, st, card):
+    equal = sum(a.tokens == b.tokens for a, b in zip(rep.results,
+                                                     base.results))
+    saves = sorted(st["saves"])
+    say(f"chaos {label}: crash at step {st['crashed_at']}, "
+        f"{rep.n_faults_injected} faults, {rep.requeued_requests} requeued, "
+        f"{rep.degraded_steps} degraded steps, {rep.n_pages_quarantined} "
+        f"pages quarantined, {rep.n_demotions} pages out / "
+        f"{rep.n_promotions} in; {equal}/{len(rep.results)} streams equal "
+        f"the fault-free run's; save_snapshot {len(saves)} calls, median "
+        f"{saves[len(saves) // 2]:.1f} ms, max {saves[-1]:.1f} ms; snapshot "
+        f"{st['nbytes']} bytes on disk; ServeEngine.restore "
+        f"{st['restore_ms']:.1f} ms; decode {rep.tok_per_s:.1f} tok/s "
+        f"against {base.tok_per_s:.1f} fault-free; on {card}")
+    say(f"chaos {label}: launches before the crash {st['before']}, after "
+        f"the restore {st['after']}; requeued requests' prompt tokens from "
+        f"the trie (before resume, after) {st['folded']}")
+
+
+def chaos_drills(torch, dev, da, serving, chaos, serve, tfm, bridge, cfg,
+                 card):
+    """Phase 6: the chaos drills at smollm-135m's published width and
+    depth, on the card."""
+    import contextlib
+    import io
+    # (a) exact drill, fp32: the restored streams equal the fault-free ones
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = bridge.init_lm(cfg32, torch.Generator().manual_seed(6), dev)
+    base, rep, _, st = chaos_drill(torch, dev, da, serving, chaos, cfg32,
+                                   params, "fp32", cache_dtype="float32")
+    for a, b in zip(rep.results, base.results):
+        if a.tokens != b.tokens:
+            fail(f"chaos fp32: rid {a.rid} restored stream {a.tokens} != "
+                 f"fault-free {b.tokens}")
+    if st["after"]["sweep_verify"] <= 0 or st["after"]["sweep_decode"] <= 0:
+        fail(f"chaos fp32: no paged verify / decode sweep after the restore "
+             f"({st['after']})")
+    if not st["folded"] or any(n1 <= n0 for n0, n1 in st["folded"].values()):
+        fail(f"chaos fp32: a requeued request did not come back through the "
+             f"prefix trie ({st['folded']})")
+    chaos_line("fp32 exact", base, rep, st, card)
+    del params
+    torch.cuda.empty_cache()
+    # (b) bf16 weights, int8 pages and the host tier on a tight pool
+    params16 = bridge.init_lm(cfg, torch.Generator().manual_seed(6), dev)
+    base, rep, eng, st = chaos_drill(
+        torch, dev, da, serving, chaos, cfg, params16, "int8 host tier",
+        kv_dtype="int8", host_tier=True, n_pages=CHAOS_TIER_PAGES)
+    if eng.cache["units"]["sub0"]["k"].dtype != torch.int8:
+        fail("chaos int8 host tier: the engine's pools are not int8")
+    if st["host_pages"] <= 0 or rep.n_demotions <= 0:
+        fail(f"chaos int8 host tier: {st['host_pages']} host pages held at "
+             f"the restore, {rep.n_demotions} page-outs")
+    if st["after"]["sweep_verify_int8"] <= 0:
+        fail(f"chaos int8 host tier: no int8 verify sweep after the restore "
+             f"({st['after']})")
+    chaos_line("bf16 int8 host tier", base, rep, st, card)
+    del params16
+    torch.cuda.empty_cache()
+    # (c) the launcher, bf16, over phase 4's poisson path
+    argv = ["--arch", "smollm-135m", "--traffic", "poisson", "--requests",
+            "8", "--shared-prefix-len", "32", "--prompt-pools", "2",
+            "--n-slots", "4", "--page-size", "16", "--snapshot-every", "2",
+            "--chaos", CHAOS_SPEC]
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        out, counts = serve_run(torch, da, tfm, serve, "chaos launcher", argv)
+    print(text.getvalue(), end="")
+    lines = text.getvalue().splitlines()
+    summary = [ln for ln in lines if ln.startswith("[chaos]")
+               and ("faults injected" in ln or "telemetry" in ln)]
+    if out.n_restores != 1 or len(summary) != 2:
+        fail(f"chaos launcher: {out.n_restores} restores, summary lines "
+             f"{summary}")
+    for r in out.results:
+        if r.n_tokens != r.max_new_tokens:
+            fail(f"chaos launcher: rid {r.rid} finished {r.n_tokens}/"
+                 f"{r.max_new_tokens} tokens")
+    for key in ("sweep_decode", "sweep_verify", "flash_attention",
+                "rmsnorm"):
+        if counts[key] <= 0:
+            fail(f"chaos launcher: kernel {key} was never launched")
+    say(f"chaos launcher ({CHAOS_SPEC}): {out.n_restores} restore, "
+        f"{out.tok_per_s:.1f} tok/s measured on {card}, launches {counts}")
+
+
+# --------------------------------------------------------------------------
 def main() -> int:
     import numpy as np
     import torch
@@ -3331,7 +3543,7 @@ def main() -> int:
     from repro_torch.launch import serve
     from repro_torch.models import common
     from repro_torch.models import transformer as tfm
-    from repro_torch.runtime import speculate, steps
+    from repro_torch.runtime import chaos, speculate, steps
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -3587,6 +3799,11 @@ def main() -> int:
         f"(median of chunks of 8 in turns): bf16 pools "
         f"{step['bfloat16']:.2f} ms, int8 pools {step['int8']:.2f} ms "
         f"(+{step['int8'] - step['bfloat16']:.2f} ms) on {card}")
+
+    # 6. chaos drills ---------------------------------------------------------
+    t_chaos = time.perf_counter()
+    chaos_drills(torch, dev, da, serving, chaos, serve, tfm, bridge, cfg, card)
+    say(f"chaos drills in {time.perf_counter() - t_chaos:.1f} s")
     kernels = []
     for name, t in times.items():
         source, replaces, key = KERNELS[t.get("entry") or name]

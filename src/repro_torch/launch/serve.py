@@ -56,14 +56,26 @@ FROST (unless ``--no-frost``): every chunk emits one ``StepDone`` +
 ``OnlineCapProfiler`` amortises probes over the live stream against the
 analytic H100 SXM device model, and J/token charges useful tokens only.
 
-Not ported yet, and exiting non-zero naming its ROADMAP.md item:
-``--chaos`` and ``--snapshot-dir`` (chaos and snapshots).  A config whose
-weights alone exceed the card's free memory exits non-zero too, naming
-it (``refuse_oversized``), before any weight is drawn.
+Chaos drills (poisson mode): ``--chaos "kind@step[:duration[:arg]],..."``
+schedules faults on the engine clock (``--chaos-seed`` seeds the
+corruption sites).  An armed ``engine_crash`` snapshots every
+``--snapshot-every`` chunks into ``--snapshot-dir`` (a temporary directory
+when none is given) and restores from the last snapshot, up to
+``--max-restarts`` times; ``bus_drop`` / ``bus_delay`` disturb the FROST
+plane's bus through a ``ChaosBus``.  Two ``[chaos]`` lines sum it up:
+
+    # crash-restore under an emergency cap, on the CPU
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
+        --smoke --device cpu --traffic poisson \
+        --chaos engine_crash@6,emergency_cap@2:4:0.5
+
+A config whose weights alone exceed the card's free memory exits non-zero,
+naming it (``refuse_oversized``), before any weight is drawn.
 """
 from __future__ import annotations
 
 import argparse
+import tempfile
 import time
 
 import numpy as np
@@ -81,24 +93,18 @@ from repro_torch.device import resolve
 from repro_torch.models import common
 from repro_torch.models import transformer as tfm
 from repro_torch.runtime import speculate
+from repro_torch.runtime.chaos import ChaosBus, FaultInjector
 from repro_torch.runtime.fault import ServingSupervisor
 from repro_torch.runtime.steps import (StepConfig, make_decode_loop,
                                        make_prefill_step,
                                        make_speculative_decode_loop, sample,
                                        with_decode_policy)
 from repro_torch.serving import (EnergyAwareAdmission, EngineConfig,
-                                 ServeEngine, batch_trace, poisson_trace)
+                                 EngineCrash, ServeEngine, batch_trace,
+                                 poisson_trace)
 from repro_torch.telemetry.meters import (AnalyticDeviceMeter,
                                           CpuProcessMeter, DramMeter)
 from repro_torch.telemetry.sampler import PowerSampler
-
-
-class NotPorted(SystemExit):
-    """A CLI feature of the JAX launcher this port does not serve yet."""
-
-    def __init__(self, feature: str, item: str):
-        super().__init__(f"[serve] {feature} is not yet ported to "
-                         f"repro_torch (ROADMAP.md, {item})")
 
 
 def _parse_kv_splits(value: str | int) -> str | int:
@@ -387,13 +393,58 @@ def run_engine(args, cfg, step_cfg, params, frost: FrostPlane | None,
         n_codebooks=cfg.n_codebooks, eos_id=args.eos_id,
         shared_prefix_len=args.shared_prefix_len,
         prompt_pools=args.prompt_pools)
+    # -- chaos / fault tolerance ---------------------------------------------
+    injector = None
+    if args.chaos:
+        injector = FaultInjector.from_spec(args.chaos, seed=args.chaos_seed)
+    snapshot_dir = args.snapshot_dir
+    if snapshot_dir is None and injector is not None and \
+            any(ev.kind == "engine_crash" for ev in injector.events):
+        # a crash without a snapshot directory would lose the run: take a
+        # throwaway one, so that the drill recovers instead of dying
+        snapshot_dir = tempfile.mkdtemp(prefix="serve_snap_")
+        print(f"[chaos] engine_crash armed; snapshots -> {snapshot_dir}")
+    snapshot_every = args.snapshot_every if snapshot_dir is not None else 0
+
     supervisor = ServingSupervisor(bus=frost.bus if frost is not None
                                    else None, node_id="serve-0")
-    engine = ServeEngine(cfg, ecfg, params, step_cfg=step_cfg, device=device,
-                         on_chunk=on_chunk, on_prefill=on_prefill,
-                         admission=admission,
-                         on_heartbeat=supervisor.on_heartbeat)
-    rep = engine.run(trace)
+    cbus = ChaosBus(frost.bus) if frost is not None else None
+    if cbus is not None:
+        frost.bus = cbus       # emit_chunk publishes through the chaos shim
+
+    def on_fault(ev):
+        # bus_drop / bus_delay disturb the telemetry transport, not the
+        # engine: swallow or hold the next N publishes on the control bus
+        if cbus is None:
+            return
+        if ev.kind == "bus_drop":
+            cbus.drop_next(max(1, ev.duration))
+        elif ev.kind == "bus_delay":
+            cbus.delay_next(max(1, ev.duration))
+
+    eng_kwargs = dict(step_cfg=step_cfg, device=device, on_chunk=on_chunk,
+                      on_prefill=on_prefill, admission=admission,
+                      injector=injector,
+                      on_heartbeat=supervisor.on_heartbeat, on_fault=on_fault,
+                      snapshot_every=snapshot_every)
+    engine = ServeEngine(cfg, ecfg, params, snapshot_dir=snapshot_dir,
+                         **eng_kwargs)
+    restarts = 0
+    while True:
+        try:
+            rep = engine.resume() if restarts else engine.run(trace)
+            break
+        except EngineCrash as crash:
+            restarts += 1
+            if snapshot_dir is None or restarts > args.max_restarts:
+                raise
+            print(f"[chaos] engine crashed at step {crash.step}; "
+                  f"restoring from {snapshot_dir} "
+                  f"(restart {restarts}/{args.max_restarts})")
+            engine = ServeEngine.restore(cfg, ecfg, params, snapshot_dir,
+                                         **eng_kwargs)
+    if cbus is not None:
+        cbus.flush()           # deliver anything a bus_delay still holds
 
     lat = rep.latency_percentiles((50, 95))
     waits = [r.wait_steps for r in rep.results if r.admit_step >= 0]
@@ -429,6 +480,15 @@ def run_engine(args, cfg, step_cfg, params, frost: FrostPlane | None,
     print(f"[serve] latency p50 {lat[50]:.0f} / p95 {lat[95]:.0f} steps; "
           f"queue wait mean {np.mean(waits):.1f} steps"
           if waits else "[serve] nothing admitted")
+    if injector is not None:
+        kinds = ", ".join(f"{ev.kind}@{ev.step}" for ev in injector.log)
+        print(f"[chaos] {rep.n_faults_injected} faults injected ({kinds}); "
+              f"{rep.n_restores} restores, {rep.requeued_requests} requests "
+              f"requeued, {rep.degraded_steps} degraded steps, "
+              f"{rep.n_pages_quarantined} pages quarantined")
+        if cbus is not None and (cbus.n_dropped or cbus.n_delayed):
+            print(f"[chaos] telemetry: {cbus.n_dropped} publishes dropped, "
+                  f"{cbus.n_delayed} delayed (flushed at exit)")
     derate = supervisor.workers[supervisor.node_id].derate
     if supervisor.n_derates_published:
         print(f"[supervisor] derate estimate {derate:.0%} "
@@ -443,7 +503,9 @@ def run_engine(args, cfg, step_cfg, params, frost: FrostPlane | None,
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", default="smollm-135m",
+                    help="a ported arch (default: smollm-135m, the main "
+                         "path's model)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", type=str, default=None,
                     help="cuda (default) or cpu; the card is required "
@@ -512,12 +574,21 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--power-budget", type=float, default=0.0,
                     help="W; >0 gates admission on predicted board draw")
     ap.add_argument("--chaos", type=str, default="",
-                    help="fault schedule (not ported yet)")
-    ap.add_argument("--chaos-seed", type=int, default=0)
+                    help="fault schedule 'kind@step[:duration[:arg]],...' "
+                         "on the engine clock (poisson mode), e.g. "
+                         "'slot_crash@20,engine_crash@40,"
+                         "emergency_cap@60:16:0.5'")
+    ap.add_argument("--chaos-seed", type=int, default=0,
+                    help="seed for the fault injector's RNG (corruption "
+                         "site choice)")
     ap.add_argument("--snapshot-dir", type=str, default=None,
-                    help="engine snapshots (not ported yet)")
-    ap.add_argument("--snapshot-every", type=int, default=4)
-    ap.add_argument("--max-restarts", type=int, default=3)
+                    help="engine snapshot directory (crash recovery); "
+                         "auto tempdir when --chaos arms an engine_crash")
+    ap.add_argument("--snapshot-every", type=int, default=4,
+                    help="snapshot every N decode chunks (needs "
+                         "--snapshot-dir or an armed engine_crash)")
+    ap.add_argument("--max-restarts", type=int, default=3,
+                    help="crash-restore attempts before giving up")
     ap.add_argument("--no-frost", action="store_true",
                     help="disable the FROST control plane (no sampler, "
                          "meters, or bus are even built)")
@@ -538,17 +609,10 @@ def refuse_oversized(cfg, free_bytes: int) -> None:
             f"depth")
 
 
-def _refuse_unported(args) -> None:
-    if args.chaos or args.snapshot_dir:
-        raise NotPorted("--chaos / --snapshot-dir (chaos and snapshots)",
-                        "queue 1, item 1")
-
-
 def run(argv=None):
     """Parse ``argv``, choose the config (``--arch``, ``--smoke``) and
     :func:`serve` it."""
     args = build_parser().parse_args(argv)
-    _refuse_unported(args)
     spec = get_arch(args.arch)
     return serve(args, spec.smoke if args.smoke else spec.config)
 

@@ -152,6 +152,20 @@ def gqa_verify(params, x, pos, cache_kv, cfg: ModelConfig, *,
     return _out_proj(o, params["wo"]), (k, v)
 
 
+def _decode_rows(block_tables, pos, ps: int):
+    """Flat pool row of each slot's new token, ``block_tables[b, pos[b] //
+    ps] * ps + pos[b] % ps``.  A position past the table's width (a
+    chunk's overrun past ``max_len``, after the request's budget is spent,
+    as after a requeue that folded its tokens into the prompt) writes to
+    the slot's scratch page ``b``, as a block not yet allocated does."""
+    nb = block_tables.shape[1]
+    blk = (pos // ps).long()
+    page = torch.gather(block_tables, 1,
+                        blk.clamp(max=nb - 1)[:, None])[:, 0].long()
+    scratch = torch.arange(pos.shape[0], device=pos.device)
+    return torch.where(blk < nb, page, scratch) * ps + (pos % ps).long()
+
+
 def gqa_decode_paged(params, x, pos, cache_kv, block_tables,
                      cfg: ModelConfig, *, window: int = 0,
                      policy: ops.KernelPolicy = ops.DEFAULT_POLICY):
@@ -171,9 +185,7 @@ def gqa_decode_paged(params, x, pos, cache_kv, block_tables,
     k_pages, v_pages = cache_kv[:2]
     P, ps = k_pages.shape[0], k_pages.shape[1]
     q, k, v = _qkv(params, x, pos[:, None], cfg)
-    page = torch.gather(block_tables, 1,
-                        (pos // ps)[:, None].long())[:, 0].long()
-    row = page * ps + (pos % ps).long()                    # (B,)
+    row = _decode_rows(block_tables, pos, ps)              # (B,)
     k_row, v_row = k[:, 0], v[:, 0]                        # (B, Hkv, hd)
     k_scales = v_scales = None
     if len(cache_kv) == 4:
@@ -361,9 +373,7 @@ def mla_decode_paged(params, x, pos, cache_lat, block_tables,
     q_nope, q_rope = _mla_queries(params, x, posb, cfg, policy)
     c_kv, k_rope = _mla_latent(params, x, posb, cfg, policy)
     lat_row = torch.cat([c_kv, k_rope], dim=-1)[:, 0]           # (B, R)
-    page = torch.gather(block_tables, 1,
-                        (pos // ps)[:, None].long())[:, 0].long()
-    row = page * ps + (pos % ps).long()
+    row = _decode_rows(block_tables, pos, ps)
     cache_lat.view(P * ps, R).index_copy_(0, row,
                                           lat_row.to(cache_lat.dtype))
     q_lat = torch.cat([_absorb(q_nope, params["wuk"]), q_rope], dim=-1)

@@ -8,18 +8,20 @@ mid-stream joins, prefix sharing, preemption).
     scheduler    RequestQueue + Scheduler — ragged requests -> fixed slots
     engine       ServeEngine — prefill-on-join (suffix-only on prefix
                  hits), paged decode chunks, preemption/requeue,
-                 free-on-finish, per-request latency + J/token accounting
+                 free-on-finish, per-request latency + J/token accounting,
+                 chaos faults, snapshots and crash-restore (EngineCrash)
 """
 from repro_torch.serving.engine import (ChunkStats, EnergyAwareAdmission,
-                                        EngineConfig, EngineReport,
-                                        ServeEngine)
+                                        EngineConfig, EngineCrash,
+                                        EngineReport, ServeEngine)
 from repro_torch.serving.paged_kv import CopySpec, PagedKVCache
 from repro_torch.serving.request import Request, RequestResult
 from repro_torch.serving.scheduler import RequestQueue, Scheduler
 from repro_torch.serving.traffic import batch_trace, poisson_trace
 
 __all__ = [
-    "ChunkStats", "EnergyAwareAdmission", "EngineConfig", "EngineReport",
+    "ChunkStats", "EnergyAwareAdmission", "EngineConfig", "EngineCrash",
+    "EngineReport",
     "ServeEngine", "CopySpec", "PagedKVCache", "Request", "RequestResult",
     "RequestQueue", "Scheduler", "batch_trace", "poisson_trace",
 ]

@@ -41,9 +41,22 @@ paged out to host memory and back on a prefix hit (``PagedKVCache``'s
 demote / promote), each direction charged at ``transfer_j_per_byte`` into
 the J/token ledger.
 
+Chaos and crash recovery (``injector``, ``snapshot_dir``): a seeded
+``FaultInjector`` is polled on the decode-step clock at the top of every
+cycle.  Slot crashes requeue their request with zero token loss, page
+corruptions are caught and quarantined by ``verify_invariants``, ``derate``
+and ``emergency_cap`` windows degrade service (admission paused; under a
+cap the chunk halves and speculation stops) instead of breaking the site's
+power cap, and an ``engine_crash`` raises :class:`EngineCrash`.  Every
+``snapshot_every`` chunks the engine writes a snapshot (the device pools
+plus a JSON blob of the queue, slots, results, counters and the paged-KV
+host metadata with its host-tier pages) through ``repro_torch.checkpoint``;
+``ServeEngine.restore`` + ``resume`` fold each in-flight slot's tokens into
+its prompt, requeue it through the prefix cache, and give the fault-free
+run's greedy streams.
+
 ``EngineConfig``, ``ChunkStats``, ``EngineReport`` and
-``EnergyAwareAdmission`` are unchanged.  Fault injection and snapshots
-raise ``NotImplementedError`` naming the feature.
+``EnergyAwareAdmission`` are unchanged.
 
 ``ChunkStats.wall_s`` is taken after ``torch.cuda.synchronize()``: it
 measures the chunk's execution on the card, not its enqueue.
@@ -51,6 +64,7 @@ measures the chunk's execution on the card, not its enqueue.
 from __future__ import annotations
 
 import dataclasses
+import json
 import time
 import warnings
 from typing import Callable
@@ -60,9 +74,11 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch import quant
+from repro_torch.checkpoint.store import CheckpointManager, restore_pytree
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as tfm
 from repro_torch.runtime import speculate
+from repro_torch.runtime.chaos import FaultInjector, corrupt_paged_kv
 from repro_torch.runtime.steps import (StepConfig, make_paged_decode_loop,
                                        make_paged_speculative_decode_loop,
                                        make_prefill_suffix_step,
@@ -71,6 +87,16 @@ from repro_torch.runtime.steps import (StepConfig, make_paged_decode_loop,
 from repro_torch.serving.paged_kv import PagedKVCache
 from repro_torch.serving.request import Request, RequestResult
 from repro_torch.serving.scheduler import RequestQueue, Scheduler
+
+
+class EngineCrash(RuntimeError):
+    """Injected engine-process death (chaos drills).  Carries the decode
+    step at which the engine died; callers recover through
+    ``ServeEngine.restore`` + ``resume``."""
+
+    def __init__(self, step: int):
+        super().__init__(f"engine crashed at step {step}")
+        self.step = int(step)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -203,14 +229,6 @@ class EnergyAwareAdmission:
         return est.power_w <= self.budget_w
 
 
-def _unported(injector, snapshot_dir) -> str | None:
-    if injector is not None:
-        return "fault injection (injector)"
-    if snapshot_dir is not None:
-        return "engine snapshots (snapshot_dir)"
-    return None
-
-
 class ServeEngine:
     """Drives the paged decode loop over live slots on one device."""
 
@@ -218,13 +236,11 @@ class ServeEngine:
                  step_cfg: StepConfig | None = None, device=None,
                  on_chunk: Callable[[ChunkStats], float | None] | None = None,
                  on_prefill: Callable[[int, int], float | None] | None = None,
-                 admission=None, injector=None,
+                 admission=None,
+                 injector: FaultInjector | None = None,
                  on_heartbeat: Callable[[int, float], None] | None = None,
-                 snapshot_dir: str | None = None):
-        missing = _unported(injector, snapshot_dir)
-        if missing:
-            raise NotImplementedError(f"{missing} is not ported to "
-                                      "repro_torch yet")
+                 on_fault: Callable[[object], None] | None = None,
+                 snapshot_dir: str | None = None, snapshot_every: int = 0):
         self.cfg = cfg
         self.ecfg = engine_cfg
         self.device = _device.resolve(device)
@@ -249,7 +265,17 @@ class ServeEngine:
             kv_dtype=self.kv_dtype)
         self.on_chunk = on_chunk
         self.on_prefill = on_prefill
+        # chaos: faults polled on the decode-step clock each cycle; the
+        # kinds the engine cannot act on itself (bus_drop / bus_delay) go
+        # to on_fault, so that the launcher disturbs its own telemetry
+        self.injector = injector
+        # on_heartbeat(clock_step, chunk_wall_s): liveness for a serving
+        # supervisor, suppressed while a "stall" fault lasts
         self.on_heartbeat = on_heartbeat
+        self.on_fault = on_fault
+        self.snapshot_every = int(snapshot_every)
+        self._ckpt = CheckpointManager(snapshot_dir, keep=2) \
+            if snapshot_dir else None
         self.kv = PagedKVCache(cfg, n_slots=engine_cfg.n_slots,
                                page_size=engine_cfg.page_size,
                                max_len=engine_cfg.max_len,
@@ -310,6 +336,12 @@ class ServeEngine:
             # block tables: seeded at join, carried through the chunk loop,
             # read back at harvest
             self._dstate = self._drafter.init_state(engine_cfg.n_slots)
+        # graceful degradation: level 0 healthy, 1 derate (admission
+        # paused), 2 emergency cap (also a halved chunk, no speculation)
+        self._degrade_level = 0
+        self._degrade_until = -1           # engine-clock step the window ends
+        self._cap_frac = 1.0               # cap fraction in force (reporting)
+        self._stall_until = -1             # heartbeat suppression window end
 
     # -- device steps ----------------------------------------------------------
     def _tensor(self, a, dtype=torch.int32):
@@ -661,6 +693,197 @@ class ServeEngine:
                 self._pos[slot] = 0
         return kept_by_rid
 
+    # -- chaos + degradation -------------------------------------------------
+    def degrade(self, level: int, *, steps: int, cap: float = 1.0) -> None:
+        """Enter (or extend / deepen) a degradation window of ``steps``
+        engine-clock steps.  Level 1 (derate) pauses admission; level 2
+        (emergency cap) also halves the decode chunk and drops speculation.
+        The window clears itself once the clock passes its end."""
+        self._degrade_level = max(self._degrade_level, int(level))
+        self._degrade_until = max(self._degrade_until,
+                                  self._now + max(int(steps), 1))
+        if cap:
+            self._cap_frac = min(self._cap_frac, float(cap))
+
+    @property
+    def degrade_level(self) -> int:
+        return self._degrade_level
+
+    def _apply_faults(self, t0: float) -> None:
+        """Poll the injector on the decode-step clock and apply what came
+        due.  ``engine_crash`` raises :class:`EngineCrash` (the caller
+        restores from the last snapshot); the rest is absorbed in place."""
+        if self.injector is None:
+            return
+        for ev in self.injector.poll(self._now):
+            self._report.n_faults_injected += 1
+            if ev.kind == "engine_crash":
+                raise EngineCrash(self._now)
+            if ev.kind == "slot_crash":
+                slot = int(ev.arg) % self.ecfg.n_slots
+                if self.scheduler.slots[slot] is not None:
+                    self._preempt(slot, t0)
+                    self._report.requeued_requests += 1
+            elif ev.kind == "page_corrupt":
+                if corrupt_paged_kv(self.kv, self.injector.rng) is not None:
+                    # audit and repair at once: nothing may allocate on
+                    # corrupted metadata
+                    self.kv.verify_invariants(repair=True)
+                    self._report.n_pages_quarantined = \
+                        len(self.kv.quarantined)
+            elif ev.kind == "stall":
+                self._stall_until = self._now + \
+                    max(ev.duration, self.ecfg.decode_chunk)
+            elif ev.kind == "derate":
+                self.degrade(1, steps=max(ev.duration, 1), cap=ev.arg)
+            elif ev.kind == "emergency_cap":
+                self.degrade(2, steps=max(ev.duration, 1), cap=ev.arg)
+            elif self.on_fault is not None:
+                self.on_fault(ev)     # bus_drop / bus_delay: the launcher's
+
+    # -- snapshot / restore --------------------------------------------------
+    @staticmethod
+    def _ser_req(req: Request) -> dict:
+        p = np.asarray(req.prompt)
+        return {"rid": req.rid, "prompt": p.tolist(), "dtype": str(p.dtype),
+                "max_new_tokens": req.max_new_tokens,
+                "arrival_step": req.arrival_step, "eos_id": req.eos_id,
+                "priority": req.priority}
+
+    @staticmethod
+    def _de_req(rec: dict) -> Request:
+        return Request(rid=int(rec["rid"]),
+                       prompt=np.asarray(rec["prompt"], dtype=rec["dtype"]),
+                       max_new_tokens=int(rec["max_new_tokens"]),
+                       arrival_step=int(rec["arrival_step"]),
+                       eos_id=rec["eos_id"], priority=int(rec["priority"]))
+
+    def snapshot(self) -> dict:
+        """The engine's recoverable state as a checkpointable tree: the
+        device pools (``cache``) and a JSON blob (``meta``, a uint8 array)
+        of the queue, each slot's progress, the results so far, the report
+        counters, the degradation windows and the paged-KV host metadata
+        (block tables, trie, host-tier pages).  Taken at chunk boundaries
+        only, so every slot's KV is written through its ``pos`` and the
+        fold into the prompt replays exactly."""
+        slots = []
+        for slot in self.scheduler.active_slots():
+            state = self.scheduler.slots[slot]
+            slots.append({"slot": slot,
+                          "request": self._ser_req(state.request),
+                          "remaining": int(state.remaining),
+                          "tok_start": int(state.tok_start),
+                          "written": int(self._pos[slot])})
+        rep = {f.name: getattr(self._report, f.name)
+               for f in dataclasses.fields(self._report)
+               if f.name != "results"}
+        meta = {"now": self._now, "chunk_idx": self._chunk_idx,
+                "occ_sum": self._occ_sum,
+                # a cap or derate window outlives the process that crashed
+                # under it: the restored engine stays degraded until the
+                # window ends
+                "degrade": {"level": self._degrade_level,
+                            "until": self._degrade_until,
+                            "cap": self._cap_frac,
+                            "stall": self._stall_until},
+                "req_order": self._req_order,
+                "queue": [self._ser_req(r) for r in self._queue.pending()],
+                "slots": slots,
+                "results": {str(rid): dataclasses.asdict(res)
+                            for rid, res in self._results.items()},
+                "report": rep,
+                "kv": self.kv.state_dict()}
+        blob = np.frombuffer(json.dumps(meta).encode(), np.uint8).copy()
+        return {"cache": self.cache, "meta": blob}
+
+    def save_snapshot(self) -> None:
+        """Write :meth:`snapshot` as step ``now``; the pools' copy to the
+        host waits for the device."""
+        if self._ckpt is None:
+            raise ValueError("engine was built without snapshot_dir")
+        self._ckpt.save(self.snapshot(), self._now)
+
+    @classmethod
+    def restore(cls, cfg, engine_cfg: EngineConfig, params, snapshot_dir,
+                *, step: int | None = None, **kwargs) -> "ServeEngine":
+        """Rebuild an engine from the latest committed snapshot (or
+        ``step``).
+
+        The pools come back onto the engine's device bit for bit, and the
+        paged-KV metadata (prefix trie and host-tier pages included)
+        verbatim.  Then every in-flight slot becomes a requeued request
+        with its generated tokens folded into the prompt, its written pages
+        registered in the trie before the slot is released, so that
+        ``resume()`` re-admits it through the prefix cache: the re-prefill
+        is short and the greedy streams equal an uninterrupted run's.
+        ``verify_invariants(repair=True)`` audits the restored pool."""
+        eng = cls(cfg, engine_cfg, params, snapshot_dir=snapshot_dir,
+                  **kwargs)
+        like = {"cache": eng.cache, "meta": np.zeros((0,), np.uint8)}
+        tree = restore_pytree(like, snapshot_dir, step)
+        meta = json.loads(bytes(tree["meta"]))
+        eng.cache = tree["cache"]
+        eng.kv.load_state(meta["kv"])
+        eng.kv.verify_invariants(repair=True)
+        # transfer energy accrued before the crash is inside the restored
+        # report: charge only what happens from here on
+        eng._transfer_seen = eng.kv.transfer_j
+        eng._results = {int(rid): RequestResult(**rec)
+                        for rid, rec in meta["results"].items()}
+        eng._req_order = [int(r) for r in meta["req_order"]]
+        eng._now = int(meta["now"])
+        eng._chunk_idx = int(meta["chunk_idx"])
+        eng._occ_sum = float(meta["occ_sum"])
+        deg = meta["degrade"]
+        eng._degrade_level = int(deg["level"])
+        eng._degrade_until = int(deg["until"])
+        eng._cap_frac = float(deg["cap"])
+        eng._stall_until = int(deg["stall"])
+        eng._report = EngineReport(results=[], **meta["report"])
+        eng._report.n_restores += 1
+        if eng.injector is not None:
+            # the crash's own injection died with the process (snapshots
+            # predate it): the injector's log is authoritative
+            eng._report.n_faults_injected = max(
+                eng._report.n_faults_injected, eng.injector.n_injected)
+            # derate / cap windows are external conditions: one that fired
+            # after the last snapshot will not fire again, but its window
+            # may still be open, so the remainder is imposed again
+            for ev in eng.injector.log:
+                lvl = {"derate": 1, "emergency_cap": 2}.get(ev.kind)
+                if lvl and ev.step + ev.duration > eng._now:
+                    eng.degrade(lvl, steps=ev.step + ev.duration - eng._now,
+                                cap=ev.arg)
+        eng._report.n_pages_quarantined = len(eng.kv.quarantined)
+        reqs = [eng._de_req(rec) for rec in meta["queue"]]
+        for srec in meta["slots"]:
+            req = eng._de_req(srec["request"])
+            res = eng._results[req.rid]
+            gen = np.asarray(res.tokens[int(srec["tok_start"]):], np.int32)
+            prompt = np.asarray(req.prompt, np.int32)
+            if gen.size:
+                prompt = np.concatenate(
+                    [prompt, gen.reshape((-1,) + prompt.shape[1:])])
+            slot = int(srec["slot"])
+            if eng._use_prefix and slot in eng.kv.allocated:
+                # index the dead slot's written pages before releasing
+                # them: the requeue restores from the trie, not compute
+                eng.kv.register_prefix(slot, prompt[:int(srec["written"])])
+            reqs.append(dataclasses.replace(
+                req, prompt=prompt, max_new_tokens=int(srec["remaining"]),
+                arrival_step=eng._now))
+            eng._report.requeued_requests += 1
+        for slot in list(eng.kv.allocated):   # slots died with the process
+            eng.kv.release(slot)
+        eng._pos[:] = 0
+        eng._queue = RequestQueue(reqs)
+        return eng
+
+    def resume(self) -> EngineReport:
+        """Continue a restored engine to completion."""
+        with torch.no_grad():
+            return self._drive()
+
     # -- main loop -----------------------------------------------------------
     def _begin(self, requests: list[Request]) -> None:
         self._queue = RequestQueue(requests)
@@ -673,11 +896,19 @@ class ServeEngine:
         self._occ_sum = 0.0
         self._report = EngineReport(results=[], spec_k=self.ecfg.spec_k)
         self._transfer_seen = self.kv.transfer_j
+        self._degrade_level = 0
+        self._degrade_until = -1
+        self._cap_frac = 1.0
+        self._stall_until = -1
         self._eff_chunk = self.ecfg.decode_chunk
 
     def run(self, requests: list[Request]) -> EngineReport:
         self._begin(requests)
         with torch.no_grad():
+            if self._ckpt is not None and self.snapshot_every > 0:
+                # step-0 snapshot: a crash before the first periodic save
+                # still restores (to the full queue)
+                self.save_snapshot()
             return self._drive()
 
     def _drive(self) -> EngineReport:
@@ -686,15 +917,25 @@ class ServeEngine:
         report = self._report
         t0 = time.perf_counter()
         tok_in = np.zeros((ecfg.n_slots, 1), np.int32)
-        eff_chunk = ecfg.decode_chunk
-
-        spec = self._drafter is not None
-        eff_k = ecfg.spec_k if spec else 0
 
         while len(queue) or self.scheduler.n_active:
+            self._apply_faults(t0)           # may raise EngineCrash
+            if self._degrade_level and self._now >= self._degrade_until:
+                self._degrade_level = 0      # window cleared: full service
+                self._cap_frac = 1.0
+            degraded = self._degrade_level
             t_p = time.perf_counter()
-            for slot, req, m, copy in self.scheduler.poll(queue, self._now):
-                self._join(slot, req, m, copy, t0)
+            if not degraded:                 # degraded: admission paused
+                for slot, req, m, copy in self.scheduler.poll(queue,
+                                                              self._now):
+                    self._join(slot, req, m, copy, t0)
+            # emergency cap: halve the chunk and drop speculation, so that
+            # the chunk's compute shrinks instead of breaking the cap
+            eff_chunk = ecfg.decode_chunk if degraded < 2 \
+                else max(ecfg.decode_chunk // 2, 1)
+            spec = self._drafter is not None and degraded < 2
+            eff_k = ecfg.spec_k if spec else 0
+            self._eff_chunk = eff_chunk
             if ecfg.preempt:
                 self._grow_pages(t0, eff_chunk * (eff_k + 1))
             # joins may have paged prefixes in, growth cold pages out:
@@ -704,6 +945,12 @@ class ServeEngine:
             report.prefill_wall_s += time.perf_counter() - t_p
 
             if self.scheduler.n_active == 0:
+                if degraded:
+                    # admission paused and nothing running: jump the clock
+                    # to the window's end instead of spinning
+                    self._now = max(self._degrade_until, self._now + 1)
+                    report.degraded_steps += eff_chunk
+                    continue
                 nxt = queue.next_arrival()
                 if nxt is None:
                     break
@@ -752,6 +999,8 @@ class ServeEngine:
                 if spec else 0
             self._now += eff_chunk
             self._chunk_idx += 1
+            if degraded:
+                report.degraded_steps += eff_chunk
 
             stats = ChunkStats(step=self._chunk_idx, wall_s=wall,
                                n_slots=ecfg.n_slots, n_active=n_active,
@@ -760,7 +1009,8 @@ class ServeEngine:
                                * (eff_k + 1),
                                drafts_proposed=proposed,
                                drafts_accepted=accepted,
-                               clock_step=self._now)
+                               clock_step=self._now,
+                               degrade_level=degraded)
             energy = self.on_chunk(stats) if self.on_chunk is not None else None
             report.n_chunks += 1
             report.decode_wall_s += wall
@@ -774,9 +1024,16 @@ class ServeEngine:
                 for rid, n in kept_by_rid.items():
                     if n > 0:
                         self._results[rid].energy_j += energy * n / max(kept, 1)
-            if self.on_heartbeat is not None:
+            if self.on_heartbeat is not None and self._now > self._stall_until:
                 self.on_heartbeat(self._now, wall)
+            if self._ckpt is not None and self.snapshot_every > 0 \
+                    and self._chunk_idx % self.snapshot_every == 0:
+                self.save_snapshot()
 
+        # final poll: a fault due between the last chunk and the run's end
+        # still fires (an engine_crash here restores and replays the tail,
+        # so results count only once this returns)
+        self._apply_faults(t0)
         self._sync_transfer()
         report.n_demotions = self.kv.n_demotions
         report.n_promotions = self.kv.n_promotions

@@ -175,16 +175,6 @@ def test_sampled_speculative_streams_are_deterministic(smollm):
     assert run(3) != run(4)
 
 
-@pytest.mark.parametrize("over,kw,feature", [
-    ({}, {"injector": object()}, "fault injection"),
-    ({}, {"snapshot_dir": "snapshots"}, "snapshots")])
-def test_unported_engine_features_raise(smollm, over, kw, feature):
-    _, _, tcfg, tparams = smollm
-    with pytest.raises(NotImplementedError, match=feature):
-        ServeEngine(tcfg, EngineConfig(**BASE, **over), tparams,
-                    device="cpu", **kw)
-
-
 def test_engine_defaults_to_the_card(smollm, monkeypatch):
     _, _, tcfg, tparams = smollm
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -206,17 +196,6 @@ def test_serve_poisson_prints_the_jax_lines(capsys):
     assert "tok/s measured" in out and "J/token" in out
     assert "[serve] prefix cache:" in out
     assert "[frost-ctrl]" in out and "cap commands mid-run" in out
-
-
-@pytest.mark.parametrize("extra,item", [
-    (["--traffic", "poisson", "--chaos", "crash@4"], "chaos")])
-def test_serve_refuses_unported_flags(extra, item):
-    with pytest.raises(SystemExit) as exc:
-        serve.run(["--arch", "smollm-135m", "--smoke", "--device", "cpu",
-                   *extra])
-    assert exc.value.code != 0
-    assert "not yet ported" in str(exc.value.code)
-    assert item in str(exc.value.code)
 
 
 def test_serve_unknown_arch_names_the_ported_ones():

@@ -31,7 +31,8 @@ def test_port_import_pulls_in_no_jax():
             "repro_torch.kernels.rmsnorm, repro_torch.kernels.ssd_scan, "
             "repro_torch.models.ssm, repro_torch.models.layers, "
             "repro_torch.models.attention, repro_torch.quant, "
-            "repro_torch.configs.deepseek_v2_236b\n"
+            "repro_torch.configs.deepseek_v2_236b, repro_torch.checkpoint, "
+            "repro_torch.runtime.chaos\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.'))\n"
