@@ -238,7 +238,37 @@ Phases, in order; any failure exits non-zero (nothing is caught):
                 CHAOS_SPEC``: one restore and both ``[chaos]`` summary
                 lines.  Each drill prints its ``save_snapshot`` walls,
                 the snapshot's bytes on disk, the ``restore`` wall and
-                its decode rate beside the fault-free run's.
+                its decode rate beside the fault-free run's;
+  7. training — (a) the backward kernels of K4 (``flash_attention_bwd``:
+                delta, dk / dv by key tile, dq by q tile) and K9
+                (``rmsnorm_bwd``) against ``torch.autograd.grad`` of their
+                plain versions on the same inputs, max |kernel - plain| /
+                max |plain| of each gradient within 2e-2 in bf16 and 1e-4
+                in fp32: K4 at ``FA_BWD_CASES`` (smollm's 8 x 512 at G 3,
+                gemma2's heads of 128 with window 4096 and cap 50 over
+                8192 keys, (120, 120) at G 4, G 7, (192, 128) at G 1,
+                ragged Sq 37 and 1000, a q_offset), K9 at every width of
+                ``RMS_WIDTHS`` up to 8192, both forms, 4 and 1000 rows
+                and ``RMS_BWD_LONG``; the forward with lse bit for bit the
+                forward without, two backward runs bit for bit, and the
+                forms without a backward (G 128, width 16384) refused.
+                (b) smollm-135m's train step at full width and depth,
+                batch 8 x 512, three steps on the kernels against the
+                plain path (``KernelPolicy(attention="ref",
+                rmsnorm="ref")``): fp32 losses within 1e-5 and every
+                gradient within 1e-4 of its scale, bf16 losses and
+                gradient norms within 2e-2, the backward kernels launched
+                once per layer (K4) and per norm (K9) each step; a mamba2
+                train step on the card raises (K8 has no backward).  (c)
+                The main path ``repro_torch.launch.train`` (``TRAIN_ARGV``:
+                24 steps of 8 x 512, bf16, FROST on): the ``[frost]`` and
+                ``[frost-ctrl]`` lines, a loss below its first step's,
+                steps/s, tokens/s and peak memory, K4 and K9 forward and
+                backward on every layer of every step.  (d) The backward
+                kernels' times at smollm's training shapes beside their
+                plain twins, the library's backward through autograd
+                (SDPA's, ``F.rms_norm``'s) and the bound (K4's backward:
+                2.5 times its forward's products).
 
 The last two lines are a JSON object of per-kernel numbers and
 ``{"ok": true, "device": {...}}``.
@@ -263,6 +293,7 @@ TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 PAGED_SRC = "src/repro_torch/kernels/csrc/paged_attention.cu"
 RING_SRC = "src/repro_torch/kernels/csrc/ring_attention.cu"
 FA_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
+FA_BWD_SRC = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
 RMS_SRC = "src/repro_torch/kernels/csrc/rmsnorm.cu"
 SSD_SRC = "src/repro_torch/kernels/csrc/ssd_scan.cu"
 MLA_SRC = "src/repro_torch/kernels/csrc/mla_attention.cu"
@@ -287,6 +318,13 @@ KERNELS = {
     "flash_attention": (
         FA_SRC, "src/repro/kernels/flash_attention.py:94", "flash_attention"),
     "rmsnorm": (RMS_SRC, "src/repro/kernels/rmsnorm.py:27", "rmsnorm"),
+    # the backward kernels of the training path (phase 7): their launches
+    # are the launcher's (phase 7 c)
+    "flash_attention_bwd": (
+        FA_BWD_SRC, "src/repro/kernels/flash_attention.py:94",
+        "flash_attention_bwd"),
+    "rmsnorm_bwd": (RMS_SRC, "src/repro/kernels/rmsnorm.py:27",
+                    "rmsnorm_bwd"),
     "ssd_scan": (SSD_SRC, "src/repro/kernels/ssd_scan.py:76", "ssd"),
     "mla_latent_sweep (decode)": (
         MLA_SRC, "src/repro/kernels/decode_attention.py:1483", "mla_decode"),
@@ -382,8 +420,8 @@ def hmma_counts(build):
 
 
 # kernels that must not spill: the paged and ring sweeps' template, K8's
-# and K9's kernels
-NO_SPILL = ("gqa_sweep_kernel", "ssd_", "rmsnorm_")
+# and K9's kernels, K4's backward kernels
+NO_SPILL = ("gqa_sweep_kernel", "ssd_", "rmsnorm_", "fa_bwd_")
 
 
 def sweep_spills(log, markers=NO_SPILL):
@@ -440,7 +478,7 @@ def k4_forms(torch, fa, counts):
     hmma = {}
     for name, n in counts.items():
         dims = re.search(r"Li(\d+)ELi(\d+)E", name)
-        if "flash_attention" not in name or dims is None:
+        if "flash_attention" not in name or dims is None or "fa_bwd" in name:
             continue
         if "flash_attention_kernelI13__nv_bfloat16" in name:
             fail(f"K4: a bf16 instantiation of the CUDA-core kernel is "
@@ -467,6 +505,33 @@ def k4_forms(torch, fa, counts):
                 f"{occ['smem_bytes']} B of shared memory, "
                 f"{occ['registers']} registers a thread, "
                 f"{occ['blocks_per_sm']} blocks an SM")
+
+
+def k4_bwd_forms(fa, counts):
+    """Phase 1, K4's backward: its bf16 dk / dv and dq kernels hold HMMA
+    instructions at every (D, Dv) of ``HEAD_DIMS``, its fp32 ones none, and
+    no bf16 instantiation of the CUDA-core kernels is built."""
+    import re
+    hmma = {}
+    for name, n in counts.items():
+        m = re.search(r"fa_bwd_(dkdv|dq)_(mma_)?kernelI(f|)Li(\d+)ELi(\d+)E",
+                      name)
+        if "fa_bwd_d" in name and "delta" not in name and m is None:
+            fail(f"K4 backward: unexpected kernel {name} in the library")
+        if m is None:
+            continue
+        kind = "bfloat16" if m.group(2) else "float32"
+        hmma[m.group(1), kind, (int(m.group(4)), int(m.group(5)))] = n
+    for D, Dv in fa.HEAD_DIMS:
+        for part in ("dkdv", "dq"):
+            for kind in ("bfloat16", "float32"):
+                n = hmma.get((part, kind, (D, Dv)))
+                if n is None or (n > 0) != (kind == "bfloat16"):
+                    fail(f"K4 backward {part} ({D}, {Dv}) {kind}: {n} HMMA "
+                         "instructions")
+    say(f"K4 backward: {len(hmma)} kernels, HMMA in the bf16 ones only: "
+        + ", ".join(f"{p} {f} {k} {n}"
+                    for (p, k, f), n in sorted(hmma.items())))
 
 
 def sweep_forms(torch, da, counts, sweep="paged"):
@@ -3519,6 +3584,395 @@ def chaos_drills(torch, dev, da, serving, chaos, serve, tfm, bridge, cfg,
 
 
 # --------------------------------------------------------------------------
+# --------------------------------------------------------------------------
+# phase 7 helpers
+# --------------------------------------------------------------------------
+# K4's backward cases (label, shape, keyword arguments): smollm's heads at
+# its 8 x 512 training batch, gemma2's heads of 128 (G 2) with its window
+# and cap over 8192 keys (fewer heads, so that the plain version's
+# autograd graph fits), h2o-danube's 120 at G 4, llava's G 7, deepseek's
+# MLA prefill (192, 128) at G 1, ragged Sq 37 and 1000, and a q_offset
+FA_BWD_CASES = [
+    ("smollm 8 x 512 (64, 64) G 3",
+     dict(B=8, Sq=PLEN, Sk=PLEN, Hq=9, Hkv=3, D=64), {}),
+    ("gemma2 1 x 8192 (128, 128) window 4096 cap 50",
+     dict(B=1, Sq=8192, Sk=8192, Hq=4, Hkv=2, D=128),
+     dict(GEMMA_ATTN, window=4096)),
+    ("h2o 2 x 512 (120, 120) G 4",
+     dict(B=2, Sq=PLEN, Sk=PLEN, **H2O_HEADS), {"window": 100}),
+    ("llava 2 x 512 (128, 128) G 7",
+     dict(B=2, Sq=PLEN, Sk=PLEN, **LLAVA_HEADS), {}),
+    ("deepseek 2 x 512 (192, 128) G 1",
+     dict(B=2, Sq=PLEN, Sk=PLEN, Hq=16, Hkv=16, D=192, Dv=128),
+     {"scale": MLA["scale"]}),
+    ("ragged Sq 37", dict(B=3, Sq=37, Sk=37, Hq=9, Hkv=3, D=64), {}),
+    ("ragged Sq 1000", dict(B=1, Sq=1000, Sk=1000, Hq=8, Hkv=2, D=128),
+     {"logit_cap": 30.0}),
+    ("q_offset 63, Sq 37 over 100 keys",
+     dict(B=2, Sq=37, Sk=100, Hq=9, Hkv=3, D=64), {"q_offset": 63}),
+]
+# K9's backward rows: every width the zoo normalizes and the widths of
+# each forward launch shape up to 8192, at a few rows and at many
+RMS_BWD_ROWS = (4, 1000)
+RMS_BWD_LONG = ((65536, 576), (4096, 4608))
+
+
+def rel_err(a, b):
+    """max |a - b| / max |b|, in fp32."""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def check_fa_backward(torch, np, dev, fa, ops, errs):
+    """Phase 7 (a), K4: the kernels' gradients against torch.autograd of
+    the plain version on the same inputs, the forward with lse bit for bit
+    the forward without, two backward runs bit for bit.  Returns the
+    largest relative error by dtype; the largest |kernel - plain| goes to
+    ``errs["flash_attention_bwd"]``."""
+    worst = {"bfloat16": 0.0, "float32": 0.0}
+    for i, (label, shp, kw) in enumerate(FA_BWD_CASES):
+        for dtype in ("bfloat16", "float32"):
+            q, k, v = fa_case(torch, np, dev, dtype=dtype, seed=900 + i,
+                              **shp)
+            for t in (q, k, v):
+                t.requires_grad_(True)
+            n0 = (fa.LAUNCHES["flash_attention"],
+                  fa.LAUNCHES["flash_attention_bwd"])
+            out = fa.flash_attention(q, k, v, **kw)
+            dout = torch.randn_like(out)
+            got = torch.autograd.grad(out, (q, k, v), dout,
+                                      retain_graph=True)
+            again = torch.autograd.grad(out, (q, k, v), dout)
+            if (fa.LAUNCHES["flash_attention"] - n0[0],
+                    fa.LAUNCHES["flash_attention_bwd"] - n0[1]) != (1, 2):
+                fail(f"K4 backward {label} {dtype}: launches "
+                     f"{fa.LAUNCHES['flash_attention'] - n0[0]} forward, "
+                     f"{fa.LAUNCHES['flash_attention_bwd'] - n0[1]} "
+                     "backward, expected 1 and 2")
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                fail(f"K4 backward {label} {dtype}: two runs differ")
+            with torch.no_grad():
+                plain_fwd = fa.flash_attention(q, k, v, **kw)
+            if not torch.equal(plain_fwd, out.detach()):
+                fail(f"K4 {label} {dtype}: the forward with lse differs "
+                     "from the forward without")
+            out_p = ops.flash_attention_torch(q, k, v, **kw)
+            want = torch.autograd.grad(out_p, (q, k, v), dout)
+            rel = [rel_err(a, b) for a, b in zip(got, want)]
+            if not all(np.isfinite(e) for e in rel) \
+                    or max(rel) > TOL[dtype]:
+                fail(f"K4 backward {label} {dtype}: dq, dk, dv relative "
+                     f"errors {rel} (tol {TOL[dtype]})")
+            worst[dtype] = max(worst[dtype], max(rel))
+            note(errs, max(float((a.float() - b.float()).abs().max())
+                           for a, b in zip(got, want)),
+                 "flash_attention_bwd")
+            say(f"K4 backward {label} {dtype}: dq, dk, dv relative errors "
+                + ", ".join(f"{e:.2e}" for e in rel))
+            del q, k, v, out, got, again, want, out_p
+        torch.cuda.empty_cache()
+    # a form the backward does not take raises when asked for a gradient
+    q, k, v = fa_case(torch, np, dev, dtype="bfloat16", seed=950, B=1, Sq=8,
+                      Sk=8, Hq=128, Hkv=1, D=64)
+    q.requires_grad_(True)
+    try:
+        fa.flash_attention(q, k, v)
+    except ValueError as e:
+        say(f"K4 backward refuses G 128: {e}")
+    else:
+        fail("K4 at G 128 with a gradient did not raise")
+    return worst
+
+
+def check_rms_backward(torch, np, dev, rms, common, errs):
+    """Phase 7 (a), K9: dx and d scale against torch.autograd of the plain
+    version, both forms, bf16 and fp32 x with fp32 scale, at every width of
+    ``RMS_WIDTHS`` up to 8192, 4 and 1000 rows and the long rows of
+    ``RMS_BWD_LONG``; two runs bit for bit.  Widths past 8192 raise.
+    Returns the largest relative error by dtype; the largest |kernel -
+    plain| goes to ``errs["rmsnorm_bwd"]``."""
+    worst = {"bfloat16": 0.0, "float32": 0.0}
+    rng = np.random.default_rng(960)
+    shapes = [(n, d) for d in RMS_WIDTHS if d <= rms.MAX_WIDTH
+              for n in RMS_BWD_ROWS] + list(RMS_BWD_LONG)
+    for rows, d in shapes:
+        for dtype in ("bfloat16", "float32"):
+            for gemma in (False, True):
+                x = torch.tensor(rng.standard_normal((rows, d)),
+                                 dtype=torch.float32, device=dev).to(
+                    getattr(torch, dtype)).requires_grad_(True)
+                w = torch.tensor(0.1 * rng.standard_normal(d),
+                                 dtype=torch.float32,
+                                 device=dev).requires_grad_(True)
+                n0 = rms.LAUNCHES["rmsnorm_bwd"]
+                y = rms.rmsnorm(x, w, gemma_style=gemma)
+                dy = torch.randn_like(y)
+                got = torch.autograd.grad(y, (x, w), dy, retain_graph=True)
+                again = torch.autograd.grad(y, (x, w), dy)
+                if rms.LAUNCHES["rmsnorm_bwd"] - n0 != 2:
+                    fail(f"K9 backward {rows} x {d}: "
+                         f"{rms.LAUNCHES['rmsnorm_bwd'] - n0} launches")
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    fail(f"K9 backward {rows} x {d} {dtype}: two runs differ")
+                y_p = common.rmsnorm(x, w, 1e-6, gemma_style=gemma)
+                want = torch.autograd.grad(y_p, (x, w), dy)
+                rel = [rel_err(a, b) for a, b in zip(got, want)]
+                if not all(np.isfinite(e) for e in rel) \
+                        or max(rel) > TOL[dtype]:
+                    fail(f"K9 backward {rows} x {d} {dtype} gemma {gemma}: "
+                         f"dx, d scale relative errors {rel}")
+                worst[dtype] = max(worst[dtype], max(rel))
+                note(errs, max(float((a.float() - b.float()).abs().max())
+                               for a, b in zip(got, want)), "rmsnorm_bwd")
+    say(f"K9 backward: {len(shapes) * 4} cases, largest relative errors "
+        f"bf16 {worst['bfloat16']:.2e}, fp32 {worst['float32']:.2e}")
+    x = torch.ones((4, 16384), device=dev, requires_grad=True)
+    try:
+        rms.rmsnorm(x, torch.ones(16384, device=dev))
+    except ValueError as e:
+        say(f"K9 backward refuses width 16384: {e}")
+    else:
+        fail("K9 at width 16384 with a gradient did not raise")
+    return worst
+
+
+def autograd_ms(torch, forward, inputs, grad_out):
+    """Device time of the library's backward through autograd: the
+    forward and ``torch.autograd.grad`` of it captured together into CUDA
+    graphs by ``time_ms`` (the autograd engine runs the backward on the
+    forward's stream, the capture's), less the forward captured alone, so
+    that the host's launch cost stays out as it does for the kernels."""
+    both = time_ms(torch, lambda: torch.autograd.grad(forward(), inputs,
+                                                      grad_out),
+                   iters=5, reps=10)
+    return both - time_ms(torch, forward, iters=5, reps=10)
+
+
+def backward_timings(torch, np, dev, fa, rms):
+    """Phase 7 (d): K4's and K9's backward kernels at smollm-135m's training
+    shapes (bf16, 8 x 512 tokens; K4 at 9 / 3 heads of 64, K9 at width
+    576), beside their plain twins, the library's backward through
+    autograd (SDPA's, F.rms_norm's; never called by the port;
+    ``autograd_ms``) and the bound: K4's backward reads q, k, v, out, dout
+    and lse and writes dq, dk and dv once each, and does 2.5 times its
+    forward's products."""
+    F = torch.nn.functional
+    shp = dict(B=BATCH, Sq=PLEN, Sk=PLEN, Hq=9, Hkv=3, D=64)
+    q, k, v = fa_case(torch, np, dev, dtype="bfloat16", seed=990, **shp)
+    out, lse = fa._forward(q, k, v, causal=True, window=0, logit_cap=0.0,
+                           scale=None, q_offset=0, with_lse=True)
+    dout = torch.randn_like(out)
+    ms = time_ms(torch, lambda: fa.flash_attention_bwd(q, k, v, out, lse,
+                                                       dout), iters=5,
+                 reps=10)
+    plain = time_ms(torch, lambda: fa.flash_attention_bwd_torch(
+        q, k, v, out, lse, dout), iters=3, reps=3)
+    G = shp["Hq"] // shp["Hkv"]
+    qt = q.transpose(1, 2).contiguous().requires_grad_(True)
+    kt = k.repeat_interleave(G, dim=2).transpose(1, 2).contiguous() \
+        .requires_grad_(True)
+    vt = v.repeat_interleave(G, dim=2).transpose(1, 2).contiguous() \
+        .requires_grad_(True)
+    dot = dout.transpose(1, 2).contiguous()
+    lib = autograd_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), (qt, kt, vt), dot)
+    # the forward's bytes (q, k, v read, out written) twice: q, k, v read
+    # and dq, dk, dv written; out read and dout read
+    nbytes, flops = fa_work(np, **shp, es=2)
+    nbytes = 2 * nbytes + 4 * lse.numel()
+    b_ms, b_by = bound(nbytes, 2.5 * flops)
+    label = "smollm 8 x 512 (64, 64) G 3"
+    say(f"K4 backward {label}: kernel {ms * 1e3:.1f} us, plain twin "
+        f"{plain * 1e3:.1f} us, SDPA backward (autograd) {lib * 1e3:.1f} "
+        f"us, bound {b_ms * 1e3:.2f} us ({b_by})")
+    rows = {"flash_attention_bwd": dict(
+        ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+        shape=label)}
+    del q, k, v, out, lse, dout, qt, kt, vt, dot
+    rng = np.random.default_rng(991)
+    n, d = BATCH * PLEN, 576
+    x = torch.tensor(rng.standard_normal((n, d)), dtype=torch.float32,
+                     device=dev).to(torch.bfloat16)
+    w = torch.tensor(0.1 * rng.standard_normal(d), dtype=torch.float32,
+                     device=dev)
+    _, rstd = rms._forward(x, w, 1e-6, False, with_rstd=True)
+    dy = torch.randn_like(x)
+    ms = time_ms(torch, lambda: rms.rmsnorm_bwd(x, w, dy, rstd))
+    plain = time_ms(torch, lambda: rms.rmsnorm_bwd_torch(x, w, dy, rstd))
+    lib = None
+    if hasattr(F, "rms_norm"):
+        xl = x.detach().clone().requires_grad_(True)
+        wl = w.to(x.dtype).requires_grad_(True)
+        lib = autograd_ms(torch, lambda: F.rms_norm(xl, (d,), weight=wl,
+                                                    eps=1e-6), (xl, wl), dy)
+    b_ms, b_by = bound(3 * x.numel() * 2 + 4 * n + 2 * 4 * d,
+                       10.0 * x.numel())
+    label = f"smollm {n} x {d}"
+    lib_s = "n/a" if lib is None else f"{lib * 1e3:.1f} us"
+    say(f"K9 backward {label}: kernel {ms * 1e3:.1f} us, plain twin "
+        f"{plain * 1e3:.1f} us, F.rms_norm backward (autograd) {lib_s}, "
+        f"bound {b_ms * 1e3:.3f} us ({b_by})")
+    rows["rmsnorm_bwd"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                               bound_ms=b_ms, bound_by=b_by, shape=label)
+    return rows
+
+
+# the train steps of phase 7 (b): smollm-135m at full width and depth,
+# batch 8 x 512, three steps from one seed
+TRAIN_STEPS = 3
+# the launcher's main path (c): 24 steps of 8 x 512 with the FROST plane
+TRAIN_ARGV = ["--arch", "smollm-135m", "--steps", "24", "--frost",
+              "--batch", str(BATCH), "--seq", str(PLEN)]
+
+
+def train_reference(torch, np, dev, cfg, da, steps, common, optim, data):
+    """Phase 7 (b): smollm-135m's train step at full width, on the kernels
+    (K4 and K9 forward and backward) against the same step on the plain
+    path (``KernelPolicy(attention="ref", rmsnorm="ref")``), from the same
+    seed, for ``TRAIN_STEPS`` steps.  fp32: every gradient of the first
+    step within 1e-4 of its leaf's scale, each step's loss within 1e-5
+    relative; bf16: each step's loss and gradient norm within 2e-2.  The
+    kernels' run must launch K4's backward once per layer per step and
+    K9's once per norm per step."""
+    from repro_torch.kernels.ops import KernelPolicy
+    n_norms = 2 * cfg.n_layers + 1
+    batches = data.TokenBatches(data.DataConfig(
+        seed=0, vocab_size=cfg.vocab_size, seq_len=PLEN,
+        global_batch=BATCH))
+    plain_policy = KernelPolicy(attention="ref", rmsnorm="ref")
+    for dtype in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        runs = {}
+        for name, policy in (("kernels", KernelPolicy()),
+                             ("plain", plain_policy)):
+            sc = steps.StepConfig(
+                remat="none", kernel_policy=policy,
+                optimizer=optim.OptimizerConfig(warmup_steps=2,
+                                                total_steps=24))
+            gen = torch.Generator(device=dev).manual_seed(0)
+            state = steps.init_train_state(c, sc, gen, dev)
+            b0 = batches.batch(0)
+            first = steps.make_loss_and_grads(c, sc)(
+                state["params"], torch.tensor(b0["inputs"], device=dev),
+                torch.tensor(b0["targets"], device=dev))
+            step = steps.make_train_step(c, sc)
+            da.reset_launches()
+            metrics = []
+            for i in range(TRAIN_STEPS):
+                state, m = step(state, batches.batch(i))
+                metrics.append({k: float(v) for k, v in m.items()})
+            torch.cuda.synchronize()
+            runs[name] = (first, metrics, dict(da.LAUNCHES))
+            del state
+            torch.cuda.empty_cache()
+        (g_k, m_k, n_k), (g_p, m_p, _) = runs["kernels"], runs["plain"]
+        want = {"flash_attention": cfg.n_layers * TRAIN_STEPS,
+                "flash_attention_bwd": cfg.n_layers * TRAIN_STEPS,
+                "rmsnorm": n_norms * TRAIN_STEPS,
+                "rmsnorm_bwd": n_norms * TRAIN_STEPS}
+        got = {key: n_k[key] for key in want}
+        if got != want:
+            fail(f"train step {dtype}: launches {got}, expected {want}")
+        tol = 1e-5 if dtype == "float32" else 2e-2
+        for i, (a, b) in enumerate(zip(m_k, m_p)):
+            e_loss = abs(a["loss"] - b["loss"]) / abs(b["loss"])
+            e_norm = abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
+            if not np.isfinite(a["loss"]) or e_loss > tol \
+                    or (dtype == "bfloat16" and e_norm > tol):
+                fail(f"train step {dtype} step {i}: loss {a['loss']} vs "
+                     f"{b['loss']}, grad norm {a['grad_norm']} vs "
+                     f"{b['grad_norm']}")
+        worst = 0.0
+        if dtype == "float32":
+            if rel_err(g_k[0], g_p[0]) > 1e-5:
+                fail(f"train step fp32: first loss {float(g_k[0])} vs "
+                     f"{float(g_p[0])}")
+            errs = [rel_err(a, b) for a, b in zip(
+                common.tree_leaves(g_k[1]), common.tree_leaves(g_p[1]))]
+            if not all(np.isfinite(e) for e in errs):
+                fail(f"train step fp32: a gradient's error is not finite "
+                     f"({errs})")
+            worst = max(errs)
+            if worst > 1e-4:
+                fail(f"train step fp32: a gradient {worst:.2e} of its "
+                     "scale from the plain path's")
+        say(f"train step smollm-135m {BATCH} x {PLEN} {dtype}, kernels vs "
+            f"plain: losses "
+            + ", ".join(f"{a['loss']:.6f}/{b['loss']:.6f}"
+                        for a, b in zip(m_k, m_p))
+            + ", grad norms "
+            + ", ".join(f"{a['grad_norm']:.5f}/{b['grad_norm']:.5f}"
+                        for a, b in zip(m_k, m_p))
+            + (f", largest gradient error {worst:.2e} of its scale"
+               if dtype == "float32" else "")
+            + f"; launches {got}")
+
+
+def mamba_train_refused(torch, dev, steps, get_arch):
+    """Phase 7 (b): a mamba2 train step on the card raises (K8 has no
+    backward kernel)."""
+    c = dataclasses.replace(get_arch("mamba2-370m").config, n_layers=2)
+    sc = steps.StepConfig(remat="none")
+    state = steps.init_train_state(
+        c, sc, torch.Generator(device=dev).manual_seed(0), dev)
+    batch = {"inputs": torch.zeros((2, 64), dtype=torch.int32, device=dev),
+             "targets": torch.zeros((2, 64), dtype=torch.int32, device=dev)}
+    try:
+        steps.make_train_step(c, sc)(state, batch)
+    except RuntimeError as e:
+        if "ssd_scan" not in str(e):
+            raise
+        say(f"mamba2 train step on the card refused: {e}")
+    else:
+        fail("a mamba2 train step on the card did not raise")
+    del state
+    torch.cuda.empty_cache()
+
+
+def train_main_path(torch, da, train, cfg, card):
+    """Phase 7 (c): ``repro_torch.launch.train`` at smollm-135m's full width
+    and depth, ``TRAIN_ARGV``; launch counts zeroed just before and read
+    just after.  The [frost] and [frost-ctrl] lines, a loss that falls
+    from its first step, K4 and K9 forward and backward on every layer of
+    every step."""
+    import contextlib
+    import io
+    import math
+    import tempfile
+    with tempfile.TemporaryDirectory() as ckpt:
+        args = train.build_parser().parse_args(TRAIN_ARGV
+                                               + ["--ckpt-dir", ckpt])
+        buf = io.StringIO()
+        da.reset_launches()
+        with contextlib.redirect_stdout(buf):
+            rep = train.train(args)
+        torch.cuda.synchronize()
+        counts = dict(da.LAUNCHES)
+    out = buf.getvalue()
+    for line in out.splitlines():
+        say(f"  {line}")
+    for tag in ("[frost] selected cap", "[frost-ctrl]", "steps/s",
+                "tokens/s", "peak memory"):
+        if tag not in out:
+            fail(f"train main path: no {tag!r} line")
+    losses = rep["losses"]
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        fail(f"train main path: loss {losses[0]} -> {losses[-1]}")
+    n = rep["steps"]
+    want = {"flash_attention": cfg.n_layers * n,
+            "flash_attention_bwd": cfg.n_layers * n,
+            "rmsnorm": (2 * cfg.n_layers + 1) * n,
+            "rmsnorm_bwd": (2 * cfg.n_layers + 1) * n}
+    got = {key: counts[key] for key in want}
+    if got != want:
+        fail(f"train main path: launches {got}, expected {want}")
+    say(f"main path train smollm-135m {BATCH} x {PLEN} x 24 steps on "
+        f"{card}: {rep['steps_per_s']:.2f} steps/s, "
+        f"{rep['tokens_per_s']:.0f} tokens/s, peak {rep['peak_gib']:.2f} "
+        f"GiB, loss {losses[0]:.4f} -> {losses[-1]:.4f}, launches {got}")
+    return counts
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3543,6 +3997,8 @@ def main() -> int:
     from repro_torch.launch import serve
     from repro_torch.models import common
     from repro_torch.models import transformer as tfm
+    from repro_torch import data, optim
+    from repro_torch.launch import train
     from repro_torch.runtime import chaos, speculate, steps
 
     t_start = time.perf_counter()
@@ -3568,6 +4024,7 @@ def main() -> int:
         fail(f"the sweeps', K8's or K9's kernels spill: {spilled}")
     counts = hmma_counts(build)
     k4_forms(torch, fa, counts)
+    k4_bwd_forms(fa, counts)
     ssd_forms(counts)
     sweep_forms(torch, da, counts)
     sweep_forms(torch, da, counts, "ring")
@@ -3804,6 +4261,22 @@ def main() -> int:
     t_chaos = time.perf_counter()
     chaos_drills(torch, dev, da, serving, chaos, serve, tfm, bridge, cfg, card)
     say(f"chaos drills in {time.perf_counter() - t_chaos:.1f} s")
+
+    # 7. training -------------------------------------------------------------
+    t_train = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    bwd = check_rms_backward(torch, np, dev, rms, common, errs)
+    say(f"K9 backward ok: largest relative errors {bwd}")
+    bwd = check_fa_backward(torch, np, dev, fa, ops, errs)
+    say(f"K4 backward ok: largest relative errors {bwd}")
+    train_reference(torch, np, dev, cfg, da, steps, common, optim, data)
+    mamba_train_refused(torch, dev, steps, get_arch)
+    counts = train_main_path(torch, da, train, cfg, card)
+    for key in ("flash_attention_bwd", "rmsnorm_bwd"):
+        launches[key] = counts[key]
+    times.update(backward_timings(torch, np, dev, fa, rms))
+    say(f"training phase in {time.perf_counter() - t_train:.1f} s")
     kernels = []
     for name, t in times.items():
         source, replaces, key = KERNELS[t.get("entry") or name]

@@ -10,7 +10,14 @@
     never their values cast.
   * ``init_lm(cfg, generator, device)`` — random weights at full width from
     an explicit ``torch.Generator``, on the generator's device, with the
-    JAX package's initialiser shapes and scales (not its numbers).
+    JAX package's initialiser shapes and scales (not its numbers);
+    ``master=True`` keeps every leaf in ``param_dtype`` (a train state's
+    fp32 masters).
+  * ``train_state_from_numpy(state, cfg, device)`` — the JAX package's
+    ``runtime.steps.init_train_state`` state (``params``, ``opt`` with
+    ``count`` / ``mu`` / ``nu``, ``step``; numpy leaves) as the port's
+    train state: fp32 master params that require grad, the moments in
+    their stored dtype.
 """
 from __future__ import annotations
 
@@ -159,6 +166,25 @@ def params_from_numpy(tree, cfg: ModelConfig, device=None) -> dict:
     return walk(tree, _shapes(cfg), "")
 
 
+def train_state_from_numpy(state, cfg: ModelConfig, device=None) -> dict:
+    """A JAX train state (numpy leaves: ``jax.tree.map(np.asarray,
+    state)``) -> the port's ``{"params", "opt", "step"}``.  The params are
+    the masters (``param_dtype``, requiring grad; never through
+    ``transformer.prepare_params``); ``opt`` holds ``count`` and the
+    moments ``mu`` / ``nu`` (``nu`` absent for sgd) in the dtype they were
+    stored in."""
+    dev = _device.resolve(device)
+    params = params_from_numpy(state["params"], cfg, dev)
+    for p in common.tree_leaves(params):
+        p.requires_grad_(True)
+    opt = {"count": _tensor(state["opt"]["count"]).to(torch.int32).to(dev)}
+    for key in ("mu", "nu"):
+        if key in state["opt"]:
+            opt[key] = params_from_numpy(state["opt"][key], cfg, dev)
+    step = _tensor(state["step"]).to(torch.int32).to(dev)
+    return {"params": params, "opt": opt, "step": step}
+
+
 def load_step_dir(path) -> dict:
     """Read a ``repro.checkpoint`` step directory into a nested dict of CPU
     tensors (keys split on ``/``), dtypes as the manifest records them."""
@@ -196,7 +222,8 @@ def _lists(tree):
     return out
 
 
-def init_lm(cfg: ModelConfig, generator: torch.Generator, device=None) -> dict:
+def init_lm(cfg: ModelConfig, generator: torch.Generator, device=None, *,
+            master: bool = False) -> dict:
     """Random weights for ``cfg`` from ``generator``, drawn on the
     generator's device (a CUDA generator draws a full-width model on the
     card, with no host copy; the numbers then differ from a CPU
@@ -207,7 +234,8 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator, device=None) -> dict:
     are made in the compute dtype ``cfg.dtype``, to which
     ``transformer.prepare_params`` would cast them anyway, from fp32 draws
     of at most 2**27 values at a time (never the whole bf16 model in
-    fp32 first); the norm scales keep ``param_dtype``.  An SSM layer's other leaves follow the
+    fp32 first), or in ``param_dtype`` with ``master``; the norm scales
+    keep ``param_dtype``.  An SSM layer's other leaves follow the
     deterministic parts of ``repro.models.ssm.init_mamba``, in
     ``param_dtype``: ``A_log = log(linspace(1, 16, H))``, ``dt_bias`` the
     inverse softplus of a log-uniform draw in [1e-3, 1e-1], ``D`` at 1,
@@ -215,9 +243,10 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator, device=None) -> dict:
     dev = _device.resolve(device)
     gdev = generator.device
     pdt = common.dt(cfg.param_dtype)
+    wdt = pdt if master else common.dt(cfg.dtype)
 
     def normal(shape, std, dtype=None):
-        out = torch.empty(shape, dtype=dtype or common.dt(cfg.dtype),
+        out = torch.empty(shape, dtype=dtype or wdt,
                           device=dev)
         flat = out.view(shape[0], -1)
         n = flat.shape[1]

@@ -1,4 +1,5 @@
-"""Data pipelines of the port: deterministic synthetic token corpora."""
-from repro_torch.data.pipeline import DataConfig, TokenBatches
+"""Data pipelines of the port: deterministic synthetic corpora."""
+from repro_torch.data.pipeline import (CifarBatches, DataConfig, TokenBatches,
+                                       make_batches)
 
-__all__ = ["DataConfig", "TokenBatches"]
+__all__ = ["DataConfig", "TokenBatches", "CifarBatches", "make_batches"]

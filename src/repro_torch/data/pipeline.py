@@ -1,7 +1,8 @@
-"""Deterministic synthetic token batches, a copy of the JAX package's
-``repro.data.pipeline`` (numpy only) for what the port uses: ``DataConfig``
-and ``TokenBatches``, the prompts of the static batch path when no shared
-prefix is asked for.
+"""Deterministic synthetic data, a copy of the JAX package's
+``repro.data.pipeline`` (numpy only): ``DataConfig`` and ``TokenBatches``
+(the training stream and the prompts of the static batch path when no
+shared prefix is asked for), ``CifarBatches`` (the CNN zoo's images) and
+``make_batches``.
 
 No datasets ship with the repository, so the pipeline synthesizes a
 Zipf-distributed integer LM stream with short-range Markov structure,
@@ -69,3 +70,36 @@ class TokenBatches:
         while True:
             yield self.batch(step)
             step += 1
+
+
+class CifarBatches:
+    """Class-conditional Gaussian 32x32x3 images, 10 classes (CIFAR stand-in
+    for the paper's CNN-zoo benchmarks)."""
+
+    def __init__(self, seed: int = 0, batch: int = 128, n_classes: int = 10):
+        self.seed = seed
+        self.batch = batch
+        self.n_classes = n_classes
+        rng = np.random.default_rng(seed)
+        # one low-frequency template per class
+        base = rng.normal(size=(n_classes, 8, 8, 3)).astype(np.float32)
+        self._templates = np.repeat(np.repeat(base, 4, axis=1), 4, axis=2)
+
+    def batch_at(self, step: int) -> tuple[np.ndarray, np.ndarray]:
+        rng = np.random.default_rng(self.seed * 99991 + step)
+        labels = rng.integers(0, self.n_classes, size=self.batch)
+        noise = rng.normal(scale=0.8, size=(self.batch, 32, 32, 3))
+        images = self._templates[labels] + noise.astype(np.float32)
+        return images.astype(np.float32), labels.astype(np.int32)
+
+    def __iter__(self):
+        step = 0
+        while True:
+            yield self.batch_at(step)
+            step += 1
+
+
+def make_batches(cfg: DataConfig, n_steps: int, rank: int = 0,
+                 world: int = 1) -> list[dict[str, np.ndarray]]:
+    src = TokenBatches(cfg, rank, world)
+    return [src.batch(i) for i in range(n_steps)]

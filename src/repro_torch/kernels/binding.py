@@ -15,7 +15,8 @@ import torch
 LAUNCHES = {"sweep_decode": 0, "sweep_verify": 0, "merge": 0,
             "merge_fused": 0,
             "ring_decode": 0, "ring_verify": 0, "flash_attention": 0,
-            "rmsnorm": 0, "ssd": 0, "mla_decode": 0, "mla_verify": 0,
+            "rmsnorm": 0, "ssd": 0, "flash_attention_bwd": 0,
+            "rmsnorm_bwd": 0, "mla_decode": 0, "mla_verify": 0,
             "sweep_decode_int8": 0, "sweep_verify_int8": 0,
             "ring_decode_int8": 0, "ring_verify_int8": 0}
 
@@ -46,3 +47,15 @@ def check(name, t, *, dtype, shape, device, vector=False):
 
 def ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
+
+
+def refuse_grad(kernel: str, *tensors) -> None:
+    """Raise where a kernel that has no backward would be launched on a
+    CUDA tensor that requires grad with grad mode on: its output would cut
+    the gradient without a word.  ``None`` entries are skipped."""
+    if not torch.is_grad_enabled():
+        return
+    if any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{kernel}: no backward kernel (not ported "
+                           "yet): call it under torch.no_grad(), or on "
+                           "inputs that do not require grad")

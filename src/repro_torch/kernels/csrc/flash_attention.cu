@@ -13,6 +13,11 @@
 //                              or deepseek-v2's MLA prefill (192, 128):
 //                              [nope | rope] q/k, v 128.  bf16 runs on the
 //                              tensor cores, fp32 on the CUDA cores.
+//                              Given a non-null lse, it also writes each
+//                              row's log-sum-exp (fp32 (B, Hq, Sq), natural
+//                              log, in the scaled, soft-capped logit
+//                              domain), which the backward kernels of
+//                              flash_attention_bwd.cu recompute p from.
 //   flash_attention_occupancy  blocks per SM, dynamic shared memory and
 //                              registers of one (D, Dv, dtype) form.
 //
@@ -62,9 +67,9 @@ static_assert(fa_smem_bytes<120, 120>() <= 232448, "K4 shared memory");
 template <typename T, int HD, int HDV>
 __global__ void __launch_bounds__(FA_NT) flash_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, T* __restrict__ out, int Sq, int Sk, int Hq,
-    int Hkv, int bq, int causal, int window, int q_offset, float logit_cap,
-    float scale) {
+    const T* __restrict__ v, T* __restrict__ out, float* __restrict__ lse,
+    int Sq, int Sk, int Hq, int Hkv, int bq, int causal, int window,
+    int q_offset, float logit_cap, float scale) {
   constexpr int QLD = HD + 1;        // odd strides: conflict-free columns
   constexpr int KLD = HD + 1;
   constexpr int CPT = (HDV + 15) / 16;   // output column slots per thread
@@ -243,6 +248,8 @@ __global__ void __launch_bounds__(FA_NT) flash_attention_kernel(
 #pragma unroll
     for (int c = 0; c < CPT; ++c)
       if (col_ok(c)) store(o + cg + 16 * c, acc[j][c] / den);
+    if (lse != nullptr && cg == 0)
+      lse[((long)b * Hq + hk * G + g) * Sq + q0 + i] = m[j] + logf(l[j]);
   }
 }
 
@@ -340,8 +347,9 @@ __global__ void __launch_bounds__(TC_NT, 2)
 flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ k,
                            const __nv_bfloat16* __restrict__ v,
-                           __nv_bfloat16* __restrict__ out, int Sq, int Sk,
-                           int Hq, int Hkv, int bq, int causal, int window,
+                           __nv_bfloat16* __restrict__ out,
+                           float* __restrict__ lse, int Sq, int Sk, int Hq,
+                           int Hkv, int bq, int causal, int window,
                            int q_offset, float logit_cap, float scale) {
   using Tile = TcTile<HD, HDV>;
   constexpr int NT = TC_NT, MT = TC_MT, STAGES = TC_STAGES;
@@ -636,6 +644,12 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
     for (int h = 0; h < 2; ++h) {
       const int r = rw + 16 * mt + 8 * h + (lane >> 2);
       const float inv = 1.f / fmaxf(l[mt][h], 1e-30f);
+      // the log-sum-exp back in natural-log units (m is in log2 units)
+      if (lse != nullptr && (lane & 3) == 0 && r < live) {
+        const int i = r / G;
+        lse[((long)b * Hq + hk * G + r - i * G) * Sq + q0 + i] =
+            (m[mt][h] + log2f(l[mt][h])) * 0.69314718055994531f;
+      }
       bf16* orow = qs + r * QLD + 2 * (lane & 3);
 #pragma unroll
       for (int n = 0; n < NO; ++n)
@@ -685,6 +699,7 @@ cudaError_t opt_in() {
 struct FaArgs {
   const void *q, *k, *v;
   void* out;
+  float* lse;                        // null: no log-sum-exp written
   int B, Sq, Sk, Hq, Hkv, bq, causal, window, q_offset;
   float logit_cap, scale;
   cudaStream_t stream;
@@ -699,7 +714,8 @@ int launch_fa(const FaArgs& a) {
   dim3 grid((a.Sq + a.bq - 1) / a.bq, a.Hkv, a.B);
   kern<<<grid, Form::threads, Form::smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<T*>(a.out), a.Sq, a.Sk, a.Hq,
+      static_cast<const T*>(a.v), static_cast<T*>(a.out), a.lse, a.Sq, a.Sk,
+      a.Hq,
       a.Hkv, a.bq, a.causal, a.window, a.q_offset, a.logit_cap, a.scale);
   return (int)cudaGetLastError();
 }
@@ -744,22 +760,38 @@ struct Occupancy {
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it).  bq = 128 /
 // (Hq / Hkv) q positions per block.  Sq, Sk >= 1.  (head_dim, v_head_dim)
 // in {(64, 64), (120, 120), (128, 128), (192, 128)}.
-extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* out, int B, int Sq,
-                                   int Sk, int Hq, int Hkv, int head_dim,
-                                   int v_head_dim, int bq, int causal,
-                                   int window, int q_offset, float logit_cap,
-                                   float scale, int dtype, void* stream) {
+namespace {
+int fa_forward(const void* q, const void* k, const void* v, void* out,
+               float* lse, int B, int Sq, int Sk, int Hq, int Hkv,
+               int head_dim, int v_head_dim, int bq, int causal, int window,
+               int q_offset, float logit_cap, float scale, int dtype,
+               void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || Hkv < 1 || Hq % Hkv
       || bq * (Hq / Hkv) > FA_ROWS || bq < 1)
     return (int)cudaErrorInvalidValue;
-  const FaArgs a{q, k, v, out, B, Sq, Sk, Hq, Hkv, bq, causal, window,
+  const FaArgs a{q, k, v, out, lse, B, Sq, Sk, Hq, Hkv, bq, causal, window,
                  q_offset, logit_cap, scale,
                  static_cast<cudaStream_t>(stream)};
   if (dtype == 1)
     return fa_dims<__nv_bfloat16, Launch>(head_dim, v_head_dim, a);
   if (dtype == 0) return fa_dims<float, Launch>(head_dim, v_head_dim, a);
   return (int)cudaErrorInvalidValue;
+}
+}  // namespace
+
+// lse: null (serving) or (B, Hq, Sq) fp32 (the training forward, whose
+// backward recomputes p = exp(x - lse)); null writes no lse and leaves out
+// bit for bit as it is
+extern "C" int flash_attention_fwd(const void* q, const void* k,
+                                   const void* v, void* out, void* lse,
+                                   int B, int Sq, int Sk, int Hq, int Hkv,
+                                   int head_dim, int v_head_dim, int bq,
+                                   int causal, int window, int q_offset,
+                                   float logit_cap, float scale, int dtype,
+                                   void* stream) {
+  return fa_forward(q, k, v, out, static_cast<float*>(lse), B, Sq, Sk, Hq,
+                    Hkv, head_dim, v_head_dim, bq, causal, window, q_offset,
+                    logit_cap, scale, dtype, stream);
 }
 
 // info[3] = {blocks per SM, dynamic shared memory bytes, registers a

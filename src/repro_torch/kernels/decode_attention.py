@@ -63,6 +63,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels.binding import (DTYPE_CODE, LAUNCHES, check, ptr,
+                                         refuse_grad,
                                          reset_launches)  # noqa: F401
 from repro_torch.kernels.ref import NEG_INF
 
@@ -430,6 +431,7 @@ def paged_attention_sweep(q, k_pages, v_pages, block_tables, pos, *,
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention_sweep: unsupported device "
                          f"{q.device}")
+    refuse_grad("paged_attention_sweep", q, k_pages, v_pages, k_new, v_new)
     from repro_torch.kernels import build
     B, Q, Hq, D = q.shape
     P, ps, Hkv = k_pages.shape[0], k_pages.shape[1], k_pages.shape[2]
@@ -534,6 +536,7 @@ def ring_attention_sweep(q, k_cache, v_cache, pos, *, k_new=None, v_new=None,
     if q.device.type != "cuda":
         raise ValueError(f"ring_attention_sweep: unsupported device "
                          f"{q.device}")
+    refuse_grad("ring_attention_sweep", q, k_cache, v_cache, k_new, v_new)
     from repro_torch.kernels import build
     B, Q, Hq, D = q.shape
     C, Hkv = k_cache.shape[1], k_cache.shape[2]
@@ -662,6 +665,7 @@ def mla_latent_sweep(q, pool, block_tables, pos, *, r_kv: int, pending=None,
             merge)
     if q.device.type != "cuda":
         raise ValueError(f"mla_latent_sweep: unsupported device {q.device}")
+    refuse_grad("mla_latent_sweep", q, pool, pending)
     from repro_torch.kernels import build
     B, Q, Hq, R = q.shape
     P, ps = pool.shape[0], pool.shape[1]

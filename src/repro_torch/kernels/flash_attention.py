@@ -10,6 +10,19 @@ The wrapper takes it for a tensor that lies on the CPU; for a CUDA tensor
 it launches the kernel or raises, with no fallback.  ``LAUNCHES
 ["flash_attention"]`` counts the launches.
 
+Training: on a CUDA tensor that requires grad (with grad mode on) the
+wrapper goes through ``FlashAttentionFn``, whose forward is the same
+kernel given a log-sum-exp output as well (a null one writes none), and
+whose backward is the hand-written kernels of
+``csrc/flash_attention_bwd.cu`` (``flash_attention_bwd``,
+FlashAttention-2's form: dk / dv by key tile, dq by q tile, p recomputed
+from the log-sum-exp; ``LAUNCHES["flash_attention_bwd"]`` counts its
+calls).  Their plain twins, ``attention_lse_torch`` and
+``flash_attention_bwd_torch``, are what the two take for CPU tensors, so
+the autograd function runs on the CPU too.  The backward takes every
+form of ``HEAD_DIMS`` at G up to ``BWD_ROWS``; a larger G raises when the
+forward is asked for a gradient.
+
 Rows that see no key (only ``q_offset`` or window edge cases make them;
 every model row sees itself) follow the reference's finite ``NEG_INF``: the
 kernel returns the mean of the v rows of the in-range keys of the key
@@ -24,6 +37,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels.binding import DTYPE_CODE, LAUNCHES, check, ptr
+from repro_torch.kernels.ref import NEG_INF
 
 ROWS = 128          # (q position, q head) rows per kernel block
 # (q/k head dim, v head dim) pairs built: the dense families' (h2o-danube's
@@ -31,6 +45,7 @@ ROWS = 128          # (q position, q head) rows per kernel block
 # v 128); the kernels' shared memory at each is checked against Hopper's
 # 227 KB when they compile
 HEAD_DIMS = ((64, 64), (120, 120), (128, 128), (192, 128))
+BWD_ROWS = 64       # (q position, q head) rows per backward q tile
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -48,6 +63,17 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                                      q_offset=q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, causal, window, logit_cap,
+                                      scale, q_offset)
+    return _forward(q, k, v, causal=causal, window=window,
+                    logit_cap=logit_cap, scale=scale, q_offset=q_offset)[0]
+
+
+def _forward(q, k, v, *, causal, window, logit_cap, scale, q_offset,
+             with_lse: bool = False):
+    """The kernel's launch: (out, lse (B, Hq, Sq) fp32 or None)."""
     from repro_torch.kernels import build
     B, Sq, Hq, D = q.shape
     Sk, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
@@ -70,19 +96,177 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     check("v", v, dtype=q.dtype, shape=(B, Sk, Hkv, Dv), device=dev,
           vector=True)
     out = torch.empty((B, Sq, Hq, Dv), dtype=q.dtype, device=dev)
+    lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=dev)
+           if with_lse else None)
     if B == 0 or Sq == 0:
-        return out
+        return out, lse
     if scale is None:
         scale = D ** -0.5
-    err = build.library().flash_attention_fwd(
-        ptr(q), ptr(k), ptr(v), ptr(out), B, Sq, Sk, Hq, Hkv, D, Dv,
-        ROWS // (Hq // Hkv), int(causal), int(window), int(q_offset),
-        float(logit_cap), float(scale), DTYPE_CODE[q.dtype],
-        torch.cuda.current_stream(dev).cuda_stream)
+    lib = build.library()
+    args = (B, Sq, Sk, Hq, Hkv, D, Dv, ROWS // (Hq // Hkv), int(causal),
+            int(window), int(q_offset), float(logit_cap), float(scale),
+            DTYPE_CODE[q.dtype], torch.cuda.current_stream(dev).cuda_stream)
+    err = lib.flash_attention_fwd(ptr(q), ptr(k), ptr(v), ptr(out),
+                                  ptr(lse), *args)
     if err != 0:
         raise RuntimeError(f"flash_attention: CUDA error {err}")
     LAUNCHES["flash_attention"] += 1
-    return out
+    return out, lse
+
+
+def attention_lse_torch(q, k, v, *, causal: bool = True, window: int = 0,
+                        logit_cap: float = 0.0, scale: float | None = None,
+                        q_offset: int = 0):
+    """The plain twin of the training forward: (out in q's dtype, lse (B,
+    Hq, Sq) fp32), whole-matrix softmax in fp32, lse = log sum exp of the
+    scaled, soft-capped, masked scores (natural log)."""
+    s, _ = _scores(q, k, causal=causal, window=window, logit_cap=logit_cap,
+                   scale=scale, q_offset=q_offset)
+    lse = torch.logsumexp(s, dim=-1)                       # (B, Hkv, G, Sq)
+    p = torch.exp(s - lse[..., None])
+    B, Sq, Hq = q.shape[:3]
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    return (o.reshape(B, Sq, Hq, v.shape[-1]).to(q.dtype),
+            lse.reshape(B, Hq, Sq))
+
+
+def _scores(q, k, *, causal, window, logit_cap, scale, q_offset):
+    """The masked fp32 scores (B, Hkv, G, Sq, Sk) and, under the soft-cap,
+    tanh of the scaled scores (else None)."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    if scale is None:
+        scale = D ** -0.5
+    qf = q.float().reshape(B, Sq, Hkv, Hq // Hkv, D)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float()) * scale
+    t = None
+    if logit_cap > 0.0:
+        t = torch.tanh(s / logit_cap)
+        s = logit_cap * t
+    dev = q.device
+    q_pos = q_offset + torch.arange(Sq, device=dev)[:, None]
+    k_pos = torch.arange(Sk, device=dev)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=dev)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window > 0:
+        mask &= k_pos > q_pos - window
+    return torch.where(mask, s, NEG_INF), t
+
+
+def flash_attention_bwd_torch(q, k, v, out, lse, dout, *, causal=True,
+                              window=0, logit_cap=0.0, scale=None,
+                              q_offset=0):
+    """The plain twin of the backward kernels: p recomputed from the saved
+    ``lse``, delta = rowsum(dout * out), ds = p (dp - delta) (times 1 -
+    tanh^2 under the soft-cap, times the scale), in fp32; -> (dq, dk, dv)
+    in q's dtype, the G heads of a kv head summed into its dk, dv."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    G = Hq // Hkv
+    if scale is None:
+        scale = D ** -0.5
+    s, t = _scores(q, k, causal=causal, window=window, logit_cap=logit_cap,
+                   scale=scale, q_offset=q_offset)
+    p = torch.exp(s - lse.reshape(B, Hkv, G, Sq)[..., None])
+    do = dout.float().reshape(B, Sq, Hkv, G, Dv)
+    delta = (dout.float() * out.float()).sum(-1)            # (B, Sq, Hq)
+    delta = delta.reshape(B, Sq, Hkv, G).permute(0, 2, 3, 1)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", do, v.float())
+    ds = p * (dp - delta[..., None])
+    if t is not None:
+        ds = ds * (1.0 - t * t)
+    ds = ds * scale
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, do)
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds,
+                      q.float().reshape(B, Sq, Hkv, G, D))
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float()).reshape(
+        B, Sq, Hq, D)
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
+                        window: int = 0, logit_cap: float = 0.0,
+                        scale: float | None = None, q_offset: int = 0):
+    """K4's backward: (dq, dk, dv) in q's dtype from the forward's inputs,
+    its ``out`` and ``lse`` (``FlashAttentionFn``'s forward) and the
+    output gradient ``dout``.  The plain twin for CPU tensors; for CUDA
+    tensors the three launches of ``flash_attention_bwd`` (delta, dk / dv,
+    dq) or a raise."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_torch(q, k, v, out, lse, dout,
+                                         causal=causal, window=window,
+                                         logit_cap=logit_cap, scale=scale,
+                                         q_offset=q_offset)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: unsupported device "
+                         f"{q.device}")
+    from repro_torch.kernels import build
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    _check_backward(q, k, v)
+    dev = q.device
+    for name, t, shape in (("q", q, (B, Sq, Hq, D)), ("k", k, (B, Sk, Hkv, D)),
+                           ("v", v, (B, Sk, Hkv, Dv)),
+                           ("out", out, (B, Sq, Hq, Dv)),
+                           ("dout", dout, (B, Sq, Hq, Dv))):
+        check(name, t, dtype=q.dtype, shape=shape, device=dev, vector=True)
+    check("lse", lse, dtype=torch.float32, shape=(B, Hq, Sq), device=dev)
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=dev)
+    if scale is None:
+        scale = D ** -0.5
+    err = build.library().flash_attention_bwd(
+        ptr(q), ptr(k), ptr(v), ptr(out), ptr(dout), ptr(lse), ptr(delta),
+        ptr(dq), ptr(dk), ptr(dv), B, Sq, Sk, Hq, Hkv, D, Dv,
+        BWD_ROWS // (Hq // Hkv), int(causal), int(window), int(q_offset),
+        float(logit_cap), float(scale), DTYPE_CODE[q.dtype],
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd: CUDA error {err}")
+    LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+def _check_backward(q, k, v):
+    """Raise for a form the backward kernels do not take."""
+    D, Dv = q.shape[-1], v.shape[-1]
+    Hq, Hkv = q.shape[2], k.shape[2]
+    if (D, Dv) not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd: (head_dim, v head_dim) "
+                         f"{(D, Dv)} not supported {HEAD_DIMS}")
+    if Hq % Hkv or Hq // Hkv > BWD_ROWS:
+        raise ValueError(f"flash_attention_bwd: {Hq // max(Hkv, 1)} q heads "
+                         f"per kv head (at most {BWD_ROWS}) has no backward "
+                         "kernel")
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """K4 with a gradient: the forward kernel with the log-sum-exp, the
+    backward kernels of ``flash_attention_bwd``; on CPU tensors their plain
+    twins."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, logit_cap, scale, q_offset):
+        kw = dict(causal=causal, window=window, logit_cap=logit_cap,
+                  scale=scale, q_offset=q_offset)
+        if q.device.type == "cpu":
+            out, lse = attention_lse_torch(q, k, v, **kw)
+        else:
+            _check_backward(q, k, v)
+            out, lse = _forward(q, k, v, with_lse=True, **kw)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = kw
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
+                                         dout.contiguous(), **ctx.kw)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def occupancy(head_dim: int, v_head_dim: int, dtype) -> dict:

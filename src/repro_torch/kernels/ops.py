@@ -43,6 +43,14 @@ Counterpart of ``repro.kernels.ops`` for the ops the port runs:
     ``mla_decode`` runs ``mla_absorbed_attend_torch``, plain torch, as the
     JAX package runs its jnp body there.
 
+Gradients: on a CUDA tensor that requires grad (grad mode on),
+``attention`` and ``rmsnorm`` reach K4's and K9's autograd functions
+(``flash_attention.FlashAttentionFn``, ``rmsnorm.RMSNormFn``), whose
+backward is a hand-written kernel; with no grad needed they launch what
+they always did.  ``ssd`` (K8) and every decode, verify and latent sweep
+raise there (``binding.refuse_grad``): they have no backward kernel.  On
+CPU tensors the plain versions run, and autograd differentiates them.
+
 The four paged and ring entries take ``k_scale`` / ``v_scale`` (per-row
 fp32, int8 caches) on every backend: ``ref`` dequantizes the whole cache
 up front, ``torch`` gathers the scale rows through the block tables (or

@@ -6,6 +6,16 @@ Its plain version is the port's ``models.common.rmsnorm``.  The wrapper
 takes it for a tensor that lies on the CPU; for a CUDA tensor it launches
 the kernel or raises, with no fallback.  ``LAUNCHES["rmsnorm"]`` counts
 the launches.
+
+Training: on a CUDA tensor that requires grad (with grad mode on) the
+wrapper goes through ``RMSNormFn``, whose forward is the same kernel
+given an fp32 rstd output as well (a null one writes none) and whose
+backward is the hand-written ``rmsnorm_bwd`` (``LAUNCHES["rmsnorm_bwd"]``
+counts its calls): dx by row, d scale as per-block fp32 partials summed
+in a fixed order.  Their plain twins, ``rmsnorm_rstd_torch`` and
+``rmsnorm_bwd_torch``, are what the two take for CPU tensors.  The
+backward takes widths up to ``MAX_WIDTH``; a wider row raises when the
+forward is asked for a gradient.
 """
 from __future__ import annotations
 
@@ -61,6 +71,13 @@ def rmsnorm(x, scale, *, eps: float = 1e-6, gemma_style: bool = False):
         return common.rmsnorm(x, scale, eps, gemma_style=gemma_style)
     if x.device.type != "cuda":
         raise ValueError(f"rmsnorm: unsupported device {x.device}")
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return RMSNormFn.apply(x, scale, eps, gemma_style)
+    return _forward(x, scale, eps, gemma_style)[0]
+
+
+def _forward(x, scale, eps, gemma_style, with_rstd: bool = False):
+    """The kernel's launch: (out, rstd (rows,) fp32 or None)."""
     from repro_torch.kernels import build
     d = x.shape[-1]
     if x.dtype not in DTYPE_CODE or scale.dtype not in DTYPE_CODE:
@@ -73,14 +90,114 @@ def rmsnorm(x, scale, *, eps: float = 1e-6, gemma_style: bool = False):
           vector=True)
     out = torch.empty_like(x)
     rows = x.numel() // d
+    rstd = (torch.empty((rows,), dtype=torch.float32, device=x.device)
+            if with_rstd else None)
     if rows == 0:
-        return out
-    err = build.library().rmsnorm_fwd(
-        ptr(x), ptr(scale), ptr(out), rows, d, float(eps), int(gemma_style),
-        DTYPE_CODE[x.dtype], DTYPE_CODE[scale.dtype],
-        *launch_shape(d, rows),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        return out, rstd
+    lib = build.library()
+    args = (rows, d, float(eps), int(gemma_style), DTYPE_CODE[x.dtype],
+            DTYPE_CODE[scale.dtype], *launch_shape(d, rows),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    err = lib.rmsnorm_fwd(ptr(x), ptr(scale), ptr(out), ptr(rstd), *args)
     if err != 0:
         raise RuntimeError(f"rmsnorm: CUDA error {err}")
     LAUNCHES["rmsnorm"] += 1
-    return out
+    return out, rstd
+
+
+def rmsnorm_rstd_torch(x, scale, eps: float = 1e-6,
+                       gemma_style: bool = False):
+    """The plain twin of the training forward: (out, rstd (rows,) fp32)."""
+    xf = x.float()
+    rstd = torch.rsqrt(torch.mean(xf * xf, dim=-1) + eps)
+    w = scale.float()
+    if gemma_style:
+        w = 1.0 + w
+    return (xf * rstd[..., None] * w).to(x.dtype), rstd.reshape(-1)
+
+
+def rmsnorm_bwd_torch(x, scale, dy, rstd, *, gemma_style: bool = False):
+    """The plain twin of ``rmsnorm_bwd``, in fp32: dx = rstd (w' dy - xhat
+    mean(xhat w' dy)), xhat = x rstd, w' = scale (1 + scale in the gemma
+    form), in x's dtype; d scale = the sum over rows of dy xhat, in
+    scale's dtype."""
+    d = x.shape[-1]
+    xh = x.float().reshape(-1, d) * rstd[:, None]
+    g = dy.float().reshape(-1, d)
+    w = scale.float()
+    if gemma_style:
+        w = 1.0 + w
+    wg = w * g
+    mean = (xh * wg).mean(dim=-1, keepdim=True)
+    dx = rstd[:, None] * (wg - xh * mean)
+    return (dx.reshape(x.shape).to(x.dtype),
+            (g * xh).sum(dim=0).to(scale.dtype))
+
+
+@functools.lru_cache(maxsize=None)
+def _n_sm(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def rmsnorm_bwd(x, scale, dy, rstd, *, gemma_style: bool = False):
+    """K9's backward: (dx in x's dtype, d scale in scale's dtype) from the
+    forward's x, scale and rstd and the output gradient dy.  The plain twin
+    for CPU tensors; for CUDA tensors ``rmsnorm_bwd`` (2 x SMs blocks of
+    contiguous rows, then the partials' reduce) or a raise."""
+    if x.device.type == "cpu":
+        return rmsnorm_bwd_torch(x, scale, dy, rstd, gemma_style=gemma_style)
+    if x.device.type != "cuda":
+        raise ValueError(f"rmsnorm_bwd: unsupported device {x.device}")
+    from repro_torch.kernels import build
+    d = x.shape[-1]
+    _check_backward(d)
+    rows = x.numel() // d
+    dev = x.device
+    check("x", x, dtype=x.dtype, shape=x.shape, device=dev)
+    check("dy", dy, dtype=x.dtype, shape=x.shape, device=dev)
+    check("scale", scale, dtype=scale.dtype, shape=(d,), device=dev)
+    check("rstd", rstd, dtype=torch.float32, shape=(rows,), device=dev)
+    dx = torch.empty_like(x)
+    dw = torch.empty_like(scale)
+    if rows == 0:
+        return dx, dw.zero_()
+    nblk = min(rows, 2 * _n_sm(dev.index or 0))
+    part = torch.empty((nblk, d), dtype=torch.float32, device=dev)
+    err = build.library().rmsnorm_bwd(
+        ptr(x), ptr(scale), ptr(dy), ptr(rstd), ptr(dx), ptr(dw), ptr(part),
+        rows, d, int(gemma_style), DTYPE_CODE[x.dtype],
+        DTYPE_CODE[scale.dtype], nblk,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"rmsnorm_bwd: CUDA error {err}")
+    LAUNCHES["rmsnorm_bwd"] += 1
+    return dx, dw
+
+
+def _check_backward(d: int) -> None:
+    if d > MAX_WIDTH:
+        raise ValueError(f"rmsnorm_bwd: width {d} is past the backward "
+                         f"kernel's {MAX_WIDTH}")
+
+
+class RMSNormFn(torch.autograd.Function):
+    """K9 with a gradient: the forward kernel with rstd, the backward
+    kernel ``rmsnorm_bwd``; on CPU tensors their plain twins."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps, gemma_style):
+        if x.device.type == "cpu":
+            out, rstd = rmsnorm_rstd_torch(x, scale, eps, gemma_style)
+        else:
+            _check_backward(x.shape[-1])
+            out, rstd = _forward(x, scale, eps, gemma_style, with_rstd=True)
+        ctx.save_for_backward(x, scale, rstd)
+        ctx.gemma_style = gemma_style
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale, rstd = ctx.saved_tensors
+        dx, dw = rmsnorm_bwd(x, scale, dy.contiguous(), rstd,
+                             gemma_style=ctx.gemma_style)
+        return dx, dw, None, None

@@ -23,7 +23,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.binding import DTYPE_CODE, LAUNCHES, check, ptr
+from repro_torch.kernels.binding import (DTYPE_CODE, LAUNCHES, check, ptr,
+                                         refuse_grad)
 
 MAX_CHUNK = 128     # steps per chunk the kernel's shared memory holds
 MAX_STATE = 128     # N, the state size per head
@@ -156,6 +157,7 @@ def ssd_scan(x, dt, A, B_mat, C_mat, D=None, *, chunk: int = 128,
                               return_state=return_state)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan: unsupported device {x.device}")
+    refuse_grad("ssd_scan", x, dt, A, B_mat, C_mat, D, initial_state)
     from repro_torch.kernels import build
     Bb, S, H, P = x.shape
     G, N = B_mat.shape[2], B_mat.shape[3]

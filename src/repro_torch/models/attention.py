@@ -1,7 +1,8 @@
 """Attention blocks of the port.  GQA (RoPE / sliding window / logit
 soft-cap): prefill, ring decode and verify, paged decode and verify, and
 the decode over per-slot private rings at ragged positions, counterparts
-of ``repro.models.attention``'s ``gqa_prefill``, ``gqa_decode``,
+of ``repro.models.attention``'s ``gqa_forward``, ``gqa_prefill``,
+``gqa_decode``,
 ``gqa_verify``, ``gqa_decode_paged``, ``gqa_verify_paged`` and
 ``gqa_decode_ragged`` with the same shapes.  MLA (deepseek-v2): the
 counterparts of ``mla_forward``, ``mla_prefill``, ``mla_decode`` (ring),
@@ -66,17 +67,34 @@ def _scale(cfg: ModelConfig) -> float:
     return cfg.query_scale or cfg.resolved_head_dim ** -0.5
 
 
-def gqa_prefill(params, x, positions, cfg: ModelConfig, *, window: int = 0,
-                cache_len: int, policy=ops.DEFAULT_POLICY):
-    """Prefill: attention over the prompt, plus its (k, v) laid into a
-    cache of capacity ``cache_len`` (ring layout, slot = pos % cache_len).
-    x (B, S, d) -> (out (B, S, d), (k_c, v_c) (B, cache_len, Hkv, hd))."""
+def _gqa_attend(params, x, positions, cfg: ModelConfig, *, window: int,
+                policy):
+    """Causal attention over the whole sequence: -> (out (B, S, d), k, v)."""
     q, k, v = _qkv(params, x, positions, cfg)
     o = ops.attention(q, k, v, causal=True, window=window,
                       logit_cap=cfg.attn_logit_softcap, scale=_scale(cfg),
                       policy=policy)
     o = _mask_padded_heads(o, cfg)
-    out = _out_proj(o, params["wo"])
+    return _out_proj(o, params["wo"]), k, v
+
+
+def gqa_forward(params, x, positions, cfg: ModelConfig, *, window: int = 0,
+                policy=ops.DEFAULT_POLICY):
+    """Full-sequence attention (training).  x (B, S, d) -> (B, S, d).  On
+    the card, with a gradient, K4 runs forward and backward (its autograd
+    function); the padded heads' outputs are zeroed, so their weight
+    slices get zero gradient."""
+    return _gqa_attend(params, x, positions, cfg, window=window,
+                       policy=policy)[0]
+
+
+def gqa_prefill(params, x, positions, cfg: ModelConfig, *, window: int = 0,
+                cache_len: int, policy=ops.DEFAULT_POLICY):
+    """Prefill: attention over the prompt, plus its (k, v) laid into a
+    cache of capacity ``cache_len`` (ring layout, slot = pos % cache_len).
+    x (B, S, d) -> (out (B, S, d), (k_c, v_c) (B, cache_len, Hkv, hd))."""
+    out, k, v = _gqa_attend(params, x, positions, cfg, window=window,
+                            policy=policy)
     S = x.shape[1]
     if cache_len >= S:
         pad = cache_len - S

@@ -1,6 +1,7 @@
 """Shared model building blocks of the port: dtypes, RMSNorm, Mamba2's
-gated RMSNorm, activations, soft-cap, RoPE — counterparts of ``repro.models.common`` with the same
-shapes and fp32 internals."""
+gated RMSNorm, activations, soft-cap, RoPE, the LM losses and the tree
+counts — counterparts of ``repro.models.common`` with the same shapes and
+fp32 internals."""
 from __future__ import annotations
 
 import numpy as np
@@ -86,3 +87,59 @@ def apply_rope_partial(x, positions, theta: float, fraction: float = 1.0):
     rd -= rd % 2
     rot = apply_rope(x[..., :rd], positions, theta)
     return torch.cat([rot, x[..., rd:]], dim=-1)
+
+
+# --------------------------------------------------------------------------
+# losses
+# --------------------------------------------------------------------------
+def cross_entropy(logits, labels, mask=None):
+    """Mean token-level CE in fp32.  labels: int ids; mask: 1 = count."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return torch.mean(nll)
+    mask = mask.float()
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def shift_labels(tokens, pad_id: int = 0):
+    """Next-token prediction: inputs tokens[:, :-1] predict tokens[:, 1:]."""
+    inputs = tokens[:, :-1]
+    labels = tokens[:, 1:]
+    mask = (labels != pad_id).float()
+    return inputs, labels, mask
+
+
+# --------------------------------------------------------------------------
+# tree utilities
+# --------------------------------------------------------------------------
+# Parameter trees are nested dicts and lists of tensors (``dense_layers`` is
+# a list); ``None`` is an empty subtree, as in JAX.
+def tree_leaves(tree) -> list:
+    """The leaves in the JAX package's flatten order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for t in tree for x in tree_leaves(t)]
+    return [] if tree is None else [tree]
+
+
+def tree_map(fn, *trees):
+    """``fn`` over the leaves of trees of one structure."""
+    head = trees[0]
+    if isinstance(head, dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in head}
+    if isinstance(head, (list, tuple)):
+        return [tree_map(fn, *(t[i] for t in trees))
+                for i in range(len(head))]
+    return None if head is None else fn(*trees)
+
+
+def tree_size_bytes(tree) -> int:
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+
+
+def tree_count(tree) -> int:
+    return sum(int(np.prod(x.shape)) for x in tree_leaves(tree))

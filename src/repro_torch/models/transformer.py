@@ -1,10 +1,12 @@
 """The LM trunk of the port, dense GQA family with its windowed members
 (gemma2's local/global layer pairs, sliding-window layers), the SSM
 family (Mamba2 layers, ``models/ssm.py``) and deepseek-v2's MLA + MoE
-family with its first dense layers: prefill, the decode step and the
-verify sweep over both cache layouts (ring and paged), suffix prefill and
-the speculative commits — counterparts of ``repro.models.transformer``'s
-functions of the same names, with the same shapes and parameter layout.
+family with its first dense layers: the training forward and its losses
+(``forward``, ``lm_loss``, ``lm_loss_pre_shifted``, with ``remat``),
+prefill, the decode step and the verify sweep over both cache layouts
+(ring and paged), suffix prefill and the speculative commits —
+counterparts of ``repro.models.transformer``'s functions of the same
+names, with the same shapes and parameter layout.
 
 Parameters are the nested dict of the JAX package (``embed``,
 ``layers/sub0/{norm1, attn/{wq,wk,wv,wo}, norm2, ffn/{wi_gate,wi_up,wo}}``
@@ -64,6 +66,7 @@ def padded_vocab(cfg: ModelConfig) -> int:
 @dataclasses.dataclass(frozen=True)
 class RunCtx:
     kernel_policy: ops.KernelPolicy = ops.DEFAULT_POLICY
+    remat: str = "none"          # none | dots | full (training forward)
 
 
 def unit_size(cfg: ModelConfig) -> int:
@@ -166,7 +169,9 @@ def prepare_params(params, cfg: ModelConfig):
     keep ``param_dtype``, since rmsnorm reads them in fp32, and so do an
     SSM layer's ``A_log``, ``D``, ``dt_bias`` and ``norm_scale``; its
     ``conv_w`` and ``conv_b`` are cast at use, as in JAX; an MLA layer's
-    ``kv_norm`` and ``q_norm`` too.  ``dense_layers`` is a list of blocks."""
+    ``kv_norm`` and ``q_norm`` too.  ``dense_layers`` is a list of blocks.
+    The serving paths' one-time cast: training never goes through it, so
+    that gradients land on the fp32 masters."""
     adt = common.dt(cfg.dtype)
 
     def walk(tree):
@@ -183,6 +188,20 @@ def prepare_params(params, cfg: ModelConfig):
         return out
 
     return walk(params)
+
+
+def _unstack(tree, n: int) -> list:
+    """The stacked unit tree as ``n`` per-unit trees, one ``torch.unbind``
+    a leaf: its backward stacks the units' gradients in one copy, where
+    indexing unit l (``_layer``) gives each unit's gradient the stacked
+    leaf's full size, zero-filled, and autograd then sums n of them."""
+    out = [{} for _ in range(n)]
+    for key, val in tree.items():
+        parts = (_unstack(val, n) if isinstance(val, dict)
+                 else torch.unbind(val, 0))
+        for l in range(n):
+            out[l][key] = parts[l]
+    return out
 
 
 def _layer(tree, l: int):
@@ -232,19 +251,156 @@ def _norm(x, scale, cfg: ModelConfig, ctx: RunCtx):
                        policy=ctx.kernel_policy)
 
 
-def _ffn(blk, x, a, cfg: ModelConfig, ctx: RunCtx):
-    """Residual add of the attention output, then the MLP or MoE half."""
+def _ffn_aux(blk, x, a, cfg: ModelConfig, ctx: RunCtx):
+    """Residual add of the attention output, then the MLP or MoE half:
+    -> (x, the MoE's load-balance loss or None)."""
     if cfg.post_norms:
         a = _norm(a, blk["post_attn_norm"], cfg, ctx)
     x = x + a
     h = _norm(x, blk["norm2"], cfg, ctx)
+    aux = None
     if "router" in blk["ffn"]:
-        f, _ = moe_forward(blk["ffn"], h, cfg)
+        f, aux = moe_forward(blk["ffn"], h, cfg)
     else:
         f = mlp_forward(blk["ffn"], h, cfg)
     if cfg.post_norms:
         f = _norm(f, blk["post_ffn_norm"], cfg, ctx)
-    return x + f
+    return x + f, aux
+
+
+def _ffn(blk, x, a, cfg: ModelConfig, ctx: RunCtx):
+    return _ffn_aux(blk, x, a, cfg, ctx)[0]
+
+
+# ==========================================================================
+# full forward (training)
+# ==========================================================================
+def _apply_block(blk, x, positions, cfg: ModelConfig, ctx: RunCtx, *,
+                 window: int, aux):
+    """One attention sublayer and its FFN half; the MoE aux loss adds to
+    ``aux`` (fp32 0-d)."""
+    h = _norm(x, blk["norm1"], cfg, ctx)
+    if cfg.use_mla:
+        a = attn.mla_forward(blk["attn"], h, positions, cfg,
+                             policy=ctx.kernel_policy)[0]
+    else:
+        a = attn.gqa_forward(blk["attn"], h, positions, cfg, window=window,
+                             policy=ctx.kernel_policy)
+    x, aux_l = _ffn_aux(blk, x, a, cfg, ctx)
+    return x, aux if aux_l is None else aux + aux_l
+
+
+def _apply_unit(unit, x, positions, cfg: ModelConfig, ctx: RunCtx, aux):
+    for i in range(unit_size(cfg)):
+        sub = unit[f"sub{i}"]
+        if cfg.uses_ssm:
+            h = _norm(x, sub["pre_norm"], cfg, ctx)
+            x = x + ssm.mamba_forward(sub, h, cfg, policy=ctx.kernel_policy)
+        else:
+            x, aux = _apply_block(sub, x, positions, cfg, ctx,
+                                  window=cfg.window_for_layer(i), aux=aux)
+    return x, aux
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``remat="dots"``: keep the outputs of the matmuls without batch
+    dimensions (``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``
+    as the JAX package uses it), recompute everything else."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, ctx: RunCtx):
+    """``fn`` under ``ctx.remat``: as it is (``none``), or checkpointed per
+    unit, recomputing its whole forward (``full``) or all but its matmuls
+    (``dots``) in the backward."""
+    if ctx.remat == "none":
+        return fn
+    import functools
+
+    from torch.utils import checkpoint as ckpt
+    if ctx.remat == "full":
+        return lambda *a: ckpt.checkpoint(fn, *a, use_reentrant=False)
+    if ctx.remat == "dots":
+        context = functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                    _dots_policy)
+        return lambda *a: ckpt.checkpoint(fn, *a, use_reentrant=False,
+                                          context_fn=context)
+    raise ValueError(f"unknown remat {ctx.remat!r} (none | dots | full)")
+
+
+def _train_logits(params, x, cfg: ModelConfig):
+    """The head as the JAX package's ``lm_logits`` computes it, out of
+    place (autograd records it): the final soft-cap in fp32, the padded
+    vocab tail at -1e30."""
+    adt = x.dtype
+    if cfg.tie_embeddings:
+        logits = x @ params["embed"].to(adt).T
+    else:
+        logits = x @ params["lm_head"].to(adt)
+    cap = cfg.final_logit_softcap
+    if cap > 0.0:
+        logits = (cap * torch.tanh(logits.float() / cap)).to(adt)
+    Vp = padded_vocab(cfg)
+    if Vp != cfg.vocab_size:
+        keep = torch.arange(Vp, device=x.device) < cfg.vocab_size
+        logits = torch.where(keep, logits,
+                             torch.tensor(-1e30, dtype=adt, device=x.device))
+    return logits
+
+
+def forward(params, tokens, cfg: ModelConfig, ctx: RunCtx = RunCtx(), *,
+            extra_embeds=None):
+    """Token ids (B, S) -> (logits (B, S', Vp), aux): the training forward,
+    differentiable with respect to ``params`` (fp32 masters, cast to
+    ``cfg.dtype`` at use; never through ``prepare_params``).
+    ``extra_embeds`` (B, n_img, d) is the LLaVA vision prefix, put ahead of
+    the token embeddings (S' = n_img + S); ``aux`` the MoE load-balance
+    loss (fp32 0-d).  ``ctx.remat`` checkpoints each unit."""
+    if cfg.n_codebooks:
+        raise NotImplementedError(f"{cfg.name}: n_codebooks (multi-codebook "
+                                  "audio) is not ported to repro_torch yet")
+    _require_ported(cfg)
+    x = embed_tokens(params, tokens, cfg)
+    if extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
+    S = x.shape[1]
+    positions = torch.arange(S, device=x.device)[None, :]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for blk in params.get("dense_layers", []):
+        x, aux = _apply_block(blk, x, positions, cfg, ctx,
+                              window=cfg.sliding_window, aux=aux)
+
+    def body(x, aux, unit):
+        return _apply_unit(unit, x, positions, cfg, ctx, aux)
+
+    body = _remat(body, ctx)
+    for unit in _unstack(params["layers"], n_units(cfg)):
+        x, aux = body(x, aux, unit)
+    x = _norm(x, params["final_norm"], cfg, ctx)
+    return _train_logits(params, x, cfg), aux
+
+
+def lm_loss(params, tokens, cfg: ModelConfig, ctx: RunCtx = RunCtx(), *,
+            extra_embeds=None):
+    """Next-token CE (+ MoE aux); image-prefix positions carry no loss."""
+    inputs, labels, mask = common.shift_labels(tokens)
+    logits, aux = forward(params, inputs, cfg, ctx, extra_embeds=extra_embeds)
+    if extra_embeds is not None:
+        logits = logits[:, extra_embeds.shape[1]:]
+    return common.cross_entropy(logits, labels, mask) + aux
+
+
+def lm_loss_pre_shifted(params, inputs, targets, cfg: ModelConfig,
+                        ctx: RunCtx = RunCtx(), *, extra_embeds=None):
+    """CE of a pre-shifted (inputs, targets) pair (+ MoE aux), as the data
+    pipeline emits them."""
+    logits, aux = forward(params, inputs, cfg, ctx, extra_embeds=extra_embeds)
+    if extra_embeds is not None:
+        logits = logits[:, extra_embeds.shape[1]:]
+    return common.cross_entropy(logits, targets) + aux
 
 
 # ==========================================================================

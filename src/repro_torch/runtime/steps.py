@@ -1,5 +1,7 @@
-"""Step builders of the port's serving paths, counterparts of
-``repro.runtime.steps``'s functions of the same names: the prefill step,
+"""Step builders of the port, counterparts of ``repro.runtime.steps``'s
+functions of the same names: the train step (``init_train_state``,
+``make_train_step``: gradient accumulation over ``n_micro``
+micro-batches in fp32, then AdamW in place), the prefill step,
 the decode chunks over the ring (``make_decode_loop``) and the paged
 cache (``make_paged_decode_loop``), the speculative chunks over both
 (``make_speculative_decode_loop``, ``make_paged_speculative_decode_loop``)
@@ -17,19 +19,24 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.ops import KernelPolicy
+from repro_torch.models import common
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import RunCtx
+from repro_torch.optim import OptimizerConfig, adamw_init, adamw_update
 
 
 @dataclasses.dataclass(frozen=True)
 class StepConfig:
-    """Runtime knobs orthogonal to the model config (serving subset)."""
-    remat: str = "none"
+    """Runtime knobs orthogonal to the model config."""
+    n_micro: int = 1                   # grad-accumulation microbatches
+    remat: str = "dots"                # none | dots | full
     kernel_policy: KernelPolicy = KernelPolicy()
+    optimizer: OptimizerConfig = OptimizerConfig()
 
 
 def with_decode_policy(step_cfg: StepConfig, *,
@@ -53,7 +60,89 @@ def with_decode_policy(step_cfg: StepConfig, *,
 
 def make_run_ctx(cfg: ModelConfig, step_cfg: StepConfig) -> RunCtx:
     del cfg
-    return RunCtx(kernel_policy=step_cfg.kernel_policy)
+    return RunCtx(kernel_policy=step_cfg.kernel_policy,
+                  remat=step_cfg.remat)
+
+
+def init_train_state(cfg: ModelConfig, step_cfg: StepConfig,
+                     generator: torch.Generator, device=None) -> dict:
+    """Random fp32 master params (``bridge.init_lm(master=True)``, drawn
+    from ``generator``, requiring grad) and the optimizer state, as one
+    state dict ``{"params", "opt", "step"}``."""
+    from repro_torch import bridge
+    params = bridge.init_lm(cfg, generator, device, master=True)
+    for p in common.tree_leaves(params):
+        p.requires_grad_(True)
+    opt = adamw_init(params, step_cfg.optimizer)
+    step = torch.zeros((), dtype=torch.int32, device=opt["count"].device)
+    return {"params": params, "opt": opt, "step": step}
+
+
+def make_loss_and_grads(cfg: ModelConfig, step_cfg: StepConfig) -> Callable:
+    """(params, inputs, targets, extra) -> (loss, grads): the loss of one
+    (micro-)batch and its gradient with respect to every leaf of
+    ``params`` (a tree of the same structure, in the params' dtype; zeros
+    for a leaf the loss does not reach)."""
+    ctx = make_run_ctx(cfg, step_cfg)
+
+    def loss_and_grads(params, inputs, targets, extra=None):
+        leaves = common.tree_leaves(params)
+        with torch.enable_grad():
+            loss = tfm.lm_loss_pre_shifted(params, inputs, targets, cfg, ctx,
+                                           extra_embeds=extra)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        by_id = {id(p): torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, grads)}
+        return loss.detach(), common.tree_map(lambda p: by_id[id(p)], params)
+
+    return loss_and_grads
+
+
+def _as_tensor(x, device):
+    if x is None or isinstance(x, torch.Tensor):
+        return None if x is None else x.to(device)
+    return torch.tensor(np.asarray(x), device=device)
+
+
+def make_train_step(cfg: ModelConfig, step_cfg: StepConfig) -> Callable:
+    """Returns step(state, batch) -> (state, metrics), updating ``state``
+    in place.  batch = {"inputs": (B, S), "targets": (B, S), optional
+    "image_embeds": (B, n_img, d)} (tensors or numpy).  With ``n_micro`` >
+    1 the batch is cut into that many micro-batches along B, their
+    gradients summed in fp32 in order and the sums (losses too) divided by
+    ``n_micro``, as the JAX package's ``lax.scan`` does.  metrics =
+    {"loss", "lr", "grad_norm"}, 0-d fp32 tensors."""
+    loss_and_grads = make_loss_and_grads(cfg, step_cfg)
+
+    def train_step(state, batch):
+        params = state["params"]
+        dev = state["step"].device
+        inputs = _as_tensor(batch["inputs"], dev)
+        targets = _as_tensor(batch["targets"], dev)
+        extra = _as_tensor(batch.get("image_embeds"), dev)
+        n_micro = step_cfg.n_micro
+        if n_micro == 1:
+            loss, grads = loss_and_grads(params, inputs, targets, extra)
+        else:
+            mb = inputs.shape[0] // n_micro
+            gsum = common.tree_map(
+                lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                      device=p.device), params)
+            lsum = torch.zeros((), dtype=torch.float32, device=dev)
+            for i in range(n_micro):
+                sl = slice(i * mb, (i + 1) * mb)
+                l, g = loss_and_grads(params, inputs[sl], targets[sl],
+                                      None if extra is None else extra[sl])
+                common.tree_map(lambda a, b: a.add_(b.to(a.dtype)), gsum, g)
+                lsum = lsum + l
+            grads = common.tree_map(lambda g: g / n_micro, gsum)
+            loss = lsum / n_micro
+        _, _, om = adamw_update(grads, state["opt"], params,
+                                step_cfg.optimizer)
+        state["step"] = state["step"] + 1
+        return state, {"loss": loss, **om}
+
+    return train_step
 
 
 def sample(last, *, greedy: bool, temperature: float,

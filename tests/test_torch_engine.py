@@ -136,6 +136,7 @@ def test_cpu_engine_launches_no_kernel(smollm):
     assert set(da.LAUNCHES) == {"sweep_decode", "sweep_verify", "merge",
                                 "merge_fused", "ring_decode", "ring_verify",
                                 "flash_attention", "rmsnorm", "ssd",
+                                "flash_attention_bwd", "rmsnorm_bwd",
                                 "mla_decode", "mla_verify",
                                 "sweep_decode_int8", "sweep_verify_int8",
                                 "ring_decode_int8", "ring_verify_int8"}

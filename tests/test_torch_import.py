@@ -32,7 +32,8 @@ def test_port_import_pulls_in_no_jax():
             "repro_torch.models.ssm, repro_torch.models.layers, "
             "repro_torch.models.attention, repro_torch.quant, "
             "repro_torch.configs.deepseek_v2_236b, repro_torch.checkpoint, "
-            "repro_torch.runtime.chaos\n"
+            "repro_torch.runtime.chaos, repro_torch.launch.train, "
+            "repro_torch.optim\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.'))\n"
@@ -120,6 +121,16 @@ def test_cpu_calls_launch_no_kernel():
                       policy=ops.KernelPolicy(attention=backend))
     fa.flash_attention(qp, kk, vv, q_offset=3)
     rms.rmsnorm(x, w)
+    # the backward wrappers, directly and through autograd
+    out, lse = fa.attention_lse_torch(qp, kk, vv, window=4)
+    fa.flash_attention_bwd(qp, kk, vv, out, lse, out, window=4)
+    y, rstd = rms.rmsnorm_rstd_torch(x, w)
+    rms.rmsnorm_bwd(x, w, y, rstd)
+    qg = qp.clone().requires_grad_(True)
+    xg = x.clone().requires_grad_(True)
+    fa.FlashAttentionFn.apply(qg, kk, vv, True, 0, 0.0, None, 0).sum() \
+        .backward()
+    rms.RMSNormFn.apply(xg, w, 1e-6, False).sum().backward()
     xs, dt = r(2, 9, 4, 8), torch.rand(2, 9, 4) + 0.1
     A, bc = -torch.rand(4) - 0.5, r(2, 9, 2, 16)
     for backend in ("auto", "cuda", "ref", "chunked"):
@@ -140,6 +151,7 @@ def test_cpu_calls_launch_no_kernel():
     assert set(da.LAUNCHES) == {"sweep_decode", "sweep_verify", "merge",
                                 "merge_fused", "ring_decode", "ring_verify",
                                 "flash_attention", "rmsnorm", "ssd",
+                                "flash_attention_bwd", "rmsnorm_bwd",
                                 "mla_decode", "mla_verify",
                                 "sweep_decode_int8", "sweep_verify_int8",
                                 "ring_decode_int8", "ring_verify_int8"}

@@ -103,7 +103,7 @@ def main() -> int:
             raise RuntimeError(f"k4_variants: {name} did not build:\n{log}")
         lib = ctypes.CDLL(str(path))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_attention_fwd.argtypes = [p] * 4 + [i] * 11 + [f, f, i, p]
+        lib.flash_attention_fwd.argtypes = [p] * 5 + [i] * 11 + [f, f, i, p]
         lib.flash_attention_fwd.restype = i
         libs[name] = lib
     card = subprocess.run(
@@ -118,7 +118,7 @@ def main() -> int:
         B, Sq, Hq, D = q.shape
         Sk, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
         o = torch.empty((B, Sq, Hq, Dv), dtype=q.dtype, device=dev)
-        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B,
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), None, B,
                 Sq, Sk, Hq, Hkv, D, Dv, 128 // (Hq // Hkv), 1,
                 int(kw.get("window", 0)), 0, float(kw.get("logit_cap", 0.0)),
                 float(kw.get("scale", D ** -0.5)), 1)

@@ -126,8 +126,8 @@ def main(argv: list[str]) -> int:
             print(f"[rmsnorm_variants] {name} spills: {spills}")
         lib = ctypes.CDLL(str(path))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.rmsnorm_fwd.argtypes = [p, p, p, ctypes.c_long, i, f] + [i] * 6 + [
-            p]
+        lib.rmsnorm_fwd.argtypes = [p] * 4 + [ctypes.c_long, i, f] + [
+            i] * 6 + [p]
         lib.rmsnorm_fwd.restype = i
         libs[name] = lib
     card = subprocess.run(
