@@ -12,9 +12,13 @@ Phases, in order; any failure exits non-zero (nothing is caught):
                 and K8's bf16 kernels must hold HMMA (tensor-core)
                 instructions and their fp32 ones (K8's fp32 state pass
                 too) none (``cuobjdump -sass``; no bf16 instantiation of
-                a CUDA-core kernel may remain), the paged and ring sweeps',
-                K8's and K9's kernels must not spill (``-Xptxas -v``),
-                and each form of the first four prints its blocks per SM,
+                a CUDA-core kernel may remain); K4's backward holds HGMMA
+                (``wgmma``) in its bf16 dk / dv and dq kernels at (64,
+                64), (120, 120) and (128, 128), HMMA in the ``mma.sync``
+                ones kept at (192, 128), neither in fp32; the paged and
+                ring sweeps', K8's, K9's and K4's backward kernels must
+                not spill (``-Xptxas -v``), and each form of the first
+                four and of K4's backward prints its blocks per SM,
                 shared memory and registers;
   2. kernels  — hold every kernel against its plain PyTorch version on the
                 same inputs, tolerance atol = rtol = 2e-2 for bf16 (1e-4
@@ -268,7 +272,10 @@ Phases, in order; any failure exits non-zero (nothing is caught):
                 kernels' times at smollm's training shapes beside their
                 plain twins, the library's backward through autograd
                 (SDPA's, ``F.rms_norm``'s) and the bound (K4's backward:
-                2.5 times its forward's products).
+                2.5 times its forward's products); each launch of a call
+                timed apart (K4: delta, dk / dv, dq; K9: rows, reduce;
+                ``torch.profiler``) beside their times before the
+                Hopper redesign (``EARLIER_LAUNCHES``).
 
 The last two lines are a JSON object of per-kernel numbers and
 ``{"ok": true, "device": {...}}``.
@@ -408,19 +415,20 @@ def say(msg: str) -> None:
 # --------------------------------------------------------------------------
 # phase 1 helper
 # --------------------------------------------------------------------------
-def hmma_counts(build):
-    """HMMA (tensor-core) instructions per kernel of the built library, by
-    mangled name (``cuobjdump -sass``)."""
+def hmma_counts(build, op="HMMA"):
+    """Tensor-core instructions per kernel of the built library, by
+    mangled name (``cuobjdump -sass``): ``HMMA`` (``mma.sync``) or
+    ``HGMMA`` (``wgmma``)."""
     sass = subprocess.run(
         [build.cuda_tool("cuobjdump"), "-sass", str(build.build())],
         capture_output=True, text=True, check=True).stdout
     return {part.split(None, 1)[0]:
-            sum("HMMA" in line for line in part.splitlines())
+            sum(op in line for line in part.splitlines())
             for part in sass.split("Function : ")[1:]}
 
 
 # kernels that must not spill: the paged and ring sweeps' template, K8's
-# and K9's kernels, K4's backward kernels
+# and K9's kernels, K4's backward kernels (the Hopper ones too)
 NO_SPILL = ("gqa_sweep_kernel", "ssd_", "rmsnorm_", "fa_bwd_")
 
 
@@ -507,31 +515,49 @@ def k4_forms(torch, fa, counts):
                 f"{occ['blocks_per_sm']} blocks an SM")
 
 
-def k4_bwd_forms(fa, counts):
-    """Phase 1, K4's backward: its bf16 dk / dv and dq kernels hold HMMA
-    instructions at every (D, Dv) of ``HEAD_DIMS``, its fp32 ones none, and
-    no bf16 instantiation of the CUDA-core kernels is built."""
+def k4_bwd_forms(torch, fa, counts, hgmma):
+    """Phase 1, K4's backward: at the bf16 forms of ``BWD_WGMMA_ROWS`` its
+    dk / dv and dq kernels are the Hopper ones (``fa_bwd_*_wgmma_kernel``)
+    and hold HGMMA (``wgmma``) instructions; bf16 (192, 128) keeps the
+    ``mma.sync`` kernels (HMMA); the fp32 kernels hold neither; no other
+    instantiation is built.  Each kernel's blocks per SM, shared memory
+    and registers as the card runs it."""
     import re
-    hmma = {}
-    for name, n in counts.items():
-        m = re.search(r"fa_bwd_(dkdv|dq)_(mma_)?kernelI(f|)Li(\d+)ELi(\d+)E",
-                      name)
+    found = {}
+    for name in counts:
+        m = re.search(r"fa_bwd_(dkdv|dq)_(wgmma_|mma_)?kernelI(f|)Li(\d+)"
+                      r"ELi(\d+)E", name)
         if "fa_bwd_d" in name and "delta" not in name and m is None:
             fail(f"K4 backward: unexpected kernel {name} in the library")
         if m is None:
             continue
-        kind = "bfloat16" if m.group(2) else "float32"
-        hmma[m.group(1), kind, (int(m.group(4)), int(m.group(5)))] = n
+        kind = {"wgmma_": "wgmma", "mma_": "mma.sync", None: "fp32"}[
+            m.group(2)]
+        form = (int(m.group(4)), int(m.group(5)))
+        if (m.group(1), form, kind) in found:
+            fail(f"K4 backward: two {kind} {m.group(1)} kernels at {form}")
+        found[m.group(1), form, kind] = (counts[name], hgmma.get(name, 0))
+    if len(found) != 4 * len(fa.HEAD_DIMS):
+        fail(f"K4 backward: {len(found)} kernels, expected "
+             f"{4 * len(fa.HEAD_DIMS)}: {sorted(found)}")
     for D, Dv in fa.HEAD_DIMS:
+        bf = "wgmma" if (D, Dv) in fa.BWD_WGMMA_ROWS else "mma.sync"
         for part in ("dkdv", "dq"):
-            for kind in ("bfloat16", "float32"):
-                n = hmma.get((part, kind, (D, Dv)))
-                if n is None or (n > 0) != (kind == "bfloat16"):
-                    fail(f"K4 backward {part} ({D}, {Dv}) {kind}: {n} HMMA "
-                         "instructions")
-    say(f"K4 backward: {len(hmma)} kernels, HMMA in the bf16 ones only: "
-        + ", ".join(f"{p} {f} {k} {n}"
-                    for (p, k, f), n in sorted(hmma.items())))
+            for kind, dtype in ((bf, torch.bfloat16), ("fp32", torch.float32)):
+                n = found.get((part, (D, Dv), kind))
+                want = {"wgmma": (False, True), "mma.sync": (True, False),
+                        "fp32": (False, False)}[kind]
+                if n is None or (n[0] > 0, n[1] > 0) != want:
+                    fail(f"K4 backward {part} ({D}, {Dv}) {kind}: (HMMA, "
+                         f"HGMMA) {n}")
+                occ = fa.bwd_occupancy(D, Dv, dtype, part)
+                if occ["blocks_per_sm"] < 1:
+                    fail(f"K4 backward {part} ({D}, {Dv}) {kind}: no block "
+                         "fits an SM")
+                say(f"K4 backward {part} ({D}, {Dv}) {kind}: HMMA {n[0]}, "
+                    f"HGMMA {n[1]}, {occ['smem_bytes']} B of shared memory, "
+                    f"{occ['registers']} registers a thread, "
+                    f"{occ['blocks_per_sm']} blocks an SM")
 
 
 def sweep_forms(torch, da, counts, sweep="paged"):
@@ -3748,25 +3774,71 @@ def autograd_ms(torch, forward, inputs, grad_out):
     return both - time_ms(torch, forward, iters=5, reps=10)
 
 
-def backward_timings(torch, np, dev, fa, rms):
+# each launch of a backward call at phase 7 (d)'s shapes, by a substring of
+# its kernel's name: K4's delta (the pack kernel on the Hopper path), dk /
+# dv and dq, K9's rows and reduce
+BWD_LAUNCHES = {"flash_attention_bwd": (("delta", ("fa_bwd_pack", "fa_bwd_delta")),
+                                        ("dk / dv", ("fa_bwd_dkdv",)),
+                                        ("dq", ("fa_bwd_dq",))),
+                "rmsnorm_bwd": (("rows", ("rmsnorm_bwd_kernel",)),
+                                ("reduce", ("rmsnorm_dw_reduce",)))}
+# the times of those launches before the Hopper redesign (the mma.sync
+# kernels, K9's row-at-a-time backward; us, the mean of the old
+# checkout's two runs in tools/bwd_ab.py's OLD NEW NEW OLD call on an
+# NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6)
+EARLIER_LAUNCHES = {"flash_attention_bwd": {"delta": 8.85, "dk / dv": 184.9,
+                                         "dq": 73.65},
+                 "rmsnorm_bwd": {"rows": 37.5, "reduce": 6.2}}
+
+
+def launch_split(torch, fn, parts, iters=20):
+    """Device time of each launch of ``fn`` (us a launch, by the labels of
+    ``parts``: (label, name substrings)), the mean over ``iters`` calls
+    under ``torch.profiler`` after a warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = {label: 0.0 for label, _ in parts}
+    seen = {label: 0 for label, _ in parts}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for label, keys in parts:
+            if any(k in e.name for k in keys):
+                total[label] += e.time_range.end - e.time_range.start
+                seen[label] += 1
+    # the profiler's buffer may drop a record; most must be there
+    if any(n < iters // 2 or n > iters for n in seen.values()):
+        fail(f"launch_split: {seen} launches in {iters} calls")
+    return {label: total[label] / seen[label] for label in total}
+
+
+def backward_timings(torch, np, dev, fa, rms, plain=True):
     """Phase 7 (d): K4's and K9's backward kernels at smollm-135m's training
     shapes (bf16, 8 x 512 tokens; K4 at 9 / 3 heads of 64, K9 at width
-    576), beside their plain twins, the library's backward through
-    autograd (SDPA's, F.rms_norm's; never called by the port;
+    576), beside their plain twins (``plain``), the library's backward
+    through autograd (SDPA's, F.rms_norm's; never called by the port;
     ``autograd_ms``) and the bound: K4's backward reads q, k, v, out, dout
     and lse and writes dq, dk and dv once each, and does 2.5 times its
-    forward's products."""
+    forward's products.  Each launch of a call is also timed on its own
+    (``launch_split``, us), beside ``EARLIER_LAUNCHES``."""
     F = torch.nn.functional
     shp = dict(B=BATCH, Sq=PLEN, Sk=PLEN, Hq=9, Hkv=3, D=64)
     q, k, v = fa_case(torch, np, dev, dtype="bfloat16", seed=990, **shp)
     out, lse = fa._forward(q, k, v, causal=True, window=0, logit_cap=0.0,
                            scale=None, q_offset=0, with_lse=True)
     dout = torch.randn_like(out)
-    ms = time_ms(torch, lambda: fa.flash_attention_bwd(q, k, v, out, lse,
-                                                       dout), iters=5,
-                 reps=10)
-    plain = time_ms(torch, lambda: fa.flash_attention_bwd_torch(
-        q, k, v, out, lse, dout), iters=3, reps=3)
+
+    def call():
+        return fa.flash_attention_bwd(q, k, v, out, lse, dout)
+    ms = time_ms(torch, call, iters=5, reps=10)
+    split = launch_split(torch, call, BWD_LAUNCHES["flash_attention_bwd"])
+    plain_ms = (time_ms(torch, lambda: fa.flash_attention_bwd_torch(
+        q, k, v, out, lse, dout), iters=3, reps=3) if plain else None)
     G = shp["Hq"] // shp["Hkv"]
     qt = q.transpose(1, 2).contiguous().requires_grad_(True)
     kt = k.repeat_interleave(G, dim=2).transpose(1, 2).contiguous() \
@@ -3782,12 +3854,13 @@ def backward_timings(torch, np, dev, fa, rms):
     nbytes = 2 * nbytes + 4 * lse.numel()
     b_ms, b_by = bound(nbytes, 2.5 * flops)
     label = "smollm 8 x 512 (64, 64) G 3"
+    plain_s = "n/a" if plain_ms is None else f"{plain_ms * 1e3:.1f} us"
     say(f"K4 backward {label}: kernel {ms * 1e3:.1f} us, plain twin "
-        f"{plain * 1e3:.1f} us, SDPA backward (autograd) {lib * 1e3:.1f} "
+        f"{plain_s}, SDPA backward (autograd) {lib * 1e3:.1f} "
         f"us, bound {b_ms * 1e3:.2f} us ({b_by})")
     rows = {"flash_attention_bwd": dict(
-        ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
-        shape=label)}
+        ms=ms, plain_ms=plain_ms, library_ms=lib, bound_ms=b_ms,
+        bound_by=b_by, shape=label, split=split)}
     del q, k, v, out, lse, dout, qt, kt, vt, dot
     rng = np.random.default_rng(991)
     n, d = BATCH * PLEN, 576
@@ -3797,8 +3870,13 @@ def backward_timings(torch, np, dev, fa, rms):
                      device=dev)
     _, rstd = rms._forward(x, w, 1e-6, False, with_rstd=True)
     dy = torch.randn_like(x)
-    ms = time_ms(torch, lambda: rms.rmsnorm_bwd(x, w, dy, rstd))
-    plain = time_ms(torch, lambda: rms.rmsnorm_bwd_torch(x, w, dy, rstd))
+
+    def call():
+        return rms.rmsnorm_bwd(x, w, dy, rstd)
+    ms = time_ms(torch, call)
+    split = launch_split(torch, call, BWD_LAUNCHES["rmsnorm_bwd"])
+    plain_ms = (time_ms(torch, lambda: rms.rmsnorm_bwd_torch(x, w, dy, rstd))
+                if plain else None)
     lib = None
     if hasattr(F, "rms_norm"):
         xl = x.detach().clone().requires_grad_(True)
@@ -3809,11 +3887,18 @@ def backward_timings(torch, np, dev, fa, rms):
                        10.0 * x.numel())
     label = f"smollm {n} x {d}"
     lib_s = "n/a" if lib is None else f"{lib * 1e3:.1f} us"
+    plain_s = "n/a" if plain_ms is None else f"{plain_ms * 1e3:.1f} us"
     say(f"K9 backward {label}: kernel {ms * 1e3:.1f} us, plain twin "
-        f"{plain * 1e3:.1f} us, F.rms_norm backward (autograd) {lib_s}, "
+        f"{plain_s}, F.rms_norm backward (autograd) {lib_s}, "
         f"bound {b_ms * 1e3:.3f} us ({b_by})")
-    rows["rmsnorm_bwd"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                               bound_ms=b_ms, bound_by=b_by, shape=label)
+    rows["rmsnorm_bwd"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib,
+                               bound_ms=b_ms, bound_by=b_by, shape=label,
+                               split=split)
+    for name, row in rows.items():
+        earlier = EARLIER_LAUNCHES[name]
+        say(f"{name} launches, us a launch: " + ", ".join(
+            f"{label} {t:.1f} (before: {earlier[label]:.1f})"
+            for label, t in row["split"].items()))
     return rows
 
 
@@ -4024,7 +4109,7 @@ def main() -> int:
         fail(f"the sweeps', K8's or K9's kernels spill: {spilled}")
     counts = hmma_counts(build)
     k4_forms(torch, fa, counts)
-    k4_bwd_forms(fa, counts)
+    k4_bwd_forms(torch, fa, counts, hmma_counts(build, "HGMMA"))
     ssd_forms(counts)
     sweep_forms(torch, da, counts)
     sweep_forms(torch, da, counts, "ring")

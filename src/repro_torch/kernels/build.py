@@ -128,12 +128,14 @@ def library() -> ctypes.CDLL:
         lib.flash_attention_fwd.restype = i
         lib.flash_attention_bwd.argtypes = [p] * 10 + [i] * 11 + [f, f, i, p]
         lib.flash_attention_bwd.restype = i
+        lib.flash_attention_bwd_occupancy.argtypes = [i, i, i, i, p]
+        lib.flash_attention_bwd_occupancy.restype = i
         lib.flash_attention_occupancy.argtypes = [i, i, i, p]
         lib.flash_attention_occupancy.restype = i
         lib.rmsnorm_fwd.argtypes = [p] * 4 + [ctypes.c_long, i, f] + [
             i] * 6 + [p]
         lib.rmsnorm_fwd.restype = i
-        lib.rmsnorm_bwd.argtypes = [p] * 7 + [ctypes.c_long] + [i] * 5 + [p]
+        lib.rmsnorm_bwd.argtypes = [p] * 7 + [ctypes.c_long] + [i] * 8 + [p]
         lib.rmsnorm_bwd.restype = i
         lg = ctypes.c_long
         lib.ssd_scan_fwd.argtypes = ([p] * 10 + [i] * 8 + [lg] * 4

@@ -10,9 +10,9 @@
 //   rmsnorm_bwd       the gradient: dx = rstd (w' dy - xhat mean(xhat w'
 //                     dy)) with xhat = x rstd and w' = w (or 1 + w), in x's
 //                     dtype, and dw = the sum over rows of dy xhat, in w's
-//                     dtype, summed in a fixed order (per-block partials,
-//                     then one reduce): no float atomics, the same bits
-//                     from run to run.
+//                     dtype, summed in a fixed order (a partial row a
+//                     block, then a reduce over ceil(d / 32) blocks): no
+//                     float atomics, the same bits from run to run.
 //
 // It launches on the caller's stream, allocates nothing and returns
 // cudaGetLastError() so that a refused launch is reported.
@@ -288,105 +288,194 @@ int launch_rms(const void* x, const void* w, void* out, float* rstd,
 }
 
 // Bound on the card: bytes (x, dy and rstd read, dx written, about 10 FLOP
-// an element).  Design, a simple kernel: a block of RMS_BWD_NT threads
-// takes a contiguous run of rows, one row at a time, the threads across
-// the row (column c + RMS_BWD_NT j, coalesced), each holding its x and dy
-// values in registers between the row's two sweeps (the dot product
-// mean(xhat w' dy), one block sum, then dx).  w' sits in shared memory;
-// each thread keeps its columns' dw sums in registers over the block's
-// rows and writes them, as the block's partial row, to part[blockIdx.x];
-// rmsnorm_dw_reduce then sums the partials in block order.  Widths up to
-// RMS_MAXD (RMS_BWD_C values a thread).
-constexpr int RMS_BWD_NT = 256;
-constexpr int RMS_BWD_C = RMS_MAXD / RMS_BWD_NT;
+// an element).  Design, on the forward's pattern: a row is tpr threads,
+// each holding NVEC vectors of 8 values of x and of dy in registers
+// (vector c of thread i is the row's vector i + c tpr), loaded with
+// 16-byte streaming loads; a block takes rpb rows at a time and walks the
+// row groups with a grid stride.  The row's dot product mean(xhat w' dy)
+// is a shuffle among the row's threads (tpr a power of two up to 32), or,
+// for rows of whole warps, a warp sum and one exchange through shared
+// memory behind a named barrier of the row's own warps: no block-wide
+// barrier a row.  dx = rstd (w' dy - xhat mean) goes out as 16-byte
+// streaming stores.  Each thread sums its columns' d scale = dy xhat over
+// the rows it takes in registers; at the end the block adds its rpb row
+// groups' sums in order (shared memory) into one partial row, part[block],
+// and rmsnorm_dw_reduce sums the partial rows in a fixed order over
+// ceil(d / 32) blocks.  w' (w, or 1 + w) sits in shared memory as the
+// forward's two planes.  rmsnorm.py's bwd_launch_shape picks tpr, NVEC
+// (at most RMS_BWD_VMAX: x, dy and the d scale sums share the register
+// file) and rpb; widths up to RMS_MAXD.
+constexpr int RMS_BWD_VMAX = 4;      // vectors of 8 values a thread holds
+constexpr int RMS_RED_COLS = 32;     // columns a block of the d scale reduce
 
-template <typename T, typename W>
-__global__ void __launch_bounds__(RMS_BWD_NT) rmsnorm_bwd_kernel(
+template <typename T, typename W, int NVEC>
+__global__ void __launch_bounds__(RMS_BLOCK) rmsnorm_bwd_kernel(
     const T* __restrict__ x, const W* __restrict__ w,
     const T* __restrict__ dy, const float* __restrict__ rstd,
     T* __restrict__ dx, float* __restrict__ part, long rows, int d,
-    int gemma_style, long rows_per_block) {
+    int gemma_style, int tpr, int rpb) {
   extern __shared__ float smem[];
-  float* ws = smem;                             // w', d values
-  float* red = smem + d;                        // 2 x (warps a block)
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  constexpr int NW = RMS_BWD_NT / 32;
-  for (int c = tid; c < d; c += RMS_BWD_NT) {
-    const float s = (float)w[c];
-    ws[c] = gemma_style ? 1.f + s : s;
+  const int nv = d / 8;
+  float4* wl = reinterpret_cast<float4*>(smem);  // values 0..3 of a vector
+  float4* wh = wl + nv;                          // values 4..7
+  float* red = smem + 8 * nv;                    // 2 x (warps a block)
+  const int tid = threadIdx.x, nthreads = tpr * rpb;
+  const int r = tid / tpr, i = tid - r * tpr;
+  const int warp = tid >> 5, lane = tid & 31, wpr = tpr >> 5;
+  for (int c = tid; c < nv; c += nthreads) {
+    float s[8];
+    load8(w + 8 * c, s);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (gemma_style) s[j] = 1.f + s[j];
+    wl[c] = make_float4(s[0], s[1], s[2], s[3]);
+    wh[c] = make_float4(s[4], s[5], s[6], s[7]);
   }
   __syncthreads();
-  float dw[RMS_BWD_C];
+  float dws[NVEC][8];
 #pragma unroll
-  for (int j = 0; j < RMS_BWD_C; ++j) dw[j] = 0.f;
-  const long r0 = (long)blockIdx.x * rows_per_block;
-  const long r1 = r0 + rows_per_block < rows ? r0 + rows_per_block : rows;
+  for (int c = 0; c < NVEC; ++c)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) dws[c][j] = 0.f;
   int buf = 0;
-  for (long row = r0; row < r1; ++row, buf ^= 1) {
-    const float rs = rstd[row];
-    const T* xr = x + row * d;
-    const T* gr = dy + row * d;
-    float xh[RMS_BWD_C], g[RMS_BWD_C];
+  for (long grp = blockIdx.x; grp * rpb < rows; grp += gridDim.x, buf ^= 1) {
+    const long row = grp * rpb + r;
+    const bool live = row < rows;
+    Raw8<T> xv[NVEC], gv[NVEC];
+#pragma unroll
+    for (int c = 0; c < NVEC; ++c)
+      if (live && i + c * tpr < nv) {
+        xv[c].load(x + row * d + 8 * (i + c * tpr));
+        gv[c].load(dy + row * d + 8 * (i + c * tpr));
+      }
+    const float rs = live ? rstd[row] : 0.f;
     float dot = 0.f;
 #pragma unroll
-    for (int j = 0; j < RMS_BWD_C; ++j) {
-      const int c = tid + RMS_BWD_NT * j;
-      if (c < d) {
-        xh[j] = (float)xr[c] * rs;
-        g[j] = (float)gr[c];
-        dot += xh[j] * (ws[c] * g[j]);
+    for (int c = 0; c < NVEC; ++c) {
+      const int vi = i + c * tpr;
+      if (live && vi < nv) {
+        float f[8], g[8];
+        xv[c].get(f);
+        gv[c].get(g);
+        const float4 a = wl[vi], b = wh[vi];
+        const float s[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+        for (int j = 0; j < 8; ++j) dot += (f[j] * rs) * (s[j] * g[j]);
       }
     }
-    dot = warp_sum(dot);
-    float* rb = red + buf * NW;
-    if (lane == 0) rb[warp] = dot;
-    __syncthreads();
-    dot = 0.f;
-#pragma unroll
-    for (int k = 0; k < NW; ++k) dot += rb[k];
+    if (tpr <= 32) {
+      for (int o = tpr >> 1; o > 0; o >>= 1)
+        dot += __shfl_xor_sync(0xffffffffu, dot, o);
+    } else {
+      dot = warp_sum(dot);
+      float* rb = red + buf * (RMS_BLOCK / 32);
+      if (lane == 0) rb[warp] = dot;
+      // the row's wpr warps only: barrier 1 + r of tpr threads
+      asm volatile("bar.sync %0, %1;" :: "r"(1 + r), "r"(tpr) : "memory");
+      dot = 0.f;
+      for (int k = 0; k < wpr; ++k) dot += rb[r * wpr + k];
+    }
     const float mean = dot / (float)d;
 #pragma unroll
-    for (int j = 0; j < RMS_BWD_C; ++j) {
-      const int c = tid + RMS_BWD_NT * j;
-      if (c < d) {
-        store(dx + row * d + c, rs * (ws[c] * g[j] - xh[j] * mean));
-        dw[j] += g[j] * xh[j];
+    for (int c = 0; c < NVEC; ++c) {
+      const int vi = i + c * tpr;
+      if (live && vi < nv) {
+        float f[8], g[8];
+        xv[c].get(f);
+        gv[c].get(g);
+        const float4 a = wl[vi], b = wh[vi];
+        const float s[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float xh = f[j] * rs;
+          f[j] = rs * (s[j] * g[j] - xh * mean);
+          dws[c][j] += g[j] * xh;
+        }
+        Raw8<T>::put(dx + row * d + 8 * vi, f);
       }
     }
   }
+  // the block's partial row: row group r's sums at acc[r d ..], over w'
+  // (no longer read), then added in the order r = 0 .. rpb - 1
+  __syncthreads();
+  float* acc = smem;
 #pragma unroll
-  for (int j = 0; j < RMS_BWD_C; ++j) {
-    const int c = tid + RMS_BWD_NT * j;
-    if (c < d) part[(long)blockIdx.x * d + c] = dw[j];
+  for (int c = 0; c < NVEC; ++c) {
+    const int vi = i + c * tpr;
+    if (vi < nv)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[r * d + 8 * vi + j] = dws[c][j];
+  }
+  __syncthreads();
+  for (int col = tid; col < d; col += nthreads) {
+    float s = 0.f;
+    for (int k = 0; k < rpb; ++k) s += acc[k * d + col];
+    part[(long)blockIdx.x * d + col] = s;
   }
 }
 
-// dw[c] = the sum of part[b][c] over b = 0 .. nblk - 1, in that order
+// dw[c] = the sum of part[b][c] over b < nblk: 32 columns a block, warp k
+// summing the rows b = k, k + 8, ... in order, then the 8 warps' sums in
+// order
 template <typename W>
-__global__ void __launch_bounds__(RMS_BWD_NT) rmsnorm_dw_reduce(
+__global__ void __launch_bounds__(RMS_BLOCK) rmsnorm_dw_reduce(
     const float* __restrict__ part, W* __restrict__ dw, int nblk, int d) {
-  const int c = blockIdx.x * RMS_BWD_NT + threadIdx.x;
-  if (c >= d) return;
+  constexpr int NW = RMS_BLOCK / 32;
+  __shared__ float sums[NW][RMS_RED_COLS];
+  const int lane = threadIdx.x & 31, k = threadIdx.x >> 5;
+  const int c = blockIdx.x * RMS_RED_COLS + lane;
   float s = 0.f;
-  for (int b = 0; b < nblk; ++b) s += part[(long)b * d + c];
-  store(dw + c, s);
+  if (c < d)
+    for (int b = k; b < nblk; b += NW) s += part[(long)b * d + c];
+  sums[k][lane] = s;
+  __syncthreads();
+  if (k == 0 && c < d) {
+    float t = 0.f;
+#pragma unroll
+    for (int j = 0; j < NW; ++j) t += sums[j][lane];
+    store(dw + c, t);
+  }
+}
+
+template <typename T, typename W, int NVEC>
+int launch_bwd_rows(const void* x, const void* w, const void* dy,
+                    const float* rstd, void* dx, void* dw, float* part,
+                    long rows, int d, int gemma_style, int tpr, int rpb,
+                    int nblk, cudaStream_t st) {
+  // w' and the row sums, then (aliasing them) the rpb partial rows
+  const size_t smem = sizeof(float) * ((size_t)d * max(rpb, 1)
+                                       + 2 * (RMS_BLOCK / 32));
+  rmsnorm_bwd_kernel<T, W, NVEC><<<nblk, tpr * rpb, smem, st>>>(
+      static_cast<const T*>(x), static_cast<const W*>(w),
+      static_cast<const T*>(dy), rstd, static_cast<T*>(dx), part, rows, d,
+      gemma_style, tpr, rpb);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  rmsnorm_dw_reduce<W><<<(d + RMS_RED_COLS - 1) / RMS_RED_COLS, RMS_BLOCK,
+                         0, st>>>(part, static_cast<W*>(dw), nblk, d);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, typename W>
 int launch_bwd(const void* x, const void* w, const void* dy,
                const float* rstd, void* dx, void* dw, float* part, long rows,
-               int d, int gemma_style, int nblk, cudaStream_t st) {
-  const long per = (rows + nblk - 1) / nblk;
-  const size_t smem = sizeof(float) * (d + 2 * (RMS_BWD_NT / 32));
-  rmsnorm_bwd_kernel<T, W><<<nblk, RMS_BWD_NT, smem, st>>>(
-      static_cast<const T*>(x), static_cast<const W*>(w),
-      static_cast<const T*>(dy), rstd, static_cast<T*>(dx), part, rows, d,
-      gemma_style, per);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  rmsnorm_dw_reduce<W><<<(d + RMS_BWD_NT - 1) / RMS_BWD_NT, RMS_BWD_NT, 0,
-                         st>>>(part, static_cast<W*>(dw), nblk, d);
-  return (int)cudaGetLastError();
+               int d, int gemma_style, int tpr, int nvec, int rpb, int nblk,
+               cudaStream_t st) {
+  switch (nvec) {
+    case 1: return launch_bwd_rows<T, W, 1>(x, w, dy, rstd, dx, dw, part,
+                                            rows, d, gemma_style, tpr, rpb,
+                                            nblk, st);
+    case 2: return launch_bwd_rows<T, W, 2>(x, w, dy, rstd, dx, dw, part,
+                                            rows, d, gemma_style, tpr, rpb,
+                                            nblk, st);
+    case 3: return launch_bwd_rows<T, W, 3>(x, w, dy, rstd, dx, dw, part,
+                                            rows, d, gemma_style, tpr, rpb,
+                                            nblk, st);
+    case 4: return launch_bwd_rows<T, W, 4>(x, w, dy, rstd, dx, dw, part,
+                                            rows, d, gemma_style, tpr, rpb,
+                                            nblk, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 int rms_forward(const void* x, const void* w, void* out, float* rstd,
@@ -435,29 +524,40 @@ extern "C" int rmsnorm_fwd(const void* x, const void* w, void* out,
 
 // The gradient of rmsnorm_fwd: x, dy and dx (rows, d) in x_dtype, w and dw
 // (d,) in w_dtype, rstd (rows,) fp32 from rmsnorm_fwd, part an fp32
-// workspace of nblk x d (nblk blocks, each a contiguous run of rows).
-// 1 <= nblk <= rows, d a multiple of 8 up to 8192.
+// workspace of nblk x d (nblk blocks walking the row groups with a grid
+// stride).  The launch shape (rmsnorm.py's bwd_launch_shape): tpr threads
+// a row (a power of two up to 32 or a multiple of 32), nvec vectors of 8
+// values a thread (tpr nvec >= d / 8, nvec <= 4), rpb rows a block (tpr
+// rpb <= 256, a multiple of 32).  d a multiple of 8 up to 8192; x, dy and
+// dx 16-byte aligned.
 extern "C" int rmsnorm_bwd(const void* x, const void* w, const void* dy,
                            const void* rstd, void* dx, void* dw, void* part,
                            long rows, int d, int gemma_style, int x_dtype,
-                           int w_dtype, int nblk, void* stream) {
+                           int w_dtype, int tpr, int nvec, int rpb, int nblk,
+                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (rows < 1 || d < 8 || d % 8 || d > RMS_MAXD || nblk < 1
-      || nblk > rows)
+  const bool pow2 = tpr <= 32 && (tpr & (tpr - 1)) == 0;
+  if (rows < 1 || d < 8 || d % 8 || d > RMS_MAXD || nblk < 1 || tpr < 1
+      || !(pow2 || tpr % 32 == 0) || nvec < 1 || nvec > RMS_BWD_VMAX
+      || (long)tpr * nvec < d / 8 || rpb < 1 || tpr * rpb > RMS_BLOCK
+      || (tpr * rpb) % 32)
     return (int)cudaErrorInvalidValue;
   const float* rs = static_cast<const float*>(rstd);
   float* pt = static_cast<float*>(part);
   if (x_dtype == 1 && w_dtype == 0)
     return launch_bwd<__nv_bfloat16, float>(x, w, dy, rs, dx, dw, pt, rows,
-                                            d, gemma_style, nblk, st);
+                                            d, gemma_style, tpr, nvec, rpb,
+                                            nblk, st);
   if (x_dtype == 1 && w_dtype == 1)
     return launch_bwd<__nv_bfloat16, __nv_bfloat16>(
-        x, w, dy, rs, dx, dw, pt, rows, d, gemma_style, nblk, st);
+        x, w, dy, rs, dx, dw, pt, rows, d, gemma_style, tpr, nvec, rpb, nblk,
+        st);
   if (x_dtype == 0 && w_dtype == 0)
     return launch_bwd<float, float>(x, w, dy, rs, dx, dw, pt, rows, d,
-                                    gemma_style, nblk, st);
+                                    gemma_style, tpr, nvec, rpb, nblk, st);
   if (x_dtype == 0 && w_dtype == 1)
     return launch_bwd<float, __nv_bfloat16>(x, w, dy, rs, dx, dw, pt, rows,
-                                            d, gemma_style, nblk, st);
+                                            d, gemma_style, tpr, nvec, rpb,
+                                            nblk, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -17,7 +17,11 @@ whose backward is the hand-written kernels of
 ``csrc/flash_attention_bwd.cu`` (``flash_attention_bwd``,
 FlashAttention-2's form: dk / dv by key tile, dq by q tile, p recomputed
 from the log-sum-exp; ``LAUNCHES["flash_attention_bwd"]`` counts its
-calls).  Their plain twins, ``attention_lse_torch`` and
+calls).  In bf16 at (64, 64), (120, 120) and (128, 128) they are Hopper
+kernels (wgmma products, TMA copies through a two-stage ring, the mask
+only on the tiles it cuts: ``bwd_tile_class``); fp32, and bf16 at
+(192, 128), keep the first kernels (CUDA cores, ``mma.sync``).  Their
+plain twins, ``attention_lse_torch`` and
 ``flash_attention_bwd_torch``, are what the two take for CPU tensors, so
 the autograd function runs on the CPU too.  The backward takes every
 form of ``HEAD_DIMS`` at G up to ``BWD_ROWS``; a larger G raises when the
@@ -45,7 +49,14 @@ ROWS = 128          # (q position, q head) rows per kernel block
 # v 128); the kernels' shared memory at each is checked against Hopper's
 # 227 KB when they compile
 HEAD_DIMS = ((64, 64), (120, 120), (128, 128), (192, 128))
-BWD_ROWS = 64       # (q position, q head) rows per backward q tile
+BWD_ROWS = 64       # the most q heads a kv head the backward takes, and
+                    # the (q position, q head) rows a q tile of its fp32
+                    # and mma.sync kernels
+# rows a q tile of the Hopper (wgmma) backward kernels, by the bf16 forms
+# that take them
+BWD_WGMMA_ROWS = {(64, 64): 128, (120, 120): 64, (128, 128): 64}
+BWD_KEYS = 64       # keys a key tile of the backward kernels
+TILE_SKIP, TILE_FULL, TILE_MASKED = 0, 1, 2
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -191,8 +202,9 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     """K4's backward: (dq, dk, dv) in q's dtype from the forward's inputs,
     its ``out`` and ``lse`` (``FlashAttentionFn``'s forward) and the
     output gradient ``dout``.  The plain twin for CPU tensors; for CUDA
-    tensors the three launches of ``flash_attention_bwd`` (delta, dk / dv,
-    dq) or a raise."""
+    tensors the three launches of ``flash_attention_bwd`` (delta, or lse
+    and delta packed by q tile for the Hopper kernels; dk / dv; dq) or a
+    raise."""
     if q.device.type == "cpu":
         return flash_attention_bwd_torch(q, k, v, out, lse, dout,
                                          causal=causal, window=window,
@@ -215,19 +227,77 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=dev)
+    bq, n_ws = bwd_plan(D, Dv, q.dtype, B, Sq, Hq, Hkv)
+    delta = torch.empty((n_ws,), dtype=torch.float32, device=dev)
     if scale is None:
         scale = D ** -0.5
     err = build.library().flash_attention_bwd(
         ptr(q), ptr(k), ptr(v), ptr(out), ptr(dout), ptr(lse), ptr(delta),
         ptr(dq), ptr(dk), ptr(dv), B, Sq, Sk, Hq, Hkv, D, Dv,
-        BWD_ROWS // (Hq // Hkv), int(causal), int(window), int(q_offset),
+        bq, int(causal), int(window), int(q_offset),
         float(logit_cap), float(scale), DTYPE_CODE[q.dtype],
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd: CUDA error {err}")
     LAUNCHES["flash_attention_bwd"] += 1
     return dq, dk, dv
+
+
+def bwd_plan(head_dim: int, v_head_dim: int, dtype, B: int, Sq: int,
+             Hq: int, Hkv: int) -> tuple[int, int]:
+    """The backward kernels' q tiling: (bq q positions a q tile, fp32
+    values of the workspace).  The Hopper kernels take q tiles of
+    ``BWD_WGMMA_ROWS`` rows (bq = rows // G) and a workspace of lse and
+    delta by q tile, 2 x rows values a (batch, kv head, q tile); the
+    others q tiles of ``BWD_ROWS`` rows and delta as (B, Hq, Sq)."""
+    G = Hq // Hkv
+    rows = (BWD_WGMMA_ROWS.get((head_dim, v_head_dim))
+            if dtype == torch.bfloat16 else None)
+    if rows is None:
+        return BWD_ROWS // G, B * Hq * Sq
+    bq = rows // G
+    return bq, B * Hkv * -(-Sq // bq) * 2 * rows
+
+
+def bwd_tile_class(qlo: int, qhi: int, k0: int, nk: int, causal: bool,
+                   window: int) -> int:
+    """The Hopper backward kernels' class of a (q rows, key tile) pair,
+    as ``tile_class`` in ``csrc/flash_attention_bwd.cu`` computes it: q
+    positions ``[qlo, qhi]`` against keys ``[k0, k0 + nk)`` of a
+    ``BWD_KEYS`` tile.  ``TILE_SKIP`` where no position sees a key,
+    ``TILE_FULL`` where every position sees every key of a whole tile (no
+    per-element mask), else ``TILE_MASKED``."""
+    khi = k0 + nk - 1
+    if nk <= 0 or qhi < qlo or (causal and k0 > qhi) \
+            or (window > 0 and qlo - khi >= window):
+        return TILE_SKIP
+    if nk == BWD_KEYS and (not causal or khi <= qlo) \
+            and (window <= 0 or qhi - k0 < window):
+        return TILE_FULL
+    return TILE_MASKED
+
+
+def bwd_q_walk(k0: int, nk: int, Sq: int, bq: int, causal: bool,
+               window: int, q_offset: int) -> range:
+    """The q tiles (of bq positions) a dk / dv block of keys ``[k0, k0 +
+    nk)`` walks: those holding a position that sees one of its keys."""
+    i_lo = max(0, k0 - q_offset) if causal else 0
+    i_hi = Sq - 1
+    if window > 0:
+        i_hi = min(i_hi, k0 + nk - 2 + window - q_offset)
+    t_lo = i_lo // bq
+    return range(t_lo, t_lo if i_hi < i_lo else i_hi // bq + 1)
+
+
+def bwd_k_walk(plo: int, phi: int, Sk: int, causal: bool,
+               window: int) -> range:
+    """The key tiles a dq block of q positions ``[plo, phi]`` walks: those
+    holding a key one of them can see (and, without the causal mask, the
+    tile holding the window's start where it lies past every key: a
+    SKIP)."""
+    k_hi = max(0, min(Sk, phi + 1) if causal else Sk)
+    k_lo = max(0, plo - window + 1) if window > 0 else 0
+    return range(k_lo // BWD_KEYS, -(-k_hi // BWD_KEYS))
 
 
 def _check_backward(q, k, v):
@@ -267,6 +337,21 @@ class FlashAttentionFn(torch.autograd.Function):
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
                                          dout.contiguous(), **ctx.kw)
         return dq, dk, dv, None, None, None, None, None
+
+
+def bwd_occupancy(head_dim: int, v_head_dim: int, dtype, part: str) -> dict:
+    """The dk / dv (``part`` "dkdv") or dq ("dq") kernel the backward
+    launches for a (D, Dv, dtype) form, as the card runs it: blocks per
+    SM, dynamic shared memory bytes and registers a thread."""
+    from repro_torch.kernels import build
+    info = (ctypes.c_int * 3)()
+    err = build.library().flash_attention_bwd_occupancy(
+        head_dim, v_head_dim, DTYPE_CODE[dtype], ("dkdv", "dq").index(part),
+        info)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd_occupancy: CUDA error {err}")
+    return dict(blocks_per_sm=info[0], smem_bytes=info[1],
+                registers=info[2])
 
 
 def occupancy(head_dim: int, v_head_dim: int, dtype) -> dict:

@@ -11,9 +11,11 @@ Training: on a CUDA tensor that requires grad (with grad mode on) the
 wrapper goes through ``RMSNormFn``, whose forward is the same kernel
 given an fp32 rstd output as well (a null one writes none) and whose
 backward is the hand-written ``rmsnorm_bwd`` (``LAUNCHES["rmsnorm_bwd"]``
-counts its calls): dx by row, d scale as per-block fp32 partials summed
-in a fixed order.  Their plain twins, ``rmsnorm_rstd_torch`` and
-``rmsnorm_bwd_torch``, are what the two take for CPU tensors.  The
+counts its calls): rows in registers as the forward holds them (its own
+launch shape, ``bwd_launch_shape``), dx by row, d scale as per-block fp32
+partial rows summed in a fixed order by a second launch.  Their plain
+twins, ``rmsnorm_rstd_torch`` and ``rmsnorm_bwd_torch``, are what the two
+take for CPU tensors.  The
 backward takes widths up to ``MAX_WIDTH``; a wider row raises when the
 forward is asked for a gradient.
 """
@@ -30,6 +32,8 @@ VMAX = 9            # vectors of 8 values a thread of the kernel holds
 BLOCK = 256         # threads a block, at most
 MAX_WIDTH = 8192    # widest row the register kernel takes
 FEW_ROWS = 132      # fewer rows than the card's SMs: a call is one row's chain
+BWD_VMAX = 4        # vectors of 8 values a thread of the backward holds
+BWD_BLOCKS_PER_SM = 2   # blocks of the backward's row kernel an SM
 
 
 def launch_shape(d: int, rows: int) -> tuple[int, int, int]:
@@ -60,6 +64,37 @@ def _shape(d: int, few: bool) -> tuple[int, int, int]:
     v = -(-nv // BLOCK)
     t = 32 * -(-nv // (32 * v))
     return t, v, BLOCK // t
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_launch_shape(d: int) -> tuple[int, int, int]:
+    """The backward kernel's launch shape for width ``d`` (a multiple of 8
+    up to ``MAX_WIDTH``): (threads a row, vectors of 8 values a thread,
+    rows a block).  A thread holds x's and dy's vectors and 8 d scale sums
+    a vector, so at most ``BWD_VMAX`` vectors.  First a whole, equal split
+    over a power of two up to 32 threads (the row's sum is shuffles only),
+    then over whole warps (a warp sum and one exchange), each with two
+    vectors a thread where it can (as the forward's prefill rows); else
+    the fewest threads that hold the row at ``BWD_VMAX`` vectors, the last
+    ones with fewer."""
+    nv = d // 8
+    for small in (True, False):
+        for v in (2, 3, 4, 1):
+            t, rest = divmod(nv, v)
+            if rest == 0 and ((t <= 32 and t & (t - 1) == 0) if small
+                              else (t % 32 == 0 and t <= BLOCK)):
+                return t, v, BLOCK // t
+    need = -(-nv // BWD_VMAX)
+    t = 1 << (need - 1).bit_length() if need <= 32 else 32 * -(-need // 32)
+    return t, -(-nv // t), BLOCK // t
+
+
+def bwd_blocks(rows: int, d: int, n_sm: int) -> int:
+    """Blocks of the backward's row kernel (its partial rows of d scale):
+    ``BWD_BLOCKS_PER_SM`` an SM, or one a row group where there are
+    fewer."""
+    rpb = bwd_launch_shape(d)[2]
+    return min(-(-rows // rpb), BWD_BLOCKS_PER_SM * n_sm)
 
 
 def rmsnorm(x, scale, *, eps: float = 1e-6, gemma_style: bool = False):
@@ -142,8 +177,9 @@ def _n_sm(index: int) -> int:
 def rmsnorm_bwd(x, scale, dy, rstd, *, gemma_style: bool = False):
     """K9's backward: (dx in x's dtype, d scale in scale's dtype) from the
     forward's x, scale and rstd and the output gradient dy.  The plain twin
-    for CPU tensors; for CUDA tensors ``rmsnorm_bwd`` (2 x SMs blocks of
-    contiguous rows, then the partials' reduce) or a raise."""
+    for CPU tensors; for CUDA tensors ``rmsnorm_bwd`` (``bwd_blocks``
+    blocks of ``bwd_launch_shape`` walking the row groups, then the
+    partial rows' reduce) or a raise."""
     if x.device.type == "cpu":
         return rmsnorm_bwd_torch(x, scale, dy, rstd, gemma_style=gemma_style)
     if x.device.type != "cuda":
@@ -153,20 +189,20 @@ def rmsnorm_bwd(x, scale, dy, rstd, *, gemma_style: bool = False):
     _check_backward(d)
     rows = x.numel() // d
     dev = x.device
-    check("x", x, dtype=x.dtype, shape=x.shape, device=dev)
-    check("dy", dy, dtype=x.dtype, shape=x.shape, device=dev)
+    check("x", x, dtype=x.dtype, shape=x.shape, device=dev, vector=True)
+    check("dy", dy, dtype=x.dtype, shape=x.shape, device=dev, vector=True)
     check("scale", scale, dtype=scale.dtype, shape=(d,), device=dev)
     check("rstd", rstd, dtype=torch.float32, shape=(rows,), device=dev)
     dx = torch.empty_like(x)
     dw = torch.empty_like(scale)
     if rows == 0:
         return dx, dw.zero_()
-    nblk = min(rows, 2 * _n_sm(dev.index or 0))
+    nblk = bwd_blocks(rows, d, _n_sm(dev.index or 0))
     part = torch.empty((nblk, d), dtype=torch.float32, device=dev)
     err = build.library().rmsnorm_bwd(
         ptr(x), ptr(scale), ptr(dy), ptr(rstd), ptr(dx), ptr(dw), ptr(part),
         rows, d, int(gemma_style), DTYPE_CODE[x.dtype],
-        DTYPE_CODE[scale.dtype], nblk,
+        DTYPE_CODE[scale.dtype], *bwd_launch_shape(d), nblk,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"rmsnorm_bwd: CUDA error {err}")
