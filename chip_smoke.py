@@ -15,11 +15,13 @@ Phases, in order; any failure exits non-zero (nothing is caught):
                 a CUDA-core kernel may remain); K4's backward holds HGMMA
                 (``wgmma``) in its bf16 dk / dv and dq kernels at (64,
                 64), (120, 120) and (128, 128), HMMA in the ``mma.sync``
-                ones kept at (192, 128), neither in fp32; the paged and
-                ring sweeps', K8's, K9's and K4's backward kernels must
-                not spill (``-Xptxas -v``), and each form of the first
-                four and of K4's backward prints its blocks per SM,
-                shared memory and registers;
+                ones kept at (192, 128), neither in fp32; K8's backward
+                kernels (``csrc/ssd_scan_bwd.cu``, CUDA cores) built in
+                both dtypes; the paged and ring sweeps', K8's (forward and
+                backward), K9's and K4's backward kernels must not spill
+                (``-Xptxas -v``), and each form of the first four and of
+                K4's backward prints its blocks per SM, shared memory and
+                registers;
   2. kernels  — hold every kernel against its plain PyTorch version on the
                 same inputs, tolerance atol = rtol = 2e-2 for bf16 (1e-4
                 for fp32).  The paged K-sweep (decode / split decode /
@@ -262,20 +264,36 @@ Phases, in order; any failure exits non-zero (nothing is caught):
                 rmsnorm="ref")``): fp32 losses within 1e-5 and every
                 gradient within 1e-4 of its scale, bf16 losses and
                 gradient norms within 2e-2, the backward kernels launched
-                once per layer (K4) and per norm (K9) each step; a mamba2
-                train step on the card raises (K8 has no backward).  (c)
-                The main path ``repro_torch.launch.train`` (``TRAIN_ARGV``:
-                24 steps of 8 x 512, bf16, FROST on): the ``[frost]`` and
-                ``[frost-ctrl]`` lines, a loss below its first step's,
-                steps/s, tokens/s and peak memory, K4 and K9 forward and
-                backward on every layer of every step.  (d) The backward
-                kernels' times at smollm's training shapes beside their
-                plain twins, the library's backward through autograd
+                once per layer (K4) and per norm (K9) each step.  K8's
+                backward (``ssd_scan_bwd``) against its plain twin
+                ``ssd_scan_bwd_torch`` at ``SSD_BWD_CASES`` (mamba2's heads
+                at 8 x 512 and 2 x 4000, ragged over 32 chunks, S 1 and
+                31, G 2, no D, an initial state, dh_T), every gradient
+                within 2e-2 (bf16) and 1e-4 (fp32) of its scale, two runs
+                bit for bit, chunk 256, N 256 and fp16 refused; through
+                ``ssd_scan`` with a gradient, the forward bit for bit the
+                forward without.  Then mamba2-370m's train step at full
+                width, cut to ``MAMBA_TRAIN_LAYERS`` layers, the same
+                three steps on the kernels against the plain path
+                (``KernelPolicy(ssd="chunked", rmsnorm="ref")``), K8
+                forward and backward once per layer each step.  (c) The
+                main paths ``repro_torch.launch.train`` (``TRAIN_ARGV``:
+                smollm-135m, 24 steps of 8 x 512, bf16, FROST on; and
+                ``MAMBA_TRAIN_ARGV``: mamba2-370m at full width and depth,
+                12 steps of 8 x 512): the ``[frost]`` and ``[frost-ctrl]``
+                lines, a loss below its first step's, steps/s, tokens/s
+                and peak memory, K4 (K8 for mamba2) and K9 forward and
+                backward on every layer of every step, exactly.  (d) The
+                backward kernels' times at smollm's training shapes beside
+                their plain twins, the library's backward through autograd
                 (SDPA's, ``F.rms_norm``'s) and the bound (K4's backward:
                 2.5 times its forward's products); each launch of a call
                 timed apart (K4: delta, dk / dv, dq; K9: rows, reduce;
                 ``torch.profiler``) beside their times before the
-                Hopper redesign (``EARLIER_LAUNCHES``).
+                Hopper redesign (``EARLIER_LAUNCHES``); K8's backward at
+                ``SSD_BWD_TIMED`` (8 x 512 and 2 x 4000) beside its plain
+                twin and its bound (twice the forward's products), each
+                of its launches apart, no library call.
 
 The last two lines are a JSON object of per-kernel numbers and
 ``{"ok": true, "device": {...}}``.
@@ -303,6 +321,7 @@ FA_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
 FA_BWD_SRC = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
 RMS_SRC = "src/repro_torch/kernels/csrc/rmsnorm.cu"
 SSD_SRC = "src/repro_torch/kernels/csrc/ssd_scan.cu"
+SSD_BWD_SRC = "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu"
 MLA_SRC = "src/repro_torch/kernels/csrc/mla_attention.cu"
 LSE_SRC = "src/repro_torch/kernels/csrc/lse_merge.cuh"
 # kernel entry -> (source, the Pallas function it replaces, launch key)
@@ -332,6 +351,8 @@ KERNELS = {
         "flash_attention_bwd"),
     "rmsnorm_bwd": (RMS_SRC, "src/repro/kernels/rmsnorm.py:27",
                     "rmsnorm_bwd"),
+    "ssd_scan_bwd": (SSD_BWD_SRC, "src/repro/kernels/ssd_scan.py:76",
+                     "ssd_bwd"),
     "ssd_scan": (SSD_SRC, "src/repro/kernels/ssd_scan.py:76", "ssd"),
     "mla_latent_sweep (decode)": (
         MLA_SRC, "src/repro/kernels/decode_attention.py:1483", "mla_decode"),
@@ -475,6 +496,28 @@ def ssd_forms(counts):
         if (n > 0) != (form in want):
             fail(f"K8 {form}: {n} HMMA instructions")
         say(f"K8 {form}: {n} HMMA instructions")
+    # the backward's kernels (CUDA cores, fp32 and bf16 operands), every
+    # one built
+    bwd = {}
+    for name, n in counts.items():
+        if "ssd_scan_bwd_cu" not in name:
+            continue
+        m = re.search(r"(ssd_bwd_[a-z]+_kernel)(?:I(f|13__nv_bfloat16)E)?",
+                      name)
+        if m is None:
+            fail(f"K8 backward: unexpected kernel {name} in the library")
+        tag = {"f": "<float>", "13__nv_bfloat16": "<bf16>"}.get(m.group(2),
+                                                                "")
+        bwd[m.group(1) + tag] = n
+    want = [f"ssd_bwd_{k}_kernel<{t}>" for k in ("scores", "dhin", "chunk",
+                                                  "bc")
+            for t in ("float", "bf16")] + ["ssd_bwd_pass_kernel",
+                                           "ssd_bwd_reduce_kernel"]
+    missing = [form for form in want if form not in bwd]
+    if missing:
+        fail(f"K8 backward: no {missing} in the library")
+    say("K8 backward kernels (HMMA instructions): " + ", ".join(
+        f"{form} {bwd[form]}" for form in want))
 
 
 def k4_forms(torch, fa, counts):
@@ -3902,29 +3945,230 @@ def backward_timings(torch, np, dev, fa, rms, plain=True):
     return rows
 
 
+# K8's backward cases at mamba2-370m's heads (H 32, P 64, N 128): (label,
+# ``ssd_case`` shape, chunk, with dh_T): the train step's 8 x 512, the
+# long batch's 2 x 4000 (ragged, 32 chunks), one step, 31 steps at G 2, a
+# chunk of 37 over 300 steps
+SSD_BWD_CASES = [
+    ("8 x 512", dict(B=BATCH, S=PLEN), 128, False),
+    ("2 x 4000 (ragged, 32 chunks), initial state, dh_T",
+     dict(B=2, S=M_LONG, init=True), 128, True),
+    ("2 x 1, no D, initial state, dh_T", dict(B=2, S=1, D=False, init=True),
+     128, True),
+    ("2 x 31, G 2, dh_T", dict(B=2, S=31, G=2), 128, True),
+    ("2 x 300, chunk 37, G 2, no D, initial state",
+     dict(B=2, S=300, G=2, D=False, init=True), 37, False),
+]
+SSD_GRADS = ("dx", "ddt", "dA", "dB", "dC", "dD", "dh0")
+
+
+def ssd_bwd_inputs(torch, dev, inp, seed, with_dh):
+    """dy (x's shape and dtype) and, ``with_dh``, dh_T: unit normals."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = inp["x"]
+    dy = torch.randn(x.shape, generator=gen, device=dev).to(x.dtype)
+    B, _, H, P = x.shape
+    N = inp["B_mat"].shape[3]
+    dh_T = (torch.randn((B, H, P, N), generator=gen, device=dev)
+            if with_dh else None)
+    return dy, dh_T
+
+
+def check_ssd_backward(torch, np, dev, ss, errs):
+    """Phase 7 (a), K8: ``ssd_scan_bwd`` against its plain twin
+    ``ssd_scan_bwd_torch`` on the same inputs at ``SSD_BWD_CASES``, bf16
+    and fp32, every gradient within ``TOL`` of its scale, two runs bit for
+    bit; through ``ssd_scan`` with a gradient (``SSDScanFn``) the forward
+    bit for bit the forward without and the gradients those of a direct
+    call; the forms the kernels do not take refused.  Returns the largest
+    relative error by dtype; the largest |kernel - plain| goes to
+    ``errs["ssd_scan_bwd"]``."""
+    worst = {"bfloat16": 0.0, "float32": 0.0}
+    errs["ssd_scan_bwd"] = 0.0
+    for i, (label, shp, chunk, with_dh) in enumerate(SSD_BWD_CASES):
+        for dtype in ("bfloat16", "float32"):
+            inp, h0 = ssd_case(torch, np, dev, dtype=dtype, seed=1100 + i,
+                               **shp)
+            dy, dh_T = ssd_bwd_inputs(torch, dev, inp, 1200 + i, with_dh)
+            kw = dict(chunk=chunk, initial_state=h0, dh_T=dh_T)
+            n0 = ss.LAUNCHES["ssd_bwd"]
+            got = ss.ssd_scan_bwd(**inp, dy=dy, **kw)
+            again = ss.ssd_scan_bwd(**inp, dy=dy, **kw)
+            torch.cuda.synchronize()
+            if ss.LAUNCHES["ssd_bwd"] - n0 != 2:
+                fail(f"K8 backward {label} {dtype}: "
+                     f"{ss.LAUNCHES['ssd_bwd'] - n0} launches, expected 2")
+            if not all((a is None and b is None) or torch.equal(a, b)
+                       for a, b in zip(got, again)):
+                fail(f"K8 backward {label} {dtype}: two runs differ")
+            want = ss.ssd_scan_bwd_torch(**inp, dy=dy, **kw)
+            if [a is None for a in got] != [b is None for b in want]:
+                fail(f"K8 backward {label} {dtype}: gradients given "
+                     f"{[a is not None for a in got]}, expected "
+                     f"{[b is not None for b in want]}")
+            rel = {n: rel_err(a, b) for n, a, b in zip(SSD_GRADS, got, want)
+                   if b is not None}
+            if not all(np.isfinite(e) for e in rel.values()) \
+                    or max(rel.values()) > TOL[dtype]:
+                fail(f"K8 backward {label} {dtype}: relative errors {rel} "
+                     f"(tol {TOL[dtype]})")
+            worst[dtype] = max(worst[dtype], max(rel.values()))
+            note(errs, max(float((a.float() - b.float()).abs().max())
+                           for a, b in zip(got, want) if b is not None),
+                 "ssd_scan_bwd")
+            say(f"K8 backward {label} {dtype}: relative errors "
+                + ", ".join(f"{n} {e:.2e}" for n, e in rel.items()))
+            del inp, h0, dy, dh_T, got, again, want
+        torch.cuda.empty_cache()
+    # through autograd: the forward's bits, the launches, the gradients
+    inp, h0 = ssd_case(torch, np, dev, dtype="bfloat16", seed=1190, B=2,
+                       S=300, G=2, init=True)
+    dy, dh_T = ssd_bwd_inputs(torch, dev, inp, 1191, True)
+    leaves = {k: v.clone().requires_grad_(True) for k, v in inp.items()}
+    h0g = h0.clone().requires_grad_(True)
+    n0 = (ss.LAUNCHES["ssd"], ss.LAUNCHES["ssd_bwd"])
+    y, h_T = ss.ssd_scan(**leaves, initial_state=h0g, return_state=True)
+    with torch.no_grad():
+        y0, h0_T = ss.ssd_scan(**inp, initial_state=h0, return_state=True)
+    if not (torch.equal(y.detach(), y0) and torch.equal(h_T.detach(), h0_T)):
+        fail("K8 forward with a gradient differs from the forward without")
+    got = torch.autograd.grad((y, h_T), [*leaves.values(), h0g], (dy, dh_T))
+    direct = ss.ssd_scan_bwd(**inp, dy=dy, initial_state=h0, dh_T=dh_T)
+    if (ss.LAUNCHES["ssd"] - n0[0], ss.LAUNCHES["ssd_bwd"] - n0[1]) != (2, 2):
+        fail(f"K8 through autograd: launches "
+             f"{ss.LAUNCHES['ssd'] - n0[0]} forward, "
+             f"{ss.LAUNCHES['ssd_bwd'] - n0[1]} backward, expected 2 and 2")
+    order = [SSD_GRADS[("x", "dt", "A", "B_mat", "C_mat", "D").index(k)]
+             for k in leaves] + ["dh0"]
+    ref = dict(zip(SSD_GRADS, direct))
+    if not all(torch.equal(a, ref[n]) for a, n in zip(got, order)):
+        fail("K8 through autograd: gradients differ from a direct call's")
+    say("K8 through autograd (bf16, 2 x 300, G 2, initial state, dh_T): "
+        "the forward bit for bit the forward without, the gradients a "
+        "direct call's")
+    # the forms the kernels do not take raise
+    small, _ = ssd_case(torch, np, dev, B=1, S=64, dtype="bfloat16",
+                        seed=1195)
+    wide, _ = ssd_case(torch, np, dev, B=1, S=8, N=256, dtype="bfloat16",
+                       seed=1196)
+    tall, _ = ssd_case(torch, np, dev, B=1, S=8, P=128, dtype="bfloat16",
+                       seed=1197)
+    n0 = ss.LAUNCHES["ssd_bwd"]
+    for what, call in (
+            ("chunk 256", lambda: ss.ssd_scan_bwd(
+                **small, dy=small["x"], chunk=256)),
+            ("N 256", lambda: ss.ssd_scan_bwd(**wide, dy=wide["x"])),
+            ("fp16", lambda: ss.ssd_scan_bwd(**{
+                k: (v.half() if k in ("x", "B_mat", "C_mat") else v)
+                for k, v in small.items()}, dy=small["x"].half())),
+            ("P 128 with a gradient", lambda: ss.ssd_scan(**{
+                k: v.requires_grad_(True) if k == "x" else v
+                for k, v in tall.items()}))):
+        try:
+            call()
+        except ValueError as e:
+            say(f"K8 backward refuses {what}: {e}")
+            continue
+        fail(f"K8 backward {what} on the card did not raise ValueError")
+    if ss.LAUNCHES["ssd_bwd"] != n0:
+        fail("a refused K8 backward launched a kernel")
+    return worst
+
+
+# K8's backward timed (bf16, mamba2's heads, D, no initial state): the
+# train step's 8 x 512 (the JSON row "ssd_scan_bwd") and the long batch's
+# 2 x 4000
+SSD_BWD_TIMED = (("8 x 512", BATCH, PLEN), ("2 x 4000", 2, M_LONG))
+# each launch of a bf16 backward call (more than one chunk), by a substring
+# of its kernel's name: the forward's states and pass, then the backward's
+SSD_BWD_LAUNCHES = (("states", ("ssd_states_kernel",)),
+                    ("state pass", ("ssd_pass_kernel",)),
+                    ("scores", ("ssd_bwd_scores",)),
+                    ("d h_in", ("ssd_bwd_dhin",)),
+                    ("reverse pass", ("ssd_bwd_pass",)),
+                    ("chunk", ("ssd_bwd_chunk",)),
+                    ("dB / dC", ("ssd_bwd_bc",)),
+                    ("dA / dD", ("ssd_bwd_reduce",)))
+
+
+def ssd_backward_timings(torch, np, dev, ss, plain=True):
+    """Phase 7 (d), K8's backward at ``SSD_BWD_TIMED``: one call (CUDA
+    graph replays), each of its launches apart (``launch_split``) and, with
+    ``plain``, its plain twin on the card, beside the bound: x, B, C and dy
+    read and dx, dB and dC written in x's dtype, dt read and ddt written in
+    fp32, and twice the forward's products (``ssd_work``).  No single
+    PyTorch call computes the scan's gradient: no library yardstick."""
+    out = {}
+    for i, (label, B, S) in enumerate(SSD_BWD_TIMED):
+        inp, _ = ssd_case(torch, np, dev, B=B, S=S, dtype="bfloat16",
+                          seed=1300 + i)
+        dy, _ = ssd_bwd_inputs(torch, dev, inp, 1310 + i, False)
+
+        def call():
+            return ss.ssd_scan_bwd(**inp, dy=dy)
+        reps = 10 if S <= 1024 else 3
+        ms = time_ms(torch, call, iters=5, reps=reps)
+        split = launch_split(torch, call, SSD_BWD_LAUNCHES, iters=10)
+        plain_ms = (time_ms(torch, lambda: ss.ssd_scan_bwd_torch(
+            **inp, dy=dy), iters=2, reps=2) if plain else None)
+        H, P, G, N = 32, 64, 1, 128
+        nbytes = (2 * (3 * B * S * H * P + 4 * B * S * G * N)
+                  + 4 * 2 * B * S * H)
+        b_ms, b_by = bound(nbytes, 2 * ssd_work(B, S, H, P, G, N, 2)[1])
+        plain_s = "n/a" if plain_ms is None else f"{plain_ms * 1e3:.1f} us"
+        say(f"K8 backward mamba2 {label}: kernels {ms * 1e3:.1f} us, plain "
+            f"twin {plain_s}, library n/a, bound {b_ms * 1e3:.2f} us "
+            f"({b_by}); launches, us each: " + ", ".join(
+                f"{k} {t:.1f}" for k, t in split.items()))
+        row = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                   bound_by=b_by, shape=f"mamba2 {label}", split=split)
+        if i == 0:
+            out["ssd_scan_bwd"] = row
+        else:
+            out[f"ssd_scan_bwd {label}"] = dict(row, entry="ssd_scan_bwd",
+                                                err="ssd_scan_bwd")
+        del inp, dy
+        torch.cuda.empty_cache()
+    return out
+
+
 # the train steps of phase 7 (b): smollm-135m at full width and depth,
 # batch 8 x 512, three steps from one seed
 TRAIN_STEPS = 3
 # the launcher's main path (c): 24 steps of 8 x 512 with the FROST plane
 TRAIN_ARGV = ["--arch", "smollm-135m", "--steps", "24", "--frost",
               "--batch", str(BATCH), "--seq", str(PLEN)]
+# mamba2-370m's train step of phase 7 (b): full width, 8 of its 48 layers
+# (the plain path's autograd graph of the chunked scan stays small)
+MAMBA_TRAIN_LAYERS = 8
+# and its launcher run (c): full width and depth, 12 steps of 8 x 512
+MAMBA_TRAIN_ARGV = ["--arch", "mamba2-370m", "--steps", "12", "--frost",
+                    "--batch", str(BATCH), "--seq", str(PLEN)]
 
 
-def train_reference(torch, np, dev, cfg, da, steps, common, optim, data):
-    """Phase 7 (b): smollm-135m's train step at full width, on the kernels
-    (K4 and K9 forward and backward) against the same step on the plain
-    path (``KernelPolicy(attention="ref", rmsnorm="ref")``), from the same
-    seed, for ``TRAIN_STEPS`` steps.  fp32: every gradient of the first
-    step within 1e-4 of its leaf's scale, each step's loss within 1e-5
+def train_reference(torch, np, dev, cfg, da, steps, common, optim, data,
+                    plain_policy=None, per_step=None):
+    """Phase 7 (b): a train step at full width (smollm-135m's by default),
+    on the kernels (K4, or K8 for mamba2, and K9 forward and backward)
+    against the same step on the plain path (``plain_policy``, by default
+    ``KernelPolicy(attention="ref", rmsnorm="ref")``), from the same seed,
+    for ``TRAIN_STEPS`` steps.  fp32: every gradient of the first step
+    within 1e-4 of its leaf's scale, each step's loss within 1e-5
     relative; bf16: each step's loss and gradient norm within 2e-2.  The
-    kernels' run must launch K4's backward once per layer per step and
-    K9's once per norm per step."""
+    kernels' run must launch each kernel of ``per_step`` that many times a
+    step (by default K4's forward and backward once per layer and K9's
+    once per norm)."""
     from repro_torch.kernels.ops import KernelPolicy
     n_norms = 2 * cfg.n_layers + 1
+    if per_step is None:
+        per_step = {"flash_attention": cfg.n_layers,
+                    "flash_attention_bwd": cfg.n_layers,
+                    "rmsnorm": n_norms, "rmsnorm_bwd": n_norms}
     batches = data.TokenBatches(data.DataConfig(
         seed=0, vocab_size=cfg.vocab_size, seq_len=PLEN,
         global_batch=BATCH))
-    plain_policy = KernelPolicy(attention="ref", rmsnorm="ref")
+    if plain_policy is None:
+        plain_policy = KernelPolicy(attention="ref", rmsnorm="ref")
     for dtype in ("float32", "bfloat16"):
         c = dataclasses.replace(cfg, dtype=dtype)
         runs = {}
@@ -3951,10 +4195,7 @@ def train_reference(torch, np, dev, cfg, da, steps, common, optim, data):
             del state
             torch.cuda.empty_cache()
         (g_k, m_k, n_k), (g_p, m_p, _) = runs["kernels"], runs["plain"]
-        want = {"flash_attention": cfg.n_layers * TRAIN_STEPS,
-                "flash_attention_bwd": cfg.n_layers * TRAIN_STEPS,
-                "rmsnorm": n_norms * TRAIN_STEPS,
-                "rmsnorm_bwd": n_norms * TRAIN_STEPS}
+        want = {key: n * TRAIN_STEPS for key, n in per_step.items()}
         got = {key: n_k[key] for key in want}
         if got != want:
             fail(f"train step {dtype}: launches {got}, expected {want}")
@@ -3981,8 +4222,8 @@ def train_reference(torch, np, dev, cfg, da, steps, common, optim, data):
             if worst > 1e-4:
                 fail(f"train step fp32: a gradient {worst:.2e} of its "
                      "scale from the plain path's")
-        say(f"train step smollm-135m {BATCH} x {PLEN} {dtype}, kernels vs "
-            f"plain: losses "
+        say(f"train step {cfg.name} ({cfg.n_layers} layers) {BATCH} x "
+            f"{PLEN} {dtype}, kernels vs plain: losses "
             + ", ".join(f"{a['loss']:.6f}/{b['loss']:.6f}"
                         for a, b in zip(m_k, m_p))
             + ", grad norms "
@@ -3993,40 +4234,40 @@ def train_reference(torch, np, dev, cfg, da, steps, common, optim, data):
             + f"; launches {got}")
 
 
-def mamba_train_refused(torch, dev, steps, get_arch):
-    """Phase 7 (b): a mamba2 train step on the card raises (K8 has no
-    backward kernel)."""
-    c = dataclasses.replace(get_arch("mamba2-370m").config, n_layers=2)
-    sc = steps.StepConfig(remat="none")
-    state = steps.init_train_state(
-        c, sc, torch.Generator(device=dev).manual_seed(0), dev)
-    batch = {"inputs": torch.zeros((2, 64), dtype=torch.int32, device=dev),
-             "targets": torch.zeros((2, 64), dtype=torch.int32, device=dev)}
-    try:
-        steps.make_train_step(c, sc)(state, batch)
-    except RuntimeError as e:
-        if "ssd_scan" not in str(e):
-            raise
-        say(f"mamba2 train step on the card refused: {e}")
-    else:
-        fail("a mamba2 train step on the card did not raise")
-    del state
+def mamba_train_reference(torch, np, dev, da, steps, common, optim, data,
+                          get_arch):
+    """Phase 7 (b): mamba2-370m's train step at full width, cut to
+    ``MAMBA_TRAIN_LAYERS`` layers, on the kernels (K8 and K9 forward and
+    backward) against the plain path (``KernelPolicy(ssd="chunked",
+    rmsnorm="ref")``), as ``train_reference`` holds smollm's: K8's forward
+    and backward once per layer each step, K9's once per norm."""
+    from repro_torch.kernels.ops import KernelPolicy
+    cfg = dataclasses.replace(get_arch("mamba2-370m").config,
+                              n_layers=MAMBA_TRAIN_LAYERS)
+    n = cfg.n_layers
+    train_reference(torch, np, dev, cfg, da, steps, common, optim, data,
+                    plain_policy=KernelPolicy(ssd="chunked", rmsnorm="ref"),
+                    per_step={"ssd": n, "ssd_bwd": n, "rmsnorm": n + 1,
+                              "rmsnorm_bwd": n + 1, "flash_attention": 0,
+                              "flash_attention_bwd": 0})
+    gc.collect()
     torch.cuda.empty_cache()
 
 
-def train_main_path(torch, da, train, cfg, card):
-    """Phase 7 (c): ``repro_torch.launch.train`` at smollm-135m's full width
-    and depth, ``TRAIN_ARGV``; launch counts zeroed just before and read
-    just after.  The [frost] and [frost-ctrl] lines, a loss that falls
-    from its first step, K4 and K9 forward and backward on every layer of
-    every step."""
+def train_main_path(torch, da, train, cfg, card, argv=TRAIN_ARGV,
+                    per_step=None):
+    """Phase 7 (c): ``repro_torch.launch.train`` at a model's full width
+    and depth, ``argv`` (smollm-135m's ``TRAIN_ARGV`` by default, ``cfg``
+    its config); launch counts zeroed just before and read just after.
+    The [frost] and [frost-ctrl] lines, a loss that falls from its first
+    step, each kernel of ``per_step`` launched exactly that many times a
+    step (by default K4 and K9 forward and backward on every layer)."""
     import contextlib
     import io
     import math
     import tempfile
     with tempfile.TemporaryDirectory() as ckpt:
-        args = train.build_parser().parse_args(TRAIN_ARGV
-                                               + ["--ckpt-dir", ckpt])
+        args = train.build_parser().parse_args(argv + ["--ckpt-dir", ckpt])
         buf = io.StringIO()
         da.reset_launches()
         with contextlib.redirect_stdout(buf):
@@ -4044,14 +4285,16 @@ def train_main_path(torch, da, train, cfg, card):
     if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
         fail(f"train main path: loss {losses[0]} -> {losses[-1]}")
     n = rep["steps"]
-    want = {"flash_attention": cfg.n_layers * n,
-            "flash_attention_bwd": cfg.n_layers * n,
-            "rmsnorm": (2 * cfg.n_layers + 1) * n,
-            "rmsnorm_bwd": (2 * cfg.n_layers + 1) * n}
+    if per_step is None:
+        per_step = {"flash_attention": cfg.n_layers,
+                    "flash_attention_bwd": cfg.n_layers,
+                    "rmsnorm": 2 * cfg.n_layers + 1,
+                    "rmsnorm_bwd": 2 * cfg.n_layers + 1}
+    want = {key: k * n for key, k in per_step.items()}
     got = {key: counts[key] for key in want}
     if got != want:
         fail(f"train main path: launches {got}, expected {want}")
-    say(f"main path train smollm-135m {BATCH} x {PLEN} x 24 steps on "
+    say(f"main path train {cfg.name} {BATCH} x {PLEN} x {n} steps on "
         f"{card}: {rep['steps_per_s']:.2f} steps/s, "
         f"{rep['tokens_per_s']:.0f} tokens/s, peak {rep['peak_gib']:.2f} "
         f"GiB, loss {losses[0]:.4f} -> {losses[-1]:.4f}, launches {got}")
@@ -4355,12 +4598,24 @@ def main() -> int:
     say(f"K9 backward ok: largest relative errors {bwd}")
     bwd = check_fa_backward(torch, np, dev, fa, ops, errs)
     say(f"K4 backward ok: largest relative errors {bwd}")
+    bwd = check_ssd_backward(torch, np, dev, ss, errs)
+    say(f"K8 backward ok: largest relative errors {bwd}")
     train_reference(torch, np, dev, cfg, da, steps, common, optim, data)
-    mamba_train_refused(torch, dev, steps, get_arch)
+    mamba_train_reference(torch, np, dev, da, steps, common, optim, data,
+                          get_arch)
     counts = train_main_path(torch, da, train, cfg, card)
     for key in ("flash_attention_bwd", "rmsnorm_bwd"):
         launches[key] = counts[key]
+    gc.collect()
+    torch.cuda.empty_cache()
+    L = mcfg.n_layers
+    counts = train_main_path(
+        torch, da, train, mcfg, card, MAMBA_TRAIN_ARGV,
+        {"ssd": L, "ssd_bwd": L, "rmsnorm": L + 1, "rmsnorm_bwd": L + 1,
+         "flash_attention": 0, "flash_attention_bwd": 0})
+    launches["ssd_bwd"] = counts["ssd_bwd"]
     times.update(backward_timings(torch, np, dev, fa, rms))
+    times.update(ssd_backward_timings(torch, np, dev, ss))
     say(f"training phase in {time.perf_counter() - t_train:.1f} s")
     kernels = []
     for name, t in times.items():

@@ -15,7 +15,7 @@ import torch
 LAUNCHES = {"sweep_decode": 0, "sweep_verify": 0, "merge": 0,
             "merge_fused": 0,
             "ring_decode": 0, "ring_verify": 0, "flash_attention": 0,
-            "rmsnorm": 0, "ssd": 0, "flash_attention_bwd": 0,
+            "rmsnorm": 0, "ssd": 0, "ssd_bwd": 0, "flash_attention_bwd": 0,
             "rmsnorm_bwd": 0, "mla_decode": 0, "mla_verify": 0,
             "sweep_decode_int8": 0, "sweep_verify_int8": 0,
             "ring_decode_int8": 0, "ring_verify_int8": 0}

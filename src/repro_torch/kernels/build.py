@@ -141,5 +141,8 @@ def library() -> ctypes.CDLL:
         lib.ssd_scan_fwd.argtypes = ([p] * 10 + [i] * 8 + [lg] * 4
                                      + [i, p])
         lib.ssd_scan_fwd.restype = i
+        lib.ssd_scan_bwd.argtypes = ([p] * 17 + [i] * 7 + [lg] * 4
+                                     + [i, p])
+        lib.ssd_scan_bwd.restype = i
         _lib = lib
     return _lib

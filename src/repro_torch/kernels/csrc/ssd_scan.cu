@@ -8,6 +8,8 @@
 //                 row stride), dt (B, S, H) and A (H,) fp32, optional D (H,)
 //                 and initial state (B, H, P, N) fp32; y (B, S, H, P) in x's
 //                 dtype and, when asked, the final state (B, H, P, N) fp32.
+//   ssd_incoming_states  (C++, for ssd_scan_bwd.cu) every chunk's incoming
+//                 state, by the stage kernels below.
 //
 // It launches on the caller's stream and returns cudaGetLastError() so
 // that a refused launch is reported.  It allocates nothing: the bf16
@@ -73,8 +75,8 @@ __global__ void __launch_bounds__(SSD_NT, 2) ssd_scan_kernel(
     const float* __restrict__ A, const float* __restrict__ Bm,
     const float* __restrict__ Cm, const float* __restrict__ Dv,
     const float* __restrict__ h0, float* __restrict__ y,
-    float* __restrict__ hT, int S, int H, int P, int G, int N, int Q,
-    long x_rs, long b_rs, long c_rs) {
+    float* __restrict__ hT, float* __restrict__ hin, int S, int H, int P,
+    int G, int N, int Q, long x_rs, long b_rs, long c_rs) {
   extern __shared__ float smem[];
   const int LDB = N + 1, LDH = N + 1, LDM = Q + 1;
   float* xs = smem;                              // Q x PT
@@ -141,9 +143,18 @@ __global__ void __launch_bounds__(SSD_NT, 2) ssd_scan_kernel(
     const float cs_last = cum[Q - 1];
     for (int s = tid; s < Q; s += SSD_NT)
       wts[s] = dts[s] * expf(cs_last - cum[s]);
+    if (hin != nullptr) {          // the chunk's incoming state, for the
+      const int Np = round16(N);   // backward (slot c0 / Q of P x Np)
+      float* slot = hin + (((long)b * H + h) * (S / Q + (S % Q ? 2 : 1))
+                           + c0 / Q) * (long)P * Np;
+      for (int idx = tid; idx < SSD_PT * N; idx += SSD_NT) {
+        const int p = idx / N, n = idx - p * N;
+        if (p < pw) slot[(long)(p0 + p) * Np + n] = hs[p * LDH + n];
+      }
+    }
 
-    // (2) + (3), a tile of T rows at a time
-    for (int t0 = 0; t0 < rows; t0 += SSD_T) {
+    // (2) + (3), a tile of T rows at a time; none without outputs
+    for (int t0 = 0; t0 < (y != nullptr ? rows : 0); t0 += SSD_T) {
       const int tr = min(SSD_T, rows - t0);      // live rows of the tile
       const int smax = t0 + tr;                  // columns s < smax
       __syncthreads();                           // ct, ms free again
@@ -861,7 +872,7 @@ int launch_ssd_fp32(const float* x, const float* dt, const float* A,
                     const float* Bm, const float* Cm, const float* D,
                     const float* h0, float* y, float* hT, int B, int S,
                     int H, int P, int G, int N, int Q, long x_rs, long b_rs,
-                    long c_rs, cudaStream_t stream) {
+                    long c_rs, cudaStream_t stream, float* hin = nullptr) {
   // the attribute is set once, for the largest chunk and state, so that a
   // launch inside a CUDA-graph capture makes no attribute call
   static bool smem_set = false;
@@ -875,11 +886,67 @@ int launch_ssd_fp32(const float* x, const float* dt, const float* A,
   const size_t smem = sizeof(float) * ssd_smem_floats(Q, N);
   dim3 grid((P + SSD_PT - 1) / SSD_PT, H, B);
   ssd_scan_kernel<<<grid, SSD_NT, smem, stream>>>(
-      x, dt, A, Bm, Cm, D, h0, y, hT, S, H, P, G, N, Q, x_rs, b_rs, c_rs);
+      x, dt, A, Bm, Cm, D, h0, y, hT, hin, S, H, P, G, N, Q, x_rs, b_rs,
+      c_rs);
+  return (int)cudaGetLastError();
+}
+
+template <int PT>
+int incoming_states_tc(const bf16* x, const float* dt, const float* A,
+                       const bf16* Bm, const float* h0, float* slots,
+                       float* decay, int B, int S, int H, int P, int G,
+                       int N, int Q, long x_rs, long b_rs, cudaStream_t st) {
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t e = allow_smem(ssd_states_kernel<PT>,
+                                     states_smem(SSD_QMAX, SSD_NMAX, PT));
+    if (e != cudaSuccess) return (int)e;
+    smem_set = true;
+  }
+  const int nc = (S + Q - 1) / Q, Np = round16(N);
+  if (nc > 1)
+    ssd_states_kernel<PT><<<dim3(nc * ((P + PT - 1) / PT), H, B), 128,
+                            states_smem(round16(Q), Np, PT), st>>>(
+        x, dt, A, Bm, nullptr, slots, decay, nullptr, S, H, P, G, N, Q, 0,
+        nc, 0, x_rs, b_rs);
+  ssd_pass_kernel<<<dim3((P * Np / 4 + 255) / 256, H, B), 256, 0, st>>>(
+      h0, N, slots, decay, nullptr, nullptr, H, P, N, nc, nc > 1 ? nc : 0);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
+
+// Every chunk's incoming state, for the backward (ssd_scan_bwd.cu), by the
+// forward's own stages, so that the backward sees the states the forward
+// used: slots holds (B H) x (nc + 1) states of P x Np fp32 (Np = N rounded
+// up to 16), slot k chunk k's incoming state; in bf16 slot 0 is left
+// unwritten when h0 is null (the backward reads zero there).  bf16 runs
+// ssd_states_kernel over every chunk and ssd_pass_kernel (decay takes (B H)
+// x nc values), fp32 ssd_scan_kernel without outputs (decay unused).
+int ssd_incoming_states(const void* x, const float* dt, const float* A,
+                        const void* Bm, const float* h0, float* slots,
+                        float* decay, int B, int S, int H, int P, int G,
+                        int N, int Q, long x_rs, long b_rs, int dtype,
+                        cudaStream_t st) {
+  if (dtype == 0)
+    return launch_ssd_fp32(static_cast<const float*>(x), dt, A,
+                           static_cast<const float*>(Bm), nullptr, nullptr,
+                           h0, nullptr, nullptr, B, S, H, P, G, N, Q, x_rs,
+                           b_rs, 0, st, slots);
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* Bb = static_cast<const bf16*>(Bm);
+  switch (ssd_p_tile(B, H, P, (S + Q - 1) / Q)) {
+    case 64:
+      return incoming_states_tc<64>(xb, dt, A, Bb, h0, slots, decay, B, S, H,
+                                    P, G, N, Q, x_rs, b_rs, st);
+    case 32:
+      return incoming_states_tc<32>(xb, dt, A, Bb, h0, slots, decay, B, S, H,
+                                    P, G, N, Q, x_rs, b_rs, st);
+    default:
+      return incoming_states_tc<16>(xb, dt, A, Bb, h0, slots, decay, B, S, H,
+                                    P, G, N, Q, x_rs, b_rs, st);
+  }
+}
 
 // dtype: 0 = float32, 1 = bfloat16 (x, B, C and y).  D, h0 and hT may be
 // null.  1 <= chunk <= 128, 1 <= N <= 128, H a multiple of G; x_rs, b_rs

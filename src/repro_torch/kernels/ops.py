@@ -44,12 +44,13 @@ Counterpart of ``repro.kernels.ops`` for the ops the port runs:
     JAX package runs its jnp body there.
 
 Gradients: on a CUDA tensor that requires grad (grad mode on),
-``attention`` and ``rmsnorm`` reach K4's and K9's autograd functions
-(``flash_attention.FlashAttentionFn``, ``rmsnorm.RMSNormFn``), whose
-backward is a hand-written kernel; with no grad needed they launch what
-they always did.  ``ssd`` (K8) and every decode, verify and latent sweep
-raise there (``binding.refuse_grad``): they have no backward kernel.  On
-CPU tensors the plain versions run, and autograd differentiates them.
+``attention``, ``rmsnorm`` and ``ssd`` reach K4's, K9's and K8's autograd
+functions (``flash_attention.FlashAttentionFn``, ``rmsnorm.RMSNormFn``,
+``ssd_scan.SSDScanFn``), whose backward is a hand-written kernel; with no
+grad needed they launch what they always did.  Every decode, verify and
+latent sweep raises there (``binding.refuse_grad``): they have no backward
+kernel.  On CPU tensors the plain versions run, and autograd
+differentiates them.
 
 The four paged and ring entries take ``k_scale`` / ``v_scale`` (per-row
 fp32, int8 caches) on every backend: ``ref`` dequantizes the whole cache

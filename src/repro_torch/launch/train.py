@@ -48,6 +48,7 @@ from repro_torch.core import (H100_SXM, CapProfiler, PowerCappedDevice,
                               QoSPolicy, WorkloadProfile)
 from repro_torch.core.profiler import RecordingBackend
 from repro_torch.data import DataConfig, TokenBatches
+from repro_torch.kernels import ops
 from repro_torch.models import common
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
@@ -66,11 +67,13 @@ def _step_cost(cfg: ModelConfig, B: int, S: int) -> tuple[float, float]:
     over B x S tokens.  Matmuls as the code computes them: every
     projection, the attention's two products over the whole S x S matrix
     (the JAX reference path masks it, it does not skip it), the MoE's
-    experts over their capacity buffers, the SSD scan's per-step readout,
-    the head.  Each counts three times (forward, and the backward's two
-    products: the input's gradient and the weight's, or dq / dk and dp /
-    dv), the scan's readout y = C h twice (the backward's dh = C dy is an
-    outer product, no dot)."""
+    experts over their capacity buffers, the SSD scan as JAX runs it at
+    this S (``ops.ssd`` under ``auto``: the sequential scan's per-step
+    readout up to 64 steps or for a ragged S, else the chunked scan's
+    products), the head.  Each counts three times (forward, and the
+    backward's two products: the input's gradient and the weight's, or dq
+    / dk and dp / dv), the sequential scan's readout y = C h twice (the
+    backward's dh = C dy is an outer product, no dot)."""
     T = B * S
     d = cfg.d_model
     flops = outs = 0.0
@@ -126,11 +129,29 @@ def _step_cost(cfg: ModelConfig, B: int, S: int) -> tuple[float, float]:
             mm(T, sff, d)
 
     def mamba():
+        nonlocal flops, outs
         di, H = cfg.d_inner, cfg.resolved_ssm_heads
-        GN = cfg.ssm_groups * cfg.ssm_state
+        P, N = cfg.ssm_head_dim, cfg.ssm_state
+        GN = cfg.ssm_groups * N
         for n in (di, di, GN, GN, H):                  # z, x, B, C, dt
             mm(T, d, n)
-        mm(B * S * H * cfg.ssm_head_dim, cfg.ssm_state, 1, times=2)  # C h
+        Q = ops.DEFAULT_POLICY.ssd_chunk
+        if S <= 64 or S % Q:
+            # the sequential scan (JAX's ``ssd_ref``): its readout y = C h
+            mm(B * S * H * P, N, 1, times=2)
+        else:
+            # the chunked scan (``ssd_chunked_jnp``), per chunk and head
+            # over B x Q rows: the scores C B^T and the band's M x, three
+            # times each; the carried-in readout C h^T and the state update
+            # x^T (w B), three times each, but twice each when the chunk
+            # is the only one (its incoming state is the constant zero and
+            # its outgoing state is never read); and the carried-in term's
+            # decay gradient, a contraction over min(P, N)
+            nc = S // Q
+            per_chunk = 3 * Q * N + 3 * Q * P + min(P, N) + (
+                4 if nc == 1 else 6) * P * N
+            flops += 2.0 * B * H * Q * per_chunk * nc
+            outs += float(B * S * H * P)               # y, as the readout's
         mm(T, di, d)
 
     for _ in range(cfg.first_dense_layers):
@@ -157,7 +178,7 @@ def train_step_cost(cfg: ModelConfig, batch: int, seq: int, *,
     times the attention's 4 B S^2 Hq D summed over the layers, N the
     matmul weights (a tied head counted once), T the tokens; the MoE
     counts its experts over their capacity buffers, the SSM its
-    projections and the scan's readout.
+    projections and the scan's products.
 
     HBM bytes, an estimate: the fp32 weights, their gradients and both
     moments each read and written once (the optimizer), and each matmul's

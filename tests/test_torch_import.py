@@ -137,6 +137,11 @@ def test_cpu_calls_launch_no_kernel():
         ops.ssd(xs, dt, A, bc, bc, r(4), return_state=True,
                 policy=ops.KernelPolicy(ssd=backend, ssd_chunk=4))
     ss.ssd_scan(xs, dt, A, bc, bc, chunk=4, initial_state=r(2, 4, 8, 16))
+    ss.ssd_scan_bwd(xs, dt, A, bc, bc, r(4), xs, chunk=4,
+                    initial_state=r(2, 4, 8, 16), dh_T=r(2, 4, 8, 16))
+    xsg = xs.clone().requires_grad_(True)
+    ss.SSDScanFn.apply(xsg, dt, A, bc, bc, None, None, 4, False).sum() \
+        .backward()
     ql, pool, pend = r(2, 2, 6, 24), r(8, 4, 24), r(2, 2, 24)
     for backend in ("auto", "cuda", "torch", "ref"):
         policy = ops.KernelPolicy(decode=backend, kv_splits=2)
@@ -151,7 +156,8 @@ def test_cpu_calls_launch_no_kernel():
     assert set(da.LAUNCHES) == {"sweep_decode", "sweep_verify", "merge",
                                 "merge_fused", "ring_decode", "ring_verify",
                                 "flash_attention", "rmsnorm", "ssd",
-                                "flash_attention_bwd", "rmsnorm_bwd",
+                                "ssd_bwd", "flash_attention_bwd",
+                                "rmsnorm_bwd",
                                 "mla_decode", "mla_verify",
                                 "sweep_decode_int8", "sweep_verify_int8",
                                 "ring_decode_int8", "ring_verify_int8"}

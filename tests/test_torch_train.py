@@ -150,11 +150,11 @@ def _configs(arch):
             dataclasses.replace(get_arch(arch).smoke, dtype="float32"))
 
 
-def _batch(cfg, seed=0, batch=B):
+def _batch(cfg, seed=0, batch=B, seq=S):
     rng = np.random.default_rng(seed)
-    out = {"inputs": rng.integers(0, cfg.vocab_size, (batch, S)).astype(
+    out = {"inputs": rng.integers(0, cfg.vocab_size, (batch, seq)).astype(
                np.int32),
-           "targets": rng.integers(0, cfg.vocab_size, (batch, S)).astype(
+           "targets": rng.integers(0, cfg.vocab_size, (batch, seq)).astype(
                np.int32)}
     if cfg.family == "vlm":
         out["image_embeds"] = rng.standard_normal(
@@ -168,16 +168,17 @@ STEP_OPT = dict(clip_norm=0.0, warmup_steps=2, total_steps=10)
 _COMPILED = {}
 
 
-def _jax_step(arch, n_micro=1):
-    """JAX's train step for ``arch``'s smoke config, compiled once per
-    module, with its initial state and batch."""
-    key = (arch, n_micro)
+def _jax_step(arch, n_micro=1, seq=S):
+    """JAX's train step for ``arch``'s smoke config over ``seq`` tokens a
+    row, compiled once per module, with its initial state and batch."""
+    key = (arch, n_micro, seq)
     if key not in _COMPILED:
         jcfg, _ = _configs(arch)
         jsc = jsteps.StepConfig(n_micro=n_micro, remat="none",
                                 optimizer=JOpt(**STEP_OPT))
         state, _ = jsteps.init_train_state(jax.random.PRNGKey(1), jcfg, jsc)
-        batch = {k: jnp.asarray(v) for k, v in _batch(jcfg).items()}
+        batch = {k: jnp.asarray(v)
+                 for k, v in _batch(jcfg, seq=seq).items()}
         compiled = jax.jit(jsteps.make_train_step(jcfg, jsc)).lower(
             state, batch).compile()
         _COMPILED[key] = (compiled, state, batch)
@@ -240,13 +241,16 @@ def test_train_step_matches_jax(arch, n_micro):
     assert all(p.requires_grad for p in common.tree_leaves(tnew["params"]))
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_train_step_cost_matches_hlo(arch):
+@pytest.mark.parametrize("arch,seq", [pytest.param(a, S, id=a) for a in ARCHS]
+                         + [pytest.param("mamba2-370m", 128,
+                                         id="mamba2-370m-S128")])
+def test_train_step_cost_matches_hlo(arch, seq):
     """train_step_cost's FLOPs equal the HLO dot_flops of JAX's compiled
-    step (remat none) at the step tests' shapes."""
-    compiled, _, _ = _jax_step(arch)
+    step (remat none) at the step tests' shapes, and for mamba2 also at S
+    128, where JAX runs the chunked scan in place of the sequential one."""
+    compiled, _, _ = _jax_step(arch, seq=seq)
     _, tcfg = _configs(arch)
-    seq = S + (N_IMG if tcfg.family == "vlm" else 0)
+    seq += N_IMG if tcfg.family == "vlm" else 0
     flops, nbytes = launch_train.train_step_cost(tcfg, B, seq)
     assert flops == hloparse.analyze(compiled.as_text())["dot_flops"]
     assert nbytes > 0
@@ -367,13 +371,14 @@ def test_rmsnorm_backward_twin(gemma, dtype):
 
 
 def test_refuse_grad_guard():
-    """The guard of K8 and the decode, verify and latent sweeps: it raises,
-    naming the kernel, for an input that requires grad while grad mode is
-    on, and lets everything else through."""
+    """The guard of the decode, verify and latent sweeps, which have no
+    backward: it raises, naming the kernel, for an input that requires
+    grad while grad mode is on, and lets everything else through."""
     x = torch.zeros(3, requires_grad=True)
-    with pytest.raises(RuntimeError, match="ssd_scan: no backward kernel"):
-        binding.refuse_grad("ssd_scan", None, torch.zeros(2), x)
-    binding.refuse_grad("ssd_scan", torch.zeros(2), None)
+    with pytest.raises(RuntimeError,
+                       match="paged_attention_sweep: no backward kernel"):
+        binding.refuse_grad("paged_attention_sweep", None, torch.zeros(2), x)
+    binding.refuse_grad("paged_attention_sweep", torch.zeros(2), None)
     with torch.no_grad():
         binding.refuse_grad("paged_attention_sweep", x)
 
