@@ -16,9 +16,12 @@ Phases, in order; any failure exits non-zero (nothing is caught):
                 (``wgmma``) in its bf16 dk / dv and dq kernels at (64,
                 64), (120, 120) and (128, 128), HMMA in the ``mma.sync``
                 ones kept at (192, 128), neither in fp32; K8's backward
-                kernels (``csrc/ssd_scan_bwd.cu``, CUDA cores) built in
-                both dtypes; the paged and ring sweeps', K8's (forward and
-                backward), K9's and K4's backward kernels must not spill
+                kernels (``csrc/ssd_scan_bwd.cu``): the fp32 ones on the
+                CUDA cores (no HMMA), the bf16 d h_in and chunk kernels
+                on the tensor cores (HMMA), no bf16 instantiation of a
+                CUDA-core kernel; the paged and ring sweeps', K8's
+                (forward and backward), K9's and K4's backward kernels
+                must not spill
                 (``-Xptxas -v``), and each form of the first four and of
                 K4's backward prints its blocks per SM, shared memory and
                 registers;
@@ -293,7 +296,10 @@ Phases, in order; any failure exits non-zero (nothing is caught):
                 Hopper redesign (``EARLIER_LAUNCHES``); K8's backward at
                 ``SSD_BWD_TIMED`` (8 x 512 and 2 x 4000) beside its plain
                 twin and its bound (twice the forward's products), each
-                of its launches apart, no library call.
+                of its launches apart beside the CUDA-core design's
+                (``EARLIER_SSD_LAUNCHES``), no library call; its bf16
+                tensor-core kernels' registers, shared memory and blocks
+                an SM.
 
 The last two lines are a JSON object of per-kernel numbers and
 ``{"ok": true, "device": {...}}``.
@@ -496,28 +502,34 @@ def ssd_forms(counts):
         if (n > 0) != (form in want):
             fail(f"K8 {form}: {n} HMMA instructions")
         say(f"K8 {form}: {n} HMMA instructions")
-    # the backward's kernels (CUDA cores, fp32 and bf16 operands), every
-    # one built
+    # the backward's kernels: fp32 the CUDA-core ones (no HMMA), bf16 the
+    # tensor-core ones (d h_in and the chunk kernel hold HMMA; the group
+    # sum and the two shared kernels have no product); no bf16
+    # instantiation of a CUDA-core kernel
     bwd = {}
     for name, n in counts.items():
         if "ssd_scan_bwd_cu" not in name:
             continue
-        m = re.search(r"(ssd_bwd_[a-z]+_kernel)(?:I(f|13__nv_bfloat16)E)?",
+        m = re.search(r"(ssd_bwd_\w+?_kernel)(?:I(f|13__nv_bfloat16)E)?",
                       name)
-        if m is None:
+        if m is None or m.group(2) == "13__nv_bfloat16":
             fail(f"K8 backward: unexpected kernel {name} in the library")
-        tag = {"f": "<float>", "13__nv_bfloat16": "<bf16>"}.get(m.group(2),
-                                                                "")
-        bwd[m.group(1) + tag] = n
-    want = [f"ssd_bwd_{k}_kernel<{t}>" for k in ("scores", "dhin", "chunk",
-                                                  "bc")
-            for t in ("float", "bf16")] + ["ssd_bwd_pass_kernel",
-                                           "ssd_bwd_reduce_kernel"]
-    missing = [form for form in want if form not in bwd]
-    if missing:
-        fail(f"K8 backward: no {missing} in the library")
+        bwd[m.group(1) + ("<float>" if m.group(2) else "")] = n
+    cores = [f"ssd_bwd_{k}_kernel<float>" for k in ("scores", "dhin",
+                                                     "chunk", "bc")]
+    tensor = ["ssd_bwd_dhin_mma_kernel", "ssd_bwd_chunk_mma_kernel"]
+    plain = ["ssd_bwd_bc_sum_kernel", "ssd_bwd_pass_kernel",
+             "ssd_bwd_reduce_kernel"]
+    for form in cores + tensor + plain:
+        n = bwd.get(form)
+        if n is None:
+            fail(f"K8 backward {form}: no kernel in the library")
+        if (n > 0) != (form in tensor):
+            fail(f"K8 backward {form}: {n} HMMA instructions")
+    if len(bwd) != len(cores + tensor + plain):
+        fail(f"K8 backward: kernels {sorted(bwd)}")
     say("K8 backward kernels (HMMA instructions): " + ", ".join(
-        f"{form} {bwd[form]}" for form in want))
+        f"{form} {bwd[form]}" for form in cores + tensor + plain))
 
 
 def k4_forms(torch, fa, counts):
@@ -4080,15 +4092,32 @@ def check_ssd_backward(torch, np, dev, ss, errs):
 # 2 x 4000
 SSD_BWD_TIMED = (("8 x 512", BATCH, PLEN), ("2 x 4000", 2, M_LONG))
 # each launch of a bf16 backward call (more than one chunk), by a substring
-# of its kernel's name: the forward's states and pass, then the backward's
+# of its kernel's name: the forward's states, pass and scores, then the
+# backward's
 SSD_BWD_LAUNCHES = (("states", ("ssd_states_kernel",)),
                     ("state pass", ("ssd_pass_kernel",)),
-                    ("scores", ("ssd_bwd_scores",)),
+                    ("scores", ("ssd_scores_kernel",)),
                     ("d h_in", ("ssd_bwd_dhin",)),
                     ("reverse pass", ("ssd_bwd_pass",)),
                     ("chunk", ("ssd_bwd_chunk",)),
                     ("dB / dC", ("ssd_bwd_bc",)),
                     ("dA / dD", ("ssd_bwd_reduce",)))
+# the times of those launches at 8 x 512 before the tensor cores, us (the
+# CUDA-core kernels and their own scores kernel, chip_smoke.py on an NVIDIA
+# H100 80GB HBM3, 700.00 W; PERF.md §6)
+EARLIER_SSD_LAUNCHES = {
+    "8 x 512": {"states": 37.8, "state pass": 15.1, "scores": 20.6,
+                "d h_in": 109.3, "reverse pass": 20.3, "chunk": 1095.4,
+                "dB / dC": 137.2, "dA / dD": 5.8}}
+
+
+def ssd_bwd_bound(B, S, H=32, P=64, G=1, N=128):
+    """K8's backward's bound at mamba2's heads, bf16: x, B, C and dy read
+    and dx, dB and dC written in 2 bytes, dt read and ddt written in 4,
+    and twice the forward's products (``ssd_work``).  (ms, "bytes" or
+    "operations")."""
+    nbytes = 2 * (3 * B * S * H * P + 4 * B * S * G * N) + 4 * 2 * B * S * H
+    return bound(nbytes, 2 * ssd_work(B, S, H, P, G, N, 2)[1])
 
 
 def ssd_backward_timings(torch, np, dev, ss, plain=True):
@@ -4097,7 +4126,16 @@ def ssd_backward_timings(torch, np, dev, ss, plain=True):
     ``plain``, its plain twin on the card, beside the bound: x, B, C and dy
     read and dx, dB and dC written in x's dtype, dt read and ddt written in
     fp32, and twice the forward's products (``ssd_work``).  No single
-    PyTorch call computes the scan's gradient: no library yardstick."""
+    PyTorch call computes the scan's gradient: no library yardstick.
+    First, with ``plain``, each bf16 tensor-core kernel's registers,
+    shared memory and blocks an SM (``ssd_scan.bwd_occupancy``)."""
+    for part in ss.BWD_PARTS if plain else ():
+        occ = ss.bwd_occupancy(part)
+        if occ["blocks_per_sm"] < 1:
+            fail(f"K8 backward {part}: no block fits an SM")
+        say(f"K8 backward bf16 {part} kernel: {occ['registers']} registers "
+            f"a thread, {occ['smem_bytes']} B of shared memory, "
+            f"{occ['blocks_per_sm']} blocks an SM")
     out = {}
     for i, (label, B, S) in enumerate(SSD_BWD_TIMED):
         inp, _ = ssd_case(torch, np, dev, B=B, S=S, dtype="bfloat16",
@@ -4111,15 +4149,14 @@ def ssd_backward_timings(torch, np, dev, ss, plain=True):
         split = launch_split(torch, call, SSD_BWD_LAUNCHES, iters=10)
         plain_ms = (time_ms(torch, lambda: ss.ssd_scan_bwd_torch(
             **inp, dy=dy), iters=2, reps=2) if plain else None)
-        H, P, G, N = 32, 64, 1, 128
-        nbytes = (2 * (3 * B * S * H * P + 4 * B * S * G * N)
-                  + 4 * 2 * B * S * H)
-        b_ms, b_by = bound(nbytes, 2 * ssd_work(B, S, H, P, G, N, 2)[1])
+        b_ms, b_by = ssd_bwd_bound(B, S)
         plain_s = "n/a" if plain_ms is None else f"{plain_ms * 1e3:.1f} us"
         say(f"K8 backward mamba2 {label}: kernels {ms * 1e3:.1f} us, plain "
             f"twin {plain_s}, library n/a, bound {b_ms * 1e3:.2f} us "
-            f"({b_by}); launches, us each: " + ", ".join(
-                f"{k} {t:.1f}" for k, t in split.items()))
+            f"({b_by}); launches, us each (CUDA cores before): " + ", ".join(
+                f"{k} {t:.1f} "
+                f"({EARLIER_SSD_LAUNCHES.get(label, {}).get(k, 'n/a')})"
+                for k, t in split.items()))
         row = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
                    bound_by=b_by, shape=f"mamba2 {label}", split=split)
         if i == 0:

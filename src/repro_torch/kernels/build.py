@@ -144,5 +144,7 @@ def library() -> ctypes.CDLL:
         lib.ssd_scan_bwd.argtypes = ([p] * 17 + [i] * 7 + [lg] * 4
                                      + [i, p])
         lib.ssd_scan_bwd.restype = i
+        lib.ssd_bwd_occupancy.argtypes = [i, p]
+        lib.ssd_bwd_occupancy.restype = i
         _lib = lib
     return _lib

@@ -10,6 +10,8 @@
 //                 dtype and, when asked, the final state (B, H, P, N) fp32.
 //   ssd_incoming_states  (C++, for ssd_scan_bwd.cu) every chunk's incoming
 //                 state, by the stage kernels below.
+//   ssd_chunk_scores  (C++, for ssd_scan_bwd.cu's bf16 path) every chunk's
+//                 C B^T band, by ssd_scores_kernel.
 //
 // It launches on the caller's stream and returns cudaGetLastError() so
 // that a refused launch is reported.  It allocates nothing: the bf16
@@ -284,55 +286,6 @@ __global__ void __launch_bounds__(SSD_NT, 2) ssd_scan_kernel(
 // hybrid that walks each (batch, head)'s chunks in order with the state in
 // registers measured no faster at 8 x 512 and slower at 2 x 4000, where
 // one block walks 32 chunks (PERF.md).
-
-// Rows [0, rows) x columns [0, cols) of a bf16 matrix with row stride rs
-// into shared memory (row stride ld, 16-byte aligned rows), zero-filled to
-// rows_pad x cols_pad (cols_pad a multiple of 8): 16-byte cp.async copies
-// (zero-filling ones past the data) where the source allows, all in flight
-// together -- the caller commits and waits -- and elementwise loads for a
-// ragged or misaligned source.
-__device__ __forceinline__ void copy_tile(bf16* dst, int ld, const bf16* src,
-                                          long rs, int rows, int rows_pad,
-                                          int cols, int cols_pad, int tid,
-                                          int nt) {
-  const bool vec = (reinterpret_cast<uintptr_t>(src) & 15) == 0
-                   && rs % 8 == 0;
-  const int c8 = cols_pad / 8;
-  for (int idx = tid; idx < rows_pad * c8; idx += nt) {
-    const int r = idx / c8, k = (idx - r * c8) * 8;
-    bf16* d = dst + r * ld + k;
-    const bool live = r < rows && k < cols;
-    if (!live || (vec && k + 8 <= cols)) {
-      cp_async16(d, live ? src + r * rs + k : src, live);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        d[j] = k + j < cols ? src[r * rs + k + j] : __float2bfloat16(0.f);
-    }
-  }
-}
-
-// the same for an fp32 matrix (cols_pad a multiple of 4)
-__device__ __forceinline__ void copy_tile(float* dst, int ld,
-                                          const float* src, long rs,
-                                          int rows, int rows_pad, int cols,
-                                          int cols_pad, int tid, int nt) {
-  const bool vec = (reinterpret_cast<uintptr_t>(src) & 15) == 0
-                   && rs % 4 == 0;
-  const int c4 = cols_pad / 4;
-  for (int idx = tid; idx < rows_pad * c4; idx += nt) {
-    const int r = idx / c4, k = (idx - r * c4) * 4;
-    float* d = dst + r * ld + k;
-    const bool live = r < rows && k < cols;
-    if (!live || (vec && k + 4 <= cols)) {
-      cp_async16(d, live ? src + r * rs + k : src, live);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        d[j] = k + j < cols ? src[r * rs + k + j] : 0.f;
-    }
-  }
-}
 
 // The chunk's dt (zero past its rows) into dts[0, Qr) and the inclusive
 // scan of dt A into cum[0, Qr) (warp 0: 4 steps a lane, then the lanes);
@@ -946,6 +899,28 @@ int ssd_incoming_states(const void* x, const float* dt, const float* A,
       return incoming_states_tc<16>(xb, dt, A, Bb, h0, slots, decay, B, S, H,
                                     P, G, N, Q, x_rs, b_rs, st);
   }
+}
+
+// Every chunk's scores C B^T on the causal band, for the bf16 backward
+// (ssd_scan_bwd.cu), by ssd_scores_kernel: scores holds (B G) x nc slots
+// of Qp x Qp fp32 (Qp = Q rounded up to 16), row t, column s, the 16 x 16
+// tiles at or below the diagonal written.
+int ssd_chunk_scores(const void* Bm, const void* Cm, float* scores, int B,
+                     int S, int G, int N, int Q, long b_rs, long c_rs,
+                     cudaStream_t st) {
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t e = allow_smem(ssd_scores_kernel,
+                                     scores_smem(SSD_QMAX, SSD_NMAX));
+    if (e != cudaSuccess) return (int)e;
+    smem_set = true;
+  }
+  const int nc = (S + Q - 1) / Q;
+  ssd_scores_kernel<<<dim3(nc, G, B), 128, scores_smem(round16(Q),
+                                                      round16(N)), st>>>(
+      static_cast<const bf16*>(Bm), static_cast<const bf16*>(Cm), scores, S,
+      G, N, Q, 0, nc, b_rs, c_rs);
+  return (int)cudaGetLastError();
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (x, B, C and y).  D, h0 and hT may be

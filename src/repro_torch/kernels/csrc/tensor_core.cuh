@@ -1,8 +1,8 @@
 // Inline PTX for the port's tensor-core kernels (flash_attention.cu,
-// paged_attention.cu, mla_attention.cu): 16-, 8- and 4-byte asynchronous
-// copies into shared memory with zero fill, ldmatrix fragment loads, the
-// bf16 m16n8k16 mma with fp32 accumulators, and the padded row stride of a
-// bf16 tile.
+// paged_attention.cu, mla_attention.cu, ssd_scan.cu, ssd_scan_bwd.cu): 16-,
+// 8- and 4-byte asynchronous copies into shared memory with zero fill, a
+// tile's rows copied that way, ldmatrix fragment loads, the bf16 m16n8k16
+// mma with fp32 accumulators, and the padded row stride of a bf16 tile.
 // Everything is internal to the translation unit that includes it.
 //
 // Fragment layouts of mma.sync.aligned.m16n8k16.row.col (lane l, quad
@@ -58,6 +58,35 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Rows [0, rows) x columns [0, cols) of a row-major matrix (row stride
+// rs) into shared memory (row stride ld, 16-byte aligned rows), zero-filled
+// to rows_pad x cols_pad (cols_pad a multiple of 16 bytes), by nt threads:
+// 16-byte cp.async copies, zero-filling ones past the data, where the
+// source allows, all in flight together -- the caller commits and waits --
+// and elementwise loads for a ragged or misaligned source.
+template <typename T>
+__device__ __forceinline__ void copy_tile(T* dst, int ld, const T* src,
+                                          long rs, int rows, int rows_pad,
+                                          int cols, int cols_pad, int tid,
+                                          int nt) {
+  constexpr int V = 16 / sizeof(T);              // values a copy
+  const bool vec = (reinterpret_cast<uintptr_t>(src) & 15) == 0
+                   && rs % V == 0;
+  const int cv = cols_pad / V;
+  for (int idx = tid; idx < rows_pad * cv; idx += nt) {
+    const int r = idx / cv, k = (idx - r * cv) * V;
+    T* d = dst + r * ld + k;
+    const bool live = r < rows && k < cols;
+    if (!live || (vec && k + V <= cols)) {
+      cp_async16(d, live ? src + r * rs + k : src, live);
+    } else {
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        d[j] = k + j < cols ? src[r * rs + k + j] : T(0.f);
+    }
+  }
 }
 
 // four 8 x 8 b16 matrices; lanes 8 i .. 8 i + 7 give the row addresses of

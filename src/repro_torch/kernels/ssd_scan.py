@@ -24,7 +24,16 @@ tensors that require grad.  Its backward is :func:`ssd_scan_bwd`, the
 kernels of ``csrc/ssd_scan_bwd.cu`` (``LAUNCHES["ssd_bwd"]`` counts one a
 call), whose plain twin :func:`ssd_scan_bwd_torch` runs on CPU tensors.
 It saves the inputs only: each chunk's incoming state is recomputed in
-the backward by the forward's own stage kernels.
+the backward by the forward's own stage kernels.  In bf16 the backward
+runs on the tensor cores: x, dy, B and C as bf16 tiles in shared memory,
+every fp32 operand as bf16 hi + lo, the band's C B^T from the forward's
+scores kernel, and each head's d scores folded into its dB and dC
+partials in registers, so that none reaches device memory
+(:func:`ssd_bwd_plan` lays out its workspace and launches).  What bounds
+it on the card is its chunk kernel at one block an SM, whose loads lie
+between its blocks, and the per-head partials' round trip through device
+memory to the group sum.  fp32 keeps CUDA-core kernels and a d scores
+workspace.
 """
 from __future__ import annotations
 
@@ -339,24 +348,71 @@ def _forward(x, dt, A, B_mat, C_mat, D, chunk, initial_state, return_state):
     return (y, h_T) if return_state else y
 
 
-def ssd_bwd_workspace(B: int, S: int, H: int, P: int, G: int, N: int,
-                      chunk: int) -> int:
-    """fp32 values of the backward kernels' workspace, as
-    ``csrc/ssd_scan_bwd.cu`` lays it out (each piece a multiple of 4): the
-    incoming states ((B H) x (nc + 1) x P x Np, Np = N rounded up to 16),
-    the forward's decays, the state gradients ((B H) x nc x P x N) and
-    their decays, the scores ((B G) x nc x Q x Q), the heads' d scores
-    ((B H) x nc x Q x Q), the dC and dB partials (B S H N each), the dA and
-    dD partials ((B H) x nc each)."""
+# the bf16 backward's tensor-core kernels, by ``bwd_occupancy``'s part
+BWD_PARTS = ("d h_in", "chunk", "dB / dC")
+
+
+def ssd_bwd_plan(B: int, S: int, H: int, P: int, G: int, N: int,
+                 chunk: int, dtype) -> dict:
+    """The backward's host-side plan, as ``csrc/ssd_scan_bwd.cu`` computes
+    it: ``pieces``, the workspace's parts in fp32 values and in order, each
+    a multiple of 4 (the incoming states, (B H) x (nc + 1) x P x Np with Np
+    = N rounded up to 16; the forward's decays; the state gradients, (B H)
+    x nc x P x N, and their decays; the scores, (B G) x nc x Q x Q, in bf16
+    Qp x Qp with Qp = Q rounded up to 16 as the forward's scores kernel
+    writes them; in fp32 only, the heads' d scores, (B H) x nc x Q x Q; the
+    dC and dB partials, B S H N each; the dA and dD partials, (B H) x nc
+    each); and for bf16 ``grids``, the tensor-core launches' grids and
+    threads: d h_in and the chunk kernel one block a (chunk, head, batch
+    row), the chunk kernel's warps ``tiles`` (one a 16-row tile of the
+    chunk), the group sum one thread a (batch, step, group) row and four
+    state entries, in two halves (dC, dB)."""
     nc, bh = -(-S // chunk), B * H
+    q_s = chunk if dtype == torch.float32 else _round16(chunk)
 
     def a4(n):
         return -(-n // 4) * 4
 
-    return (a4(bh * (nc + 1) * P * _round16(N)) + 2 * a4(bh * nc)
-            + a4(bh * nc * P * N) + a4(B * G * nc * chunk * chunk)
-            + a4(bh * nc * chunk * chunk) + 2 * a4(B * S * H * N)
-            + 2 * a4(bh * nc))
+    pieces = {"states": a4(bh * (nc + 1) * P * _round16(N)),
+              "decays": a4(bh * nc), "state grads": a4(bh * nc * P * N),
+              "grad decays": a4(bh * nc),
+              "scores": a4(B * G * nc * q_s * q_s)}
+    if dtype == torch.float32:
+        pieces["d scores"] = a4(bh * nc * chunk * chunk)
+    pieces.update({"dC partials": a4(B * S * H * N),
+                   "dB partials": a4(B * S * H * N),
+                   "dA partials": a4(bh * nc), "dD partials": a4(bh * nc)})
+    plan = {"pieces": pieces}
+    if dtype != torch.float32:
+        plan["grids"] = {
+            "d h_in": ((nc, H, B), 128),
+            "chunk": ((nc, H, B), 256),
+            "dB / dC": ((-(-(B * S * G * -(-N // 4)) // 256), 2), 256)}
+        plan["tiles"] = -(-min(chunk, S) // 16)
+    return plan
+
+
+def ssd_bwd_workspace(B: int, S: int, H: int, P: int, G: int, N: int,
+                      chunk: int, dtype) -> int:
+    """fp32 values of the backward kernels' workspace: the sum of
+    ``ssd_bwd_plan``'s pieces (``ssd_bwd_workspace_floats`` in
+    ``csrc/ssd_scan_bwd.cu``)."""
+    return sum(ssd_bwd_plan(B, S, H, P, G, N, chunk, dtype)["pieces"]
+               .values())
+
+
+def bwd_occupancy(part: str) -> dict:
+    """A bf16 backward kernel (``BWD_PARTS``) as the card runs it: blocks
+    per SM, dynamic shared memory bytes and registers a thread."""
+    import ctypes
+
+    from repro_torch.kernels import build
+    info = (ctypes.c_int * 3)()
+    err = build.library().ssd_bwd_occupancy(BWD_PARTS.index(part), info)
+    if err != 0:
+        raise RuntimeError(f"ssd_bwd_occupancy: CUDA error {err}")
+    return dict(blocks_per_sm=info[0], smem_bytes=info[1],
+                registers=info[2])
 
 
 def ssd_scan_bwd(x, dt, A, B_mat, C_mat, D, dy, *, chunk: int = 128,
@@ -401,7 +457,7 @@ def ssd_scan_bwd(x, dt, A, B_mat, C_mat, D, dy, *, chunk: int = 128,
         if dh0 is not None and dh_T is not None:
             dh0.copy_(dh_T)
         return dx, ddt, dA, dB, dC, dD, dh0
-    n_ws = ssd_bwd_workspace(Bb, S, H, P, G, N, chunk)
+    n_ws = ssd_bwd_workspace(Bb, S, H, P, G, N, chunk, x.dtype)
     ws = torch.empty(n_ws, **f32)
     err = build.library().ssd_scan_bwd(
         ptr(x), ptr(dt), ptr(A), ptr(B_mat), ptr(C_mat), ptr(D),

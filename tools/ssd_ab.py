@@ -1,4 +1,5 @@
-"""Time K8, the SSD scan, in several checkouts on one card, back to back.
+"""Time K8, the SSD scan, and its backward in several checkouts on one
+card, back to back.
 
 Each checkout runs in a process of its own (each has its own
 ``repro_torch``), in the order given, so that two commits are compared
@@ -7,8 +8,10 @@ kernel library from its checkout's sources and times its ``ssd_scan`` at
 every row of phase 5 (``chip_smoke.SSD_TIMED``: bf16 at mamba2-370m's
 heads, chunk 128, the final state returned; the batch path's 8 x 512,
 the long batch's 2 x 4000 and one engine prompt of 1 x 32) with this
-checkout's ``chip_smoke.ssd_rows``: the kernel alone, CUDA events around
-CUDA-graph replays, beside the bound.
+checkout's ``chip_smoke.ssd_rows``, and its backward ``ssd_scan_bwd`` at
+phase 7 (d)'s ``chip_smoke.SSD_BWD_TIMED`` (bf16, 8 x 512 and 2 x 4000):
+each call alone, CUDA events around CUDA-graph replays, beside the
+bound.
 
     python3 tools/ssd_ab.py OLD NEW NEW OLD
 
@@ -49,8 +52,18 @@ def child(tree: pathlib.Path) -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    rows = smoke.ssd_rows(torch, np, torch.device("cuda", 0), ss,
-                          plain=False)
+    dev = torch.device("cuda", 0)
+    rows = smoke.ssd_rows(torch, np, dev, ss, plain=False)
+    for i, (label, B, S) in enumerate(smoke.SSD_BWD_TIMED):
+        inp, _ = smoke.ssd_case(torch, np, dev, B=B, S=S, dtype="bfloat16",
+                                seed=1300 + i)
+        dy, _ = smoke.ssd_bwd_inputs(torch, dev, inp, 1310 + i, False)
+        ms = smoke.time_ms(torch, lambda: ss.ssd_scan_bwd(**inp, dy=dy),
+                           iters=5, reps=10 if S <= 1024 else 3)
+        rows[f"ssd_scan_bwd {label}"] = {
+            "ms": ms, "bound_ms": smoke.ssd_bwd_bound(B, S)[0]}
+        del inp, dy
+        torch.cuda.empty_cache()
     print(TAG + json.dumps({
         "tree": str(tree), "card": card,
         "rows": {name: {k: row[k] for k in ("ms", "bound_ms")}

@@ -1,8 +1,9 @@
-"""Where K8's backward spends its time: ablated copies of the chunk kernel
-in ``src/repro_torch/kernels/csrc/ssd_scan_bwd.cu``, each compiled on its
-own (with ``ssd_scan.cu``, whose stage kernels the backward calls) and
-timed on one card at phase 7 (d)'s shape (mamba2-370m's heads, 8 x 512,
-bf16, D), beside the kernels as they are.
+"""Where K8's bf16 backward spends its time: ablated copies of its
+tensor-core chunk kernel (``ssd_bwd_chunk_mma_kernel`` in
+``src/repro_torch/kernels/csrc/ssd_scan_bwd.cu``), each compiled on its own
+(with ``ssd_scan.cu``, whose stage kernels the backward calls) and timed on
+one card at phase 7 (d)'s shape (mamba2-370m's heads, 8 x 512, bf16, D),
+beside the kernels as they are.
 
     python3 tools/ssd_bwd_variants.py
 
@@ -11,14 +12,15 @@ line of the chunk kernel (the run stops, naming the anchor, if the source
 no longer has it):
 
   kernel          the source as it is;
-  no band         the band's tiles left out (dM, M^T dy, the rows' Z);
-  no dm loop      the band's products dy_t . x_s left out;
-  no dx band      the band's M^T dy left out;
-  no u            the state term B g_out^T left out;
-  no dB           the dB partial's product x g_out left out;
-  no dC           the dC partial's product dy h_in left out;
-  no state fills  B, g_out, h_in and C never loaded into shared memory;
-  no x/dy fills   x and dy never loaded into shared memory.
+  no band         neither side's band tiles (dM, M, dS and their products);
+  no column band  the columns' band tiles only (dx += M^T dy, dB += dS^T C);
+  no row band     the rows' band tiles only (dC += dS B);
+  no state terms  the products with g_out and h_in left out (u, x g_out,
+                  dy h_in);
+  no scores       the band's scores never read (1 in their place);
+  no partials     the dB and dC partials never written;
+  loads only      the fills, the per-step vectors and the sums of the tail,
+                  no warp's tiles.
 
 Only ``kernel`` computes gradients; the others are timed for where the
 time goes.  Each copy runs in a process of its own, its call timed whole
@@ -48,33 +50,36 @@ def variants(src: str) -> dict[str, str]:
             out = out.replace(old, new)
         return out
 
-    def never(line):
-        return line, line.replace("fill_rows(", "if (0) fill_rows(", 1)
-
+    col_band = ("for (int jt = warp; jt < MT; ++jt) {",
+                "for (int jt = warp; jt < 0; ++jt) {")
+    row_band = ("for (int js = 0; js <= warp; ++js) {",
+                "for (int js = 0; js < 0; ++js) {")
     return {
         "kernel": src,
-        "no band": edit(("for (int t0 = 0; t0 < rows; t0 += TR) {",
-                         "for (int t0 = 0; t0 < 0; t0 += TR) {")),
-        "no dm loop": edit((
-            "for (int p = 0; p < PP; p += 4) {\n        const float4 xv",
-            "for (int p = 0; p < 0; p += 4) {\n        const float4 xv")),
-        "no dx band": edit(("for (int i = max(0, so - t0); i < tr; ++i) {",
-                            "for (int i = max(0, so - t0); i < 0; ++i) {")),
-        "no u": edit((
-            "for (int n = 0; n < NN; n += 4) {\n      const float4 bv",
-            "for (int n = 0; n < 0; n += 4) {\n      const float4 bv")),
-        "no dB": edit((
-            "for (int p = 0; p < P; ++p) {\n      const float xv = xr[p];",
-            "for (int p = 0; p < 0; ++p) {\n      const float xv = xr[p];")),
-        "no dC": edit((
-            "for (int p = 0; p < P; ++p) {\n        const float gv = dr[p];",
-            "for (int p = 0; p < 0; ++p) {\n        const float gv = dr[p];")),
-        "no state fills": edit(
-            never("  fill_rows(bsm, LDN, Q, LDN, Bm"),
-            never("  fill_rows(gs, LDN"), never("  fill_rows(hs, LDN"),
-            never("  fill_rows(bsm, LDN, Q, LDN, Cm")),
-        "no x/dy fills": edit(never("  fill_rows(xs, LDX"),
-                              never("  fill_rows(dys, LDX, Q")),
+        "no band": edit(col_band, row_band),
+        "no column band": edit(col_band),
+        "no row band": edit(row_band),
+        "no state terms": edit(
+            ("for (int kk = 0; kk < Np / 16; ++kk) {       // u",
+             "for (int kk = 0; kk < 0; ++kk) {       // u"),
+            ("for (int kk = 0; kk < PMAX / 16; ++kk)       // x_s g_out",
+             "for (int kk = 0; kk < 0; ++kk)       // x_s g_out"),
+            ("for (int kk = 0; kk < PMAX / 16; ++kk)     // dy_t h_in",
+             "for (int kk = 0; kk < 0; ++kk)     // dy_t h_in")),
+        "no scores": edit(
+            ("        v[k] = sc[(long)(16 * jt",
+             "        v[k] = 1.f; (void)sc[(long)(16 * jt"),
+            ("        v[k] = *reinterpret_cast<const float2*>(",
+             "        v[k] = make_float2(1.f, 1.f); (void)(")),
+        "no partials": edit(
+            ("    if (N % 2 == 0 && n < N) {", "    if (N < 0) {"),
+            ("      if (n < N) out[n] = acc[j][2 * e];\n"
+             "      if (n + 1 < N) out[n + 1] = acc[j][2 * e + 1];",
+             "      (void)out;")),
+        "loads only": edit(*[(f"  if (warp < MT) {{\n{nxt}",
+                              f"  if (warp < 0) {{\n{nxt}")
+                             for nxt in ("    // ---- columns s",
+                                         "    // ---- rows t")]),
     }
 
 

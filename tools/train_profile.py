@@ -9,9 +9,10 @@ Prints the card's name and power limit, the step's host wall (median,
 synchronised), the device's busy time in the profiled window (the union
 of its kernels' intervals) and so its idle share, and the device time by
 kernel name (the top rows, with each row's share of the busy time and
-its calls a step).  With ``--launcher`` it runs the training launcher's
-main path instead (``repro_torch.launch.train``, ``--frost``, the same
-batch) under ``cProfile`` and prints the host functions with the most
+its calls a step), then the SSD scan's kernel families (``GROUPS``)
+summed.  With ``--launcher`` it runs the training launcher's main path
+instead (``repro_torch.launch.train``, ``--frost``, the same batch)
+under ``cProfile`` and prints the host functions with the most
 cumulative time, each a step, beside the run's steps/s: where the loop's
 wall goes beyond the bare step (cProfile slows Python code, not the
 card's, so the shares lean towards the host).  It needs the card and
@@ -27,6 +28,16 @@ import sys
 import time
 
 HERE = pathlib.Path(__file__).resolve().parents[1]
+
+
+# kernel families summed apart (substrings of the kernel names): K8's
+# backward kernels, and the SSD stage kernels that the forward launches and
+# the backward launches again (the incoming states, their pass, the scores:
+# one call of each a layer in each direction, of the same shapes)
+GROUPS = (("K8 backward kernels (ssd_bwd_*)", ("ssd_bwd_",)),
+          ("K8 stage kernels (states, pass, scores; forward and backward)",
+           ("ssd_states_kernel", "ssd_pass_kernel", "ssd_scores_kernel")),
+          ("K8 forward outputs (ssd_out_kernel)", ("ssd_out_kernel",)))
 
 
 def busy_us(events) -> float:
@@ -155,6 +166,13 @@ def main() -> int:
     for name, ts in rows[:args.top]:
         print(f"[train_profile]   {sum(ts) / n / 1e3:8.3f} ms "
               f"{sum(ts) / busy:6.1%}  x{len(ts) // n:<5d} {name[:90]}")
+    for group, keys in GROUPS:
+        ts = [t for name, v in by_name.items()
+              if any(k in name for k in keys) for t in v]
+        if ts:
+            print(f"[train_profile] {group}: {sum(ts) / n / 1e3:.3f} ms a "
+                  f"step, {sum(ts) / busy:.1%} of the busy time, "
+                  f"{len(ts) // n} launches a step")
     return 0
 
 
