@@ -299,7 +299,35 @@ Phases, in order; any failure exits non-zero (nothing is caught):
                 of its launches apart beside the CUDA-core design's
                 (``EARLIER_SSD_LAUNCHES``), no library call; its bf16
                 tensor-core kernels' registers, shared memory and blocks
-                an SM.
+                an SM;
+  8. CNN zoo  — the paper's 16 CIFAR models (``repro_torch.models.cnn``)
+                at their published widths on 32x32x3 ``CifarBatches``
+                images in fp32, random weights from ``bridge.init_cnn``
+                and a seed, the step ``cnn.loss_and_grads`` then
+                ``optim.adamw_update`` with the JAX package's CNN
+                optimizer (``cnn.OPTIMIZER``).  No hand-written kernel
+                is on this path: the convolutions, batch norms and pools
+                are cuDNN's and PyTorch's, as XLA's are in JAX.  (a) For
+                each model, cuDNN's TF32 off, one step at batch 8 on the card
+                against the same step on the CPU from the same weights:
+                in fp64 the loss within 1e-5, every gradient leaf within
+                1e-3 of its own scale (a leaf below 1e-10 of the model's
+                largest gradient, zero but for rounding, below it on
+                both), the params after AdamW within the Adam-eps bound;
+                in fp32 the loss within 1e-5 and the logits within 1e-4
+                of their largest magnitude, or twice the CPU's own fp32
+                error from its fp64 logits where that is larger
+                (``CNN_TOL``; fp32 gradients of these nets are too
+                ill-conditioned at a batch of 8 to hold leaf by leaf).
+                (b) For each model, the library's defaults (cuDNN's TF32
+                on, matmuls' off), 12 steps at batch 128: the median
+                synchronised step wall of the last 8 with their least and
+                most, the mean step split where the host spends it
+                (issuing forward and backward, issuing AdamW, waiting for
+                the card), images/s, FLOPs a step (``FlopCounterMode``
+                over one forward and backward), TFLOP/s, peak memory, the
+                loss first to last (it must fall) and accuracy on 2 eval
+                batches from index 100, one ``[cnn]`` line a model.
 
 The last two lines are a JSON object of per-kernel numbers and
 ``{"ok": true, "device": {...}}``.
@@ -4338,6 +4366,230 @@ def train_main_path(torch, da, train, cfg, card, argv=TRAIN_ARGV,
     return counts
 
 
+# --------------------------------------------------------------------------
+# phase 8 helpers
+# --------------------------------------------------------------------------
+# the CNN zoo (``repro_torch.models.cnn``, all 16 models at their published
+# widths) on 32x32x3 ``CifarBatches`` images in fp32: (a) one train step at
+# batch 8 on the card against the same step on the CPU, (b) 12 steps at
+# batch 128, the batch benchmarks/common.epoch_quantities scales every
+# profile to, the step wall the median of the last 8
+CNN_PARITY_BATCH = 8
+CNN_BATCH, CNN_STEPS, CNN_TIMED = 128, 12, 8
+# the eval batches profile_cnn reads: 2 from index 100
+CNN_EVAL = (100, 101)
+# (a)'s tolerances.  In fp32 these nets are ill-conditioned at a batch of
+# 8 (rounding flips ReLUs near zero and cancels in batch norms over 2x2
+# maps: JAX's own fp32 gradients lie up to 0.3 of a leaf's scale from its
+# fp64 ones, tests/test_torch_cnn_zoo.py), so the gradients and the
+# updated params are held in fp64, each gradient leaf within 1e-3 of its
+# own largest magnitude, a leaf below 1e-10 of the model's largest
+# gradient (a batch-norm shift feeding a 1x1 conv and another batch norm:
+# zero but for rounding) below it on both; the params within 1e-5 of
+# their scale plus lr / eps times the gradients' difference (Adam's first
+# step, whose slope is 1 / eps at a zero gradient: the zero leaves' params
+# meet that bound to the update's fp32 rounding, so it carries a relative
+# 1e-5 of slack).  The losses within 1e-5 in fp64 and, cuDNN's TF32 off,
+# in fp32; the fp32 logits within 1e-4 of their largest magnitude, or
+# within twice the CPU's own fp32 error from its fp64 logits where that is
+# larger: DPN92's fp32 rounding alone moves its logits about 1e-4
+# (tests/test_torch_cnn_zoo.py).
+CNN_TOL = dict(loss=1e-5, logit=1e-4, grad=1e-3, zero=1e-10, param=1e-5)
+
+
+def cnn_images(torch, data, dev, batch, step):
+    """``CifarBatches(seed=0)``'s batch ``step``: NCHW images and labels
+    on ``dev``."""
+    x, y = data.CifarBatches(seed=0, batch=batch).batch_at(step)
+    return (torch.from_numpy(x).permute(0, 3, 1, 2).contiguous().to(dev),
+            torch.from_numpy(y).to(dev))
+
+
+def cnn_step(torch, cnn, common, optim, name, params, dev, dtype, x, y):
+    """One train step of ``name`` from a copy of ``params`` on ``dev`` in
+    ``dtype``: (loss, grads, params after AdamW, first moments, learning
+    rate, logits)."""
+    p = common.tree_map(
+        lambda t: t.detach().to(dev, dtype).requires_grad_(True), params)
+    cfg = optim.OptimizerConfig(**cnn.OPTIMIZER)
+    opt = optim.adamw_init(p, cfg)
+    (loss, logits), grads = cnn.loss_and_grads(
+        cnn.CNN_ZOO[name][1], p, x.to(dev, dtype), y.to(dev))
+    p, opt, m = optim.adamw_update(grads, opt, p, cfg)
+    return float(loss), grads, p, opt["mu"], float(m["lr"]), logits.cpu()
+
+
+def cnn_parity(torch, np, dev, name, bridge, cnn, common, optim, data):
+    """Phase 8 (a): ``name``'s train step at batch 8 on the card against
+    the same step on the CPU, from the same ``init_cnn`` weights, at
+    ``CNN_TOL`` (cuDNN's TF32 off); a model outside them fails.  Returns
+    the largest errors found."""
+    params = bridge.init_cnn(name, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+    x, y = cnn_images(torch, data, "cpu", CNN_PARITY_BATCH, 0)
+    f64 = torch.float64
+    card = cnn_step(torch, cnn, common, optim, name, params, dev, f64, x, y)
+    host = cnn_step(torch, cnn, common, optim, name, params, "cpu", f64, x,
+                    y)
+    out = {"loss": abs(card[0] - host[0]) / abs(host[0])}
+    if out["loss"] > CNN_TOL["loss"]:
+        fail(f"cnn {name} fp64: loss {card[0]} on the card, {host[0]} on "
+             "the CPU")
+    flat = lambda t: [g.detach().cpu().double() for g in
+                      common.tree_leaves(t)]
+    g_card, g_host = flat(card[1]), flat(host[1])
+    scale = max(float(g.abs().max()) for g in g_host)
+    worst, zeros = 0.0, 0
+    for i, (a, b) in enumerate(zip(g_card, g_host)):
+        top = float(b.abs().max())
+        if top <= CNN_TOL["zero"] * scale:
+            zeros += 1
+            if float(a.abs().max()) > CNN_TOL["zero"] * scale:
+                fail(f"cnn {name} fp64: gradient leaf {i} is zero on the "
+                     f"CPU ({top:.3e}), {float(a.abs().max()):.3e} on the "
+                     "card")
+            continue
+        e = float((a - b).abs().max()) / top
+        worst = max(worst, e)
+        if not e <= CNN_TOL["grad"]:
+            fail(f"cnn {name} fp64: gradient leaf {i} {e:.3e} of its scale "
+                 f"from the CPU's (tol {CNN_TOL['grad']})")
+    cfg = optim.OptimizerConfig(**cnn.OPTIMIZER)
+    lr, eps, b1 = host[4], cfg.eps, cfg.b1
+    worst_p = 0.0
+    for i, (a, b, ma, mb) in enumerate(zip(flat(card[2]), flat(host[2]),
+                                           flat(card[3]), flat(host[3]))):
+        allowed = (CNN_TOL["param"] * b.abs().max()
+                   + lr / eps * (ma - mb).abs() / (1 - b1)) \
+            * (1 + CNN_TOL["param"])
+        share = float(((a - b).abs() / allowed.clamp_min(1e-300)).max())
+        worst_p = max(worst_p, share)
+        if share > 1:
+            fail(f"cnn {name} fp64: param leaf {i} after AdamW {share:.3e} "
+                 "times the Adam-eps bound from the CPU's")
+    with torch.no_grad():
+        z32 = [cnn.CNN_ZOO[name][1](common.tree_map(
+            lambda t: t.detach().to(d), params), x.to(d)).cpu()
+            for d in (dev, "cpu")]
+    l32 = [float(cnn.cnn_loss(lambda _p, _x: z, None, None, y))
+           for z in z32]
+    rel = lambda a, b: float((a.double() - b).abs().max() / b.abs().max())
+    out["loss32"] = abs(l32[0] - l32[1]) / abs(l32[1])
+    out["logit32"] = rel(z32[0], z32[1].double())
+    out["logit_tol"] = max(CNN_TOL["logit"], 2 * rel(z32[1], host[5]))
+    if not out["loss32"] <= CNN_TOL["loss"]:
+        fail(f"cnn {name} fp32: loss {l32[0]} on the card (TF32 off), "
+             f"{l32[1]} on the CPU")
+    if not out["logit32"] <= out["logit_tol"]:
+        fail(f"cnn {name} fp32: logits {out['logit32']:.3e} of their scale "
+             f"from the CPU's (tol {out['logit_tol']:.3e})")
+    out.update(grad=worst, zeros=zeros, leaves=len(g_host), params=worst_p)
+    return out
+
+
+def cnn_train(torch, np, dev, name, bridge, cnn, common, optim, data):
+    """Phase 8 (b): ``name`` trains ``CNN_STEPS`` steps at batch
+    ``CNN_BATCH`` on the card with the library's defaults; the loss must
+    fall from the first step to the last.  Returns the model's row: step
+    ms (median synchronised wall of the last ``CNN_TIMED``, their least
+    and most, and their mean split into the host's time issuing
+    ``loss_and_grads``, issuing ``adamw_update`` and waiting for the card
+    after that), images/s, FLOPs a step (``FlopCounterMode`` over one
+    forward and backward), TFLOP/s, peak GiB (above what the card held
+    before the model), the losses, accuracy on ``CNN_EVAL``."""
+    from torch.utils.flop_counter import FlopCounterMode
+    apply = cnn.CNN_ZOO[name][1]
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()        # by the phases before
+    params = bridge.init_cnn(name, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+    cfg = optim.OptimizerConfig(**cnn.OPTIMIZER)
+    opt = optim.adamw_init(params, cfg)
+    batches = [cnn_images(torch, data, dev, CNN_BATCH, i)
+               for i in range(CNN_STEPS)]
+    with FlopCounterMode(display=False) as counter:
+        cnn.loss_and_grads(apply, params, *batches[0])
+    flops = counter.get_total_flops()
+    walls, losses = [], []
+    for x, y in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (loss, _), grads = cnn.loss_and_grads(apply, params, x, y)
+        t1 = time.perf_counter()
+        params, opt, _ = optim.adamw_update(grads, opt, params, cfg)
+        t2 = time.perf_counter()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        walls.append((t3 - t0, t1 - t0, t2 - t1, t3 - t2))
+        losses.append(float(loss))
+    correct = total = 0
+    with torch.no_grad():
+        for i in CNN_EVAL:
+            x, y = cnn_images(torch, data, dev, CNN_BATCH, i)
+            correct += int((apply(params, x).argmax(-1) == y).sum())
+            total += y.numel()
+    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    timed = np.array(walls[-CNN_TIMED:]) * 1e3
+    step = float(np.median(timed[:, 0])) / 1e3
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"cnn {name}: loss {losses[0]} -> {losses[-1]} over "
+             f"{CNN_STEPS} steps")
+    row = {"name": name, "step_ms": step * 1e3,
+           "step_min": timed[:, 0].min(), "step_max": timed[:, 0].max(),
+           "split": timed.mean(axis=0),
+           "img_per_s": CNN_BATCH / step, "tflop_step": flops / 1e12,
+           "tflops": flops / step / 1e12, "peak_gib": peak,
+           "loss0": losses[0], "loss": losses[-1],
+           "acc": correct / total,
+           "params": common.tree_count(params)}
+    del params, opt, grads, batches
+    torch.cuda.empty_cache()
+    return row
+
+
+def cnn_zoo(torch, np, dev, bridge, cnn, common, optim, data, card):
+    """Phase 8: the CNN zoo.  (a) parity with TF32 off in cuDNN (and in
+    matmuls); (b) training with the library's defaults (cuDNN's TF32 on,
+    matmuls' off); one line a model each."""
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        for name in cnn.CNN_ZOO:
+            e = cnn_parity(torch, np, dev, name, bridge, cnn, common, optim,
+                           data)
+            say(f"[cnn parity] {name} b{CNN_PARITY_BATCH}, card vs CPU, "
+                f"TF32 off: fp64 loss {e['loss']:.2e}, largest gradient "
+                f"{e['grad']:.2e} of its scale over {e['leaves']} leaves "
+                f"({e['zeros']} zero leaves zero on both), params after "
+                f"AdamW at most {e['params']:.2e} of their bound; fp32 "
+                f"loss {e['loss32']:.2e}, logits {e['logit32']:.2e} of "
+                f"their scale (tol {e['logit_tol']:.2e}) "
+                f"(tol loss {CNN_TOL['loss']}, gradients {CNN_TOL['grad']}, "
+                f"zero {CNN_TOL['zero']} of the largest, params "
+                f"({CNN_TOL['param']} of scale + lr / eps x dg) x (1 + "
+                f"{CNN_TOL['param']}))")
+    rows = []
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+        onoff = lambda flag: "on" if flag else "off"
+        tf32 = (f"cuDNN TF32 {onoff(torch.backends.cudnn.allow_tf32)}, "
+                f"matmul TF32 {onoff(torch.backends.cuda.matmul.allow_tf32)}")
+        for name in cnn.CNN_ZOO:
+            r = cnn_train(torch, np, dev, name, bridge, cnn, common, optim,
+                          data)
+            rows.append(r)
+            mean, fb, adam, wait = r["split"]
+            say(f"[cnn] {name} b{CNN_BATCH} fp32 ({r['params'] / 1e6:.2f} M "
+                f"params): step {r['step_ms']:.2f} ms (least "
+                f"{r['step_min']:.2f}, most {r['step_max']:.2f} of "
+                f"{CNN_TIMED}; mean {mean:.2f} = host issuing forward and "
+                f"backward {fb:.2f} + AdamW {adam:.2f} + waiting for the "
+                f"card {wait:.2f}), "
+                f"{r['img_per_s']:.0f} img/s, {r['tflop_step']:.4f} "
+                f"TFLOP/step, {r['tflops']:.1f} TFLOP/s, peak "
+                f"{r['peak_gib']:.2f} GiB, loss {r['loss0']:.4f} -> "
+                f"{r['loss']:.4f} over {CNN_STEPS} steps, acc "
+                f"{r['acc']:.3f} ({tf32}) on {card}")
+    return rows
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4360,7 +4612,7 @@ def main() -> int:
     from repro_torch.kernels import rmsnorm as rms
     from repro_torch.kernels import ssd_scan as ss
     from repro_torch.launch import serve
-    from repro_torch.models import common
+    from repro_torch.models import cnn, common
     from repro_torch.models import transformer as tfm
     from repro_torch import data, optim
     from repro_torch.launch import train
@@ -4654,6 +4906,13 @@ def main() -> int:
     times.update(backward_timings(torch, np, dev, fa, rms))
     times.update(ssd_backward_timings(torch, np, dev, ss))
     say(f"training phase in {time.perf_counter() - t_train:.1f} s")
+
+    # 8. the CNN zoo ----------------------------------------------------------
+    t_cnn = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cnn_zoo(torch, np, dev, bridge, cnn, common, optim, data, card)
+    say(f"CNN zoo phase in {time.perf_counter() - t_cnn:.1f} s")
     kernels = []
     for name, t in times.items():
         source, replaces, key = KERNELS[t.get("entry") or name]

@@ -18,6 +18,13 @@
     ``count`` / ``mu`` / ``nu``, ``step``; numpy leaves) as the port's
     train state: fp32 master params that require grad, the moments in
     their stored dtype.
+  * ``cnn_params_from_numpy(name, tree, device)`` — the JAX package's
+    params of the CNN zoo member ``name`` (numpy leaves), as the port's
+    tree: conv weights transposed from HWIO to OIHW, every leaf requiring
+    grad.
+  * ``init_cnn(name, generator, device)`` — random weights for ``name``
+    from an explicit ``torch.Generator``, with the JAX inits' shapes and
+    scales (not their numbers), every leaf requiring grad.
 """
 from __future__ import annotations
 
@@ -28,7 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as _device
-from repro_torch.models import common, ssm
+from repro_torch.models import cnn, common, ssm
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
 
@@ -297,3 +304,62 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator, device=None, *,
         return out
 
     return build(_shapes(cfg))
+
+
+def _cnn_tree(name: str, draws: "cnn.Draws"):
+    if name not in cnn.CNN_ZOO:
+        raise ValueError(f"unknown CNN {name!r}: one of {list(cnn.CNN_ZOO)}")
+    return cnn.CNN_ZOO[name][0](draws)
+
+
+def _trained(tree):
+    """``tree`` with every leaf requiring grad (the zoo's params are
+    trained in place by ``optim.adamw_update``)."""
+    return common.tree_map(lambda t: t.requires_grad_(True), tree)
+
+
+def cnn_params_from_numpy(name: str, tree, device=None):
+    """The JAX package's params of CNN zoo member ``name`` (numpy leaves:
+    ``jax.tree.map(np.asarray, params)``) -> the port's tree on
+    ``device``: the same keys, list positions, ``None`` slots and dtypes,
+    conv weights (the 4-d leaves) transposed from HWIO to OIHW, every
+    leaf requiring grad.  Raises on a missing, extra, misplaced or
+    misshapen leaf."""
+    dev = _device.resolve(device)
+
+    def walk(t, want, path):
+        if isinstance(want, dict):
+            if not isinstance(t, dict) or set(t) != set(want):
+                raise ValueError(f"params{path}: keys "
+                                 f"{sorted(t) if isinstance(t, dict) else t}"
+                                 f" != expected {sorted(want)}")
+            return {k: walk(t[k], want[k], f"{path}/{k}") for k in want}
+        if isinstance(want, list):
+            if not isinstance(t, (list, tuple)) or len(t) != len(want):
+                raise ValueError(f"params{path}: expected a list of "
+                                 f"{len(want)}")
+            return [walk(tj, wj, f"{path}/[{j}]")
+                    for j, (tj, wj) in enumerate(zip(t, want))]
+        if want is None:
+            if t is not None:
+                raise ValueError(f"params{path}: expected None")
+            return None
+        leaf = _tensor(t)
+        if leaf.ndim == 4:                         # HWIO -> OIHW
+            leaf = leaf.permute(3, 2, 0, 1)
+        if tuple(leaf.shape) != tuple(want.shape):
+            raise ValueError(f"params{path}: shape {tuple(leaf.shape)} "
+                             f"!= {tuple(want.shape)}")
+        return leaf.contiguous().to(dev)
+
+    return _trained(walk(tree, _cnn_tree(name, cnn.Draws()), ""))
+
+
+def init_cnn(name: str, generator: torch.Generator, device=None):
+    """Random weights for CNN zoo member ``name`` from ``generator``,
+    drawn on the generator's device and moved to ``device`` (the card by
+    default; ``"cpu"`` for the CPU): conv N(0, 2 / fan_in) with fan_in =
+    (cin / groups) k k, fc N(0, 1 / cin), zero biases, bn scales at 1 and
+    shifts at 0, fp32, every leaf requiring grad."""
+    dev = _device.resolve(device)
+    return _trained(_cnn_tree(name, cnn.Draws(generator, dev)))
