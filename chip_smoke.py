@@ -61,7 +61,10 @@ Phases, in order; any failure exits non-zero (nothing is caught):
                 37, 16 and 1 (padded inside to a multiple of 16; chunks of
                 one step in groups), with and without D, with and without
                 an initial state, y with and without the final state
-                returned, at atol = rtol = 2e-2 in bf16 and 1e-3 in fp32
+                returned, and at zamba2-1.2b's heads (H 64, P 64, N 64:
+                8 x 512, a ragged 37 with an initial state, G 2 with
+                chunks of 100), at atol = rtol = 2e-2 in bf16 and 1e-3 in
+                fp32
                 (the order of the JAX tests' chunked-vs-sequential 2e-3:
                 the sums run in another order); deepseek-v2's latent
                 sweep (Hq 128, latent rows of 576, values of 512, pages
@@ -97,7 +100,14 @@ Phases, in order; any failure exits non-zero (nothing is caught):
                 Sq 19, B 3 with ragged Sk 100, non-causal Sq 16 over Sk
                 65, stablelm's G 1, and (192, 128) ragged at Sq = Sk =
                 1000), each case's error printed and K4's largest bf16
-                error over all of them; K9 at widths 2048, 3840, 4096 and
+                error over all of them; G 1 at D 64 as musicgen-medium
+                (24 / 24 heads: 8 x 512 and ragged Sq 37) and zamba2's
+                shared block (32 / 32: 8 x 512) run it; musicgen's heads
+                on the paged sweep (decode and verify Q 16) and on the
+                ring sweep at its batch path's 8 x 545 (mid-run and
+                wrapped), and zamba2's shared buffers on the ring sweep
+                (4 slots of 48 rows, one position per row, no window, a
+                row past its buffer); K9 at widths 2048, 3840, 4096 and
                 7168; the paged sweep at its tensor-core kernel's edges
                 (G 4 with Q 17 and Q 128, pages of 8, positions at page
                 edges, splits wholly past a request, a window of 8 under
@@ -153,7 +163,11 @@ Phases, in order; any failure exits non-zero (nothing is caught):
                 16 new (the 4096 window masks prefill, the rings wrap) and
                 its engine on requests past 4096 positions; stablelm,
                 phi3.5-moe and llava-next on 2 x 512 + 16 new and on 6
-                Poisson requests with prefix hits;
+                Poisson requests with prefix hits; musicgen-medium (4
+                codebooks) and zamba2-1.2b (one unit: 2 Mamba2 layers and
+                its shared block) on 2 x 512 + 16 new and on 6 Poisson
+                requests without prefix hits (the prefix cache serves
+                neither);
   4. main paths — ``repro_torch.launch.serve`` at full width (bf16,
                 random weights from a seed drawn on the card, FROST plane
                 on): smollm-135m's engine on a Poisson trace of 8 requests
@@ -181,12 +195,20 @@ Phases, in order; any failure exits non-zero (nothing is caught):
                 its 32 layers through ``serve(args, cfg)`` and
                 llava-next-34b at its 60 layers (batches of 4 x 512 + 33
                 new), each also on the engine with 2 shared 32-token
-                prompt heads.  The launch counts are zeroed just before
+                prompt heads; musicgen-medium (48 layers, 4 codebooks) and
+                zamba2-1.2b (38 Mamba2 layers, 19 applications of its
+                shared block) at full width and depth, each on the batch
+                of 8 x 512 + 33 new and on 8 Poisson requests over 4
+                slots, pages of 16, no shared heads.  The launch counts
+                are zeroed just before
                 each run and read just after it.  Every request must
                 finish its token budget with finite logits, no peak may
                 pass the card's 79.1 GiB, and every kernel of a path must
-                have been launched on it: K4 and K9 on the twenty-one
-                attention paths, K8 and K9 on the three mamba2 paths, the
+                have been launched on it: K4 and K9 on the twenty-five
+                attention paths, K8 and K9 on the three mamba2 paths and
+                the two zamba2 paths (the ring sweep on both: its shared
+                block's rings, and on the engine its buffers with per-row
+                positions), the
                 latent sweep's decode and verify forms and the fused merge
                 (``merge_fused``) on deepseek's engine, the int8 templates
                 (and never the bf16 sweep) on the int8 paths, the ring
@@ -213,8 +235,11 @@ Phases, in order; any failure exits non-zero (nothing is caught):
                 (``ring_rows``) and at the engine's private rings (4 x 48
                 slots, per-row positions), the merge at Dv 120, K9 at
                 ``RMS_TIMED`` (the zoo's prefill widths, decode steps of 4
-                and 8 rows beside F.rms_norm), K8 at ``SSD_TIMED`` (8 x
-                512, 2 x 4000 and one engine prompt of 1 x 32); each split
+                and 8 rows beside F.rms_norm; musicgen's 1536 at
+                ``RMS_TIMED_NEW``), K8 at ``SSD_TIMED`` (8 x 512, 2 x
+                4000 and one engine prompt of 1 x 32) and at zamba2's
+                heads (``SSD_ZAMBA_TIMED``), the ring sweep at zamba2's
+                shared buffers (``ZAMBA_SHARED``); each split
                 form at the main paths' shapes (``merge_forms``): stage 1
                 alone, the unfused pair (stage 1, ``lse_merge`` and, for Q
                 > 1, the copy of its transposed view) and the one fused
@@ -256,9 +281,11 @@ Phases, in order; any failure exits non-zero (nothing is caught):
                 in fp32: K4 at ``FA_BWD_CASES`` (smollm's 8 x 512 at G 3,
                 gemma2's heads of 128 with window 4096 and cap 50 over
                 8192 keys, (120, 120) at G 4, G 7, (192, 128) at G 1,
-                ragged Sq 37 and 1000, a q_offset), K9 at every width of
-                ``RMS_WIDTHS`` up to 8192, both forms, 4 and 1000 rows
-                and ``RMS_BWD_LONG``; the forward with lse bit for bit the
+                ragged Sq 37 and 1000, a q_offset, G 1 at D 64 with
+                musicgen's and zamba2's heads at 8 x 512), K9 at every
+                width of ``RMS_WIDTHS`` up to 8192, both forms, 4 and
+                1000 rows and ``RMS_BWD_LONG`` (musicgen's 4096 x 1536
+                among them); the forward with lse bit for bit the
                 forward without, two backward runs bit for bit, and the
                 forms without a backward (G 128, width 16384) refused.
                 (b) smollm-135m's train step at full width and depth,
@@ -276,17 +303,24 @@ Phases, in order; any failure exits non-zero (nothing is caught):
                 bit for bit, chunk 256, N 256 and fp16 refused; through
                 ``ssd_scan`` with a gradient, the forward bit for bit the
                 forward without.  Then mamba2-370m's train step at full
-                width, cut to ``MAMBA_TRAIN_LAYERS`` layers, the same
-                three steps on the kernels against the plain path
-                (``KernelPolicy(ssd="chunked", rmsnorm="ref")``), K8
-                forward and backward once per layer each step.  (c) The
+                width, cut to ``MAMBA_TRAIN_LAYERS`` layers, and
+                musicgen-medium's and zamba2-1.2b's, cut to
+                ``ZOO_TRAIN_LAYERS``, the same three steps on the kernels
+                against the plain path (``KernelPolicy(attention="ref",
+                rmsnorm="ref", ssd="chunked")``; K8's backward cases
+                include zamba2's heads), each kernel launched
+                ``lm_train_launches`` times a step (K8 forward and
+                backward once a Mamba2 layer).  (c) The
                 main paths ``repro_torch.launch.train`` (``TRAIN_ARGV``:
                 smollm-135m, 24 steps of 8 x 512, bf16, FROST on; and
                 ``MAMBA_TRAIN_ARGV``: mamba2-370m at full width and depth,
-                12 steps of 8 x 512): the ``[frost]`` and ``[frost-ctrl]``
+                12 steps of 8 x 512; musicgen-medium and zamba2-1.2b at
+                full width and depth, ``ZOO_TRAIN_STEPS`` steps of 8 x
+                512): the ``[frost]`` and ``[frost-ctrl]``
                 lines, a loss below its first step's, steps/s, tokens/s
-                and peak memory, K4 (K8 for mamba2) and K9 forward and
-                backward on every layer of every step, exactly.  (d) The
+                and peak memory, K4, K8 and K9 forward and backward on
+                every layer of every step, exactly (``lm_train_launches``).
+                (d) The
                 backward kernels' times at smollm's training shapes beside
                 their plain twins, the library's backward through autograd
                 (SDPA's, ``F.rms_norm``'s) and the bound (K4's backward:
@@ -299,7 +333,8 @@ Phases, in order; any failure exits non-zero (nothing is caught):
                 of its launches apart beside the CUDA-core design's
                 (``EARLIER_SSD_LAUNCHES``), no library call; its bf16
                 tensor-core kernels' registers, shared memory and blocks
-                an SM;
+                an SM; K9's backward at musicgen's 4096 x 1536 and K8's
+                at zamba2's heads at 8 x 512 (``zoo_backward_timings``);
   8. CNN zoo  — the paper's 16 CIFAR models (``repro_torch.models.cnn``)
                 at their published widths on 32x32x3 ``CifarBatches``
                 images in fp32, random weights from ``bridge.init_cnn``
@@ -446,11 +481,24 @@ LLAVA_HEADS = dict(Hq=56, Hkv=8, D=128)
 # / 32 of 64, G 1)
 PHI_HEADS = dict(Hq=32, Hkv=8, D=128)
 STABLELM_HEADS = dict(Hq=32, Hkv=32, D=64)
+# musicgen-medium's attention (24 / 24 heads of 64, G 1) and zamba2-1.2b's
+# shared block's (32 / 32 of 64, stablelm's heads) and Mamba2 layers' (H
+# 64, P 64, N 64: mamba2-370m runs H 32, N 128)
+MUSICGEN_HEADS = dict(Hq=24, Hkv=24, D=64)
+ZAMBA_HEADS = STABLELM_HEADS
+ZAMBA_SSM = dict(H=64, P=64, N=64)
+# zamba2's poisson path decodes its shared block against the slots' own
+# linear buffers, as rings of max_len 32 + 16 = 48 rows that never wrap
+# (the ring sweep, one position per row, no window, 1 split); a row past
+# its buffer is a chunk's overrun after its budget
+ZAMBA_SHARED = dict(B=4, C=48, **ZAMBA_HEADS)
+ZAMBA_SHARED_POS = [20, 31, 40, 47]
 # phi3.5-moe at full width cut in depth to fit one card: 24 of its 32
 # layers (58.6 GiB of bf16 weights; 32 are 78.0 GiB)
 PHI_LAYERS = 24
-# the fp32 references of phase 3 cut stablelm, h2o-danube-3, phi3.5-moe
-# and llava-next to 2 layers at full width
+# the fp32 references of phase 3 cut stablelm, h2o-danube-3, phi3.5-moe,
+# llava-next and musicgen to 2 layers at full width, and zamba2 to one
+# unit of 2 Mamba2 layers and its shared block
 ZOO_REF_LAYERS = 2
 # deepseek-v2 at full width cut in depth: 8 layers (1 dense + 7 MoE,
 # 54.1 GiB of bf16 weights) on the main paths, 3 (1 dense + 2 MoE, about
@@ -844,8 +892,9 @@ def check_kernels(torch, np, dev, da, ops):
     ]
     # the heads of the poisson paths whose prefix hits reach the paged
     # sweeps: phi3.5-moe 32 / 8 and llava-next 56 / 8 of 128, stablelm 32
-    # / 32 of 64 (G 1)
-    for heads in (PHI_HEADS, LLAVA_HEADS, STABLELM_HEADS):
+    # / 32 of 64 (G 1); musicgen's 24 / 24 of 64 (G 1), decode only on its
+    # path (no prefix cache)
+    for heads in (PHI_HEADS, LLAVA_HEADS, STABLELM_HEADS, MUSICGEN_HEADS):
         form = f"{heads['Hq']}/{heads['Hkv']} D {heads['D']}"
         for dtype in ("bfloat16", "float32"):
             cases += [(f"{form} {dtype} decode", dict(main, **heads),
@@ -935,7 +984,8 @@ def paged_form(label, shp):
     for form in ("deep", "gemma2"):
         if label.startswith(form):
             return form
-    return {(56, 8): "G 7", (32, 32): "G 1"}.get((shp["Hq"], shp["Hkv"]))
+    return {(56, 8): "G 7", (32, 32): "G 1", (24, 24): "G 1"}.get(
+        (shp["Hq"], shp["Hkv"]))
 
 
 def check_table_tail(torch, np, dev, da, shp):
@@ -1062,7 +1112,8 @@ def check_ring_kernels(torch, np, dev, da, ops, errs):
     that straddle 16-slot tiles, wrapped verify rows that differ inside one
     running block, G 7 with Q 4 (two row tiles), G 1, per-row positions
     with the window (h2o's 4096, and the engine's private rings of 48
-    slots), cap 50."""
+    slots), cap 50; zamba2's shared buffers (48 rows a slot, per-row
+    positions, no window, a row past its buffer)."""
     main = dict(B=BATCH, Hq=9, Hkv=3, D=64, C=PLEN + GEN)
     deep = dict(B=4, Hq=9, Hkv=3, D=64, C=4096)
     h2o = dict(B=4, C=H2O_WINDOW, **H2O_HEADS)
@@ -1109,9 +1160,11 @@ def check_ring_kernels(torch, np, dev, da, ops, errs):
     ]
     # the zoo's batch paths at their own shapes, mid-run (pos 528) and
     # wrapped: h2o 4 x 545 (32 / 8 of 120), stablelm 8 x 545 (32 / 32 of
-    # 64, G 1), phi3.5 and llava 4 x 545 (32 / 8 and 56 / 8 of 128, G 7)
+    # 64, G 1; zamba2's shared block's rings too), phi3.5 and llava 4 x
+    # 545 (32 / 8 and 56 / 8 of 128, G 7), musicgen 8 x 545 (24 / 24 of
+    # 64, G 1)
     for B, heads in ((4, H2O_HEADS), (BATCH, STABLELM_HEADS), (4, PHI_HEADS),
-                     (4, LLAVA_HEADS)):
+                     (4, LLAVA_HEADS), (BATCH, MUSICGEN_HEADS)):
         shp = dict(B=B, C=PLEN + GEN, **heads)
         form = (f"batch {B} x {PLEN + GEN} {heads['Hq']}/{heads['Hkv']} "
                 f"D {heads['D']}")
@@ -1146,7 +1199,13 @@ def check_ring_kernels(torch, np, dev, da, ops, errs):
             (f"head_dim 120 private rings {dtype} decode", PRIVATE_RING,
              PRIVATE_POS, 1, dtype, {"window": H2O_WINDOW}),
             (f"head_dim 120 private rings wrapped {dtype} decode",
-             PRIVATE_RING, [60, 95, 47, 200], 1, dtype, {"window": 40})]
+             PRIVATE_RING, [60, 95, 47, 200], 1, dtype, {"window": 40}),
+            # zamba2's shared buffers on its poisson path: 48 rows a slot,
+            # one position per row, no window; row 2 past its buffer
+            (f"zamba2 shared buffers {dtype} decode", ZAMBA_SHARED,
+             ZAMBA_SHARED_POS, 1, dtype, {}),
+            (f"zamba2 shared buffers overrun {dtype} decode", ZAMBA_SHARED,
+             [0, 47, 50, 13], 1, dtype, {})]
     for i, (label, shp, pos, Q, dtype, kw) in enumerate(cases):
         c = make_ring_case(torch, np, dev, pos=pos, Q=Q, dtype=dtype,
                            seed=200 + i, **shp)
@@ -1464,9 +1523,16 @@ def check_prefill_kernels(torch, np, dev, fa, rms, ops, common, errs):
          g7),
         ("llava G 7 ragged Sq 37", dict(LLAVA_HEADS, B=3, Sq=37, Sk=37), {},
          g7),
-        # stablelm's G 1: 128 positions a block
+        # stablelm's G 1: 128 positions a block (zamba2's shared block's
+        # heads too, at its train batch), musicgen's 24 / 24 of 64
         ("stablelm G 1 2 x 512", dict(STABLELM_HEADS, B=2, Sq=512, Sk=512),
          {}, d64),
+        ("zamba2 G 1 8 x 512", dict(ZAMBA_HEADS, B=BATCH, Sq=PLEN, Sk=PLEN),
+         {}, d64),
+        ("musicgen G 1 8 x 512", dict(MUSICGEN_HEADS, B=BATCH, Sq=PLEN,
+                                      Sk=PLEN), {}, d64),
+        ("musicgen G 1 ragged Sq 37", dict(MUSICGEN_HEADS, B=3, Sq=37,
+                                           Sk=37), {}, d64),
         # the tensor-core kernel's tile edges: 64-key tiles, 128 rows
         ("Sk 65, one key past a tile", dict(gem, B=2, Sq=65, Sk=65),
          GEMMA_ATTN, g_long),
@@ -1591,7 +1657,8 @@ def ssd_case(torch, np, dev, *, B, S, dtype, seed, G=1, D=True, init=False,
     return inp, (r(B, H, P, N) if init else None)
 
 
-# K8's phase-2 cases beside mamba2-370m's heads: (label, shape, chunk).
+# K8's phase-2 cases beside mamba2-370m's heads (zamba2-1.2b's last):
+# (label, shape, chunk).
 # The first five came with the CUDA-core kernel; the rest reach the
 # tensor-core kernels' edges: chunks padded inside to a multiple of 16 (16
 # is the smoke config's, 37 and 100 are not multiples), G 4, one step with
@@ -1615,6 +1682,14 @@ SSD_CASES = [
     ("1 x 32, G 4, initial state", dict(B=1, S=32, G=4, init=True), 128),
     ("2 x 600, chunk 1 (groups of chunks), initial state",
      dict(B=2, S=600, init=True), 1),
+    # zamba2-1.2b's heads (H 64, P 64, N 64): its train batch and prefill,
+    # a ragged prompt with an initial state, G 2
+    ("zamba2 8 x 512 (H 64, N 64)", dict(B=BATCH, S=PLEN, **ZAMBA_SSM),
+     128),
+    ("zamba2 1 x 37 (H 64, N 64), initial state",
+     dict(B=1, S=37, init=True, **ZAMBA_SSM), 128),
+    ("zamba2 2 x 300 (H 64, N 64), G 2, chunk 100",
+     dict(B=2, S=300, G=2, **ZAMBA_SSM), 100),
 ]
 
 
@@ -2295,9 +2370,11 @@ def zoo_reference(torch, np, dev, full, tfm, serving, steps, bridge, label,
                   n_layers=ZOO_REF_LAYERS, perturb=None):
     """Phase 3, a model at full width in fp32, cut to ``n_layers`` layers,
     on the kernels and on the plain path: the static batch of ``batch`` x
-    ``plen`` prompt tokens + ``gen`` new, then the engine on ``reqs``.
-    Greedy streams equal, every logits call (its last position) within
-    1e-3, every request finishing its budget.  ``ring``: the window's ring
+    ``plen`` prompt tokens (of ``n_codebooks`` codes each for a codebook
+    model) + ``gen`` new, then the engine on ``reqs`` (prefix hits
+    required of a model the prefix cache serves).  Greedy streams equal,
+    every logits call (its last position) within 1e-3, every request
+    finishing its budget.  ``ring``: the window's ring
     size, which the batch's rings must hold and wrap; ``perturb``: called
     on the drawn parameters before they are prepared."""
     cfg = dataclasses.replace(full, n_layers=n_layers, dtype="float32")
@@ -2307,7 +2384,9 @@ def zoo_reference(torch, np, dev, full, tfm, serving, steps, bridge, label,
         perturb(params)
     params = tfm.prepare_params(params, cfg)
     prompts = torch.tensor(np.random.default_rng(seed).integers(
-        0, cfg.vocab_size, (batch, plen)), dtype=torch.int32, device=dev)
+        0, cfg.vocab_size, (batch, plen) + ((cfg.n_codebooks,)
+                                            if cfg.n_codebooks else ())),
+        dtype=torch.int32, device=dev)
 
     def compare(what, streams, calls):
         if not all(np.array_equal(a, b)
@@ -2358,7 +2437,8 @@ def zoo_reference(torch, np, dev, full, tfm, serving, steps, bridge, label,
         streams[backend] = [r.tokens for r in rep.results]
         calls[backend] = tap.calls
         reps[backend] = rep
-    if not ring and reps["cuda"].prefill_tokens_saved <= 0:
+    if not tfm.chunked_prefill_blockers(cfg) \
+            and reps["cuda"].prefill_tokens_saved <= 0:
         fail(f"{label} reference engine: no prefix-cache hit")
     err = compare("engine", streams, calls)
     longest = max(r.prompt_len + r.n_tokens for r in reps["cuda"].results)
@@ -2377,7 +2457,11 @@ def zoo_references(torch, np, dev, get_arch, tfm, serving, steps, bridge):
     (the private rings wrap at inject and in decode); stablelm, phi3.5
     and llava on 2 x 512 + 16 new and 6 Poisson requests over 4 slots with
     2 shared 21-token prompt heads (prefix hits run the paged verify
-    sweep)."""
+    sweep); musicgen (G 1 on the paged and ring sweeps, four codebooks)
+    and zamba2 (one unit: 2 Mamba2 layers at N 64 and its shared block,
+    whose engine buffers decode on the ring sweep with per-row positions)
+    on the same batch and 6 Poisson requests without shared heads (the
+    prefix cache does not serve them)."""
     h2o = get_arch("h2o-danube-3-4b").config
     reqs, ecfg = long_trace(serving, np.random.default_rng(12),
                             h2o.vocab_size)
@@ -2396,6 +2480,20 @@ def zoo_references(torch, np, dev, get_arch, tfm, serving, steps, bridge):
         zoo_reference(
             torch, np, dev, full, tfm, serving, steps, bridge, arch,
             seed=14 + i, batch=2, plen=PLEN, gen=16, reqs=reqs,
+            ecfg=serving.EngineConfig(n_slots=4, page_size=16, max_len=64,
+                                      decode_chunk=4,
+                                      cache_dtype="float32"))
+        torch.cuda.empty_cache()
+    for i, arch in enumerate(("musicgen-medium", "zamba2-1.2b")):
+        full = get_arch(arch).config
+        reqs = serving.poisson_trace(6, rate_per_step=0.5, seed=15,
+                                     vocab_size=full.vocab_size,
+                                     prompt_len=(8, 24),
+                                     max_new_tokens=(6, 12),
+                                     n_codebooks=full.n_codebooks)
+        zoo_reference(
+            torch, np, dev, full, tfm, serving, steps, bridge, arch,
+            seed=17 + i, batch=2, plen=PLEN, gen=16, reqs=reqs,
             ecfg=serving.EngineConfig(n_slots=4, page_size=16, max_len=64,
                                       decode_chunk=4,
                                       cache_dtype="float32"))
@@ -3031,20 +3129,39 @@ def private_ring_timings(torch, np, dev, da, plain=True):
     """Phase 5, K5a at the shape the engine's private rings launch it on
     h2o's poisson path (``PRIVATE_RING``, window 4096), beside its bound
     and, with ``plain``, its plain version and SDPA."""
-    c = make_ring_case(torch, np, dev, pos=PRIVATE_POS, Q=1,
-                       dtype="bfloat16", seed=310, **PRIVATE_RING)
+    return {"ring_attention_sweep (decode) D 120 private rings": private_row(
+        torch, np, dev, da, PRIVATE_RING, PRIVATE_POS, H2O_WINDOW, "h2o",
+        "ring_attention_sweep (decode) D 120", plain)}
+
+
+def shared_buffer_timings(torch, np, dev, da):
+    """Phase 5, K5a at the shape zamba2's poisson path launches it on its
+    shared block's buffers (``ZAMBA_SHARED``, no window), as
+    ``private_ring_timings``; apart from ``ring_rows``, whose rows
+    tools/ring_ab.py compares between checkouts."""
+    return {"ring_attention_sweep (decode) D 64 zamba2 shared buffers":
+            private_row(torch, np, dev, da, ZAMBA_SHARED, ZAMBA_SHARED_POS,
+                        0, "zamba2", "ring_attention_sweep (decode)", True)}
+
+
+def private_row(torch, np, dev, da, shp, pos, window, family, err, plain):
+    """A kernels-line row of K5a over per-slot rings with one position per
+    row, 1 split: the kernel, its bound and, with ``plain``, its plain
+    version and SDPA."""
+    c = make_ring_case(torch, np, dev, pos=pos, Q=1, dtype="bfloat16",
+                       seed=310, **shp)
     args, _ = ring_args(c, False)
-    kw = dict(window=H2O_WINDOW, n_splits=1, block_k=256)
+    kw = dict(window=window, n_splits=1, block_k=256)
     ms = time_ms(torch, lambda: da.ring_attention_sweep(*args, **kw))
     pl = (time_ms(torch, lambda: da.ring_attention_sweep_torch(*args, **kw),
                   iters=5, reps=10) if plain else None)
     lib = (time_ms(torch, ring_sdpa_yardstick(torch, c, False))
            if plain else None)
     b_ms, b_by = bound(*ring_work(torch, c, 1, False))
-    return {"ring_attention_sweep (decode) D 120 private rings": dict(
-        ms=ms, plain_ms=pl, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
-        n_splits=1, entry="ring_attention_sweep (decode)", family="h2o",
-        err="ring_attention_sweep (decode) D 120")}
+    return dict(ms=ms, plain_ms=pl, library_ms=lib, bound_ms=b_ms,
+                bound_by=b_by, n_splits=1,
+                entry="ring_attention_sweep (decode)", family=family,
+                err=err)
 
 
 def int8_step_cost(torch, np, dev, cfg, tfm, steps, bridge):
@@ -3177,18 +3294,26 @@ RMS_TIMED = (("gemma2 2048 x 4608", 2048, 4608, True),
                for fam, d in (("stablelm", 2048), ("h2o", 3840),
                               ("phi3.5", 4096), ("llava", 7168))
                for n in (4, 8)))
+# K9's rows at musicgen-medium's width (1536): its prefill of 8 x 512
+# rows (the row "rmsnorm d 1536") and its decode steps;
+# apart from ``RMS_TIMED``, whose rows tools/rmsnorm_ab.py compares
+# between checkouts
+RMS_TIMED_NEW = (("musicgen 4096 x 1536", 4096, 1536, False),
+                 ("musicgen decode 4 x 1536", 4, 1536, False),
+                 ("musicgen decode 8 x 1536", 8, 1536, False))
 
 
-def rms_rows(torch, np, dev, rms, common, plain=True, library=None):
-    """K9 at ``RMS_TIMED`` (bf16 x, fp32 scale): the kernel's time, with
-    ``plain`` its plain version's, with ``library`` (default: ``plain``)
-    F.rms_norm's (the library yardstick, never called by the port),
-    beside the bound, by label."""
+def rms_rows(torch, np, dev, rms, common, plain=True, library=None,
+             table=RMS_TIMED):
+    """K9 at ``table`` (``RMS_TIMED`` by default; bf16 x, fp32 scale): the
+    kernel's time, with ``plain`` its plain version's, with ``library``
+    (default: ``plain``) F.rms_norm's (the library yardstick, never called
+    by the port), beside the bound, by label."""
     library = plain if library is None else library
     F = torch.nn.functional
     rng = np.random.default_rng(700)
     out = {}
-    for label, rows, d, gemma in RMS_TIMED:
+    for label, rows, d, gemma in table:
         x = torch.tensor(rng.standard_normal((rows, d)), dtype=torch.float32,
                          device=dev).to(torch.bfloat16)
         w = torch.tensor(0.1 * rng.standard_normal(d), dtype=torch.float32,
@@ -3210,13 +3335,17 @@ def rms_rows(torch, np, dev, rms, common, plain=True, library=None):
 
 
 def prefill_timings(torch, np, dev, fa, rms, ops, common):
-    """Phase 5, K4 (``k4_timings``) and K9 at ``RMS_TIMED``: gemma2's 2048
-    prefill rows of 4608 (gemma form, the JSON row), smollm's 4096 rows of
-    576, the prefill rows of stablelm (8 x 512 of 2048), h2o (3840),
-    phi3.5 (4096) and llava (7168) (rows of their own), and decode steps
-    of 4 and 8 rows (gemma2's at 4608, the zoo's)."""
+    """Phase 5, K4 (``k4_timings``) and K9 at ``RMS_TIMED`` and
+    ``RMS_TIMED_NEW``: gemma2's 2048 prefill rows of 4608 (gemma form, the
+    JSON row), smollm's 4096 rows of 576, the prefill rows of stablelm (8
+    x 512 of 2048, zamba2's width too, whose launches its row counts), h2o
+    (3840), phi3.5 (4096), llava (7168) and musicgen (1536) (rows of their
+    own), and decode steps of 4 and 8 rows (gemma2's at 4608, the
+    zoo's)."""
     out = k4_timings(torch, np, dev, fa, ops)
-    for label, t in rms_rows(torch, np, dev, rms, common).items():
+    rows = rms_rows(torch, np, dev, rms, common)
+    rows.update(rms_rows(torch, np, dev, rms, common, table=RMS_TIMED_NEW))
+    for label, t in rows.items():
         family, d = label.split()[0], t["d"]
         lib = t["library_ms"]
         lib_s = "n/a" if lib is None else f"{lib * 1e3:.1f} us"
@@ -3229,7 +3358,8 @@ def prefill_timings(torch, np, dev, fa, rms, ops, common):
         if label == RMS_TIMED[0][0]:
             out["rmsnorm"] = row
         elif t["rows"] > 8 and family != "smollm":
-            out[f"rmsnorm d {d}"] = dict(row, entry="rmsnorm", family=family)
+            fams = (family, "zamba2") if family == "stablelm" else family
+            out[f"rmsnorm d {d}"] = dict(row, entry="rmsnorm", family=fams)
     return out
 
 
@@ -3254,21 +3384,28 @@ def ssd_work(B, S, H, P, G, N, es, chunk=128, init=False):
 # paths' prompts are 16 to 32 tokens, prefilled one request at a time)
 SSD_TIMED = (("8 x 512", BATCH, PLEN), ("2 x 4000", 2, M_LONG),
              ("1 x 32", 1, 32))
+# K8 at zamba2-1.2b's heads (H 64, P 64, N 64): its batch path's prefill
+# and its train step's batch
+SSD_ZAMBA_TIMED = (("8 x 512", BATCH, PLEN),)
+MAMBA_SSM = dict(H=32, P=64, N=128)
 
 
-def ssd_rows(torch, np, dev, ss, plain=True):
-    """K8 at ``SSD_TIMED``: the kernel's time and, with ``plain``, its
-    plain version's, beside the bound, by label."""
+def ssd_rows(torch, np, dev, ss, plain=True, table=SSD_TIMED,
+             heads=MAMBA_SSM):
+    """K8 at ``table`` (``SSD_TIMED`` by default) and ``heads`` (mamba2's
+    by default): the kernel's time and, with ``plain``, its plain
+    version's, beside the bound, by label."""
     out = {}
-    for i, (label, B, S) in enumerate(SSD_TIMED):
+    for i, (label, B, S) in enumerate(table):
         inp, _ = ssd_case(torch, np, dev, B=B, S=S, dtype="bfloat16",
-                          seed=900 + i)
+                          seed=900 + i, **heads)
         reps = 20 if S <= 1024 else 4
         ms = time_ms(torch, lambda: ss.ssd_scan(**inp, return_state=True),
                      iters=5, reps=reps)
         plain_ms = (time_ms(torch, lambda: ss.ssd_scan_torch(
             **inp, return_state=True), iters=3, reps=3) if plain else None)
-        b_ms, b_by = bound(*ssd_work(B, S, 32, 64, 1, 128, 2))
+        b_ms, b_by = bound(*ssd_work(B, S, heads["H"], heads["P"], 1,
+                                     heads["N"], 2))
         out[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                           bound_by=b_by)
         del inp
@@ -3276,20 +3413,27 @@ def ssd_rows(torch, np, dev, ss, plain=True):
 
 
 def ssd_timings(torch, np, dev, ss):
-    """Phase 5, K8 at ``SSD_TIMED``: 8 x 512 is the JSON row
-    "ssd_scan", the others rows of their own.  No single PyTorch call
-    computes the scan: no library yardstick."""
+    """Phase 5, K8 at ``SSD_TIMED`` (mamba2's heads): 8 x 512 is the JSON
+    row "ssd_scan", the others rows of their own; and at
+    ``SSD_ZAMBA_TIMED`` (zamba2's heads, rows "ssd_scan zamba2 ...").  No
+    single PyTorch call computes the scan: no library yardstick."""
     out = {}
-    for label, t in ssd_rows(torch, np, dev, ss).items():
-        say(f"K8 {label}: kernel {t['ms'] * 1e3:.1f} us, plain "
-            f"{t['plain_ms'] * 1e3:.1f} us, library n/a, bound "
-            f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']})")
-        row = dict(t, library_ms=None, shape=f"mamba2 {label}")
-        if label == SSD_TIMED[0][0]:
-            out["ssd_scan"] = row
-        else:
-            out[f"ssd_scan {label}"] = dict(row, entry="ssd_scan",
-                                            family="mamba2", err="ssd_scan")
+    for family, rows in (
+            ("mamba2", ssd_rows(torch, np, dev, ss)),
+            ("zamba2", ssd_rows(torch, np, dev, ss, table=SSD_ZAMBA_TIMED,
+                                heads=ZAMBA_SSM))):
+        for label, t in rows.items():
+            say(f"K8 {family} {label}: kernel {t['ms'] * 1e3:.1f} us, plain "
+                f"{t['plain_ms'] * 1e3:.1f} us, library n/a, bound "
+                f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']})")
+            row = dict(t, library_ms=None, shape=f"{family} {label}")
+            if family == "mamba2" and label == SSD_TIMED[0][0]:
+                out["ssd_scan"] = row
+            else:
+                name = (f"ssd_scan {label}" if family == "mamba2"
+                        else f"ssd_scan {family} {label}")
+                out[name] = dict(row, entry="ssd_scan", family=family,
+                                 err="ssd_scan")
     return out
 
 
@@ -3719,11 +3863,17 @@ FA_BWD_CASES = [
      {"logit_cap": 30.0}),
     ("q_offset 63, Sq 37 over 100 keys",
      dict(B=2, Sq=37, Sk=100, Hq=9, Hkv=3, D=64), {"q_offset": 63}),
+    # G 1 at D 64: musicgen's 24 / 24 and zamba2's shared block's 32 / 32
+    # at their 8 x 512 training batch
+    ("musicgen 8 x 512 (64, 64) G 1",
+     dict(B=BATCH, Sq=PLEN, Sk=PLEN, **MUSICGEN_HEADS), {}),
+    ("zamba2 8 x 512 (64, 64) G 1",
+     dict(B=BATCH, Sq=PLEN, Sk=PLEN, **ZAMBA_HEADS), {}),
 ]
 # K9's backward rows: every width the zoo normalizes and the widths of
 # each forward launch shape up to 8192, at a few rows and at many
 RMS_BWD_ROWS = (4, 1000)
-RMS_BWD_LONG = ((65536, 576), (4096, 4608))
+RMS_BWD_LONG = ((65536, 576), (4096, 4608), (BATCH * PLEN, 1536))
 
 
 def rel_err(a, b):
@@ -3832,7 +3982,8 @@ def check_rms_backward(torch, np, dev, rms, common, errs):
                          f"dx, d scale relative errors {rel}")
                 worst[dtype] = max(worst[dtype], max(rel))
                 note(errs, max(float((a.float() - b.float()).abs().max())
-                               for a, b in zip(got, want)), "rmsnorm_bwd")
+                               for a, b in zip(got, want)), "rmsnorm_bwd",
+                     f"d {d}")
     say(f"K9 backward: {len(shapes) * 4} cases, largest relative errors "
         f"bf16 {worst['bfloat16']:.2e}, fp32 {worst['float32']:.2e}")
     x = torch.ones((4, 16384), device=dev, requires_grad=True)
@@ -3945,8 +4096,24 @@ def backward_timings(torch, np, dev, fa, rms, plain=True):
         ms=ms, plain_ms=plain_ms, library_ms=lib, bound_ms=b_ms,
         bound_by=b_by, shape=label, split=split)}
     del q, k, v, out, lse, dout, qt, kt, vt, dot
+    rows["rmsnorm_bwd"] = rms_bwd_row(torch, np, dev, rms, "smollm",
+                                      BATCH * PLEN, 576, plain)
+    for name, row in rows.items():
+        earlier = EARLIER_LAUNCHES[name]
+        say(f"{name} launches, us a launch: " + ", ".join(
+            f"{label} {t:.1f} (before: {earlier[label]:.1f})"
+            for label, t in row["split"].items()))
+    return rows
+
+
+def rms_bwd_row(torch, np, dev, rms, family, n, d, plain=True):
+    """K9's backward at ``n`` rows of width ``d`` (bf16 x, fp32 scale):
+    one call and each of its launches apart, beside its plain twin
+    (``plain``), F.rms_norm's backward through autograd and the bound (x
+    and dy read, dx written in bf16, rstd read, the scale read and its
+    gradient written in fp32; 10 flops an element)."""
+    F = torch.nn.functional
     rng = np.random.default_rng(991)
-    n, d = BATCH * PLEN, 576
     x = torch.tensor(rng.standard_normal((n, d)), dtype=torch.float32,
                      device=dev).to(torch.bfloat16)
     w = torch.tensor(0.1 * rng.standard_normal(d), dtype=torch.float32,
@@ -3968,27 +4135,21 @@ def backward_timings(torch, np, dev, fa, rms, plain=True):
                                                     eps=1e-6), (xl, wl), dy)
     b_ms, b_by = bound(3 * x.numel() * 2 + 4 * n + 2 * 4 * d,
                        10.0 * x.numel())
-    label = f"smollm {n} x {d}"
+    label = f"{family} {n} x {d}"
     lib_s = "n/a" if lib is None else f"{lib * 1e3:.1f} us"
     plain_s = "n/a" if plain_ms is None else f"{plain_ms * 1e3:.1f} us"
     say(f"K9 backward {label}: kernel {ms * 1e3:.1f} us, plain twin "
         f"{plain_s}, F.rms_norm backward (autograd) {lib_s}, "
-        f"bound {b_ms * 1e3:.3f} us ({b_by})")
-    rows["rmsnorm_bwd"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib,
-                               bound_ms=b_ms, bound_by=b_by, shape=label,
-                               split=split)
-    for name, row in rows.items():
-        earlier = EARLIER_LAUNCHES[name]
-        say(f"{name} launches, us a launch: " + ", ".join(
-            f"{label} {t:.1f} (before: {earlier[label]:.1f})"
-            for label, t in row["split"].items()))
-    return rows
+        f"bound {b_ms * 1e3:.3f} us ({b_by}); launches, us each: "
+        + ", ".join(f"{k} {t:.1f}" for k, t in split.items()))
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib, bound_ms=b_ms,
+                bound_by=b_by, shape=label, split=split)
 
 
 # K8's backward cases at mamba2-370m's heads (H 32, P 64, N 128): (label,
 # ``ssd_case`` shape, chunk, with dh_T): the train step's 8 x 512, the
 # long batch's 2 x 4000 (ragged, 32 chunks), one step, 31 steps at G 2, a
-# chunk of 37 over 300 steps
+# chunk of 37 over 300 steps; then at zamba2-1.2b's (H 64, N 64)
 SSD_BWD_CASES = [
     ("8 x 512", dict(B=BATCH, S=PLEN), 128, False),
     ("2 x 4000 (ragged, 32 chunks), initial state, dh_T",
@@ -3998,6 +4159,11 @@ SSD_BWD_CASES = [
     ("2 x 31, G 2, dh_T", dict(B=2, S=31, G=2), 128, True),
     ("2 x 300, chunk 37, G 2, no D, initial state",
      dict(B=2, S=300, G=2, D=False, init=True), 37, False),
+    # zamba2-1.2b's heads (H 64, P 64, N 64)
+    ("zamba2 8 x 512 (H 64, N 64)", dict(B=BATCH, S=PLEN, **ZAMBA_SSM), 128,
+     False),
+    ("zamba2 1 x 37 (H 64, N 64), initial state, dh_T",
+     dict(B=1, S=37, init=True, **ZAMBA_SSM), 128, True),
 ]
 SSD_GRADS = ("dx", "ddt", "dA", "dB", "dC", "dD", "dh0")
 
@@ -4140,10 +4306,10 @@ EARLIER_SSD_LAUNCHES = {
 
 
 def ssd_bwd_bound(B, S, H=32, P=64, G=1, N=128):
-    """K8's backward's bound at mamba2's heads, bf16: x, B, C and dy read
-    and dx, dB and dC written in 2 bytes, dt read and ddt written in 4,
-    and twice the forward's products (``ssd_work``).  (ms, "bytes" or
-    "operations")."""
+    """K8's backward's bound at these heads (mamba2's by default), bf16:
+    x, B, C and dy read and dx, dB and dC written in 2 bytes, dt read and
+    ddt written in 4, and twice the forward's products (``ssd_work``).
+    (ms, "bytes" or "operations")."""
     nbytes = 2 * (3 * B * S * H * P + 4 * B * S * G * N) + 4 * 2 * B * S * H
     return bound(nbytes, 2 * ssd_work(B, S, H, P, G, N, 2)[1])
 
@@ -4166,35 +4332,63 @@ def ssd_backward_timings(torch, np, dev, ss, plain=True):
             f"{occ['blocks_per_sm']} blocks an SM")
     out = {}
     for i, (label, B, S) in enumerate(SSD_BWD_TIMED):
-        inp, _ = ssd_case(torch, np, dev, B=B, S=S, dtype="bfloat16",
-                          seed=1300 + i)
-        dy, _ = ssd_bwd_inputs(torch, dev, inp, 1310 + i, False)
-
-        def call():
-            return ss.ssd_scan_bwd(**inp, dy=dy)
-        reps = 10 if S <= 1024 else 3
-        ms = time_ms(torch, call, iters=5, reps=reps)
-        split = launch_split(torch, call, SSD_BWD_LAUNCHES, iters=10)
-        plain_ms = (time_ms(torch, lambda: ss.ssd_scan_bwd_torch(
-            **inp, dy=dy), iters=2, reps=2) if plain else None)
-        b_ms, b_by = ssd_bwd_bound(B, S)
-        plain_s = "n/a" if plain_ms is None else f"{plain_ms * 1e3:.1f} us"
-        say(f"K8 backward mamba2 {label}: kernels {ms * 1e3:.1f} us, plain "
-            f"twin {plain_s}, library n/a, bound {b_ms * 1e3:.2f} us "
-            f"({b_by}); launches, us each (CUDA cores before): " + ", ".join(
-                f"{k} {t:.1f} "
-                f"({EARLIER_SSD_LAUNCHES.get(label, {}).get(k, 'n/a')})"
-                for k, t in split.items()))
-        row = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
-                   bound_by=b_by, shape=f"mamba2 {label}", split=split)
+        row = ssd_bwd_row(torch, np, dev, ss, "mamba2", label, B, S,
+                          MAMBA_SSM, 1300 + i, plain)
         if i == 0:
             out["ssd_scan_bwd"] = row
         else:
             out[f"ssd_scan_bwd {label}"] = dict(row, entry="ssd_scan_bwd",
                                                 err="ssd_scan_bwd")
-        del inp, dy
-        torch.cuda.empty_cache()
     return out
+
+
+def ssd_bwd_row(torch, np, dev, ss, family, label, B, S, heads, seed,
+                plain=True):
+    """K8's backward at B x S and ``heads`` (bf16, D, no initial state):
+    one call (CUDA graph replays), each of its launches apart and, with
+    ``plain``, its plain twin on the card, beside ``ssd_bwd_bound``."""
+    inp, _ = ssd_case(torch, np, dev, B=B, S=S, dtype="bfloat16", seed=seed,
+                      **heads)
+    dy, _ = ssd_bwd_inputs(torch, dev, inp, seed + 10, False)
+
+    def call():
+        return ss.ssd_scan_bwd(**inp, dy=dy)
+    reps = 10 if S <= 1024 else 3
+    ms = time_ms(torch, call, iters=5, reps=reps)
+    split = launch_split(torch, call, SSD_BWD_LAUNCHES, iters=10)
+    plain_ms = (time_ms(torch, lambda: ss.ssd_scan_bwd_torch(**inp, dy=dy),
+                        iters=2, reps=2) if plain else None)
+    b_ms, b_by = ssd_bwd_bound(B, S, heads["H"], heads["P"], 1, heads["N"])
+    plain_s = "n/a" if plain_ms is None else f"{plain_ms * 1e3:.1f} us"
+    earlier = EARLIER_SSD_LAUNCHES.get(label, {}) if family == "mamba2" \
+        else {}
+    say(f"K8 backward {family} {label}: kernels {ms * 1e3:.1f} us, plain "
+        f"twin {plain_s}, library n/a, bound {b_ms * 1e3:.2f} us "
+        f"({b_by}); launches, us each (CUDA cores before): " + ", ".join(
+            f"{k} {t:.1f} ({earlier.get(k, 'n/a')})"
+            for k, t in split.items()))
+    del inp, dy
+    torch.cuda.empty_cache()
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                bound_by=b_by, shape=f"{family} {label}", split=split)
+
+
+def zoo_backward_timings(torch, np, dev, rms, ss):
+    """Phase 7 (d), the backward rows of musicgen's and zamba2's shapes:
+    K9's at musicgen's 8 x 512 rows of 1536 and K8's at zamba2's
+    heads (H 64, P 64, N 64) at 8 x 512; their launches are those
+    launchers' (phase 7 c).  Apart from ``backward_timings`` and
+    ``ssd_backward_timings``, whose rows tools/bwd_ab.py and
+    tools/ssd_ab.py compare between checkouts."""
+    return {"rmsnorm_bwd d 1536": dict(
+                rms_bwd_row(torch, np, dev, rms, "musicgen", BATCH * PLEN,
+                            1536), entry="rmsnorm_bwd",
+                family="train musicgen"),
+            "ssd_scan_bwd zamba2 8 x 512": dict(
+                ssd_bwd_row(torch, np, dev, ss, "zamba2", "8 x 512", BATCH,
+                            PLEN, ZAMBA_SSM, 1320),
+                entry="ssd_scan_bwd", family="train zamba2",
+                err="ssd_scan_bwd")}
 
 
 # the train steps of phase 7 (b): smollm-135m at full width and depth,
@@ -4209,10 +4403,38 @@ MAMBA_TRAIN_LAYERS = 8
 # and its launcher run (c): full width and depth, 12 steps of 8 x 512
 MAMBA_TRAIN_ARGV = ["--arch", "mamba2-370m", "--steps", "12", "--frost",
                     "--batch", str(BATCH), "--seq", str(PLEN)]
+# musicgen-medium's and zamba2-1.2b's train steps of phase 7 (b): full
+# width, 4 layers (zamba2: 2 units, each with its shared block); their
+# launcher runs (c): full width and depth, 8 steps of 8 x 512
+ZOO_TRAIN_LAYERS = 4
+ZOO_TRAIN_STEPS = 8
+
+
+def zoo_train_argv(arch):
+    return ["--arch", arch, "--steps", str(ZOO_TRAIN_STEPS), "--frost",
+            "--batch", str(BATCH), "--seq", str(PLEN)]
+
+
+def lm_train_launches(cfg):
+    """Launches of K4, K9 and K8, forward and backward, a train step of
+    ``cfg``: K4 once an attention layer (zamba2: once a shared block's
+    application), K9 once a norm (a Mamba2 layer's pre-norm, an attention
+    block's two, the final one; the Mamba2 gated norm is plain torch), K8
+    once a Mamba2 layer."""
+    L = cfg.n_layers
+    if cfg.uses_ssm:
+        n_ssm = L
+        n_attn = L // cfg.hybrid_attn_every if cfg.family == "hybrid" else 0
+        n_norm = L + 2 * n_attn + 1
+    else:
+        n_attn, n_ssm, n_norm = L, 0, 2 * L + 1
+    return {"flash_attention": n_attn, "flash_attention_bwd": n_attn,
+            "rmsnorm": n_norm, "rmsnorm_bwd": n_norm, "ssd": n_ssm,
+            "ssd_bwd": n_ssm}
 
 
 def train_reference(torch, np, dev, cfg, da, steps, common, optim, data,
-                    plain_policy=None, per_step=None):
+                    plain_policy=None):
     """Phase 7 (b): a train step at full width (smollm-135m's by default),
     on the kernels (K4, or K8 for mamba2, and K9 forward and backward)
     against the same step on the plain path (``plain_policy``, by default
@@ -4220,18 +4442,13 @@ def train_reference(torch, np, dev, cfg, da, steps, common, optim, data,
     for ``TRAIN_STEPS`` steps.  fp32: every gradient of the first step
     within 1e-4 of its leaf's scale, each step's loss within 1e-5
     relative; bf16: each step's loss and gradient norm within 2e-2.  The
-    kernels' run must launch each kernel of ``per_step`` that many times a
-    step (by default K4's forward and backward once per layer and K9's
-    once per norm)."""
+    kernels' run must launch each kernel ``lm_train_launches`` times a
+    step."""
     from repro_torch.kernels.ops import KernelPolicy
-    n_norms = 2 * cfg.n_layers + 1
-    if per_step is None:
-        per_step = {"flash_attention": cfg.n_layers,
-                    "flash_attention_bwd": cfg.n_layers,
-                    "rmsnorm": n_norms, "rmsnorm_bwd": n_norms}
+    per_step = lm_train_launches(cfg)
     batches = data.TokenBatches(data.DataConfig(
         seed=0, vocab_size=cfg.vocab_size, seq_len=PLEN,
-        global_batch=BATCH))
+        global_batch=BATCH, n_codebooks=cfg.n_codebooks))
     if plain_policy is None:
         plain_policy = KernelPolicy(attention="ref", rmsnorm="ref")
     for dtype in ("float32", "bfloat16"):
@@ -4299,34 +4516,34 @@ def train_reference(torch, np, dev, cfg, da, steps, common, optim, data,
             + f"; launches {got}")
 
 
-def mamba_train_reference(torch, np, dev, da, steps, common, optim, data,
-                          get_arch):
-    """Phase 7 (b): mamba2-370m's train step at full width, cut to
-    ``MAMBA_TRAIN_LAYERS`` layers, on the kernels (K8 and K9 forward and
-    backward) against the plain path (``KernelPolicy(ssd="chunked",
-    rmsnorm="ref")``), as ``train_reference`` holds smollm's: K8's forward
-    and backward once per layer each step, K9's once per norm."""
+def zoo_train_references(torch, np, dev, da, steps, common, optim, data,
+                         get_arch):
+    """Phase 7 (b): the train steps of mamba2-370m, musicgen-medium and
+    zamba2-1.2b at full width, cut to ``MAMBA_TRAIN_LAYERS`` (the plain
+    path's autograd graph of the chunked scan stays small) and
+    ``ZOO_TRAIN_LAYERS`` layers, on the kernels against the plain path
+    (``KernelPolicy(attention="ref", rmsnorm="ref", ssd="chunked")``), as
+    ``train_reference`` holds smollm's."""
     from repro_torch.kernels.ops import KernelPolicy
-    cfg = dataclasses.replace(get_arch("mamba2-370m").config,
-                              n_layers=MAMBA_TRAIN_LAYERS)
-    n = cfg.n_layers
-    train_reference(torch, np, dev, cfg, da, steps, common, optim, data,
-                    plain_policy=KernelPolicy(ssd="chunked", rmsnorm="ref"),
-                    per_step={"ssd": n, "ssd_bwd": n, "rmsnorm": n + 1,
-                              "rmsnorm_bwd": n + 1, "flash_attention": 0,
-                              "flash_attention_bwd": 0})
-    gc.collect()
-    torch.cuda.empty_cache()
+    for arch, n_layers in (("mamba2-370m", MAMBA_TRAIN_LAYERS),
+                           ("musicgen-medium", ZOO_TRAIN_LAYERS),
+                           ("zamba2-1.2b", ZOO_TRAIN_LAYERS)):
+        cfg = dataclasses.replace(get_arch(arch).config, n_layers=n_layers)
+        train_reference(torch, np, dev, cfg, da, steps, common, optim, data,
+                        plain_policy=KernelPolicy(attention="ref",
+                                                  rmsnorm="ref",
+                                                  ssd="chunked"))
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
-def train_main_path(torch, da, train, cfg, card, argv=TRAIN_ARGV,
-                    per_step=None):
+def train_main_path(torch, da, train, cfg, card, argv=TRAIN_ARGV):
     """Phase 7 (c): ``repro_torch.launch.train`` at a model's full width
     and depth, ``argv`` (smollm-135m's ``TRAIN_ARGV`` by default, ``cfg``
     its config); launch counts zeroed just before and read just after.
     The [frost] and [frost-ctrl] lines, a loss that falls from its first
-    step, each kernel of ``per_step`` launched exactly that many times a
-    step (by default K4 and K9 forward and backward on every layer)."""
+    step, each kernel launched exactly ``lm_train_launches`` times a
+    step."""
     import contextlib
     import io
     import math
@@ -4350,12 +4567,7 @@ def train_main_path(torch, da, train, cfg, card, argv=TRAIN_ARGV,
     if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
         fail(f"train main path: loss {losses[0]} -> {losses[-1]}")
     n = rep["steps"]
-    if per_step is None:
-        per_step = {"flash_attention": cfg.n_layers,
-                    "flash_attention_bwd": cfg.n_layers,
-                    "rmsnorm": 2 * cfg.n_layers + 1,
-                    "rmsnorm_bwd": 2 * cfg.n_layers + 1}
-    want = {key: k * n for key, k in per_step.items()}
+    want = {key: k * n for key, k in lm_train_launches(cfg).items()}
     got = {key: counts[key] for key in want}
     if got != want:
         fail(f"train main path: launches {got}, expected {want}")
@@ -4730,6 +4942,14 @@ def main() -> int:
                  "--n-slots", "4", "--page-size", "16"])
 
     s_batch, s_poisson = zoo("stablelm-1.6b", BATCH)
+    # musicgen-medium (48 layers, 4 codebooks) and zamba2-1.2b (38 Mamba2
+    # layers, 19 applications of its shared block) at full width and
+    # depth; the prefix cache serves neither, so no shared heads
+    mg, zb = ["--arch", "musicgen-medium"], ["--arch", "zamba2-1.2b"]
+    batch_of = ["--traffic", "batch", "--requests", str(BATCH),
+                "--prompt-len", str(PLEN), "--gen", str(GEN)]
+    poisson_of = ["--traffic", "poisson", "--requests", "8", "--n-slots",
+                  "4", "--page-size", "16"]
     p_batch, p_poisson = zoo("phi3.5-moe-42b-a6.6b", 4)
     l_batch, l_poisson = zoo("llava-next-34b", 4)
     phi_cfg = dataclasses.replace(get_arch("phi3.5-moe-42b-a6.6b").config,
@@ -4778,7 +4998,15 @@ def main() -> int:
              ("phi3.5 batch", p_batch, ("ring_decode",) + attn, 4, GEN),
              ("phi3.5 poisson", p_poisson, paged, 8, None),
              ("llava batch", l_batch, ("ring_decode",) + attn, 4, GEN),
-             ("llava poisson", l_poisson, paged, 8, None)]
+             ("llava poisson", l_poisson, paged, 8, None),
+             ("musicgen batch", mg + batch_of, ("ring_decode",) + attn,
+              BATCH, GEN),
+             ("musicgen poisson", mg + poisson_of, ("sweep_decode",) + attn,
+              8, None),
+             ("zamba2 batch", zb + batch_of, ("ssd", "ring_decode") + attn,
+              BATCH, GEN),
+             ("zamba2 poisson", zb + poisson_of, ("ssd", "ring_decode")
+              + attn, 8, None)]
     paths = [p + (cuts.get(p[0].split()[0]),) for p in paths]
     launches = {key: 0 for key in da.LAUNCHES}
     # launches by model family (a label's first word), for the rows of a
@@ -4814,7 +5042,8 @@ def main() -> int:
                 if r.n_tokens != r.max_new_tokens:
                     fail(f"{label}: rid {r.rid} finished {r.n_tokens}/"
                          f"{r.max_new_tokens} tokens ({r.finish_reason})")
-            if not label.startswith(("gemma2", "mamba2", "h2o")) \
+            if not label.startswith(("gemma2", "mamba2", "h2o",
+                                     "musicgen", "zamba2")) \
                     and rep.prefill_tokens_saved <= 0:
                 fail(f"{label}: no prefix-cache hit, the suffix prefill "
                      "never ran")
@@ -4844,9 +5073,11 @@ def main() -> int:
                 f"measured, {rep.j_per_token:.4g} J/token (analytic H100 "
                 f"SXM model){extra}, peak {peak:.1f} GiB, launches {counts}")
         else:
-            if out["tokens"].shape != (n_req, gen):
+            want = (n_req, gen) + ((4,) if label.startswith("musicgen")
+                                   else ())
+            if out["tokens"].shape != want:
                 fail(f"{label}: generated {out['tokens'].shape}, expected "
-                     f"{(n_req, gen)}")
+                     f"{want}")
             if "spec" in label and out["spec_steps"] <= 0:
                 fail(f"{label}: no speculative step ran")
             extra = (f", acceptance {out['acceptance']:.0%}"
@@ -4860,6 +5091,7 @@ def main() -> int:
     times = paged_timings(torch, np, dev, da, ops, quant)
     times.update(timings(torch, np, dev, da, ops))
     times.update(ring_rows(torch, np, dev, da, ops, quant))
+    times.update(shared_buffer_timings(torch, np, dev, da))
     times.update(prefill_timings(torch, np, dev, fa, rms, ops, common))
     times.update(ssd_timings(torch, np, dev, ss))
     times.update(mla_timings(torch, np, dev, da, ops))
@@ -4890,21 +5122,24 @@ def main() -> int:
     bwd = check_ssd_backward(torch, np, dev, ss, errs)
     say(f"K8 backward ok: largest relative errors {bwd}")
     train_reference(torch, np, dev, cfg, da, steps, common, optim, data)
-    mamba_train_reference(torch, np, dev, da, steps, common, optim, data,
-                          get_arch)
+    zoo_train_references(torch, np, dev, da, steps, common, optim, data,
+                         get_arch)
     counts = train_main_path(torch, da, train, cfg, card)
     for key in ("flash_attention_bwd", "rmsnorm_bwd"):
         launches[key] = counts[key]
     gc.collect()
     torch.cuda.empty_cache()
-    L = mcfg.n_layers
-    counts = train_main_path(
-        torch, da, train, mcfg, card, MAMBA_TRAIN_ARGV,
-        {"ssd": L, "ssd_bwd": L, "rmsnorm": L + 1, "rmsnorm_bwd": L + 1,
-         "flash_attention": 0, "flash_attention_bwd": 0})
+    counts = train_main_path(torch, da, train, mcfg, card, MAMBA_TRAIN_ARGV)
     launches["ssd_bwd"] = counts["ssd_bwd"]
+    for arch in ("musicgen-medium", "zamba2-1.2b"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        by_family[f"train {arch.split('-')[0]}"] = train_main_path(
+            torch, da, train, get_arch(arch).config, card,
+            zoo_train_argv(arch))
     times.update(backward_timings(torch, np, dev, fa, rms))
     times.update(ssd_backward_timings(torch, np, dev, ss))
+    times.update(zoo_backward_timings(torch, np, dev, rms, ss))
     say(f"training phase in {time.perf_counter() - t_train:.1f} s")
 
     # 8. the CNN zoo ----------------------------------------------------------

@@ -118,16 +118,18 @@ def _block_shapes(cfg: ModelConfig, lead: tuple, *, moe: bool,
 
 
 def _shapes(cfg: ModelConfig) -> dict:
-    """The parameter shapes of the dense, SSM and MLA / MoE families,
-    nested as the JAX tree: the units stacked on a leading ``n_units``
-    axis, ``dense_layers`` a list of unstacked blocks."""
-    d = cfg.d_model
+    """The parameter shapes of every family, nested as the JAX tree: the
+    units stacked on a leading ``n_units`` axis, ``dense_layers`` a list
+    of unstacked blocks, the hybrid family's ``shared_attn`` one unstacked
+    block behind its (2d, d) input projection, a codebook model's embed
+    (n_cb, Vp, d) and head (n_cb, d, Vp)."""
+    d, Vp, n_cb = cfg.d_model, tfm.padded_vocab(cfg), cfg.n_codebooks
     nu = tfm.n_units(cfg)
     if cfg.uses_ssm:
         sub = _mamba_shapes(cfg, nu)
     else:
         sub = _block_shapes(cfg, (nu,), moe=cfg.uses_moe, d_ff=cfg.d_ff)
-    out = {"embed": (tfm.padded_vocab(cfg), d),
+    out = {"embed": (n_cb, Vp, d) if n_cb else (Vp, d),
            "layers": {f"sub{i}": sub for i in range(tfm.unit_size(cfg))},
            "final_norm": (d,)}
     if cfg.first_dense_layers:
@@ -135,8 +137,14 @@ def _shapes(cfg: ModelConfig) -> dict:
             _block_shapes(cfg, (), moe=False,
                           d_ff=cfg.dense_d_ff or cfg.d_ff)
             for _ in range(cfg.first_dense_layers)]
-    if not cfg.tie_embeddings:
-        out["lm_head"] = (d, tfm.padded_vocab(cfg))
+    if tfm.is_hybrid(cfg):
+        out["shared_attn"] = {"w_in": (2 * d, d),
+                              "block": _block_shapes(cfg, (), moe=False,
+                                                     d_ff=cfg.d_ff)}
+    if n_cb:
+        out["lm_head"] = (n_cb, d, Vp)
+    elif not cfg.tie_embeddings:
+        out["lm_head"] = (d, Vp)
     return out
 
 
@@ -285,8 +293,8 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator, device=None, *,
     def build(shapes, stacked=True):
         out = {}
         for key, shape in shapes.items():
-            if isinstance(shape, dict):
-                out[key] = build(shape, stacked)
+            if isinstance(shape, dict):          # shared_attn: unstacked
+                out[key] = build(shape, stacked and key != "shared_attn")
             elif isinstance(shape, list):      # unstacked: fan_in = axis 0
                 out[key] = [build(s, stacked=False) for s in shape]
             elif key in ("A_log", "dt_bias", "D", "conv_b", "conv_w"):

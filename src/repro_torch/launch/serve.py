@@ -17,6 +17,11 @@ plus ``--device``.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
         --traffic poisson --requests 8 --n-slots 4
 
+    # musicgen-medium (tokens of 4 codebooks) or zamba2-1.2b (Mamba2 layers
+    # and one shared attention block) at full width and depth
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
+        --traffic poisson --requests 8 --n-slots 4
+
     # int8 KV pages with the host-memory tier under a tight page pool
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
         --traffic poisson --shared-prefix-len 32 --prompt-pools 2 \
@@ -41,7 +46,10 @@ self-drafted tokens plus one bonus (``--drafter ngram`` or ``repeat``);
 greedy output is identical to the plain loop's.  As in the JAX launcher,
 the model's blockers decide: gemma2's windowed layers allow it on the
 batch path and refuse it in the engine (``local_global``); mamba2's
-recurrent state refuses it in both (``uses_ssm``).
+and zamba2's recurrent state refuses it in both (``uses_ssm``), and so do
+musicgen's codebooks (``n_codebooks``).  A codebook model's tokens are
+(B, S, n_cb): the batch path feeds (B, 1, n_cb) a step and samples each
+codebook over its own logits.
 
 ``--kv-dtype int8`` stores the engine's KV pages as int8 rows with per-row
 fp32 scales (a family blocked by ``int8_paged_blockers`` warns once and

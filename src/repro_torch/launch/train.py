@@ -70,10 +70,13 @@ def _step_cost(cfg: ModelConfig, B: int, S: int) -> tuple[float, float]:
     experts over their capacity buffers, the SSD scan as JAX runs it at
     this S (``ops.ssd`` under ``auto``: the sequential scan's per-step
     readout up to 64 steps or for a ragged S, else the chunked scan's
-    products), the head.  Each counts three times (forward, and the
-    backward's two products: the input's gradient and the weight's, or dq
-    / dk and dp / dv), the sequential scan's readout y = C h twice (the
-    backward's dh = C dy is an outer product, no dot)."""
+    products), the hybrid shared block's input projection (2d -> d),
+    attention and MLP once for each of its applications (a unit each),
+    the head (a codebook model's one product a codebook).  Each counts
+    three times (forward, and the backward's two products: the input's
+    gradient and the weight's, or dq / dk and dp / dv), the sequential
+    scan's readout y = C h twice (the backward's dh = C dy is an outer
+    product, no dot)."""
     T = B * S
     d = cfg.d_model
     flops = outs = 0.0
@@ -163,7 +166,13 @@ def _step_cost(cfg: ModelConfig, B: int, S: int) -> tuple[float, float]:
         else:
             attention()
             ffn(cfg.uses_moe, cfg.d_ff)
-    mm(T, d, tfm.padded_vocab(cfg))                    # the head
+    if tfm.is_hybrid(cfg):
+        for _ in range(tfm.n_units(cfg)):             # the shared block
+            mm(T, 2 * d, d)
+            attention()
+            ffn(False, cfg.d_ff)
+    for _ in range(max(cfg.n_codebooks, 1)):           # the head
+        mm(T, d, tfm.padded_vocab(cfg))
     return flops, outs
 
 
@@ -178,7 +187,8 @@ def train_step_cost(cfg: ModelConfig, batch: int, seq: int, *,
     times the attention's 4 B S^2 Hq D summed over the layers, N the
     matmul weights (a tied head counted once), T the tokens; the MoE
     counts its experts over their capacity buffers, the SSM its
-    projections and the scan's products.
+    projections and the scan's products, the hybrid family its shared
+    block once for each application.
 
     HBM bytes, an estimate: the fp32 weights, their gradients and both
     moments each read and written once (the optimizer), and each matmul's

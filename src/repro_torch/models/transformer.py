@@ -1,7 +1,12 @@
-"""The LM trunk of the port, dense GQA family with its windowed members
-(gemma2's local/global layer pairs, sliding-window layers), the SSM
-family (Mamba2 layers, ``models/ssm.py``) and deepseek-v2's MLA + MoE
-family with its first dense layers: the training forward and its losses
+"""The LM trunk of the port, every family of the JAX package: the dense
+GQA family with its windowed members (gemma2's local/global layer pairs,
+sliding-window layers), the SSM family (Mamba2 layers, ``models/ssm.py``),
+deepseek-v2's MLA + MoE family with its first dense layers, the hybrid
+family (zamba2: ``hybrid_attn_every`` Mamba2 layers a unit, then ONE
+shared attention block, a single copy of its parameters, on
+``concat(x, emb0)``) and the codebook family (musicgen: tokens (B, S,
+n_cb), per-codebook embeddings summed, ``n_cb`` heads): the training
+forward and its losses
 (``forward``, ``lm_loss``, ``lm_loss_pre_shifted``, with ``remat``),
 prefill, the decode step and the verify sweep over both cache layouts
 (ring and paged), suffix prefill and the speculative commits —
@@ -10,37 +15,41 @@ names, with the same shapes and parameter layout.
 
 Parameters are the nested dict of the JAX package (``embed``,
 ``layers/sub0/{norm1, attn/{wq,wk,wv,wo}, norm2, ffn/{wi_gate,wi_up,wo}}``
-stacked on a leading ``n_units`` axis, ``final_norm``; an SSM layer's
-sub is ``{pre_norm, wz, wx, wB, wC, wdt, conv_w, conv_b, A_log, D,
-dt_bias, norm_scale, wout}``; an MLA sub's attn is ``{wdkv, kv_norm,
-wuk, wuv, wo, wdq, q_norm, wuq}``, a MoE sub's ffn ``{router, wi_gate,
-wi_up, wo, shared}``; ``dense_layers`` is a LIST of unstacked blocks run
-before the units), so a JAX checkpoint loads without reshaping
-(``repro_torch.bridge``).  Where JAX scanned over the stacked layers, the
+stacked on a leading ``n_units`` axis, ``final_norm``; an SSM layer's sub
+is ``{pre_norm, wz, wx, wB, wC, wdt, conv_w, conv_b, A_log, D, dt_bias,
+norm_scale, wout}``; an MLA sub's attn is ``{wdkv, kv_norm, wuk, wuv, wo,
+wdq, q_norm, wuq}``, a MoE sub's ffn ``{router, wi_gate, wi_up, wo,
+shared}``; ``dense_layers`` is a LIST of unstacked blocks run before the
+units; the hybrid family's ``shared_attn`` is ``{w_in (2d, d), block}``,
+one unstacked block; a codebook model's ``embed`` is (n_cb, Vp, d) and its
+``lm_head`` (n_cb, d, Vp)), so a JAX checkpoint loads without reshaping
+(``repro_torch.bridge``). Where JAX scanned over the stacked layers, the
 port loops in Python.
 
-The ring cache (``prefill``, ``init_cache``) is a dict ``{"pos": 0-d
-int32 tensor, "units": {"sub<i>": {"k", "v": (n_units, B, C, Hkv, hd)}}}``
-with position p at slot ``p % C``; a windowed sub's C is ``min(max_len,
-window)``; an MLA sub holds one latent row per token, ``{"lat":
-(n_units, B, C, R)}``, R = kv_lora_rank + rope_head_dim; the first dense
-layers add ``"dense"``, a list of one such dict per layer without the
-unit axis.  The paged cache is ``{"pos": (n_slots,) int32,
-"block_tables": (n_slots, max_blocks) int32, "units": {"sub<i>": {"k",
-"v": (n_units, n_pages, page_size, Hkv, hd)}}}``; a windowed sub holds a
-private ring of ``nbw`` pages per slot instead, (n_units, n_slots * nbw,
-page_size, Hkv, hd); an MLA sub a latent pool ``{"lat": (n_units,
+The ring cache (``prefill``, ``init_cache``) is a dict ``{"pos": 0-d int32
+tensor, "units": {"sub<i>": {"k", "v": (n_units, B, C, Hkv, hd)}}}`` with
+position p at slot ``p % C``; a windowed sub's C is ``min(max_len,
+window)``; an MLA sub holds one latent row per token, ``{"lat": (n_units,
+B, C, R)}``, R = kv_lora_rank + rope_head_dim; the first dense layers add
+``"dense"``, a list of one such dict per layer without the unit axis, and
+the hybrid shared block ``"shared"``, ``{"k", "v": (n_units, B, C, Hkv,
+hd)}``, one ring per application. The paged cache is ``{"pos": (n_slots,)
+int32, "block_tables": (n_slots, max_blocks) int32, "units": {"sub<i>":
+{"k", "v": (n_units, n_pages, page_size, Hkv, hd)}}}``; a windowed sub
+holds a private ring of ``nbw`` pages per slot instead, (n_units, n_slots
+* nbw, page_size, Hkv, hd); an MLA sub a latent pool ``{"lat": (n_units,
 n_pages, page_size, R)}``; the first dense layers a stacked group
 ``"dense"`` of the same form, (n_dense, n_pages, ...), on the same page
-ids.  An SSM sub holds its recurrent state instead, in both layouts:
-``{"conv": (n_units, B, conv_width - 1, conv_dim), "ssm": (n_units, B, H,
-P, N) fp32}``, one state slot per batch row or engine slot.  Both are
-updated IN PLACE (the decode writes and the commits go through
-``index_copy_``), where JAX donated the buffers and returned new ones; the
-functions still return the cache dict, with a new ``pos``.  The decode
-steps and the ring commit compute their indices on the device and read
-nothing back to the host; the paged commit reads its accepted-row count
-once per sweep.
+ids; the hybrid shared block a per-slot linear buffer ``"shared"``,
+``{"k", "v": (n_units, n_slots, max_len, Hkv, hd)}``, no table. An SSM sub
+holds its recurrent state instead, in both layouts: ``{"conv": (n_units,
+B, conv_width - 1, conv_dim), "ssm": (n_units, B, H, P, N) fp32}``, one
+state slot per batch row or engine slot. Both are updated IN PLACE (the
+decode writes and the commits go through ``index_copy_``), where JAX
+donated the buffers and returned new ones; the functions still return the
+cache dict, with a new ``pos``. The decode steps and the ring commit
+compute their indices on the device and read nothing back to the host; the
+paged commit reads its accepted-row count once per sweep.
 """
 from __future__ import annotations
 
@@ -72,7 +81,7 @@ class RunCtx:
 def unit_size(cfg: ModelConfig) -> int:
     if cfg.local_global:
         return 2
-    if cfg.family == "hybrid" and cfg.hybrid_attn_every:
+    if is_hybrid(cfg):
         return cfg.hybrid_attn_every
     return 1
 
@@ -86,20 +95,20 @@ def n_units(cfg: ModelConfig) -> int:
     return body_layers // u
 
 
+def is_hybrid(cfg: ModelConfig) -> bool:
+    """Does ``cfg`` carry the hybrid family's shared attention block?"""
+    return cfg.family == "hybrid" and bool(cfg.hybrid_attn_every)
+
+
 # ==========================================================================
 # capability gates: what this port does not serve yet, by name
 # ==========================================================================
 def paged_cache_blockers(cfg: ModelConfig) -> tuple[str, ...]:
-    """Named config features the port does not serve yet, on either cache
-    layout (each family comes with its own slice; see ROADMAP.md).  Empty,
-    as in the JAX package, for the dense GQA family, its windowed members,
-    the SSM family (state slots) and the MLA / MoE / first-dense family;
-    the hybrid family stays blocked by its shared attention block."""
-    checks = (("n_codebooks", bool(cfg.n_codebooks)),
-              ("hybrid_attn_every",
-               cfg.family == "hybrid" and bool(cfg.hybrid_attn_every)),
-              ("heads_padded", cfg.heads_padded))
-    return tuple(name for name, on in checks if on)
+    """Named config features the port does not serve, on either cache
+    layout.  Empty, as in the JAX package, for every family of the zoo;
+    only heads padded past the published counts (a TPU sharding layout
+    that no config of the zoo sets) are refused."""
+    return ("heads_padded",) if cfg.heads_padded else ()
 
 
 def chunked_prefill_blockers(cfg: ModelConfig) -> tuple[str, ...]:
@@ -107,8 +116,7 @@ def chunked_prefill_blockers(cfg: ModelConfig) -> tuple[str, ...]:
     prefill (the JAX package's list, plus what the port does not serve)."""
     checks = (("uses_ssm", cfg.uses_ssm),
               ("n_codebooks", bool(cfg.n_codebooks)),
-              ("hybrid_attn_every",
-               cfg.family == "hybrid" and bool(cfg.hybrid_attn_every)),
+              ("hybrid_attn_every", is_hybrid(cfg)),
               ("sliding_window", bool(cfg.sliding_window)),
               ("local_global", cfg.local_global))
     names = [name for name, on in checks if on]
@@ -125,8 +133,7 @@ def int8_paged_blockers(cfg: ModelConfig) -> tuple[str, ...]:
               ("sliding_window", bool(cfg.sliding_window)),
               ("local_global", cfg.local_global),
               ("first_dense_layers", bool(cfg.first_dense_layers)),
-              ("hybrid_attn_every",
-               cfg.family == "hybrid" and bool(cfg.hybrid_attn_every)))
+              ("hybrid_attn_every", is_hybrid(cfg)))
     return tuple(name for name, on in checks if on)
 
 
@@ -136,8 +143,7 @@ def speculative_blockers(cfg: ModelConfig) -> tuple[str, ...]:
     checks = (("uses_ssm", cfg.uses_ssm), ("use_mla", cfg.use_mla),
               ("n_codebooks", bool(cfg.n_codebooks)),
               ("first_dense_layers", bool(cfg.first_dense_layers)),
-              ("hybrid_attn_every",
-               cfg.family == "hybrid" and bool(cfg.hybrid_attn_every)))
+              ("hybrid_attn_every", is_hybrid(cfg)))
     return tuple(name for name, on in checks if on)
 
 
@@ -146,9 +152,7 @@ def supports_speculative(cfg: ModelConfig) -> bool:
 
 
 def _require_ported(cfg: ModelConfig) -> None:
-    """Both cache layouts serve the dense GQA family (windowed layers
-    included), the SSM family and the MLA / MoE / first-dense family only
-    so far."""
+    """Refuse, by name, what ``paged_cache_blockers`` names."""
     blockers = paged_cache_blockers(cfg)
     if blockers:
         raise NotImplementedError(f"{cfg.name}: {blockers[0]} is not ported "
@@ -160,7 +164,7 @@ def _require_ported(cfg: ModelConfig) -> None:
 # ==========================================================================
 _MATMUL_KEYS = ("wq", "wk", "wv", "wo", "wi_gate", "wi_up", "embed",
                 "lm_head", "wz", "wx", "wB", "wC", "wdt", "wout", "wdkv",
-                "wuk", "wuv", "wdq", "wuq", "router")
+                "wuk", "wuv", "wdq", "wuq", "router", "w_in")
 
 
 def prepare_params(params, cfg: ModelConfig):
@@ -214,8 +218,17 @@ def _layer(tree, l: int):
 # embedding / head
 # ==========================================================================
 def embed_tokens(params, tokens, cfg: ModelConfig, ctx: RunCtx | None = None):
+    """Token ids (B, S) -> (B, S, d); a codebook model's (B, S, n_cb) ->
+    the sum of its per-codebook embeddings, added in codebook order."""
     adt = common.dt(cfg.dtype)
-    x = params["embed"].to(adt)[tokens.long()]
+    tokens = tokens.long()
+    if cfg.n_codebooks:
+        embs = params["embed"].to(adt)                  # (n_cb, Vp, d)
+        x = embs[0][tokens[..., 0]]
+        for c in range(1, cfg.n_codebooks):
+            x = x + embs[c][tokens[..., c]]
+    else:
+        x = params["embed"].to(adt)[tokens]
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=adt)
     return x
@@ -224,17 +237,26 @@ def embed_tokens(params, tokens, cfg: ModelConfig, ctx: RunCtx | None = None):
 SOFTCAP_BLOCK = 2 ** 26     # logits per soft-cap block
 
 
+def _head(params, x, cfg: ModelConfig):
+    """x (B, S, d) -> logits (B, S, Vp); a codebook model's (B, S, n_cb,
+    Vp), JAX's ``einsum("bsd,cdv->bscv")`` as one product a codebook."""
+    adt = x.dtype
+    if cfg.n_codebooks:
+        head = params["lm_head"].to(adt)                # (n_cb, d, Vp)
+        return torch.stack([x @ head[c] for c in range(cfg.n_codebooks)],
+                           dim=2)
+    if cfg.tie_embeddings:
+        return x @ params["embed"].to(adt).T
+    return x @ params["lm_head"].to(adt)
+
+
 def lm_logits(params, x, cfg: ModelConfig, ctx: RunCtx | None = None):
     """The head, with the final soft-cap and the padded vocab tail masked
     to -1e30.  Both update the logits in place: the soft-cap a block of
     rows at a time, so that its fp32 temporary stays at ``SOFTCAP_BLOCK``
     values, where a whole long prefill's would be twice the logits."""
-    adt = x.dtype
     Vp = padded_vocab(cfg)
-    if cfg.tie_embeddings:
-        logits = x @ params["embed"].to(adt).T
-    else:
-        logits = x @ params["lm_head"].to(adt)
+    logits = _head(params, x, cfg)
     if cfg.final_logit_softcap > 0.0:
         flat = logits.view(-1, Vp)
         step = max(1, SOFTCAP_BLOCK // Vp)
@@ -290,7 +312,16 @@ def _apply_block(blk, x, positions, cfg: ModelConfig, ctx: RunCtx, *,
     return x, aux if aux_l is None else aux + aux_l
 
 
-def _apply_unit(unit, x, positions, cfg: ModelConfig, ctx: RunCtx, aux):
+def _shared_in(shared, x, emb0):
+    """The hybrid shared block's input: ``concat(x, emb0) @ w_in``, 2d ->
+    d (Zamba2's fused-input projection)."""
+    return torch.cat([x, emb0], dim=-1) @ shared["w_in"].to(x.dtype)
+
+
+def _apply_unit(unit, x, emb0, positions, cfg: ModelConfig, ctx: RunCtx,
+                shared, aux):
+    """One pattern unit; the hybrid family's shared block after it adds its
+    residual delta ``out - h`` to the trunk."""
     for i in range(unit_size(cfg)):
         sub = unit[f"sub{i}"]
         if cfg.uses_ssm:
@@ -299,6 +330,11 @@ def _apply_unit(unit, x, positions, cfg: ModelConfig, ctx: RunCtx, aux):
         else:
             x, aux = _apply_block(sub, x, positions, cfg, ctx,
                                   window=cfg.window_for_layer(i), aux=aux)
+    if shared is not None:
+        h = _shared_in(shared, x, emb0)
+        out, aux = _apply_block(shared["block"], h, positions, cfg, ctx,
+                                window=0, aux=aux)
+        x = x + (out - h)
     return x, aux
 
 
@@ -336,10 +372,7 @@ def _train_logits(params, x, cfg: ModelConfig):
     place (autograd records it): the final soft-cap in fp32, the padded
     vocab tail at -1e30."""
     adt = x.dtype
-    if cfg.tie_embeddings:
-        logits = x @ params["embed"].to(adt).T
-    else:
-        logits = x @ params["lm_head"].to(adt)
+    logits = _head(params, x, cfg)
     cap = cfg.final_logit_softcap
     if cap > 0.0:
         logits = (cap * torch.tanh(logits.float() / cap)).to(adt)
@@ -353,28 +386,29 @@ def _train_logits(params, x, cfg: ModelConfig):
 
 def forward(params, tokens, cfg: ModelConfig, ctx: RunCtx = RunCtx(), *,
             extra_embeds=None):
-    """Token ids (B, S) -> (logits (B, S', Vp), aux): the training forward,
+    """Token ids (B, S) (a codebook model's (B, S, n_cb)) -> (logits (B,
+    S', Vp) (B, S', n_cb, Vp), aux): the training forward,
     differentiable with respect to ``params`` (fp32 masters, cast to
     ``cfg.dtype`` at use; never through ``prepare_params``).
     ``extra_embeds`` (B, n_img, d) is the LLaVA vision prefix, put ahead of
     the token embeddings (S' = n_img + S); ``aux`` the MoE load-balance
-    loss (fp32 0-d).  ``ctx.remat`` checkpoints each unit."""
-    if cfg.n_codebooks:
-        raise NotImplementedError(f"{cfg.name}: n_codebooks (multi-codebook "
-                                  "audio) is not ported to repro_torch yet")
+    loss (fp32 0-d).  ``ctx.remat`` checkpoints each unit (the hybrid
+    shared block with it)."""
     _require_ported(cfg)
     x = embed_tokens(params, tokens, cfg)
     if extra_embeds is not None:
         x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
+    emb0 = x
+    shared = params.get("shared_attn")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for blk in params.get("dense_layers", []):
         x, aux = _apply_block(blk, x, positions, cfg, ctx,
                               window=cfg.sliding_window, aux=aux)
 
     def body(x, aux, unit):
-        return _apply_unit(unit, x, positions, cfg, ctx, aux)
+        return _apply_unit(unit, x, emb0, positions, cfg, ctx, shared, aux)
 
     body = _remat(body, ctx)
     for unit in _unstack(params["layers"], n_units(cfg)):
@@ -383,9 +417,21 @@ def forward(params, tokens, cfg: ModelConfig, ctx: RunCtx = RunCtx(), *,
     return _train_logits(params, x, cfg), aux
 
 
+def _codebook_ce(logits, labels, cfg: ModelConfig):
+    """The mean over codebooks of each codebook's CE."""
+    losses = [common.cross_entropy(logits[:, :, c], labels[..., c])
+              for c in range(cfg.n_codebooks)]
+    return sum(losses) / cfg.n_codebooks
+
+
 def lm_loss(params, tokens, cfg: ModelConfig, ctx: RunCtx = RunCtx(), *,
             extra_embeds=None):
-    """Next-token CE (+ MoE aux); image-prefix positions carry no loss."""
+    """Next-token CE (+ MoE aux); image-prefix positions carry no loss.  A
+    codebook model's loss is the mean CE over its codebooks, no label
+    masked (as in JAX)."""
+    if cfg.n_codebooks:
+        logits, aux = forward(params, tokens[:, :-1], cfg, ctx)
+        return _codebook_ce(logits, tokens[:, 1:], cfg) + aux
     inputs, labels, mask = common.shift_labels(tokens)
     logits, aux = forward(params, inputs, cfg, ctx, extra_embeds=extra_embeds)
     if extra_embeds is not None:
@@ -396,10 +442,12 @@ def lm_loss(params, tokens, cfg: ModelConfig, ctx: RunCtx = RunCtx(), *,
 def lm_loss_pre_shifted(params, inputs, targets, cfg: ModelConfig,
                         ctx: RunCtx = RunCtx(), *, extra_embeds=None):
     """CE of a pre-shifted (inputs, targets) pair (+ MoE aux), as the data
-    pipeline emits them."""
+    pipeline emits them; the mean over codebooks for a codebook model."""
     logits, aux = forward(params, inputs, cfg, ctx, extra_embeds=extra_embeds)
     if extra_embeds is not None:
         logits = logits[:, extra_embeds.shape[1]:]
+    if cfg.n_codebooks:
+        return _codebook_ce(logits, targets, cfg) + aux
     return common.cross_entropy(logits, targets) + aux
 
 
@@ -473,12 +521,18 @@ def prefill(params, tokens, cfg: ModelConfig, ctx: RunCtx = RunCtx(), *,
     (``mamba_forward(..., return_state=True)``): every prompt token enters
     it, so the engine prefills SSM prompts at their exact length.  The
     first dense layers run before the units, each into its own entry of
-    the ``"dense"`` list."""
+    the ``"dense"`` list; the hybrid shared block's applications fill
+    ``"shared"`` (capacity ``max_len``), its input built from ``emb0``, the
+    prompt's embeddings.  A codebook model's tokens are (B, S, n_cb) and
+    its logits (B, S, n_cb, Vp)."""
     _require_ported(cfg)
     x = embed_tokens(params, tokens, cfg, ctx)
     B, S = x.shape[:2]
     max_len = max_len or max(cfg.max_seq_len, S)
     positions = torch.arange(S, device=x.device)[None, :]
+    emb0 = x
+    shared = params.get("shared_attn")
+    held = {}
     dense = []
     for blk in params.get("dense_layers", []):
         w = cfg.sliding_window
@@ -505,12 +559,19 @@ def prefill(params, tokens, cfg: ModelConfig, ctx: RunCtx = RunCtx(), *,
             x, c = _block_prefill(blk, x, positions, cfg, ctx, window=w,
                                   cache_len=cap)
             _stack_layer(units, f"sub{i}", l, nu, c)
+        if shared is not None:
+            h = _shared_in(shared, x, emb0)
+            out, c = _block_prefill(shared["block"], h, positions, cfg, ctx,
+                                    window=0, cache_len=max_len)
+            x = x + (out - h)
+            _stack_layer(held, "shared", l, nu, c)
     x = _norm(x, params["final_norm"], cfg, ctx)
     logits = lm_logits(params, x, cfg, ctx)
     pos = torch.tensor(S, dtype=torch.int32, device=x.device)
     cache = {"pos": pos, "units": units}
     if dense:
         cache["dense"] = dense
+    cache.update(held)
     return logits, cache
 
 
@@ -523,7 +584,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     ``max_len`` (``min(max_len, window)`` for a windowed sub), or one
     latent row per slot for MLA, ``pos`` 0; an SSM sub's zero state, one
     slot per batch row; the first dense layers' list of caches of
-    capacity ``max_len``.  The hybrid branch raises by name."""
+    capacity ``max_len``; the hybrid shared block's rings ``"shared"``,
+    one an application, of capacity ``max_len`` (``min(max_len, window)``
+    under a sliding window, as in JAX)."""
     _require_ported(cfg)
     if dtype == "int8":
         # the JAX ring would cast to int8 without scales; int8 KV is the
@@ -553,6 +616,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     if cfg.first_dense_layers:
         cache["dense"] = [attn_cache((batch, max_len))
                           for _ in range(cfg.first_dense_layers)]
+    if is_hybrid(cfg):
+        w = cfg.sliding_window
+        cap = min(max_len, w) if w else max_len
+        cache["shared"] = {key: torch.zeros((n_units(cfg), batch, cap, hkv,
+                                             hd), dtype=adt, device=device)
+                           for key in ("k", "v")}
     return cache
 
 
@@ -561,11 +630,13 @@ def _pos_tensor(pos, device) -> torch.Tensor:
 
 
 def _block_decode(blk, x, pos, c, cfg: ModelConfig, ctx: RunCtx, *,
-                  window: int, block_tables=None):
+                  window: int, block_tables=None, private: bool = False):
     """One attention sublayer's decode step against this layer's cache
     leaves ``c`` (views, written in place): the MLA latent pool or ring,
-    a windowed sub's private rings (paged), the shared k/v pools (paged)
-    or the ring buffers."""
+    a windowed sub's private rings (paged), the slots' private buffers
+    (paged, ``private``: the hybrid shared block's, decoded as rings that
+    never wrap, each row at its own position), the shared k/v pools
+    (paged) or the ring buffers."""
     h = _norm(x, blk["norm1"], cfg, ctx)
     pol = ctx.kernel_policy
     if cfg.use_mla and block_tables is not None:
@@ -574,7 +645,7 @@ def _block_decode(blk, x, pos, c, cfg: ModelConfig, ctx: RunCtx, *,
     elif cfg.use_mla:
         a, _ = attn.mla_decode(blk["attn"], h, pos, c["lat"], cfg,
                                policy=pol)
-    elif block_tables is not None and window > 0:
+    elif block_tables is not None and (window > 0 or private):
         B = pos.shape[0]
         ring = tuple(c[key].view(B, -1, *c[key].shape[2:])
                      for key in ("k", "v"))
@@ -604,15 +675,19 @@ def _group_layer(group, l: int) -> dict:
 
 def decode_step(params, cache, tokens, cfg: ModelConfig,
                 ctx: RunCtx = RunCtx(), *, active=None):
-    """One decode step: tokens (B, 1) + cache -> (logits (B, 1, Vp), cache
-    with ``pos`` advanced).  The two layouts share this seam, told apart
-    by the cache's keys as in the JAX package: the ring (scalar ``pos``)
-    and the paged layout (``block_tables``; ``active`` gates which slots
-    advance there)."""
+    """One decode step: tokens (B, 1) (a codebook model's (B, 1, n_cb)) +
+    cache -> (logits (B, 1, Vp) (or (B, 1, n_cb, Vp)), cache with ``pos``
+    advanced).  The two layouts share this seam, told apart by the cache's
+    keys as in the JAX package: the ring (scalar ``pos``) and the paged
+    layout (``block_tables``; ``active`` gates which slots advance there).
+    The hybrid shared block decodes after each unit, its input built from
+    this token's embedding."""
     if "block_tables" in cache:
         return _paged_decode_step(params, cache, tokens, cfg, ctx, active)
     _require_ported(cfg)
     x = embed_tokens(params, tokens, cfg, ctx)
+    emb0 = x
+    shared = params.get("shared_attn")
     pos = _pos_tensor(cache["pos"], x.device)
     for blk, c in zip(params.get("dense_layers", []), cache.get("dense", [])):
         x = _block_decode(blk, x, pos, c, cfg, ctx,
@@ -626,6 +701,11 @@ def decode_step(params, cache, tokens, cfg: ModelConfig,
                 continue
             x = _block_decode(blk, x, pos, _group_layer(c, l), cfg, ctx,
                               window=cfg.window_for_layer(i))
+        if shared is not None:
+            h = _shared_in(shared, x, emb0)
+            x = x + (_block_decode(shared["block"], h, pos,
+                                   _group_layer(cache["shared"], l), cfg,
+                                   ctx, window=0) - h)
     x = _norm(x, params["final_norm"], cfg, ctx)
     logits = lm_logits(params, x, cfg, ctx)
     return logits, {**cache, "pos": pos + 1}
@@ -674,7 +754,9 @@ def init_paged_cache(cfg: ModelConfig, n_slots: int, n_pages: int,
     no table.  An MLA sub holds ONE latent pool (n_units, n_pages,
     page_size, R) on the block tables, a single row per token shared by
     every head; the first dense layers a stacked group ``"dense"``
-    (n_dense, n_pages, page_size, ...) on the same page ids.
+    (n_dense, n_pages, page_size, ...) on the same page ids.  The hybrid
+    shared block holds a linear buffer per slot, ``"shared"`` (n_units,
+    n_slots, max_len, Hkv, hd), position p of slot s at row p: no table.
 
     ``dtype="int8"`` selects the quantized storage mode: int8 k/v pools
     plus per-row, per-kv-head fp32 scale leaves ``k_scale`` / ``v_scale``
@@ -722,6 +804,8 @@ def init_paged_cache(cfg: ModelConfig, n_slots: int, n_pages: int,
              "units": units}
     if cfg.first_dense_layers:
         cache["dense"] = pools((cfg.first_dense_layers, n_pages, page_size))
+    if is_hybrid(cfg):
+        cache["shared"] = pools((nu, n_slots, max_len))
     return cache
 
 
@@ -734,11 +818,18 @@ def _paged_decode_step(params, cache, tokens, cfg: ModelConfig, ctx: RunCtx,
     against the slots' private rings, viewed as (B, nbw * page_size, Hkv,
     hd), at each slot's own position.  An SSM sub advances every slot's
     state, parked slots included (the engine's inject overwrites a slot's
-    state when a request joins)."""
+    state when a request joins).  The hybrid shared block decodes against
+    the slots' linear buffers as rings of ``max_len`` rows, each row at
+    its own position, where JAX sweeps them as pages behind an identity
+    table: the same rows, the same masks; a parked slot rewrites row
+    ``pos[b]`` of its own buffer, which the next join's inject
+    overwrites."""
     _require_ported(cfg)
     pos = cache["pos"]
     bt = cache["block_tables"]
     x = embed_tokens(params, tokens, cfg, ctx)
+    emb0 = x
+    shared = params.get("shared_attn")
     for j, blk in enumerate(params.get("dense_layers", [])):
         x = _block_decode(blk, x, pos, _group_layer(cache["dense"], j), cfg,
                           ctx, window=cfg.sliding_window, block_tables=bt)
@@ -752,6 +843,12 @@ def _paged_decode_step(params, cache, tokens, cfg: ModelConfig, ctx: RunCtx,
             x = _block_decode(blk, x, pos, _group_layer(c, l), cfg, ctx,
                               window=cfg.window_for_layer(i),
                               block_tables=bt)
+        if shared is not None:
+            h = _shared_in(shared, x, emb0)
+            x = x + (_block_decode(shared["block"], h, pos,
+                                   _group_layer(cache["shared"], l), cfg,
+                                   ctx, window=0, block_tables=bt,
+                                   private=True) - h)
     x = _norm(x, params["final_norm"], cfg, ctx)
     logits = lm_logits(params, x, cfg, ctx)
     adv = torch.ones_like(pos) if active is None else active.to(pos.dtype)

@@ -147,13 +147,15 @@ def make_train_step(cfg: ModelConfig, step_cfg: StepConfig) -> Callable:
 
 def sample(last, *, greedy: bool, temperature: float,
            generator: torch.Generator | None = None):
-    """Next token from logits ``last`` (B, V): argmax, or a draw from
-    softmax(last / temperature) with ``generator``."""
+    """Next token from logits ``last`` (B, V), or a codebook model's (B,
+    n_cb, V), over the last axis: argmax, or a draw from softmax(last /
+    temperature) with ``generator``."""
     if greedy:
         return torch.argmax(last, dim=-1).to(torch.int32)
     probs = torch.softmax(last.float() / temperature, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(
-        torch.int32)
+    flat = probs.reshape(-1, probs.shape[-1])
+    return torch.multinomial(flat, 1, generator=generator)[:, 0].reshape(
+        probs.shape[:-1]).to(torch.int32)
 
 
 def make_prefill_step(cfg: ModelConfig, step_cfg: StepConfig,
@@ -188,11 +190,12 @@ def make_decode_loop(cfg: ModelConfig, step_cfg: StepConfig,
                      n_tokens: int = 16, *, greedy: bool = True,
                      temperature: float = 1.0) -> Callable:
     """decode_loop(params, cache, tokens, generator=None)
-    -> (token_block (B, n_tokens) int32, cache) over the ring cache.
+    -> (token_block (B, n_tokens[, n_cb]) int32, cache) over the ring
+    cache.
 
-    ``tokens`` (B, 1) is the token that enters the model first; the block
-    holds the tokens sampled after it.  The ring buffers update in
-    place."""
+    ``tokens`` (B, 1) (a codebook model's (B, 1, n_cb)) is the token that
+    enters the model first; the block holds the tokens sampled after it.
+    The ring buffers update in place."""
     ctx = make_run_ctx(cfg, step_cfg)
 
     def decode_loop(params, cache, tokens, generator=None):
@@ -207,11 +210,12 @@ def make_paged_decode_loop(cfg: ModelConfig, step_cfg: StepConfig,
                            n_tokens: int = 16, *, greedy: bool = True,
                            temperature: float = 1.0) -> Callable:
     """decode_loop(params, cache, tokens, active, generator=None)
-    -> (token_block (B, n_tokens) int32, cache).
+    -> (token_block (B, n_tokens[, n_cb]) int32, cache).
 
     ``n_tokens`` paged decode steps over every slot; only ``active`` slots
     advance their position, parked slots spin on their scratch page.
-    ``tokens`` (B, 1) is the token that enters the model first."""
+    ``tokens`` (B, 1) (or (B, 1, n_cb)) is the token that enters the model
+    first."""
     ctx = make_run_ctx(cfg, step_cfg)
 
     def decode_loop(params, cache, tokens, active, generator=None):

@@ -19,7 +19,12 @@ state) and overwrites the slot's state; they too keep the cold path.  MLA
 layers (deepseek-v2) keep one latent row per token on the main block
 tables, and its first dense layers a stacked pool group on the same page
 ids: both ride the prefix cache and the copy-on-write page copy like the
-k/v pools.  The
+k/v pools.  The hybrid family (zamba2) adds its shared attention block's
+per-slot linear buffer: the inject writes the prompt's rows ``[0, L)``
+of the slot's span; it is no page group (no host tier, no page copy) and
+keeps the cold path.  A codebook model (musicgen) feeds (n_slots, 1,
+n_cb) tokens and harvests one token of ``n_cb`` codes a step; it too
+keeps the cold path (no prefix cache, no speculation), as in JAX.  The
 host bookkeeping (``PagedKVCache``, ``Scheduler``) is the JAX package's,
 copied; the device steps are the port's torch functions on the engine's
 device.
@@ -374,7 +379,8 @@ class ServeEngine:
         ``p % Cw`` of the slot's private pages (older rows can never be
         attended again).  SSM subs have state slots, not rows: none.  MLA
         subs and the first dense layers' group (``__dense__``) take the
-        main rows."""
+        main rows; the hybrid shared buffer (``__shared__``) the slot's
+        linear span, ``slot * cs + p`` for ``p < L``."""
         ps = self.kv.page_size
         main = np.asarray(self.kv.inject_rows(slot, bucket, L))
         rows = {}
@@ -392,6 +398,11 @@ class ServeEngine:
             valid = (p >= max(0, L - w)) & (p < L)
             rows[f"sub{i}"] = np.where(valid, slot * cw + p % cw,
                                        self.ecfg.n_slots * cw)
+        if tfm.is_hybrid(self.cfg):
+            cs = self.kv.max_blocks * ps
+            p = np.arange(bucket)
+            rows["__shared__"] = np.where(p < L, slot * cs + p,
+                                          self.ecfg.n_slots * cs)
         return rows
 
     def _inject(self, pcache, rows: dict, slot: int) -> None:
@@ -399,10 +410,14 @@ class ServeEngine:
         and private rings, in place; out-of-bounds rows are dropped.  An
         SSM sub's state slot is overwritten with the prompt's state.  The
         prefill keeps the first dense layers' caches as a list; they are
-        stacked into the paged group's layout.  int8 pools quantize the
-        rows per row and write their scales beside them."""
+        stacked into the paged group's layout.  The hybrid shared buffer
+        takes its rows like a pool.  int8 pools quantize the rows per row
+        and write their scales beside them."""
         groups = [(c, pcache["units"][name], rows.get(name))
                   for name, c in self.cache["units"].items()]
+        if "shared" in self.cache:
+            groups.append((self.cache["shared"], pcache["shared"],
+                           rows["__shared__"]))
         if "dense" in self.cache:
             src = {key: torch.stack([c[key] for c in pcache["dense"]])
                    for key in self.cache["dense"]}
@@ -443,7 +458,8 @@ class ServeEngine:
     def _table_groups(self) -> dict:
         """Pool groups whose axis 1 is the main page-id space: the unit
         subs on the block tables plus the stacked first dense layers.
-        Slot-indexed groups (windowed rings, SSM state) are not pages."""
+        Slot-indexed groups (windowed rings, SSM state, the hybrid shared
+        buffer) are not pages."""
         groups = {name: c for name, c in self.cache["units"].items()
                   if name in self._table_subs}
         if "dense" in self.cache:
@@ -535,6 +551,8 @@ class ServeEngine:
 
     # -- join ----------------------------------------------------------------
     def _sample_first(self, logits_row, rid: int):
+        """The prefill's token from its last prompt row: (Vp,) -> a 0-d
+        array, or a codebook model's (n_cb, Vp) -> (n_cb,)."""
         del rid
         nxt = sample(logits_row[None], greedy=self.ecfg.greedy,
                      temperature=self.ecfg.temperature, generator=self._gen)
@@ -555,7 +573,7 @@ class ServeEngine:
             # SSM prompts prefill at their exact length: the recurrent
             # state is a reduction over every fed token, pad included
             bucket = L if self.cfg.uses_ssm else self._bucket(L)
-            inputs = np.zeros((1, bucket), np.int32)
+            inputs = np.zeros((1, bucket) + req.prompt.shape[1:], np.int32)
             inputs[0, :L] = req.prompt
             # full_cache: windowed subs stay linear, so that the bucket's
             # pad rows cannot wrap over the real window tail
@@ -586,8 +604,9 @@ class ServeEngine:
             if energy:
                 self._report.energy_j += energy
                 res.energy_j += energy
-        res.tokens.append(int(first))
-        if req.eos_id is not None and int(first) == req.eos_id:
+        res.tokens.append(first.tolist() if first.ndim else int(first))
+        if req.eos_id is not None and first.ndim == 0 \
+                and int(first) == req.eos_id:
             state.remaining = 0
             res.finish_reason = "eos"
         if state.remaining <= 0:                  # max_new 1, or instant EOS
@@ -656,10 +675,12 @@ class ServeEngine:
                  t0: float) -> dict[int, int]:
         """Append each active slot's kept tokens, finish on EOS / budget.
 
-        toks (n_slots, steps, K+1): step s of slot b yields
+        toks (n_slots, steps, K+1[, n_cb]): step s of slot b yields
         ``counts[b, s]`` tokens (1 on the plain path; accepted drafts + the
-        bonus token, 1..K+1, when speculating), consumed in order.  Returns
-        kept tokens per request id."""
+        bonus token, 1..K+1, when speculating), consumed in order; a
+        codebook model's token is its ``n_cb`` codes, kept as a list, and
+        never ends a request on EOS (as in JAX).  Returns kept tokens per
+        request id."""
         kept_by_rid: dict[int, int] = {}
         for slot in self.scheduler.active_slots():
             state = self.scheduler.slots[slot]
@@ -671,10 +692,11 @@ class ServeEngine:
                 if res.finish_reason == "eos" or kept >= budget:
                     break
                 for i in range(int(counts[slot, s])):
-                    t = int(toks[slot, s, i])
-                    res.tokens.append(t)
+                    t = toks[slot, s, i]
+                    res.tokens.append(t.tolist() if t.ndim else int(t))
                     kept += 1
-                    if req.eos_id is not None and t == req.eos_id:
+                    if req.eos_id is not None and t.ndim == 0 \
+                            and int(t) == req.eos_id:
                         res.finish_reason = "eos"
                         break
                     if kept >= budget:
@@ -916,7 +938,9 @@ class ServeEngine:
         queue = self._queue
         report = self._report
         t0 = time.perf_counter()
-        tok_in = np.zeros((ecfg.n_slots, 1), np.int32)
+        n_cb = self.cfg.n_codebooks
+        tok_in = np.zeros((ecfg.n_slots, 1) + ((n_cb,) if n_cb else ()),
+                          np.int32)
 
         while len(queue) or self.scheduler.n_active:
             self._apply_faults(t0)           # may raise EngineCrash

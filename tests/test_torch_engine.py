@@ -202,7 +202,7 @@ def test_serve_poisson_prints_the_jax_lines(capsys):
 def test_serve_unknown_arch_names_the_ported_ones():
     with pytest.raises(KeyError, match="deepseek-v2-236b.*gemma2-27b.*"
                                        "mamba2-370m.*smollm"):
-        serve.run(["--arch", "zamba2-1.2b", "--device", "cpu",
+        serve.run(["--arch", "no-such-arch", "--device", "cpu",
                    "--traffic", "poisson"])
 
 

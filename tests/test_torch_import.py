@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import get_arch as jax_arch
 from repro.core import DEVICES as JAX_DEVICES
 from repro_torch import device, quant
 from repro_torch.configs import ARCH_SPECS, get_arch
@@ -167,8 +168,9 @@ def test_cpu_calls_launch_no_kernel():
 def test_only_ported_archs_are_listed():
     assert sorted(ARCH_SPECS) == ["deepseek-v2-236b", "gemma2-27b",
                                   "h2o-danube-3-4b", "llava-next-34b",
-                                  "mamba2-370m", "phi3.5-moe-42b-a6.6b",
-                                  "smollm-135m", "stablelm-1.6b"]
+                                  "mamba2-370m", "musicgen-medium",
+                                  "phi3.5-moe-42b-a6.6b", "smollm-135m",
+                                  "stablelm-1.6b", "zamba2-1.2b"]
     cfg = get_arch("smollm-135m").config
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
             cfg.resolved_head_dim, cfg.vocab_size) == (30, 576, 9, 3, 64,
@@ -197,10 +199,21 @@ def test_only_ported_archs_are_listed():
     assert get_arch("stablelm-1.6b").config.rope_fraction == 0.25
     assert get_arch("phi3.5-moe-42b-a6.6b").config.n_experts == 16
     assert get_arch("llava-next-34b").config.n_heads == 56
-    with pytest.raises(KeyError, match="deepseek-v2-236b.*smollm-135m"):
-        get_arch("zamba2-1.2b")
-    with pytest.raises(KeyError, match="not ported"):
-        get_arch("musicgen-medium")
+    # the last two architectures: their published widths, as JAX's
+    mg, jmg = get_arch("musicgen-medium").config, \
+        jax_arch("musicgen-medium").config
+    z, jz = get_arch("zamba2-1.2b").config, jax_arch("zamba2-1.2b").config
+    widths = lambda c: (c.n_layers, c.d_model, c.n_heads, c.n_kv_heads,
+                        c.resolved_head_dim, c.d_ff, c.vocab_size,
+                        c.n_codebooks, c.act, c.gated_mlp, c.tie_embeddings,
+                        c.hybrid_attn_every, c.ssm_state, c.ssm_head_dim,
+                        c.d_inner, c.resolved_ssm_heads, c.param_count())
+    assert widths(mg) == widths(jmg)
+    assert widths(z) == widths(jz)
+    assert widths(mg)[:11] == (48, 1536, 24, 24, 64, 6144, 2048, 4, "gelu",
+                               False, False)
+    assert widths(z)[:7] + widths(z)[11:16] == (38, 2048, 32, 32, 64, 8192,
+                                               32000, 2, 64, 64, 4096, 64)
 
 
 def test_h100_device_model_is_the_ports_own():

@@ -290,24 +290,19 @@ def test_engine_preemption_streams_match_jax(mamba):
 
 @pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-1.2b"])
 def test_blockers_equal_jax(arch):
-    """mamba2's blockers are JAX's: speculation, the paged verify sweep
-    (so the prefix cache) and int8 pages name ``uses_ssm``; the hybrid
-    family stays blocked in the port by its shared attention block."""
+    """mamba2's and zamba2's blockers are JAX's: speculation, the paged
+    verify sweep (so the prefix cache) and int8 pages name ``uses_ssm``
+    first, and neither model is kept off the paged engine."""
     jcfg = jax_arch(arch).config
     cfg = ModelConfig(**{f.name: getattr(jcfg, f.name)
                          for f in dataclasses.fields(jcfg)})
     assert tfm.chunked_prefill_blockers(cfg)[0] == "uses_ssm"
     assert tfm.speculative_blockers(cfg) == jtfm.speculative_blockers(jcfg)
     assert tfm.int8_paged_blockers(cfg) == jtfm.int8_paged_blockers(jcfg)
-    if arch == "mamba2-370m":
-        assert tfm.paged_cache_blockers(cfg) \
-            == jtfm.paged_cache_blockers(jcfg) == ()
-        assert tfm.chunked_prefill_blockers(cfg) \
-            == jtfm.chunked_prefill_blockers(jcfg)
-    else:
-        assert tfm.paged_cache_blockers(cfg) == ("hybrid_attn_every",)
-        with pytest.raises(NotImplementedError, match="hybrid_attn_every"):
-            tfm.init_cache(cfg, 1, 8)
+    assert tfm.paged_cache_blockers(cfg) \
+        == jtfm.paged_cache_blockers(jcfg) == ()
+    assert tfm.chunked_prefill_blockers(cfg) \
+        == jtfm.chunked_prefill_blockers(jcfg)
 
 
 def test_speculation_is_refused_by_name(mamba):

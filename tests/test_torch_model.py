@@ -187,8 +187,8 @@ def test_unported_features_are_named(models):
     # a windowed config now builds its paged cache: a private ring of
     # ceil(min(max_len, window) / ps) pages per slot, and an SSM config
     # one state slot per engine slot, an MLA config one latent pool on the
-    # block tables (and a first dense layer its own group); the hybrid
-    # family still raises by name
+    # block tables (and a first dense layer its own group), a hybrid config
+    # its shared block's linear buffer per slot, as JAX's
     windowed = dataclasses.replace(tcfg, sliding_window=6)
     assert tfm.paged_cache_blockers(windowed) == ()
     assert tfm.chunked_prefill_blockers(windowed) == ("sliding_window",)
@@ -211,8 +211,17 @@ def test_unported_features_are_named(models):
     assert tuple(mc["dense"]["lat"].shape) == (1, 8, PS, 48)
     hybrid = dataclasses.replace(tcfg, family="hybrid", hybrid_attn_every=2,
                                  ssm_state=16)
-    with pytest.raises(NotImplementedError, match="hybrid_attn_every"):
-        tfm.init_paged_cache(hybrid, 2, 8, PS, 4)
+    assert tfm.paged_cache_blockers(hybrid) == ()
+    assert tfm.chunked_prefill_blockers(hybrid) == ("uses_ssm",
+                                                    "hybrid_attn_every")
+    hc = tfm.init_paged_cache(hybrid, 2, 8, PS, 4, dtype="float32")
+    jhc = jtfm.init_paged_cache(dataclasses.replace(
+        models[0], family="hybrid", hybrid_attn_every=2, ssm_state=16),
+        2, 8, PS, 4, dtype="float32")
+    for key in ("k", "v"):
+        assert tuple(hc["shared"][key].shape) == jhc["shared"][key].shape \
+            == (tfm.n_units(hybrid), 2, 4 * PS, tcfg.n_kv_heads,
+                tcfg.resolved_head_dim)
 
 
 def test_lm_logits_masks_padded_vocab(models):

@@ -120,11 +120,12 @@ def test_init_cache_has_the_jax_layout(models):
     ({"family": "hybrid", "hybrid_attn_every": 2, "ssm_state": 16},
      "hybrid_attn_every")])
 def test_unported_ring_families_raise_by_name(models, cfg_over, name):
-    """Unported families (the hybrid) raise by name; a windowed config
-    (ported since) builds its ring cache, of capacity min(max_len,
-    window), an SSM config (ported since) its state, one slot per batch
-    row, an MLA config (ported since) one latent row per slot and a first
-    dense layer (ported since) its own cache in the ``"dense"`` list."""
+    """Every family builds its ring cache, as JAX's (the test kept its name
+    from when some raised): a windowed config, of capacity min(max_len,
+    window), an SSM config its state, one slot per batch row, an MLA
+    config one latent row per slot, a first dense layer its own cache in
+    the ``"dense"`` list and a hybrid config its state and its shared
+    block's rings, one per application."""
     _, _, tcfg, _ = models
     cfg = dataclasses.replace(tcfg, **cfg_over)
     if name == "use_mla":
@@ -148,8 +149,13 @@ def test_unported_ring_families_raise_by_name(models, cfg_over, name):
             tfm.n_units(cfg), 1, cfg.resolved_ssm_heads, cfg.ssm_head_dim,
             16)
         return
-    with pytest.raises(NotImplementedError, match=name):
-        tfm.init_cache(cfg, 1, 8)
+    c = tfm.init_cache(cfg, 1, 8, dtype="float32")
+    jc = jtfm.init_cache(dataclasses.replace(models[0], **cfg_over), 1, 8,
+                         dtype="float32")
+    assert set(c) == set(jc) and set(c["units"]) == set(jc["units"])
+    for key in ("k", "v"):
+        assert tuple(c["shared"][key].shape) == jc["shared"][key].shape == (
+            tfm.n_units(cfg), 1, 8, cfg.n_kv_heads, cfg.resolved_head_dim)
 
 
 def test_prefill_and_three_ring_decode_steps_match_jax(models):

@@ -1,11 +1,12 @@
 """The PyTorch port's training path, held against the JAX package on the
 CPU at smoke size in float32: AdamW for every kind, schedule, clip and
-moment dtype; the losses; one train step of eight smoke configs (loss,
+moment dtype; the losses; one train step of ten smoke configs (loss,
 gradients, updated params and moments within 1e-5 of each leaf's scale),
 ``n_micro`` 2 and ``remat``; the plain backward twins that K4's and K9's
 backward kernels mirror; ``train_step_cost``'s FLOPs against the HLO
 ``dot_flops`` of JAX's compiled step; the guard that keeps kernels without
-a backward off a gradient; and the launcher."""
+a backward off a gradient; and the launcher.  Torch runs on one thread in
+every case (``one_torch_thread``)."""
 import dataclasses
 
 import jax
@@ -14,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from lm_parity import one_torch_thread  # noqa: F401 (autouse)
 from repro.configs import get_arch as jax_arch
 from repro.kernels import ref as jref
 from repro.launch import hloparse
@@ -38,7 +40,7 @@ from repro_torch.runtime import steps
 RTOL = 1e-5
 ARCHS = ["smollm-135m", "stablelm-1.6b", "h2o-danube-3-4b", "gemma2-27b",
          "phi3.5-moe-42b-a6.6b", "deepseek-v2-236b", "llava-next-34b",
-         "mamba2-370m"]
+         "mamba2-370m", "musicgen-medium", "zamba2-1.2b"]
 B, S, N_IMG = 4, 16, 4
 
 
@@ -151,10 +153,12 @@ def _configs(arch):
 
 
 def _batch(cfg, seed=0, batch=B, seq=S):
+    """Random inputs and targets, (batch, seq) or a codebook model's
+    (batch, seq, n_cb), and a VLM's image embeddings."""
     rng = np.random.default_rng(seed)
-    out = {"inputs": rng.integers(0, cfg.vocab_size, (batch, seq)).astype(
-               np.int32),
-           "targets": rng.integers(0, cfg.vocab_size, (batch, seq)).astype(
+    shape = (batch, seq) + ((cfg.n_codebooks,) if cfg.n_codebooks else ())
+    out = {"inputs": rng.integers(0, cfg.vocab_size, shape).astype(np.int32),
+           "targets": rng.integers(0, cfg.vocab_size, shape).astype(
                np.int32)}
     if cfg.family == "vlm":
         out["image_embeds"] = rng.standard_normal(
