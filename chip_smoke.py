@@ -362,7 +362,34 @@ Phases, in order; any failure exits non-zero (nothing is caught):
                 the card), images/s, FLOPs a step (``FlopCounterMode``
                 over one forward and backward), TFLOP/s, peak memory, the
                 loss first to last (it must fall) and accuracy on 2 eval
-                batches from index 100, one ``[cnn]`` line a model.
+                batches from index 100, one ``[cnn]`` line a model;
+  9. examples — (``examples_phase``) (a) the dry-run
+                (``repro_torch.launch.dryrun.run_cells``) over all 33
+                cells on the host mesh (one rank, NCCL): every cell
+                ``ok``, ``torch.cuda.memory_allocated()`` the same before
+                and after (meta tensors), each cell's ``fits`` printed;
+                (b) ``repro_torch.examples.serve_batched`` at
+                stablelm-1.6b's published width (``SERVE_BATCHED_ARGV``:
+                8 x 32 + 24): its ``[frost]`` FLOPs equal
+                ``stepcost.serve_step_cost``, K4, K9 and the ring sweep
+                launched; (c) the paged sweep at pages of 4 (decode and
+                verify Q 16, smollm's and musicgen's heads, bf16 and
+                fp32, 1, 2 and the engine's splits) against its plain
+                version, then ``serve_model_zoo --full`` on each of
+                ``ZOO_EXAMPLE`` (its engine: 2 slots, pages of 4): every
+                request served, each arch's kernels
+                (``ZOO_EXAMPLE_KERNELS``) launched; (d) ``train_lm_frost
+                --full --steps 40 --inject-failure 20`` (smollm-135m, 8 x
+                128, ``n_micro`` 2): one restart, a falling loss, K4's
+                and K9's backwards launched, steps/s and peak memory; (e)
+                over a one-rank NCCL group, ``compressed_psum`` (out
+                equal to the plain dequantized value, out + error within
+                1e-6 of the input) and ``moe_forward_a2a`` at phi3.5's
+                MoE widths, 4 x 64 tokens, bf16, against the local
+                ``moe_forward`` within ``TOL``.  Each path's launch
+                counts are zeroed just before it, read just after and
+                added to the ``kernels`` line (``example <name>``
+                families).
 
 The last two lines are a JSON object of per-kernel numbers and
 ``{"ok": true, "device": {...}}``.
@@ -4802,6 +4829,263 @@ def cnn_zoo(torch, np, dev, bridge, cnn, common, optim, data, card):
     return rows
 
 
+# --------------------------------------------------------------------------
+# phase 9 helpers
+# --------------------------------------------------------------------------
+# (b) JAX's serve_batched defaults at stablelm-1.6b's published width
+SERVE_BATCHED_ARGV = ["--full", "--arch", "stablelm-1.6b", "--requests", "8",
+                      "--prompt-len", "32", "--gen", "24"]
+# (c) the families that fit the card whole (deepseek and gemma2 at full
+# width are phase 4's, cut in depth)
+ZOO_EXAMPLE = ("smollm-135m", "h2o-danube-3-4b", "mamba2-370m",
+               "zamba2-1.2b", "musicgen-medium")
+# the kernels each arch's engine must launch (pages of 4, 2 slots, no
+# shared heads): the paged sweep where its pools are pages, the ring
+# sweep on h2o's private windowed rings and zamba2's shared buffers
+ZOO_EXAMPLE_KERNELS = {
+    "smollm-135m": ("flash_attention", "rmsnorm", "sweep_decode"),
+    "h2o-danube-3-4b": ("flash_attention", "rmsnorm", "ring_decode"),
+    "mamba2-370m": ("ssd", "rmsnorm"),
+    "zamba2-1.2b": ("ssd", "flash_attention", "rmsnorm", "ring_decode"),
+    "musicgen-medium": ("flash_attention", "rmsnorm", "sweep_decode")}
+# (d) smollm-135m at full width and depth, n_micro 2, the supervisor's
+# injected-failure drill
+FROST_TRAIN_ARGV = ["--full", "--steps", "40", "--inject-failure", "20"]
+# (e) the MoE layer of a2a's check: phi3.5-moe's published widths (d 4096,
+# 16 experts of 6400, top 2), 4 x 64 tokens (<= 256: no capacity drop)
+A2A_ARCH, A2A_TOKENS = "phi3.5-moe-42b-a6.6b", (4, 64)
+
+
+def quiet(fn, *args, **kw):
+    """``fn`` with its stdout captured, each line said after; -> (result,
+    the text)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kw)
+    for line in buf.getvalue().splitlines():
+        say(f"  {line}")
+    return out, buf.getvalue()
+
+
+def example_run(torch, da, label, fn, *args, **kw):
+    """One phase-9 path: launch counts zeroed just before, read just
+    after; -> (result, text, counts)."""
+    da.reset_launches()
+    out, text = quiet(fn, *args, **kw)
+    torch.cuda.synchronize()
+    return out, text, dict(da.LAUNCHES)
+
+
+def check_pages_of_4(torch, np, dev, da, ops, errs):
+    """The paged sweep at serve_model_zoo's pages of 4 (four pages a key
+    tile of 16) and its 2 slots of 12 pages, smollm's and musicgen's
+    heads, decode and verify Q 16, bf16 and fp32, 1 split and the
+    engine's count: against the plain version at ``TOL``."""
+    shp = dict(B=2, ps=4, nb=12)
+    for heads in (dict(Hq=9, Hkv=3, D=64), MUSICGEN_HEADS):
+        for dtype in ("bfloat16", "float32"):
+            for Q, pos in ((1, [17, 47]), (16, [20, 3])):
+                c = make_case(torch, np, dev, pos=pos, Q=Q, dtype=dtype,
+                              seed=900 + Q, **shp, **heads)
+                auto = ops.choose_kv_splits(2, 48, heads["Hq"], block=4,
+                                            device=dev)
+                label = (f"pages of 4 {heads['Hq']}/{heads['Hkv']} {dtype} "
+                         f"{'verify Q=16' if Q > 1 else 'decode'}")
+                worst = 0.0
+                for n_splits in sorted({1, 2, auto}):
+                    args, vkw = sweep_args(c, Q > 1)
+                    got = da.paged_attention_sweep(*args, **vkw,
+                                                   n_splits=n_splits,
+                                                   merge=True)
+                    want = da.paged_attention_sweep_torch(
+                        *args, **vkw, n_splits=n_splits)
+                    if n_splits > 1:
+                        want = da.lse_merge_torch(*want, got.dtype) \
+                            .transpose(1, 2)
+                    worst = max(worst, max_err(torch, got, want, TOL[dtype],
+                                               f"{label} n_splits "
+                                               f"{n_splits}"))
+                note(errs, worst, f"paged_attention_sweep {dtype}")
+                say(f"kernels ok: {label} (n_splits 1, 2, {auto}), max |kernel "
+                    f"- plain| {worst:.3e} (tol {TOL[dtype]})")
+
+
+def check_collectives(torch, dev, layers, compress, mesh, card):
+    """(e) ``compressed_psum`` and ``moe_forward_a2a`` over the NCCL group
+    of one rank the host mesh runs on, against their plain single-process
+    results."""
+    host = mesh.make_host_mesh(dev)
+    group = host.group("data")
+    gen = torch.Generator(device=dev).manual_seed(31)
+    grads = {"w": torch.randn((1536, 576), generator=gen, device=dev),
+             "b": torch.randn((576,), generator=gen, device=dev) * 3}
+    red, err = compress.compressed_psum(grads, group,
+                                        compress.init_error_state(grads))
+    worst = 0.0
+    for key, g in grads.items():
+        q, scale, _ = compress.compress_residual(g)
+        if not torch.equal(red[key], compress.dequantize_int8(q, scale)):
+            fail(f"compressed_psum {key}: the one-rank mean is not the "
+                 "plain dequantized value")
+        worst = max(worst, float((red[key] + err[key] - g).abs().max()))
+    if worst > 1e-6:
+        fail(f"compressed_psum: |out + error - input| = {worst:.3e} > 1e-6")
+    say(f"compressed_psum over NCCL (1 rank) on {card}: out == "
+        f"dequant(quant(g)), max |out + error - input| {worst:.3e} "
+        f"(bound 1e-6)")
+    import dataclasses as dc
+    from repro_torch import bridge
+    from repro_torch.configs import get_arch
+    cfg = dc.replace(get_arch(A2A_ARCH).config, dtype="bfloat16")
+    shapes = bridge._moe_shapes(cfg, ())
+    ffn = {key: (torch.randn(shape, generator=gen, device=dev)
+                 / shape[-2] ** 0.5).to(torch.bfloat16)
+           for key, shape in shapes.items() if key != "shared"}
+    x = torch.randn(*A2A_TOKENS, cfg.d_model, generator=gen,
+                    device=dev).to(torch.bfloat16)
+    ctx = layers.ParallelCtx(mesh=host, batch_axes=("data",),
+                             moe_strategy="a2a")
+    with torch.no_grad():
+        a2a, aux_a = layers.moe_forward(ffn, x, cfg, ctx)
+        loc, aux_l = layers.moe_forward(ffn, x, cfg)
+    torch.cuda.synchronize()
+    e = max_err(torch, a2a, loc, TOL["bfloat16"],
+                "moe_forward_a2a against moe_forward")
+    if float(aux_a) != float(aux_l):
+        fail(f"moe_forward_a2a: aux {float(aux_a)} != {float(aux_l)}")
+    say(f"moe_forward_a2a over NCCL (1 rank), {A2A_ARCH} widths, "
+        f"{A2A_TOKENS[0]} x {A2A_TOKENS[1]} tokens, bf16 on {card}: max "
+        f"|a2a - local| {e:.3e} (tol {TOL['bfloat16']})")
+
+
+def examples_phase(torch, np, dev, da, ops, errs, card, launches,
+                   by_family):
+    """Phase 9: the dry-run on the host mesh and the four FROST examples
+    that run models, through their ``main``; each path's launch counts
+    zeroed just before it and read just after, added to ``launches`` and
+    ``by_family`` (``example <name>``)."""
+    import math
+    import tempfile
+    from repro_torch.configs import ARCH_SPECS, SHAPES, get_arch
+    from repro_torch.examples import (serve_batched, serve_model_zoo,
+                                      train_lm_frost)
+    from repro_torch.launch import dryrun, mesh, stepcost
+    from repro_torch.models import layers
+    from repro_torch.runtime import compress
+
+    def count(label, counts):
+        by_family[f"example {label}"] = counts
+        for key, n in counts.items():
+            launches[key] += n
+
+    # (a) the dry-run: every cell on the host mesh, nothing allocated
+    t0 = time.perf_counter()
+    held = torch.cuda.memory_allocated()
+    with tempfile.TemporaryDirectory() as out:
+        recs, _ = quiet(dryrun.run_cells, list(ARCH_SPECS), list(SHAPES),
+                        ["host"], pathlib.Path(out), device="cuda")
+    if torch.cuda.memory_allocated() != held:
+        fail(f"dry-run: {torch.cuda.memory_allocated() - held} bytes of "
+             "device memory allocated (meta tensors allocate none)")
+    bad = [r for r in recs if r["status"] != "ok"]
+    if bad or not recs:
+        fail(f"dry-run: {len(bad)} of {len(recs)} cells failed: "
+             f"{[(r['arch'], r['shape'], r['error']) for r in bad]}")
+    fits = [f"{r['arch']} x {r['shape']}" for r in recs if r["fits"]]
+    gib = recs[0]["device_memory_bytes"] / 2 ** 30
+    say(f"dry-run --mesh host on {card}: {len(recs)} cells ok in "
+        f"{time.perf_counter() - t0:.1f} s, no device memory allocated; "
+        f"{len(fits)} fit in {gib:.1f} GiB (arguments + outputs, "
+        f"activations not counted): {', '.join(fits)}")
+
+    # (b) serve_batched at stablelm-1.6b's published width
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out, text, counts = example_run(torch, da, "serve_batched",
+                                    serve_batched.main, SERVE_BATCHED_ARGV)
+    cfg = get_arch("stablelm-1.6b").config
+    want = stepcost.serve_step_cost(cfg, 8, 32 + 24)[0]
+    if out["flops"] != want or f"{want / 1e6:.1f} MFLOP" not in text:
+        fail(f"serve_batched: [frost] FLOPs {out['flops']} != "
+             f"serve_step_cost {want}")
+    for key in ("flash_attention", "rmsnorm", "ring_decode"):
+        if counts[key] <= 0:
+            fail(f"serve_batched: kernel {key} was never launched")
+    if out["tokens"].shape != (8, 24):
+        fail(f"serve_batched: tokens {out['tokens'].shape}, expected (8, 24)")
+    count("serve_batched", counts)
+    say(f"example serve_batched stablelm-1.6b 8 x 32 + 24 on {card}: "
+        f"{out['tok_per_s']:.1f} tok/s measured (decode steps, "
+        f"synchronised), decode step {want:.6g} FLOP = serve_step_cost, cap "
+        f"{out['decision'].cap:.0%}, peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, launches "
+        f"{counts}")
+
+    # (c) serve_model_zoo at published widths, pages of 4
+    check_pages_of_4(torch, np, dev, da, ops, errs)
+    for arch in ZOO_EXAMPLE:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        reps, _, counts = example_run(
+            torch, da, arch, serve_model_zoo.main,
+            ["--full", "--arches", arch])
+        rep = reps[arch]
+        if len(rep.results) != 3:
+            fail(f"serve_model_zoo {arch}: {len(rep.results)} results of 3")
+        for r in rep.results:
+            if r.n_tokens != r.max_new_tokens:
+                fail(f"serve_model_zoo {arch}: rid {r.rid} finished "
+                     f"{r.n_tokens}/{r.max_new_tokens} ({r.finish_reason})")
+        for key in ZOO_EXAMPLE_KERNELS[arch]:
+            if counts[key] <= 0:
+                fail(f"serve_model_zoo {arch}: kernel {key} was never "
+                     "launched")
+        count(f"serve_model_zoo {arch}", counts)
+        say(f"example serve_model_zoo {arch} (published width, pages of 4) "
+            f"on {card}: {rep.tokens_kept} tokens, {rep.tok_per_s:.1f} "
+            f"tok/s measured, {time.perf_counter() - t0:.1f} s with the "
+            f"weights' draw, peak "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, "
+            f"launches {counts}")
+
+    # (d) train_lm_frost: n_micro 2, one injected failure, one restart
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as ckpt:
+        rep, text, counts = example_run(
+            torch, da, "train_lm_frost", train_lm_frost.main,
+            FROST_TRAIN_ARGV + ["--ckpt", ckpt])
+    losses = rep["losses"]
+    if rep["restarts"] != 1:
+        fail(f"train_lm_frost: {rep['restarts']} restarts, expected 1")
+    if not all(math.isfinite(v) for v in losses) or losses[-1] >= losses[0]:
+        fail(f"train_lm_frost: loss {losses[0]} -> {losses[-1]}")
+    for key in ("flash_attention", "rmsnorm", "flash_attention_bwd",
+                "rmsnorm_bwd"):
+        if counts[key] <= 0:
+            fail(f"train_lm_frost: kernel {key} was never launched")
+    count("train_lm_frost", counts)
+    say(f"example train_lm_frost smollm-135m 8 x 128, n_micro 2, 40 steps, "
+        f"failure at 20 on {card}: {rep['restarts']} restart, "
+        f"{len(losses)} steps kept in {rep['seconds']:.1f} s "
+        f"({rep['steps_per_s']:.2f} steps/s), peak {rep['peak_gib']:.2f} "
+        f"GiB, loss {losses[0]:.4f} -> {losses[-1]:.4f}, launches {counts}")
+
+    # (e) the collectives over NCCL
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_collectives(torch, dev, layers, compress, mesh, card)
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -5148,6 +5432,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     cnn_zoo(torch, np, dev, bridge, cnn, common, optim, data, card)
     say(f"CNN zoo phase in {time.perf_counter() - t_cnn:.1f} s")
+
+    # 9. examples and dry-run ------------------------------------------------
+    t_ex = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    examples_phase(torch, np, dev, da, ops, errs, card, launches, by_family)
+    say(f"examples and dry-run phase in {time.perf_counter() - t_ex:.1f} s")
     kernels = []
     for name, t in times.items():
         source, replaces, key = KERNELS[t.get("entry") or name]

@@ -148,6 +148,83 @@ def _shapes(cfg: ModelConfig) -> dict:
     return out
 
 
+def _block_axes(cfg: ModelConfig, lead: tuple, *, moe: bool) -> dict:
+    """One attention block's logical axes, the ``ParamLeaf`` declarations
+    of ``repro.models.attention``, ``layers`` and ``transformer``, behind
+    ``lead``."""
+    if cfg.use_mla:
+        attn = {"wdkv": ("embed", None), "kv_norm": (None,),
+                "wuk": (None, "q_heads", None),
+                "wuv": (None, "q_heads", None),
+                "wo": ("q_heads", None, "embed")}
+        if cfg.q_lora_rank:
+            attn.update(wdq=("embed", None), q_norm=(None,),
+                        wuq=(None, "q_heads", None))
+        else:
+            attn["wuq"] = ("embed", "q_heads", None)
+    else:
+        attn = {"wq": ("embed", "q_heads", None),
+                "wk": ("embed", "kv_heads", None),
+                "wv": ("embed", "kv_heads", None),
+                "wo": ("q_heads", None, "embed")}
+    mlp = {"wi_gate": ("embed", "mlp"), "wi_up": ("embed", "mlp"),
+           "wo": ("mlp", "embed")}
+    if moe:
+        ffn = {"router": ("embed", None),
+               "wi_gate": ("experts", "expert_d", "expert_ff"),
+               "wi_up": ("experts", "expert_d", "expert_ff"),
+               "wo": ("experts", "expert_ff", "expert_d")}
+        if cfg.n_shared_experts:
+            ffn["shared"] = mlp
+    else:
+        ffn = mlp if cfg.gated_mlp else {k: mlp[k] for k in ("wi_up", "wo")}
+    blk = {"norm1": (None,), "norm2": (None,), "attn": attn, "ffn": ffn}
+    if cfg.post_norms:
+        blk["post_attn_norm"] = (None,)
+        blk["post_ffn_norm"] = (None,)
+    return _prefix(blk, lead)
+
+
+_MAMBA_AXES = {"pre_norm": (None,), "wz": ("embed", "ssm_inner"),
+               "wx": ("embed", "ssm_inner"), "wB": ("embed", None),
+               "wC": ("embed", None), "wdt": ("embed", "ssm_heads"),
+               "conv_w": (None, "conv_channels"),
+               "conv_b": ("conv_channels",), "A_log": ("ssm_heads",),
+               "D": ("ssm_heads",), "dt_bias": ("ssm_heads",),
+               "norm_scale": ("ssm_inner",),
+               "wout": ("ssm_inner", "embed")}
+
+
+def _prefix(tree: dict, lead: tuple) -> dict:
+    return {k: _prefix(v, lead) if isinstance(v, dict) else lead + v
+            for k, v in tree.items()}
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    """The logical sharding axes of every parameter leaf, a tree keyed as
+    :func:`_shapes` (the JAX package's ``init_lm`` axes tree): the units'
+    leaves behind ``"layers"``, ``dense_layers`` a list of blocks, the
+    hybrid family's ``shared_attn``, a codebook model's embed and head
+    behind a ``None`` codebook axis."""
+    cb = (None,) if cfg.n_codebooks else ()
+    if cfg.uses_ssm:
+        sub = _prefix(_MAMBA_AXES, ("layers",))
+    else:
+        sub = _block_axes(cfg, ("layers",), moe=cfg.uses_moe)
+    out = {"embed": cb + ("vocab", "embed"),
+           "layers": {f"sub{i}": sub for i in range(tfm.unit_size(cfg))},
+           "final_norm": (None,)}
+    if cfg.first_dense_layers:
+        out["dense_layers"] = [_block_axes(cfg, (), moe=False)
+                               for _ in range(cfg.first_dense_layers)]
+    if tfm.is_hybrid(cfg):
+        out["shared_attn"] = {"w_in": ("embed", "embed_out"),
+                              "block": _block_axes(cfg, (), moe=False)}
+    if cfg.n_codebooks or not cfg.tie_embeddings:
+        out["lm_head"] = cb + ("embed", "vocab")
+    return out
+
+
 def params_from_numpy(tree, cfg: ModelConfig, device=None) -> dict:
     """JAX-package params (numpy leaves, or tensors from
     :func:`load_step_dir`) -> the port's parameter dict on ``device``.

@@ -1,7 +1,8 @@
 """Architecture registry of the PyTorch port: ``--arch <id>`` resolution.
 
 All ten of the JAX package's LM architectures are listed, with the same
-ids, configs and smoke reductions."""
+ids, configs and smoke reductions; ``all_cells`` is the dry-run's cell
+list, as in JAX."""
 from __future__ import annotations
 
 from repro_torch.configs import (deepseek_v2_236b, gemma2_27b,
@@ -33,3 +34,10 @@ def get_arch(arch_id: str) -> ArchSpec:
         raise KeyError(f"unknown arch {arch_id!r}; known: "
                        f"{sorted(ARCH_SPECS)}")
     return ARCH_SPECS[arch_id]
+
+
+def all_cells():
+    """Every (arch, shape) dry-run cell, in registry order."""
+    for spec in ARCH_SPECS.values():
+        for shape in spec.shapes():
+            yield spec, shape

@@ -92,8 +92,9 @@ DEVICES: dict[str, DeviceSpec] = {d.name: d for d in (RTX_3080, RTX_3090,
 # --------------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
 class WorkloadProfile:
-    """Per-step workload character, derivable from ``compiled.cost_analysis()``
-    plus the HLO collective parse (see repro_torch.launch.dryrun)."""
+    """Per-step workload character, derivable from the step's counted cost
+    (``repro_torch.launch.stepcost``, which the dry-run
+    ``repro_torch.launch.dryrun`` records for every cell)."""
     name: str
     flops_per_step: float
     hbm_bytes_per_step: float

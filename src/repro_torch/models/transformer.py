@@ -54,6 +54,7 @@ paged commit reads its accepted-row count once per sweep.
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import torch
 
@@ -62,7 +63,8 @@ from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models import common, ssm
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import mlp_forward, moe_forward
+from repro_torch.models.layers import (NO_MESH, ParallelCtx, mlp_forward,
+                                       moe_forward)
 
 VOCAB_PAD = 256
 
@@ -74,7 +76,14 @@ def padded_vocab(cfg: ModelConfig) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class RunCtx:
+    """How a step runs: its mesh (``parallel``: the all-to-all MoE reads
+    it), its kernels, the activation constraint of its sharding rules
+    (``constrain``, called on the trunk's embeddings and logits as in JAX;
+    ``runtime.sharding.ShardingRules.constrain`` raises where it would
+    shard) and the training forward's remat."""
+    parallel: ParallelCtx = NO_MESH
     kernel_policy: ops.KernelPolicy = ops.DEFAULT_POLICY
+    constrain: Callable | None = None
     remat: str = "none"          # none | dots | full (training forward)
 
 
@@ -109,6 +118,10 @@ def paged_cache_blockers(cfg: ModelConfig) -> tuple[str, ...]:
     only heads padded past the published counts (a TPU sharding layout
     that no config of the zoo sets) are refused."""
     return ("heads_padded",) if cfg.heads_padded else ()
+
+
+def supports_paged_cache(cfg: ModelConfig) -> bool:
+    return not paged_cache_blockers(cfg)
 
 
 def chunked_prefill_blockers(cfg: ModelConfig) -> tuple[str, ...]:
@@ -231,7 +244,17 @@ def embed_tokens(params, tokens, cfg: ModelConfig, ctx: RunCtx | None = None):
         x = params["embed"].to(adt)[tokens]
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=adt)
+    if ctx is not None and ctx.constrain is not None:
+        x = ctx.constrain(x, ("batch", None, "embed_act"))
     return x
+
+
+def _constrain_logits(logits, cfg: ModelConfig, ctx: RunCtx | None):
+    if ctx is None or ctx.constrain is None:
+        return logits
+    spec = ("batch", None, None, "vocab") if cfg.n_codebooks \
+        else ("batch", None, "vocab")
+    return ctx.constrain(logits, spec)
 
 
 SOFTCAP_BLOCK = 2 ** 26     # logits per soft-cap block
@@ -265,7 +288,7 @@ def lm_logits(params, x, cfg: ModelConfig, ctx: RunCtx | None = None):
                                               cfg.final_logit_softcap)
     if Vp != cfg.vocab_size:
         logits[..., cfg.vocab_size:] = -1e30
-    return logits
+    return _constrain_logits(logits, cfg, ctx)
 
 
 def _norm(x, scale, cfg: ModelConfig, ctx: RunCtx):
@@ -282,7 +305,7 @@ def _ffn_aux(blk, x, a, cfg: ModelConfig, ctx: RunCtx):
     h = _norm(x, blk["norm2"], cfg, ctx)
     aux = None
     if "router" in blk["ffn"]:
-        f, aux = moe_forward(blk["ffn"], h, cfg)
+        f, aux = moe_forward(blk["ffn"], h, cfg, ctx.parallel)
     else:
         f = mlp_forward(blk["ffn"], h, cfg)
     if cfg.post_norms:
@@ -367,7 +390,7 @@ def _remat(fn, ctx: RunCtx):
     raise ValueError(f"unknown remat {ctx.remat!r} (none | dots | full)")
 
 
-def _train_logits(params, x, cfg: ModelConfig):
+def _train_logits(params, x, cfg: ModelConfig, ctx: RunCtx | None = None):
     """The head as the JAX package's ``lm_logits`` computes it, out of
     place (autograd records it): the final soft-cap in fp32, the padded
     vocab tail at -1e30."""
@@ -381,7 +404,7 @@ def _train_logits(params, x, cfg: ModelConfig):
         keep = torch.arange(Vp, device=x.device) < cfg.vocab_size
         logits = torch.where(keep, logits,
                              torch.tensor(-1e30, dtype=adt, device=x.device))
-    return logits
+    return _constrain_logits(logits, cfg, ctx)
 
 
 def forward(params, tokens, cfg: ModelConfig, ctx: RunCtx = RunCtx(), *,
@@ -395,7 +418,7 @@ def forward(params, tokens, cfg: ModelConfig, ctx: RunCtx = RunCtx(), *,
     loss (fp32 0-d).  ``ctx.remat`` checkpoints each unit (the hybrid
     shared block with it)."""
     _require_ported(cfg)
-    x = embed_tokens(params, tokens, cfg)
+    x = embed_tokens(params, tokens, cfg, ctx)
     if extra_embeds is not None:
         x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
     S = x.shape[1]
@@ -414,7 +437,7 @@ def forward(params, tokens, cfg: ModelConfig, ctx: RunCtx = RunCtx(), *,
     for unit in _unstack(params["layers"], n_units(cfg)):
         x, aux = body(x, aux, unit)
     x = _norm(x, params["final_norm"], cfg, ctx)
-    return _train_logits(params, x, cfg), aux
+    return _train_logits(params, x, cfg, ctx), aux
 
 
 def _codebook_ce(logits, labels, cfg: ModelConfig):

@@ -128,3 +128,10 @@ def adamw_update(grads: Any, state: dict[str, Any], params: Any,
         tree_map(upd_sgd, params, state["mu"], grads)
     state["count"] = count
     return params, state, {"lr": lr, "grad_norm": gnorm}
+
+
+def opt_state_sharding(param_sharding: Any, state: dict[str, Any],
+                       mesh=None) -> dict[str, Any]:
+    """Optimizer-state specs mirror the params'; ``count`` replicated."""
+    del mesh
+    return {k: () if k == "count" else param_sharding for k in state}

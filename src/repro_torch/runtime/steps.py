@@ -2,8 +2,9 @@
 functions of the same names: the train step (``init_train_state``,
 ``make_train_step``: gradient accumulation over ``n_micro``
 micro-batches in fp32, then AdamW in place), the prefill step,
-the decode chunks over the ring (``make_decode_loop``) and the paged
-cache (``make_paged_decode_loop``), the speculative chunks over both
+the one-token serve step over the ring (``make_serve_step``, the graph of
+the dry-run's decode cells), the decode chunks over the ring
+(``make_decode_loop``) and the paged cache (``make_paged_decode_loop``), the speculative chunks over both
 (``make_speculative_decode_loop``, ``make_paged_speculative_decode_loop``)
 and the chunked suffix-prefill step.
 
@@ -37,6 +38,8 @@ class StepConfig:
     remat: str = "dots"                # none | dots | full
     kernel_policy: KernelPolicy = KernelPolicy()
     optimizer: OptimizerConfig = OptimizerConfig()
+    sequence_shard: bool = False
+    moe_strategy: str = "gather"       # gather | a2a (see models.layers)
 
 
 def with_decode_policy(step_cfg: StepConfig, *,
@@ -58,10 +61,17 @@ def with_decode_policy(step_cfg: StepConfig, *,
     return dataclasses.replace(step_cfg, kernel_policy=policy)
 
 
-def make_run_ctx(cfg: ModelConfig, step_cfg: StepConfig) -> RunCtx:
+def make_run_ctx(cfg: ModelConfig, step_cfg: StepConfig,
+                 rules=None) -> RunCtx:
+    """The step's ``RunCtx``; with sharding ``rules``
+    (``runtime.sharding.build_rules``) their mesh and constraint."""
     del cfg
-    return RunCtx(kernel_policy=step_cfg.kernel_policy,
-                  remat=step_cfg.remat)
+    if rules is None:
+        return RunCtx(kernel_policy=step_cfg.kernel_policy,
+                      remat=step_cfg.remat)
+    return RunCtx(parallel=rules.parallel_ctx(),
+                  kernel_policy=step_cfg.kernel_policy,
+                  constrain=rules.constrain, remat=step_cfg.remat)
 
 
 def init_train_state(cfg: ModelConfig, step_cfg: StepConfig,
@@ -76,6 +86,14 @@ def init_train_state(cfg: ModelConfig, step_cfg: StepConfig,
     opt = adamw_init(params, step_cfg.optimizer)
     step = torch.zeros((), dtype=torch.int32, device=opt["count"].device)
     return {"params": params, "opt": opt, "step": step}
+
+
+def train_state_sharding(rules, axes_tree) -> dict[str, Any]:
+    """Specs of a train state: the params' from their logical axes, the
+    moments the params', ``count`` and ``step`` replicated (``()``)."""
+    psh = rules.param_sharding(axes_tree)
+    return {"params": psh, "opt": {"count": (), "mu": psh, "nu": psh},
+            "step": ()}
 
 
 def make_loss_and_grads(cfg: ModelConfig, step_cfg: StepConfig) -> Callable:
@@ -169,6 +187,26 @@ def make_prefill_step(cfg: ModelConfig, step_cfg: StepConfig,
         return logits[:, -1], cache
 
     return prefill_step
+
+
+def make_serve_step(cfg: ModelConfig, step_cfg: StepConfig, rules=None,
+                    greedy: bool = True) -> Callable:
+    """serve(params, cache, tokens) -> (next_token_or_logits, cache).
+
+    One new token a sequence against the ring cache
+    (``transformer.decode_step``, which updates the cache in place): the
+    greedy next token (B,) (a codebook model's (B, n_cb)) int32, or the
+    logits (B, 1, Vp) with ``greedy=False``.  The graph the dry-run's
+    decode_32k / long_500k cells count."""
+    ctx = make_run_ctx(cfg, step_cfg, rules)
+
+    def serve_step(params, cache, tokens):
+        logits, cache = tfm.decode_step(params, cache, tokens, cfg, ctx)
+        if greedy:
+            return torch.argmax(logits[:, -1], dim=-1).to(torch.int32), cache
+        return logits, cache
+
+    return serve_step
 
 
 def _decode_chunk(params, cache, tokens, active, generator, *, cfg, ctx,

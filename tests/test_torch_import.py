@@ -34,7 +34,14 @@ def test_port_import_pulls_in_no_jax():
             "repro_torch.models.attention, repro_torch.quant, "
             "repro_torch.configs.deepseek_v2_236b, repro_torch.checkpoint, "
             "repro_torch.runtime.chaos, repro_torch.launch.train, "
-            "repro_torch.optim\n"
+            "repro_torch.optim, repro_torch.launch.mesh, "
+            "repro_torch.launch.specs, repro_torch.launch.stepcost, "
+            "repro_torch.launch.dryrun, repro_torch.runtime.compress, "
+            "repro_torch.runtime.sharding, repro_torch.examples.quickstart, "
+            "repro_torch.examples.cluster_powershift, "
+            "repro_torch.examples.serve_batched, "
+            "repro_torch.examples.serve_model_zoo, "
+            "repro_torch.examples.train_lm_frost\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.'))\n"
