@@ -399,6 +399,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -466,6 +467,11 @@ KERNELS = {
     "ring_attention_sweep int8 (verify)": (
         RING_SRC, "src/repro/kernels/decode_attention.py:682",
         "ring_verify_int8"),
+    # phase 10: one rank's capacity shard swept into partials, then the
+    # standalone merge of every rank's (K5b's split form and K2b)
+    "ring_attention_sweep shard + lse_merge (decode)": (
+        RING_SRC, "src/repro/kernels/decode_attention.py:298",
+        "ring_shard_decode"),
 }
 # the int8 host-tier main path's page pool: small enough that cold prefix
 # pages are paged out and back (8 requests over 4 slots, 2 shared heads)
@@ -5086,6 +5092,414 @@ def examples_phase(torch, np, dev, da, ops, errs, card, launches,
 
 
 
+# --------------------------------------------------------------------------
+# phase 10 helpers: sharded execution, four ranks on the card over gloo
+# --------------------------------------------------------------------------
+SHARD_MESH = (2, 2)                       # ("data", "model")
+SHARD_TRAIN = dict(batch=8, seq=128, steps=3, seed=7)
+SHARD_DECODE = dict(batch=4, prompt=64, gen=16, seed=11)
+# the bounds JAX's sharded test holds a bf16 step to
+# (tests/test_distributed.py): |dloss|, relative |d grad norm|, max
+# |dparam|; and its decode's max |dlogit|
+SHARD_TOL = dict(loss=2e-2, grad_norm=5e-2, params=2e-2, logits=0.1)
+SHARD_TIMEOUT = 600
+
+
+def shard_step_cfg(steps):
+    from repro_torch.optim import OptimizerConfig
+    return steps.StepConfig(n_micro=1, remat="none", optimizer=OptimizerConfig(
+        learning_rate=1e-3, warmup_steps=1, total_steps=10))
+
+
+def shard_train(torch, cfg, dev, rules=None):
+    """smollm's train steps from a seeded init, on one rank (``rules``
+    None) or this rank's shards: (losses, grad norms, the final params'
+    leaves whole on the CPU, the steps' launches)."""
+    from repro_torch import bridge
+    from repro_torch.kernels import binding
+    from repro_torch.models import common
+    from repro_torch.runtime import sharding, steps
+    sc = shard_step_cfg(steps)
+    gen = torch.Generator(device=dev).manual_seed(SHARD_TRAIN["seed"])
+    state = steps.init_train_state(cfg, sc, gen, dev)
+    if rules is not None:
+        state = steps.shard_train_state(state, rules, cfg)
+        torch.cuda.empty_cache()
+    step = steps.make_train_step(cfg, sc, rules)
+    g = torch.Generator().manual_seed(SHARD_TRAIN["seed"])
+    B, S = SHARD_TRAIN["batch"], SHARD_TRAIN["seq"]
+    losses, norms = [], []
+    binding.reset_launches()
+    for _ in range(SHARD_TRAIN["steps"]):
+        toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=g)
+        state, m = step(state, {"inputs": toks[:, :-1], "targets": toks[:, 1:]})
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    launches = dict(binding.LAUNCHES)
+    params = state["params"]
+    if rules is not None:
+        params = sharding.gather_params(
+            params, rules.param_sharding(bridge.param_axes(cfg)), rules.mesh)
+    return losses, norms, [p.detach().cpu() for p in
+                           common.tree_leaves(params)], launches
+
+
+def shard_decode(torch, cfg, dev, rules=None, feed=None):
+    """Prefill of SHARD_DECODE's prompt, then its greedy serve steps, bf16
+    at full width from a seeded init: (the logits of every step, whole
+    batch and vocab, on the CPU in fp32; the greedy tokens; the serve
+    steps' launches; the ring's shard record).  With ``feed`` (another
+    run's greedy tokens, (B, gen + 1)) each step takes that run's token,
+    so that the logits of the two runs answer the same inputs: a bf16 near
+    tie that flips one greedy token would otherwise compare logits of
+    different streams from there on."""
+    from repro_torch import bridge
+    from repro_torch.kernels import binding
+    from repro_torch.runtime import collectives as col
+    from repro_torch.runtime import sharding, steps
+    B, P, G = (SHARD_DECODE[k] for k in ("batch", "prompt", "gen"))
+    gen = torch.Generator(device=dev).manual_seed(SHARD_DECODE["seed"])
+    params = bridge.init_lm(cfg, gen, dev)
+    if rules is not None:
+        params = sharding.shard_params(
+            params, rules.param_sharding(bridge.param_axes(cfg)), rules.mesh)
+        torch.cuda.empty_cache()
+    sc = shard_step_cfg(steps)
+    prefill = steps.make_prefill_step(cfg, sc, max_len=P + G, rules=rules)
+    serve = steps.make_serve_step(cfg, sc, rules, greedy=False)
+    prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=torch.Generator(
+        ).manual_seed(SHARD_DECODE["seed"]), dtype=torch.int32).to(dev)
+    rows = None if rules is None else rules.mesh.group("data")
+
+    def whole(x):
+        x = x if len(x) == B else col._all_gather(x, 0, rows)
+        return x.float().cpu()
+
+    def next_token(t):
+        own = logits[-1].argmax(-1).to(torch.int32)[:, None]
+        toks.append(own)
+        return (own if feed is None else feed[:, t:t + 1]).to(dev)
+
+    with torch.no_grad():
+        last, cache = prefill(params, {"inputs": prompt})
+        logits, toks = [whole(last)], []
+        tok = next_token(0)
+        binding.reset_launches()
+        for t in range(G):
+            lg, cache = serve(params, cache, tok)
+            logits.append(whole(lg[:, -1]))
+            tok = next_token(t + 1)
+        torch.cuda.synchronize()
+        launches = dict(binding.LAUNCHES)
+    return (torch.stack(logits), torch.cat(toks, dim=1), launches,
+            cache.get("shard"))
+
+
+def card_collectives(torch, col, dev) -> dict:
+    """Each collective the port calls, on this rank's CUDA tensors over
+    the whole group, checked against its expected result (the checks of
+    ``tools/gloo_cuda_probe.py``): {name: right on every rank}."""
+    import torch.distributed as dist
+    n, r = dist.get_world_size(), dist.get_rank()
+    x = torch.arange(2 * n, dtype=torch.float32, device=dev) + 100 * r
+    total = torch.arange(2 * n, dtype=torch.float32) * n \
+        + 100 * n * (n - 1) / 2
+    got = {"all_reduce": bool(torch.equal(
+               col._all_reduce(x, dist.group.WORLD).cpu(), total)),
+           "all_gather": bool(torch.equal(
+               col._all_gather(x, 0, dist.group.WORLD).cpu(),
+               torch.cat([torch.arange(2 * n, dtype=torch.float32) + 100 * i
+                          for i in range(n)]))),
+           "reduce_scatter": bool(torch.equal(
+               col._reduce_scatter(x, 0, dist.group.WORLD).cpu(),
+               total[2 * r:2 * r + 2]))}
+    every = [None] * n
+    dist.all_gather_object(every, got)
+    return {k: all(e[k] for e in every) for k in got}
+
+
+def sharded_rank(out_dir: str) -> int:
+    """One rank of phase 10 (``chip_smoke.py --sharded-rank DIR``, under
+    RANK / LOCAL_RANK / WORLD_SIZE / MASTER_ADDR / MASTER_PORT): the
+    sharded train steps and decodes, each held by rank 0 against the
+    one-rank results the parent saved in DIR."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.runtime import collectives as col
+    from repro_torch.runtime import sharding
+    out = pathlib.Path(out_dir)
+    t0 = time.perf_counter()
+    host = tmesh.make_host_mesh(None, axes=("data", "model"),
+                                shape=SHARD_MESH)
+    dev = tmesh.local_device(None)
+    rank = dist.get_rank()
+    res = {"backend": dist.get_backend(), "world": dist.get_world_size(),
+           "mesh": host.shape, "device": str(dev)}
+    cfg = get_arch("smollm-135m").config
+    rules = sharding.build_rules(cfg, host)
+    losses, norms, params, res["train_launches"] = shard_train(
+        torch, cfg, dev, rules)
+    if rank == 0:
+        ref = torch.load(out / "train.pt")
+        res["train"] = {
+            "losses": losses, "norms": norms,
+            "dloss": max(abs(a - b) for a, b in zip(losses, ref["losses"])),
+            "dgrad": max(abs(a - b) / max(b, 1e-9)
+                         for a, b in zip(norms, ref["norms"])),
+            "dparam": max(float((p.float() - q.float()).abs().max())
+                          for p, q in zip(params, ref["params"]))}
+    del params
+    torch.cuda.empty_cache()
+    res["decode"] = {}
+    for arch in ("smollm-135m", "h2o-danube-3-4b"):
+        cfg = get_arch(arch).config
+        # serving keeps the weights whole over "data" (gathered once, at
+        # load) and cut over "model": no FSDP gather every token
+        rules = sharding.build_rules(cfg, host, fsdp=False)
+        ref = torch.load(out / f"decode-{arch}.pt")
+        logits, toks, launches, ring = shard_decode(
+            torch, cfg, dev, rules, feed=ref["tokens"])
+        if rank == 0:
+            res["decode"][arch] = {
+                "dlogit": float((logits - ref["logits"]).abs().max()),
+                "tokens": toks.tolist(), "ref_tokens": ref["tokens"].tolist(),
+                "launches": launches, "ring": ring}
+        torch.cuda.empty_cache()
+    res["collectives"] = card_collectives(torch, col, dev)
+    res["seconds"] = time.perf_counter() - t0
+    if rank == 0:
+        (out / "result.json").write_text(json.dumps(res))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+# capacity-shard sweep cases beyond the timed one (the last decode
+# position): a wrapped ring whose window crosses slot 0 into shard 0, a
+# window that leaves shard 0 empty (its lse NEG_INF), and three splits a
+# shard over blocks of 8 slots
+SHARD_SWEEP_CASES = {"wrapped window": dict(pos=37, wrap=1, window=50),
+                     "empty shard": dict(pos=-1, window=30, empty=0),
+                     "3 splits a shard": dict(pos=-1, n_splits=3, block_k=8)}
+
+
+def shard_sweep_case(torch, np, da, q, k, v, R, tp, pos, *, n_splits,
+                     block_k, window=0, empty=None, what=""):
+    """The ring (B, R, Hkv, D) cut into ``tp`` capacity shards: each swept
+    by the kernel into unmerged partials at its slot offset, the shards'
+    partials merged by ``lse_merge``; held against the plain versions of
+    both with the same offsets and ring length, and against the whole
+    ring's plain sweep.  ``empty`` names a shard that must see no slot.
+    Returns (kernel partials and lse, plain ones, merged, max error)."""
+    C = R // tp
+    kw = dict(n_splits=n_splits, block_k=block_k, ring_len=R, partials=True,
+              window=window)
+
+    def sweep(fn):
+        return [fn(q, k[:, r * C:(r + 1) * C].contiguous(),
+                   v[:, r * C:(r + 1) * C].contiguous(), pos,
+                   slot_offset=r * C, **kw) for r in range(tp)]
+
+    parts = sweep(da.ring_attention_sweep)
+    plain = sweep(da.ring_attention_sweep_torch)
+    cat = [torch.cat([p[j] for p in parts], dim=2) for j in (0, 1)]
+    pcat = [torch.cat([p[j] for p in plain], dim=2) for j in (0, 1)]
+    got = da.lse_merge(*cat, q.dtype)
+    want = da.lse_merge_torch(*pcat, q.dtype)
+    whole = da.ring_attention_sweep_torch(q, k, v, pos, n_splits=1,
+                                          block_k=block_k, window=window)
+    torch.cuda.synchronize()
+    e = max_err(torch, got.float(), want.float(), TOL["bfloat16"],
+                f"capacity-shard sweep + merge ({what}) against its plain "
+                "version")
+    e_p = max_err(torch, cat[0], pcat[0], TOL["bfloat16"],
+                  f"capacity-shard partials ({what}) against the plain "
+                  "partials")
+    max_err(torch, got.transpose(1, 2).float(), whole.float(),
+            TOL["bfloat16"], f"the shards merged ({what}) against the whole "
+            "ring")
+    if empty is not None:
+        lse = parts[empty][1]
+        if float(lse.max()) != float(np.float32(da.NEG_INF)):
+            fail(f"capacity-shard sweep ({what}): shard {empty} sees no "
+                 f"slot but its lse is {float(lse.max())}, not NEG_INF")
+    return cat, pcat, max(e, e_p)
+
+
+def shard_sweep_row(torch, np, dev, da, ops, errs, card):
+    """The capacity-shard ring sweep (one rank's shard, unmerged partials)
+    and the merge of the ranks' partials (K2b, standalone) at smollm's
+    sharded decode: batch rows 2 of 4, 9 q and 3 kv heads, head dim 64,
+    a ring of 80 slots cut in 2, bf16: at the last decode position (the
+    timed case) and at ``SHARD_SWEEP_CASES``; against their plain
+    versions, and the row of the kernel line."""
+    B, Hq, Hkv, D, tp = 2, 9, 3, 64, SHARD_MESH[1]
+    R = SHARD_DECODE["prompt"] + SHARD_DECODE["gen"]
+    C = R // tp
+    g = torch.Generator(device=dev).manual_seed(41)
+    q = torch.randn((B, 1, Hq, D), generator=g, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((B, R, Hkv, D), generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    pol = ops.DEFAULT_POLICY
+    pos = torch.tensor([R - 1], dtype=torch.int32, device=dev)
+    n_splits = ops._ring_splits(pol, q, k[:, :C], 0)
+    cat, pcat, err = shard_sweep_case(torch, np, da, q, k, v, R, tp, pos,
+                                      n_splits=n_splits,
+                                      block_k=pol.decode_k_chunk,
+                                      what="last position")
+    for what, c in SHARD_SWEEP_CASES.items():
+        p = c["pos"] % R + c.get("wrap", 0) * R
+        _, _, e = shard_sweep_case(
+            torch, np, da, q, k, v, R, tp,
+            torch.tensor([p], dtype=torch.int32, device=dev),
+            n_splits=c.get("n_splits", 1),
+            block_k=c.get("block_k", pol.decode_k_chunk),
+            window=c.get("window", 0), empty=c.get("empty"),
+            what=f"{what}, pos {p}")
+        err = max(err, e)
+    name = "ring_attention_sweep shard + lse_merge (decode)"
+    errs[name] = err
+    kw = dict(n_splits=n_splits, block_k=pol.decode_k_chunk, ring_len=R,
+              partials=True)
+    k0, v0 = k[:, :C].contiguous(), v[:, :C].contiguous()
+    ms_sweep = time_ms(torch, lambda: da.ring_attention_sweep(
+        q, k0, v0, pos, slot_offset=0, **kw))
+    ms_merge = time_ms(torch, lambda: da.lse_merge(*cat, torch.bfloat16))
+    plain_ms = time_ms(torch, lambda: da.lse_merge_torch(
+        *pcat, torch.bfloat16)) + time_ms(
+            torch, lambda: da.ring_attention_sweep_torch(
+                q, k0, v0, pos, slot_offset=0, **kw))
+    S = cat[0].shape[2] // tp
+    # one rank's work: q, its shard's k / v rows, its partials and lse
+    # written, then the merge reading all ranks' partials and writing out
+    part_b = B * Hq * S * D * 4 + B * Hq * S * 4
+    nbytes = (q.numel() * 2 + 2 * B * C * Hkv * D * 2 + part_b
+              + tp * part_b + B * Hq * D * 2)
+    flops = 4 * B * Hq * C * D
+    b_ms, b_by = bound(nbytes, flops)
+    say(f"{name}: smollm-135m decode shapes (2 rows, 9 / 3 heads, D 64, "
+        f"ring {R} in {tp} shards of {C}, {n_splits} splits a shard, bf16; "
+        f"also {', '.join(SHARD_SWEEP_CASES)}): "
+        f"sweep {ms_sweep * 1e3:.2f} us + merge {ms_merge * 1e3:.2f} us, "
+        f"plain {plain_ms * 1e3:.1f} us, |kernel - plain| {errs[name]:.3e} "
+        f"on {card}")
+    return {name: {"ms": ms_sweep + ms_merge, "plain_ms": plain_ms,
+                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                   "shape": f"2 x 9 / 3 heads, D 64, ring {R} / {tp}",
+                   "merge_ms": ms_merge}}
+
+
+def sharded_phase(torch, np, dev, da, ops, errs, card, launches):
+    """(a) the one-rank references: smollm-135m's train steps and the
+    decodes of smollm-135m and h2o-danube-3-4b, saved; (b) four ranks on
+    this card over gloo as a (2, 2) mesh, each running the same sharded
+    (chip_smoke.py --sharded-rank); (c) the capacity-shard sweep's row."""
+    import shutil
+    import socket
+    import tempfile
+    from repro_torch.configs import get_arch
+    t0 = time.perf_counter()
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_shard_"))
+    try:
+        cfg = get_arch("smollm-135m").config
+        losses, norms, params, _ = shard_train(torch, cfg, dev)
+        torch.save({"losses": losses, "norms": norms, "params": params},
+                   tmp / "train.pt")
+        del params
+        for arch in ("smollm-135m", "h2o-danube-3-4b"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            logits, toks, _, _ = shard_decode(torch, get_arch(arch).config,
+                                              dev)
+            torch.save({"logits": logits, "tokens": toks},
+                       tmp / f"decode-{arch}.pt")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_ref = time.perf_counter() - t0
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        n = SHARD_MESH[0] * SHARD_MESH[1]
+        env = {**os.environ, "WORLD_SIZE": str(n), "MASTER_ADDR": "localhost",
+               "MASTER_PORT": str(port), "LOCAL_WORLD_SIZE": str(n),
+               "OMP_NUM_THREADS": "1"}
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--sharded-rank",
+             str(tmp)], env={**env, "RANK": str(r), "LOCAL_RANK": str(r)},
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(n)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=SHARD_TIMEOUT)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        bad = [r for r, p in enumerate(procs) if p.returncode]
+        if bad:
+            for r in bad:
+                print(logs[r][-4000:] if r < len(logs) else "", flush=True)
+            fail(f"sharded phase: ranks {bad} failed")
+        res = json.loads((tmp / "result.json").read_text())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    say(f"sharded phase: backend {res['backend']}, world size "
+        f"{res['world']}, mesh {res['mesh']} on one card ({res['device']}"
+        f"); the port's collectives on this card's tensors over "
+        f"{res['backend']} ({{name: right}}, as tools/gloo_cuda_probe.py "
+        f"checks them): {res['collectives']}")
+    if not all(res["collectives"].values()):
+        fail(f"sharded phase: a collective gave a wrong result over "
+             f"{res['backend']}: {res['collectives']}")
+    tr = res["train"]
+    say(f"sharded train smollm-135m full width and depth, "
+        f"{SHARD_TRAIN['steps']} steps of {SHARD_TRAIN['batch']} x "
+        f"{SHARD_TRAIN['seq']} bf16: losses {tr['losses']}, grad norms "
+        f"{tr['norms']}; against one rank |dloss| {tr['dloss']:.3e} (tol "
+        f"{SHARD_TOL['loss']}), |d grad norm| / grad norm {tr['dgrad']:.3e} "
+        f"(tol {SHARD_TOL['grad_norm']}), max |dparam| {tr['dparam']:.3e} "
+        f"(tol {SHARD_TOL['params']})")
+    if not (tr["dloss"] <= SHARD_TOL["loss"]
+            and tr["dgrad"] <= SHARD_TOL["grad_norm"]
+            and tr["dparam"] <= SHARD_TOL["params"]):
+        fail("sharded train step outside JAX's bf16 bounds")
+    need = {"smollm-135m": ("ring_shard_decode", "merge", "rmsnorm"),
+            "h2o-danube-3-4b": ("ring_decode", "rmsnorm")}
+    for arch, d in res["decode"].items():
+        n_tok = sum(len(r) for r in d["tokens"])
+        n_diff = sum(a != b for r, q in zip(d["tokens"], d["ref_tokens"])
+                     for a, b in zip(r, q))
+        say(f"sharded decode {arch} full width, {SHARD_DECODE['batch']} x "
+            f"{SHARD_DECODE['prompt']} + {SHARD_DECODE['gen']} bf16, ring "
+            f"shard {d['ring']}, fed the one-rank run's tokens: max "
+            f"|dlogit| {d['dlogit']:.3e} (tol {SHARD_TOL['logits']}); "
+            f"greedy tokens sharded {d['tokens']} / one rank "
+            f"{d['ref_tokens']} ({n_diff} of {n_tok} differ); launches "
+            f"{d['launches']}")
+        if not d["dlogit"] <= SHARD_TOL["logits"]:
+            fail(f"sharded decode {arch}: logits off by {d['dlogit']}")
+        for key in need[arch]:
+            if d["launches"][key] <= 0:
+                fail(f"sharded decode {arch}: kernel {key} never launched")
+    if res["decode"]["smollm-135m"]["ring"] is None:
+        fail("sharded decode smollm-135m: its ring's capacity was not cut")
+    for key in ("flash_attention", "flash_attention_bwd", "rmsnorm",
+                "rmsnorm_bwd"):
+        if res["train_launches"][key] <= 0:
+            fail(f"sharded train: kernel {key} never launched")
+    launches["ring_shard_decode"] = \
+        res["decode"]["smollm-135m"]["launches"]["ring_shard_decode"]
+    times = shard_sweep_row(torch, np, dev, da, ops, errs, card)
+    say(f"sharded phase in {time.perf_counter() - t0:.1f} s (one-rank "
+        f"references {t_ref:.1f} s, the ranks {res['seconds']:.1f} s)")
+    return times
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -5439,6 +5853,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     examples_phase(torch, np, dev, da, ops, errs, card, launches, by_family)
     say(f"examples and dry-run phase in {time.perf_counter() - t_ex:.1f} s")
+
+    # 10. sharded execution --------------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    times.update(sharded_phase(torch, np, dev, da, ops, errs, card,
+                               launches))
     kernels = []
     for name, t in times.items():
         source, replaces, key = KERNELS[t.get("entry") or name]
@@ -5471,4 +5891,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--sharded-rank"]:
+        sys.exit(sharded_rank(sys.argv[2]))
     sys.exit(main())

@@ -225,12 +225,21 @@ def param_axes(cfg: ModelConfig) -> dict:
     return out
 
 
-def params_from_numpy(tree, cfg: ModelConfig, device=None) -> dict:
+def params_from_numpy(tree, cfg: ModelConfig, device=None,
+                      rules=None) -> dict:
     """JAX-package params (numpy leaves, or tensors from
     :func:`load_step_dir`) -> the port's parameter dict on ``device``.
-    Raises on a missing, extra or misshapen leaf."""
+    Raises on a missing, extra or misshapen leaf.  With sharding
+    ``rules`` on a live mesh, this rank's shards of them (each leaf cut
+    by its spec, ``runtime.sharding.shard_params``)."""
     tfm._require_ported(cfg)
     dev = _device.resolve(device)
+    if rules is not None:
+        from repro_torch.runtime import sharding
+        whole = params_from_numpy(tree, cfg, "cpu")
+        specs = rules.param_sharding(param_axes(cfg))
+        return common.tree_map(lambda t: t.to(dev),
+                       sharding.shard_params(whole, specs, rules.mesh))
 
     def walk(t, shapes, path):
         if set(t) != set(shapes):
@@ -258,21 +267,23 @@ def params_from_numpy(tree, cfg: ModelConfig, device=None) -> dict:
     return walk(tree, _shapes(cfg), "")
 
 
-def train_state_from_numpy(state, cfg: ModelConfig, device=None) -> dict:
+def train_state_from_numpy(state, cfg: ModelConfig, device=None,
+                           rules=None) -> dict:
     """A JAX train state (numpy leaves: ``jax.tree.map(np.asarray,
     state)``) -> the port's ``{"params", "opt", "step"}``.  The params are
     the masters (``param_dtype``, requiring grad; never through
     ``transformer.prepare_params``); ``opt`` holds ``count`` and the
     moments ``mu`` / ``nu`` (``nu`` absent for sgd) in the dtype they were
-    stored in."""
+    stored in.  With sharding ``rules`` on a live mesh, this rank's shards
+    of the params and of the moments, which mirror them."""
     dev = _device.resolve(device)
-    params = params_from_numpy(state["params"], cfg, dev)
+    params = params_from_numpy(state["params"], cfg, dev, rules)
     for p in common.tree_leaves(params):
         p.requires_grad_(True)
     opt = {"count": _tensor(state["opt"]["count"]).to(torch.int32).to(dev)}
     for key in ("mu", "nu"):
         if key in state["opt"]:
-            opt[key] = params_from_numpy(state["opt"][key], cfg, dev)
+            opt[key] = params_from_numpy(state["opt"][key], cfg, dev, rules)
     step = _tensor(state["step"]).to(torch.int32).to(dev)
     return {"params": params, "opt": opt, "step": step}
 

@@ -18,7 +18,8 @@ LAUNCHES = {"sweep_decode": 0, "sweep_verify": 0, "merge": 0,
             "rmsnorm": 0, "ssd": 0, "ssd_bwd": 0, "flash_attention_bwd": 0,
             "rmsnorm_bwd": 0, "mla_decode": 0, "mla_verify": 0,
             "sweep_decode_int8": 0, "sweep_verify_int8": 0,
-            "ring_decode_int8": 0, "ring_verify_int8": 0}
+            "ring_decode_int8": 0, "ring_verify_int8": 0,
+            "ring_shard_decode": 0}
 
 # the C interface's dtype argument
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}

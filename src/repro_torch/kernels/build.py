@@ -114,7 +114,7 @@ def library() -> ctypes.CDLL:
         lib.paged_attention_occupancy.argtypes = [i, i, i, p]
         lib.paged_attention_occupancy.restype = i
         lib.ring_attention_sweep.argtypes = (
-            [p] * 12 + [i] * 13 + [f, f, i, p])
+            [p] * 12 + [i] * 15 + [f, f, i, p])
         lib.ring_attention_sweep.restype = i
         lib.ring_attention_occupancy.argtypes = [i, i, i, p]
         lib.ring_attention_occupancy.restype = i

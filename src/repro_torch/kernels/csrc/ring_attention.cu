@@ -64,10 +64,18 @@ namespace {
 // are not part of the sweep (-inf).  So a tile never straddles a skipped
 // and a running block, whatever bk is (C = 545 = 5 x 109, 4369 = 257 x 17,
 // a prime C has blocks of 1).
+//
+// A capacity shard (the ring's slots cut over ranks, each sweeping its
+// own into partials that the ranks' merge combines) holds slots off .. off
+// + C - 1 of a ring of CR slots: the positions, masks and query 0's run
+// are the ring's (slot index off + k, modulus CR), the rows and blocks the
+// shard's.  off is a multiple of bk and CR of C; the whole ring is off 0,
+// CR = C.
 struct RingKeys {
   const int* pos_arr;          // (1,) or (B,)
   int pos_stride;              // 0: one pos for all rows, 1: one per row
   int C, bk, n_k, kpb;
+  int off, CR;                 // the shard's first slot, the ring's length
 
   __device__ __forceinline__ int pos(int b) const {
     return pos_arr[b * pos_stride];
@@ -75,10 +83,11 @@ struct RingKeys {
 
   struct Split {
     int base;                  // b C: the row of batch row b's slot 0
-    int C, ref, r0, pos, verify, window;
+    int off;                   // the shard's first slot in the ring
+    int C, ref, r0, pos, verify, window;   // C: the ring's length
     int n_low, low0, low1, up0, up1, mlim_all, n_tiles;
 
-    // tile t's first slot, and the end of its range
+    // tile t's first slot in the shard, and the end of its range
     __device__ __forceinline__ int start(int t) const {
       return t < n_low ? low0 + t * SW_KEYS : up0 + (t - n_low) * SW_KEYS;
     }
@@ -103,7 +112,7 @@ struct RingKeys {
     // row
     __device__ __forceinline__ void mask(int t, int lane, const int (&qi)[2],
                                          float (&s)[2][4]) const {
-      const int k0 = start(t), k1 = end(t);
+      const int k0 = start(t) + off, k1 = end(t) + off;   // ring slots
       const int m0 = r0 - k0 < 0 ? r0 - k0 + C : r0 - k0;
       const int m_top = k0 <= r0 && r0 < k0 + SW_KEYS - 1 ? C - 1 : m0;
       if (k0 + SW_KEYS <= k1 && m_top <= mlim_all) return;
@@ -126,26 +135,28 @@ struct RingKeys {
                                          int window, int i_last) const {
     Split x;
     x.base = b * C;
-    x.C = C;
+    x.off = off;
+    x.C = CR;
     x.pos = pos;
     x.verify = verify;
     x.window = window;
     x.ref = verify ? pos - 1 : pos;
-    x.r0 = x.ref % C < 0 ? x.ref % C + C : x.ref % C;
+    x.r0 = x.ref % CR < 0 ? x.ref % CR + CR : x.ref % CR;
     x.mlim_all = x.mlim(i_last);
     x.low0 = x.low1 = x.up0 = x.up1 = 0;
-    // query 0's n slots r0 - n + 1 .. r0 (cyclic), widened to whole
-    // blocks: the cyclic run [ra, ra + nr), cut to the split's slots
-    const int n = min(x.mlim(0), C - 1) + 1;
+    // query 0's n slots r0 - n + 1 .. r0 (cyclic in the ring), widened
+    // to whole blocks: the cyclic run [ra, ra + nr), cut to the split's
+    // slots (shard slots e0 .. e1, ring slots off + e0 .. off + e1)
+    const int n = min(x.mlim(0), CR - 1) + 1;
     if (n > 0) {
-      const int sa = x.r0 - n + 1 < 0 ? x.r0 - n + 1 + C : x.r0 - n + 1;
+      const int sa = x.r0 - n + 1 < 0 ? x.r0 - n + 1 + CR : x.r0 - n + 1;
       const int ra = sa - sa % bk;
-      const int nr = min(C, n + sa % bk + bk - 1 - x.r0 % bk);
+      const int nr = min(CR, n + sa % bk + bk - 1 - x.r0 % bk);
       const int e0 = s * kpb * bk, e1 = min((s + 1) * kpb, n_k) * bk;
       x.low0 = e0;
-      x.low1 = min(e1, ra + nr - C);
-      x.up0 = max(e0, ra);
-      x.up1 = min(e1, min(ra + nr, C));
+      x.low1 = min(e1, ra + nr - CR - off);
+      x.up0 = max(e0, ra - off);
+      x.up1 = min(e1, min(ra + nr, CR) - off);
     }
     auto tiles = [](int k0, int k1) {
       return k1 > k0 ? (k1 - k0 + SW_KEYS - 1) / SW_KEYS : 0;
@@ -165,21 +176,28 @@ struct RingKeys {
 // the caches when k_scale / v_scale are null).  With k_scale / v_scale
 // (B, C, Hkv, 1) fp32, the caches are int8.  head_dim 64, 120 or 128.
 // pos holds one int32 (batch_pos = 0) or one per batch row (batch_pos =
-// 1).  verify = 0: decode (k_new / v_new unused).  n_splits == 1 writes
-// out (B, Q, Hq, HD); otherwise partial (B, Hq, S, Q, HD) and lse (B, Hq,
-// S, Q), and, with counters (int32, one a (batch, kv head, 16-row tile),
-// all zero; zero again after the launch), also the merged out (B, Q, Hq,
-// HD) in the query dtype.
+// 1).  verify = 0: decode (k_new / v_new unused).  Without partial
+// (n_splits 1) it writes out (B, Q, Hq, HD); otherwise partial (B, Hq, S,
+// Q, HD) and lse (B, Hq, S, Q), and, with counters (int32, one a (batch,
+// kv head, 16-row tile), all zero; zero again after the launch), also the
+// merged out (B, Q, Hq, HD) in the query dtype.  The caches hold slots
+// slot_offset .. slot_offset + C - 1 of a ring of ring_len slots (0 and C:
+// the whole ring).
 extern "C" int ring_attention_sweep(
     const void* q, const void* k_cache, const void* v_cache,
     const void* k_scale, const void* v_scale, const void* k_new,
     const void* v_new, const void* pos, void* out, void* partial, void* lse,
     void* counters, int B, int Q, int Hq, int Hkv, int C, int head_dim,
-    int block_k, int n_k, int n_splits, int kpb, int batch_pos, int verify,
-    int window, float logit_cap, float scale, int dtype, void* stream) {
+    int block_k, int n_k, int n_splits, int kpb, int slot_offset,
+    int ring_len, int batch_pos, int verify, int window, float logit_cap,
+    float scale, int dtype, void* stream) {
   if (B < 1 || Q < 1 || Q > SW_MAX_Q || Hkv < 1 || Hq % Hkv || block_k < 1
       || n_k * block_k != C || n_splits < 1 || kpb < 1
+      || slot_offset < 0 || slot_offset % block_k || ring_len % block_k
+      || slot_offset + C > ring_len
       || (k_scale == nullptr) != (v_scale == nullptr)
+      || (partial == nullptr) != (lse == nullptr)
+      || (partial == nullptr && (n_splits > 1 || out == nullptr))
       || (counters != nullptr && n_splits > 1 && out == nullptr))
     return (int)cudaErrorInvalidValue;
   const SweepArgs a{q, k_cache, v_cache,
@@ -190,7 +208,7 @@ extern "C" int ring_attention_sweep(
                     verify, window, logit_cap, scale,
                     static_cast<cudaStream_t>(stream)};
   const RingKeys keys{static_cast<const int*>(pos), batch_pos ? 1 : 0, C,
-                      block_k, n_k, kpb};
+                      block_k, n_k, kpb, slot_offset, ring_len};
   return sweep_dtype<RingKeys>(dtype, head_dim, k_scale != nullptr,
                                [&](auto form) {
                                  return decltype(form)::run(a, keys);

@@ -158,7 +158,7 @@ __device__ void write_state(const FragRows<HD / 8, FAST>& st, int live,
     if (r >= live) continue;
     const int rr = row0 + r, i = rr / G, hq = hk * G + rr - i * G;
     const float inv = 1.f / fmaxf(st.l[h], 1e-30f);
-    if (n_splits == 1) {
+    if (partial == nullptr) {
       T* o = out + (((long)b * Q + i) * Hq + hq) * HD + 2 * (lane & 3);
 #pragma unroll
       for (int n = 0; n < HD / 8; ++n)
@@ -205,7 +205,7 @@ __device__ void write_rows(const float* obuf0, const float* rml, int live,
     const float inv = 1.f / fmaxf(rml[2 * r + 1], 1e-30f);
     a.x *= inv; a.y *= inv; a.z *= inv; a.w *= inv;
     const int rr = row0 + r, i = rr / G, h = hk * G + rr - i * G;
-    if (n_splits == 1) {
+    if (partial == nullptr) {
       T* o = out + (((long)b * Q + i) * Hq + h) * HD + c;
       store2(o, a.x, a.y);
       store2(o + 2, a.z, a.w);
@@ -214,7 +214,7 @@ __device__ void write_rows(const float* obuf0, const float* rml, int live,
           partial + ((((long)b * Hq + h) * n_splits + s) * Q + i) * HD + c) = a;
     }
   }
-  if (n_splits > 1) {
+  if (partial != nullptr) {
     for (int r = threadIdx.x; r < live; r += blockDim.x) {
       const int rr = row0 + r, i = rr / G, h = hk * G + rr - i * G;
       const float L = rml[2 * r + 1];

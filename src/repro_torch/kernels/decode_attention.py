@@ -209,12 +209,13 @@ def _fold_candidates(state, qf, k_new, v_new, kv_head, *, window: int,
             torch.cat([acc[:, :, :-1], al], dim=2))
 
 
-def _sweep_result(m, l, acc, dtype):
+def _sweep_result(m, l, acc, dtype, partials: bool = False):
     """A sweep's epilogue from its state (B, Hq, S, Q[, Dv]): one split ->
-    the normalised output (B, Q, Hq, Dv) in ``dtype``; several ->
-    ``(partial, lse)`` in fp32, ``lse = NEG_INF`` where ``l == 0``."""
+    the normalised output (B, Q, Hq, Dv) in ``dtype``; several, or
+    ``partials`` -> ``(partial, lse)`` in fp32, ``lse = NEG_INF`` where
+    ``l == 0``."""
     partial = acc / torch.clamp(l, min=1e-30)[..., None]
-    if partial.shape[2] == 1:
+    if partial.shape[2] == 1 and not partials:
         return partial[:, :, 0].permute(0, 2, 1, 3).to(dtype)
     lse = torch.where(l > 0.0, m + torch.log(torch.clamp(l, min=1e-30)),
                       torch.full_like(m, NEG_INF))
@@ -226,7 +227,9 @@ def ring_attention_sweep_torch(q, k_cache, v_cache, pos, *, k_new=None,
                                block_k: int = 256, window: int = 0,
                                logit_cap: float = 0.0,
                                scale: float | None = None, k_scale=None,
-                               v_scale=None):
+                               v_scale=None, slot_offset: int = 0,
+                               ring_len: int | None = None,
+                               partials: bool = False):
     """The ring sweep's function in plain torch, block by block as the
     kernel (and the Pallas grid) walks the cache (B, C, Hkv, D).  Slot s
     holds ``ref - ((ref - s) mod C)``, with ``ref = pos`` for decode and
@@ -235,10 +238,14 @@ def ring_attention_sweep_torch(q, k_cache, v_cache, pos, *, k_new=None,
     C``, which the sequential loop would have overwritten.  A block whose
     every slot is masked for every row is skipped; masked scores are
     NEG_INF.  ``pos`` is (1,) or (B,).  An int8 cache is dequantized
-    block by block with its (B, C, Hkv, 1) scales.  Returns as
-    :func:`paged_attention_sweep_torch`."""
+    block by block with its (B, C, Hkv, 1) scales.  A capacity shard's
+    buffers are slots ``slot_offset .. slot_offset + C - 1`` of a ring of
+    ``ring_len`` slots (default C): the masks read the ring's slot index
+    and length.  Returns as :func:`paged_attention_sweep_torch`, and
+    ``(partial, lse)`` at one split too with ``partials``."""
     B, Q, Hq, D = q.shape
     C, Hkv = k_cache.shape[1], k_cache.shape[2]
+    R = C if ring_len is None else int(ring_len)
     Dv = v_cache.shape[-1]
     G = Hq // Hkv
     if scale is None:
@@ -263,10 +270,11 @@ def ring_attention_sweep_torch(q, k_cache, v_cache, pos, *, k_new=None,
         g = sidx * kpb + j
         in_range = (g < n_k).reshape(1, S, 1, 1)
         slots = g.clamp(max=n_k - 1)[:, None] * bk + kk         # (S, bk)
-        k_pos = ref - torch.remainder(ref - slots[None, :, None], C)
+        k_pos = ref - torch.remainder(ref - slot_offset
+                                      - slots[None, :, None], R)
         valid = (k_pos >= 0) & in_range
         if verify:
-            valid = valid & (k_pos > q_pos - C)
+            valid = valid & (k_pos > q_pos - R)
         if window > 0:
             valid = valid & (k_pos > q_pos - window)
         valid = valid.expand(B, S, Q, bk)
@@ -282,7 +290,7 @@ def ring_attention_sweep_torch(q, k_cache, v_cache, pos, *, k_new=None,
         m, l, acc = _fold_candidates((m, l, acc), qf, k_new, v_new, kv_head,
                                      window=window, logit_cap=logit_cap,
                                      scale=scale)
-    return _sweep_result(m, l, acc, q.dtype)
+    return _sweep_result(m, l, acc, q.dtype, partials)
 
 
 def lse_merge_torch(partial, lse, out_dtype):
@@ -371,17 +379,17 @@ def merge_counters(device: torch.device, cells: int) -> torch.Tensor:
     return ws
 
 
-def _split_buffers(q, out_shape, S, merge, Hkv, rows):
+def _split_buffers(q, out_shape, S, merge, Hkv, rows, partials=False):
     """One sweep launch's buffers on q's device: ``out`` (``out_shape``,
     q's dtype) at one split or when merging; the fp32 ``partial`` (B, Hq,
-    S, Q, Dv) and ``lse`` (B, Hq, S, Q) at several; the counters when
-    merging several."""
+    S, Q, Dv) and ``lse`` (B, Hq, S, Q) at several, or at one with
+    ``partials`` (then no ``out``); the counters when merging several."""
     B, Q, Hq, Dv = out_shape
     dev = q.device
     out = partial = lse = counters = None
-    if S == 1 or merge:
+    if (S == 1 and not partials) or merge:
         out = torch.empty(out_shape, dtype=q.dtype, device=dev)
-    if S > 1:
+    if S > 1 or partials:
         partial = torch.empty((B, Hq, S, Q, Dv), dtype=torch.float32,
                               device=dev)
         lse = torch.empty((B, Hq, S, Q), dtype=torch.float32, device=dev)
@@ -517,22 +525,36 @@ def ring_attention_sweep(q, k_cache, v_cache, pos, *, k_new=None, v_new=None,
                          n_splits: int = 1, block_k: int = 256,
                          window: int = 0, logit_cap: float = 0.0,
                          scale: float | None = None, k_scale=None,
-                         v_scale=None, merge: bool = False):
+                         v_scale=None, merge: bool = False,
+                         slot_offset: int = 0, ring_len: int | None = None,
+                         partials: bool = False):
     """The ring sweep.  q (B, Q, Hq, D); ring caches (B, C, Hkv, D), in
     q's dtype, or int8 with per-row fp32 ``k_scale`` / ``v_scale`` (B, C,
     Hkv, 1); pos (1,) or (B,) int32 on the card (the position of q's first
     row); optional in-flight candidates k_new / v_new (B, Q, Hkv, D) in
     q's dtype select the verify mask.  ``block_k`` is the requested block
-    (``ring_block_k`` adjusts it).  Output as
+    (``ring_block_k`` adjusts it).  A capacity shard passes its first
+    slot ``slot_offset`` and the ring's length ``ring_len`` (the shards
+    of one ring cut it in equal whole blocks; decode only, bf16 or fp32
+    rows), and ``partials`` for the unmerged ``(partial, lse)`` at one
+    split too.  Output as
     :func:`ring_attention_sweep_torch`; ``merge`` as in
     :func:`paged_attention_sweep`."""
     kv_dtype = _kv_storage("ring_attention_sweep", k_scale, v_scale, q.dtype)
+    if merge and partials:
+        raise ValueError("ring_attention_sweep: merge and partials exclude "
+                         "each other")
+    if ring_len is not None and ring_len != k_cache.shape[1] and (
+            k_new is not None or k_scale is not None):
+        raise ValueError("ring_attention_sweep: a capacity shard takes no "
+                         "verify block and no int8 cache")
     if q.device.type == "cpu":
         return _plain_result(ring_attention_sweep_torch(
             q, k_cache, v_cache, pos, k_new=k_new, v_new=v_new,
             n_splits=n_splits, block_k=block_k, window=window,
             logit_cap=logit_cap, scale=scale, k_scale=k_scale,
-            v_scale=v_scale), q.dtype, merge)
+            v_scale=v_scale, slot_offset=slot_offset, ring_len=ring_len,
+            partials=partials), q.dtype, merge)
     if q.device.type != "cuda":
         raise ValueError(f"ring_attention_sweep: unsupported device "
                          f"{q.device}")
@@ -556,8 +578,14 @@ def ring_attention_sweep(q, k_cache, v_cache, pos, *, k_new=None, v_new=None,
     if verify and Q > C:
         raise ValueError(f"ring_attention_sweep: verify block {Q} exceeds "
                          f"cache capacity {C}")
+    R = C if ring_len is None else int(ring_len)
     bk = ring_block_k(C, block_k)
     n_k = C // bk
+    if not (0 <= slot_offset and slot_offset + C <= R
+            and slot_offset % bk == 0 and R % bk == 0):
+        raise ValueError(f"ring_attention_sweep: slots {slot_offset} .. "
+                         f"{slot_offset + C - 1} are not whole blocks of "
+                         f"{bk} inside a ring of {R}")
     dev = q.device
     check("q", q, dtype=q.dtype, shape=(B, Q, Hq, D), device=dev,
           vector=True)
@@ -583,18 +611,19 @@ def ring_attention_sweep(q, k_cache, v_cache, pos, *, k_new=None, v_new=None,
         scale = D ** -0.5
     S, kpb = split_blocks(n_k, n_splits)
     out, partial, lse, counters = _split_buffers(
-        q, (B, Q, Hq, D), S, merge, Hkv, Q * (Hq // Hkv))
+        q, (B, Q, Hq, D), S, merge, Hkv, Q * (Hq // Hkv), partials)
     err = build.library().ring_attention_sweep(
         ptr(q), ptr(k_cache), ptr(v_cache), ptr(k_scale), ptr(v_scale),
         ptr(k_new), ptr(v_new), ptr(pos), ptr(out), ptr(partial), ptr(lse),
         ptr(counters), B, Q, Hq, Hkv, C, D, bk, n_k, S, kpb,
-        int(pos.numel() > 1), int(verify), int(window), float(logit_cap),
-        float(scale), DTYPE_CODE[q.dtype],
+        int(slot_offset), R, int(pos.numel() > 1), int(verify),
+        int(window), float(logit_cap), float(scale), DTYPE_CODE[q.dtype],
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ring_attention_sweep: CUDA error {err}")
-    return _launched(launch_key("ring", verify, k_scale), out, partial, lse,
-                     counters)
+    key = "ring_shard_decode" if R != C else launch_key("ring", verify,
+                                                         k_scale)
+    return _launched(key, out, partial, lse, counters)
 
 
 def lse_merge(partial, lse, out_dtype):

@@ -853,6 +853,26 @@ def decode_attention(q, k_cache, v_cache, pos, *, k_pos=None, window: int = 0,
     raise ValueError(f"unknown decode backend {backend!r}")
 
 
+def decode_attention_shard(q, k_cache, v_cache, pos, *, slot_offset: int,
+                           ring_len: int, window: int = 0,
+                           logit_cap: float = 0.0,
+                           scale: float | None = None,
+                           policy: KernelPolicy = DEFAULT_POLICY):
+    """Single-token decode over one capacity shard of a ring cache: the
+    buffers (B, C, Hkv, D) are slots ``slot_offset .. slot_offset + C -
+    1`` of a ring of ``ring_len`` slots.  -> the unmerged ``(partial (B,
+    Hq, S, 1, D), lse (B, Hq, S, 1))`` fp32 of the shard's splits (``lse
+    = NEG_INF`` for a split with no visible slot), for ``lse_merge`` with
+    the other shards'.  The ring sweep on both devices: its kernel on a
+    CUDA tensor, its plain version on the CPU."""
+    n_splits = _ring_splits(policy, q, k_cache, window)
+    return da.ring_attention_sweep(
+        q, k_cache, v_cache, _pos_arg(pos, q.device), n_splits=n_splits,
+        block_k=policy.decode_k_chunk, window=window, logit_cap=logit_cap,
+        scale=scale, slot_offset=slot_offset, ring_len=ring_len,
+        partials=True)
+
+
 def verify_attention(q, k_cache, v_cache, k_new, v_new, pos, *, k_pos=None,
                      window: int = 0, logit_cap: float = 0.0,
                      scale: float | None = None, k_scale=None, v_scale=None,

@@ -31,6 +31,11 @@ plus ``--device``.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
         --smoke --device cpu
 
+    # the static batch over 4 ranks (torchrun; NCCL with a card a rank,
+    # gloo where ranks share one): each rank decodes its rows
+    torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+        --arch smollm-135m --requests 8 --prompt-len 512 --gen 33
+
 Two traffic modes:
 
   * ``batch`` — the fixed-batch run-to-completion baseline: one prefill,
@@ -91,6 +96,7 @@ import torch
 
 from repro_torch import bridge
 from repro_torch.configs import get_arch
+from repro_torch.launch import mesh as tmesh
 from repro_torch.control import CapApplied, EventBus, StepDone
 from repro_torch.control.online import OnlineCapProfiler
 from repro_torch.core import (BALANCED, H100_SXM, PowerCappedDevice,
@@ -204,11 +210,14 @@ class FrostPlane:
 
 
 def run_batch(args, cfg, step_cfg, params, frost: FrostPlane | None,
-              device) -> dict:
+              device, rules=None) -> dict:
     """Static batch: one prefill, then decode chunks over the ring cache
     (speculative with ``--spec-k``).  Prints the JAX launcher's
     ``[serve]`` lines; returns the generated tokens, the timings and the
-    speculation counts."""
+    speculation counts.  With sharding ``rules`` (several ranks) each
+    rank decodes its rows of the batch on its shards of ``params`` (all
+    of them where the requests do not divide over the ranks); the tokens
+    are returned whole."""
     greedy = args.temperature <= 0.0
     temperature = max(args.temperature, 1e-6)
     plen = args.shared_prefix_len + args.prompt_len
@@ -233,7 +242,11 @@ def run_batch(args, cfg, step_cfg, params, frost: FrostPlane | None,
                                        n_codebooks=cfg.n_codebooks))
         prompts = data.batch(0)["inputs"]
     params = tfm.prepare_params(params, cfg)
-    prefill = make_prefill_step(cfg, step_cfg, max_len=max_len)
+    if rules is not None:
+        from repro_torch.runtime import sharding
+        params = sharding.shard_params(
+            params, rules.param_sharding(bridge.param_axes(cfg)), rules.mesh)
+    prefill = make_prefill_step(cfg, step_cfg, max_len=max_len, rules=rules)
     gen = None
     if not greedy:
         gen = torch.Generator(device=device)
@@ -262,7 +275,7 @@ def run_batch(args, cfg, step_cfg, params, frost: FrostPlane | None,
         dstate = speculate.state_to(ds, device)
     else:
         loop = make_decode_loop(cfg, step_cfg, chunk, greedy=greedy,
-                                temperature=temperature)
+                                temperature=temperature, rules=rules)
 
     generated = [nxt.cpu().numpy()[:, None]]   # token sampled from prefill
     tok = nxt[:, None]                         # (B, 1), on the device
@@ -301,6 +314,10 @@ def run_batch(args, cfg, step_cfg, params, frost: FrostPlane | None,
         generated.append(flat[:, :keep])
         remaining -= keep
     toks_out = np.concatenate(generated, axis=1)
+    if len(toks_out) != args.requests:     # this rank's rows of the batch
+        from repro_torch.runtime import collectives as col
+        toks_out = col._all_gather(torch.as_tensor(toks_out), 0,
+                                   rules.mesh.group("data")).numpy()
 
     # the first token came from prefill: tok/s and J/token charge only the
     # (gen - 1) * requests tokens the decode loop produced
@@ -631,7 +648,27 @@ def serve(args, cfg):
     ``run_batch``'s result (batch).  A caller may hand a config the
     registry does not hold, such as a published one cut in depth to fit
     one card."""
-    device = resolve(args.device)
+    rules = None
+    if tmesh.world_size() > 1:
+        if args.traffic == "poisson":
+            raise SystemExit("[serve] --traffic poisson: the paged engine "
+                             "under a mesh of ranks is not ported; run it "
+                             "on one rank")
+        if args.spec_k > 0:
+            raise SystemExit("[serve] --spec-k: speculative decoding under "
+                             "a mesh of ranks is not ported; run it on one "
+                             "rank")
+        import torch.distributed as dist
+
+        from repro_torch.runtime import sharding
+        host = tmesh.make_host_mesh(args.device)
+        device = tmesh.local_device(args.device)
+        # the weights stay whole over "data" (no gather every token)
+        rules = sharding.build_rules(cfg, host, fsdp=False)
+        print(f"[serve] mesh {host.shape} over {dist.get_world_size()} "
+              f"ranks ({dist.get_backend()}): each decodes its rows")
+    else:
+        device = resolve(args.device)
     if device.type == "cuda":
         refuse_oversized(cfg, torch.cuda.mem_get_info(device)[0])
     step_cfg = with_decode_policy(StepConfig(),
@@ -648,14 +685,20 @@ def serve(args, cfg):
         out = run_engine(args, cfg, step_cfg, params, frost, device)
     else:
         with torch.no_grad():
-            out = run_batch(args, cfg, step_cfg, params, frost, device)
+            out = run_batch(args, cfg, step_cfg, params, frost, device,
+                            rules)
     if frost is not None:
         frost.summary()
     return out
 
 
 def main(argv=None) -> int:
+    if tmesh.world_size() > 1:
+        tmesh.quiet_unless_rank0()
     run(argv)
+    if tmesh.world_size() > 1:
+        import torch.distributed as dist
+        dist.destroy_process_group()
     return 0
 
 

@@ -29,10 +29,22 @@ stated estimate.
 
 ``--fail-at STEP`` makes the node go silent at that step: the supervisor
 notices, restores the last checkpoint (``--ckpt-every``) and carries on.
+
+Under ``torchrun --nproc-per-node N`` with N > 1 the step runs sharded,
+as JAX's launcher does on a host of several devices: the sharding rules
+on the host mesh (JAX's 1-D "data" mesh over every rank: FSDP), each rank
+holding its shards of the state and taking its rows of each batch; NCCL
+where every rank has a card of its own, gloo where ranks share one.
+Each rank checkpoints its own shards (``rank<r>`` under the checkpoint
+directory), and only rank 0 prints.
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch smollm-135m --steps 24
 """
 from __future__ import annotations
 
 import argparse
+import os
 import shutil
 import tempfile
 import time
@@ -42,6 +54,7 @@ import torch
 from repro_torch import device as _device
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_arch
+from repro_torch.launch import mesh as tmesh
 from repro_torch.control import CapApplied, EventBus, StepDone
 from repro_torch.control.online import OnlineCapProfiler
 from repro_torch.core import (H100_SXM, CapProfiler, PowerCappedDevice,
@@ -56,7 +69,7 @@ from repro_torch.models.layers import _capacity
 from repro_torch.optim import OptimizerConfig
 from repro_torch.runtime.fault import Supervisor, SupervisorConfig
 from repro_torch.runtime.steps import (StepConfig, init_train_state,
-                                       make_train_step)
+                                       make_train_step, shard_train_state)
 from repro_torch.telemetry.meters import (AnalyticDeviceMeter,
                                           CpuProcessMeter, DramMeter)
 from repro_torch.telemetry.sampler import PowerSampler
@@ -255,9 +268,20 @@ def train(args) -> dict:
     ``seconds``, ``steps_per_s``, ``tokens_per_s``, ``peak_gib`` (None on
     the CPU), ``restarts``, ``cap_commands``.  Without ``--ckpt-dir`` the
     checkpoints go to a temporary directory, removed at the end."""
-    dev = _device.resolve(args.device)
     spec = get_arch(args.arch)
     cfg = spec.smoke if args.smoke else spec.config
+    rules = None
+    if tmesh.world_size() > 1:
+        import torch.distributed as dist
+
+        from repro_torch.runtime import sharding
+        host = tmesh.make_host_mesh(args.device)
+        dev = tmesh.local_device(args.device)
+        rules = sharding.build_rules(cfg, host)
+        print(f"[train] mesh {host.shape} over {dist.get_world_size()} "
+              f"ranks ({dist.get_backend()})")
+    else:
+        dev = _device.resolve(args.device)
     print(f"[train] arch={cfg.name} params={cfg.param_count()/1e6:.1f}M "
           f"family={cfg.family} device={dev}")
 
@@ -268,7 +292,9 @@ def train(args) -> dict:
                                   total_steps=args.steps))
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     state = init_train_state(cfg, step_cfg, gen, dev)
-    train_step = make_train_step(cfg, step_cfg)
+    if rules is not None:
+        state = shard_train_state(state, rules, cfg)
+    train_step = make_train_step(cfg, step_cfg, rules)
 
     data = TokenBatches(DataConfig(
         seed=args.seed, vocab_size=cfg.vocab_size, seq_len=args.seq,
@@ -307,8 +333,10 @@ def train(args) -> dict:
     # -- supervised run ----------------------------------------------------------
     own_dir = (None if args.ckpt_dir
                else tempfile.mkdtemp(prefix="repro_torch_ckpt_"))
-    ckpt = CheckpointManager(args.ckpt_dir or own_dir, keep=2,
-                             save_async=True)
+    ckpt_dir = args.ckpt_dir or own_dir
+    if rules is not None:
+        ckpt_dir = os.path.join(ckpt_dir, f"rank{os.environ['RANK']}")
+    ckpt = CheckpointManager(ckpt_dir, keep=2, save_async=True)
     ckpt.save(state, 0)                    # recovery floor before step 1
 
     def restore():
@@ -384,7 +412,12 @@ def train(args) -> dict:
 
 
 def main(argv=None) -> int:
+    if tmesh.world_size() > 1:
+        tmesh.quiet_unless_rank0()
     train(build_parser().parse_args(argv))
+    if tmesh.world_size() > 1:
+        import torch.distributed as dist
+        dist.destroy_process_group()
     return 0
 
 

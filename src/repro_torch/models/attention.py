@@ -17,15 +17,29 @@ cast them at load).  The decodes write their new k/v row into the ring
 buffers or the shared page pools IN PLACE (``index_copy_`` at an index
 computed on the device), where the JAX package returned updated (donated)
 buffers.
+
+On a live mesh (``ParallelCtx`` with a "model" axis of more than one
+rank) the heads go over "model" as the sharding rules resolve them: q
+and kv heads both (each rank holds its heads' columns of ``wq``, ``wk``,
+``wv`` and rows of ``wo``); only the q heads, the kv heads replicated
+(each rank attends its q heads to the kv heads they read, entered
+through f); or neither (every rank runs the whole attention on its batch
+rows).  The output projection of sharded heads is summed over "model"
+(g).  A ring whose capacity goes over "model" (``shard`` ``(slot
+offset, ring length)``) is swept by each rank into partials over its
+slots, which are gathered over "model" and merged.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch import quant
+from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import ops
 from repro_torch.models import common
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import NO_MESH, ParallelCtx
+from repro_torch.runtime import collectives as col
 
 
 def _proj(x, w):
@@ -36,11 +50,17 @@ def _proj(x, w):
             ).reshape(B, S, H, hd)
 
 
-def _out_proj(o, w):
-    """o (B, S, Hq, hd) @ wo (Hq, hd, d) -> (B, S, d)."""
+def _out_proj(o, w, par: ParallelCtx = NO_MESH, constrain=None):
+    """o (B, S, Hq, hd) @ wo (Hq, hd, d) -> (B, S, d); over sharded q
+    heads a row-parallel product summed over "model"."""
     B, S, H, hd = o.shape
-    return (o.reshape(B * S, H * hd) @ w.to(o.dtype).reshape(H * hd, -1)
-            ).reshape(B, S, -1)
+    out = (o.reshape(B * S, H * hd) @ w.to(o.dtype).reshape(H * hd, -1)
+           ).reshape(B, S, -1)
+    if par.tp("q_heads"):
+        out = col.all_reduce(out, par.model_group)
+    if constrain is not None:
+        out = constrain(out, ("batch", None, "embed_act"))
+    return out
 
 
 def _mask_padded_heads(o, cfg: ModelConfig):
@@ -52,10 +72,25 @@ def _mask_padded_heads(o, cfg: ModelConfig):
     return o * mask[..., None].to(o.dtype)
 
 
-def _qkv(params, x, positions, cfg: ModelConfig):
-    q = _proj(x, params["wq"])
-    k = _proj(x, params["wk"])
-    v = _proj(x, params["wv"])
+def _qkv(params, x, positions, cfg: ModelConfig,
+         par: ParallelCtx = NO_MESH, constrain=None):
+    """q, k, v (B, S, H, hd) of this rank's heads, RoPE applied.  The
+    projections of sharded heads enter the tensor-parallel region through
+    f; replicated kv heads do not (their gradient is whole already)."""
+    q_tp, kv_tp = par.tp("q_heads"), par.tp("kv_heads")
+    xq = col.copy_to(x, par.model_group) if q_tp else x
+    xk = xq if kv_tp else x
+    q = _proj(xq, params["wq"])
+    k = _proj(xk, params["wk"])
+    v = _proj(xk, params["wv"])
+    if constrain is not None:
+        qh, kh = ("model" if q_tp else None), ("model" if kv_tp else None)
+        q = constrain(q, ("batch", None, "q_heads", None),
+                      held=(None, None, qh, None))
+        k = constrain(k, ("batch", None, "kv_heads", None),
+                      held=(None, None, kh, None))
+        v = constrain(v, ("batch", None, "kv_heads", None),
+                      held=(None, None, kh, None))
     q = common.apply_rope_partial(q, positions, cfg.rope_theta,
                                   cfg.rope_fraction)
     k = common.apply_rope_partial(k, positions, cfg.rope_theta,
@@ -63,38 +98,63 @@ def _qkv(params, x, positions, cfg: ModelConfig):
     return q, k, v
 
 
+def _kv_for_local_q(k, v, cfg: ModelConfig, par: ParallelCtx):
+    """Where the q heads go over "model" and the kv heads do not: the kv
+    head this rank's q heads read, entered through f, since each rank
+    reads its own part of the replicated heads.  (The kv heads not
+    dividing the model axis, the local q heads are one kv head's, or a
+    part of them, when the kv head count divides the axis.)  Otherwise k
+    and v as they are."""
+    if not par.tp("q_heads") or par.tp("kv_heads"):
+        return k, v
+    Hq, Hkv = cfg.padded_q_heads, cfg.padded_kv_heads
+    G, hq = Hq // Hkv, Hq // par.model_size
+    if G % hq:
+        raise NotImplementedError(f"{cfg.name}: {hq} local q heads cut "
+                                  f"groups of {G}")
+    lo = par.model_rank * hq // G
+    g = par.model_group
+    return (col.copy_to(k, g)[:, :, lo:lo + 1],
+            col.copy_to(v, g)[:, :, lo:lo + 1])
+
+
 def _scale(cfg: ModelConfig) -> float:
     return cfg.query_scale or cfg.resolved_head_dim ** -0.5
 
 
 def _gqa_attend(params, x, positions, cfg: ModelConfig, *, window: int,
-                policy):
-    """Causal attention over the whole sequence: -> (out (B, S, d), k, v)."""
-    q, k, v = _qkv(params, x, positions, cfg)
-    o = ops.attention(q, k, v, causal=True, window=window,
+                policy, par: ParallelCtx = NO_MESH, constrain=None):
+    """Causal attention over the whole sequence: -> (out (B, S, d), k, v),
+    k and v this rank's kv heads (all of them where they are
+    replicated)."""
+    q, k, v = _qkv(params, x, positions, cfg, par, constrain)
+    ka, va = _kv_for_local_q(k, v, cfg, par)
+    o = ops.attention(q, ka, va, causal=True, window=window,
                       logit_cap=cfg.attn_logit_softcap, scale=_scale(cfg),
                       policy=policy)
     o = _mask_padded_heads(o, cfg)
-    return _out_proj(o, params["wo"]), k, v
+    return _out_proj(o, params["wo"], par, constrain), k, v
 
 
 def gqa_forward(params, x, positions, cfg: ModelConfig, *, window: int = 0,
-                policy=ops.DEFAULT_POLICY):
+                policy=ops.DEFAULT_POLICY, par: ParallelCtx = NO_MESH,
+                constrain=None):
     """Full-sequence attention (training).  x (B, S, d) -> (B, S, d).  On
     the card, with a gradient, K4 runs forward and backward (its autograd
     function); the padded heads' outputs are zeroed, so their weight
     slices get zero gradient."""
     return _gqa_attend(params, x, positions, cfg, window=window,
-                       policy=policy)[0]
+                       policy=policy, par=par, constrain=constrain)[0]
 
 
 def gqa_prefill(params, x, positions, cfg: ModelConfig, *, window: int = 0,
-                cache_len: int, policy=ops.DEFAULT_POLICY):
+                cache_len: int, policy=ops.DEFAULT_POLICY,
+                par: ParallelCtx = NO_MESH, constrain=None):
     """Prefill: attention over the prompt, plus its (k, v) laid into a
     cache of capacity ``cache_len`` (ring layout, slot = pos % cache_len).
     x (B, S, d) -> (out (B, S, d), (k_c, v_c) (B, cache_len, Hkv, hd))."""
     out, k, v = _gqa_attend(params, x, positions, cfg, window=window,
-                            policy=policy)
+                            policy=policy, par=par, constrain=constrain)
     S = x.shape[1]
     if cache_len >= S:
         pad = cache_len - S
@@ -109,22 +169,51 @@ def gqa_prefill(params, x, positions, cfg: ModelConfig, *, window: int = 0,
 
 def gqa_decode(params, x, pos, cache_kv, cfg: ModelConfig, *,
                window: int = 0,
-               policy: ops.KernelPolicy = ops.DEFAULT_POLICY):
+               policy: ops.KernelPolicy = ops.DEFAULT_POLICY,
+               par: ParallelCtx = NO_MESH, shard=None):
     """One-token decode against ring buffers.  x (B, 1, d); cache_kv =
     (k, v) of shape (B, C, Hkv, hd); pos a 0-d int32 tensor, the position
     of the new token.  Its k/v row goes to slot ``pos % C`` in place,
-    before the sweep."""
+    before the sweep.  ``shard = (offset, R)``: the buffers are slots
+    ``offset .. offset + C - 1`` of a ring of R slots cut over "model"; the
+    rank owning slot ``pos % R`` writes the row, each rank sweeps its
+    slots for every q head (``ops.decode_attention_shard``), and the
+    partials gathered over "model" are merged (K2b)."""
     k_cache, v_cache = cache_kv
     C = k_cache.shape[1]
-    q, k, v = _qkv(params, x, pos.reshape(1, 1), cfg)
-    slot = torch.remainder(pos, C).long().reshape(1)
-    k_cache.index_copy_(1, slot, k.to(k_cache.dtype))
-    v_cache.index_copy_(1, slot, v.to(v_cache.dtype))
-    o = ops.decode_attention(q, k_cache, v_cache, pos, window=window,
-                             logit_cap=cfg.attn_logit_softcap,
-                             scale=_scale(cfg), policy=policy)
-    o = _mask_padded_heads(o, cfg)
-    return _out_proj(o, params["wo"]), (k_cache, v_cache)
+    q, k, v = _qkv(params, x, pos.reshape(1, 1), cfg, par)
+    if shard is None:
+        slot = torch.remainder(pos, C).long().reshape(1)
+        k_cache.index_copy_(1, slot, k.to(k_cache.dtype))
+        v_cache.index_copy_(1, slot, v.to(v_cache.dtype))
+    else:
+        off, R = shard
+        g = torch.remainder(pos, R).long().reshape(1) - off
+        mine = (g >= 0) & (g < C)
+        slot = g.clamp(0, C - 1)
+        for buf, new in ((k_cache, k), (v_cache, v)):
+            buf.index_copy_(1, slot, torch.where(
+                mine, new.to(buf.dtype), buf.index_select(1, slot)))
+    gather_q = par.tp("q_heads") and not par.tp("kv_heads")
+    qa = col._all_gather(q, 2, par.model_group) if gather_q else q
+    if shard is None:
+        o = ops.decode_attention(qa, k_cache, v_cache, pos, window=window,
+                                 logit_cap=cfg.attn_logit_softcap,
+                                 scale=_scale(cfg), policy=policy)
+    else:
+        partial, lse = ops.decode_attention_shard(
+            qa, k_cache, v_cache, pos, slot_offset=shard[0],
+            ring_len=shard[1], window=window,
+            logit_cap=cfg.attn_logit_softcap, scale=_scale(cfg),
+            policy=policy)
+        partial = col._all_gather(partial, 2, par.model_group)
+        lse = col._all_gather(lse, 2, par.model_group)
+        o = da.lse_merge(partial, lse, q.dtype).transpose(1, 2)
+    if gather_q:
+        hq = q.shape[2]
+        o = o[:, :, par.model_rank * hq:(par.model_rank + 1) * hq]
+    o = _mask_padded_heads(o.contiguous(), cfg)
+    return _out_proj(o, params["wo"], par), (k_cache, v_cache)
 
 
 def gqa_decode_ragged(params, x, pos, cache_kv, cfg: ModelConfig, *,

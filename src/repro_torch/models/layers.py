@@ -25,12 +25,15 @@ from repro_torch.models.config import ModelConfig
 @dataclasses.dataclass(frozen=True)
 class ParallelCtx:
     """How model code sees the mesh.  ``mesh`` None: one process, no
-    collectives (every path but the all-to-all MoE)."""
+    collectives.  ``table`` is the sharding rules' logical-axis table:
+    :meth:`tp` says whether a logical axis goes over a "model" axis of
+    more than one rank, whose weights each rank then holds a shard of."""
     mesh: Any = None
     batch_axes: tuple[str, ...] = ("pod", "data")
     model_axis: str = "model"
     data_axis: str = "data"
     moe_strategy: str = "gather"   # gather | a2a (see moe_forward_a2a)
+    table: Any = None
 
     @property
     def model_size(self) -> int:
@@ -44,19 +47,71 @@ class ParallelCtx:
             return 1
         return self.mesh.shape.get(self.data_axis, 1)
 
+    @property
+    def dp_size(self) -> int:
+        """Ranks the batch is cut over: the product of the batch axes."""
+        n = 1
+        for a in self.dp_axes:
+            n *= self.mesh.shape[a]
+        return n
+
+    @property
+    def live(self) -> bool:
+        """A mesh of ranks to run on (a ``HostMesh``), not axis names and
+        sizes alone."""
+        return hasattr(self.mesh, "group")
+
+    @property
+    def dp_axes(self) -> tuple[str, ...]:
+        """The batch axes of more than one rank, on a live mesh."""
+        if not self.live:
+            return ()
+        return tuple(a for a in self.batch_axes
+                     if self.mesh.shape.get(a, 1) > 1)
+
+    def tp(self, name: str) -> bool:
+        """Does the logical axis ``name`` go over "model" here (on a live
+        mesh)?"""
+        return (self.live and self.model_size > 1 and self.table is not None
+                and self.table.get(name) == self.model_axis)
+
+    def group(self, axis: str):
+        """The process group of mesh axis ``axis`` (None: no such axis of
+        more than one rank, where every collective is the identity)."""
+        if self.mesh is None or self.mesh.shape.get(axis, 1) == 1:
+            return None
+        return self.mesh.group(axis)
+
+    @property
+    def model_group(self):
+        return self.group(self.model_axis)
+
+    @property
+    def model_rank(self) -> int:
+        from repro_torch.runtime import collectives as col
+        return col.rank(self.model_group)
+
 
 NO_MESH = ParallelCtx()
 
 
-def mlp_forward(params, x, cfg: ModelConfig):
-    """x (B, S, d) -> (B, S, d); weights {"wi_gate"?, "wi_up", "wo"}."""
+def mlp_forward(params, x, cfg: ModelConfig, ctx: ParallelCtx = NO_MESH):
+    """x (B, S, d) -> (B, S, d); weights {"wi_gate"?, "wi_up", "wo"}.  With
+    the hidden dim over "model" (``ctx.tp("mlp")``) this rank holds
+    columns of ``wi_*`` and rows of ``wo``: a column-parallel product
+    entered through f, then a row-parallel one summed through g."""
+    from repro_torch.runtime import collectives as col
     adt = x.dtype
     act = common.activation(cfg.act)
+    tp = ctx.tp("mlp")
+    if tp:
+        x = col.copy_to(x, ctx.model_group)
     if "wi_gate" in params:
         h = act(x @ params["wi_gate"].to(adt)) * (x @ params["wi_up"].to(adt))
     else:
         h = act(x @ params["wi_up"].to(adt))
-    return h @ params["wo"].to(adt)
+    out = h @ params["wo"].to(adt)
+    return col.all_reduce(out, ctx.model_group) if tp else out
 
 
 def _top_k(probs, k: int):
@@ -84,19 +139,29 @@ def _shared_expert(shared, x2d, act):
     return h @ shared["wo"].to(adt)
 
 
-def _moe_local(x2d, gates, idx, wi_gate, wi_up, wo, capacity: int, act):
-    """Dispatch, expert compute and combine over all E experts.  x2d (T, d),
-    gates / idx (T, k).  The (token, choice) pairs take slots in their
-    expert's buffer in the flattened ``(T * k)`` order (``_place``); pairs
-    past ``capacity`` are dropped.  Kept rows go to unique slots
-    (``index_copy_``); the expert products are batched matmuls over the
-    (E, capacity, d) buffer; the combine sums each token's k weighted rows
-    in order, as the JAX scatter-add into zeros does (no atomics)."""
+def _moe_local(x2d, gates, idx, wi_gate, wi_up, wo, capacity: int, act,
+               e_off: int | None = None):
+    """Dispatch, expert compute and combine over the experts of the
+    weights ``wi_* (E, d, ff)``: all of them (``e_off`` None), or this
+    model shard's, experts ``e_off .. e_off + E - 1`` of the routing
+    (JAX's ``_moe_local`` at ``shard_idx * E_loc``), whose pairs alone
+    take slots.  x2d (T, d), gates / idx (T, k).  The (token, choice)
+    pairs take slots in their expert's buffer in the flattened ``(T *
+    k)`` order (``_place``); pairs past ``capacity`` are dropped.  Kept
+    rows go to unique slots (``index_copy_``); the expert products are
+    batched matmuls over the (E, capacity, d) buffer; the combine sums
+    each token's k weighted rows in order, as the JAX scatter-add into
+    zeros does (no atomics)."""
     T, d = x2d.shape
     k = idx.shape[1]
     E = wi_gate.shape[0]
     adt = x2d.dtype
-    slot, keep = _place(idx.reshape(-1), None, capacity, E)
+    dest, sel = idx.reshape(-1), None
+    if e_off is not None:
+        dest = dest - e_off
+        sel = (dest >= 0) & (dest < E)
+        dest = torch.where(sel, dest, 0)
+    slot, keep = _place(dest, sel, capacity, E)
     tok = torch.arange(T, device=x2d.device).repeat_interleave(k)
     # dropped pairs all land on one spare row past the buffer, cut off
     # after: no host read of the kept count
@@ -133,12 +198,33 @@ def _route(probs, cfg: ModelConfig, ctx: ParallelCtx):
     return gates, idx, aux
 
 
+def _global_aux(probs, idx, cfg: ModelConfig, ctx: ParallelCtx):
+    """The load-balance loss over the global batch, as JAX's SPMD program
+    computes it: the token fractions and mean probabilities averaged over
+    the DP ranks (equal token counts) before their product, divided by
+    the DP size, since each DP rank's loss adds it."""
+    from repro_torch.runtime import collectives as col
+    E = cfg.n_experts
+    n = ctx.dp_size
+    frac_tokens = torch.nn.functional.one_hot(idx[:, 0], E).float().mean(0)
+    frac_probs = probs.mean(0)
+    for a in ctx.dp_axes:
+        g = ctx.mesh.group(a)
+        frac_tokens = col.psum(frac_tokens, g)
+        frac_probs = col.psum(frac_probs, g)
+    aux = E * torch.sum((frac_tokens / n) * (frac_probs / n)) \
+        * cfg.aux_loss_weight
+    return aux / n
+
+
 def moe_forward(params, x, cfg: ModelConfig, ctx: ParallelCtx = NO_MESH):
     """Top-k MoE FFN.  x (B, S, d) -> (out (B, S, d), aux) with the
     Switch-style load-balance loss ``aux``.  The router's softmax and the
     gates are fp32.  On a live mesh with ``moe_strategy == "a2a"`` the
     experts run through :func:`moe_forward_a2a`; otherwise locally (a
-    mesh that would shard the experts over "model" is refused)."""
+    with the experts over "model" JAX's gather strategy,
+    :func:`_moe_gather`).  On a mesh whose batch axes cut the batch,
+    ``aux`` is this DP rank's share of the global batch's loss."""
     B, S, d = x.shape
     adt = x.dtype
     E, k = cfg.n_experts, cfg.experts_per_token
@@ -147,12 +233,14 @@ def moe_forward(params, x, cfg: ModelConfig, ctx: ParallelCtx = NO_MESH):
     logits = (x2d @ params["router"].to(adt)).float()
     probs = torch.softmax(logits, dim=-1)                      # (T, E)
     gates, idx, aux = _route(probs, cfg, ctx)
+    if ctx.dp_size > 1 and ctx.moe_strategy != "a2a":
+        aux = _global_aux(probs, idx, cfg, ctx)
     if (ctx.mesh is not None and ctx.moe_strategy == "a2a"
             and E % max(ctx.data_size, 1) == 0):
         return moe_forward_a2a(params, x, cfg, ctx, gates, idx, aux)
-    if ctx.model_size > 1:
-        raise NotImplementedError("experts sharded over the model axis: "
-                                  "sharded execution is not ported")
+    if ctx.live and ctx.model_size > 1:
+        return _moe_gather(params, x2d, gates, idx, cfg, ctx, act) \
+            .reshape(B, S, d), aux
     capacity = _capacity(cfg, k, B * S, E)
     out2d = _moe_local(x2d, gates, idx, params["wi_gate"].to(adt),
                        params["wi_up"].to(adt), params["wo"].to(adt),
@@ -160,6 +248,34 @@ def moe_forward(params, x, cfg: ModelConfig, ctx: ParallelCtx = NO_MESH):
     if "shared" in params:
         out2d = out2d + _shared_expert(params["shared"], x2d, act)
     return out2d.reshape(B, S, d), aux
+
+
+def _moe_gather(params, x2d, gates, idx, cfg: ModelConfig,
+                ctx: ParallelCtx, act):
+    """JAX's gather strategy on a live mesh (``layers.py:201-256`` of the
+    JAX package): the experts go over "model", so this rank's weights are
+    experts ``r E_loc .. (r + 1) E_loc - 1``, which it runs on its own
+    tokens at their capacity; the shared experts' hidden dim is this
+    rank's slice; one all-reduce over "model" sums the partial outputs.
+    The tokens and their gates enter the rank-partitioned compute through
+    f, so each rank's gradient of them is whole."""
+    from repro_torch.runtime import collectives as col
+    adt = x2d.dtype
+    E, k = cfg.n_experts, cfg.experts_per_token
+    group = ctx.model_group
+    if not ctx.tp("experts"):
+        raise NotImplementedError(f"{cfg.name}: {E} experts do not divide "
+                                  f"the model axis of {ctx.model_size}")
+    E_loc = E // ctx.model_size
+    capacity = _capacity(cfg, k, x2d.shape[0], E)
+    xt = col.copy_to(x2d, group)
+    out = _moe_local(xt, col.copy_to(gates, group), idx,
+                     params["wi_gate"].to(adt), params["wi_up"].to(adt),
+                     params["wo"].to(adt), capacity, act,
+                     e_off=ctx.model_rank * E_loc)
+    if "shared" in params:
+        out = out + _shared_expert(params["shared"], xt, act)
+    return col.all_reduce(out, group)
 
 
 def _place(dest, sel, capacity: int, n_dest: int):

@@ -54,7 +54,7 @@ paged commit reads its accepted-row count once per sweep.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Any, Callable
 
 import torch
 
@@ -65,6 +65,7 @@ from repro_torch.models import common, ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (NO_MESH, ParallelCtx, mlp_forward,
                                        moe_forward)
+from repro_torch.runtime import collectives as col
 
 VOCAB_PAD = 256
 
@@ -76,15 +77,70 @@ def padded_vocab(cfg: ModelConfig) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class RunCtx:
-    """How a step runs: its mesh (``parallel``: the all-to-all MoE reads
-    it), its kernels, the activation constraint of its sharding rules
-    (``constrain``, called on the trunk's embeddings and logits as in JAX;
-    ``runtime.sharding.ShardingRules.constrain`` raises where it would
-    shard) and the training forward's remat."""
+    """How a step runs: its mesh (``parallel``), its kernels, the
+    activation constraint of its sharding rules (``constrain``, called on
+    the trunk's embeddings, attention's projections and the logits as in
+    JAX), the specs of the parameter shards each rank holds
+    (``param_specs``, ``rules.param_sharding`` of ``bridge.param_axes``:
+    the dims they put over a DP axis are gathered before use) and the
+    training forward's remat."""
     parallel: ParallelCtx = NO_MESH
     kernel_policy: ops.KernelPolicy = ops.DEFAULT_POLICY
     constrain: Callable | None = None
     remat: str = "none"          # none | dots | full (training forward)
+    param_specs: Any = None
+
+
+def sharded_blockers(cfg: ModelConfig) -> tuple[str, ...]:
+    """Named config features whose sharded execution (a live mesh with an
+    axis of more than one rank) the port does not run yet: the SSM inner
+    dims, MLA latents, the hybrid shared block, codebooks, the first
+    dense layers, padded heads and the vision prefix.  The dense GQA
+    family and the gather-strategy MoE run."""
+    checks = (("uses_ssm", cfg.uses_ssm), ("use_mla", cfg.use_mla),
+              ("hybrid_attn_every", is_hybrid(cfg)),
+              ("n_codebooks", bool(cfg.n_codebooks)),
+              ("first_dense_layers", bool(cfg.first_dense_layers)),
+              ("heads_padded", cfg.heads_padded),
+              ("vision_tokens", bool(cfg.vision_tokens)))
+    return tuple(name for name, on in checks if on)
+
+
+def _fsdp(tree, specs, ctx: RunCtx | None, lead: int = 0):
+    """``tree`` (this rank's parameter shards) with every dim its specs
+    put over a mesh axis other than "model" gathered (FSDP storage; the
+    backward reduce-scatters the gradients).  ``lead`` spec entries are
+    skipped: a unit's leaves of the stacked ``layers``.  The "model" dims
+    stay this rank's: the layers run tensor-parallel on them."""
+    if ctx is None or specs is None or ctx.parallel.mesh is None:
+        return tree
+    from repro_torch.runtime.sharding import entry_axes
+    par = ctx.parallel
+
+    def one(leaf, spec):
+        for d, entry in enumerate(spec[lead:]):
+            for a in reversed(entry_axes(entry)):
+                if a != par.model_axis and par.mesh.shape[a] > 1:
+                    leaf = col.all_gather(leaf, d, par.mesh.group(a))
+        return leaf
+
+    return common.tree_map(one, tree, specs)
+
+
+def _top_params(params, ctx: RunCtx | None) -> dict:
+    """``params`` with every tree but the stacked ``layers`` gathered
+    (:func:`_fsdp`)."""
+    if ctx is None or ctx.param_specs is None:
+        return params
+    return {k: v if k == "layers" else _fsdp(v, ctx.param_specs[k], ctx)
+            for k, v in params.items()}
+
+
+def _unit_params(unit, ctx: RunCtx | None):
+    """One unit's leaves of the stacked ``layers``, gathered."""
+    if ctx is None or ctx.param_specs is None:
+        return unit
+    return _fsdp(unit, ctx.param_specs["layers"], ctx, lead=1)
 
 
 def unit_size(cfg: ModelConfig) -> int:
@@ -235,11 +291,20 @@ def embed_tokens(params, tokens, cfg: ModelConfig, ctx: RunCtx | None = None):
     the sum of its per-codebook embeddings, added in codebook order."""
     adt = common.dt(cfg.dtype)
     tokens = tokens.long()
+    par = NO_MESH if ctx is None else ctx.parallel
     if cfg.n_codebooks:
         embs = params["embed"].to(adt)                  # (n_cb, Vp, d)
         x = embs[0][tokens[..., 0]]
         for c in range(1, cfg.n_codebooks):
             x = x + embs[c][tokens[..., c]]
+    elif par.tp("vocab"):
+        # vocab-parallel: this rank's rows of the table, the others' ids
+        # read zeros, and the ranks' lookups summed (g)
+        table = params["embed"].to(adt)
+        ids = tokens - par.model_rank * table.shape[0]
+        mine = (ids >= 0) & (ids < table.shape[0])
+        x = table[torch.where(mine, ids, 0)] * mine[..., None].to(adt)
+        x = col.all_reduce(x, par.model_group)
     else:
         x = params["embed"].to(adt)[tokens]
     if cfg.embed_scale:
@@ -254,16 +319,30 @@ def _constrain_logits(logits, cfg: ModelConfig, ctx: RunCtx | None):
         return logits
     spec = ("batch", None, None, "vocab") if cfg.n_codebooks \
         else ("batch", None, "vocab")
-    return ctx.constrain(logits, spec)
+    vocab = "model" if ctx.parallel.tp("vocab") else None
+    held = (None,) * (logits.ndim - 1) + (vocab,)
+    return ctx.constrain(logits, spec, held=held)
+
+
+def _vocab_lo(logits, ctx: RunCtx | None) -> int:
+    """The global vocab id of this rank's first logit column: 0 unless the
+    vocab goes over "model", where each rank holds a slice of it."""
+    if ctx is None or not ctx.parallel.tp("vocab"):
+        return 0
+    return ctx.parallel.model_rank * logits.shape[-1]
 
 
 SOFTCAP_BLOCK = 2 ** 26     # logits per soft-cap block
 
 
-def _head(params, x, cfg: ModelConfig):
+def _head(params, x, cfg: ModelConfig, ctx: RunCtx | None = None):
     """x (B, S, d) -> logits (B, S, Vp); a codebook model's (B, S, n_cb,
-    Vp), JAX's ``einsum("bsd,cdv->bscv")`` as one product a codebook."""
+    Vp), JAX's ``einsum("bsd,cdv->bscv")`` as one product a codebook.
+    With the vocab over "model", this rank's columns (x enters through
+    f)."""
     adt = x.dtype
+    if ctx is not None and ctx.parallel.tp("vocab"):
+        x = col.copy_to(x, ctx.parallel.model_group)
     if cfg.n_codebooks:
         head = params["lm_head"].to(adt)                # (n_cb, d, Vp)
         return torch.stack([x @ head[c] for c in range(cfg.n_codebooks)],
@@ -278,16 +357,17 @@ def lm_logits(params, x, cfg: ModelConfig, ctx: RunCtx | None = None):
     to -1e30.  Both update the logits in place: the soft-cap a block of
     rows at a time, so that its fp32 temporary stays at ``SOFTCAP_BLOCK``
     values, where a whole long prefill's would be twice the logits."""
-    Vp = padded_vocab(cfg)
-    logits = _head(params, x, cfg)
+    logits = _head(params, x, cfg, ctx)
+    Vp = logits.shape[-1]            # this rank's columns
     if cfg.final_logit_softcap > 0.0:
         flat = logits.view(-1, Vp)
         step = max(1, SOFTCAP_BLOCK // Vp)
         for i in range(0, flat.shape[0], step):
             flat[i:i + step] = common.softcap(flat[i:i + step],
                                               cfg.final_logit_softcap)
-    if Vp != cfg.vocab_size:
-        logits[..., cfg.vocab_size:] = -1e30
+    tail = cfg.vocab_size - _vocab_lo(logits, ctx)
+    if tail < Vp:
+        logits[..., max(tail, 0):] = -1e30
     return _constrain_logits(logits, cfg, ctx)
 
 
@@ -307,7 +387,7 @@ def _ffn_aux(blk, x, a, cfg: ModelConfig, ctx: RunCtx):
     if "router" in blk["ffn"]:
         f, aux = moe_forward(blk["ffn"], h, cfg, ctx.parallel)
     else:
-        f = mlp_forward(blk["ffn"], h, cfg)
+        f = mlp_forward(blk["ffn"], h, cfg, ctx.parallel)
     if cfg.post_norms:
         f = _norm(f, blk["post_ffn_norm"], cfg, ctx)
     return x + f, aux
@@ -330,7 +410,8 @@ def _apply_block(blk, x, positions, cfg: ModelConfig, ctx: RunCtx, *,
                              policy=ctx.kernel_policy)[0]
     else:
         a = attn.gqa_forward(blk["attn"], h, positions, cfg, window=window,
-                             policy=ctx.kernel_policy)
+                             policy=ctx.kernel_policy, par=ctx.parallel,
+                             constrain=ctx.constrain)
     x, aux_l = _ffn_aux(blk, x, a, cfg, ctx)
     return x, aux if aux_l is None else aux + aux_l
 
@@ -395,13 +476,13 @@ def _train_logits(params, x, cfg: ModelConfig, ctx: RunCtx | None = None):
     place (autograd records it): the final soft-cap in fp32, the padded
     vocab tail at -1e30."""
     adt = x.dtype
-    logits = _head(params, x, cfg)
+    logits = _head(params, x, cfg, ctx)
     cap = cfg.final_logit_softcap
     if cap > 0.0:
         logits = (cap * torch.tanh(logits.float() / cap)).to(adt)
-    Vp = padded_vocab(cfg)
-    if Vp != cfg.vocab_size:
-        keep = torch.arange(Vp, device=x.device) < cfg.vocab_size
+    Vp, lo = logits.shape[-1], _vocab_lo(logits, ctx)
+    if lo + Vp > cfg.vocab_size:
+        keep = torch.arange(lo, lo + Vp, device=x.device) < cfg.vocab_size
         logits = torch.where(keep, logits,
                              torch.tensor(-1e30, dtype=adt, device=x.device))
     return _constrain_logits(logits, cfg, ctx)
@@ -418,6 +499,7 @@ def forward(params, tokens, cfg: ModelConfig, ctx: RunCtx = RunCtx(), *,
     loss (fp32 0-d).  ``ctx.remat`` checkpoints each unit (the hybrid
     shared block with it)."""
     _require_ported(cfg)
+    params = _top_params(params, ctx)
     x = embed_tokens(params, tokens, cfg, ctx)
     if extra_embeds is not None:
         x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
@@ -435,7 +517,7 @@ def forward(params, tokens, cfg: ModelConfig, ctx: RunCtx = RunCtx(), *,
 
     body = _remat(body, ctx)
     for unit in _unstack(params["layers"], n_units(cfg)):
-        x, aux = body(x, aux, unit)
+        x, aux = body(x, aux, _unit_params(unit, ctx))
     x = _norm(x, params["final_norm"], cfg, ctx)
     return _train_logits(params, x, cfg, ctx), aux
 
@@ -471,7 +553,34 @@ def lm_loss_pre_shifted(params, inputs, targets, cfg: ModelConfig,
         logits = logits[:, extra_embeds.shape[1]:]
     if cfg.n_codebooks:
         return _codebook_ce(logits, targets, cfg) + aux
-    return common.cross_entropy(logits, targets) + aux
+    if ctx.param_specs is None:
+        return common.cross_entropy(logits, targets) + aux
+    return _sharded_ce(logits, targets, ctx) + aux
+
+
+def _sharded_ce(logits, labels, ctx: RunCtx):
+    """This rank's share of the mean token CE over the global batch: its
+    tokens' CE summed, over the global token count (the batch is cut over
+    the DP axes, so the DP ranks' shares sum to the mean).  With the
+    vocab over "model" the CE is vocab-parallel: the max and the sum of
+    exponentials over each rank's columns, all-reduced over "model", and
+    the gold logit from the rank that holds it."""
+    par = ctx.parallel
+    lf = logits.float()
+    n_total = labels.numel() * par.dp_size
+    if not par.tp("vocab"):
+        logz = torch.logsumexp(lf, dim=-1)
+        gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+        return (logz - gold).sum() / n_total
+    g = par.model_group
+    V = lf.shape[-1]
+    m = col.all_max(lf.amax(dim=-1), g)
+    sumexp = col.all_reduce(torch.exp(lf - m[..., None]).sum(dim=-1), g)
+    ids = labels.long() - par.model_rank * V
+    mine = (ids >= 0) & (ids < V)
+    gold = torch.gather(lf, -1, torch.where(mine, ids, 0)[..., None])[..., 0]
+    gold = col.all_reduce(gold * mine, g)
+    return (torch.log(sumexp) + m - gold).sum() / n_total
 
 
 # ==========================================================================
@@ -512,7 +621,9 @@ def _block_prefill(blk, x, positions, cfg: ModelConfig, ctx: RunCtx, *,
     else:
         a, (k, v) = attn.gqa_prefill(blk["attn"], h, positions, cfg,
                                      window=window, cache_len=cache_len,
-                                     policy=ctx.kernel_policy)
+                                     policy=ctx.kernel_policy,
+                                     par=ctx.parallel,
+                                     constrain=ctx.constrain)
         c = {"k": k, "v": v}
     return _ffn(blk, x, a, cfg, ctx), c
 
@@ -549,6 +660,7 @@ def prefill(params, tokens, cfg: ModelConfig, ctx: RunCtx = RunCtx(), *,
     prompt's embeddings.  A codebook model's tokens are (B, S, n_cb) and
     its logits (B, S, n_cb, Vp)."""
     _require_ported(cfg)
+    params = _top_params(params, ctx)
     x = embed_tokens(params, tokens, cfg, ctx)
     B, S = x.shape[:2]
     max_len = max_len or max(cfg.max_seq_len, S)
@@ -566,7 +678,7 @@ def prefill(params, tokens, cfg: ModelConfig, ctx: RunCtx = RunCtx(), *,
     nu = n_units(cfg)
     units = {}
     for l in range(nu):
-        unit = _layer(params["layers"], l)
+        unit = _unit_params(_layer(params["layers"], l), ctx)
         for i in range(unit_size(cfg)):
             blk = unit[f"sub{i}"]
             if cfg.uses_ssm:
@@ -653,7 +765,8 @@ def _pos_tensor(pos, device) -> torch.Tensor:
 
 
 def _block_decode(blk, x, pos, c, cfg: ModelConfig, ctx: RunCtx, *,
-                  window: int, block_tables=None, private: bool = False):
+                  window: int, block_tables=None, private: bool = False,
+                  shard=None):
     """One attention sublayer's decode step against this layer's cache
     leaves ``c`` (views, written in place): the MLA latent pool or ring,
     a windowed sub's private rings (paged), the slots' private buffers
@@ -680,7 +793,8 @@ def _block_decode(blk, x, pos, c, cfg: ModelConfig, ctx: RunCtx, *,
                                      policy=pol)
     else:
         a, _ = attn.gqa_decode(blk["attn"], h, pos, (c["k"], c["v"]), cfg,
-                               window=window, policy=pol)
+                               window=window, policy=pol, par=ctx.parallel,
+                               shard=shard)
     return _ffn(blk, x, a, cfg, ctx)
 
 
@@ -708,22 +822,25 @@ def decode_step(params, cache, tokens, cfg: ModelConfig,
     if "block_tables" in cache:
         return _paged_decode_step(params, cache, tokens, cfg, ctx, active)
     _require_ported(cfg)
+    params = _top_params(params, ctx)
     x = embed_tokens(params, tokens, cfg, ctx)
     emb0 = x
     shared = params.get("shared_attn")
     pos = _pos_tensor(cache["pos"], x.device)
+    ring_shard = cache.get("shard", {})
     for blk, c in zip(params.get("dense_layers", []), cache.get("dense", [])):
         x = _block_decode(blk, x, pos, c, cfg, ctx,
                           window=cfg.sliding_window)
     for l in range(n_units(cfg)):
-        unit = _layer(params["layers"], l)
+        unit = _unit_params(_layer(params["layers"], l), ctx)
         for i in range(unit_size(cfg)):
             blk, c = unit[f"sub{i}"], cache["units"][f"sub{i}"]
             if cfg.uses_ssm:
                 x = _ssm_decode(blk, x, c, l, cfg, ctx)
                 continue
             x = _block_decode(blk, x, pos, _group_layer(c, l), cfg, ctx,
-                              window=cfg.window_for_layer(i))
+                              window=cfg.window_for_layer(i),
+                              shard=ring_shard.get(f"sub{i}"))
         if shared is not None:
             h = _shared_in(shared, x, emb0)
             x = x + (_block_decode(shared["block"], h, pos,

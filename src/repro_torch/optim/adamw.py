@@ -81,20 +81,55 @@ def adamw_init(params: Any, cfg: OptimizerConfig) -> dict[str, Any]:
     return state
 
 
-def global_norm(tree: Any) -> torch.Tensor:
+def global_norm(tree: Any, specs: Any = None, mesh=None) -> torch.Tensor:
+    """The l2 norm of every leaf of ``tree``.  Where ``tree`` holds this
+    rank's shards of a sharded tree (``specs`` the tree of their specs on
+    the live ``mesh``), each leaf's sum of squares is summed over the mesh
+    axes its spec shards, so that each element counts once however many
+    ranks replicate it, and the norm is the unsharded tree's on every
+    rank."""
     leaves = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(leaves)))
+    if specs is None or mesh is None:
+        return torch.sqrt(torch.sum(torch.stack(leaves)))
+    from repro_torch.runtime import collectives as col
+    from repro_torch.runtime.sharding import named_axes
+    by_axes: dict = {}
+    for sq, spec in zip(leaves, tree_leaves_specs(tree, specs)):
+        axes = tuple(sorted({a for a in named_axes(spec)
+                             if mesh.shape[a] > 1}))
+        by_axes.setdefault(axes, []).append(sq)
+    total = []
+    for axes, sqs in sorted(by_axes.items()):
+        part = torch.sum(torch.stack(sqs))
+        for a in axes:
+            part = col._all_reduce(part, mesh.group(a))
+        total.append(part)
+    return torch.sqrt(torch.sum(torch.stack(total)))
+
+
+def tree_leaves_specs(tree: Any, specs: Any) -> list:
+    """The spec of each leaf of ``tree``, in ``tree_leaves`` order (a spec
+    is a tuple, so the spec tree is walked beside ``tree``)."""
+    if isinstance(tree, dict):
+        return [s for k in sorted(tree)
+                for s in tree_leaves_specs(tree[k], specs[k])]
+    if isinstance(tree, (list, tuple)):
+        return [s for t, sp in zip(tree, specs)
+                for s in tree_leaves_specs(t, sp)]
+    return [] if tree is None else [specs]
 
 
 @torch.no_grad()
 def adamw_update(grads: Any, state: dict[str, Any], params: Any,
-                 cfg: OptimizerConfig):
+                 cfg: OptimizerConfig, specs: Any = None, mesh=None):
     """One optimizer step, in place: ``params`` and ``state``'s moments and
     count are overwritten.  Returns (params, state, metrics) with metrics
-    ``{"lr", "grad_norm"}`` as 0-d fp32 tensors."""
+    ``{"lr", "grad_norm"}`` as 0-d fp32 tensors.  On a live ``mesh`` the
+    leaves are this rank's shards (``specs``): the update is elementwise,
+    and the clipping norm is the whole tree's (:func:`global_norm`)."""
     count = state["count"] + 1
     lr = make_schedule(cfg)(count)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, specs, mesh)
     if cfg.clip_norm > 0:
         scale = torch.clamp(_f32(cfg.clip_norm)
                             / torch.clamp(gnorm, min=1e-9), max=1.0)

@@ -13,17 +13,25 @@ A spec is the counterpart of a ``PartitionSpec``: a tuple with one entry
 a tensor dimension, each a mesh-axis name, a tuple of names or ``None``.
 :func:`placements` turns one into DTensor placements on a live mesh.
 
-The port runs on one card: :meth:`ShardingRules.constrain` returns its
-input when every mesh axis its spec names has size 1, and raises
-otherwise — running sharded on several cards is not ported, and a
-constraint is never quietly dropped.  One difference from JAX: an
-entry naming a mesh axis the mesh lacks (the host mesh has no "model"
-axis) resolves to replicated, where JAX's lookup would fail.
+On a live mesh (``launch.mesh.HostMesh``) the port runs sharded,
+Megatron style: each rank holds plain local tensors, cut by these specs
+(:func:`shard_params`, :func:`shard_cache`), and the model code calls the
+collectives of ``runtime.collectives`` at named points, where XLA's SPMD
+pass inserts them in JAX.  :meth:`ShardingRules.constrain` lays an
+activation out as its spec says, gathering or slicing where the layout
+does not hold already; on an :class:`~repro_torch.launch.mesh.AbstractMesh`,
+which has no ranks to run on, it returns its input where every axis its
+spec names has size 1 and raises otherwise — a constraint is never
+quietly dropped.  One difference from JAX: an entry naming a mesh axis
+the mesh lacks (the host mesh has no "model" axis) resolves to
+replicated, where JAX's lookup would fail.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any
+
+import torch
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import ParallelCtx
@@ -45,14 +53,18 @@ def _size(mesh, axes) -> int:
     return n
 
 
+def entry_axes(entry) -> tuple[str, ...]:
+    """The mesh axes one spec entry names (None: none), the first the
+    slowest: a rank's shard index over them is row-major, so the shards
+    are rebuilt by gathering the last axis first."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
 def named_axes(spec: Spec) -> tuple[str, ...]:
     """Every mesh-axis name a spec uses."""
-    out = []
-    for entry in spec:
-        if entry is None:
-            continue
-        out.extend((entry,) if isinstance(entry, str) else entry)
-    return tuple(out)
+    return tuple(a for entry in spec for a in entry_axes(entry))
 
 
 def _leaves_with_path(tree, path=()):
@@ -128,21 +140,50 @@ class ShardingRules:
             spec[1] = "model"
         return tuple(spec)
 
-    def constrain(self, x, logical: tuple):
-        """``x`` itself where its spec shards nothing (every axis it names
-        has size 1); raises where it would shard: the port runs on one
-        card."""
-        spec = self.act_spec(x, logical)
-        big = [a for a in named_axes(spec) if self.mesh.shape[a] > 1]
-        if big:
-            raise NotImplementedError(
-                f"sharded execution is not ported: {logical} resolves to "
-                f"{spec} on a mesh of {self.mesh.shape}")
+    def constrain(self, x, logical: tuple, held: Spec | None = None):
+        """``x`` laid out as :meth:`act_spec` says.  ``x`` is this rank's
+        local tensor and ``held`` the spec it is in now (default: each
+        dim replicated); a dim named "batch" is the step's to lay out
+        (the step slices the batch over the DP axes) and is never moved.
+        Where a dim's layout holds, nothing runs; otherwise it is sliced
+        (``collectives.split``) or gathered (``collectives.gather``) over
+        its mesh axis.  On a mesh without ranks (``AbstractMesh``) it
+        raises where the spec would shard."""
+        if not hasattr(self.mesh, "group"):
+            spec = self.act_spec(x, logical)
+            big = [a for a in named_axes(spec) if self.mesh.shape[a] > 1]
+            if big:
+                raise NotImplementedError(
+                    f"{logical} resolves to {spec} on a mesh of "
+                    f"{self.mesh.shape}, an AbstractMesh with no ranks to "
+                    f"run on")
+            return x
+        from repro_torch.runtime import collectives as col
+        held = tuple(held) if held is not None else (None,) * x.ndim
+        shape = list(x.shape)
+        for d, axes in enumerate(held):
+            shape[d] *= _size(self.mesh, axes)
+        want = self.act_spec(torch.empty(shape, device="meta"), logical)
+        for d, name in enumerate(logical):
+            if name == "batch" or want[d] == held[d]:
+                continue
+            if held[d] is not None:
+                x = col.gather(x, d, self._group(held[d]))
+            if want[d] is not None:
+                x = col.split(x, d, self._group(want[d]))
         return x
+
+    def _group(self, axes):
+        names = (axes,) if isinstance(axes, str) else tuple(axes)
+        if len(names) != 1:
+            raise NotImplementedError(f"a dim over several mesh axes "
+                                      f"{names}")
+        return self.mesh.group(names[0])
 
     def parallel_ctx(self) -> ParallelCtx:
         return ParallelCtx(mesh=self.mesh, batch_axes=self.batch_axes,
-                           moe_strategy=self.moe_strategy)
+                           moe_strategy=self.moe_strategy,
+                           table=self.table)
 
 
 def build_rules(cfg: ModelConfig, mesh, *, fsdp_axis: str = "data",
@@ -274,4 +315,105 @@ def placements(spec: Spec, mesh) -> list:
         dims = [d for d, entry in enumerate(spec) if entry is not None
                 and axis in ((entry,) if isinstance(entry, str) else entry)]
         out.append(Shard(dims[0]) if dims else Replicate())
+    return out
+
+
+# --------------------------------------------------------------------------
+# local shards of a live mesh
+# --------------------------------------------------------------------------
+def shard_index(mesh, axes) -> int:
+    """This rank's index along the mesh axes ``axes`` (a name or a tuple,
+    the first the slowest), as a spec entry over them orders the
+    shards."""
+    import torch.distributed as dist
+    i = 0
+    for a in entry_axes(axes):
+        g = mesh.group(a)
+        i = i * mesh.shape[a] + dist.get_group_rank(g, dist.get_rank())
+    return i
+
+
+def localize(t: torch.Tensor, global_shape, spec: Spec, mesh):
+    """This rank's shard of ``t`` under ``spec``: a dim the spec shards is
+    cut where ``t`` holds it whole (its size is ``global_shape``'s) and
+    kept where ``t`` already holds this rank's shard of it."""
+    for d, entry in enumerate(spec):
+        n = _size(mesh, entry_axes(entry) or None)
+        if n == 1:
+            continue
+        if t.shape[d] == global_shape[d]:
+            w = t.shape[d] // n
+            i = shard_index(mesh, entry)
+            t = t.narrow(d, i * w, w)
+        elif t.shape[d] * n != global_shape[d]:
+            raise ValueError(f"dim {d} of {tuple(t.shape)} is neither "
+                             f"whole nor a shard of {tuple(global_shape)} "
+                             f"under {spec}")
+    return t.contiguous()
+
+
+def shard_params(params: Any, specs: Any, mesh) -> Any:
+    """This rank's shards of a whole parameter (or moment) tree, each leaf
+    cut by its spec (``rules.param_sharding(bridge.param_axes(cfg))``);
+    a leaf that required grad still does."""
+    spec_leaves = dict(_leaves_with_path(specs))
+
+    def cut(path, leaf):
+        out = localize(leaf.detach(), leaf.shape, spec_leaves[path], mesh)
+        return out.requires_grad_(leaf.requires_grad)
+
+    return _map_with_path(cut, params)
+
+
+def gather_params(params: Any, specs: Any, mesh) -> Any:
+    """The whole tree from every rank's shards (the inverse of
+    :func:`shard_params`), on every rank: for the checks and the
+    checkpoint."""
+    from repro_torch.runtime import collectives as col
+    spec_leaves = dict(_leaves_with_path(specs))
+
+    def whole(path, leaf):
+        t = leaf.detach()
+        for d, entry in enumerate(spec_leaves[path]):
+            for a in reversed(entry_axes(entry)):
+                t = col._all_gather(t, d, mesh.group(a)) \
+                    if mesh.shape[a] > 1 else t
+        return t
+
+    return _map_with_path(whole, params)
+
+
+def shard_cache(cache: Any, rules: ShardingRules, cfg: ModelConfig, *,
+                batch: int, max_len: int) -> Any:
+    """This rank's part of a ring decode cache under
+    :func:`cache_sharding`, the specs of the whole cache of ``batch`` rows
+    and ``max_len`` (``transformer.init_cache``'s): each leaf is cut where
+    it holds a sharded dim whole (the capacity, after a prefill of this
+    rank's rows) and kept where it holds its shard already (the batch
+    rows, the kv heads).  A ring whose capacity is cut records ``(slot
+    offset, ring length)`` under ``cache["shard"][sub]``: the decode
+    sweeps its slots into partials and merges them over "model"."""
+    from repro_torch.models import transformer as tfm
+    mesh = rules.mesh
+    if cfg.use_mla or cfg.uses_ssm or tfm.is_hybrid(cfg) \
+            or cfg.first_dense_layers:
+        raise NotImplementedError(f"{cfg.name}: sharded decode of the MLA, "
+                                  "SSM and hybrid families is not ported")
+    whole = tfm.init_cache(cfg, batch, max_len, dtype="float32",
+                           device="meta")
+    specs = cache_sharding(rules, whole, cfg)
+    out = {"pos": cache["pos"], "units": {}}
+    shard: dict = {}
+    for name, c in cache["units"].items():
+        out["units"][name] = {}
+        for key, t in c.items():
+            spec = specs["units"][name][key]
+            w = whole["units"][name][key]
+            out["units"][name][key] = localize(t, w.shape, spec, mesh)
+            if spec[2] is not None:       # (n_units, B, C, Hkv, hd)
+                C = w.shape[2]
+                n = _size(mesh, spec[2])
+                shard[name] = (shard_index(mesh, spec[2]) * (C // n), C)
+    if shard:
+        out["shard"] = shard
     return out

@@ -61,17 +61,58 @@ def with_decode_policy(step_cfg: StepConfig, *,
     return dataclasses.replace(step_cfg, kernel_policy=policy)
 
 
+def _live(rules) -> bool:
+    """Do ``rules`` run on a live mesh with an axis of more than one
+    rank (the sharded path)?"""
+    return (rules is not None and hasattr(rules.mesh, "group")
+            and any(n > 1 for n in rules.mesh.shape.values()))
+
+
 def make_run_ctx(cfg: ModelConfig, step_cfg: StepConfig,
                  rules=None) -> RunCtx:
     """The step's ``RunCtx``; with sharding ``rules``
-    (``runtime.sharding.build_rules``) their mesh and constraint."""
-    del cfg
+    (``runtime.sharding.build_rules``) their mesh and constraint, and, on
+    a live mesh, the specs of the parameter shards each rank holds.  A
+    config with a feature whose sharded execution is not ported
+    (``transformer.sharded_blockers``) is refused there by name."""
     if rules is None:
         return RunCtx(kernel_policy=step_cfg.kernel_policy,
                       remat=step_cfg.remat)
+    specs = None
+    if _live(rules):
+        from repro_torch import bridge
+        blockers = tfm.sharded_blockers(cfg)
+        if blockers:
+            raise NotImplementedError(f"{cfg.name}: sharded execution of "
+                                      f"{blockers[0]} is not ported")
+        if rules.sequence_shard:
+            raise NotImplementedError("sequence_shard on a live mesh is "
+                                      "not ported")
+        specs = rules.param_sharding(bridge.param_axes(cfg))
     return RunCtx(parallel=rules.parallel_ctx(),
                   kernel_policy=step_cfg.kernel_policy,
-                  constrain=rules.constrain, remat=step_cfg.remat)
+                  constrain=rules.constrain, remat=step_cfg.remat,
+                  param_specs=specs)
+
+
+def dp_slice(rules, batch: dict) -> dict:
+    """This rank's rows of a global batch (tensors or numpy; None kept):
+    dim 0 cut over the DP axes as ``runtime.sharding.batch_sharding``
+    says, whole where it does not divide."""
+    if not _live(rules):
+        return batch
+    from repro_torch.runtime import sharding
+    out = {}
+    for key, x in batch.items():
+        if x is None:
+            out[key] = None
+            continue
+        x = x if isinstance(x, torch.Tensor) else torch.as_tensor(
+            np.asarray(x))
+        spec = sharding.batch_sharding(rules, {key: x})[key]
+        out[key] = sharding.localize(x, x.shape, spec + (None,) * (
+            x.ndim - 1), rules.mesh)
+    return out
 
 
 def init_train_state(cfg: ModelConfig, step_cfg: StepConfig,
@@ -96,12 +137,33 @@ def train_state_sharding(rules, axes_tree) -> dict[str, Any]:
             "step": ()}
 
 
-def make_loss_and_grads(cfg: ModelConfig, step_cfg: StepConfig) -> Callable:
+def shard_train_state(state: dict, rules, cfg: ModelConfig) -> dict:
+    """This rank's shards of a whole train state (``init_train_state``'s):
+    the params and moments cut by :func:`train_state_sharding`'s specs,
+    ``count`` and ``step`` replicated; the params still require grad."""
+    from repro_torch import bridge
+    from repro_torch.runtime import sharding
+    sh = train_state_sharding(rules, bridge.param_axes(cfg))
+    opt = {key: val if key == "count" else sharding.shard_params(
+        val, sh["params"], rules.mesh) for key, val in state["opt"].items()}
+    return {"params": sharding.shard_params(state["params"], sh["params"],
+                                            rules.mesh),
+            "opt": opt, "step": state["step"]}
+
+
+def make_loss_and_grads(cfg: ModelConfig, step_cfg: StepConfig,
+                        rules=None) -> Callable:
     """(params, inputs, targets, extra) -> (loss, grads): the loss of one
     (micro-)batch and its gradient with respect to every leaf of
     ``params`` (a tree of the same structure, in the params' dtype; zeros
-    for a leaf the loss does not reach)."""
-    ctx = make_run_ctx(cfg, step_cfg)
+    for a leaf the loss does not reach).  On a live mesh ``params`` are
+    this rank's shards and the inputs its rows: the loss is this rank's
+    share of the global batch's, and each gradient this rank's shard of
+    the whole gradient, summed over the DP ranks (the FSDP gathers'
+    reduce-scatters, and an all-reduce of every leaf a DP axis does not
+    shard)."""
+    ctx = make_run_ctx(cfg, step_cfg, rules)
+    reduce = _dp_grad_reduce(ctx)
 
     def loss_and_grads(params, inputs, targets, extra=None):
         leaves = common.tree_leaves(params)
@@ -111,9 +173,39 @@ def make_loss_and_grads(cfg: ModelConfig, step_cfg: StepConfig) -> Callable:
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         by_id = {id(p): torch.zeros_like(p) if g is None else g
                  for p, g in zip(leaves, grads)}
-        return loss.detach(), common.tree_map(lambda p: by_id[id(p)], params)
+        grads = common.tree_map(lambda p: by_id[id(p)], params)
+        return loss.detach(), reduce(grads)
 
     return loss_and_grads
+
+
+def _dp_grad_reduce(ctx: RunCtx) -> Callable:
+    """grads -> grads summed over each DP axis that a leaf's spec does not
+    shard (the FSDP-sharded dims were summed by their gathers' backward):
+    the identity off a live mesh."""
+    par, specs = ctx.parallel, ctx.param_specs
+    if specs is None or not par.dp_axes:
+        return lambda grads: grads
+    from repro_torch.runtime import collectives as col
+    from repro_torch.runtime.sharding import named_axes
+
+    def one(g, spec):
+        named = named_axes(spec)
+        for a in par.dp_axes:
+            if a not in named:
+                g = col._all_reduce(g, par.mesh.group(a))
+        return g
+
+    return lambda grads: common.tree_map(one, grads, specs)
+
+
+def dp_mean_loss(loss, ctx: RunCtx):
+    """The global batch's loss from the DP ranks' shares (a sum over the
+    DP axes; the identity off a live mesh)."""
+    from repro_torch.runtime import collectives as col
+    for a in ctx.parallel.dp_axes:
+        loss = col._all_reduce(loss, ctx.parallel.mesh.group(a))
+    return loss
 
 
 def _as_tensor(x, device):
@@ -122,19 +214,31 @@ def _as_tensor(x, device):
     return torch.tensor(np.asarray(x), device=device)
 
 
-def make_train_step(cfg: ModelConfig, step_cfg: StepConfig) -> Callable:
+def make_train_step(cfg: ModelConfig, step_cfg: StepConfig,
+                    rules=None) -> Callable:
     """Returns step(state, batch) -> (state, metrics), updating ``state``
     in place.  batch = {"inputs": (B, S), "targets": (B, S), optional
     "image_embeds": (B, n_img, d)} (tensors or numpy).  With ``n_micro`` >
     1 the batch is cut into that many micro-batches along B, their
     gradients summed in fp32 in order and the sums (losses too) divided by
     ``n_micro``, as the JAX package's ``lax.scan`` does.  metrics =
-    {"loss", "lr", "grad_norm"}, 0-d fp32 tensors."""
-    loss_and_grads = make_loss_and_grads(cfg, step_cfg)
+    {"loss", "lr", "grad_norm"}, 0-d fp32 tensors.
+
+    With ``rules`` on a live mesh, ``state`` holds this rank's shards
+    (``bridge.train_state_from_numpy(..., rules=rules)`` or
+    ``sharding.shard_params``) and ``batch`` the global batch: the step
+    takes this rank's rows (:func:`dp_slice`; the micro-batches are cut
+    from them), and AdamW runs on the shards with the whole tree's
+    gradient norm.  The metrics are the global batch's, on every rank."""
+    loss_and_grads = make_loss_and_grads(cfg, step_cfg, rules)
+    ctx = make_run_ctx(cfg, step_cfg, rules)
+    specs = ctx.param_specs
+    mesh = rules.mesh if specs is not None else None
 
     def train_step(state, batch):
         params = state["params"]
         dev = state["step"].device
+        batch = dp_slice(rules, batch)
         inputs = _as_tensor(batch["inputs"], dev)
         targets = _as_tensor(batch["targets"], dev)
         extra = _as_tensor(batch.get("image_embeds"), dev)
@@ -156,9 +260,9 @@ def make_train_step(cfg: ModelConfig, step_cfg: StepConfig) -> Callable:
             grads = common.tree_map(lambda g: g / n_micro, gsum)
             loss = lsum / n_micro
         _, _, om = adamw_update(grads, state["opt"], params,
-                                step_cfg.optimizer)
+                                step_cfg.optimizer, specs, mesh)
         state["step"] = state["step"] + 1
-        return state, {"loss": loss, **om}
+        return state, {"loss": dp_mean_loss(loss, ctx), **om}
 
     return train_step
 
@@ -177,16 +281,39 @@ def sample(last, *, greedy: bool, temperature: float,
 
 
 def make_prefill_step(cfg: ModelConfig, step_cfg: StepConfig,
-                      max_len: int = 0) -> Callable:
-    """prefill(params, batch) -> (last_logits (B, Vp), ring cache)."""
-    ctx = make_run_ctx(cfg, step_cfg)
+                      max_len: int = 0, rules=None) -> Callable:
+    """prefill(params, batch) -> (last_logits (B, Vp), ring cache).
+
+    With ``rules`` on a live mesh, ``params`` are this rank's shards and
+    ``batch`` the global batch: the prompt runs on this rank's rows, the
+    logits come back whole over the vocab (gathered over "model"), and the
+    cache is this rank's part of it (``sharding.shard_cache``: its rows,
+    its kv heads, or its slots of a ring whose capacity goes over
+    "model")."""
+    ctx = make_run_ctx(cfg, step_cfg, rules)
 
     def prefill_step(params, batch):
-        logits, cache = tfm.prefill(params, batch["inputs"], cfg, ctx,
+        B = len(batch["inputs"])
+        tokens = dp_slice(rules, batch)["inputs"]
+        logits, cache = tfm.prefill(params, tokens, cfg, ctx,
                                     max_len=max_len)
-        return logits[:, -1], cache
+        if ctx.param_specs is not None:
+            from repro_torch.runtime import sharding
+            cache = sharding.shard_cache(
+                cache, rules, cfg, batch=B,
+                max_len=max_len or max(cfg.max_seq_len, tokens.shape[1]))
+        return full_vocab(logits[:, -1], ctx), cache
 
     return prefill_step
+
+
+def full_vocab(logits, ctx: RunCtx):
+    """Logits whole over the vocab: gathered over "model" where each rank
+    holds a slice of it (no gradient)."""
+    if not ctx.parallel.tp("vocab"):
+        return logits
+    from repro_torch.runtime import collectives as col
+    return col._all_gather(logits, logits.ndim - 1, ctx.parallel.model_group)
 
 
 def make_serve_step(cfg: ModelConfig, step_cfg: StepConfig, rules=None,
@@ -201,7 +328,10 @@ def make_serve_step(cfg: ModelConfig, step_cfg: StepConfig, rules=None,
     ctx = make_run_ctx(cfg, step_cfg, rules)
 
     def serve_step(params, cache, tokens):
+        tokens = dp_slice(rules, {"t": tokens})["t"] \
+            if len(tokens) != _rows(cache) else tokens
         logits, cache = tfm.decode_step(params, cache, tokens, cfg, ctx)
+        logits = full_vocab(logits, ctx)
         if greedy:
             return torch.argmax(logits[:, -1], dim=-1).to(torch.int32), cache
         return logits, cache
@@ -209,14 +339,21 @@ def make_serve_step(cfg: ModelConfig, step_cfg: StepConfig, rules=None,
     return serve_step
 
 
+def _rows(cache) -> int:
+    """The batch rows of a ring cache (this rank's, on a mesh)."""
+    return next(iter(next(iter(cache["units"].values())).values())).shape[1]
+
+
 def _decode_chunk(params, cache, tokens, active, generator, *, cfg, ctx,
                   n_tokens, greedy, temperature):
     """``n_tokens`` decode steps (model, sampling, cache update) over
-    either layout; ``active`` is None for the ring."""
+    either layout; ``active`` is None for the ring.  The logits are
+    sampled whole over the vocab (``full_vocab``)."""
     tok, out = tokens, []
     for _ in range(n_tokens):
         logits, cache = tfm.decode_step(params, cache, tok, cfg, ctx,
                                         active=active)
+        logits = full_vocab(logits, ctx)
         nxt = sample(logits[:, -1], greedy=greedy, temperature=temperature,
                      generator=generator)
         out.append(nxt)
@@ -226,17 +363,22 @@ def _decode_chunk(params, cache, tokens, active, generator, *, cfg, ctx,
 
 def make_decode_loop(cfg: ModelConfig, step_cfg: StepConfig,
                      n_tokens: int = 16, *, greedy: bool = True,
-                     temperature: float = 1.0) -> Callable:
+                     temperature: float = 1.0, rules=None) -> Callable:
     """decode_loop(params, cache, tokens, generator=None)
     -> (token_block (B, n_tokens[, n_cb]) int32, cache) over the ring
     cache.
 
     ``tokens`` (B, 1) (a codebook model's (B, 1, n_cb)) is the token that
     enters the model first; the block holds the tokens sampled after it.
-    The ring buffers update in place."""
-    ctx = make_run_ctx(cfg, step_cfg)
+    The ring buffers update in place.  With ``rules`` on a live mesh the
+    params and the cache are this rank's parts (``make_prefill_step``'s)
+    and ``tokens`` its rows, or the global batch, of which it takes its
+    rows; the block is this rank's rows."""
+    ctx = make_run_ctx(cfg, step_cfg, rules)
 
     def decode_loop(params, cache, tokens, generator=None):
+        if len(tokens) != _rows(cache):
+            tokens = dp_slice(rules, {"t": tokens})["t"]
         return _decode_chunk(params, cache, tokens, None, generator, cfg=cfg,
                              ctx=ctx, n_tokens=n_tokens, greedy=greedy,
                              temperature=temperature)

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from lm_parity import one_torch_thread  # noqa: F401 (autouse)
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as rms

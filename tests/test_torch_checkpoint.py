@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from lm_parity import one_torch_thread  # noqa: F401 (autouse)
 from repro import checkpoint as jckpt
 from repro_torch import bridge
 from repro_torch.checkpoint import (CheckpointManager, latest_step,

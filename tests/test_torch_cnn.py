@@ -34,7 +34,7 @@ from repro_torch import bridge
 from repro_torch.models import cnn, common
 from repro_torch.optim import OptimizerConfig, adamw_init, adamw_update
 from test_torch_cnn_zoo import BATCH, as_np, flat, numpy_params, rel
-from test_torch_cnn_zoo import one_torch_thread  # noqa: F401 (autouse)
+from lm_parity import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = 1e-5
 OPT = cnn.OPTIMIZER

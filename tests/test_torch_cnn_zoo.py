@@ -39,6 +39,7 @@ import numpy as np
 import pytest
 import torch
 
+from lm_parity import one_torch_thread  # noqa: F401 (autouse)
 from repro.data import CifarBatches
 from repro.models import cnn as jcnn
 from repro_torch import bridge
@@ -52,19 +53,6 @@ DEPTHWISE = ("MobileNet", "MobileNetV2", "ShuffleNetV2", "EfficientNetB0")
 HEAVY = ("DenseNet121", "GoogLeNet")
 GROUPED = ("ResNeXt29_2x64d", "RegNetX_200MF", "DPN92")
 HERE = tuple(n for n in jcnn.CNN_ZOO if n not in DEPTHWISE + HEAVY + GROUPED)
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """Torch on one thread while a case runs (the other CNN files import
-    this fixture too).  The test workers share the CPU's cores, and
-    torch's thread pool stalls when they are oversubscribed: the five CNN
-    files on six workers took 440 s with torch's default threads and 125
-    s with one, on eight cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def numpy_params(name, seed=0):

@@ -7,7 +7,7 @@ import pytest
 
 from test_torch_cnn_zoo import GROUPED, check_zoo_member
 from test_torch_cnn_zoo import check_zoo_member_fp32
-from test_torch_cnn_zoo import one_torch_thread  # noqa: F401 (autouse)
+from lm_parity import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("name", GROUPED)

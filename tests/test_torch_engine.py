@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from lm_parity import one_torch_thread  # noqa: F401 (autouse)
 from repro.configs import get_arch as jax_arch
 from repro.launch import serve as jserve
 from repro.models import transformer as jtfm
@@ -139,7 +140,8 @@ def test_cpu_engine_launches_no_kernel(smollm):
                                 "ssd_bwd", "flash_attention_bwd",
                                 "rmsnorm_bwd", "mla_decode", "mla_verify",
                                 "sweep_decode_int8", "sweep_verify_int8",
-                                "ring_decode_int8", "ring_verify_int8"}
+                                "ring_decode_int8", "ring_verify_int8",
+                                "ring_shard_decode"}
     assert all(n == 0 for n in da.LAUNCHES.values())
 
 

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from lm_parity import one_torch_thread  # noqa: F401 (autouse)
 from repro.configs import get_arch as jax_arch
 from repro.models import transformer as jtfm
 from repro.runtime import steps as jsteps

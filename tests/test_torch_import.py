@@ -168,7 +168,8 @@ def test_cpu_calls_launch_no_kernel():
                                 "rmsnorm_bwd",
                                 "mla_decode", "mla_verify",
                                 "sweep_decode_int8", "sweep_verify_int8",
-                                "ring_decode_int8", "ring_verify_int8"}
+                                "ring_decode_int8", "ring_verify_int8",
+                                "ring_shard_decode"}
     assert all(n == 0 for n in da.LAUNCHES.values())
 
 

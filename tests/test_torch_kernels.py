@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from lm_parity import one_torch_thread  # noqa: F401 (autouse)
 from repro.kernels import decode_attention as jda
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref

@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from lm_parity import one_torch_thread  # noqa: F401 (autouse)
 from repro import quant as jquant
 from repro.configs import get_arch as jax_arch
 from repro.kernels import ops as jops

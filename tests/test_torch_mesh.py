@@ -258,8 +258,10 @@ def test_build_rules_match_jax(arch, mesh_name):
 @pytest.mark.parametrize("seq_shard", [False, True])
 def test_act_spec_and_constrain(seq_shard):
     """Activation specs equal JAX's on the production mesh; ``constrain``
-    raises where a spec would shard and returns its input on a mesh of
-    size-1 axes."""
+    raises where a spec would shard on it (an ``AbstractMesh`` has no
+    ranks to run on) and returns its input on a mesh of size-1 axes.  On
+    a live mesh it lays the activation out
+    (``tests/test_torch_sharded.py``)."""
     cfg = get_arch("gemma2-27b").config
     jr = jsharding.build_rules(jax_arch("gemma2-27b").config,
                                AbstractMesh((16, 16), ("data", "model")),
@@ -275,7 +277,7 @@ def test_act_spec_and_constrain(seq_shard):
         x = jax.ShapeDtypeStruct(shape, jnp.float32)
         assert _norm_spec(tr.act_spec(x, logical)) == \
             _norm_spec(tuple(jr.act_spec(x, logical)))
-    with pytest.raises(NotImplementedError, match="sharded"):
+    with pytest.raises(NotImplementedError, match="no ranks"):
         tr.constrain(torch.empty((32, 64, 4608), device="meta"),
                      ("batch", None, "embed_act"))
     ones = sharding.build_rules(cfg, tmesh.AbstractMesh((1, 1),

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from lm_parity import one_torch_thread  # noqa: F401 (autouse)
 from repro.checkpoint import save_pytree
 from repro.configs import get_arch as jax_arch
 from repro.models import common as jcommon

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from lm_parity import one_torch_thread  # noqa: F401 (autouse)
 from repro.kernels import ops as jops
 from repro_torch.kernels import ssd_scan as ss
 
