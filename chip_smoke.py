@@ -389,7 +389,27 @@ Phases, in order; any failure exits non-zero (nothing is caught):
                 ``moe_forward`` within ``TOL``.  Each path's launch
                 counts are zeroed just before it, read just after and
                 added to the ``kernels`` line (``example <name>``
-                families).
+                families);
+ 10. sharded  — (``sharded_phase``) (a) the one-rank references: 3 bf16
+                train steps of 8 x 128 of ``SHARD_TRAIN_ARCHS``
+                (smollm-135m, mamba2-370m, zamba2-1.2b at full width and
+                depth) and 4 x
+                64 + 16 greedy decodes of ``SHARD_DECODES``
+                (smollm-135m and h2o-danube-3-4b in bf16, mamba2-370m and
+                zamba2-1.2b in fp32 and in bf16; each also with the
+                batch's rows in two halves, no sharding);
+                (b) four ranks on this card over gloo as a (2, 2)
+                ("data", "model") mesh (``chip_smoke.py --sharded-rank
+                DIR``) run the same sharded, held against JAX's bf16
+                bounds (``SHARD_TOL``), the decodes fed the one-rank
+                tokens (mamba2's bf16 decode printed beside the one-rank
+                halves' spread, not held); each rank's train launches
+                exactly
+                ``lm_train_launches`` a step; the port's collectives on
+                the ranks' CUDA tensors; (c) the capacity-shard ring sweep
+                + merge row, and K8 forward and backward at the sharded
+                train step's local shapes (``SHARD_SSD``) against their
+                plain versions and timed, their launches a rank's.
 
 The last two lines are a JSON object of per-kernel numbers and
 ``{"ok": true, "device": {...}}``.
@@ -4376,10 +4396,11 @@ def ssd_backward_timings(torch, np, dev, ss, plain=True):
 
 
 def ssd_bwd_row(torch, np, dev, ss, family, label, B, S, heads, seed,
-                plain=True):
+                plain=True, parts=SSD_BWD_LAUNCHES):
     """K8's backward at B x S and ``heads`` (bf16, D, no initial state):
-    one call (CUDA graph replays), each of its launches apart and, with
-    ``plain``, its plain twin on the card, beside ``ssd_bwd_bound``."""
+    one call (CUDA graph replays), each of its launches (``parts``) apart
+    and, with ``plain``, its plain twin on the card, beside
+    ``ssd_bwd_bound``."""
     inp, _ = ssd_case(torch, np, dev, B=B, S=S, dtype="bfloat16", seed=seed,
                       **heads)
     dy, _ = ssd_bwd_inputs(torch, dev, inp, seed + 10, False)
@@ -4388,7 +4409,7 @@ def ssd_bwd_row(torch, np, dev, ss, family, label, B, S, heads, seed,
         return ss.ssd_scan_bwd(**inp, dy=dy)
     reps = 10 if S <= 1024 else 3
     ms = time_ms(torch, call, iters=5, reps=reps)
-    split = launch_split(torch, call, SSD_BWD_LAUNCHES, iters=10)
+    split = launch_split(torch, call, parts, iters=10)
     plain_ms = (time_ms(torch, lambda: ss.ssd_scan_bwd_torch(**inp, dy=dy),
                         iters=2, reps=2) if plain else None)
     b_ms, b_by = ssd_bwd_bound(B, S, heads["H"], heads["P"], 1, heads["N"])
@@ -5103,6 +5124,50 @@ SHARD_DECODE = dict(batch=4, prompt=64, gen=16, seed=11)
 # |dparam|; and its decode's max |dlogit|
 SHARD_TOL = dict(loss=2e-2, grad_norm=5e-2, params=2e-2, logits=0.1)
 SHARD_TIMEOUT = 600
+# the archs phase 10 trains and decodes sharded, at full width; mamba2's
+# SSM heads, inner dims and conv channels, and zamba2's with its shared
+# block's heads and MLP, go over "model"
+SHARD_TRAIN_ARCHS = ("smollm-135m", "mamba2-370m", "zamba2-1.2b")
+# the decodes, (arch, dtype), each held at SHARD_TOL["logits"], and
+# beside it the one-rank run's own spread when it decodes its rows in the
+# ranks' two halves (no sharding: none for smollm; in bf16 for mamba2 at
+# full depth, of the order of the bound); mamba2 and zamba2 in fp32 too,
+# and mamba2's bf16 decode printed, not held (PERF.md §6)
+SHARD_DECODES = (("smollm-135m", "bfloat16"), ("h2o-danube-3-4b", "bfloat16"),
+                 ("mamba2-370m", "float32"), ("zamba2-1.2b", "float32"),
+                 ("mamba2-370m", "bfloat16"), ("zamba2-1.2b", "bfloat16"))
+SHARD_DECODE_UNGATED = (("mamba2-370m", "bfloat16"),)
+# the kernels each sharded run must launch: train steps (a rank's
+# launches, exact: ``lm_train_launches`` a step) and decodes
+SHARD_TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "rmsnorm",
+                       "rmsnorm_bwd", "ssd", "ssd_bwd")
+SHARD_DECODE_KERNELS = {"smollm-135m": ("ring_shard_decode", "merge",
+                                        "rmsnorm"),
+                        "h2o-danube-3-4b": ("ring_decode", "rmsnorm"),
+                        "mamba2-370m": ("rmsnorm",),
+                        "zamba2-1.2b": ("ring_decode", "rmsnorm")}
+# K8 forward and backward at the sharded train step's local shapes: a
+# rank's 4 of the 8 rows, 128 steps, half the heads
+SHARD_SSD = (("mamba2", dict(H=16, P=64, N=128)),
+             ("zamba2", dict(H=32, P=64, N=64)))
+SHARD_SSD_ROWS = (SHARD_TRAIN["batch"] // SHARD_MESH[0], SHARD_TRAIN["seq"])
+
+
+def in_turns(torch, rules, fn):
+    """``fn()`` on every rank, one rank after another (all at once off a
+    mesh): each rank draws the whole seeded state before it keeps its
+    shards, and four whole zamba2 train states at once would not fit
+    beside each other on one card."""
+    if rules is None:
+        return fn()
+    import torch.distributed as dist
+    out = None
+    for r in range(dist.get_world_size()):
+        if r == dist.get_rank():
+            out = fn()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return out
 
 
 def shard_step_cfg(steps):
@@ -5112,7 +5177,7 @@ def shard_step_cfg(steps):
 
 
 def shard_train(torch, cfg, dev, rules=None):
-    """smollm's train steps from a seeded init, on one rank (``rules``
+    """``cfg``'s train steps from a seeded init, on one rank (``rules``
     None) or this rank's shards: (losses, grad norms, the final params'
     leaves whole on the CPU, the steps' launches)."""
     from repro_torch import bridge
@@ -5120,11 +5185,14 @@ def shard_train(torch, cfg, dev, rules=None):
     from repro_torch.models import common
     from repro_torch.runtime import sharding, steps
     sc = shard_step_cfg(steps)
-    gen = torch.Generator(device=dev).manual_seed(SHARD_TRAIN["seed"])
-    state = steps.init_train_state(cfg, sc, gen, dev)
-    if rules is not None:
-        state = steps.shard_train_state(state, rules, cfg)
-        torch.cuda.empty_cache()
+    def init():
+        gen = torch.Generator(device=dev).manual_seed(SHARD_TRAIN["seed"])
+        state = steps.init_train_state(cfg, sc, gen, dev)
+        if rules is not None:
+            state = steps.shard_train_state(state, rules, cfg)
+        return state
+
+    state = in_turns(torch, rules, init)
     step = steps.make_train_step(cfg, sc, rules)
     g = torch.Generator().manual_seed(SHARD_TRAIN["seed"])
     B, S = SHARD_TRAIN["batch"], SHARD_TRAIN["seq"]
@@ -5144,26 +5212,33 @@ def shard_train(torch, cfg, dev, rules=None):
                            common.tree_leaves(params)], launches
 
 
-def shard_decode(torch, cfg, dev, rules=None, feed=None):
-    """Prefill of SHARD_DECODE's prompt, then its greedy serve steps, bf16
-    at full width from a seeded init: (the logits of every step, whole
-    batch and vocab, on the CPU in fp32; the greedy tokens; the serve
-    steps' launches; the ring's shard record).  With ``feed`` (another
-    run's greedy tokens, (B, gen + 1)) each step takes that run's token,
-    so that the logits of the two runs answer the same inputs: a bf16 near
-    tie that flips one greedy token would otherwise compare logits of
-    different streams from there on."""
+def shard_decode(torch, cfg, dev, rules=None, feed=None, halves=False):
+    """Prefill of SHARD_DECODE's prompt, then its greedy serve steps, in
+    ``cfg.dtype`` at full width from a seeded init: (the logits of every
+    step, whole batch and vocab, on the CPU in fp32; the greedy tokens;
+    the serve steps' launches; the ring's shard record).  With ``feed``
+    (another run's greedy tokens, (B, gen + 1)) each step takes that
+    run's token, so that the logits of the two runs answer the same
+    inputs: a bf16 near tie that flips one greedy token would otherwise
+    compare logits of different streams from there on.  ``halves`` (one
+    rank): the batch's two halves decoded one after the other, as the
+    two "data" ranks of the mesh hold them."""
     from repro_torch import bridge
     from repro_torch.kernels import binding
     from repro_torch.runtime import collectives as col
     from repro_torch.runtime import sharding, steps
     B, P, G = (SHARD_DECODE[k] for k in ("batch", "prompt", "gen"))
-    gen = torch.Generator(device=dev).manual_seed(SHARD_DECODE["seed"])
-    params = bridge.init_lm(cfg, gen, dev)
-    if rules is not None:
-        params = sharding.shard_params(
-            params, rules.param_sharding(bridge.param_axes(cfg)), rules.mesh)
-        torch.cuda.empty_cache()
+
+    def init():
+        gen = torch.Generator(device=dev).manual_seed(SHARD_DECODE["seed"])
+        params = bridge.init_lm(cfg, gen, dev)
+        if rules is not None:
+            params = sharding.shard_params(
+                params, rules.param_sharding(bridge.param_axes(cfg)),
+                rules.mesh)
+        return params
+
+    params = in_turns(torch, rules, init)
     sc = shard_step_cfg(steps)
     prefill = steps.make_prefill_step(cfg, sc, max_len=P + G, rules=rules)
     serve = steps.make_serve_step(cfg, sc, rules, greedy=False)
@@ -5172,26 +5247,34 @@ def shard_decode(torch, cfg, dev, rules=None, feed=None):
     rows = None if rules is None else rules.mesh.group("data")
 
     def whole(x):
-        x = x if len(x) == B else col._all_gather(x, 0, rows)
+        x = x if len(x) == n else col._all_gather(x, 0, rows)
         return x.float().cpu()
 
     def next_token(t):
         own = logits[-1].argmax(-1).to(torch.int32)[:, None]
         toks.append(own)
-        return (own if feed is None else feed[:, t:t + 1]).to(dev)
+        return (own if feed is None else feed[sl, t:t + 1]).to(dev)
 
-    with torch.no_grad():
-        last, cache = prefill(params, {"inputs": prompt})
-        logits, toks = [whole(last)], []
-        tok = next_token(0)
-        binding.reset_launches()
-        for t in range(G):
-            lg, cache = serve(params, cache, tok)
-            logits.append(whole(lg[:, -1]))
-            tok = next_token(t + 1)
-        torch.cuda.synchronize()
-        launches = dict(binding.LAUNCHES)
-    return (torch.stack(logits), torch.cat(toks, dim=1), launches,
+    parts, launches = [], {k: 0 for k in binding.LAUNCHES}
+    binding.reset_launches()
+    for sl in ((slice(0, B // 2), slice(B // 2, B)) if halves
+               else (slice(0, B),)):
+        n = sl.stop - sl.start
+        with torch.no_grad():
+            last, cache = prefill(params, {"inputs": prompt[sl]})
+            logits, toks = [whole(last)], []
+            tok = next_token(0)
+            n0 = dict(binding.LAUNCHES)
+            for t in range(G):
+                lg, cache = serve(params, cache, tok)
+                logits.append(whole(lg[:, -1]))
+                tok = next_token(t + 1)
+            torch.cuda.synchronize()
+        for k, v in binding.LAUNCHES.items():
+            launches[k] += v - n0[k]
+        parts.append((torch.stack(logits), torch.cat(toks, dim=1)))
+    return (torch.cat([p[0] for p in parts], dim=1),
+            torch.cat([p[1] for p in parts], dim=0), launches,
             cache.get("shard"))
 
 
@@ -5238,35 +5321,44 @@ def sharded_rank(out_dir: str) -> int:
     rank = dist.get_rank()
     res = {"backend": dist.get_backend(), "world": dist.get_world_size(),
            "mesh": host.shape, "device": str(dev)}
-    cfg = get_arch("smollm-135m").config
-    rules = sharding.build_rules(cfg, host)
-    losses, norms, params, res["train_launches"] = shard_train(
-        torch, cfg, dev, rules)
-    if rank == 0:
-        ref = torch.load(out / "train.pt")
-        res["train"] = {
-            "losses": losses, "norms": norms,
-            "dloss": max(abs(a - b) for a, b in zip(losses, ref["losses"])),
-            "dgrad": max(abs(a - b) / max(b, 1e-9)
-                         for a, b in zip(norms, ref["norms"])),
-            "dparam": max(float((p.float() - q.float()).abs().max())
-                          for p, q in zip(params, ref["params"]))}
-    del params
-    torch.cuda.empty_cache()
-    res["decode"] = {}
-    for arch in ("smollm-135m", "h2o-danube-3-4b"):
+    res["train"], res["decode"] = {}, {}
+    for arch in SHARD_TRAIN_ARCHS:
         cfg = get_arch(arch).config
+        rules = sharding.build_rules(cfg, host)
+        t1 = time.perf_counter()
+        losses, norms, params, launches = shard_train(torch, cfg, dev, rules)
+        if rank == 0:
+            ref = torch.load(out / f"train-{arch}.pt")
+            res["train"][arch] = {
+                "losses": losses, "norms": norms, "launches": launches,
+                "seconds": time.perf_counter() - t1,
+                "dloss": max(abs(a - b)
+                             for a, b in zip(losses, ref["losses"])),
+                "dgrad": max(abs(a - b) / max(b, 1e-9)
+                             for a, b in zip(norms, ref["norms"])),
+                "dparam": max(float((p.float() - q.float()).abs().max())
+                              for p, q in zip(params, ref["params"]))}
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    for arch, dtype in SHARD_DECODES:
+        cfg = dataclasses.replace(get_arch(arch).config, dtype=dtype)
         # serving keeps the weights whole over "data" (gathered once, at
         # load) and cut over "model": no FSDP gather every token
         rules = sharding.build_rules(cfg, host, fsdp=False)
-        ref = torch.load(out / f"decode-{arch}.pt")
+        ref = torch.load(out / f"decode-{arch}-{dtype}.pt")
         logits, toks, launches, ring = shard_decode(
             torch, cfg, dev, rules, feed=ref["tokens"])
         if rank == 0:
-            res["decode"][arch] = {
-                "dlogit": float((logits - ref["logits"]).abs().max()),
+            diff = (logits - ref["logits"]).abs()
+            res["decode"][f"{arch} {dtype}"] = {
+                "dlogit": float(diff.max()),
+                "dlogit_steps": [float(d.max()) for d in diff],
+                "logit_max": float(ref["logits"][ref["logits"] > -1e29]
+                                   .abs().max()),
                 "tokens": toks.tolist(), "ref_tokens": ref["tokens"].tolist(),
                 "launches": launches, "ring": ring}
+        gc.collect()
         torch.cuda.empty_cache()
     res["collectives"] = card_collectives(torch, col, dev)
     res["seconds"] = time.perf_counter() - t0
@@ -5392,33 +5484,118 @@ def shard_sweep_row(torch, np, dev, da, ops, errs, card):
                    "merge_ms": ms_merge}}
 
 
-def sharded_phase(torch, np, dev, da, ops, errs, card, launches):
-    """(a) the one-rank references: smollm-135m's train steps and the
-    decodes of smollm-135m and h2o-danube-3-4b, saved; (b) four ranks on
-    this card over gloo as a (2, 2) mesh, each running the same sharded
-    (chip_smoke.py --sharded-rank); (c) the capacity-shard sweep's row."""
+def shard_ssd_rows(torch, np, dev, ss, errs, card):
+    """Phase 10 (c), K8 forward and backward at the sharded train step's
+    local shapes (``SHARD_SSD``, ``SHARD_SSD_ROWS``): held against their
+    plain versions in bf16 and fp32 (the forward at ``SSD_TOL``, each
+    gradient within ``TOL`` of its scale), the model's local views read in
+    place, and timed (bf16).  Rows "ssd_scan sharded <family> ..." and
+    "ssd_scan_bwd sharded <family> ...", their launches a rank's in the
+    sharded train steps."""
+    Bl, S = SHARD_SSD_ROWS
+    errs["ssd_scan sharded"] = errs["ssd_scan_bwd sharded"] = 0.0
+    out = {}
+    for i, (family, heads) in enumerate(SHARD_SSD):
+        H, P, N = heads["H"], heads["P"], heads["N"]
+        # the model's layout: views of one rank's conv output, its x
+        # channels then B and C, which the kernel reads in place
+        conv = torch.zeros((Bl, S, H * P + 2 * N), dtype=torch.bfloat16,
+                           device=dev)
+        for t, width in ((conv[..., :H * P].reshape(Bl, S, H, P), P),
+                         (conv[..., H * P:H * P + N].reshape(Bl, S, 1, N),
+                          N)):
+            if ss._rows(t, S, width)[0].data_ptr() != t.data_ptr():
+                fail(f"K8 sharded {family}: a local view of the conv "
+                     "output is copied, not read in place")
+        label = f"{Bl} x {S} (H {H}, N {N})"
+        for dtype in ("bfloat16", "float32"):
+            inp, _ = ssd_case(torch, np, dev, B=Bl, S=S, dtype=dtype,
+                              seed=1400 + i, **heads)
+            y, h = ss.ssd_scan(**inp, return_state=True)
+            wy, wh = ss.ssd_scan_torch(**inp, return_state=True)
+            what = f"K8 sharded {family} {label} {dtype}"
+            e = max(max_err(torch, y, wy, SSD_TOL[dtype], what + " y"),
+                    max_err(torch, h, wh, SSD_TOL[dtype], what + " state"))
+            note(errs, e, "ssd_scan sharded")
+            dy, _ = ssd_bwd_inputs(torch, dev, inp, 1410 + i, False)
+            got = ss.ssd_scan_bwd(**inp, dy=dy)
+            want = ss.ssd_scan_bwd_torch(**inp, dy=dy)
+            rel = {n: rel_err(a, b) for n, a, b in zip(SSD_GRADS, got, want)
+                   if b is not None}
+            if not all(np.isfinite(v) for v in rel.values()) \
+                    or max(rel.values()) > TOL[dtype]:
+                fail(f"{what} backward: relative errors {rel} (tol "
+                     f"{TOL[dtype]})")
+            note(errs, max(float((a.float() - b.float()).abs().max())
+                           for a, b in zip(got, want) if b is not None),
+                 "ssd_scan_bwd sharded")
+            say(f"{what}: forward max |kernel - plain| {e:.3e} (tol "
+                f"{SSD_TOL[dtype]}; |y| up to "
+                f"{float(wy.float().abs().max()):.1f}), backward relative "
+                f"errors "
+                + ", ".join(f"{n} {v:.2e}" for n, v in rel.items()))
+            del inp, dy, got, want
+        fwd = ssd_rows(torch, np, dev, ss, table=((label, Bl, S),),
+                       heads=heads)[label]
+        # one chunk: the backward launches no forward states kernel
+        bwd = ssd_bwd_row(torch, np, dev, ss, f"sharded {family}", label,
+                          Bl, S, heads, 1420 + i, parts=tuple(
+                              p for p in SSD_BWD_LAUNCHES
+                              if p[0] != "states"))
+        fam = f"sharded {family}"
+        say(f"K8 sharded {family} {label} bf16: forward kernel "
+            f"{fwd['ms'] * 1e3:.1f} us, plain {fwd['plain_ms'] * 1e3:.1f} "
+            f"us, bound {fwd['bound_ms'] * 1e3:.2f} us ({fwd['bound_by']}) "
+            f"on {card}")
+        out[f"ssd_scan sharded {family} {label}"] = dict(
+            fwd, library_ms=None, shape=f"{fam} {label}", entry="ssd_scan",
+            family=fam, err="ssd_scan sharded")
+        out[f"ssd_scan_bwd sharded {family} {label}"] = dict(
+            bwd, entry="ssd_scan_bwd", family=fam,
+            err="ssd_scan_bwd sharded")
+        torch.cuda.empty_cache()
+    return out
+
+
+def sharded_phase(torch, np, dev, da, ops, errs, card, launches,
+                  by_family):
+    """(a) the one-rank references: the train steps of
+    ``SHARD_TRAIN_ARCHS`` and the decodes of ``SHARD_DECODES``,
+    saved; (b) four ranks on this card over gloo as a (2, 2) mesh, each
+    running the same sharded (chip_smoke.py --sharded-rank); (c) the
+    capacity-shard sweep's row and K8's rows at the local shapes of the
+    sharded train steps."""
     import shutil
     import socket
     import tempfile
     from repro_torch.configs import get_arch
+    from repro_torch.kernels import ssd_scan as ss
     t0 = time.perf_counter()
     tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_shard_"))
+    t_ref, spread = {}, {}
     try:
-        cfg = get_arch("smollm-135m").config
-        losses, norms, params, _ = shard_train(torch, cfg, dev)
-        torch.save({"losses": losses, "norms": norms, "params": params},
-                   tmp / "train.pt")
-        del params
-        for arch in ("smollm-135m", "h2o-danube-3-4b"):
+        for arch in SHARD_TRAIN_ARCHS:
+            t1 = time.perf_counter()
+            losses, norms, params, _ = shard_train(
+                torch, get_arch(arch).config, dev)
+            torch.save({"losses": losses, "norms": norms, "params": params},
+                       tmp / f"train-{arch}.pt")
+            del params
             gc.collect()
             torch.cuda.empty_cache()
-            logits, toks, _, _ = shard_decode(torch, get_arch(arch).config,
-                                              dev)
+            t_ref[f"train {arch}"] = time.perf_counter() - t1
+        for arch, dtype in SHARD_DECODES:
+            t1 = time.perf_counter()
+            cfg = dataclasses.replace(get_arch(arch).config, dtype=dtype)
+            logits, toks, _, _ = shard_decode(torch, cfg, dev)
             torch.save({"logits": logits, "tokens": toks},
-                       tmp / f"decode-{arch}.pt")
-        gc.collect()
-        torch.cuda.empty_cache()
-        t_ref = time.perf_counter() - t0
+                       tmp / f"decode-{arch}-{dtype}.pt")
+            halves = shard_decode(torch, cfg, dev, feed=toks,
+                                  halves=True)[0]
+            spread[f"{arch} {dtype}"] = float((halves - logits).abs().max())
+            gc.collect()
+            torch.cuda.empty_cache()
+            t_ref[f"decode {arch} {dtype}"] = time.perf_counter() - t1
         with socket.socket() as s:
             s.bind(("localhost", 0))
             port = s.getsockname()[1]
@@ -5456,47 +5633,62 @@ def sharded_phase(torch, np, dev, da, ops, errs, card, launches):
     if not all(res["collectives"].values()):
         fail(f"sharded phase: a collective gave a wrong result over "
              f"{res['backend']}: {res['collectives']}")
-    tr = res["train"]
-    say(f"sharded train smollm-135m full width and depth, "
-        f"{SHARD_TRAIN['steps']} steps of {SHARD_TRAIN['batch']} x "
-        f"{SHARD_TRAIN['seq']} bf16: losses {tr['losses']}, grad norms "
-        f"{tr['norms']}; against one rank |dloss| {tr['dloss']:.3e} (tol "
-        f"{SHARD_TOL['loss']}), |d grad norm| / grad norm {tr['dgrad']:.3e} "
-        f"(tol {SHARD_TOL['grad_norm']}), max |dparam| {tr['dparam']:.3e} "
-        f"(tol {SHARD_TOL['params']})")
-    if not (tr["dloss"] <= SHARD_TOL["loss"]
-            and tr["dgrad"] <= SHARD_TOL["grad_norm"]
-            and tr["dparam"] <= SHARD_TOL["params"]):
-        fail("sharded train step outside JAX's bf16 bounds")
-    need = {"smollm-135m": ("ring_shard_decode", "merge", "rmsnorm"),
-            "h2o-danube-3-4b": ("ring_decode", "rmsnorm")}
-    for arch, d in res["decode"].items():
+    for arch, tr in res["train"].items():
+        cfg = get_arch(arch).config
+        say(f"sharded train {arch} full width, {cfg.n_layers} layers, "
+            f"{SHARD_TRAIN['steps']} steps of {SHARD_TRAIN['batch']} x "
+            f"{SHARD_TRAIN['seq']} bf16 in {tr['seconds']:.1f} s (one rank "
+            f"{t_ref[f'train {arch}']:.1f} s): losses {tr['losses']}, grad "
+            f"norms {tr['norms']}; against one rank |dloss| "
+            f"{tr['dloss']:.3e} (tol {SHARD_TOL['loss']}), |d grad norm| / "
+            f"grad norm {tr['dgrad']:.3e} (tol {SHARD_TOL['grad_norm']}), "
+            f"max |dparam| {tr['dparam']:.3e} (tol {SHARD_TOL['params']}); "
+            f"launches a rank {tr['launches']}")
+        if not (tr["dloss"] <= SHARD_TOL["loss"]
+                and tr["dgrad"] <= SHARD_TOL["grad_norm"]
+                and tr["dparam"] <= SHARD_TOL["params"]):
+            fail(f"sharded train step of {arch} outside JAX's bf16 bounds")
+        want = lm_train_launches(cfg)
+        for key in SHARD_TRAIN_KERNELS:
+            n_want = want[key] * SHARD_TRAIN["steps"]
+            if tr["launches"][key] != n_want:
+                fail(f"sharded train {arch}: kernel {key} launched "
+                     f"{tr['launches'][key]} times, expected {n_want}")
+        by_family[f"sharded {arch.split('-')[0]}"] = tr["launches"]
+    for run, d in res["decode"].items():
+        arch, dtype = run.split()
         n_tok = sum(len(r) for r in d["tokens"])
         n_diff = sum(a != b for r, q in zip(d["tokens"], d["ref_tokens"])
                      for a, b in zip(r, q))
+        gated = (arch, dtype) not in SHARD_DECODE_UNGATED
+        beside = (f"; the one-rank run's own spread with its rows decoded "
+                  f"in the ranks' two halves {spread[run]:.3e}"
+                  + ("" if gated else "; not held"))
         say(f"sharded decode {arch} full width, {SHARD_DECODE['batch']} x "
-            f"{SHARD_DECODE['prompt']} + {SHARD_DECODE['gen']} bf16, ring "
-            f"shard {d['ring']}, fed the one-rank run's tokens: max "
-            f"|dlogit| {d['dlogit']:.3e} (tol {SHARD_TOL['logits']}); "
+            f"{SHARD_DECODE['prompt']} + {SHARD_DECODE['gen']} {dtype} "
+            f"(one rank {t_ref[f'decode {run}']:.1f} s), ring shard "
+            f"{d['ring']}, fed the one-rank run's tokens: max "
+            f"|dlogit| {d['dlogit']:.3e} (tol {SHARD_TOL['logits']}; by "
+            f"step, the prefill's first: "
+            f"{', '.join(f'{x:.3g}' for x in d['dlogit_steps'])}; |logit| "
+            f"up to {d['logit_max']:.3g}{beside}); "
             f"greedy tokens sharded {d['tokens']} / one rank "
             f"{d['ref_tokens']} ({n_diff} of {n_tok} differ); launches "
             f"{d['launches']}")
-        if not d["dlogit"] <= SHARD_TOL["logits"]:
-            fail(f"sharded decode {arch}: logits off by {d['dlogit']}")
-        for key in need[arch]:
+        if gated and not d["dlogit"] <= SHARD_TOL["logits"]:
+            fail(f"sharded decode {run}: logits off by {d['dlogit']}")
+        for key in SHARD_DECODE_KERNELS[arch]:
             if d["launches"][key] <= 0:
-                fail(f"sharded decode {arch}: kernel {key} never launched")
-    if res["decode"]["smollm-135m"]["ring"] is None:
+                fail(f"sharded decode {run}: kernel {key} never launched")
+    smollm = res["decode"]["smollm-135m bfloat16"]
+    if smollm["ring"] is None:
         fail("sharded decode smollm-135m: its ring's capacity was not cut")
-    for key in ("flash_attention", "flash_attention_bwd", "rmsnorm",
-                "rmsnorm_bwd"):
-        if res["train_launches"][key] <= 0:
-            fail(f"sharded train: kernel {key} never launched")
-    launches["ring_shard_decode"] = \
-        res["decode"]["smollm-135m"]["launches"]["ring_shard_decode"]
+    launches["ring_shard_decode"] = smollm["launches"]["ring_shard_decode"]
     times = shard_sweep_row(torch, np, dev, da, ops, errs, card)
+    times.update(shard_ssd_rows(torch, np, dev, ss, errs, card))
     say(f"sharded phase in {time.perf_counter() - t0:.1f} s (one-rank "
-        f"references {t_ref:.1f} s, the ranks {res['seconds']:.1f} s)")
+        f"references {sum(t_ref.values()):.1f} s, the ranks "
+        f"{res['seconds']:.1f} s)")
     return times
 
 
@@ -5858,7 +6050,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     times.update(sharded_phase(torch, np, dev, da, ops, errs, card,
-                               launches))
+                               launches, by_family))
     kernels = []
     for name, t in times.items():
         source, replaces, key = KERNELS[t.get("entry") or name]

@@ -54,10 +54,10 @@ def _out_proj(o, w, par: ParallelCtx = NO_MESH, constrain=None):
     """o (B, S, Hq, hd) @ wo (Hq, hd, d) -> (B, S, d); over sharded q
     heads a row-parallel product summed over "model"."""
     B, S, H, hd = o.shape
-    out = (o.reshape(B * S, H * hd) @ w.to(o.dtype).reshape(H * hd, -1)
-           ).reshape(B, S, -1)
-    if par.tp("q_heads"):
-        out = col.all_reduce(out, par.model_group)
+    out = col.row_parallel(o.reshape(B * S, H * hd),
+                           w.to(o.dtype).reshape(H * hd, -1),
+                           par.model_group if par.tp("q_heads") else None
+                           ).reshape(B, S, -1)
     if constrain is not None:
         out = constrain(out, ("batch", None, "embed_act"))
     return out

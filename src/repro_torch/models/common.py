@@ -30,11 +30,23 @@ def rmsnorm(x, scale, eps: float = 1e-6, gemma_style: bool = False):
     return (y * w).to(x.dtype)
 
 
-def gated_rmsnorm(x, gate, scale, eps: float = 1e-6):
+def gated_rmsnorm(x, gate, scale, eps: float = 1e-6, group=None):
     """Mamba2's norm: RMSNorm(x * silu(gate)) in fp32, cast back to
-    x.dtype."""
+    x.dtype.  With ``group`` (the "model" ranks over which the last dim
+    is cut) each rank holds its channels of ``x``, ``gate`` and
+    ``scale``: the squares are gathered whole over the group
+    (``all_gather``, whose backward sums the ranks' gradients) and their
+    mean taken as one process takes it, the same sum in the same order.
+    An all-reduce of partial sums adds in another order, and its
+    last-bit difference, scaling every channel of the row, moved a
+    48-layer model's bf16 logits four times as far from the one-rank
+    run's as all the other collectives together."""
     x32 = x.float() * torch.nn.functional.silu(gate.float())
-    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    sq = x32 * x32
+    if group is not None:
+        from repro_torch.runtime import collectives as col
+        sq = col.all_gather(sq, sq.ndim - 1, group)
+    var = torch.mean(sq, dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps) * scale.float()
     return y.to(x.dtype)
 

@@ -110,8 +110,8 @@ def mlp_forward(params, x, cfg: ModelConfig, ctx: ParallelCtx = NO_MESH):
         h = act(x @ params["wi_gate"].to(adt)) * (x @ params["wi_up"].to(adt))
     else:
         h = act(x @ params["wi_up"].to(adt))
-    out = h @ params["wo"].to(adt)
-    return col.all_reduce(out, ctx.model_group) if tp else out
+    return col.row_parallel(h, params["wo"].to(adt),
+                            ctx.model_group if tp else None)
 
 
 def _top_k(probs, k: int):

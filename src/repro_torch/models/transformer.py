@@ -93,12 +93,12 @@ class RunCtx:
 
 def sharded_blockers(cfg: ModelConfig) -> tuple[str, ...]:
     """Named config features whose sharded execution (a live mesh with an
-    axis of more than one rank) the port does not run yet: the SSM inner
-    dims, MLA latents, the hybrid shared block, codebooks, the first
-    dense layers, padded heads and the vision prefix.  The dense GQA
-    family and the gather-strategy MoE run."""
-    checks = (("uses_ssm", cfg.uses_ssm), ("use_mla", cfg.use_mla),
-              ("hybrid_attn_every", is_hybrid(cfg)),
+    axis of more than one rank) the port does not run yet: MLA latents,
+    codebooks, the first dense layers, padded heads and the vision
+    prefix.  The dense GQA family, the gather-strategy MoE, the SSM
+    family and the hybrid family (its shared block's heads and MLP over
+    "model") run."""
+    checks = (("use_mla", cfg.use_mla),
               ("n_codebooks", bool(cfg.n_codebooks)),
               ("first_dense_layers", bool(cfg.first_dense_layers)),
               ("heads_padded", cfg.heads_padded),
@@ -416,10 +416,18 @@ def _apply_block(blk, x, positions, cfg: ModelConfig, ctx: RunCtx, *,
     return x, aux if aux_l is None else aux + aux_l
 
 
-def _shared_in(shared, x, emb0):
+def _shared_in(shared, x, emb0, par: ParallelCtx = NO_MESH):
     """The hybrid shared block's input: ``concat(x, emb0) @ w_in``, 2d ->
-    d (Zamba2's fused-input projection)."""
-    return torch.cat([x, emb0], dim=-1) @ shared["w_in"].to(x.dtype)
+    d (Zamba2's fused-input projection).  With ``w_in``'s output dim over
+    "model" (``embed_out``) the product is column-parallel, entered
+    through f, and its columns are gathered whole over "model": the
+    block's norm and the trunk's residual read all of them."""
+    xe = torch.cat([x, emb0], dim=-1)
+    if not par.tp("embed_out"):
+        return xe @ shared["w_in"].to(x.dtype)
+    g = par.model_group
+    h = col.copy_to(xe, g) @ shared["w_in"].to(x.dtype)
+    return col.gather(h, h.ndim - 1, g)
 
 
 def _apply_unit(unit, x, emb0, positions, cfg: ModelConfig, ctx: RunCtx,
@@ -430,12 +438,14 @@ def _apply_unit(unit, x, emb0, positions, cfg: ModelConfig, ctx: RunCtx,
         sub = unit[f"sub{i}"]
         if cfg.uses_ssm:
             h = _norm(x, sub["pre_norm"], cfg, ctx)
-            x = x + ssm.mamba_forward(sub, h, cfg, policy=ctx.kernel_policy)
+            x = x + ssm.mamba_forward(sub, h, cfg, policy=ctx.kernel_policy,
+                                      par=ctx.parallel,
+                                      constrain=ctx.constrain)
         else:
             x, aux = _apply_block(sub, x, positions, cfg, ctx,
                                   window=cfg.window_for_layer(i), aux=aux)
     if shared is not None:
-        h = _shared_in(shared, x, emb0)
+        h = _shared_in(shared, x, emb0, ctx.parallel)
         out, aux = _apply_block(shared["block"], h, positions, cfg, ctx,
                                 window=0, aux=aux)
         x = x + (out - h)
@@ -633,7 +643,8 @@ def _ssm_decode(blk, x, c, l: int, cfg: ModelConfig, ctx: RunCtx):
     advances (parked engine slots too, as in JAX), written in place."""
     h = _norm(x, blk["pre_norm"], cfg, ctx)
     out, (conv, state) = ssm.mamba_decode(blk, h, (c["conv"][l],
-                                                   c["ssm"][l]), cfg)
+                                                   c["ssm"][l]), cfg,
+                                          par=ctx.parallel)
     c["conv"][l].copy_(conv)
     c["ssm"][l].copy_(state)
     return x + out
@@ -684,7 +695,8 @@ def prefill(params, tokens, cfg: ModelConfig, ctx: RunCtx = RunCtx(), *,
             if cfg.uses_ssm:
                 h = _norm(x, blk["pre_norm"], cfg, ctx)
                 out, (conv, state) = ssm.mamba_forward(
-                    blk, h, cfg, policy=ctx.kernel_policy, return_state=True)
+                    blk, h, cfg, policy=ctx.kernel_policy, return_state=True,
+                    par=ctx.parallel, constrain=ctx.constrain)
                 x = x + out
                 _stack_layer(units, f"sub{i}", l, nu,
                              {"conv": conv, "ssm": state})
@@ -695,7 +707,7 @@ def prefill(params, tokens, cfg: ModelConfig, ctx: RunCtx = RunCtx(), *,
                                   cache_len=cap)
             _stack_layer(units, f"sub{i}", l, nu, c)
         if shared is not None:
-            h = _shared_in(shared, x, emb0)
+            h = _shared_in(shared, x, emb0, ctx.parallel)
             out, c = _block_prefill(shared["block"], h, positions, cfg, ctx,
                                     window=0, cache_len=max_len)
             x = x + (out - h)
@@ -842,10 +854,11 @@ def decode_step(params, cache, tokens, cfg: ModelConfig,
                               window=cfg.window_for_layer(i),
                               shard=ring_shard.get(f"sub{i}"))
         if shared is not None:
-            h = _shared_in(shared, x, emb0)
+            h = _shared_in(shared, x, emb0, ctx.parallel)
             x = x + (_block_decode(shared["block"], h, pos,
                                    _group_layer(cache["shared"], l), cfg,
-                                   ctx, window=0) - h)
+                                   ctx, window=0,
+                                   shard=ring_shard.get("shared")) - h)
     x = _norm(x, params["final_norm"], cfg, ctx)
     logits = lm_logits(params, x, cfg, ctx)
     return logits, {**cache, "pos": pos + 1}

@@ -12,7 +12,8 @@ points (Megatron style).  Every differentiable collective is a
     :func:`all_reduce` (sum; identity in the backward) are Megatron's f
     and g, the entry to and the exit from a tensor-parallel region over
     "model": after g the activation is replicated and every rank holds
-    its whole gradient.
+    its whole gradient.  :func:`row_parallel` is a row-parallel product
+    and its g, summed in fp32.
   * :func:`gather` (concatenate; take this rank's chunk in the backward)
     and :func:`split` (take this rank's chunk; concatenate in the
     backward) lay a replicated activation out as a sharded one and back.
@@ -172,6 +173,18 @@ def all_reduce(x, group):
     """Megatron's g: the sum over ``group``; the backward is the
     identity."""
     return x if size(group) == 1 else _AllReduce.apply(x, group)
+
+
+def row_parallel(x, w, group):
+    """Megatron's row-parallel product: ``x @ w`` over this rank's rows of
+    ``w``, summed over ``group`` (g).  The ranks' partial products are
+    summed in fp32 and rounded once to ``x.dtype``, as one process's
+    whole product rounds its fp32 accumulator once; partials rounded to
+    bf16 before the sum would add a rounding a rank to every layer's
+    output."""
+    if size(group) == 1:
+        return x @ w
+    return all_reduce(x.float() @ w.float(), group).to(x.dtype)
 
 
 def psum(x, group):

@@ -390,30 +390,92 @@ def shard_cache(cache: Any, rules: ShardingRules, cfg: ModelConfig, *,
     and ``max_len`` (``transformer.init_cache``'s): each leaf is cut where
     it holds a sharded dim whole (the capacity, after a prefill of this
     rank's rows) and kept where it holds its shard already (the batch
-    rows, the kv heads).  A ring whose capacity is cut records ``(slot
-    offset, ring length)`` under ``cache["shard"][sub]``: the decode
-    sweeps its slots into partials and merges them over "model"."""
+    rows, the kv heads, the SSM heads).  The hybrid shared block's rings
+    (``cache["shared"]``) are cut as the units' are.  A ring whose
+    capacity is cut records ``(slot offset, ring length)`` under
+    ``cache["shard"][sub]`` (``"shared"`` for the shared block's): the
+    decode sweeps its slots into partials and merges them over "model".
+
+    One leaf differs from JAX's layout: an SSM sub's conv state stays in
+    the compute layout its prefill wrote (``models.ssm``: this rank's x
+    channels, then all of B and C), where JAX's spec cuts the conv
+    channels contiguously; ``cache_sharding`` keeps JAX's rule for the
+    dry-run's bytes."""
     from repro_torch.models import transformer as tfm
     mesh = rules.mesh
-    if cfg.use_mla or cfg.uses_ssm or tfm.is_hybrid(cfg) \
-            or cfg.first_dense_layers:
-        raise NotImplementedError(f"{cfg.name}: sharded decode of the MLA, "
-                                  "SSM and hybrid families is not ported")
+    if cfg.use_mla or cfg.first_dense_layers:
+        raise NotImplementedError(f"{cfg.name}: sharded decode of the MLA "
+                                  "family is not ported")
     whole = tfm.init_cache(cfg, batch, max_len, dtype="float32",
                            device="meta")
     specs = cache_sharding(rules, whole, cfg)
-    out = {"pos": cache["pos"], "units": {}}
     shard: dict = {}
-    for name, c in cache["units"].items():
-        out["units"][name] = {}
+
+    def cut(name, c, spec_group, whole_group):
+        out = {}
         for key, t in c.items():
-            spec = specs["units"][name][key]
-            w = whole["units"][name][key]
-            out["units"][name][key] = localize(t, w.shape, spec, mesh)
-            if spec[2] is not None:       # (n_units, B, C, Hkv, hd)
-                C = w.shape[2]
+            spec, shape = spec_group[key], whole_group[key].shape
+            if key == "conv":             # (n_units, B, W-1, c): kept
+                spec, shape = spec[:-1] + (None,), (*shape[:-1],
+                                                     t.shape[-1])
+            out[key] = localize(t, shape, spec, mesh)
+            if key in ("k", "v") and spec[2] is not None:
+                C = shape[2]              # (n_units, B, C, Hkv, hd)
                 n = _size(mesh, spec[2])
                 shard[name] = (shard_index(mesh, spec[2]) * (C // n), C)
+        return out
+
+    out = {"pos": cache["pos"],
+           "units": {name: cut(name, c, specs["units"][name],
+                               whole["units"][name])
+                     for name, c in cache["units"].items()}}
+    if "shared" in cache:
+        out["shared"] = cut("shared", cache["shared"], specs["shared"],
+                            whole["shared"])
     if shard:
         out["shard"] = shard
+    return out
+
+
+def gather_cache(cache: Any, rules: ShardingRules, cfg: ModelConfig, *,
+                 batch: int, max_len: int) -> Any:
+    """The whole ring cache from every rank's part (:func:`shard_cache`'s),
+    on every rank, in the one-rank layout: for the checks.  An SSM conv
+    state's x channels are gathered over "model" and its B and C taken
+    from this rank."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime import collectives as col
+    mesh = rules.mesh
+    whole = tfm.init_cache(cfg, batch, max_len, dtype="float32",
+                           device="meta")
+    specs = cache_sharding(rules, whole, cfg)
+    par = rules.parallel_ctx()
+
+    def gather(t, spec, w):
+        for d, entry in enumerate(spec):
+            for a in reversed(entry_axes(entry)):
+                if mesh.shape[a] > 1 and t.shape[d] != w.shape[d]:
+                    t = col._all_gather(t, d, mesh.group(a))
+        return t
+
+    def group(c, spec_group, whole_group):
+        out = {}
+        for key, t in c.items():
+            spec, w = spec_group[key], whole_group[key]
+            if key == "conv" and t.shape[-1] != w.shape[-1]:
+                di = cfg.d_inner // par.model_size
+                xs = col._all_gather(t[..., :di].contiguous(), t.ndim - 1,
+                                     par.model_group)
+                t = torch.cat([xs, t[..., di:]], dim=-1)
+                spec = spec[:-1] + (None,)
+            out[key] = gather(t, spec, w)
+        return out
+
+    out = {"pos": cache["pos"],
+           "units": {name: group(c, specs["units"][name],
+                                 whole["units"][name])
+                     for name, c in cache["units"].items()}}
+    if "shared" in cache:
+        out["shared"] = group(cache["shared"], specs["shared"],
+                              whole["shared"])
     return out

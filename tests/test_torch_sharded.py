@@ -7,20 +7,27 @@ ranks' program: ``python tests/test_torch_sharded.py DIR`` under
 ``RANK`` / ``WORLD_SIZE`` / ``MASTER_ADDR`` / ``MASTER_PORT``), each rank
 on one torch thread:
 
-  * one train step of smollm-135m, h2o-danube-3-4b and phi3.5-moe (and
-    smollm at ``n_micro`` 2) from JAX's initial state: loss, gradient norm,
-    the gathered params and first moments against the one-rank port and
-    JAX's compiled ``make_train_step``;
+  * one train step of smollm-135m, h2o-danube-3-4b, phi3.5-moe,
+    mamba2-370m and zamba2-1.2b (and smollm at ``n_micro`` 2) from JAX's
+    initial state: loss, gradient norm, the gathered params and first
+    moments against the one-rank port and JAX's compiled
+    ``make_train_step``; the SSM families' at a sequence of two SSD
+    chunks of the chunked scan, in both packages;
   * prefill and greedy decode over the sharded ring caches, against the
-    one-rank port and JAX's compiled prefill and serve steps: every smoke
-    config has one kv head, so its ring's capacity goes over "model"
-    (h2o's windowed ring of 16 slots too); a copy of h2o's smoke config
-    with two kv heads, given to both packages, puts the heads over
-    "model" instead;
+    one-rank port and JAX's compiled prefill and serve steps: the
+    attention smoke configs have one kv head, so their ring's capacity
+    goes over "model" (h2o's windowed ring of 16 slots too); a copy of
+    h2o's smoke config with two kv heads, given to both packages, puts
+    the heads over "model" instead; mamba2's and zamba2's SSM state goes
+    over "model" by heads, zamba2's shared block's rings by its four kv
+    heads, and those of a copy with one kv head (``zamba2-kv1``) by
+    capacity; each prefill's cache, gathered, against the one-rank
+    cache;
   * the serve launcher's static batch under the ranks (a 1-D "data"
     mesh of four), with requests that divide over the ranks and requests
-    that do not, against its one-rank run;
-  * ``ShardingRules.constrain`` laying an activation out on the live mesh.
+    that do not, against its one-rank run, and mamba2's;
+  * ``ShardingRules.constrain`` laying an activation out on the live
+    mesh, and ``make_run_ctx`` refusing, by name, what is not ported.
 
 In-process cases hold the capacity-shard ring sweep's plain version plus
 ``lse_merge_torch`` against the whole ring's sweep."""
@@ -40,33 +47,51 @@ import torch
 ATOL = 1e-5
 MESH = (2, 2)
 TRAIN = [("smollm-135m", 1), ("h2o-danube-3-4b", 1),
-         ("phi3.5-moe-42b-a6.6b", 1), ("smollm-135m", 2)]
+         ("phi3.5-moe-42b-a6.6b", 1), ("smollm-135m", 2),
+         ("mamba2-370m", 1), ("zamba2-1.2b", 1)]
 DECODE = ["smollm-135m", "h2o-danube-3-4b", "phi3.5-moe-42b-a6.6b",
-          "h2o-kv2"]
+          "h2o-kv2", "mamba2-370m", "zamba2-1.2b", "zamba2-kv1"]
+# the ring whose capacity goes over "model", and its length
+RING_CUT = {"smollm-135m": ("sub0", 48), "h2o-danube-3-4b": ("sub0", 16),
+            "phi3.5-moe-42b-a6.6b": ("sub0", 48),
+            "zamba2-kv1": ("shared", 48)}
+REFUSED = {"deepseek-v2-236b": "use_mla", "musicgen-medium": "n_codebooks",
+           "llava-next-34b": "vision_tokens"}
 B, S = 4, 16                   # the train batch
+SSD_CHUNK = 16                 # the SSM train cases: S = 2 chunks
 PROMPT, GEN, MAX_LEN = 12, 8, 48
 SERVE_REQUESTS = (4, 3)        # rows cut over the ranks; rows whole
 STEP_OPT = dict(clip_norm=0.0, warmup_steps=2, total_steps=10)
 
 
+VARIANTS = {"h2o-kv2": ("h2o-danube-3-4b", 2),
+            "zamba2-kv1": ("zamba2-1.2b", 1)}
+
+
 def _cfg(name: str, pkg: str):
     """``name``'s smoke config of the port or of JAX in float32;
-    ``h2o-kv2`` is h2o's with two kv heads (heads over "model")."""
+    ``h2o-kv2`` is h2o's with two kv heads (heads over "model"),
+    ``zamba2-kv1`` zamba2's with one (its shared rings' capacity over
+    "model")."""
     if pkg == "jax":
         from repro.configs import get_arch
     else:
         from repro_torch.configs import get_arch
-    arch = "h2o-danube-3-4b" if name == "h2o-kv2" else name
+    arch, kv = VARIANTS.get(name, (name, None))
     cfg = dataclasses.replace(get_arch(arch).smoke, dtype="float32")
-    if name == "h2o-kv2":
-        cfg = dataclasses.replace(cfg, n_kv_heads=2)
+    if kv is not None:
+        cfg = dataclasses.replace(cfg, n_kv_heads=kv)
     return cfg
+
+
+def _seq(cfg) -> int:
+    return 2 * SSD_CHUNK if cfg.uses_ssm else S
 
 
 def _batch(cfg, seed=0):
     rng = np.random.default_rng(seed)
-    return {k: rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
-            for k in ("inputs", "targets")}
+    return {k: rng.integers(0, cfg.vocab_size, (B, _seq(cfg))).astype(
+        np.int32) for k in ("inputs", "targets")}
 
 
 def _prompt(cfg, seed=5):
@@ -74,11 +99,27 @@ def _prompt(cfg, seed=5):
         0, cfg.vocab_size, (4, PROMPT)).astype(np.int32)
 
 
-def _step_cfg(n_micro=1):
+def _step_cfg(n_micro=1, ssm=False):
+    """The port's step config; ``ssm``: the chunked SSD scan at
+    ``SSD_CHUNK``, as :func:`_jax_step_cfg` runs JAX's."""
+    from repro_torch.kernels.ops import KernelPolicy
     from repro_torch.optim import OptimizerConfig
     from repro_torch.runtime import steps
+    policy = KernelPolicy(ssd="chunked", ssd_chunk=SSD_CHUNK) if ssm \
+        else KernelPolicy()
     return steps.StepConfig(n_micro=n_micro, remat="none",
+                            kernel_policy=policy,
                             optimizer=OptimizerConfig(**STEP_OPT))
+
+
+def _jax_step_cfg(n_micro=1, ssm=False):
+    from repro.kernels.ops import KernelPolicy
+    from repro.optim import OptimizerConfig as JOpt
+    from repro.runtime import steps as jsteps
+    policy = KernelPolicy(ssd="chunked", ssd_chunk=SSD_CHUNK) if ssm \
+        else KernelPolicy()
+    return jsteps.StepConfig(n_micro=n_micro, remat="none",
+                             kernel_policy=policy, optimizer=JOpt(**STEP_OPT))
 
 
 # --------------------------------------------------------------------------
@@ -91,8 +132,8 @@ def train_run(arch, n_micro, jstate, batch, rules=None):
     from repro_torch.runtime import sharding, steps
     cfg = _cfg(arch, "torch")
     state = bridge.train_state_from_numpy(jstate, cfg, "cpu", rules)
-    new, m = steps.make_train_step(cfg, _step_cfg(n_micro), rules)(
-        state, batch)
+    new, m = steps.make_train_step(cfg, _step_cfg(n_micro, cfg.uses_ssm),
+                                   rules)(state, batch)
     params, mu = new["params"], new["opt"]["mu"]
     if rules is not None:
         specs = rules.param_sharding(bridge.param_axes(cfg))
@@ -104,10 +145,11 @@ def train_run(arch, n_micro, jstate, batch, rules=None):
 
 def decode_run(name, jparams, prompt, rules=None):
     """Prefill, then GEN greedy serve steps: the logits of every step
-    (whole batch, whole vocab) and the tokens."""
+    (whole batch, whole vocab), the tokens, the ring's shard record and
+    the prefill's cache, whole."""
     from repro_torch import bridge
     from repro_torch.runtime import collectives as col
-    from repro_torch.runtime import steps
+    from repro_torch.runtime import sharding, steps
     cfg = _cfg(name, "torch")
     sc = _step_cfg()
     params = bridge.params_from_numpy(jparams, cfg, "cpu", rules)
@@ -120,6 +162,9 @@ def decode_run(name, jparams, prompt, rules=None):
 
     with torch.no_grad():
         last, cache = prefill(params, {"inputs": torch.tensor(prompt)})
+        filled = cache if rules is None else sharding.gather_cache(
+            cache, rules, cfg, batch=len(prompt), max_len=MAX_LEN)
+        filled = _numpy({k: v for k, v in filled.items() if k != "pos"})
         logits = [whole(last)]
         tok = torch.argmax(logits[-1], dim=-1).to(torch.int32)[:, None]
         toks = [tok]
@@ -130,18 +175,35 @@ def decode_run(name, jparams, prompt, rules=None):
             toks.append(tok)
     return {"logits": np.stack([x.numpy() for x in logits]),
             "tokens": torch.cat(toks, dim=1).numpy(),
-            "shard": cache.get("shard")}
+            "shard": cache.get("shard"), "cache": filled}
 
 
-def serve_run(requests):
-    """The serve launcher's static batch of smollm's fp32 smoke config:
+def serve_run(requests, arch="smollm-135m"):
+    """The serve launcher's static batch of ``arch``'s fp32 smoke config:
     the generated tokens, whole."""
     from repro_torch.launch import serve
     args = serve.build_parser().parse_args(
         ["--device", "cpu", "--requests", str(requests), "--prompt-len",
          "8", "--gen", "6", "--decode-chunk", "2", "--no-frost"])
     with torch.no_grad():
-        return serve.serve(args, _cfg("smollm-135m", "torch"))["tokens"]
+        return serve.serve(args, _cfg(arch, "torch"))["tokens"]
+
+
+def refuse_run(mesh):
+    """``make_run_ctx`` on the live mesh for each config whose sharded
+    execution is not ported: {arch: the refusal's message}."""
+    from repro_torch.configs import get_arch
+    from repro_torch.runtime import sharding, steps
+    out = {}
+    for arch in REFUSED:
+        cfg = get_arch(arch).smoke
+        try:
+            steps.make_run_ctx(cfg, steps.StepConfig(),
+                               sharding.build_rules(cfg, mesh))
+            out[arch] = None
+        except NotImplementedError as e:
+            out[arch] = str(e)
+    return out
 
 
 def jax_decode_run(name, jparams, prompt):
@@ -150,10 +212,9 @@ def jax_decode_run(name, jparams, prompt):
     import jax
     import jax.numpy as jnp
 
-    from repro.optim import OptimizerConfig as JOpt
     from repro.runtime import steps as jsteps
     jcfg = _cfg(name, "jax")
-    jsc = jsteps.StepConfig(remat="none", optimizer=JOpt(**STEP_OPT))
+    jsc = _jax_step_cfg()
     prefill = jax.jit(jsteps.make_prefill_step(jcfg, jsc, max_len=MAX_LEN))
     serve = jax.jit(jsteps.make_serve_step(jcfg, jsc, greedy=False))
     params = jax.tree.map(jnp.asarray, jparams)
@@ -169,7 +230,7 @@ def jax_decode_run(name, jparams, prompt):
 
 def _numpy(tree):
     from repro_torch.models import common
-    return common.tree_map(lambda t: t.detach().numpy(), tree)
+    return common.tree_map(lambda t: t.detach().numpy().copy(), tree)
 
 
 def constrain_run(mesh):
@@ -201,7 +262,8 @@ def worker(path: str) -> None:
     with open(os.path.join(path, "inputs.pkl"), "rb") as f:
         inputs = pickle.load(f)
     mesh = tmesh.make_host_mesh("cpu", axes=("data", "model"), shape=MESH)
-    out = {"train": {}, "decode": {}, "constrain": constrain_run(mesh)}
+    out = {"train": {}, "decode": {}, "constrain": constrain_run(mesh),
+           "refuse": refuse_run(mesh)}
     for arch, n_micro in TRAIN:
         rules = sharding.build_rules(_cfg(arch, "torch"), mesh)
         out["train"][arch, n_micro] = train_run(
@@ -212,6 +274,7 @@ def worker(path: str) -> None:
         out["decode"][name] = decode_run(name, inputs["params"][name],
                                          inputs["prompt"][name], rules)
     out["serve"] = {n: serve_run(n) for n in SERVE_REQUESTS}
+    out["serve_mamba2"] = serve_run(SERVE_REQUESTS[0], "mamba2-370m")
     if torch.distributed.get_rank() == 0:
         with open(os.path.join(path, "out.pkl"), "wb") as f:
             pickle.dump(out, f)
@@ -269,15 +332,12 @@ def runs(tmp_path_factory):
     import jax.numpy as jnp
 
     from repro.models import transformer as jtfm
-    from repro.optim import OptimizerConfig as JOpt
     from repro.runtime import steps as jsteps
     inputs = {"train": {}, "batch": {}, "params": {}, "prompt": {}}
-    jsc = {m: jsteps.StepConfig(n_micro=m, remat="none",
-                                optimizer=JOpt(**STEP_OPT)) for m in (1, 2)}
     for arch, _ in TRAIN:
         jcfg = _cfg(arch, "jax")
         state, _ = jsteps.init_train_state(jax.random.PRNGKey(1), jcfg,
-                                           jsc[1])
+                                           _jax_step_cfg())
         inputs["train"][arch] = jax.tree.map(np.asarray, state)
         inputs["batch"][arch] = _batch(jcfg)
     for name in DECODE:
@@ -295,7 +355,8 @@ def runs(tmp_path_factory):
     try:
         for arch, n_micro in TRAIN:
             jcfg = _cfg(arch, "jax")
-            new, m = jax.jit(jsteps.make_train_step(jcfg, jsc[n_micro]))(
+            jsc = _jax_step_cfg(n_micro, jcfg.uses_ssm)
+            new, m = jax.jit(jsteps.make_train_step(jcfg, jsc))(
                 jax.tree.map(jnp.asarray, inputs["train"][arch]),
                 {k: jnp.asarray(v) for k, v in inputs["batch"][arch].items()})
             out["jax"][arch, n_micro] = (jax.tree.map(np.asarray, new),
@@ -312,6 +373,8 @@ def runs(tmp_path_factory):
             out["one_rank"]["decode"][name] = decode_run(
                 name, inputs["params"][name], inputs["prompt"][name])
         out["one_rank"]["serve"] = {n: serve_run(n) for n in SERVE_REQUESTS}
+        out["one_rank"]["serve_mamba2"] = serve_run(SERVE_REQUESTS[0],
+                                                    "mamba2-370m")
         torch.set_num_threads(n)
     finally:
         out["sharded"] = _wait(procs, path)
@@ -382,11 +445,25 @@ def test_sharded_decode_matches_one_rank(runs, name):
     assert got["logits"].shape == want["logits"].shape
     assert float(np.max(np.abs(got["logits"] - want["logits"]))) <= ATOL
     np.testing.assert_array_equal(got["tokens"], want["tokens"])
-    if name == "h2o-kv2":
-        assert got["shard"] is None            # kv heads over "model"
-    else:                                      # one kv head: the capacity
-        cap = 16 if name.startswith("h2o") else MAX_LEN
-        assert got["shard"]["sub0"][1] == cap
+    if name in RING_CUT:                       # one kv head: the capacity
+        ring, cap = RING_CUT[name]
+        assert sorted(got["shard"]) == [ring]
+        assert got["shard"][ring][1] == cap
+    else:                                      # heads over "model", or
+        assert got["shard"] is None            # no ring
+
+
+@pytest.mark.parametrize("name", DECODE)
+def test_sharded_prefill_cache_gathers_to_one_rank(runs, name):
+    """Each rank's part of the prefill's cache (its rows, its kv or SSM
+    heads, its slots of a ring cut by capacity, its conv channels in the
+    compute layout), gathered, equals the one-rank cache within 1e-5."""
+    got = dict(_flat(runs["sharded"]["decode"][name]["cache"]))
+    want = dict(_flat(runs["one_rank"]["decode"][name]["cache"]))
+    assert sorted(got) == sorted(want)
+    for key, w in want.items():
+        assert got[key].shape == w.shape, key
+        assert float(np.max(np.abs(got[key] - w))) <= ATOL, key
 
 
 @pytest.mark.parametrize("name", DECODE)
@@ -412,9 +489,55 @@ def test_sharded_serve_batch_matches_one_rank(runs, requests):
     np.testing.assert_array_equal(got, want)
 
 
+def test_sharded_serve_batch_mamba2_matches_one_rank(runs):
+    """mamba2's static batch under the four ranks, rows cut over them,
+    returns the one-rank run's tokens."""
+    got = runs["sharded"]["serve_mamba2"]
+    want = runs["one_rank"]["serve_mamba2"]
+    assert got.shape == want.shape == (SERVE_REQUESTS[0], 6)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_sharded_blockers_name_what_is_not_ported():
+    """mamba2 and zamba2 run sharded; deepseek, musicgen and llava are
+    refused by name."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tfm
+    names = {a: tfm.sharded_blockers(get_arch(a).config)
+             for a in ("mamba2-370m", "zamba2-1.2b", *REFUSED)}
+    assert names["mamba2-370m"] == names["zamba2-1.2b"] == ()
+    assert {"use_mla", "first_dense_layers"} <= set(
+        names["deepseek-v2-236b"])
+    assert "n_codebooks" in names["musicgen-medium"]
+    assert "vision_tokens" in names["llava-next-34b"]
+
+
+@pytest.mark.parametrize("arch", list(REFUSED))
+def test_make_run_ctx_refuses_on_the_live_mesh(runs, arch):
+    msg = runs["sharded"]["refuse"][arch]
+    assert msg is not None and REFUSED[arch] in msg
+
+
 def test_constrain_lays_out_on_the_live_mesh(runs):
     assert runs["sharded"]["constrain"] == {"split": True, "gathered": True,
                                             "held": True}
+
+
+@pytest.mark.parametrize("H,N", [(16, 128), (32, 64)],
+                         ids=["mamba2-local", "zamba2-local"])
+def test_local_conv_views_are_read_in_place(H, N):
+    """A rank's conv output in the compute layout (its x channels, then B
+    and C) at the sharded train step's local widths: K8 reads the views
+    the model takes of it (x as (B, S, H, P), B as (B, S, 1, N)) in
+    place, with no copy."""
+    from repro_torch.kernels import ssd_scan as ss
+    Bl, S, P = 4, 128, 64
+    conv = torch.zeros((Bl, S, H * P + 2 * N))
+    for t, width in ((conv[..., :H * P].reshape(Bl, S, H, P), P),
+                     (conv[..., H * P:H * P + N].reshape(Bl, S, 1, N), N)):
+        got, row_stride = ss._rows(t, S, width)
+        assert got.data_ptr() == t.data_ptr()
+        assert row_stride == H * P + 2 * N
 
 
 # --------------------------------------------------------------------------
